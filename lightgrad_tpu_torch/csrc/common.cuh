@@ -1,0 +1,75 @@
+// Shared helpers of the port's kernels: f32/bf16 loads and stores that
+// widen to f32, warp reductions, and the masked-score constant.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// Masked score: finite so that exp(NEG - NEG) stays 1 and never NaN.
+#define LG_NEG (-1e30f)
+
+__device__ __forceinline__ float lg_to_f(float x) { return x; }
+__device__ __forceinline__ float lg_to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T lg_from_f(float x);
+template <> __device__ __forceinline__ float lg_from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 lg_from_f<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16(x);
+}
+
+// Four consecutive elements (16-byte aligned for f32, 8-byte for bf16).
+__device__ __forceinline__ float4 lg_load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 lg_load4(const __nv_bfloat16* p) {
+  uint2 u = *reinterpret_cast<const uint2*>(p);
+  __nv_bfloat162 a = *reinterpret_cast<__nv_bfloat162*>(&u.x);
+  __nv_bfloat162 b = *reinterpret_cast<__nv_bfloat162*>(&u.y);
+  float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
+  return make_float4(fa.x, fa.y, fb.x, fb.y);
+}
+
+// Two consecutive elements (8-byte aligned for f32, 4-byte for bf16).
+__device__ __forceinline__ float2 lg_load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 lg_load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Read-only (non-coherent cache) load of data no launch in flight writes.
+__device__ __forceinline__ float lg_ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float lg_ldg(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+__device__ __forceinline__ void lg_store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void lg_store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&a);
+  u.y = *reinterpret_cast<uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ float lg_warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float lg_warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}

@@ -1,0 +1,179 @@
+// Flash-attention forward for Hopper: (out, lse) of softmax(q k^T * scale) v.
+//
+// Replaces the TPU kernel lightgrad_tpu/ops/attention.py::_flash_fwd ->
+// _fwd_kernel (and serves the call shapes of its two-heads-per-step variant
+// _fwd_kernel_pair).  Layout: q (BH, S, D), k/v (BH/G, S, D) -- query row
+// block bh reads KV row block bh / G (grouped-query, no repeated K/V);
+// out (BH, S, D) in q's dtype, lse (BH, S) f32.
+//
+// What bounds it on this card: FP32 FFMA issue and shared-memory reads.  At
+// prefill's S = 1024, D = 64 the O(S^2 D) score and context products dwarf
+// the O(S D) bytes, and this kernel does them on the CUDA cores (no tensor
+// cores yet).  Design: one 128-thread block per (bh, 64-row Q tile); two
+// threads per query row, each owning half of the head dimension in float4
+// chunks (interleaved, so the pair reads two adjacent 16-byte words of the
+// same K/V row -- a broadcast, no bank conflict).  K/V tiles of 64 rows are
+// widened to f32 in shared memory once and reused by all 64 query rows.  The
+// online softmax (running max, denominator, f32 context) is updated once per
+// 16 keys, so the rescale costs 1/16 of a key's work.  Under `causal`, K
+// tiles wholly above the diagonal are never loaded (TPU: _pair_relevant).
+// Masking selects (never multiplies), so a garbage or padded row cannot turn
+// into NaN (TPU: _zero_oob_rows); rows past S are zero-filled in shared
+// memory and masked.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBQ = 64;        // query rows per block
+constexpr int kThreads = 128;  // two threads per query row
+constexpr int kSub = 16;       // keys per online-softmax update
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int S, int G, float scale,
+                 int causal) {
+  constexpr int BK = (D == 128) ? 32 : 64;  // keys per shared-memory tile
+  constexpr int D4 = D / 4;                 // float4 words in a row
+  constexpr int NC = D4 / 2;                // float4 words this thread owns
+  __shared__ float4 Ks[BK][D4];
+  __shared__ float4 Vs[BK][D4];
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kBQ;
+  const int t = threadIdx.x;
+  const int row = t >> 1, half = t & 1;
+  const int qi = q0 + row;
+  const T* qrow = q + ((size_t)bh * S + min(qi, S - 1)) * D;
+  const T* kb = k + (size_t)(bh / G) * S * D;
+  const T* vb = v + (size_t)(bh / G) * S * D;
+
+  float4 qr[NC], acc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    qr[c] = lg_load4(qrow + (2 * c + half) * 4);
+    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float m = LG_NEG, l = 0.f;
+
+  int nkt = (S + BK - 1) / BK;
+  if (causal) nkt = min(nkt, (q0 + kBQ - 1) / BK + 1);
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile is no longer read
+    for (int e = t; e < BK * D4; e += kThreads) {
+      const int r = e / D4, c4 = e % D4;
+      const int kr = k0 + r;
+      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
+      if (kr < S) {
+        kv = lg_load4(kb + (size_t)kr * D + c4 * 4);
+        vv = lg_load4(vb + (size_t)kr * D + c4 * 4);
+      }
+      Ks[r][c4] = kv;
+      Vs[r][c4] = vv;
+    }
+    __syncthreads();
+
+    for (int j0 = 0; j0 < BK; j0 += kSub) {
+      float s[kSub];
+      unsigned ok = 0u;
+      float mx = m;
+#pragma unroll
+      for (int jj = 0; jj < kSub; ++jj) {
+        const int j = j0 + jj;
+        float p = 0.f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float4 kv = Ks[j][2 * c + half];
+          p = fmaf(qr[c].x, kv.x, p);
+          p = fmaf(qr[c].y, kv.y, p);
+          p = fmaf(qr[c].z, kv.z, p);
+          p = fmaf(qr[c].w, kv.w, p);
+        }
+        p += __shfl_xor_sync(0xffffffffu, p, 1);
+        p *= scale;
+        const int kj = k0 + j;
+        const bool valid = kj < S && (!causal || kj <= qi);
+        s[jj] = valid ? p : LG_NEG;
+        ok |= (valid ? 1u : 0u) << jj;
+        mx = fmaxf(mx, s[jj]);
+      }
+      const float corr = expf(m - mx);
+      l *= corr;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        acc[c].x *= corr; acc[c].y *= corr; acc[c].z *= corr; acc[c].w *= corr;
+      }
+#pragma unroll
+      for (int jj = 0; jj < kSub; ++jj) {
+        const float p = ((ok >> jj) & 1u) ? expf(s[jj] - mx) : 0.f;
+        l += p;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float4 vv = Vs[j0 + jj][2 * c + half];
+          acc[c].x = fmaf(p, vv.x, acc[c].x);
+          acc[c].y = fmaf(p, vv.y, acc[c].y);
+          acc[c].z = fmaf(p, vv.z, acc[c].z);
+          acc[c].w = fmaf(p, vv.w, acc[c].w);
+        }
+      }
+      m = mx;
+    }
+  }
+
+  if (qi < S) {
+    const float inv = 1.f / l;
+    T* orow = out + ((size_t)bh * S + qi) * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      lg_store4(orow + (2 * c + half) * 4,
+                make_float4(acc[c].x * inv, acc[c].y * inv, acc[c].z * inv,
+                            acc[c].w * inv));
+    }
+    if (half == 0) lse[(size_t)bh * S + qi] = m + logf(l);
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           int BH, int G, int S, float scale, int causal,
+           cudaStream_t stream) {
+  dim3 grid((S + kBQ - 1) / kBQ, BH);
+  flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse, S, G,
+      scale, causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* lg_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// Returns cudaErrorInvalidValue for a head dimension the kernel lacks.
+int lg_flash_fwd(const void* q, const void* k, const void* v, void* out,
+                 void* lse, int BH, int G, int S, int D, float scale,
+                 int causal, int is_bf16, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (BH <= 0 || S <= 0) return 0;
+  if (D == 64) {
+    return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, out, lse, BH, G, S,
+                                               scale, causal, st)
+                   : launch<float, 64>(q, k, v, out, lse, BH, G, S, scale,
+                                       causal, st);
+  }
+  if (D == 128) {
+    return is_bf16 ? launch<__nv_bfloat16, 128>(q, k, v, out, lse, BH, G, S,
+                                                scale, causal, st)
+                   : launch<float, 128>(q, k, v, out, lse, BH, G, S, scale,
+                                        causal, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

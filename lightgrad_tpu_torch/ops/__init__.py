@@ -1,0 +1,14 @@
+"""The port's hand-written CUDA kernels, each beside its plain PyTorch twin.
+
+A wrapper given CUDA tensors launches its kernel or raises; given CPU
+tensors it runs the plain version.  Kernels build at first use
+(``_build.library``)."""
+
+from .attention import attention_fwd, attention_fwd_res, attention_fwd_reference
+from .decode_attention import decode_attention, decode_attention_reference
+from .decode_stack import (decode_stack, decode_stack_batch,
+                           decode_stack_batch_reference,
+                           decode_stack_reference, pack_gpt_stack,
+                           stack_supported)
+from .runtime import (KERNELS, device_kind, device_name, kernels_in_use,
+                      launch_counts, reset_launch_counts)

@@ -1,0 +1,117 @@
+"""Build and load the port's CUDA kernels.
+
+At first use, every ``lightgrad_tpu_torch/csrc/*.cu`` is compiled by ``nvcc``
+for ``sm_90a`` into ONE shared library with a plain C interface, which is
+loaded with ``ctypes``.  The library lands in ``lightgrad_tpu_torch/build/``
+(ignored by git) beside a hash of the sources; a later process reuses it
+until a source changes.  A failed build raises: there is no fallback.
+
+Every entry point takes its pointers and the CUDA stream as ``c_void_p``
+and returns ``cudaGetLastError()`` after its launch; :func:`check` turns a
+non-zero code into an exception.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+__all__ = ["library", "check", "build_seconds"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+_BUILD = os.path.join(_PKG, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL, _S = ctypes.c_longlong, ctypes.c_char_p
+# entry point -> (argtypes, restype).  The launchers return the launch's
+# cudaError_t as an int.
+_SIGNATURES = {
+    # q, k, v, out, lse, BH, G, S, D, scale, causal, is_bf16, stream
+    "lg_flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+                     _I),
+    # q, kc, vc, out, KV, G, W, hd, pos, window, scale, is_bf16, stream
+    "lg_decode_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                             _P], _I),
+    # x, cache, slot_stride, poss, pos0, slabs, vecs, x_out, kv_out, ws,
+    # n, L, d, H, W, R, eps, scale, is_bf16, stream
+    "lg_decode_stack": ([_P, _P, _LL, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _F, _F, _I, _P], _I),
+    # n, d, R -> f32 workspace elements the stack kernel needs
+    "lg_decode_stack_workspace": ([_I, _I, _I], _LL),
+    # is_bf16 -> blocks of the stack kernel's cooperative grid (0: refused)
+    "lg_decode_stack_grid": ([_I], _I),
+    "lg_error_string": ([_I], _S),
+}
+
+_lib = None
+_build_seconds = 0.0
+
+
+def _sources():
+    return sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set CUDA_HOME or put nvcc on PATH)")
+
+
+def _compile(srcs, so_path):
+    cus = [s for s in srcs if s.endswith(".cu")]
+    tmp = so_path + f".tmp{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed (%d):\n%s\n%s" % (
+            proc.returncode, " ".join(cmd), proc.stderr[-8000:]))
+    os.replace(tmp, so_path)
+
+
+def library():
+    """The loaded kernel library; builds it first when the sources changed."""
+    global _lib, _build_seconds
+    if _lib is not None:
+        return _lib
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode() + b"\0" + f.read())
+    digest = h.hexdigest()[:16]
+    os.makedirs(_BUILD, exist_ok=True)
+    so_path = os.path.join(_BUILD, f"liblightgrad_kernels_{digest}.so")
+    if not os.path.exists(so_path):
+        t0 = time.perf_counter()
+        _compile(srcs, so_path)
+        _build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(so_path)
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    _lib = lib
+    return lib
+
+
+def build_seconds() -> float:
+    """Seconds the last :func:`library` call spent in nvcc (0 when reused)."""
+    return _build_seconds
+
+
+def check(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} "
+                           f"({library().lg_error_string(err).decode()})")

@@ -1,0 +1,199 @@
+"""Whole-stack GPT-2 decode megakernel: n <= 8 rows through every layer of a
+decode step in ONE launch.
+
+Counterpart of ``lightgrad_tpu/ops/decode_stack.py``.  On CUDA tensors
+:func:`decode_stack` (single stream: ``step`` and ``extend``) and
+:func:`decode_stack_batch` (B independent slots: the serving tick) launch the
+cooperative kernel of ``csrc/decode_stack.cu``; on CPU tensors they run
+:func:`decode_stack_reference` / :func:`decode_stack_batch_reference`, the
+plain versions of the same functions.
+
+Both keep the JAX contract: the kernel only READS the cache and emits the new
+K/V rows as ``kv (L, 2, n, d)``; the caller scatters them.  The JAX package's
+VMEM planner (``_plan_chunks`` / ``stack_fits``) is replaced by
+:func:`stack_supported`, the CUDA kernel's own fit check, which the model
+wiring consults before packing.
+"""
+
+import torch
+import torch.nn.functional as F
+
+from . import _build, runtime
+
+__all__ = ["pack_gpt_stack", "stack_supported", "decode_stack",
+           "decode_stack_batch", "decode_stack_reference",
+           "decode_stack_batch_reference"]
+
+# csrc/decode_stack.cu `supported()`: kHD, the d alignment, kMaxD, kMaxN
+_HD, _D_ALIGN, _MAX_D, _MAX_N = 64, 64, 4096, 8
+
+
+def stack_supported(*, d: int, hd: int, n: int = 8) -> bool:
+    """True when the CUDA megakernel takes this shape: head dim 64, d a
+    multiple of 64 up to 4096, 1 <= n <= 8 rows.  Its shared memory (about
+    34 KB a block) and workspace do not depend on the window, so any W fits.
+    ``n=8`` sizes the check for the largest ``extend`` the packed stack may
+    serve."""
+    return (hd == _HD and d % _D_ALIGN == 0 and _D_ALIGN <= d <= _MAX_D
+            and 1 <= n <= _MAX_N)
+
+
+def pack_gpt_stack(p, L: int, d: int, R: int = 4):
+    """Pack per-layer GPT weights (``h.{l}.*`` names, torch (out, in)
+    layout) into ``stack#slabs (L, 4+2R, d, d)`` -- each slab stored [in,
+    out] so every product is ``row @ slab`` -- and ``stack#vecs (L, 9+R,
+    d)``: ln_1 w/b, ln_2 w/b, proj bias, fc2 bias, q/k/v biases, fc biases.
+    The same layout as the JAX package's ``pack_gpt_stack``."""
+    slabs, vecs = [], []
+    for l in range(L):
+        pre = f"h.{l}."
+        wqkv = p[pre + "attn.c_attn.weight"]               # (3d, d)
+        wfc = p[pre + "c_fc.weight"]                       # (Rd, d)
+        wfc2 = p[pre + "c_proj.weight"]                    # (d, Rd)
+        rows = [wqkv[i * d:(i + 1) * d].T for i in range(3)]
+        rows.append(p[pre + "attn.c_proj.weight"].T)
+        rows += [wfc[i * d:(i + 1) * d].T for i in range(R)]
+        rows += [wfc2[:, i * d:(i + 1) * d].T for i in range(R)]
+        slabs.append(torch.stack(rows))
+        bq, bf = p[pre + "attn.c_attn.bias"], p[pre + "c_fc.bias"]
+        vr = [p[pre + "ln_1.weight"], p[pre + "ln_1.bias"],
+              p[pre + "ln_2.weight"], p[pre + "ln_2.bias"],
+              p[pre + "attn.c_proj.bias"], p[pre + "c_proj.bias"]]
+        vr += [bq[i * d:(i + 1) * d] for i in range(3)]
+        vr += [bf[i * d:(i + 1) * d] for i in range(R)]
+        vecs.append(torch.stack(vr))
+    return {"stack#slabs": torch.stack(slabs).contiguous(),
+            "stack#vecs": torch.stack(vecs).contiguous()}
+
+
+def _stack_reference(x, caches, slots, lens, self_vis, slabs, vecs, eps, R):
+    """f32 math throughout, residual kept f32 across layers (as the kernel
+    does).  caches (slots, L, 2, H, W, hd); row r reads slot ``slots[r]``'s
+    cache rows < ``lens[r]`` plus the in-flight rows ``self_vis[r]`` marks."""
+    n, d = x.shape
+    L = slabs.shape[0]
+    H, W, hd = caches.shape[3:]
+    scale = 1.0 / float(hd) ** 0.5
+    dev = x.device
+    seen = torch.arange(W, device=dev)[None, :] < lens[:, None]    # (n, W)
+    xacc = x.float()
+    kv = torch.empty((L, 2, n, d), device=dev, dtype=torch.float32)
+    for l in range(L):
+        sl, vec = slabs[l].float(), vecs[l].float()
+        h = F.layer_norm(xacc, (d,), vec[0], vec[1], eps)
+        q, k, v = (h @ sl[i] + vec[6 + i] for i in range(3))
+        kv[l, 0], kv[l, 1] = k, v
+        kc = caches[slots, l, 0].float()                           # (n,H,W,hd)
+        vc = caches[slots, l, 1].float()
+        qh = q.reshape(n, H, hd)
+        sc = torch.einsum("nhd,nhwd->nhw", qh, kc) * scale
+        sc = sc.masked_fill(~seen[:, None, :], -1e30)
+        ss = torch.einsum("nhd,jhd->nhj", qh, k.reshape(n, H, hd)) * scale
+        ss = ss.masked_fill(~self_vis[:, None, :], -1e30)
+        pr = torch.softmax(torch.cat([sc, ss], -1), -1)
+        att = (torch.einsum("nhw,nhwd->nhd", pr[..., :W], vc)
+               + torch.einsum("nhj,jhd->nhd", pr[..., W:],
+                              v.reshape(n, H, hd)))
+        xacc = xacc + att.reshape(n, d) @ sl[3] + vec[4]
+        h2 = F.layer_norm(xacc, (d,), vec[2], vec[3], eps)
+        out = vec[5]
+        for i in range(R):
+            fc = F.gelu(h2 @ sl[4 + i] + vec[9 + i], approximate="tanh")
+            out = out + fc @ sl[4 + R + i]
+        xacc = xacc + out
+    return xacc.to(x.dtype), kv.to(caches.dtype)
+
+
+def decode_stack_reference(x, cache, pos: int, slabs, vecs, *, eps, R=4):
+    """Plain version of :func:`decode_stack`."""
+    n = x.shape[0]
+    dev = x.device
+    rows = torch.arange(n, device=dev)
+    return _stack_reference(
+        x, cache[None], torch.zeros(n, dtype=torch.long, device=dev),
+        torch.full((n,), int(pos), device=dev), rows[None, :] <= rows[:, None],
+        slabs, vecs, eps, R)
+
+
+def decode_stack_batch_reference(x, caches, poss, slabs, vecs, *, eps, R=4):
+    """Plain version of :func:`decode_stack_batch`."""
+    B = x.shape[0]
+    rows = torch.arange(B, device=x.device)
+    return _stack_reference(x, caches, rows, poss.to(x.device).long(),
+                            rows[None, :] == rows[:, None], slabs, vecs, eps,
+                            R)
+
+
+def _launch(name, x, cache, slot_stride, poss, pos0, slabs, vecs, eps, R):
+    n, d = x.shape
+    L, S = slabs.shape[:2]
+    H, W, hd = cache.shape[-3:]
+    if S != 4 + 2 * R or vecs.shape != (L, 9 + R, d) \
+            or slabs.shape != (L, S, d, d) or H * hd != d:
+        raise ValueError(f"{name}: slabs {tuple(slabs.shape)}, vecs "
+                         f"{tuple(vecs.shape)}, cache {tuple(cache.shape)}, "
+                         f"x {tuple(x.shape)}")
+    if not stack_supported(d=d, hd=hd, n=n):
+        raise ValueError(f"{name}: kernel lacks d={d}, hd={hd}, n={n} "
+                         f"(gate with stack_supported())")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: unsupported dtype {x.dtype}")
+    for tname, t in (("x", x), ("cache", cache), ("slabs", slabs),
+                     ("vecs", vecs)):
+        if t.device != x.device or t.dtype != x.dtype \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be a contiguous tensor "
+                             f"of x's device and dtype")
+    lib = _build.library()
+    ws = torch.empty(lib.lg_decode_stack_workspace(n, d, R),
+                     device=x.device, dtype=torch.float32)
+    x_out = torch.empty_like(x)
+    kv = torch.empty((L, 2, n, d), device=x.device, dtype=x.dtype)
+    with torch.cuda.device(x.device):
+        err = lib.lg_decode_stack(
+            x.data_ptr(), cache.data_ptr(), slot_stride,
+            None if poss is None else poss.data_ptr(), pos0,
+            slabs.data_ptr(), vecs.data_ptr(), x_out.data_ptr(),
+            kv.data_ptr(), ws.data_ptr(), n, L, d, H, W, R, float(eps),
+            float(1.0 / float(hd) ** 0.5), int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, name)
+    runtime.count_launch(name)
+    return x_out, kv
+
+
+def decode_stack(x, cache, pos: int, slabs, vecs, *, eps, R=4):
+    """n decode rows at positions pos..pos+n-1 through the whole stack.
+
+    x (n, d) residual input (embeddings summed); cache (L, 2, H, W, hd);
+    ``pos`` a host int; slabs/vecs from :func:`pack_gpt_stack`.  Returns
+    ``(x_out (n, d), kv (L, 2, n, d))``: cache rows < pos are seen by every
+    row, the n in-flight rows see each other causally (``extend``
+    semantics), and the caller scatters ``kv`` into rows pos..pos+n-1."""
+    if not x.is_cuda:
+        return decode_stack_reference(x, cache, pos, slabs, vecs, eps=eps,
+                                      R=R)
+    return _launch("decode_stack", x, cache, 0, None, int(pos), slabs, vecs,
+                   eps, R)
+
+
+def decode_stack_batch(x, caches, poss, slabs, vecs, *, eps, R=4):
+    """B independent slots, one row each, through the whole stack with one
+    weight stream.
+
+    x (B, d); caches (B, L, 2, H, W, hd); poss a (B,) int32 tensor on x's
+    device.  Row b attends slot b's cache rows < poss[b] plus its own new
+    row.  Returns ``(x_out (B, d), kv (L, 2, B, d))``; the caller scatters
+    slot b's rows at poss[b]."""
+    if not x.is_cuda:
+        return decode_stack_batch_reference(x, caches, poss, slabs, vecs,
+                                            eps=eps, R=R)
+    B = x.shape[0]
+    if caches.shape[0] != B or poss.shape != (B,) \
+            or poss.device != x.device or poss.dtype != torch.int32 \
+            or not poss.is_contiguous():
+        raise ValueError(f"decode_stack_batch: caches {tuple(caches.shape)}"
+                         f" and poss {tuple(poss.shape)} {poss.dtype} must "
+                         f"match x's {B} rows (poss int32 on the card)")
+    return _launch("decode_stack_batch", x, caches, caches[0].numel(), poss,
+                   0, slabs, vecs, eps, R)

@@ -1,0 +1,49 @@
+"""Device facts for the port's kernels.
+
+The port has no kernel-mode switch: a wrapper given CUDA tensors launches its
+hand-written kernel (or raises), and a wrapper given CPU tensors runs the
+kernel's plain PyTorch version.  The device of the tensors is the only
+dispatch rule, so this module only reports what that rule will do.
+"""
+
+import torch
+
+__all__ = ["device_kind", "device_name", "kernels_in_use", "KERNELS",
+           "launch_counts", "reset_launch_counts"]
+
+# Every hand-written kernel of the port, by wrapper name.  A wrapper adds one
+# to its count where it launches its kernel, and nowhere else.
+KERNELS = ("attention_fwd", "decode_attention", "decode_stack",
+           "decode_stack_batch")
+_launches = dict.fromkeys(KERNELS, 0)
+
+
+def count_launch(name: str):
+    _launches[name] += 1
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the last reset."""
+    return dict(_launches)
+
+
+def reset_launch_counts():
+    for name in _launches:
+        _launches[name] = 0
+
+
+def device_kind(t: torch.Tensor = None) -> str:
+    """'cuda' or 'cpu': of ``t`` when given, else of the default card."""
+    if t is not None:
+        return t.device.type
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def device_name() -> str:
+    """The card's name (``torch.cuda.get_device_name(0)``), or 'cpu'."""
+    return torch.cuda.get_device_name(0) if torch.cuda.is_available() else "cpu"
+
+
+def kernels_in_use(t: torch.Tensor) -> bool:
+    """True exactly when a wrapper given ``t`` launches its CUDA kernel."""
+    return t.is_cuda

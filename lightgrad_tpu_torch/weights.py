@@ -1,0 +1,35 @@
+"""Carrying weights across from the JAX package.
+
+``load_numpy_params(model, named)`` copies ``{name: array}`` -- for example
+``{n: np.asarray(t.data) for n, t in jax_model.named_parameters()}`` -- into
+the port's model.  Both packages store Linear weights as torch's (out, in),
+so nothing is transposed; names and shapes must match exactly.
+"""
+
+import numpy as np
+import torch
+
+__all__ = ["load_numpy_params"]
+
+
+@torch.no_grad()
+def load_numpy_params(model: torch.nn.Module, named: dict):
+    params = dict(model.named_parameters())
+    missing = sorted(set(params) - set(named))
+    extra = sorted(set(named) - set(params))
+    if missing or extra:
+        raise KeyError(f"load_numpy_params: missing {missing}, "
+                       f"unexpected {extra}")
+    arrays = {}
+    for name, t in params.items():
+        arr = np.asarray(named[name])
+        if arr.dtype.name == "bfloat16":   # ml_dtypes; torch cannot wrap it
+            arr = arr.astype(np.float32)
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"load_numpy_params: {name} has shape "
+                             f"{tuple(arr.shape)}, the model {tuple(t.shape)}")
+        arrays[name] = arr
+    for name, t in params.items():      # checked all before changing any
+        t.copy_(torch.tensor(arrays[name]))
+    model.__dict__.pop("_kv_fns", None)    # decode functions hold old weights
+    return model

@@ -41,6 +41,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: long-running test, skipped unless --runslow or LIGHTGRAD_RUN_SLOW=1")
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a hand-written CUDA kernel; skips where no NVIDIA GPU is")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,142 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU and skips without one.  This file imports
+no JAX, so it also runs where only PyTorch is installed:
+
+    python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
+"""
+
+import pytest
+import torch
+
+from lightgrad_tpu_torch.ops.attention import (attention_fwd_res,
+                                               attention_fwd_reference)
+from lightgrad_tpu_torch.ops.decode_attention import (
+    decode_attention, decode_attention_reference)
+from lightgrad_tpu_torch.ops.decode_stack import (
+    decode_stack, decode_stack_batch, decode_stack_batch_reference,
+    decode_stack_reference)
+from lightgrad_tpu_torch.ops.runtime import (launch_counts,
+                                             reset_launch_counts)
+
+pytestmark = pytest.mark.cuda
+
+# f32: FFMA sums in another order than the reference's GEMMs (no TF32);
+# bf16: inputs are bf16, sums f32, outputs rounded once to bf16
+TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(g, *shape, scale=1.0, dtype=torch.float32):
+    return (torch.randn(shape, generator=g, device=g.device) * scale).to(dtype)
+
+
+def _close(got, want, dtype):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype] * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,G,D,causal", [(1024, 1, 64, True),
+                                          (100, 2, 64, False),
+                                          (100, 1, 128, True)])
+def test_flash_fwd_kernel(dev, S, G, D, causal, dtype):
+    g = torch.Generator(device=dev).manual_seed(S + G + D)
+    q = _randn(g, 4, S, D, dtype=dtype)
+    k, v = (_randn(g, 4 // G, S, D, dtype=dtype) for _ in range(2))
+    reset_launch_counts()
+    out, lse = attention_fwd_res(q, k, v, D ** -0.5, causal=causal)
+    torch.cuda.synchronize()
+    assert launch_counts()["attention_fwd"] == 1
+    ref_out, ref_lse = attention_fwd_reference(q, k, v, D ** -0.5, causal)
+    _close(out, ref_out, dtype)
+    _close(lse, ref_lse, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos,window", [(0, 0), (37, 0), (1023, 0),
+                                        (500, 16)])
+def test_decode_attention_kernel(dev, pos, window, dtype):
+    g = torch.Generator(device=dev).manual_seed(pos)
+    q = _randn(g, 4, 3, 64, dtype=dtype)
+    kc, vc = (_randn(g, 4, 1024, 64, dtype=dtype) for _ in range(2))
+    out = decode_attention(q, kc, vc, pos, 0.125, window)
+    torch.cuda.synchronize()
+    _close(out, decode_attention_reference(q, kc, vc, pos, 0.125, window),
+           dtype)
+
+
+def _stack_inputs(g, dtype, L=3, d=768, W=256, R=4):
+    H = d // 64
+    slabs = _randn(g, L, 4 + 2 * R, d, d, scale=0.03, dtype=dtype)
+    vecs = _randn(g, L, 9 + R, d, scale=0.1)
+    vecs[:, 0] += 1
+    vecs[:, 2] += 1
+    return slabs, vecs.to(dtype), H, W
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,pos", [(1, 0), (1, 200), (4, 37), (8, 100)])
+def test_decode_stack_kernel(dev, n, pos, dtype):
+    g = torch.Generator(device=dev).manual_seed(n * 1000 + pos)
+    slabs, vecs, H, W = _stack_inputs(g, dtype)
+    cache = _randn(g, slabs.shape[0], 2, H, W, 64, dtype=dtype)
+    x = _randn(g, n, slabs.shape[-1], dtype=dtype)
+    got = decode_stack(x, cache, pos, slabs, vecs, eps=1e-5)
+    torch.cuda.synchronize()
+    want = decode_stack_reference(x, cache, pos, slabs, vecs, eps=1e-5)
+    for a, b in zip(got, want):
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,n,pos", [(128, 1, 9), (128, 3, 40), (320, 2, 77)])
+def test_decode_stack_kernel_other_widths(dev, d, n, pos, dtype):
+    """Widths whose K chunks are 128 and 64 rows (768 takes 256)."""
+    g = torch.Generator(device=dev).manual_seed(d + n)
+    slabs, vecs, H, W = _stack_inputs(g, dtype, L=2, d=d)
+    cache = _randn(g, 2, 2, H, W, 64, dtype=dtype)
+    x = _randn(g, n, d, dtype=dtype)
+    got = decode_stack(x, cache, pos, slabs, vecs, eps=1e-5)
+    torch.cuda.synchronize()
+    want = decode_stack_reference(x, cache, pos, slabs, vecs, eps=1e-5)
+    for a, b in zip(got, want):
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_stack_batch_kernel(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(5)
+    slabs, vecs, H, W = _stack_inputs(g, dtype)
+    poss = torch.tensor([0, 3, 255, 17, 64], device=dev, dtype=torch.int32)
+    caches = _randn(g, 5, slabs.shape[0], 2, H, W, 64, dtype=dtype)
+    x = _randn(g, 5, slabs.shape[-1], dtype=dtype)
+    got = decode_stack_batch(x, caches, poss, slabs, vecs, eps=1e-5)
+    torch.cuda.synchronize()
+    want = decode_stack_batch_reference(x, caches, poss, slabs, vecs,
+                                        eps=1e-5)
+    for a, b in zip(got, want):
+        _close(a, b, dtype)
+
+
+def test_wrappers_raise_on_what_the_kernels_lack(dev):
+    q = torch.zeros(2, 16, 32, device=dev)
+    with pytest.raises(ValueError):
+        attention_fwd_res(q, q, q, 1.0)                       # D = 32
+    q = torch.zeros(2, 16, 64, device=dev)
+    with pytest.raises(NotImplementedError):
+        attention_fwd_res(q, q, q, 1.0, causal=True, window=4)
+    with pytest.raises(ValueError):
+        attention_fwd_res(q, q.transpose(0, 1), q, 1.0)       # strided
+    with pytest.raises(ValueError):
+        decode_stack(torch.zeros(9, 768, device=dev),
+                     torch.zeros(1, 2, 12, 16, 64, device=dev), 0,
+                     torch.zeros(1, 12, 768, 768, device=dev),
+                     torch.zeros(1, 13, 768, device=dev), eps=1e-5)  # n = 9
