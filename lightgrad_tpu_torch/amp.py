@@ -1,0 +1,142 @@
+"""Mixed-precision training: bf16 compute with f32 master weights.
+
+Counterpart of ``lightgrad_tpu/amp.py``:
+
+* :func:`cast_module` casts a module's parameters to a dtype in place;
+* :class:`GradScaler` is dynamic loss scaling with tensor-resident state;
+* :class:`MixedPrecision` is the master-weight recipe: f32 masters are
+  snapshotted before the module is cast to the compute dtype; each
+  ``step()`` upcasts the compute gradients, unscales them, replaces NaN and
+  infinities, hands them to the optimizer over the masters, gates a
+  non-finite step away on the device, and requantizes the masters into the
+  compute parameters.  bf16 rounding therefore never accumulates across
+  steps.
+
+Nothing here reads a tensor on the host, so a step never waits for the
+device.
+"""
+
+import torch
+
+__all__ = ["cast_module", "GradScaler", "MixedPrecision"]
+
+
+def cast_module(module, dtype=torch.bfloat16):
+    """Cast every floating parameter of ``module`` to ``dtype`` in place
+    (the Parameter objects stay the same); returns the module."""
+    return module.to(dtype)
+
+
+class GradScaler:
+    """Dynamic loss scaling with tensor-resident state.
+
+    ``scale(loss)`` multiplies by the current scale; after the backward,
+    :class:`MixedPrecision` computes a finite gate and calls
+    :meth:`update`.  On an overflow step the scale is multiplied by
+    ``backoff_factor``; after ``growth_interval`` consecutive good steps it
+    is multiplied by ``growth_factor``.  All updates are scalar tensor
+    arithmetic, with no host read."""
+
+    def __init__(self, init_scale: float = 2.0 ** 15,
+                 growth_factor: float = 2.0, backoff_factor: float = 0.5,
+                 growth_interval: int = 2000, enabled: bool = True):
+        self.enabled = enabled
+        self._init = float(init_scale)
+        self._gf, self._bf = float(growth_factor), float(backoff_factor)
+        self._gi = int(growth_interval)
+        self._scale = None   # scalar f32 tensor, made on first use
+        self._count = None   # consecutive good steps
+
+    def _materialize(self, device):
+        if self._scale is None:
+            self._scale = torch.tensor(self._init, dtype=torch.float32,
+                                       device=device)
+            self._count = torch.zeros((), device=device)
+
+    def scale(self, loss):
+        if not self.enabled:
+            return loss
+        self._materialize(loss.device)
+        return loss * self._scale
+
+    def inv_scale(self, device):
+        if not self.enabled:
+            return None
+        self._materialize(device)
+        return self._scale ** -1.0
+
+    @torch.no_grad()
+    def update(self, ok) -> None:
+        """``ok``: scalar {0,1} tensor -- 1 iff every gradient was finite."""
+        if not self.enabled:
+            return
+        self._materialize(ok.device)
+        grown = ((self._count + 1.0) >= float(self._gi)).float()
+        new_scale = self._scale * (
+            ok * (1.0 + (self._gf - 1.0) * grown) + (1.0 - ok) * self._bf)
+        new_count = (self._count + 1.0) * ok * (1.0 - grown)
+        self._scale.copy_(new_scale)
+        self._count.copy_(new_count)
+
+    def scale_value(self) -> float:
+        """The current scale, read on the host."""
+        return float(self._scale) if self._scale is not None else self._init
+
+
+class MixedPrecision:
+    """Master-weight AMP: compute in ``compute_dtype``, optimize f32 masters.
+
+    Usage::
+
+        mp = amp.MixedPrecision(model, lambda ps: optim.AdamW(ps, lr=3e-4))
+        loss = loss_fn(model(x))
+        mp.zero_grad()
+        mp.scale(loss).backward()
+        mp.step()
+    """
+
+    def __init__(self, model, optimizer_factory,
+                 compute_dtype=torch.bfloat16, scaler: GradScaler = None):
+        self.model = model
+        self.compute_dtype = compute_dtype
+        self.scaler = scaler
+        with torch.no_grad():
+            self.masters = [p.detach().float().clone().requires_grad_(True)
+                            for p in model.parameters()]
+        cast_module(model, compute_dtype)
+        self.compute_params = list(model.parameters())
+        if len(self.compute_params) != len(self.masters):
+            raise RuntimeError("MixedPrecision: the cast changed the "
+                               "module's parameter list")
+        self.optim = optimizer_factory(self.masters)
+        if scaler is not None and self.masters:
+            scaler._materialize(self.masters[0].device)
+
+    def zero_grad(self):
+        for p in self.compute_params:
+            p.grad = None
+
+    def scale(self, loss):
+        return self.scaler.scale(loss) if self.scaler is not None else loss
+
+    @torch.no_grad()
+    def step(self):
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.compute_params]
+        # finite gate, on the device: 1 iff every gradient is finite
+        ok = torch.stack([torch.isfinite(g).all() for g in grads]) \
+            .all().float()
+        inv = (self.scaler.inv_scale(ok.device)
+               if self.scaler is not None else None)
+        for g, m in zip(grads, self.masters):
+            g32 = g.float().nan_to_num()
+            m.grad = g32 * inv if inv is not None else g32
+        self.optim._gate = ok
+        try:
+            self.optim.step()
+        finally:
+            self.optim._gate = None
+        for p, m in zip(self.compute_params, self.masters):
+            p.copy_(m)      # requantize: round to nearest even
+        if self.scaler is not None:
+            self.scaler.update(ok)

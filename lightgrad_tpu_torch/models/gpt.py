@@ -1,17 +1,21 @@
-"""GPT-2 serving path in PyTorch: the model, KV-cache decoding, generation.
+"""GPT-2 in PyTorch: the model, its training forward, KV-cache decoding and
+generation.
 
-Counterpart of the serving part of ``lightgrad_tpu/models/gpt.py``: pre-LN
-GPT-2 (token + position embeddings, causal self-attention, tanh-GELU MLP,
-weight-tied LM head) as ``torch.nn.Module``s whose parameter names equal the
-JAX model's, and the ``_kv_functions`` contract the serving engine drives.
+Counterpart of ``lightgrad_tpu/models/gpt.py``: pre-LN GPT-2 (token +
+position embeddings, causal self-attention, tanh-GELU MLP, weight-tied LM
+head) as ``torch.nn.Module``s whose parameter names equal the JAX model's,
+and the ``_kv_functions`` contract the serving engine drives.
 
-The hand-written kernels on this path: prefill's causal attention
-(ops/attention.py), the whole-stack decode kernel for ``step``, ``extend``
-and ``step_batch`` (ops/decode_stack.py), and, when the stack is not packed,
-the per-layer decode attention (ops/decode_attention.py).  LayerNorm, GELU,
-the products outside those kernels, the embedding gathers, the cache
-scatters and sampling are plain PyTorch, as they were plain XLA in the JAX
-package.
+The hand-written kernels on the training path (``GPT.forward`` under
+``torch.autograd``): the fused LayerNorm forward and backward (ops/
+layernorm.py, through nn.LayerNorm) and the flash-attention forward and
+backward (ops/attention.py, through autograd/ops.py).  On the serving path:
+prefill's causal attention, the whole-stack decode kernel for ``step``,
+``extend`` and ``step_batch`` (ops/decode_stack.py), and, when the stack is
+not packed, the per-layer decode attention (ops/decode_attention.py).  The
+serving path's LayerNorm, GELU, the products outside the kernels, the
+embedding gathers, the cache scatters and sampling are plain PyTorch, as
+they were plain XLA in the JAX package.
 """
 
 import numpy as np
@@ -19,6 +23,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..autograd.ops import attention
+from ..nn import LayerNorm
 from ..ops.attention import attention_fwd
 from ..ops.decode_attention import decode_attention
 from ..ops.decode_stack import (decode_stack, decode_stack_batch,
@@ -98,8 +104,8 @@ class CausalSelfAttention(nn.Module):
         b, s, h = x.shape
         qkv = self.c_attn(x).reshape(b, s, 3, self.n_head, self.head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous()  # (b, heads, s, hd)
-        y = attention_fwd(q, k, v, 1.0 / float(np.sqrt(self.head_dim)),
-                          causal=True)
+        y = attention(q, k, v, 1.0 / float(np.sqrt(self.head_dim)),
+                      causal=True)
         return self.c_proj(y.transpose(1, 2).reshape(b, s, h))
 
 
@@ -107,9 +113,9 @@ class GPTBlock(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
-        self.ln_1 = nn.LayerNorm(cfg.n_embd, eps=cfg.layer_norm_epsilon, **kw)
+        self.ln_1 = LayerNorm(cfg.n_embd, eps=cfg.layer_norm_epsilon, **kw)
         self.attn = CausalSelfAttention(cfg, **kw)
-        self.ln_2 = nn.LayerNorm(cfg.n_embd, eps=cfg.layer_norm_epsilon, **kw)
+        self.ln_2 = LayerNorm(cfg.n_embd, eps=cfg.layer_norm_epsilon, **kw)
         self.c_fc = nn.Linear(cfg.n_embd, 4 * cfg.n_embd, **kw)
         self.c_proj = nn.Linear(4 * cfg.n_embd, cfg.n_embd, **kw)
 
@@ -135,7 +141,7 @@ class GPT(nn.Module):
         self.wpe = nn.Embedding(cfg.n_positions, cfg.n_embd, **kw)
         self.h = nn.ModuleList(GPTBlock(cfg, **kw)
                                for _ in range(cfg.n_layer))
-        self.ln_f = nn.LayerNorm(cfg.n_embd, eps=cfg.layer_norm_epsilon, **kw)
+        self.ln_f = LayerNorm(cfg.n_embd, eps=cfg.layer_norm_epsilon, **kw)
         self.to_empty(device=device)
         self._init_parameters(generator)
 
@@ -161,8 +167,8 @@ class GPT(nn.Module):
         self.__dict__.pop("_kv_fns", None)
         return super()._apply(fn, *args, **kwargs)
 
-    @torch.no_grad()
     def forward(self, input_ids):
+        """Logits (b, s, vocab); differentiable (the training forward)."""
         b, s = input_ids.shape
         pos = torch.arange(s, device=input_ids.device)
         x = self.wte(input_ids) + self.wpe(pos)

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 At first use, every ``lightgrad_tpu_torch/csrc/*.cu`` is compiled by ``nvcc``
-for ``sm_90a`` into ONE shared library with a plain C interface, which is
+for ``sm_90a`` -- one ``nvcc`` process per source, all started together --
+and linked into ONE shared library with a plain C interface, which is
 loaded with ``ctypes``.  The library lands in ``lightgrad_tpu_torch/build/``
 (ignored by git) beside a hash of the sources; a later process reuses it
 until a source changes.  A failed build raises: there is no fallback.
@@ -24,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL, _S = ctypes.c_longlong, ctypes.c_char_p
@@ -34,6 +35,13 @@ _SIGNATURES = {
     # q, k, v, out, lse, BH, G, S, D, scale, causal, is_bf16, stream
     "lg_flash_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
                      _I),
+    # q, k, v, do, lse, dcap, dq, BH, G, S, D, scale, causal, is_bf16, stream
+    "lg_flash_bwd_dq": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                         _I, _P], _I),
+    # q, k, v, do, lse, dcap, dk, dv, BH, G, S, D, scale, causal, is_bf16,
+    # stream
+    "lg_flash_bwd_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                          _I, _I, _P], _I),
     # q, kc, vc, out, KV, G, W, hd, pos, window, scale, is_bf16, stream
     "lg_decode_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                              _P], _I),
@@ -69,14 +77,37 @@ def _nvcc():
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+def _run(procs):
+    """Wait for every (cmd, Popen); raise with the first failure's output."""
+    failed = None
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, cmd, err)
+    if failed:
+        raise RuntimeError("nvcc failed (%d):\n%s\n%s" % (
+            failed[0], " ".join(failed[1]), failed[2][-8000:]))
+
+
 def _compile(srcs, so_path):
     cus = [s for s in srcs if s.endswith(".cu")]
     tmp = so_path + f".tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s\n%s" % (
-            proc.returncode, " ".join(cmd), proc.stderr[-8000:]))
+    objs = [f"{tmp}.{os.path.basename(cu)}.o" for cu in cus]
+    procs = []
+    for cu, obj in zip(cus, objs):
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, cu]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE,
+                                            text=True)))
+    try:
+        _run(procs)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, so_path)
 
 

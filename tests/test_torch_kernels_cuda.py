@@ -9,13 +9,18 @@ no JAX, so it also runs where only PyTorch is installed:
 import pytest
 import torch
 
-from lightgrad_tpu_torch.ops.attention import (attention_fwd_res,
+from lightgrad_tpu_torch.ops.attention import (attention_bwd,
+                                               attention_bwd_reference,
+                                               attention_fwd_res,
                                                attention_fwd_reference)
 from lightgrad_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference)
 from lightgrad_tpu_torch.ops.decode_stack import (
     decode_stack, decode_stack_batch, decode_stack_batch_reference,
     decode_stack_reference)
+from lightgrad_tpu_torch.ops.layernorm import (
+    layernorm_bwd_dx, layernorm_bwd_dx_reference, layernorm_fwd,
+    layernorm_fwd_reference)
 from lightgrad_tpu_torch.ops.runtime import (launch_counts,
                                              reset_launch_counts)
 
@@ -58,6 +63,55 @@ def test_flash_fwd_kernel(dev, S, G, D, causal, dtype):
     ref_out, ref_lse = attention_fwd_reference(q, k, v, D ** -0.5, causal)
     _close(out, ref_out, dtype)
     _close(lse, ref_lse, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,G,D,causal", [(1024, 1, 64, True),
+                                          (100, 2, 64, False),
+                                          (100, 2, 64, True),
+                                          (100, 1, 128, True),
+                                          (200, 2, 128, False)])
+def test_flash_bwd_kernels(dev, S, G, D, causal, dtype):
+    g = torch.Generator(device=dev).manual_seed(7 * S + G + D)
+    q, do = (_randn(g, 4, S, D, dtype=dtype) for _ in range(2))
+    k, v = (_randn(g, 4 // G, S, D, dtype=dtype) for _ in range(2))
+    out, lse = attention_fwd_res(q, k, v, D ** -0.5, causal=causal)
+    reset_launch_counts()
+    got = attention_bwd(do, q, k, v, D ** -0.5, causal, out=out, lse=lse)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["attention_bwd_dq"] == counts["attention_bwd_dkv"] == 1
+    want = attention_bwd_reference(do, q, k, v, D ** -0.5, causal)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        _close(a, b, dtype)
+    again = attention_bwd(do, q, k, v, D ** -0.5, causal, out=out, lse=lse)
+    for a, b in zip(got, again):              # no atomics: bit for bit
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,c", [(8192, 768), (37, 100), (5, 2048)])
+def test_layernorm_kernels(dev, r, c, dtype):
+    g = torch.Generator(device=dev).manual_seed(r + c)
+    x = _randn(g, r, c, scale=3.0, dtype=dtype) + 1.5
+    w = _randn(g, c, dtype=dtype)
+    b = _randn(g, c, dtype=dtype)
+    reset_launch_counts()
+    y, xhat, rstd = layernorm_fwd(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert launch_counts()["layernorm_fwd"] == 1
+    ry, rxhat, rrstd = layernorm_fwd_reference(x, w, b, 1e-5)
+    assert xhat.dtype == rstd.dtype == torch.float32
+    assert y.shape == x.shape and rstd.shape == (r, 1)
+    _close(y, ry, dtype)
+    _close(xhat, rxhat, torch.float32)
+    _close(rstd, rrstd, torch.float32)
+    gy = _randn(g, r, c, dtype=dtype)
+    dx = layernorm_bwd_dx(gy, w, xhat, rstd)
+    torch.cuda.synchronize()
+    assert launch_counts()["layernorm_bwd"] == 1
+    _close(dx, layernorm_bwd_dx_reference(gy, w, xhat, rstd), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -135,6 +189,17 @@ def test_wrappers_raise_on_what_the_kernels_lack(dev):
         attention_fwd_res(q, q, q, 1.0, causal=True, window=4)
     with pytest.raises(ValueError):
         attention_fwd_res(q, q.transpose(0, 1), q, 1.0)       # strided
+    out, lse = attention_fwd_res(q, q, q, 1.0, causal=True)
+    with pytest.raises(ValueError):
+        attention_bwd(q, q, q, q, 1.0, True)                  # no out / lse
+    with pytest.raises(ValueError):
+        attention_bwd(q.transpose(0, 1).contiguous().transpose(0, 1), q, q,
+                      q, 1.0, True, out=out, lse=lse)         # strided g
+    with pytest.raises(NotImplementedError):
+        attention_bwd(q, q, q, q, 1.0, True, out=out, lse=lse, window=4)
+    with pytest.raises(ValueError):
+        layernorm_fwd(q, torch.ones(32, device=dev), torch.zeros(32,
+                                                                 device=dev))
     with pytest.raises(ValueError):
         decode_stack(torch.zeros(9, 768, device=dev),
                      torch.zeros(1, 2, 12, 16, 64, device=dev), 0,
