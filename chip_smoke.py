@@ -1,5 +1,6 @@
-"""Smoke run of the PyTorch port's GPT-2 serving and training paths on one
-NVIDIA GPU.
+"""Smoke run of the PyTorch port's paths on one NVIDIA GPU: GPT-2 serving and
+training (torch.autograd), BERT-base masked-LM training and the
+gradient-descent example on the lightgrad tape.
 
     python3 chip_smoke.py
 
@@ -21,7 +22,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
      one batch -- the loss must be finite and fall, and step 1's gradients
      of every parameter must match a plain step (the ``_reference`` versions
      under torch autograd);
-  6. every kernel of each path was launched by that path, and every kernel
+  6. the lightgrad tape, BERT-base at its published widths (HF
+     bert-base-uncased: vocab 30522, hidden 768, 12 layers, 12 heads,
+     intermediate 3072, 512 positions; seeded random weights) on 8 x 128
+     tokens with a padding mask, masked-LM labels on 15% of the valid
+     positions: BertForMaskedLM + loss.cross_entropy + AdamW, 5 steps on one
+     batch -- the loss must be finite and fall, step 1's logits and every
+     parameter's gradient must match a plain twin (the ``_reference``
+     versions under torch autograd), and one unmasked step must take the
+     flash kernels;
+  7. the tape's smallest path, examples/gradient_descent.py's loop (64 x 64)
+     for 20 epochs: the loss must fall;
+  8. every kernel of each path was launched by that path, and every kernel
      of the package by some path.
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -58,11 +70,26 @@ KERNEL_SOURCES = {
                       "lightgrad_tpu/ops/layernorm.py:54"),
     "layernorm_bwd": ("triton", "lightgrad_tpu_torch/ops/layernorm.py",
                       "lightgrad_tpu/ops/layernorm.py:85"),
+    "elementwise": ("triton", "lightgrad_tpu_torch/ops/elementwise.py",
+                    "lightgrad_tpu/ops/elementwise.py:67"),
+    "reduce": ("triton", "lightgrad_tpu_torch/ops/reduce.py",
+               "lightgrad_tpu/ops/reduce.py:49"),
+    "matmul": ("cuda", "lightgrad_tpu_torch/csrc/matmul.cu",
+               "lightgrad_tpu/ops/matmul.py:90"),
+    "softmax_fwd": ("triton", "lightgrad_tpu_torch/ops/softmax.py",
+                    "lightgrad_tpu/ops/softmax.py:38"),
+    "softmax_bwd": ("triton", "lightgrad_tpu_torch/ops/softmax.py",
+                    "lightgrad_tpu/ops/softmax.py:38"),
 }
 SERVING_KERNELS = ("attention_fwd", "decode_attention", "decode_stack",
                    "decode_stack_batch")
 TRAINING_KERNELS = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv",
                     "layernorm_fwd", "layernorm_bwd")
+# the masked BERT step; its unmasked step adds the flash kernels
+BERT_KERNELS = ("elementwise", "reduce", "matmul", "softmax_fwd",
+                "softmax_bwd", "layernorm_fwd", "layernorm_bwd")
+FLASH_KERNELS = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv")
+TAPE_KERNELS = ("elementwise", "reduce", "matmul")
 # Kernel vs plain version, max |err| <= tol * max(1, max |reference|).
 # float32: the same f32 math summed in another order (FFMA chains against
 # cuBLAS/ATen reductions, no TF32).  bfloat16: bf16 inputs, f32 sums, one
@@ -76,6 +103,12 @@ PATH_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 8, 5, 6e-4
 GPT2_SMALL = dict(vocab_size=50257, n_positions=1024, n_embd=768,
                   n_layer=12, n_head=12, layer_norm_epsilon=1e-5)
+# HF bert-base-uncased config.json
+BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072,
+                 max_position_embeddings=512, type_vocab_size=2,
+                 layer_norm_eps=1e-12)
+BERT_BATCH, BERT_SEQ, BERT_STEPS, BERT_LR = 8, 128, 5, 1e-4
 
 
 def log(*a):
@@ -93,6 +126,42 @@ def cuda_ms(fn, iters=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=20):
+    """Device time of one call: ``iters`` calls captured in a CUDA graph,
+    replayed between two CUDA events.  Unlike :func:`cuda_ms` it leaves out
+    the host's launch work, which exceeds a small kernel's run time."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def timed(results, dtype, name, err, kernel, plain, iters=20):
+    """Record ``kernel`` and ``plain`` by device time (graph replay)."""
+    record(results, dtype, name, err, graph_ms(kernel, iters),
+           graph_ms(plain, iters), timing="graph")
 
 
 def errors(got, want):
@@ -113,14 +182,27 @@ def check(name, dtype, got, want, tol):
     return abs_err
 
 
-def record(results, dtype, name, err, ms=None, plain_ms=None):
+def discriminates(name, dtype, want, tol, *wrong):
+    """Fail unless every output in ``wrong`` would fail :func:`check`
+    against ``want``: inputs on which a broken kernel passes test nothing."""
+    for w in wrong:
+        if errors(w, want)[1] <= tol:
+            raise AssertionError(f"{name} {dtype}: degenerate inputs, a "
+                                 f"wrong output is within {tol}")
+
+
+def record(results, dtype, name, err, ms=None, plain_ms=None,
+           timing="eager"):
     """Fold one comparison (and, when timed, both times) into ``results``:
-    f32 under plain keys, bf16 under ``bf16_`` keys."""
+    f32 under plain keys, bf16 under ``bf16_`` keys.  ``timing`` says how
+    the times were taken: "eager" (:func:`cuda_ms`, launch work included)
+    or "graph" (:func:`graph_ms`, device time only)."""
     r = results.setdefault(name, {"max_abs_err": 0.0})
     key = "" if dtype == torch.float32 else "bf16_"
     r[key + "max_abs_err"] = max(r.get(key + "max_abs_err", 0.0), err)
     if ms is not None:
         r[key + "ms"], r[key + "plain_ms"] = ms, plain_ms
+        r["timing"] = timing
         log(f"  {name} {str(dtype)[6:]}: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms")
 
@@ -509,6 +591,415 @@ def grad_check(params, plain_grads, dtype):
         raise AssertionError(f"gradient of {worst_name}: rel {worst}")
 
 
+def phase_tape_kernels(results):
+    """Phase 3, the tape's generic kernels: elementwise, reduce, matmul and
+    softmax vs their plain versions at the BERT-base path's shapes (B*S =
+    1024 rows, d 768, ffn 3072, vocab 30522, 96 heads of 128 x 64)."""
+    from lightgrad_tpu_torch.ops.elementwise import ew, ew_reference
+    from lightgrad_tpu_torch.ops.matmul import (matmul, matmul_reference,
+                                                matmul_vjp)
+    from lightgrad_tpu_torch.ops.reduce import reduce, reduce_reference
+    from lightgrad_tpu_torch.ops.softmax import (softmax_bwd,
+                                                 softmax_bwd_reference,
+                                                 softmax_fwd,
+                                                 softmax_fwd_reference)
+
+    c = BERT_BASE
+    B, S, d, f, V = (BERT_BATCH, BERT_SEQ, c["hidden_size"],
+                     c["intermediate_size"], c["vocab_size"])
+    H = c["num_attention_heads"]
+    hd, R, dev = d // H, BERT_BATCH * BERT_SEQ, torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    lengths = torch.as_tensor(np.random.default_rng(0).integers(
+        S // 2, S + 1, size=B), device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = KERNEL_TOL[dtype]
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(shape, generator=g, device=dev)
+                    * scale).to(dtype)
+
+        # elementwise: GELU and its gradient, the padding mask, a fused
+        # two-gradient add, a scalar multiply.  The mask is the path's own:
+        # 0 on valid keys, -1e9 past lengths drawn from 64-128.
+        h, gh = rnd(R, f), rnd(R, f)
+        scores = rnd(B, H, S, S, scale=2.0)
+        mask = ((torch.arange(S, device=dev) >= lengths[:, None]) * -1e9
+                ).reshape(B, 1, 1, S).to(dtype)
+        x, y = rnd(R, d), rnd(d)
+        err = 0.0
+        for body, args, n_out in (
+                ("f_gelu", (h,), 1), ("b_gelu", (gh, h), 1),
+                ("f_add", (scores, mask), 1), ("b2_add", (x, x, y), 2),
+                ("f_mul", (x, torch.tensor(0.125, device=dev)), 1)):
+            got = ew(body, *args, n_out=n_out)
+            want = ew_reference(body, *args, n_out=n_out)
+            for i, (a, b) in enumerate(zip(*(
+                    (t,) if n_out == 1 else t for t in (got, want)))):
+                err = max(err, check(f"elementwise {body}[{i}] "
+                                     f"{tuple(a.shape)}", dtype, a, b, tol))
+        timed(results, dtype, "elementwise", err, lambda: ew("f_gelu", h),
+              lambda: ew_reference("f_gelu", h))
+
+        # reduce: bias gradients (column sums), the loss's row max and sum
+        logits = rnd(R, V)
+        err = 0.0
+        for t, op, axis in ((x, "sum", 0), (h, "sum", 0),
+                            (logits, "max", -1), (logits, "sum", -1)):
+            err = max(err, check(f"reduce {op} {tuple(t.shape)} axis={axis}",
+                                 dtype, reduce(t, op, axis=axis),
+                                 reduce_reference(t, op, axis=axis), tol))
+        timed(results, dtype, "reduce", err,
+              lambda: reduce(logits, "sum", axis=-1),
+              lambda: reduce_reference(logits, "sum", axis=-1))
+
+        # matmul: every product of the step and its gradients
+        w_qkv, w_up = rnd(d, d, scale=0.03), rnd(f, d, scale=0.03)
+        w_dn, w_dec = rnd(d, f, scale=0.02), rnd(V, d, scale=0.03)
+        x3 = x.reshape(B, S, d)
+        q = rnd(B, S, d).reshape(B, S, H, hd).transpose(1, 2)
+        k = rnd(B, S, d).reshape(B, S, H, hd).transpose(1, 2)
+        p = torch.softmax(scores.float(), -1).to(dtype)
+        err = 0.0
+        for name, a, b in (("x @ Wqkv.T", x3, w_qkv.T),
+                           ("x @ Wup.T", x3, w_up.T),
+                           ("h @ Wdown.T", h, w_dn.T),
+                           ("x @ Wdec.T", x, w_dec.T),
+                           ("q @ k^T", q, k.transpose(-1, -2)),
+                           ("p @ v", p, k)):
+            err = max(err, check(f"matmul {name}", dtype, matmul(a, b),
+                                 matmul_reference(a, b), tol))
+        gy = rnd(R, V, scale=0.1)
+        ga, gb = matmul_vjp(gy, x, w_dec.T)
+        err = max(err, check("matmul vjp dx (decoder)", dtype, ga,
+                             matmul_reference(gy, w_dec), tol),
+                  check("matmul vjp dW.T (decoder)", dtype, gb,
+                        matmul_reference(x.T, gy), tol))
+        timed(results, dtype, "matmul", err, lambda: matmul(x, w_dec.T),
+              lambda: matmul_reference(x, w_dec.T), 10)
+        del logits, w_dec, gy, ga, gb
+
+        # softmax of the masked scores and its gradient
+        sm = scores + mask
+        ys, want = softmax_fwd(sm), softmax_fwd_reference(sm)
+        err = check(f"softmax_fwd {tuple(sm.shape)}", dtype, ys, want, tol)
+        one_hot = torch.zeros_like(want).scatter_(-1, want.argmax(-1, True),
+                                                  1.0)
+        discriminates("softmax_fwd", dtype, want, tol,
+                      torch.zeros_like(want), one_hot)
+        timed(results, dtype, "softmax_fwd", err, lambda: softmax_fwd(sm),
+              lambda: softmax_fwd_reference(sm))
+        gs = rnd(B, H, S, S)
+        want = softmax_bwd_reference(gs, ys)
+        err = check(f"softmax_bwd {tuple(gs.shape)}", dtype,
+                    softmax_bwd(gs, ys), want, tol)
+        discriminates("softmax_bwd", dtype, want, tol, torch.zeros_like(want))
+        timed(results, dtype, "softmax_bwd", err,
+              lambda: softmax_bwd(gs, ys),
+              lambda: softmax_bwd_reference(gs, ys))
+        torch.cuda.empty_cache()
+
+
+def bert_batch(cfg):
+    """8 x 128 random tokens; valid lengths from 64-128 (a padding mask);
+    masked-LM labels on 15% of the valid positions, -100 elsewhere."""
+    rng = np.random.default_rng(0)
+    B, S, V = BERT_BATCH, BERT_SEQ, cfg.vocab_size
+    lengths = rng.integers(S // 2, S + 1, size=B)
+    ids = rng.integers(0, V, (B, S)).astype(np.int32)
+    mask = (np.arange(S)[None, :] < lengths[:, None]).astype(np.float32)
+    labels = np.full((B, S), -100, np.int32)
+    for b in range(B):
+        pick = rng.choice(lengths[b], int(0.15 * lengths[b]), replace=False)
+        labels[b, pick] = rng.integers(0, V, pick.size)
+    return ids, mask, labels.reshape(-1), lengths
+
+
+class _PlainSoftmax(torch.autograd.Function):
+    """Softmax for the plain twin: the kernels' plain versions in both
+    directions (torch's own softmax backward takes its row sum in one pass,
+    which loses the keys' gradient at this depth; see ops/softmax.py)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from lightgrad_tpu_torch.ops.softmax import softmax_fwd_reference
+
+        y = softmax_fwd_reference(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        from lightgrad_tpu_torch.ops.softmax import softmax_bwd_reference
+
+        (y,) = ctx.saved_tensors
+        return softmax_bwd_reference(g, y)
+
+
+def plain_bert(p, cfg, ids, mask):
+    """BertForMaskedLM's logits through the plain PyTorch versions of the
+    kernels (``_reference``), differentiable by torch autograd: the twin
+    the tape's step must meet."""
+    from lightgrad_tpu_torch.ops.elementwise import ew_reference
+    from lightgrad_tpu_torch.ops.layernorm import layernorm_fwd_reference
+    from lightgrad_tpu_torch.ops.matmul import matmul_reference
+
+    B, S = ids.shape
+    d, H = cfg.hidden_size, cfg.num_attention_heads
+    hd = d // H
+
+    def ln(x, pre):
+        return layernorm_fwd_reference(x, p[pre + ".weight"],
+                                       p[pre + ".bias"],
+                                       cfg.layer_norm_eps)[0]
+
+    def lin(x, pre):
+        return matmul_reference(x, p[pre + ".weight"].T) + p[pre + ".bias"]
+
+    def heads(x):
+        return x.reshape(B, S, H, hd).transpose(1, 2)
+
+    e = "bert.embeddings."
+    x = (p[e + "word_embeddings.weight"][ids]
+         + p[e + "position_embeddings.weight"][:S]
+         + p[e + "token_type_embeddings.weight"][0])
+    x = ln(x, e + "LayerNorm")
+    add_mask = ((1.0 - mask) * -1e9).reshape(B, 1, 1, S)
+    for layer in range(cfg.num_hidden_layers):
+        pre = f"bert.layer.{layer}."
+        sa = pre + "attention.self."
+        q, k, v = (heads(lin(x, sa + n)) for n in ("query", "key", "value"))
+        scores = matmul_reference(q, k.transpose(-1, -2)) * hd ** -0.5
+        probs = _PlainSoftmax.apply(scores + add_mask)
+        ctx = matmul_reference(probs, v).transpose(1, 2).reshape(B, S, d)
+        a = ln(lin(ctx, pre + "attention.dense") + x,
+               pre + "attention.LayerNorm")
+        h = ew_reference("f_gelu", lin(a, pre + "intermediate"))
+        x = ln(lin(h, pre + "output") + a, pre + "LayerNorm")
+    x = ln(ew_reference("f_gelu", lin(x, "transform")), "transform_ln")
+    return lin(x, "decoder")
+
+
+def bert_grad_check(model, grads32, grads64):
+    """Step 1's tape gradient of every parameter vs the plain twin, in
+    float32 (the tape's precision) and in float64: max |tape - twin| /
+    max |twin| within PATH_TOL for each parameter and each twin.  A key
+    projection's bias has a zero gradient in exact arithmetic (softmax
+    ignores a per-row constant), so its error is taken relative to the same
+    layer's query bias gradient."""
+    tol = PATH_TOL[torch.float32]
+    rel = {32: {}, 64: {}}
+    for name, t in model.named_parameters():
+        got = t.grad.data.double()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"gradient of {name} is not finite")
+        ref_name = name.replace("self.key.bias", "self.query.bias")
+        for bits, grads in ((32, grads32), (64, grads64)):
+            ref = max(grads[ref_name].double().abs().max().item(), 1e-30)
+            rel[bits][name] = (got - grads[name].double()).abs().max().item() \
+                / ref
+    bad = sorted(n for bits in rel for n in rel[bits] if rel[bits][n] > tol)
+    worst = {bits: max(r, key=r.get) for bits, r in rel.items()}
+    log(f"  step-1 gradients of {len(rel[32])} parameters: worst rel vs the "
+        f"f32 twin {rel[32][worst[32]]:.3e} ({worst[32]}), vs the f64 twin "
+        f"{rel[64][worst[64]]:.3e} ({worst[64]}); tol {tol:.0e} "
+        f"{'ok' if not bad else 'FAIL'}")
+    if bad:
+        raise AssertionError(f"gradients beyond tolerance: {bad}")
+
+
+def bert_step(model, opt, x_ids, x_mask, y):
+    """One masked-LM training step of BERT on the tape."""
+    from lightgrad_tpu_torch import loss as lg_loss
+
+    logits = model(x_ids, attention_mask=x_mask)
+    loss = lg_loss.cross_entropy(logits.reshape(-1, logits.shape[-1]), y,
+                                 ignore_index=-100)
+    opt.zero_grad()
+    loss.backward()
+    opt.step()
+
+
+# kernel-name fragment -> the family a step's device time is summed under
+KERNEL_FAMILIES = (("matmul_kernel", "matmul"), ("ew_kernel", "elementwise"),
+                   ("reduce_rows", "reduce"), ("softmax_", "softmax"),
+                   ("ln_", "layernorm"), ("flash", "attention"))
+
+
+def bert_step_breakdown(step, step_s, host_s):
+    """Where one BERT step's time goes: the tape's ops a step (counted by
+    the tape's own profiler), the host time that queues forward + backward
+    per op, and the device time of each kernel family in one step traced by
+    torch.profiler, with the device's idle share of the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightgrad_tpu_torch.utils.profiler import Profiler
+
+    with Profiler() as prof:
+        step()
+    n_fwd = sum(prof.fwd_count.values())
+    n_bwd = sum(prof.bwd_count.values())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as trace:
+        step()
+        torch.cuda.synchronize()
+    fams = [f for _, f in KERNEL_FAMILIES] + ["plain torch"]
+    ms, n = dict.fromkeys(fams, 0.0), dict.fromkeys(fams, 0)
+    for e in trace.events():
+        if e.device_type == DeviceType.CUDA:
+            fam = next((f for k, f in KERNEL_FAMILIES if k in e.name),
+                       "plain torch")
+            ms[fam] += e.time_range.elapsed_us() / 1e3
+            n[fam] += 1
+    busy = sum(ms.values())
+    log(f"  tape ops a step: {n_fwd} forward, {n_bwd} backward; forward + "
+        f"backward queued in {host_s * 1e3:.1f} ms of host time, "
+        f"{host_s * 1e6 / (n_fwd + n_bwd):.1f} us an op")
+    log(f"  device time of a step {busy:.1f} ms of {step_s * 1e3:.1f} ms "
+        f"(idle {100 * (1 - busy / (step_s * 1e3)):.1f}%): "
+        + ", ".join(f"{f} {t:.2f} ms ({n[f]})" for f, t in ms.items()))
+
+
+def phase_bert(card):
+    """Phase 6: BERT-base masked-LM training on the lightgrad tape (float32,
+    AdamW, 5 steps on one batch), checked against the plain twin.  Returns
+    the launch counts of the 5 masked steps and of the unmasked step."""
+    import torch.nn.functional as F
+
+    from lightgrad_tpu_torch import loss as lg_loss
+    from lightgrad_tpu_torch import optim, random as lg_random
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    lg_random.seed(0)
+    cfg = BertConfig(**BERT_BASE)
+    model = BertForMaskedLM(cfg)
+    ids, mask, labels, lengths = bert_batch(cfg)
+    B, S, V = BERT_BATCH, BERT_SEQ, cfg.vocab_size
+    log(f"  valid lengths {lengths.tolist()}, {int((labels >= 0).sum())} "
+        f"labelled positions")
+    dev = torch.device("cuda")
+    tids = torch.tensor(ids, device=dev).long()
+    tmask = torch.tensor(mask, device=dev)
+    tlabels = torch.tensor(labels, device=dev).long()
+
+    # the plain twin on the same weights, in f32 and in f64
+    def twin(dtype):
+        params = {n: t.data.detach().to(dtype).requires_grad_(True)
+                  for n, t in model.named_parameters()}
+        logits = plain_bert(params, cfg, tids, tmask.to(dtype))
+        loss = F.cross_entropy(logits.reshape(B * S, V), tlabels,
+                               ignore_index=-100)
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        return logits.detach(), loss.item(), grads
+
+    plain_logits, plain_loss, grads32 = twin(torch.float32)
+    _, _, grads64 = twin(torch.float64)
+    torch.cuda.empty_cache()
+
+    opt = optim.AdamW(list(model.parameters()), lr=BERT_LR)
+    x_ids = Tensor.from_numpy(ids, requires_grad=False)
+    x_mask = Tensor.from_numpy(mask, requires_grad=False)
+    y = Tensor.from_numpy(labels, requires_grad=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times, host = [], [], []
+    for step in range(BERT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model(x_ids, attention_mask=x_mask)
+        loss = lg_loss.cross_entropy(logits.reshape(B * S, V), y,
+                                     ignore_index=-100)
+        opt.zero_grad()
+        loss.backward()
+        host.append(time.perf_counter() - t0)   # forward + backward queued
+        if step == 0:               # the checks' time is not the step's
+            torch.cuda.synchronize()
+            c0 = time.perf_counter()
+            check("BERT-base masked-LM logits vs the plain twin",
+                  torch.float32, logits.data, plain_logits,
+                  PATH_TOL[torch.float32])
+            log(f"  step-1 loss {loss.item():.5f}, plain twin "
+                f"{plain_loss:.5f}")
+            bert_grad_check(model, grads32, grads64)
+            del grads32, grads64, plain_logits
+            # the peak of a training step, without the twin's gradients
+            torch.cuda.reset_peak_memory_stats()
+            t0 += time.perf_counter() - c0
+        opt.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        del logits, loss
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ok = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    tok_s = B * S / float(np.median(times[1:]))
+    log(f"  losses: {[round(v, 4) for v in losses]} "
+        f"({'finite, falling' if ok else 'FAIL'})")
+    log(f"  {B}x{S} tokens a step: {tok_s:.1f} tok/s (median of steps "
+        f"2-{BERT_STEPS}, step times {[round(t, 4) for t in times]} s); "
+        f"peak memory of steps 2-{BERT_STEPS} {peak / 2**30:.2f} GiB; {card}")
+    log(f"  launches per step: "
+        f"{ {k: v // BERT_STEPS for k, v in counts.items() if v} }")
+    if not ok:
+        raise AssertionError(f"BERT loss not finite and falling: {losses}")
+    bert_step_breakdown(
+        lambda: bert_step(model, opt, x_ids, x_mask, y), float(np.median(
+            times[1:])), float(np.median(host[1:])))
+
+    # one unmasked step: self-attention takes the flash kernels
+    reset_launch_counts()
+    loss = lg_loss.cross_entropy(model(x_ids).reshape(B * S, V), y,
+                                 ignore_index=-100)
+    opt.zero_grad()
+    loss.backward()
+    opt.step()
+    torch.cuda.synchronize()
+    flash = launch_counts()
+    log(f"  unmasked step: loss {loss.item():.5f}, flash launches "
+        f"{ {k: flash[k] for k in FLASH_KERNELS} }")
+    if not np.isfinite(loss.item()):
+        raise AssertionError("unmasked BERT step: loss not finite")
+    del model, opt, loss
+    torch.cuda.empty_cache()
+    return counts, flash
+
+
+def phase_tape_example():
+    """Phase 7: examples/gradient_descent.py's loop (64 x 64) for 20 epochs
+    on the card; returns its launch counts."""
+    import lightgrad_tpu_torch as lt
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    lt.random.seed(0)
+    a, b, c = (lt.uniform(-1, 1, (64, 64)) for _ in range(3))
+    reset_launch_counts()
+    losses = []
+    for _ in range(20):
+        y = (a.tanh() + b.sigmoid()) @ (c.relu() - a.sigmoid())
+        loss = (y * y).sum()
+        for p in (a, b, c):
+            p.zero_grad()
+        loss.backward()
+        with lt.no_grad():
+            for p in (a, b, c):
+                p += p.grad * (-0.001)
+        losses.append(loss.item())
+    counts = launch_counts()
+    ok = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    log(f"  losses {losses[0]:.3f} -> {losses[-1]:.3f} over 20 epochs "
+        f"({'falling' if ok else 'FAIL'})")
+    if not ok:
+        raise AssertionError(f"gradient descent loss not falling: {losses}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -542,8 +1033,9 @@ def main():
     log("kernels vs plain versions:")
     phase_kernels(model, results)
     phase_train_kernels(results)
+    phase_tape_kernels(results)
 
-    # 4.-6. each path, with the kernels it launched
+    # 4.-8. each path, with the kernels it launched
     launches = dict.fromkeys(KERNELS, 0)
 
     def tally(path, counts, path_kernels):
@@ -569,6 +1061,12 @@ def main():
         tally(f"training ({what})", phase_train(dtype, card),
               TRAINING_KERNELS)
         torch.cuda.empty_cache()
+    log("lightgrad tape, BERT-base masked LM, float32, AdamW:")
+    bert, flash = phase_bert(card)
+    tally("BERT-base (masked)", bert, BERT_KERNELS)
+    tally("BERT-base (unmasked)", flash, FLASH_KERNELS)
+    log("lightgrad tape, gradient descent example (64 x 64):")
+    tally("gradient descent", phase_tape_example(), TAPE_KERNELS)
     missing = [k for k in KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels no path launched: {missing}")

@@ -1,6 +1,17 @@
-"""The port's differentiable fused ops.  The tape is ``torch.autograd``."""
+"""Two tapes.  The lightgrad tape -- ``Tensor`` (= ``CudaTensor``),
+``Function``, ``Gradients`` -- ported from ``lightgrad_tpu.autograd``; and
+the ``torch.autograd.Function``s ``attention`` and ``layernorm`` of the
+``torch.nn`` GPT-2 model."""
 
-from . import ops
+from .grads import Gradients, no_grad
+from .function import Function, composite
+from .tensor import AbstractTensor
+from . import ops  # install device-agnostic derived ops / dunders
 from .ops import attention, layernorm
+from .cuda import CudaTensor
 
-__all__ = ["ops", "attention", "layernorm"]
+# the default tensor: the CUDA backend, as TpuTensor is the JAX package's
+Tensor = CudaTensor
+
+__all__ = ["Gradients", "no_grad", "Function", "composite", "AbstractTensor",
+           "CudaTensor", "Tensor", "ops", "attention", "layernorm"]

@@ -1,11 +1,21 @@
-"""Fused layer ops as ``torch.autograd.Function``s.
+"""The tape's derived ops, and the fused ops of the ``torch.autograd`` models.
 
-Counterpart of the ``layernorm`` and ``attention`` Functions of
-``lightgrad_tpu/autograd/tpu/ops.py``: the forward runs the fused kernel and
-saves its residuals, the backward runs the kernel's backward.  On CUDA
-tensors both directions launch the hand-written kernels (ops/layernorm.py,
+Two tapes share this package.  The lightgrad tape (``Function``,
+``AbstractTensor``) gets here, as in ``lightgrad_tpu/autograd/ops.py``, its
+device-agnostic layer: the operator dunders, the ``sub/div/rsub/rdiv``
+composites, ``sigmoid/tanh/softmax/gelu`` fallbacks (the CUDA backend
+overrides them with fused ops), ``mean``, ``pad`` and the pooling family.
+Composites record their primitive sub-ops directly on the tape.
+
+The GPT-2 model is a ``torch.nn.Module`` on ``torch.autograd``; its fused
+``layernorm`` and ``attention`` are the ``torch.autograd.Function``s at the
+end of this module: the forward runs the fused kernel and saves its
+residuals, the backward runs the kernel's backward.  On CUDA tensors both
+directions launch the hand-written kernels (ops/layernorm.py,
 ops/attention.py); on CPU tensors, their plain versions.
 """
+
+from functools import reduce as _reduce
 
 import torch
 
@@ -63,3 +73,165 @@ def attention(q, k, v, scale: float, causal: bool = False):
     """Fused scaled-dot-product attention over (..., S, D) q/k/v; k and v
     may carry fewer leading rows (grouped-query, kv-major)."""
     return _Attention.apply(q, k, v, float(scale), bool(causal))
+
+
+# ---------------------------------------------------------------------------
+# the lightgrad tape: operator dunders -> registered methods
+# ---------------------------------------------------------------------------
+from .function import Function, composite  # noqa: E402
+from .tensor import AbstractTensor  # noqa: E402
+
+AbstractTensor.__neg__ = lambda t: t.neg()
+AbstractTensor.__pow__ = lambda a, b: a.pow(b)
+AbstractTensor.__add__ = lambda a, b: a.add(b)
+AbstractTensor.__radd__ = lambda a, b: a.add(b)
+AbstractTensor.__mul__ = lambda a, b: a.mul(b)
+AbstractTensor.__rmul__ = lambda a, b: a.mul(b)
+AbstractTensor.__sub__ = lambda a, b: a.sub(b)
+AbstractTensor.__truediv__ = lambda a, b: a.div(b)
+AbstractTensor.__rsub__ = lambda b, a: b.rsub(a)
+AbstractTensor.__rtruediv__ = lambda b, a: b.rdiv(a)
+AbstractTensor.__matmul__ = lambda a, b: a.dot(b)
+# in-place dunders route to the backend's in-place ops (iadd/isub/...)
+AbstractTensor.__iadd__ = lambda a, b: a.iadd(b)
+AbstractTensor.__isub__ = lambda a, b: a.isub(b)
+AbstractTensor.__imul__ = lambda a, b: a.imul(b)
+AbstractTensor.__itruediv__ = lambda a, b: a.idiv(b)
+
+
+# --- arithmetic composites (backends may override with fused primitives) --
+@composite
+def sub(a, b):
+    return a + (-b)
+
+
+@composite
+def div(a, b):
+    return a * (b ** -1.0)
+
+
+@composite
+def rsub(b, a):
+    """``a - b`` with ``a`` a scalar on the left."""
+    return (-b) + a
+
+
+@composite
+def rdiv(b, a):
+    """``a / b`` with ``a`` a scalar on the left."""
+    return (b ** -1.0) * a
+
+
+AbstractTensor.register_method("sub", sub)
+AbstractTensor.register_method("div", div)
+AbstractTensor.register_method("rsub", rsub)
+AbstractTensor.register_method("rdiv", rdiv)
+
+
+# --- activations ----------------------------------------------------------
+@composite
+def sigmoid(t):
+    return 1.0 / (1.0 + t.neg().exp())
+
+
+@composite
+def tanh(t):
+    # tanh(x) = 2*sigmoid(2x) - 1
+    return (t * 2.0).sigmoid() * 2.0 - 1.0
+
+
+@composite
+def softmax(t, axis: int = -1):
+    exps = (t - t.max(axis=axis, keepdims=True)).exp()
+    return exps / exps.sum(axis=axis, keepdims=True)
+
+
+@composite
+def gelu(t):
+    """tanh-approximated GELU (the BERT variant)."""
+    return t * ((t * 0.7978845608028654 * (1.0 + 0.044715 * t * t)).tanh()
+                + 1.0) * 0.5
+
+
+AbstractTensor.register_method("sigmoid", sigmoid)
+AbstractTensor.register_method("tanh", tanh)
+AbstractTensor.register_method("softmax", softmax)
+AbstractTensor.register_method("gelu", gelu)
+
+
+# --- reductions -----------------------------------------------------------
+@composite
+def mean(t, axis=None, keepdims: bool = False):
+    s = t.sum(axis=axis, keepdims=keepdims)
+    count = t.numel() / max(s.numel(), 1)
+    return s * (1.0 / count)
+
+
+AbstractTensor.register_method("mean", mean)
+
+
+# --- padding (backends override with a native pad) ------------------------
+@AbstractTensor.register_op()
+class pad(Function):
+    """Zero- (or value-) pad the trailing ``dims`` by ``padding`` on both
+    sides."""
+
+    def forward(ctx, t, padding, dims: tuple = (-2, -1), value: float = 0.0):
+        n = len(dims)
+        lo, hi = padding if isinstance(padding, tuple) else (padding, padding)
+        ctx.save_for_backward(lo, hi, n)
+        out_shape = t.shape[:-n] + tuple(lo + hi + s for s in t.shape[-n:])
+        out = type(t).empty(out_shape, dtype=t.dtype).fill(value).detach()
+        idx = tuple(slice(None) for _ in t.shape[:-n]) + tuple(
+            slice(lo, lo + s) for s in t.shape[-n:])
+        out[idx] = t
+        return out
+
+    def backward(ctx, out_grad):
+        lo, hi, n = ctx.get_saved_tensors()
+        idx = tuple(slice(None) for _ in out_grad.shape[:-n]) + tuple(
+            slice(lo, s - hi) for s in out_grad.shape[-n:])
+        return out_grad[idx]
+
+
+# --- pooling: window extraction via reshape/transpose, then a reduction
+# over axis 0; the tape provides the backward ------------------------------
+@composite
+def pool(t, kernel: tuple = (2, 2)):
+    n = len(kernel)
+    lead, spatial = t.shape[:-n], t.shape[-n:]
+    out_sp = tuple(d // k for d, k in zip(spatial, kernel))
+    cropped = tuple(o * k for o, k in zip(out_sp, kernel))
+    if cropped != spatial:
+        idx = tuple(slice(None) for _ in lead) + tuple(
+            slice(c) for c in cropped)
+        t = t[idx]
+    split_shape = lead + sum(((o, k) for o, k in zip(out_sp, kernel)), ())
+    t = t.reshape(*split_shape)
+    m = len(lead)
+    kernel_axes = tuple(m + 2 * i + 1 for i in range(n))
+    block_axes = tuple(m + 2 * i for i in range(n))
+    t = t.transpose(*kernel_axes, *range(m), *block_axes)
+    flat_k = _reduce(lambda a, b: a * b, kernel, 1)
+    return t.reshape(flat_k, *lead, *out_sp)
+
+
+@composite
+def max_pool(t, kernel: tuple = (2, 2)):
+    return t.pool(kernel=kernel).max(axis=0, keepdims=False)
+
+
+@composite
+def min_pool(t, kernel: tuple = (2, 2)):
+    return t.pool(kernel=kernel).min(axis=0, keepdims=False)
+
+
+@composite
+def mean_pool(t, kernel: tuple = (2, 2)):
+    return t.pool(kernel=kernel).mean(axis=0, keepdims=False)
+
+
+AbstractTensor.register_method("pool", pool)
+AbstractTensor.register_method("max_pool", max_pool)
+AbstractTensor.register_method("min_pool", min_pool)
+AbstractTensor.register_method("mean_pool", mean_pool)

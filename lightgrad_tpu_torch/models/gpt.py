@@ -8,14 +8,14 @@ and the ``_kv_functions`` contract the serving engine drives.
 
 The hand-written kernels on the training path (``GPT.forward`` under
 ``torch.autograd``): the fused LayerNorm forward and backward (ops/
-layernorm.py, through nn.LayerNorm) and the flash-attention forward and
-backward (ops/attention.py, through autograd/ops.py).  On the serving path:
-prefill's causal attention, the whole-stack decode kernel for ``step``,
-``extend`` and ``step_batch`` (ops/decode_stack.py), and, when the stack is
-not packed, the per-layer decode attention (ops/decode_attention.py).  The
-serving path's LayerNorm, GELU, the products outside the kernels, the
-embedding gathers, the cache scatters and sampling are plain PyTorch, as
-they were plain XLA in the JAX package.
+layernorm.py, through models/_torch_layers.py) and the flash-attention
+forward and backward (ops/attention.py, through autograd/ops.py).  On the
+serving path: prefill's causal attention, the whole-stack decode kernel for
+``step``, ``extend`` and ``step_batch`` (ops/decode_stack.py), and, when the
+stack is not packed, the per-layer decode attention
+(ops/decode_attention.py).  The serving path's LayerNorm, GELU, the
+products outside the kernels, the embedding gathers, the cache scatters and
+sampling are plain PyTorch, as they were plain XLA in the JAX package.
 """
 
 import numpy as np
@@ -24,7 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..autograd.ops import attention
-from ..nn import LayerNorm
+from ._torch_layers import LayerNorm
 from ..ops.attention import attention_fwd
 from ..ops.decode_attention import decode_attention
 from ..ops.decode_stack import (decode_stack, decode_stack_batch,

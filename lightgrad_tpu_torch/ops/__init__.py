@@ -13,7 +13,12 @@ from .decode_stack import (decode_stack, decode_stack_batch,
                            decode_stack_batch_reference,
                            decode_stack_reference, pack_gpt_stack,
                            stack_supported)
+from .elementwise import ew, ew_reference
 from .layernorm import (layernorm_bwd_dx, layernorm_bwd_dx_reference,
                         layernorm_fwd, layernorm_fwd_reference)
+from .matmul import matmul, matmul_reference, matmul_vjp
+from .reduce import reduce, reduce_reference
 from .runtime import (KERNELS, device_kind, device_name, kernels_in_use,
                       launch_counts, reset_launch_counts)
+from .softmax import (softmax_bwd, softmax_bwd_reference, softmax_fwd,
+                      softmax_fwd_reference)

@@ -53,6 +53,10 @@ _SIGNATURES = {
     "lg_decode_stack_workspace": ([_I, _I, _I], _LL),
     # is_bf16 -> blocks of the stack kernel's cooperative grid (0: refused)
     "lg_decode_stack_grid": ([_I], _I),
+    # A, B, C, M, N, K, batch, B2, sAb1, sAb2, sAm, sAk, sBb1, sBb2, sBk,
+    # sBn, is_bf16, stream
+    "lg_matmul": ([_P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL,
+                   _LL, _LL, _LL, _I, _P], _I),
     "lg_error_string": ([_I], _S),
 }
 

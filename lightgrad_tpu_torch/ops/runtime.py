@@ -15,7 +15,8 @@ __all__ = ["device_kind", "device_name", "kernels_in_use", "KERNELS",
 # to its count where it launches its kernel, and nowhere else.
 KERNELS = ("attention_fwd", "decode_attention", "decode_stack",
            "decode_stack_batch", "attention_bwd_dq", "attention_bwd_dkv",
-           "layernorm_fwd", "layernorm_bwd")
+           "layernorm_fwd", "layernorm_bwd", "elementwise", "reduce",
+           "matmul", "softmax_fwd", "softmax_bwd")
 _launches = dict.fromkeys(KERNELS, 0)
 
 

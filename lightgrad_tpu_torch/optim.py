@@ -2,9 +2,13 @@
 Adafactor, Muon; EMA shadow weights; global-norm gradient clipping.
 
 Counterpart of ``lightgrad_tpu/optim.py``, with its update rules.
-Parameters are ``torch.nn.Parameter``s (or leaf tensors) and their gradients
-``.grad``; a parameter whose ``.grad`` is None is left alone.  Updates run
-under ``torch.no_grad()`` and write parameters and state in place.
+Parameters are either ``torch.nn.Parameter``s (or leaf tensors), whose
+gradients are ``.grad`` and which are updated in place, or lightgrad
+tensors (the tape's ``CudaTensor``), whose ``.data`` and ``.grad.data`` the
+same rules read and which are rebound to a fresh buffer, as the tape's
+value semantics ask.  ``zero_grad`` then calls each tensor's ``zero_grad``.
+A parameter whose gradient is None is left alone.  Updates run under
+``torch.no_grad()``; the optimizers' own state is updated in place.
 
 All state is tensors on the parameters' device, the step counter included,
 and the bias corrections are ``exp(t * ln beta)`` of that counter, so a step
@@ -18,6 +22,8 @@ import math
 
 import torch
 
+from .autograd import AbstractTensor
+
 __all__ = ["Optimizer", "SGD", "Adam", "AdamW", "AdaBelief", "Lion",
            "RMSprop", "Adagrad", "Adafactor", "Muon", "EMA",
            "clip_grad_norm"]
@@ -25,22 +31,45 @@ __all__ = ["Optimizer", "SGD", "Adam", "AdamW", "AdaBelief", "Lion",
 
 class Optimizer:
     def __init__(self, parameters):
-        self.parameters = tuple(parameters)
+        params = tuple(parameters)
+        # lightgrad tensors: the rules run on their buffers, read afresh at
+        # every step (load_parameters may have rebound them)
+        self._tape = params if params and isinstance(
+            params[0], AbstractTensor) else None
+        self.parameters = tuple(p.data for p in params) \
+            if self._tape else params
         # optional scalar {0,1} tensor set by amp.MixedPrecision: a 0 gate
         # algebraically skips the step
         self._gate = None
 
     def zero_grad(self):
+        if self._tape is not None:
+            for p in self._tape:
+                p.zero_grad()
+            return
         for p in self.parameters:
             p.grad = None
 
+    def _grads(self):
+        if self._tape is None:
+            return [p.grad for p in self.parameters]
+        return [None if p.grad is None else p.grad.data for p in self._tape]
+
     @torch.no_grad()
     def step(self):
-        for i, p in enumerate(self.parameters):
-            if p.grad is None:
+        if self._tape is not None:
+            self.parameters = tuple(p.data for p in self._tape)
+        for i, (p, grad) in enumerate(zip(self.parameters, self._grads())):
+            if grad is None:
                 continue
-            d = self.compute_delta(p.grad, i)
-            p += d * self._gate if self._gate is not None else d
+            d = self.compute_delta(grad, i)
+            d = d * self._gate if self._gate is not None else d
+            if self._tape is None:
+                p += d
+            else:
+                self._tape[i]._set_data((p + d).to(p.dtype))
+        if self._tape is not None:
+            self.parameters = tuple(p.data for p in self._tape)
 
     def compute_delta(self, grad, idx):
         raise NotImplementedError()
@@ -451,14 +480,20 @@ class EMA:
 def clip_grad_norm(parameters, max_norm: float):
     """Scale all gradients so their global L2 norm is at most ``max_norm``,
     with no host sync: ``min(1, max_norm / (norm + 1e-6))`` is a scalar
-    tensor multiplied into every gradient in place.  Returns the norm (a
-    scalar f32 tensor)."""
+    tensor multiplied into every gradient in place (a lightgrad gradient is
+    rebound).  Returns the norm (a scalar f32 tensor)."""
     params = [p for p in parameters if p.grad is not None]
     if not params:
         raise ValueError("clip_grad_norm: no parameter has a gradient")
-    norm = sum((p.grad.float() ** 2).sum() for p in params).sqrt()
+    grads = [p.grad.data if isinstance(p, AbstractTensor) else p.grad
+             for p in params]
+    norm = sum((g.float() ** 2).sum() for g in grads).sqrt()
     over = (norm > max_norm).float()
     scale = over * (max_norm / (norm + 1e-6)) + (1.0 - over)
     for p in params:
-        p.grad *= scale
+        if isinstance(p, AbstractTensor):
+            g = p.grad          # the tape's imul rebinds the same object
+            g *= scale
+        else:
+            p.grad *= scale
     return norm

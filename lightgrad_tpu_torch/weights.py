@@ -2,18 +2,22 @@
 
 ``load_numpy_params(model, named)`` copies ``{name: array}`` -- for example
 ``{n: np.asarray(t.data) for n, t in jax_model.named_parameters()}`` -- into
-the port's model.  Both packages store Linear weights as torch's (out, in),
-so nothing is transposed; names and shapes must match exactly.
+the port's model: a ``torch.nn.Module`` (GPT-2) or a lightgrad
+``nn.Module`` (BERT), the latter through its ``load_parameters``.  Both
+packages store Linear weights as torch's (out, in), so nothing is
+transposed; names and shapes must match exactly.
 """
 
 import numpy as np
 import torch
 
+from . import nn
+
 __all__ = ["load_numpy_params"]
 
 
 @torch.no_grad()
-def load_numpy_params(model: torch.nn.Module, named: dict):
+def load_numpy_params(model, named: dict):
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(named))
     extra = sorted(set(named) - set(params))
@@ -29,7 +33,11 @@ def load_numpy_params(model: torch.nn.Module, named: dict):
             raise ValueError(f"load_numpy_params: {name} has shape "
                              f"{tuple(arr.shape)}, the model {tuple(t.shape)}")
         arrays[name] = arr
-    for name, t in params.items():      # checked all before changing any
+    # checked all before changing any
+    if isinstance(model, nn.Module):
+        model.load_parameters(arrays)
+        return model
+    for name, t in params.items():
         t.copy_(torch.tensor(arrays[name]))
     model.__dict__.pop("_kv_fns", None)    # decode functions hold old weights
     return model

@@ -17,7 +17,7 @@ from lightgrad_tpu.models import GPTConfig as JaxGPTConfig
 from lightgrad_tpu_torch import GPT, GPTConfig, amp, load_numpy_params, optim
 from lightgrad_tpu_torch.autograd import ops as autograd_ops
 from lightgrad_tpu_torch.loss import cross_entropy
-from lightgrad_tpu_torch.nn import LayerNorm
+from lightgrad_tpu_torch.models._torch_layers import LayerNorm
 from tests.torch_port import jax_kernel_mode, to_np
 
 CFG = dict(vocab_size=96, n_positions=32, n_embd=64, n_layer=2, n_head=4)

@@ -205,3 +205,145 @@ def test_wrappers_raise_on_what_the_kernels_lack(dev):
                      torch.zeros(1, 2, 12, 16, 64, device=dev), 0,
                      torch.zeros(1, 12, 768, 768, device=dev),
                      torch.zeros(1, 13, 768, device=dev), eps=1e-5)  # n = 9
+
+
+# --- the generic op set of the lightgrad tape --------------------------------
+from lightgrad_tpu_torch.ops.elementwise import ew, ew_reference  # noqa: E402
+from lightgrad_tpu_torch.ops.matmul import (matmul, matmul_reference,  # noqa
+                                            matmul_vjp)
+from lightgrad_tpu_torch.ops.reduce import reduce, reduce_reference  # noqa
+from lightgrad_tpu_torch.ops.softmax import (softmax_bwd,  # noqa: E402
+                                             softmax_bwd_reference,
+                                             softmax_fwd,
+                                             softmax_fwd_reference)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("body,shapes", [
+    ("f_gelu", [(1024, 3072)]),
+    ("b_gelu", [(1024, 3072), (1024, 3072)]),
+    ("f_add", [(8, 12, 128, 128), (8, 1, 1, 128)]),     # the padding mask
+    ("f_mul", [(1024, 768), ()]),                       # a scalar
+    ("b2_mul", [(4, 33, 7), (4, 33, 7), (33, 1)]),      # two outputs
+    ("b2_pow", [(5, 9), (5, 9), (9,), (5, 9)]),
+    ("b_minmax", [(1024, 30), (1024, 30), (1024, 1)]),
+    ("f_eq", [(64, 65), (1, 65)]),
+])
+def test_elementwise_kernel(dev, body, shapes, dtype):
+    g = torch.Generator(device=dev).manual_seed(len(shapes))
+    xs = [_randn(g, *s, dtype=dtype) for s in shapes]
+    if "pow" in body:
+        xs[1] = xs[1].abs() + 0.5
+    if body == "b_minmax":
+        xs[2] = xs[1].amax(-1, keepdim=True)
+    n_out = 2 if body.startswith("b2_") else 1
+    reset_launch_counts()
+    got = ew(body, *xs, n_out=n_out)
+    torch.cuda.synchronize()
+    assert launch_counts()["elementwise"] == 1
+    want = ew_reference(body, *xs, n_out=n_out)
+    for a, b in zip(got if n_out > 1 else (got,), want if n_out > 1
+                    else (want,)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        _close(a, b, dtype)
+
+
+def test_elementwise_int32_and_views(dev):
+    ids = torch.arange(-6, 6, device=dev, dtype=torch.int32).reshape(3, 4)
+    half = torch.tensor(0.5, device=dev)
+    y = ew("f_mul", ids, half)
+    assert y.dtype == torch.float32
+    assert torch.equal(y, ids.float() * 0.5)
+    assert torch.equal(ew("f_add", ids, ids), ids + ids)
+    x = torch.randn(6, 5, device=dev)
+    assert torch.equal(ew("f_neg", x.T), -x.T)       # a transposed view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,axis,op", [
+    ((1024, 768), 0, "sum"),          # a bias gradient: column sums
+    ((8, 128, 3072), (0, 1), "sum"),
+    ((1024, 30522), -1, "max"),       # the loss's row max
+    ((1024, 30522), -1, "sum"),
+    ((7, 33, 5), (0, 2), "min"),
+    ((1000,), None, "sum"),
+])
+def test_reduce_kernel(dev, shape, axis, op, dtype):
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = _randn(g, *shape, dtype=dtype)
+    reset_launch_counts()
+    got = reduce(x, op, axis=axis)
+    torch.cuda.synchronize()
+    assert launch_counts()["reduce"] == 1
+    want = reduce_reference(x, op, axis=axis)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    _close(got, want, dtype)
+
+
+def test_reduce_kernel_strided_and_int(dev):
+    x = torch.randn(8, 12, 64, device=dev).permute(2, 0, 1)
+    _close(reduce(x, "sum", axis=(1, 2), keepdims=True),
+           reduce_reference(x, "sum", axis=(1, 2), keepdims=True),
+           torch.float32)
+    ids = torch.randint(-50, 50, (37, 19), device=dev, dtype=torch.int32)
+    for op in ("sum", "max", "min"):
+        assert torch.equal(reduce(ids, op, axis=1),
+                           reduce_reference(ids, op, axis=1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sa,sb,tb", [
+    ((1024, 768), (768, 3072), False),
+    ((1024, 768), (30522, 768), True),      # x @ W.T of the decoder
+    ((37, 19), (19, 45), False),            # ragged M, N, K
+    ((2, 3, 5, 7), (3, 7, 4), False),       # broadcast batch
+])
+def test_matmul_kernel(dev, sa, sb, tb, dtype):
+    g = torch.Generator(device=dev).manual_seed(11)
+    a = _randn(g, *sa, dtype=dtype)
+    b = _randn(g, *sb, dtype=dtype)
+    b = b.T if tb else b
+    reset_launch_counts()
+    got = matmul(a, b)
+    torch.cuda.synchronize()
+    assert launch_counts()["matmul"] == 1
+    _close(got, matmul_reference(a, b), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_kernel_attention_views_and_vjp(dev, dtype):
+    """q k^T and p v on (b, s, h, d) -> (b, h, s, d) views, no copies, and
+    the gradients of a Linear with a shared weight."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = _randn(g, 8, 128, 768, dtype=dtype)
+    q = x.reshape(8, 128, 12, 64).transpose(1, 2)
+    k = _randn(g, 8, 128, 768, dtype=dtype).reshape(8, 128, 12, 64) \
+        .transpose(1, 2)
+    s = matmul(q, k.transpose(-1, -2))
+    _close(s, matmul_reference(q, k.transpose(-1, -2)), dtype)
+    p = torch.softmax(s.float(), -1).to(dtype)
+    _close(matmul(p, k), matmul_reference(p, k), dtype)
+    w = _randn(g, 3072, 768, dtype=dtype, scale=0.05)
+    gy = _randn(g, 8, 128, 3072, dtype=dtype)
+    ga, gb = matmul_vjp(gy, x, w.T)
+    _close(ga, matmul_reference(gy, w), dtype)
+    _close(gb, matmul_reference(x.reshape(-1, 768).T,
+                                gy.reshape(-1, 3072)), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 12, 128, 128), (1024, 30522), (5, 7)])
+def test_softmax_kernels(dev, shape, dtype):
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = _randn(g, *shape, scale=3.0, dtype=dtype)
+    if len(shape) == 4:
+        x[..., 100:] += -1e9
+    dy = _randn(g, *shape, dtype=dtype)
+    reset_launch_counts()
+    y = softmax_fwd(x)
+    dx = softmax_bwd(dy, y)
+    torch.cuda.synchronize()
+    assert launch_counts()["softmax_fwd"] == launch_counts()["softmax_bwd"] \
+        == 1
+    _close(y, softmax_fwd_reference(x), dtype)
+    _close(dx, softmax_bwd_reference(dy, y), dtype)

@@ -13,7 +13,7 @@ from lightgrad_tpu.autograd import Tensor
 from lightgrad_tpu.ops.layernorm import layernorm_bwd_dx as jax_ln_bwd_dx
 from lightgrad_tpu.ops.layernorm import layernorm_fwd as jax_ln_fwd
 from lightgrad_tpu_torch.autograd import layernorm
-from lightgrad_tpu_torch.nn import LayerNorm
+from lightgrad_tpu_torch.models._torch_layers import LayerNorm
 from lightgrad_tpu_torch.ops.layernorm import (layernorm_bwd_dx,
                                                layernorm_fwd)
 from tests.torch_port import jax_kernel_mode, rand, to_np

@@ -8,6 +8,7 @@ numpy arrays.  The JAX side runs on the CPU in ``pallas`` (interpret) or
 import contextlib
 
 import numpy as np
+import pytest
 import torch
 
 from lightgrad_tpu.ops import runtime as jax_runtime
@@ -32,3 +33,15 @@ def to_np(t):
     if isinstance(t, torch.Tensor):
         return t.detach().float().cpu().numpy()
     return np.asarray(t, np.float32)
+
+
+@pytest.fixture(autouse=True)
+def cpu_device():
+    """New lightgrad tensors of the port on the CPU for the test (the port's
+    default device is "cuda"); import this fixture into a test module to
+    apply it there."""
+    from lightgrad_tpu_torch.autograd.cuda import device
+
+    prev = device.set_default_device("cpu")
+    yield
+    device.set_default_device(prev)
