@@ -1,6 +1,7 @@
-"""Smoke run of the PyTorch port's paths on one NVIDIA GPU: GPT-2 serving and
-training (torch.autograd), BERT-base masked-LM training and the
-gradient-descent example on the lightgrad tape.
+"""Smoke run of the PyTorch port's paths on one NVIDIA GPU: GPT-2 serving (float
+and int8) and training (torch.autograd), BERT-base masked-LM training, its
+int8 ``QuantLinear`` forward and the gradient-descent example on the
+lightgrad tape.
 
     python3 chip_smoke.py
 
@@ -10,13 +11,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
   3. kernels: each hand-written kernel (CUDA C++ or Triton) against its
      plain PyTorch version on the card, at its path's shapes, in float32 and
      bfloat16 -- max abs / rel error against a stated tolerance, CUDA-event
-     times of both;
+     times of both, of one PyTorch call computing the same function where
+     there is one, and the kernel's bound (the least time of its bytes at
+     3.35 TB/s or its operations at the dtype's peak); the stack kernel's
+     six int8 instantiations on GPT-2 small's own quantized weights;
   4. serving path, GPT-2 small at its published widths (vocab 50257, 1024
      positions, d 768, 12 layers, 12 heads; seeded random weights), once in
      float32 and once after ``model.to(torch.bfloat16)``: ``generate``,
      ``generate_batch``, an ``InferenceEngine`` over 32 ragged requests, and
      a teacher-forced check of prefill + cached steps (packed whole-stack
      kernel and unrolled branch) against a plain full-sequence forward;
+     then the same under ``quantize_serving``, ``quantize_kv`` and both
+     (int8 weights against a plain forward over the dequantized weights,
+     the int8 cache's two branches against each other and its tokens
+     against the float cache's), with the engine's peak memory and cache
+     bytes; in bfloat16, one long-context ``generate`` (960-token prompt)
+     with the float and the int8 cache;
   5. training path, the same model on 8 x 1024 random tokens: (a) float32
      with Adam, (b) bfloat16 ``MixedPrecision`` with AdamW, 5 steps each on
      one batch -- the loss must be finite and fall, and step 1's gradients
@@ -30,7 +40,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      batch -- the loss must be finite and fall, step 1's logits and every
      parameter's gradient must match a plain twin (the ``_reference``
      versions under torch autograd), and one unmasked step must take the
-     flash kernels;
+     flash kernels; then a fresh BERT-base after ``quantize_module``: one
+     forward against the float model's logits (cosine) and one backward;
   7. the tape's smallest path, examples/gradient_descent.py's loop (64 x 64)
      for 20 epochs: the loss must fall;
   8. every kernel of each path was launched by that path, and every kernel
@@ -62,6 +73,22 @@ KERNEL_SOURCES = {
                      "lightgrad_tpu/ops/decode_stack.py:282"),
     "decode_stack_batch": ("cuda", "lightgrad_tpu_torch/csrc/decode_stack.cu",
                            "lightgrad_tpu/ops/decode_stack.py:423"),
+    "decode_stack_int8": ("cuda", "lightgrad_tpu_torch/csrc/decode_stack.cu",
+                          "lightgrad_tpu/ops/decode_stack.py:158"),
+    "decode_stack_kvq": ("cuda", "lightgrad_tpu_torch/csrc/decode_stack.cu",
+                         "lightgrad_tpu/ops/decode_stack.py:168"),
+    "decode_stack_int8_kvq": ("cuda",
+                              "lightgrad_tpu_torch/csrc/decode_stack.cu",
+                              "lightgrad_tpu/ops/decode_stack.py:176"),
+    "decode_stack_batch_int8": ("cuda",
+                                "lightgrad_tpu_torch/csrc/decode_stack.cu",
+                                "lightgrad_tpu/ops/decode_stack.py:202"),
+    "decode_stack_batch_kvq": ("cuda",
+                               "lightgrad_tpu_torch/csrc/decode_stack.cu",
+                               "lightgrad_tpu/ops/decode_stack.py:210"),
+    "decode_stack_batch_int8_kvq": ("cuda",
+                                    "lightgrad_tpu_torch/csrc/decode_stack.cu",
+                                    "lightgrad_tpu/ops/decode_stack.py:217"),
     "attention_bwd_dq": ("cuda", "lightgrad_tpu_torch/csrc/flash_bwd.cu",
                          "lightgrad_tpu/ops/attention.py:604"),
     "attention_bwd_dkv": ("cuda", "lightgrad_tpu_torch/csrc/flash_bwd.cu",
@@ -83,6 +110,9 @@ KERNEL_SOURCES = {
 }
 SERVING_KERNELS = ("attention_fwd", "decode_attention", "decode_stack",
                    "decode_stack_batch")
+# quantization mode -> the stack kernel's instantiations its serving runs
+INT8_MODES = {"quantize_serving": "_int8", "quantize_kv": "_kvq",
+              "both": "_int8_kvq"}
 TRAINING_KERNELS = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv",
                     "layernorm_fwd", "layernorm_bwd")
 # the masked BERT step; its unmasked step adds the flash kernels
@@ -109,6 +139,10 @@ BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
                  max_position_embeddings=512, type_vocab_size=2,
                  layer_norm_eps=1e-12)
 BERT_BATCH, BERT_SEQ, BERT_STEPS, BERT_LR = 8, 128, 5, 1e-4
+# One H100 SXM (NVIDIA's data sheet, dense rates at 700 W): HBM bytes
+# a second and dense peak operations a second by input type
+HBM_BPS = 3.35e12
+PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 
 def log(*a):
@@ -158,10 +192,13 @@ def graph_ms(fn, iters=20):
     return ms
 
 
-def timed(results, dtype, name, err, kernel, plain, iters=20):
-    """Record ``kernel`` and ``plain`` by device time (graph replay)."""
+def timed(results, dtype, name, err, kernel, plain, cost, library,
+          iters=20):
+    """Record ``kernel``, ``plain`` and ``library`` by device time (graph
+    replay)."""
     record(results, dtype, name, err, graph_ms(kernel, iters),
-           graph_ms(plain, iters), timing="graph")
+           graph_ms(plain, iters), timing="graph", cost=cost,
+           library_ms=graph_ms(library, iters))
 
 
 def errors(got, want):
@@ -191,25 +228,68 @@ def discriminates(name, dtype, want, tol, *wrong):
                                  f"wrong output is within {tol}")
 
 
+def bound_ms(nbytes, ops, dtype):
+    """The least time the card could take for a call: its bytes (each input
+    read once, each output written once) at HBM_BPS or its operations at
+    the input type's peak, whichever is longer, and which of the two."""
+    by_bytes = nbytes / HBM_BPS * 1e3
+    by_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                          "operations")
+
+
 def record(results, dtype, name, err, ms=None, plain_ms=None,
-           timing="eager"):
+           timing="eager", cost=None, library_ms=None):
     """Fold one comparison (and, when timed, both times) into ``results``:
     f32 under plain keys, bf16 under ``bf16_`` keys.  ``timing`` says how
     the times were taken: "eager" (:func:`cuda_ms`, launch work included)
-    or "graph" (:func:`graph_ms`, device time only)."""
+    or "graph" (:func:`graph_ms`, device time only).  A timed record also
+    takes ``cost``, the (bytes, operations) of the timed call, for its
+    bound, and ``library_ms``, one PyTorch call's time for the same
+    function (None where PyTorch has none)."""
     r = results.setdefault(name, {"max_abs_err": 0.0})
     key = "" if dtype == torch.float32 else "bf16_"
     r[key + "max_abs_err"] = max(r.get(key + "max_abs_err", 0.0), err)
     if ms is not None:
         r[key + "ms"], r[key + "plain_ms"] = ms, plain_ms
+        r[key + "bound_ms"], r[key + "bound_by"] = bound_ms(*cost, dtype)
+        r[key + "library_ms"] = library_ms
         r["timing"] = timing
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"  {name} {str(dtype)[6:]}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
+            f"plain {plain_ms:.4f} ms, library {lib}, bound "
+            f"{r[key + 'bound_ms']:.4f} ms ({r[key + 'bound_by']})")
+
+
+def stack_cost(n, L, d, H, lens, dtype, w_int8=False, kv_int8=False,
+               R=4):
+    """(bytes, operations) of one whole-stack call: the slabs (and their
+    column scales), vecs, x in and out, the emitted K/V rows, and the cache
+    rows the data makes visible (``lens``: the rows each slot's row reads;
+    a slot shared by the n extend rows counts once, with its scales);
+    operations: the 12 d x d products a row a layer, and q.k plus p.v over
+    the visible cache rows and the in-flight ones."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    S, hd = 4 + 2 * R, d // H
+    rows = sum(lens)
+    nbytes = (L * S * d * d * (1 if w_int8 else isz)
+              + (L * S * d * 4 if w_int8 else 0) + L * (9 + R) * d * isz
+              + 2 * n * d * isz + L * 2 * n * d * isz
+              + rows * L * 2 * H * (hd * (1 if kv_int8 else isz)
+                                    + (4 if kv_int8 else 0)))
+    seen = (n * lens[0] + n * (n + 1) // 2) if len(lens) == 1 \
+        else rows + n
+    ops = 2 * n * L * S * d * d + 4 * L * H * hd * seen
+    return nbytes, ops
 
 
 def phase_kernels(model, results):
     """Phase 3, serving kernels: each vs its plain version at the serving
-    path's shapes."""
+    path's shapes; the stack kernel also in its six int8 instantiations on
+    the model's own weights as ``quantize_serving`` stores them."""
+    import torch.nn.functional as F
+
+    from lightgrad_tpu_torch.models.gpt import quantize_rows
     from lightgrad_tpu_torch.ops.attention import (attention_fwd_res,
                                                    attention_fwd_reference)
     from lightgrad_tpu_torch.ops.decode_attention import (
@@ -223,8 +303,14 @@ def phase_kernels(model, results):
     hd, eps, dev = d // H, cfg.layer_norm_epsilon, torch.device("cuda")
     sc = hd ** -0.5
     g = torch.Generator(device=dev).manual_seed(1)
+    # int8 slabs and their f32 column scales, from the f32 weights
+    qp = model.quantize_serving()._kv_functions().step.params
+    model.quantize_serving(False)
+    slabs8, scales8 = qp["stack#slabs"], qp["stack#scales"]
+    del qp
     for dtype in (torch.float32, torch.bfloat16):
         tol = KERNEL_TOL[dtype]
+        isz = torch.tensor([], dtype=dtype).element_size()
 
         def rnd(*shape):
             return torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -237,7 +323,11 @@ def phase_kernels(model, results):
         check("attention_fwd lse", dtype, lse, rl, KERNEL_TOL[torch.float32])
         record(results, dtype, "attention_fwd", err,
                cuda_ms(lambda: attention_fwd_res(q, k, v, sc, True)),
-               cuda_ms(lambda: attention_fwd_reference(q, k, v, sc, True)))
+               cuda_ms(lambda: attention_fwd_reference(q, k, v, sc, True)),
+               cost=(4 * H * W * hd * isz + H * W * 4,
+                     2 * H * W * (W + 1) * hd),
+               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True)))
 
         # decode attention: one token, (H, 1, hd) over W cache rows
         kc, vc = rnd(H, W, hd), rnd(H, W, hd)
@@ -246,69 +336,95 @@ def phase_kernels(model, results):
             got = decode_attention(q1, kc, vc, pos, sc)
             want = decode_attention_reference(q1, kc, vc, pos, sc)
             err = check(f"decode_attention pos={pos}", dtype, got, want, tol)
-            record(results, dtype, "decode_attention", err, None, None)
+            record(results, dtype, "decode_attention", err)
         record(results, dtype, "decode_attention", 0.0,
                cuda_ms(lambda: decode_attention(q1, kc, vc, 512, sc)),
-               cuda_ms(lambda: decode_attention_reference(q1, kc, vc, 512, sc)))
+               cuda_ms(lambda: decode_attention_reference(q1, kc, vc, 512,
+                                                          sc)),
+               cost=((2 * H * hd + 2 * 513 * H * hd) * isz,
+                     4 * H * 513 * hd),
+               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                   q1, kc[:, :513], vc[:, :513])))
 
-        # whole-stack kernel on the model's own packed weights
+        # whole-stack kernel on the model's own packed weights, float and
+        # int8 (slabs, cache or both)
         p = {n: t.detach().to(dtype) for n, t in model.named_parameters()
              if n.startswith("h.")}
         packed = pack_gpt_stack(p, L, d)
         slabs, vecs = packed["stack#slabs"], packed["stack#vecs"]
-        del p
+        del p, packed
         cache = rnd(L, 2, H, W, hd)
-        for n in (1, 4):
-            x = rnd(n, d)
-            for pos in (0, 37, 1000):
-                got = decode_stack(x, cache, pos, slabs, vecs, eps=eps)
-                want = decode_stack_reference(x, cache, pos, slabs, vecs,
-                                              eps=eps)
-                err = max(check(f"decode_stack n={n} pos={pos} x", dtype,
-                                got[0], want[0], tol),
-                          check(f"decode_stack n={n} pos={pos} kv", dtype,
-                                got[1], want[1], tol))
-                record(results, dtype, "decode_stack", err, None, None)
-        x1 = rnd(1, d)
-        record(results, dtype, "decode_stack", 0.0,
-               cuda_ms(lambda: decode_stack(x1, cache, 512, slabs, vecs,
-                                            eps=eps)),
-               cuda_ms(lambda: decode_stack_reference(x1, cache, 512, slabs,
-                                                      vecs, eps=eps), 5))
-        del cache
+        cache8, kvs8 = quantize_rows(cache)
+        variants = (("", slabs, None, cache, None),
+                    ("_int8", slabs8, scales8, cache, None),
+                    ("_kvq", slabs, None, cache8, kvs8),
+                    ("_int8_kvq", slabs8, scales8, cache8, kvs8))
+        for sfx, sl, scl, c, kvs in variants:
+            name = "decode_stack" + sfx
+            for n in (1, 4):
+                x = rnd(n, d)
+                for pos in (0, 37, 1000):
+                    got = decode_stack(x, c, pos, sl, vecs, scl, eps=eps,
+                                       kv_scales=kvs)
+                    want = decode_stack_reference(x, c, pos, sl, vecs, scl,
+                                                  eps=eps, kv_scales=kvs)
+                    err = max(check(f"{name} n={n} pos={pos} x", dtype,
+                                    got[0], want[0], tol),
+                              check(f"{name} n={n} pos={pos} kv", dtype,
+                                    got[1], want[1], tol))
+                    record(results, dtype, name, err)
+            x1 = rnd(1, d)
+            record(results, dtype, name, 0.0,
+                   cuda_ms(lambda: decode_stack(x1, c, 512, sl, vecs, scl,
+                                                eps=eps, kv_scales=kvs)),
+                   cuda_ms(lambda: decode_stack_reference(
+                       x1, c, 512, sl, vecs, scl, eps=eps, kv_scales=kvs), 5),
+                   cost=stack_cost(1, L, d, H, [512], dtype, scl is not None,
+                                   kvs is not None))
+        del cache, cache8, kvs8
         B = 8
         caches = rnd(B, L, 2, H, W, hd)
+        caches8, bkvs8 = quantize_rows(caches)
         poss = torch.tensor([0, 5, 37, 100, 511, 1000, 1023, 17],
                             device=dev, dtype=torch.int32)
         xb = rnd(B, d)
-        got = decode_stack_batch(xb, caches, poss, slabs, vecs, eps=eps)
-        want = decode_stack_batch_reference(xb, caches, poss, slabs, vecs,
-                                            eps=eps)
-        err = max(check("decode_stack_batch B=8 x", dtype, got[0], want[0],
-                        tol),
-                  check("decode_stack_batch B=8 kv", dtype, got[1], want[1],
-                        tol))
-        record(results, dtype, "decode_stack_batch", err,
-               cuda_ms(lambda: decode_stack_batch(xb, caches, poss, slabs,
-                                                  vecs, eps=eps)),
-               cuda_ms(lambda: decode_stack_batch_reference(
-                   xb, caches, poss, slabs, vecs, eps=eps), 5))
-        del caches, slabs, vecs, packed
+        variants = (("", slabs, None, caches, None),
+                    ("_int8", slabs8, scales8, caches, None),
+                    ("_kvq", slabs, None, caches8, bkvs8),
+                    ("_int8_kvq", slabs8, scales8, caches8, bkvs8))
+        for sfx, sl, scl, c, kvs in variants:
+            name = "decode_stack_batch" + sfx
+            got = decode_stack_batch(xb, c, poss, sl, vecs, scl, eps=eps,
+                                     kv_scales=kvs)
+            want = decode_stack_batch_reference(xb, c, poss, sl, vecs, scl,
+                                                eps=eps, kv_scales=kvs)
+            err = max(check(f"{name} B=8 x", dtype, got[0], want[0], tol),
+                      check(f"{name} B=8 kv", dtype, got[1], want[1], tol))
+            record(results, dtype, name, err,
+                   cuda_ms(lambda: decode_stack_batch(
+                       xb, c, poss, sl, vecs, scl, eps=eps, kv_scales=kvs)),
+                   cuda_ms(lambda: decode_stack_batch_reference(
+                       xb, c, poss, sl, vecs, scl, eps=eps, kv_scales=kvs),
+                       5),
+                   cost=stack_cost(B, L, d, H, poss.tolist(), dtype,
+                                   scl is not None, kvs is not None))
+        del caches, caches8, bkvs8, slabs, vecs
         torch.cuda.empty_cache()
 
 
-def plain_forward(model, ids):
+def plain_forward(model, ids, p=None):
     """Logits (..., T, vocab) of a full causal forward of ``ids`` (..., T)
     through the plain PyTorch versions of the kernels: no cache, no
     hand-written kernel -- the reference the KV path and, under autograd,
-    the training step must meet."""
+    the training step must meet.  ``p`` replaces the model's parameters
+    (a "head.weight" entry replaces the tied head)."""
     import torch.nn.functional as F
 
     from lightgrad_tpu_torch.ops.attention import attention_fwd_reference
     from lightgrad_tpu_torch.ops.layernorm import layernorm_fwd_reference
 
     cfg = model.cfg
-    p = dict(model.named_parameters())
+    p = dict(model.named_parameters()) if p is None else p
     *lead, T = ids.shape
     d, H = cfg.n_embd, cfg.n_head
     eps = cfg.layer_norm_epsilon
@@ -331,44 +447,31 @@ def plain_forward(model, ids):
                     pre + "attn.c_proj")
         x = x + lin(F.gelu(lin(ln(x, pre + "ln_2"), pre + "c_fc"),
                            approximate="tanh"), pre + "c_proj")
-    return ln(x, "ln_f") @ p["wte.weight"].T
+    return ln(x, "ln_f") @ p.get("head.weight", p["wte.weight"]).T
 
 
 def teacher_forced(model, dtype, rng):
     """Prefill + 4 cached steps on both branches vs plain_forward."""
-    vocab = model.cfg.vocab_size
-    seq = [int(t) for t in rng.integers(0, vocab, 20)]
+    seq = [int(t) for t in rng.integers(0, model.cfg.vocab_size, 20)]
     P = 16
-    dev = model.wte.weight.device
     with torch.no_grad():
-        want = plain_forward(model, torch.tensor(seq, device=dev))
+        want = plain_forward(model, torch.tensor(
+            seq, device=model.wte.weight.device))
     for branch, pack in (("packed", None), ("unrolled", False)):
-        fns = model._kv_functions(pack_stack=pack)
-        assert ("stack#slabs" in fns.step.params) == (pack is None), branch
-        toks = torch.zeros(model.cfg.n_positions, dtype=torch.long)
-        toks[:P] = torch.tensor(seq[:P])
-        with torch.no_grad():
-            cache, lg = fns.prefill(fns.init_cache(), toks.to(dev), P)
-            rows = [lg]
-            for pos in range(P, len(seq)):
-                cache, lg = fns.step(cache, pos, seq[pos])
-                rows.append(lg)
-        got = torch.stack(rows)
-        assert got.shape == (len(seq) - P + 1, vocab)
-        check(f"teacher-forced {branch} logits", dtype, got, want[P - 1:],
+        check(f"teacher-forced {branch} logits", dtype,
+              forced_logits(model, seq, P, pack), want[P - 1:],
               PATH_TOL[dtype])
-        del fns, cache
     torch.cuda.empty_cache()
 
 
-def phase_main_path(model, dtype):
-    """Phase 4 for one dtype; returns the kernels' launch counts."""
+def drive_serving(model, rng):
+    """``generate`` (32 tokens), ``generate_batch`` (4 ragged prompts) and
+    an engine over 32 ragged greedy requests, with their tok/s, the
+    engine's peak device memory and its cache's bytes.  Returns the
+    ``generate`` prompt."""
     from lightgrad_tpu_torch import InferenceEngine
-    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
 
     vocab = model.cfg.vocab_size
-    reset_launch_counts()
-    rng = np.random.default_rng(3)
     prompt = [int(t) for t in rng.integers(0, vocab, 12)]
     model.generate(prompt, max_new_tokens=4)     # packs weights, warms cuBLAS
     torch.cuda.synchronize()
@@ -395,6 +498,8 @@ def phase_main_path(model, dtype):
     reqs = [([int(t) for t in rng7.integers(0, vocab,
                                             int(rng7.integers(8, 49)))],
              int(rng7.integers(16, 129))) for _ in range(32)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     engine = InferenceEngine(model, slots=8, steps_per_tick=8)
     handles = [engine.submit(p, n) for p, n in reqs]
     torch.cuda.synchronize()
@@ -407,22 +512,174 @@ def phase_main_path(model, dtype):
         assert r.n_generated == n, (r.id, r.n_generated, n)
         assert all(0 <= t < vocab for t in r.tokens)
     ntok = sum(n for _, n in reqs)
+    caches = engine._caches if isinstance(engine._caches, tuple) \
+        else (engine._caches,)
+    cache_mb = sum(c.numel() * c.element_size() for c in caches) / 1e6
     log(f"  engine: 32 requests, {ntok} tokens in {dt:.3f} s "
-        f"({ntok / dt:.1f} tok/s; {engine.stats})")
+        f"({ntok / dt:.1f} tok/s; {engine.stats}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, cache "
+        f"{cache_mb:.1f} MB")
+    del engine, caches
+    return prompt
 
+
+def phase_main_path(model, dtype):
+    """Phase 4 for one dtype; returns the kernels' launch counts."""
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    rng = np.random.default_rng(3)
+    prompt = drive_serving(model, rng)
     # the unrolled branch is the same entry point without the packed stack
     model._kv_fns = model._kv_functions(pack_stack=False)
     out_u = model.generate(prompt, max_new_tokens=8)
     assert len(out_u) == len(prompt) + 8
     del model._kv_fns
-    teacher_forced(model, dtype, rng)
     torch.cuda.synchronize()
-    return launch_counts()
+    counts = launch_counts()        # the check below is not the main path
+    teacher_forced(model, dtype, rng)
+    return counts
+
+
+def dequantized(model):
+    """The parameters of a ``quantize_serving`` model with each int8 matrix
+    replaced by its dequantized value (int8 x scale, in the compute dtype)
+    and the LM head's int8 copy as "head.weight"."""
+    qp = model._kv_functions(pack_stack=False).step.params
+    p = dict(model.named_parameters())
+    for n in [n for n in qp if n.endswith("#q")]:
+        base = n[:-2]
+        w = qp[n].float() * qp[base + "#s"].float()[:, None]
+        p["head.weight" if base == "head" else base] = w.to(
+            model.wte.weight.dtype)
+    return p
+
+
+def forced_logits(model, seq, P, pack):
+    """Prefill of seq[:P], then one cached step a token: (len - P + 1,
+    vocab) logits."""
+    fns = model._kv_functions(pack_stack=pack)
+    assert ("stack#slabs" in fns.step.params) == (pack is None)
+    dev = model.wte.weight.device
+    toks = torch.zeros(model.cfg.n_positions, dtype=torch.long)
+    toks[:P] = torch.tensor(seq[:P])
+    with torch.no_grad():
+        cache, lg = fns.prefill(fns.init_cache(), toks.to(dev), P)
+        rows = [lg]
+        for pos in range(P, len(seq)):
+            cache, lg = fns.step(cache, pos, seq[pos])
+            rows.append(lg)
+    return torch.stack(rows)
+
+
+def decisive_tokens(name, got, want):
+    """Greedy tokens of ``got`` equal ``want``'s at every step whose top-2
+    gap in ``want`` exceeds 10x that step's deviation (tests/
+    test_kv_quant.py's rule): there a flip is arithmetically impossible."""
+    got, want = got.float(), want.float()
+    dev = (got - want).abs().amax(-1).clamp_min(1e-6)
+    top2 = want.topk(2, -1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > 10 * dev
+    flips = decisive & (got.argmax(-1) != want.argmax(-1))
+    log(f"  {name}: max deviation {dev.max().item():.3e}; "
+        f"{int(decisive.sum())} of {len(dev)} steps decisive, tokens "
+        f"{'agree' if not flips.any() else 'FAIL'} there")
+    if flips.any():
+        raise AssertionError(f"{name}: greedy token flips at decisive steps "
+                             f"{flips.nonzero().flatten().tolist()}")
+
+
+def teacher_forced_int8(model, dtype, mode, rng):
+    """Prefill of 16 tokens + 32 cached steps on both branches.  int8
+    weights: each branch against a plain forward over the dequantized
+    weights at PATH_TOL.  int8 cache: the branches against each other at
+    PATH_TOL, and the packed one's greedy tokens against the float cache's
+    (same weights) by the decisive-gap rule."""
+    seq = [int(t) for t in rng.integers(0, model.cfg.vocab_size, 48)]
+    P = 16
+    got = {b: forced_logits(model, seq, P, pack)
+           for b, pack in (("packed", None), ("unrolled", False))}
+    dev = model.wte.weight.device
+    with torch.no_grad():
+        want = None
+        if mode != "quantize_kv":
+            want = plain_forward(model, torch.tensor(seq, device=dev),
+                                 dequantized(model))[P - 1:]
+        if mode == "quantize_serving":
+            for b, lg in got.items():
+                check(f"teacher-forced {mode} {b} vs the dequantized "
+                      f"plain forward", dtype, lg, want, PATH_TOL[dtype])
+            return
+        check(f"teacher-forced {mode} packed vs unrolled", dtype,
+              got["packed"], got["unrolled"], PATH_TOL[dtype])
+        if want is None:              # the float cache, same weights
+            model.quantize_kv(False)
+            want = forced_logits(model, seq, P, None)
+            model.quantize_kv(True)
+        decisive_tokens(f"teacher-forced {mode} vs the float cache",
+                        got["packed"], want)
+    del got, want
+    torch.cuda.empty_cache()
+
+
+def phase_int8_serving(model, dtype):
+    """int8 serving for one dtype under each of quantize_serving,
+    quantize_kv and both: the serving entry points, then the teacher-
+    forced checks.  Returns {mode: launch counts}."""
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    counts = {}
+    for mode in INT8_MODES:
+        log(f"  int8 serving, {mode}:")
+        if mode != "quantize_kv":
+            model.quantize_serving()
+        if mode != "quantize_serving":
+            model.quantize_kv()
+        reset_launch_counts()
+        rng = np.random.default_rng(4)
+        drive_serving(model, rng)
+        torch.cuda.synchronize()
+        counts[mode] = launch_counts()   # before the check's own launches
+        teacher_forced_int8(model, dtype, mode, rng)
+        model.quantize_serving(False).quantize_kv(False)
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_long_context(model):
+    """The regime the int8 cache is for: a 960-token prompt and 48 new
+    tokens through ``generate``, float cache and ``quantize_kv``; the
+    decode rate leaves out the prefill (a 1-token run timed apart)."""
+    rng = np.random.default_rng(5)
+    prompt = [int(t) for t in rng.integers(0, model.cfg.vocab_size, 960)]
+    outs = {}
+    for quant in (False, True):
+        model.quantize_kv(quant)
+        model.generate(prompt[:8], max_new_tokens=2)        # packs, warms
+        times = []
+        for n in (1, 48):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[quant] = model.generate(prompt, max_new_tokens=n)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        assert len(outs[quant]) == 960 + 48
+        per_tok = (times[1] - times[0]) / 47
+        log(f"  long context, {'int8' if quant else 'float'} cache: 48 "
+            f"tokens after 960 in {times[1]:.3f} s ({48 / times[1]:.1f} "
+            f"tok/s with prefill; prefill {times[0]:.3f} s; decode "
+            f"{per_tok * 1e3:.3f} ms/token, {1 / per_tok:.1f} tok/s)")
+    same = sum(a == b for a, b in zip(outs[False][960:], outs[True][960:]))
+    log(f"  long context: {same} of 48 greedy tokens equal between the "
+        f"caches (random weights: near-ties are common)")
+    model.quantize_kv(False)
 
 
 def phase_train_kernels(results):
     """Phase 3, training kernels: the flash backward and the LayerNorm
     kernels vs their plain versions, at the training path's shapes."""
+    import torch.nn.functional as F
+
     from lightgrad_tpu_torch.ops.attention import (
         attention_bwd, attention_bwd_dkv, attention_bwd_dq,
         attention_bwd_reference, attention_fwd_res)
@@ -437,6 +694,7 @@ def phase_train_kernels(results):
     g = torch.Generator(device=dev).manual_seed(2)
     for dtype in (torch.float32, torch.bfloat16):
         tol = KERNEL_TOL[dtype]
+        isz = torch.tensor([], dtype=dtype).element_size()
 
         def rnd(*shape):
             return torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -461,12 +719,27 @@ def phase_train_kernels(results):
             dcap = (do.float() * out.float()).sum(-1).contiguous()
             plain_ms = cuda_ms(lambda: attention_bwd_reference(
                 do, q, k, v, sc, causal), 5)
+            # the library's backward computes dq, dk and dv in one call: its
+            # time stands beside both passes
+            q4, k4, v4 = (t.reshape(B, H, S, hd).detach().requires_grad_()
+                          for t in (q, k, v))
+            o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                o4, (q4, k4, v4), do.reshape(B, H, S, hd),
+                retain_graph=True), 5)
+            tile = bh * S * hd * isz
+            pairs = bh * S * (S + 1) * hd      # causal: half of S x S
             record(results, dtype, "attention_bwd_dq", 0.0,
                    cuda_ms(lambda: attention_bwd_dq(do, q, k, v, lse, dcap,
-                                                    sc, causal)), plain_ms)
+                                                    sc, causal)), plain_ms,
+                   cost=(5 * tile + 2 * bh * S * 4, 3 * pairs),
+                   library_ms=lib_ms)
             record(results, dtype, "attention_bwd_dkv", 0.0,
                    cuda_ms(lambda: attention_bwd_dkv(do, q, k, v, lse, dcap,
-                                                     sc, causal)), plain_ms)
+                                                     sc, causal)), plain_ms,
+                   cost=(6 * tile + 2 * bh * S * 4, 4 * pairs),
+                   library_ms=lib_ms)
+            del q4, k4, v4, o4
             whole = cuda_ms(lambda: attention_bwd(do, q, k, v, sc, causal,
                                                   out=out, lse=lse))
             log(f"  attention_bwd {str(dtype)[6:]}: rowsum + both kernels "
@@ -485,16 +758,29 @@ def phase_train_kernels(results):
                         KERNEL_TOL[torch.float32]),
                   check("layernorm_fwd rstd", dtype, rstd, rrstd,
                         KERNEL_TOL[torch.float32]))
+        rows = B * T
         record(results, dtype, "layernorm_fwd", err,
                cuda_ms(lambda: layernorm_fwd(x, w, b, 1e-5)),
-               cuda_ms(lambda: layernorm_fwd_reference(x, w, b, 1e-5)))
+               cuda_ms(lambda: layernorm_fwd_reference(x, w, b, 1e-5)),
+               cost=(rows * d * (2 * isz + 4) + 2 * d * isz + rows * 4,
+                     8 * rows * d),
+               library_ms=cuda_ms(lambda: F.layer_norm(x, (d,), w, b, 1e-5)))
         gy = rnd(B * T, d)
         dx = layernorm_bwd_dx(gy, w, xhat, rstd)
         err = check("layernorm_bwd dx", dtype, dx,
                     layernorm_bwd_dx_reference(gy, w, xhat, rstd), tol)
+        # the library's input gradient alone: aten's LayerNorm backward
+        # with only dx requested
+        _, mean, lrstd = torch.ops.aten.native_layer_norm(x, [d], w, b, 1e-5)
         record(results, dtype, "layernorm_bwd", err,
                cuda_ms(lambda: layernorm_bwd_dx(gy, w, xhat, rstd)),
-               cuda_ms(lambda: layernorm_bwd_dx_reference(gy, w, xhat, rstd)))
+               cuda_ms(lambda: layernorm_bwd_dx_reference(gy, w, xhat, rstd)),
+               cost=(rows * d * (2 * isz + 4) + d * isz + rows * 4,
+                     6 * rows * d),
+               library_ms=cuda_ms(
+                   lambda: torch.ops.aten.native_layer_norm_backward(
+                       gy, x, [d], mean, lrstd, w, b, [True, False, False])))
+        del mean, lrstd
         del x, y, xhat, rstd, gy, dx
         torch.cuda.empty_cache()
 
@@ -595,6 +881,8 @@ def phase_tape_kernels(results):
     """Phase 3, the tape's generic kernels: elementwise, reduce, matmul and
     softmax vs their plain versions at the BERT-base path's shapes (B*S =
     1024 rows, d 768, ffn 3072, vocab 30522, 96 heads of 128 x 64)."""
+    import torch.nn.functional as F
+
     from lightgrad_tpu_torch.ops.elementwise import ew, ew_reference
     from lightgrad_tpu_torch.ops.matmul import (matmul, matmul_reference,
                                                 matmul_vjp)
@@ -614,6 +902,7 @@ def phase_tape_kernels(results):
         S // 2, S + 1, size=B), device=dev)
     for dtype in (torch.float32, torch.bfloat16):
         tol = KERNEL_TOL[dtype]
+        isz = torch.tensor([], dtype=dtype).element_size()
 
         def rnd(*shape, scale=1.0):
             return (torch.randn(shape, generator=g, device=dev)
@@ -639,7 +928,9 @@ def phase_tape_kernels(results):
                 err = max(err, check(f"elementwise {body}[{i}] "
                                      f"{tuple(a.shape)}", dtype, a, b, tol))
         timed(results, dtype, "elementwise", err, lambda: ew("f_gelu", h),
-              lambda: ew_reference("f_gelu", h))
+              lambda: ew_reference("f_gelu", h),
+              (2 * R * f * isz, 10 * R * f),
+              lambda: F.gelu(h, approximate="tanh"))
 
         # reduce: bias gradients (column sums), the loss's row max and sum
         logits = rnd(R, V)
@@ -651,7 +942,8 @@ def phase_tape_kernels(results):
                                  reduce_reference(t, op, axis=axis), tol))
         timed(results, dtype, "reduce", err,
               lambda: reduce(logits, "sum", axis=-1),
-              lambda: reduce_reference(logits, "sum", axis=-1))
+              lambda: reduce_reference(logits, "sum", axis=-1),
+              ((R * V + R) * isz, R * V), lambda: torch.sum(logits, -1))
 
         # matmul: every product of the step and its gradients
         w_qkv, w_up = rnd(d, d, scale=0.03), rnd(f, d, scale=0.03)
@@ -676,7 +968,9 @@ def phase_tape_kernels(results):
                   check("matmul vjp dW.T (decoder)", dtype, gb,
                         matmul_reference(x.T, gy), tol))
         timed(results, dtype, "matmul", err, lambda: matmul(x, w_dec.T),
-              lambda: matmul_reference(x, w_dec.T), 10)
+              lambda: matmul_reference(x, w_dec.T),
+              ((R * d + d * V + R * V) * isz, 2 * R * d * V),
+              lambda: torch.matmul(x, w_dec.T), 10)
         del logits, w_dec, gy, ga, gb
 
         # softmax of the masked scores and its gradient
@@ -688,7 +982,9 @@ def phase_tape_kernels(results):
         discriminates("softmax_fwd", dtype, want, tol,
                       torch.zeros_like(want), one_hot)
         timed(results, dtype, "softmax_fwd", err, lambda: softmax_fwd(sm),
-              lambda: softmax_fwd_reference(sm))
+              lambda: softmax_fwd_reference(sm),
+              (2 * sm.numel() * isz, 5 * sm.numel()),
+              lambda: torch.softmax(sm, -1))
         gs = rnd(B, H, S, S)
         want = softmax_bwd_reference(gs, ys)
         err = check(f"softmax_bwd {tuple(gs.shape)}", dtype,
@@ -696,7 +992,9 @@ def phase_tape_kernels(results):
         discriminates("softmax_bwd", dtype, want, tol, torch.zeros_like(want))
         timed(results, dtype, "softmax_bwd", err,
               lambda: softmax_bwd(gs, ys),
-              lambda: softmax_bwd_reference(gs, ys))
+              lambda: softmax_bwd_reference(gs, ys),
+              (3 * gs.numel() * isz, 4 * gs.numel()),
+              lambda: torch._softmax_backward_data(gs, ys, -1, dtype))
         torch.cuda.empty_cache()
 
 
@@ -971,6 +1269,54 @@ def phase_bert(card):
     return counts, flash
 
 
+def phase_quant_bert():
+    """The tape's int8 ``QuantLinear``: a fresh BERT-base (the BERT phase's
+    config and 8 x 128 batch) after ``quantize_module(min_features=64)``,
+    one forward against the float model's logits (cosine, as
+    tests/test_quant.py bounds a module) and one finite backward."""
+    from lightgrad_tpu_torch import loss as lg_loss
+    from lightgrad_tpu_torch import no_grad, random as lg_random
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    from lightgrad_tpu_torch.quant import quantize_module
+
+    lg_random.seed(0)
+    cfg = BertConfig(**BERT_BASE)
+    model = BertForMaskedLM(cfg)
+    ids, mask, labels, _ = bert_batch(cfg)
+    x_ids = Tensor.from_numpy(ids, requires_grad=False)
+    x_mask = Tensor.from_numpy(mask, requires_grad=False)
+    y = Tensor.from_numpy(labels, requires_grad=False)
+    with no_grad():
+        want = model(x_ids, attention_mask=x_mask).data.float()
+    quantize_module(model, min_features=64)
+    n_quant = sum(1 for n, _ in model.named_buffers()
+                  if n.endswith("weight_q"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = model(x_ids, attention_mask=x_mask)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    got = logits.data.float()
+    cos = float((got * want).sum() / (got.norm() * want.norm()))
+    loss = lg_loss.cross_entropy(logits.reshape(-1, cfg.vocab_size), y,
+                                 ignore_index=-100)
+    loss.backward()
+    grads = [t.grad for t in model.parameters() if t.grad is not None]
+    finite = all(bool(torch.isfinite(g.data).all()) for g in grads)
+    ok = cos >= 0.99 and finite and np.isfinite(loss.item())
+    log(f"  {n_quant} Linear layers int8; forward {fwd_s * 1e3:.1f} ms; "
+        f"logits cosine vs the float model {cos:.6f} (>= 0.99); loss "
+        f"{loss.item():.5f}; {len(grads)} parameter gradients, "
+        f"{'finite' if finite else 'NOT finite'} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"quantized BERT: cosine {cos}, finite "
+                             f"{finite}")
+    del model, logits, loss, grads
+    torch.cuda.empty_cache()
+
+
 def phase_tape_example():
     """Phase 7: examples/gradient_descent.py's loop (64 x 64) for 20 epochs
     on the card; returns its launch counts."""
@@ -1020,9 +1366,15 @@ def main():
     # 2. build
     t0 = time.perf_counter()
     lib = _build.library()
+    grids = {f"{t}{'/w8' * w}{'/kv8' * k}": lib.lg_decode_stack_grid(
+        t == "bf16", w, k) for t in ("f32", "bf16") for w in (0, 1)
+        for k in (0, 1)}
     log(f"build: nvcc {_build.build_seconds():.1f} s, loaded in "
-        f"{time.perf_counter() - t0:.1f} s; stack kernel grid "
-        f"{lib.lg_decode_stack_grid(0)} blocks")
+        f"{time.perf_counter() - t0:.1f} s; stack kernel grids (blocks) "
+        f"{grids}")
+    if not all(grids.values()):
+        raise AssertionError(f"a stack kernel instantiation was refused: "
+                             f"{grids}")
 
     dev = torch.device("cuda")
     model = GPT(GPTConfig(**GPT2_SMALL), device=dev,
@@ -1053,6 +1405,12 @@ def main():
         log(f"serving path, GPT-2 small, {str(dtype)[6:]}:")
         tally(f"serving ({dtype})", phase_main_path(model, dtype),
               SERVING_KERNELS)
+        for mode, counts in phase_int8_serving(model, dtype).items():
+            sfx = INT8_MODES[mode]
+            tally(f"int8 serving, {mode} ({dtype})", counts,
+                  ("decode_stack" + sfx, "decode_stack_batch" + sfx))
+    log("long context, GPT-2 small, bfloat16:")
+    phase_long_context(model)
     del model
     torch.cuda.empty_cache()
     for dtype, what in ((torch.float32, "float32, Adam"),
@@ -1065,6 +1423,8 @@ def main():
     bert, flash = phase_bert(card)
     tally("BERT-base (masked)", bert, BERT_KERNELS)
     tally("BERT-base (unmasked)", flash, FLASH_KERNELS)
+    log("lightgrad tape, BERT-base after quantize_module (int8 Linear):")
+    phase_quant_bert()
     log("lightgrad tape, gradient descent example (64 x 64):")
     tally("gradient descent", phase_tape_example(), TAPE_KERNELS)
     missing = [k for k in KERNELS if launches[k] == 0]
@@ -1074,9 +1434,14 @@ def main():
     kernels = []
     for name in KERNELS:
         route, src, replaces = KERNEL_SOURCES[name]
-        kernels.append({"name": name, "route": route, "source": src,
-                        "replaces": replaces, "launches": launches[name],
-                        **results[name]})
+        rec = {"name": name, "route": route, "source": src,
+               "replaces": replaces, "launches": launches[name],
+               **results[name]}
+        lacking = [k for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms") if k not in rec]
+        if lacking:
+            raise AssertionError(f"{name}: no {lacking} measured")
+        kernels.append(rec)
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,14 @@
 This package imports ``torch`` and never ``jax``.  Its modules mirror the
 JAX package's names.  Ported so far: lightgrad's define-by-run tape
 (``Tensor`` = ``CudaTensor``, ``Function``, ``no_grad``) with its op set,
-the nn/loss/optim layers over it and BERT on it; and, on ``torch.autograd``,
-GPT-2 serving (KV decoding, the continuous-batching engine) and training
-(forward, losses, optimizers, master-weight AMP).  Both run on hand-written
+the nn/loss/optim layers over it, int8 ``quant`` and BERT on it; and, on
+``torch.autograd``, GPT-2 serving (KV decoding, the continuous-batching
+engine, int8 weights and KV cache) and training (forward, losses,
+optimizers, master-weight AMP).  Both run on hand-written
 Hopper kernels on a CUDA device and on their plain PyTorch versions on the
 CPU."""
 
-from . import amp, autograd, loss, nn, ops, optim, random
+from . import amp, autograd, loss, nn, ops, optim, quant, random
 from .autograd import (AbstractTensor, CudaTensor, Function, Gradients,
                        Tensor, no_grad)
 from .models import GPT, GPTConfig, ByteTokenizer, generate_batch
@@ -28,7 +29,7 @@ def einsum(spec: str, *operands):
     return operands[0].einsum(spec, *operands[1:])
 
 
-__all__ = ["amp", "autograd", "loss", "nn", "ops", "optim", "random",
+__all__ = ["amp", "autograd", "loss", "nn", "ops", "optim", "quant", "random",
            "AbstractTensor", "CudaTensor", "Function", "Gradients", "Tensor",
            "no_grad", "empty", "zeros", "ones", "uniform", "xavier",
            "from_numpy", "einsum", "GPT", "GPTConfig", "ByteTokenizer",

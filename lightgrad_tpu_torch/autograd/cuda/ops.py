@@ -12,8 +12,7 @@ draws -- is plain PyTorch here.
 Value semantics: a movement op may return a view that shares its input's
 storage, so no op ever writes into storage it did not allocate.  In-place
 ops compute a fresh buffer and rebind (``_set_data``), ``setitem`` writes a
-clone.  ``conv``, ``quant_linear`` and ``ring_attention`` are not ported
-yet and raise.
+clone.  ``conv`` and ``ring_attention`` are not ported yet and raise.
 """
 
 import numpy as np
@@ -438,8 +437,53 @@ def _unported(name, item):
 
 
 _unported("conv", "queue 2, kernel 4: the MNIST-CNN/ResNet slice")
-_unported("quant_linear", "queue 1: int8 serving")
 _unported("ring_attention", "queue 2, kernel 10: the parallel layer")
+
+
+# ---------------------------------------------------------------------------
+# int8 quantized linear (serving path; see lightgrad_tpu_torch/quant.py)
+# ---------------------------------------------------------------------------
+def int8_matmul(xq, wq):
+    """``xq (..., in) @ wq (out, in).T`` of int8 tensors, summed exactly:
+    int32, on the inputs' device."""
+    return torch.matmul(xq.double(), wq.double().T).to(torch.int32)
+
+
+@CudaTensor.register_op()
+class quant_linear(Function):
+    """Dynamic-activation int8 x int8 linear: ``y = x @ Wq.T * (xs*ws) + b``.
+
+    ``wq`` is an int8 (out, in) matrix with per-output-channel scales
+    ``wscale`` (out,); activations are quantized per row at run time, the
+    int8 products summed exactly in int32, and the f32 epilogue applies
+    both scales and casts to ``x``'s dtype.  The JAX package computes the
+    dot in XLA outside any Pallas kernel, so it is plain PyTorch here, on
+    the inputs' device (:func:`int8_matmul`): in float64, which holds every
+    partial sum of int8 products exactly (|sum| <= in * 127^2 < 2^53), so
+    the int32 result is the same in any order of summation (float32 would
+    round sums past 2^24, which in = 3072 reaches).  Backward: the straight-through
+    estimator through the dequantized weight; ``wq`` / ``wscale`` get no
+    gradient."""
+
+    def forward(ctx, x, wq, wscale, bias=None):
+        xd = x.data
+        wqd, wsd = _raw(wq), _raw(wscale)
+        xf = xd.float()
+        xs = xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0)
+        xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+        y = int8_matmul(xq, wqd).float() * xs * wsd.float()
+        if bias is not None:
+            y = y + _raw(bias).float()
+        ctx.save_for_backward(wqd, wsd, xd.dtype, bias is not None)
+        return _t(y.to(xd.dtype))
+
+    def backward(ctx, g):
+        wqd, wsd, xdt, has_bias = ctx.get_saved_tensors()
+        wdeq = wqd.float() * wsd.float()[:, None]
+        gx = torch.matmul(g.data.float(), wdeq)
+        grads = (_t(gx.to(xdt)), None, None)
+        # the bias gradient reduces to (out,) in Function's _unbroadcast
+        return grads + (_t(g.data),) if has_bias else grads
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-// Shared helpers of the port's kernels: f32/bf16 loads and stores that
-// widen to f32, warp reductions, and the masked-score constant.
+// Shared helpers of the port's kernels: f32/bf16 (and int8) loads and stores
+// that widen to f32, warp reductions, and the masked-score constant.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,7 +35,8 @@ __device__ __forceinline__ float4 lg_load4(const __nv_bfloat16* p) {
   return make_float4(fa.x, fa.y, fb.x, fb.y);
 }
 
-// Two consecutive elements (8-byte aligned for f32, 4-byte for bf16).
+// Two consecutive elements (8-byte aligned for f32, 4-byte for bf16, 2-byte
+// for int8).
 __device__ __forceinline__ float2 lg_load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
@@ -43,10 +44,18 @@ __device__ __forceinline__ float2 lg_load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
+__device__ __forceinline__ float2 lg_load2(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2((float)c.x, (float)c.y);
+}
+
 // Read-only (non-coherent cache) load of data no launch in flight writes.
 __device__ __forceinline__ float lg_ldg(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float lg_ldg(const __nv_bfloat16* p) {
   return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ float lg_ldg(const int8_t* p) {
+  return (float)__ldg(reinterpret_cast<const signed char*>(p));
 }
 
 __device__ __forceinline__ void lg_store4(float* p, float4 v) {

@@ -2,8 +2,23 @@
 // ONE launch.
 //
 // Replaces the TPU kernels lightgrad_tpu/ops/decode_stack.py::decode_stack
-// (_kernel_noscale -> _kernel_body) and ::decode_stack_batch
-// (_kernel_b_noscale).  One kernel serves both through a per-row table:
+// (_kernel_noscale, _kernel_int8, _kernel_kvq, _kernel_int8_kvq ->
+// _kernel_body) and ::decode_stack_batch (_kernel_b_noscale, _kernel_b_int8,
+// _kernel_b_kvq, _kernel_b_int8_kvq).  One kernel body, templated on three
+// types, serves all eight:
+//   T   compute type (x, vecs, x_out, kv_out): float or bf16;
+//   TW  weight type: T, or int8 with an f32 scale per (layer, slab, output
+//       column) -- the scale is constant over K, so each K-chunk partial is
+//       scaled as the block reduces it;
+//   TC  cache type: T, or int8 rows with an f32 scale per row -- the K
+//       scale multiplies the score (before the online max), the V scale
+//       folds into the context only (a += p * vs * v; the denominator sums
+//       p alone, as the TPU kernel's drun does).
+// Activations stay f32 in every product (the TPU's int8 variant rounds
+// them to bf16 for its MXU dot).  The in-flight rows are attended and
+// emitted at full precision in T even over an int8 cache; the caller
+// quantizes kv_out into the cache.  One kernel serves extend and batched
+// mode through a per-row table:
 //   extend mode (poss == nullptr): every row is in slot 0 at positions
 //     pos0 .. pos0+n-1; row r attends cache rows < pos0 plus in-flight rows
 //     j <= r (the causal self-block);
@@ -44,6 +59,8 @@
 // __ldcg (L2, never a stale L1 line).
 #include <cooperative_groups.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -65,21 +82,28 @@ __host__ __device__ inline int chunk_rows(int d) {
   return d % 256 == 0 ? 256 : d % 128 == 0 ? 128 : 64;
 }
 
-template <typename T>
+// The kernel's operands.  The pointers of x, vecs, x_out and kv_out hold
+// the compute type T, slabs the weight type TW and cache the cache type TC;
+// they are cast where the kernel of one instantiation reads them.
 struct StackParams {
-  const T* x;            // (n, d) residual input
-  const T* cache;        // (slots, L, 2, H, W, hd)
+  const void* x;         // (n, d) residual input
+  const void* cache;     // (slots, L, 2, H, W, hd)
   long long slot_stride; // elements between slots
   const int* poss;       // (n,) batched positions, or nullptr (extend)
   int pos0;              // extend-mode position of row 0
-  const T* slabs;        // (L, 4+2R, d, d)
-  const T* vecs;         // (L, 9+R, d)
-  T* x_out;              // (n, d)
-  T* kv_out;             // (L, 2, n, d)
+  const void* slabs;     // (L, 4+2R, d, d)
+  const void* vecs;      // (L, 9+R, d)
+  const float* scales;   // (L, 4+2R, d) when TW is int8, else unused
+  const float* kv_scales;  // (slots, L, 2, H, W) when TC is int8
+  void* x_out;           // (n, d)
+  void* kv_out;          // (L, 2, n, d)
   float* ws;             // f32 workspace, lg_decode_stack_workspace floats
   int n, L, d, H, W, R;
   float eps, scale;
 };
+
+template <typename U>
+constexpr bool kInt8 = std::is_same<U, int8_t>::value;
 
 struct Shared {
   float hs[kWarps][kMaxN * kMaxWR];  // staged gemv inputs
@@ -133,8 +157,9 @@ struct GemvInput {
 
 // part[kc][r][c] = sum_{k in chunk kc} in[r][k] * Wfull[k][c], Wfull being
 // the (K, N) product matrix assembled from d x d slabs starting at slab0.
-template <typename T>
-__device__ void gemv_phase(const StackParams<T>& p, const T* vec, int l,
+template <typename TW, typename T>
+__device__ void gemv_phase(const StackParams& p, const T* vec,
+                           int l,
                            GemvInput in, int K, int N, int slab0,
                            float* part, Shared& sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -161,7 +186,8 @@ __device__ void gemv_phase(const StackParams<T>& p, const T* vec, int l,
     __syncwarp();
     const int c = tile * 32 + lane;
     const int slab = slab0 + k0 / d + c / d;
-    const T* w = p.slabs + (((size_t)l * S + slab) * d + (k0 % d)) * d + c % d;
+    const TW* w = static_cast<const TW*>(p.slabs) +
+                  (((size_t)l * S + slab) * d + (k0 % d)) * d + c % d;
     float acc[kMaxN];
 #pragma unroll
     for (int r = 0; r < kMaxN; ++r) acc[r] = 0.f;
@@ -180,6 +206,9 @@ __device__ void gemv_phase(const StackParams<T>& p, const T* vec, int l,
       float s = 0.f;
 #pragma unroll
       for (int w8 = 0; w8 < kWarps; ++w8) s += sh.red[w8][r][lane];
+      if constexpr (kInt8<TW>)  // every warp of an item is in one slab
+        s *= __ldg(p.scales + ((size_t)l * S + slab0 + kc * KB / d + c / d) *
+                                  d + c % d);
       part[((size_t)kc * n + r) * N + c] = s;
     }
     __syncthreads();  // hs and red are restaged by the next item
@@ -214,9 +243,9 @@ __device__ __forceinline__ float2 qkv_pair(const float* part, const T* vec,
   return v;
 }
 
-template <typename T>
+template <typename T, typename TW, typename TC>
 __global__ void __launch_bounds__(kThreads)
-decode_stack_kernel(StackParams<T> p) {
+decode_stack_kernel(StackParams p) {
   cg::grid_group grid = cg::this_grid();
   __shared__ Shared sh;
 
@@ -235,28 +264,29 @@ decode_stack_kernel(StackParams<T> p) {
   float* const sm = partB + npart;              // split maxima
   float* const sl = sm + (size_t)n * H * kMaxSplit;    // split sums
   float* const sacc = sl + (size_t)n * H * kMaxSplit;  // split contexts
+  const T* const vecs = static_cast<const T*>(p.vecs);
   const int tid = blockIdx.x * kThreads + threadIdx.x;
   const int nthreads = gridDim.x * kThreads;
 
   // prologue: xacc = x, hln = LN1 of layer 0
   for (int r = blockIdx.x; r < n; r += gridDim.x) {
     for (int c = threadIdx.x; c < d; c += kThreads) {
-      const float v = lg_to_f(p.x[(size_t)r * d + c]);
+      const float v = lg_to_f(static_cast<const T*>(p.x)[(size_t)r * d + c]);
       sh.row[c] = v;
       xacc[(size_t)r * d + c] = v;
     }
     __syncthreads();
-    layernorm_row(sh.row, p.vecs, p.vecs + d, hln + (size_t)r * d, d, p.eps,
+    layernorm_row(sh.row, vecs, vecs + d, hln + (size_t)r * d, d, p.eps,
                   sh.bsum);
     __syncthreads();
   }
   grid.sync();
 
   for (int l = 0; l < L; ++l) {
-    const T* vec = p.vecs + (size_t)l * NV * d;
+    const T* vec = vecs + (size_t)l * NV * d;
 
     // 1. q, k, v partial products
-    gemv_phase(p, vec, l, GemvInput{hln, nullptr, 0}, d, d3, 0, partA, sh);
+    gemv_phase<TW>(p, vec, l, GemvInput{hln, nullptr, 0}, d, d3, 0, partA, sh);
     grid.sync();
 
     // 2. attention over one key range of one (row, head); q/k/v reduced
@@ -268,26 +298,45 @@ decode_stack_kernel(StackParams<T> p) {
       const int lo = (int)((long long)len * s / NS);
       const int hi = (int)((long long)len * (s + 1) / NS);
       const long long slot = p.poss ? r : 0;
-      const T* kb = p.cache + slot * p.slot_stride +
-                    (((size_t)l * 2 + 0) * H + h) * (size_t)W * kHD;
-      const T* vb = kb + (size_t)H * W * kHD;
+      const size_t krow = (((size_t)l * 2 + 0) * H + h) * (size_t)W;
+      const TC* kb = static_cast<const TC*>(p.cache) + slot * p.slot_stride +
+                     krow * kHD;
+      const TC* vb = kb + (size_t)H * W * kHD;
+      // row scales of an int8 cache: (slots, L, 2, H, W), slot_stride / hd
+      const float* ksb = nullptr;
+      const float* vsb = nullptr;
+      if constexpr (kInt8<TC>) {
+        ksb = p.kv_scales + slot * (p.slot_stride / kHD) + krow;
+        vsb = ksb + (size_t)H * W;
+      }
       const float2 q2 = qkv_pair(partA, vec, nkc, n, d, r, h * kHD);
       float m = LG_NEG, lsum = 0.f;
       float2 a = make_float2(0.f, 0.f);
       for (int j0 = lo + warp * kKeyBatch; j0 < hi;
            j0 += kWarps * kKeyBatch) {
         float2 kk[kKeyBatch], vv[kKeyBatch];
+        float ks[kKeyBatch], vs[kKeyBatch];
 #pragma unroll
         for (int u = 0; u < kKeyBatch; ++u) {
           const int j = min(j0 + u, hi - 1);
           kk[u] = lg_load2(kb + (size_t)j * kHD + 2 * lane);
           vv[u] = lg_load2(vb + (size_t)j * kHD + 2 * lane);
+          if constexpr (kInt8<TC>) {
+            ks[u] = __ldg(ksb + j) * p.scale;
+            vs[u] = __ldg(vsb + j);
+          } else {
+            ks[u] = p.scale;
+          }
         }
 #pragma unroll
         for (int u = 0; u < kKeyBatch; ++u) {
           if (j0 + u < hi) {
             const float sc =
-                lg_warp_sum(q2.x * kk[u].x + q2.y * kk[u].y) * p.scale;
+                lg_warp_sum(q2.x * kk[u].x + q2.y * kk[u].y) * ks[u];
+            if constexpr (kInt8<TC>) {  // V scale: context only, not l
+              vv[u].x *= vs[u];
+              vv[u].y *= vs[u];
+            }
             online_update(sc, vv[u], m, lsum, a);
           }
         }
@@ -298,7 +347,8 @@ decode_stack_kernel(StackParams<T> p) {
           const float2 v2 =
               qkv_pair(partA, vec, nkc, n, d, j, 2 * d + h * kHD);
           if (j == r) {
-            T* kr = p.kv_out + (((size_t)l * 2) * n + r) * d + h * kHD;
+            T* kr = static_cast<T*>(p.kv_out) +
+                    (((size_t)l * 2) * n + r) * d + h * kHD;
             T* vr = kr + (size_t)n * d;
             kr[2 * lane] = lg_from_f<T>(k2.x);
             kr[2 * lane + 1] = lg_from_f<T>(k2.y);
@@ -355,7 +405,7 @@ decode_stack_kernel(StackParams<T> p) {
     grid.sync();
 
     // 4. proj partial products
-    gemv_phase(p, vec, l, GemvInput{att, nullptr, 0}, d, d, 3, partB, sh);
+    gemv_phase<TW>(p, vec, l, GemvInput{att, nullptr, 0}, d, d, 3, partB, sh);
     grid.sync();
 
     // 5. residual += proj + bias; hln = LN2
@@ -376,11 +426,11 @@ decode_stack_kernel(StackParams<T> p) {
     grid.sync();
 
     // 6. fc partial products
-    gemv_phase(p, vec, l, GemvInput{hln, nullptr, 0}, d, Rd, 4, partA, sh);
+    gemv_phase<TW>(p, vec, l, GemvInput{hln, nullptr, 0}, d, Rd, 4, partA, sh);
     grid.sync();
 
     // 7. fc2 partial products over gelu(fc + bias), reduced while staging
-    gemv_phase(p, vec, l, GemvInput{nullptr, partA, nkc}, Rd, d, 4 + R,
+    gemv_phase<TW>(p, vec, l, GemvInput{nullptr, partA, nkc}, Rd, d, 4 + R,
                partB, sh);
     grid.sync();
 
@@ -393,7 +443,8 @@ decode_stack_kernel(StackParams<T> p) {
           s += __ldcg(partB + ((size_t)kc * n + r) * d + c);
         xacc[(size_t)r * d + c] = s;
         sh.row[c] = s;
-        if (l == L - 1) p.x_out[(size_t)r * d + c] = lg_from_f<T>(s);
+        if (l == L - 1)
+          static_cast<T*>(p.x_out)[(size_t)r * d + c] = lg_from_f<T>(s);
       }
       __syncthreads();
       if (l + 1 < L) {
@@ -414,8 +465,9 @@ int supported(int d, int hd, int n) {
   return 0;
 }
 
-template <typename T>
+template <typename T, typename TW, typename TC>
 int grid_blocks(int* blocks) {
+  // one cache per instantiation: the int8 variants use other registers
   static int cached_dev = -1, cached_blocks = 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -428,7 +480,7 @@ int grid_blocks(int* blocks) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &occ, decode_stack_kernel<T>, kThreads, 0);
+        &occ, decode_stack_kernel<T, TW, TC>, kThreads, 0);
     if (e != cudaSuccess) return (int)e;
     if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
     cached_blocks = sms * (occ < 2 ? occ : 2);
@@ -438,17 +490,33 @@ int grid_blocks(int* blocks) {
   return 0;
 }
 
-template <typename T>
-int launch(const StackParams<T>& prm, cudaStream_t stream) {
+template <typename T, typename TW, typename TC>
+int launch(const StackParams& prm, cudaStream_t stream) {
   int blocks = 0;
-  const int e = grid_blocks<T>(&blocks);
+  const int e = grid_blocks<T, TW, TC>(&blocks);
   if (e) return e;
   void* args[] = {(void*)&prm};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)decode_stack_kernel<T>, dim3(blocks), dim3(kThreads), args,
-      0, stream);
+      (const void*)decode_stack_kernel<T, TW, TC>, dim3(blocks),
+      dim3(kThreads), args, 0, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// One instantiation's launch, or with p null its cooperative grid's blocks.
+template <typename T, typename TW, typename TC>
+int run(const StackParams* p, cudaStream_t st, int* grid) {
+  return p ? launch<T, TW, TC>(*p, st) : grid_blocks<T, TW, TC>(grid);
+}
+
+// The instantiation for (compute type, int8 weights, int8 cache).
+template <typename T>
+int dispatch(const StackParams* p, int w_int8, int kv_int8, cudaStream_t st,
+             int* grid) {
+  if (w_int8)
+    return kv_int8 ? run<T, int8_t, int8_t>(p, st, grid)
+                   : run<T, int8_t, T>(p, st, grid);
+  return kv_int8 ? run<T, T, int8_t>(p, st, grid) : run<T, T, T>(p, st, grid);
 }
 
 }  // namespace
@@ -465,35 +533,41 @@ long long lg_decode_stack_workspace(int n, int d, int R) {
   return 3 * nd + 2 * npart + nsplit * (2 + kHD);
 }
 
-// Blocks of the cooperative grid (0 on error).
-int lg_decode_stack_grid(int is_bf16) {
+// Blocks of one instantiation's cooperative grid (0 on error).
+int lg_decode_stack_grid(int is_bf16, int w_int8, int kv_int8) {
   int blocks = 0;
-  const int e = is_bf16 ? grid_blocks<__nv_bfloat16>(&blocks)
-                        : grid_blocks<float>(&blocks);
+  const int e = is_bf16
+      ? dispatch<__nv_bfloat16>(nullptr, w_int8, kv_int8, nullptr, &blocks)
+      : dispatch<float>(nullptr, w_int8, kv_int8, nullptr, &blocks);
   return e ? 0 : blocks;
 }
 
 int lg_decode_stack(const void* x, const void* cache, long long slot_stride,
                     const void* poss, int pos0, const void* slabs,
-                    const void* vecs, void* x_out, void* kv_out, void* ws,
-                    int n, int L, int d, int H, int W, int R, float eps,
-                    float scale, int is_bf16, void* stream) {
-  if (supported(d, d / H, n) || H * kHD != d)
+                    const void* vecs, const void* scales,
+                    const void* kv_scales, void* x_out, void* kv_out,
+                    void* ws, int n, int L, int d, int H, int W, int R,
+                    float eps, float scale, int is_bf16, int w_int8,
+                    int kv_int8, void* stream) {
+  if (supported(d, d / H, n) || H * kHD != d || (w_int8 && !scales) ||
+      (kv_int8 && !kv_scales))
     return (int)cudaErrorInvalidValue;
+  const StackParams p{x,
+                      cache,
+                      slot_stride,
+                      static_cast<const int*>(poss),
+                      pos0,
+                      slabs,
+                      vecs,
+                      static_cast<const float*>(scales),
+                      static_cast<const float*>(kv_scales),
+                      x_out,
+                      kv_out,
+                      static_cast<float*>(ws),
+                      n, L, d, H, W, R, eps, scale};
   cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    StackParams<T> prm{(const T*)x, (const T*)cache, slot_stride,
-                       (const int*)poss, pos0, (const T*)slabs,
-                       (const T*)vecs, (T*)x_out, (T*)kv_out, (float*)ws,
-                       n, L, d, H, W, R, eps, scale};
-    return launch(prm, st);
-  }
-  StackParams<float> prm{(const float*)x, (const float*)cache, slot_stride,
-                         (const int*)poss, pos0, (const float*)slabs,
-                         (const float*)vecs, (float*)x_out, (float*)kv_out,
-                         (float*)ws, n, L, d, H, W, R, eps, scale};
-  return launch(prm, st);
+  return is_bf16 ? dispatch<__nv_bfloat16>(&p, w_int8, kv_int8, st, nullptr)
+                 : dispatch<float>(&p, w_int8, kv_int8, st, nullptr);
 }
 
 }  // extern "C"

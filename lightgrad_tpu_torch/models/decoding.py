@@ -4,12 +4,39 @@ Counterpart of part of ``lightgrad_tpu/models/decoding.py``: :class:`KVFns`,
 :class:`ParamFn`, ``_window``, ``_device_sample`` and :func:`generate_batch`.
 PyTorch runs eagerly, so nothing is traced or compiled here: a ``ParamFn``
 only holds a function and the parameters it is called with.
+
+A cache is one tensor or a tuple of tensors (``quantize_kv``'s int8 rows
+and their scales); :func:`cache_map`, :func:`stacked_zeros` and
+:func:`cache_slot` treat both alike, as ``jax.tree_util.tree_map`` does in
+the JAX package.
 """
 
 import numpy as np
 import torch
 
-__all__ = ["KVFns", "ParamFn", "generate_batch"]
+__all__ = ["KVFns", "ParamFn", "generate_batch", "cache_map",
+           "stacked_zeros", "cache_slot"]
+
+
+def cache_map(fn, cache):
+    """``fn`` applied to each tensor of a cache (one tensor, or a tuple)."""
+    if isinstance(cache, tuple):
+        return tuple(fn(c) for c in cache)
+    return fn(cache)
+
+
+def stacked_zeros(cache, n: int):
+    """A zeroed cache of ``n`` slots: each tensor with a leading slot dim."""
+    return cache_map(lambda c: c.new_zeros((n,) + tuple(c.shape)), cache)
+
+
+def cache_slot(caches, i: int):
+    """Slot ``i`` of a stacked cache, as views (writes go to the stack)."""
+    return cache_map(lambda c: c[i], caches)
+
+
+def _device(cache):
+    return (cache[0] if isinstance(cache, tuple) else cache).device
 
 
 class ParamFn:
@@ -91,14 +118,13 @@ def generate_batch(model, prompts, max_new_tokens: int,
     if not hasattr(model, "_kv_fns"):
         model._kv_fns = model._kv_functions()
     init_cache, prefill, _ = model._kv_fns
-    c0 = init_cache()
-    caches = c0.new_zeros((B,) + tuple(c0.shape))
-    dev = c0.device
+    caches = stacked_zeros(init_cache(), B)
+    dev = _device(caches)
     rows = []
     for i, pr in enumerate(prompts):
         toks = torch.zeros(W, dtype=torch.long)
         toks[:len(pr)] = torch.as_tensor(pr, dtype=torch.long)
-        _, lg = prefill(caches[i], toks.to(dev), len(pr))  # in place
+        _, lg = prefill(cache_slot(caches, i), toks.to(dev), len(pr))
         rows.append(lg)
     logits = torch.stack(rows)
     rng = rng or np.random.default_rng(0)

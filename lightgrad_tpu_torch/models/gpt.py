@@ -11,11 +11,14 @@ The hand-written kernels on the training path (``GPT.forward`` under
 layernorm.py, through models/_torch_layers.py) and the flash-attention
 forward and backward (ops/attention.py, through autograd/ops.py).  On the
 serving path: prefill's causal attention, the whole-stack decode kernel for
-``step``, ``extend`` and ``step_batch`` (ops/decode_stack.py), and, when the
+``step``, ``extend`` and ``step_batch`` (ops/decode_stack.py; its int8
+instantiations under ``quantize_serving`` / ``quantize_kv``), and, when the
 stack is not packed, the per-layer decode attention
-(ops/decode_attention.py).  The serving path's LayerNorm, GELU, the
-products outside the kernels, the embedding gathers, the cache scatters and
-sampling are plain PyTorch, as they were plain XLA in the JAX package.
+(ops/decode_attention.py, float cache).  The serving path's LayerNorm,
+GELU, the products outside the kernels (int8 ones included), the int8
+cache's attention on the unrolled branch, the embedding gathers, the cache
+scatters and sampling are plain PyTorch, as they were plain XLA in the JAX
+package.
 """
 
 import numpy as np
@@ -29,9 +32,20 @@ from ..ops.attention import attention_fwd
 from ..ops.decode_attention import decode_attention
 from ..ops.decode_stack import (decode_stack, decode_stack_batch,
                                 pack_gpt_stack, stack_supported)
-from .decoding import KVFns, ParamFn
+from .decoding import KVFns, ParamFn, cache_slot
 
-__all__ = ["GPTConfig", "GPT", "ByteTokenizer"]
+__all__ = ["GPTConfig", "GPT", "ByteTokenizer", "quantize_rows"]
+
+
+def quantize_rows(w):
+    """Symmetric per-row int8 of ``w (..., k)``: ``(int8 rows, f32 scales
+    (..., 1))``, scale ``max(absmax, 1e-8) / 127`` -- ``quantize_kv``'s
+    cache rows (the JAX package's ``_q_rows``) and ``quantize_serving``'s
+    weights, one scale per output channel.  ``torch.round`` rounds half to
+    even, as ``jnp.round`` and ``np.round`` do."""
+    w = w.float()
+    s = w.abs().amax(-1, keepdim=True).clamp_min(1e-8) / 127.0
+    return torch.clamp(torch.round(w / s), -127, 127).to(torch.int8), s
 
 
 def _sample(logits: np.ndarray, temperature: float, rng,
@@ -167,6 +181,26 @@ class GPT(nn.Module):
         self.__dict__.pop("_kv_fns", None)
         return super()._apply(fn, *args, **kwargs)
 
+    def quantize_serving(self, enable: bool = True):
+        """int8 weight-only decode: the decode functions store the 4
+        per-layer matrices and a copy of the tied LM head as per-output-
+        channel symmetric int8 (scale ``max(absmax, 1e-8) / 127`` in the
+        compute dtype).  Training and ``forward`` are untouched.  The decode
+        functions are rebuilt at the next generate call."""
+        self._serve_quant = bool(enable)
+        self.__dict__.pop("_kv_fns", None)
+        return self
+
+    def quantize_kv(self, enable: bool = True):
+        """int8 KV cache: decode-cache rows stored as per-row symmetric int8
+        with f32 scales; the cache becomes the pair ``(int8 rows (L, 2, H,
+        W, hd), f32 scales (L, 2, H, W, 1))``.  Composes with
+        :meth:`quantize_serving`.  The decode functions are rebuilt at the
+        next generate call."""
+        self._kv_quant = bool(enable)
+        self.__dict__.pop("_kv_fns", None)
+        return self
+
     def forward(self, input_ids):
         """Logits (b, s, vocab); differentiable (the training forward)."""
         b, s = input_ids.shape
@@ -218,9 +252,12 @@ class GPT(nn.Module):
     # --- KV-cache incremental decoding -----------------------------------
     def _kv_functions(self, pack_stack=None):
         """Build KVFns(init_cache, prefill, step, extend, step_batch) over
-        the parameters.  The cache is one tensor ``(L, 2, n_head, W, hd)``;
-        the functions write new K/V rows into it IN PLACE (the JAX package
-        returned a new array) and return it.
+        the parameters.  The cache is one tensor ``(L, 2, n_head, W, hd)``,
+        or under :meth:`quantize_kv` the pair of its int8 rows and their
+        f32 row scales; the functions write new K/V rows into it IN PLACE
+        (the JAX package returned a new array) and return it.
+        Under :meth:`quantize_serving` the per-layer matrices and the LM
+        head are int8 (``name#q``) with per-channel scales (``name#s``).
 
         ``pack_stack`` None packs the weights for the whole-stack decode
         kernel when the kernel takes the shape (``stack_supported``), True
@@ -235,6 +272,19 @@ class GPT(nn.Module):
         p = {name: t.detach() for name, t in self.named_parameters()}
         scale = 1.0 / float(np.sqrt(hd))
         wte = p["wte.weight"]
+        cdt = wte.dtype
+        kv_quant = bool(getattr(self, "_kv_quant", False))
+        if getattr(self, "_serve_quant", False):
+            def int8(w):
+                q, s = quantize_rows(w)
+                return q, s[:, 0].to(cdt)
+
+            big = [n for n in p if n.endswith(".weight") and p[n].ndim == 2
+                   and not n.startswith(("wte.", "wpe."))]
+            for n in big:
+                p[n + "#q"], p[n + "#s"] = int8(p.pop(n))
+            # the tied head reads wte: quantize a separate serving copy
+            p["head#q"], p["head#s"] = int8(wte)
         if pack_stack is None:
             pack_stack = stack_supported(d=d, hd=hd, n=8)
         elif pack_stack and not stack_supported(d=d, hd=hd, n=8):
@@ -247,28 +297,63 @@ class GPT(nn.Module):
                                 eps)
 
         def lin(x, pre):
-            return F.linear(x, p[pre + ".weight"], p[pre + ".bias"])
+            q = p.get(pre + ".weight#q")
+            if q is None:
+                return F.linear(x, p[pre + ".weight"], p[pre + ".bias"])
+            return F.linear(x, q.to(cdt)) * p[pre + ".weight#s"] \
+                + p[pre + ".bias"]
 
         def mlp(x, pre):
             return lin(_gelu(lin(ln(x, pre + "ln_2"), pre + "c_fc")),
                        pre + "c_proj")
 
         def head(x):
-            return ln(x, "ln_f") @ wte.T
+            x = ln(x, "ln_f")
+            if "head#q" in p:
+                return (x @ p["head#q"].T.to(cdt)) * p["head#s"]
+            return x @ wte.T
+
+        def store(cache, index, rows):
+            """Write K/V ``rows (..., hd)`` at ``cache[index]``; an int8
+            cache stores their :func:`quantize_rows`."""
+            if kv_quant:
+                cq, cs = cache
+                cq[index], cs[index] = quantize_rows(rows)
+            else:
+                cache[index] = rows
+
+        def stack(fn, x, cache, pos):
+            """The whole-stack kernel ``fn`` over the packed weights."""
+            cache, kvs = cache if kv_quant else (cache, None)
+            return fn(x, cache, pos, p["stack#slabs"], p["stack#vecs"],
+                      p.get("stack#scales"), eps=eps, kv_scales=kvs)
 
         def _write_and_attend(cache, l, q, k, v, pos):
             """Write layer ``l``'s new K/V rows at pos.. and attend.  q/k/v:
-            (H, n, hd).  One row: the decode-attention kernel; more rows:
-            plain masked attention over the window."""
+            (H, n, hd).  One row over a float cache: the decode-attention
+            kernel; more rows: plain masked attention over the window.  An
+            int8 cache: the new rows quantized first, then plain attention
+            with the K scale on the score column and the V scale on the
+            probabilities."""
             n = q.shape[1]
-            cache[l, 0, :, pos:pos + n] = k
-            cache[l, 1, :, pos:pos + n] = v
+            store(cache, (l, slice(None), slice(None), slice(pos, pos + n)),
+                  torch.stack([k, v]))
+            rows = pos + torch.arange(n, device=q.device)
+            vis = rows[:, None] >= torch.arange(W, device=q.device)[None]
+            if kv_quant:
+                cq, cs = cache
+                s = torch.einsum("hqd,hkd->hqk", q.float(),
+                                 cq[l, 0].float()) * scale
+                s = (s * cs[l, 0, :, :, 0][:, None, :]).masked_fill(
+                    ~vis[None], -1e30)
+                pr = torch.softmax(s, -1) * cs[l, 1, :, :, 0][:, None, :]
+                att = torch.einsum("hqk,hkd->hqd", pr,
+                                   cq[l, 1].float()).to(cdt)
+                return att.transpose(0, 1).reshape(n, d)
             kc, vc = cache[l, 0], cache[l, 1]
             if n == 1:
                 att = decode_attention(q.contiguous(), kc, vc, pos, scale)
             else:
-                rows = pos + torch.arange(n, device=q.device)
-                vis = rows[:, None] >= torch.arange(W, device=q.device)[None]
                 s = torch.einsum("hqd,hkd->hqk", q.float(), kc.float()) * scale
                 s = s.masked_fill(~vis[None], -1e30)
                 att = (torch.softmax(s, -1) @ vc.float()).to(q.dtype)
@@ -288,22 +373,27 @@ class GPT(nn.Module):
             return x
 
         def init_cache():
+            if kv_quant:
+                return (torch.zeros((L, 2, H, W, hd), device=wte.device,
+                                    dtype=torch.int8),
+                        torch.zeros((L, 2, H, W, 1), device=wte.device,
+                                    dtype=torch.float32))
             return torch.zeros((L, 2, H, W, hd), device=wte.device,
-                               dtype=wte.dtype)
+                               dtype=cdt)
 
         def prefill(p, cache, toks, n_real):
             """The prompt padded to the window in ONE parallel causal pass;
-            writes all W K/V rows.  Pad rows beyond ``n_real`` hold garbage
-            K/V that decode steps overwrite before the ``<= pos`` mask ever
-            exposes them."""
+            writes all W K/V rows (quantized on write into an int8 cache,
+            while the pass itself attends them at full precision).  Pad rows
+            beyond ``n_real`` hold garbage K/V that decode steps overwrite
+            before the ``<= pos`` mask ever exposes them."""
             x = p["wte.weight"][toks] + p["wpe.weight"][:W]
             for l in range(L):
                 pre = f"h.{l}."
                 qkv = lin(ln(x, pre + "ln_1"), pre + "attn.c_attn")
                 q, k, v = (t.reshape(W, H, hd).transpose(0, 1).contiguous()
                            for t in qkv.split(d, dim=-1))      # (H, W, hd)
-                cache[l, 0] = k
-                cache[l, 1] = v
+                store(cache, l, torch.stack([k, v]))
                 att = attention_fwd(q, k, v, scale, causal=True)
                 x = x + lin(att.transpose(0, 1).reshape(W, d),
                             pre + "attn.c_proj")
@@ -314,9 +404,9 @@ class GPT(nn.Module):
             """One token at host position ``pos``: returns (cache, logits)."""
             x = (p["wte.weight"][tok] + p["wpe.weight"][pos])[None]
             if "stack#slabs" in p:
-                x, kv = decode_stack(x, cache, pos, p["stack#slabs"],
-                                     p["stack#vecs"], eps=eps)
-                cache[:, :, :, pos] = kv.reshape(L, 2, H, hd)
+                x, kv = stack(decode_stack, x, cache, pos)
+                store(cache, (slice(None),) * 3 + (pos,),
+                      kv.reshape(L, 2, H, hd))
             else:
                 x = _layers(cache, x, pos)
             return cache, head(x)[0]
@@ -328,17 +418,17 @@ class GPT(nn.Module):
             rows = pos0 + torch.arange(K, device=toks.device)
             x = p["wte.weight"][toks] + p["wpe.weight"][rows]
             if "stack#slabs" in p and K <= 8:
-                x, kv = decode_stack(x, cache, pos0, p["stack#slabs"],
-                                     p["stack#vecs"], eps=eps)
-                cache[:, :, :, pos0:pos0 + K] = \
-                    kv.reshape(L, 2, K, H, hd).transpose(2, 3)
+                x, kv = stack(decode_stack, x, cache, pos0)
+                store(cache, (slice(None),) * 3 + (slice(pos0, pos0 + K),),
+                      kv.reshape(L, 2, K, H, hd).transpose(2, 3))
             else:
                 x = _layers(cache, x, pos0)
             return cache, head(x)
 
         def step_batch(p, caches, poss, toks):
             """B independent slots, one token each: caches (B, L, 2, H, W,
-            hd), poss (B,) int32 and toks (B,) on the model's device.  One
+            hd) (or the pair of int8 rows and (B, L, 2, H, W, 1) scales),
+            poss (B,) int32 and toks (B,) on the model's device.  One
             weight stream for all B rows through the stack kernel; without
             the packed stack, one unrolled step per slot.  Positions past
             the window (a slot decoding beyond its request inside a tick)
@@ -346,18 +436,17 @@ class GPT(nn.Module):
             B = toks.shape[0]
             pc = poss.long().clamp(max=W - 1)
             if "stack#slabs" not in p or not stack_supported(d=d, hd=hd, n=B):
-                out = [step(p, caches[b], int(pc[b]), toks[b])[1]
+                out = [step(p, cache_slot(caches, b), int(pc[b]), toks[b])[1]
                        for b in range(B)]
                 return caches, torch.stack(out)
             x = p["wte.weight"][toks] + p["wpe.weight"][pc]
-            x, kv = decode_stack_batch(x, caches, poss, p["stack#slabs"],
-                                       p["stack#vecs"], eps=eps)
-            dev = caches.device
+            x, kv = stack(decode_stack_batch, x, caches, poss)
+            dev = x.device
             idx = [torch.arange(n, device=dev).reshape(
                 [n if i == j else 1 for j in range(4)])
                 for i, n in enumerate((B, L, 2, H))]
-            caches[idx[0], idx[1], idx[2], idx[3], pc.reshape(B, 1, 1, 1)] = \
-                kv.reshape(L, 2, B, H, hd).permute(2, 0, 1, 3, 4)
+            store(caches, (*idx, pc.reshape(B, 1, 1, 1)),
+                  kv.reshape(L, 2, B, H, hd).permute(2, 0, 1, 3, 4))
             return caches, head(x)
 
         return KVFns(init_cache, ParamFn(prefill, p), ParamFn(step, p),
@@ -379,7 +468,8 @@ class GPT(nn.Module):
         cache = init_cache()
         toks = torch.zeros(W, dtype=torch.long)
         toks[:len(ids)] = torch.as_tensor(ids, dtype=torch.long)
-        cache, logits = prefill(cache, toks.to(cache.device), len(ids))
+        cache, logits = prefill(cache, toks.to(self.wte.weight.device),
+                                len(ids))
         out = list(ids)
 
         def emit(lg):

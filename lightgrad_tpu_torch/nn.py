@@ -2,8 +2,9 @@
 
 Counterpart of ``lightgrad_tpu/nn.py`` for the layers the ported paths
 need, with its names and parameter names: ``Module`` (``parameters``,
-``named_parameters``, ``load_parameters``, ``state_dict``,
-``train``/``eval``), ``ModuleList``, ``Sequential``, ``Linear``,
+``named_parameters``, ``register_buffer``, ``named_buffers``,
+``load_parameters``, ``state_dict``, ``train``/``eval``), ``ModuleList``,
+``Sequential``, ``Linear``,
 ``Embedding``, ``LayerNorm``, ``Dropout``, ``ReLU``, ``GELU``, ``Tanh``,
 ``Flatten``.  Parameters are lightgrad tensors (``CudaTensor``).
 
@@ -33,7 +34,24 @@ class Module:
     def __init__(self):
         object.__setattr__(self, "_params", {})
         object.__setattr__(self, "_modules", {})
+        object.__setattr__(self, "_buffers", {})
         object.__setattr__(self, "training", True)
+
+    def register_buffer(self, name: str, tensor):
+        """Non-parameter persistent state (``QuantLinear``'s int8 weight and
+        its scales): saved by ``state_dict`` and loaded by
+        ``load_parameters``, never yielded by ``parameters()``, so no
+        optimizer touches it."""
+        self._buffers[name] = tensor
+        object.__setattr__(self, name, tensor)
+        return tensor
+
+    def named_buffers(self, prefix: str = "", separator: str = "."):
+        pfx = (prefix + separator) if prefix else ""
+        for name, b in self._buffers.items():
+            yield pfx + name, b
+        for name, m in self._modules.items():
+            yield from m.named_buffers(prefix=pfx + name, separator=separator)
 
     def forward(self, *args, **kwargs):
         raise NotImplementedError()
@@ -92,37 +110,46 @@ class Module:
         """Rebind every parameter to the value under its name (a numpy array
         or a lightgrad tensor), keeping the parameter's device and dtype.
         The tensor objects stay the same, so an optimizer holding them
-        sees the loaded values."""
+        sees the loaded values.  Buffers load the same way when their name
+        is present and keep their value when it is not."""
         if prefix:
             prefix += separator
         for key, p in self._params.items():
             full = prefix + key
             if full not in param_dict:
                 raise KeyError(f"{full} not found in param dict")
-            new = param_dict[full]
-            if isinstance(new, AbstractTensor):
-                new = new.data
-            elif not isinstance(new, torch.Tensor):
-                new = np.asarray(new)
-                if new.dtype.name == "bfloat16":   # ml_dtypes
-                    new = new.astype(np.float32)
-                new = torch.tensor(new)
-            if tuple(new.shape) != p.shape:
-                raise ValueError(f"shape mismatch for {full}: "
-                                 f"{tuple(new.shape)} != {p.shape}")
-            p._set_data(new.to(device=p.data.device, dtype=p.dtype,
-                               copy=True))
+            _load_into(p, param_dict[full], full)
+        for key, b in self._buffers.items():
+            if prefix + key in param_dict:
+                _load_into(b, param_dict[prefix + key], prefix + key)
         for key, m in self._modules.items():
             m.load_parameters(param_dict, prefix=prefix + key,
                               separator=separator)
 
     def state_dict(self, prefix: str = "", separator: str = ".") -> dict:
-        """name -> np.ndarray snapshot."""
+        """name -> np.ndarray snapshot of parameters and buffers."""
         pfx = (prefix + separator) if prefix else ""
         out = {pfx + n: p.numpy() for n, p in self._params.items()}
+        out.update({pfx + n: b.numpy() for n, b in self._buffers.items()})
         for name, m in self._modules.items():
             out.update(m.state_dict(prefix=pfx + name, separator=separator))
         return out
+
+
+def _load_into(t, new, name):
+    """Set lightgrad tensor ``t`` to ``new`` (an array or a tensor) in
+    place, keeping ``t``'s device and dtype."""
+    if isinstance(new, AbstractTensor):
+        new = new.data
+    elif not isinstance(new, torch.Tensor):
+        new = np.asarray(new)
+        if new.dtype.name == "bfloat16":   # ml_dtypes
+            new = new.astype(np.float32)
+        new = torch.tensor(new)
+    if tuple(new.shape) != t.shape:
+        raise ValueError(f"shape mismatch for {name}: "
+                         f"{tuple(new.shape)} != {t.shape}")
+    t._set_data(new.to(device=t.data.device, dtype=t.dtype, copy=True))
 
 
 class ModuleList(Module, list):

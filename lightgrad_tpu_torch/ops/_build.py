@@ -45,14 +45,16 @@ _SIGNATURES = {
     # q, kc, vc, out, KV, G, W, hd, pos, window, scale, is_bf16, stream
     "lg_decode_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                              _P], _I),
-    # x, cache, slot_stride, poss, pos0, slabs, vecs, x_out, kv_out, ws,
-    # n, L, d, H, W, R, eps, scale, is_bf16, stream
-    "lg_decode_stack": ([_P, _P, _LL, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _I, _I, _I, _F, _F, _I, _P], _I),
+    # x, cache, slot_stride, poss, pos0, slabs, vecs, scales, kv_scales,
+    # x_out, kv_out, ws, n, L, d, H, W, R, eps, scale, is_bf16, w_int8,
+    # kv_int8, stream
+    "lg_decode_stack": ([_P, _P, _LL, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                         _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P], _I),
     # n, d, R -> f32 workspace elements the stack kernel needs
     "lg_decode_stack_workspace": ([_I, _I, _I], _LL),
-    # is_bf16 -> blocks of the stack kernel's cooperative grid (0: refused)
-    "lg_decode_stack_grid": ([_I], _I),
+    # is_bf16, w_int8, kv_int8 -> blocks of that instantiation's cooperative
+    # grid (0: refused)
+    "lg_decode_stack_grid": ([_I, _I, _I], _I),
     # A, B, C, M, N, K, batch, B2, sAb1, sAb2, sAm, sAk, sBb1, sBb2, sBk,
     # sBn, is_bf16, stream
     "lg_matmul": ([_P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL,

@@ -13,6 +13,19 @@ K/V rows as ``kv (L, 2, n, d)``; the caller scatters them.  The JAX package's
 VMEM planner (``_plan_chunks`` / ``stack_fits``) is replaced by
 :func:`stack_supported`, the CUDA kernel's own fit check, which the model
 wiring consults before packing.
+
+int8 serving (the JAX ``_kernel_int8`` / ``_kernel_kvq`` /
+``_kernel_int8_kvq`` and their batched ``_kernel_b_*`` twins): ``scales``
+(L, S, d) f32 makes the slabs int8 with a scale per output column
+(``quantize_serving``); ``kv_scales`` (..., L, 2, H, W, 1) f32 makes the
+cache int8 rows with a scale per row (``quantize_kv``).  Either, or both,
+selects one instantiation of the same CUDA kernel, counted under its own
+name (``decode_stack_int8``, ``decode_stack_batch_kvq``, ...).  The
+emitted ``kv`` then stays in ``x.dtype`` at full precision; the caller
+quantizes it.  One divergence from the JAX kernel: the TPU's int8 product
+rounds the activations to bf16 before its MXU dot
+(``lightgrad_tpu/ops/decode_stack.py`` ``gemm``); here, as in the JAX
+package's unrolled ``mm``, they stay f32.
 """
 
 import torch
@@ -43,18 +56,34 @@ def pack_gpt_stack(p, L: int, d: int, R: int = 4):
     layout) into ``stack#slabs (L, 4+2R, d, d)`` -- each slab stored [in,
     out] so every product is ``row @ slab`` -- and ``stack#vecs (L, 9+R,
     d)``: ln_1 w/b, ln_2 w/b, proj bias, fc2 bias, q/k/v biases, fc biases.
-    The same layout as the JAX package's ``pack_gpt_stack``."""
-    slabs, vecs = [], []
+    The same layout as the JAX package's ``pack_gpt_stack``.
+
+    int8 serving weights (``name#q`` int8 / ``name#s`` per-output-channel
+    scale pairs from ``GPT.quantize_serving``) give int8 slabs and
+    ``stack#scales (L, 4+2R, d)`` f32, each slab's scale per output
+    column; fc2's single scale row serves all R of its slabs.  (The JAX
+    package stores them (L, S, 1, d) for Mosaic's tiling rule only.)"""
+    int8 = "h.0.attn.c_attn.weight#q" in p
+    sfx = "#q" if int8 else ""
+    slabs, vecs, scales = [], [], []
     for l in range(L):
         pre = f"h.{l}."
-        wqkv = p[pre + "attn.c_attn.weight"]               # (3d, d)
-        wfc = p[pre + "c_fc.weight"]                       # (Rd, d)
-        wfc2 = p[pre + "c_proj.weight"]                    # (d, Rd)
+        wqkv = p[pre + "attn.c_attn.weight" + sfx]         # (3d, d)
+        wfc = p[pre + "c_fc.weight" + sfx]                 # (Rd, d)
+        wfc2 = p[pre + "c_proj.weight" + sfx]              # (d, Rd)
         rows = [wqkv[i * d:(i + 1) * d].T for i in range(3)]
-        rows.append(p[pre + "attn.c_proj.weight"].T)
+        rows.append(p[pre + "attn.c_proj.weight" + sfx].T)
         rows += [wfc[i * d:(i + 1) * d].T for i in range(R)]
         rows += [wfc2[:, i * d:(i + 1) * d].T for i in range(R)]
         slabs.append(torch.stack(rows))
+        if int8:
+            sq = p[pre + "attn.c_attn.weight#s"]
+            sf = p[pre + "c_fc.weight#s"]
+            sc = [sq[i * d:(i + 1) * d] for i in range(3)]
+            sc.append(p[pre + "attn.c_proj.weight#s"])
+            sc += [sf[i * d:(i + 1) * d] for i in range(R)]
+            sc += [p[pre + "c_proj.weight#s"]] * R
+            scales.append(torch.stack(sc).float())
         bq, bf = p[pre + "attn.c_attn.bias"], p[pre + "c_fc.bias"]
         vr = [p[pre + "ln_1.weight"], p[pre + "ln_1.bias"],
               p[pre + "ln_2.weight"], p[pre + "ln_2.bias"],
@@ -62,14 +91,20 @@ def pack_gpt_stack(p, L: int, d: int, R: int = 4):
         vr += [bq[i * d:(i + 1) * d] for i in range(3)]
         vr += [bf[i * d:(i + 1) * d] for i in range(R)]
         vecs.append(torch.stack(vr))
-    return {"stack#slabs": torch.stack(slabs).contiguous(),
-            "stack#vecs": torch.stack(vecs).contiguous()}
+    out = {"stack#slabs": torch.stack(slabs).contiguous(),
+           "stack#vecs": torch.stack(vecs).contiguous()}
+    if int8:
+        out["stack#scales"] = torch.stack(scales).contiguous()
+    return out
 
 
-def _stack_reference(x, caches, slots, lens, self_vis, slabs, vecs, eps, R):
+def _stack_reference(x, caches, slots, lens, self_vis, slabs, vecs, eps, R,
+                     scales=None, kv_scales=None):
     """f32 math throughout, residual kept f32 across layers (as the kernel
     does).  caches (slots, L, 2, H, W, hd); row r reads slot ``slots[r]``'s
-    cache rows < ``lens[r]`` plus the in-flight rows ``self_vis[r]`` marks."""
+    cache rows < ``lens[r]`` plus the in-flight rows ``self_vis[r]`` marks.
+    int8 slabs are dequantized by their column ``scales``; int8 cache rows
+    by their ``kv_scales`` (slots, L, 2, H, W, 1)."""
     n, d = x.shape
     L = slabs.shape[0]
     H, W, hd = caches.shape[3:]
@@ -80,11 +115,16 @@ def _stack_reference(x, caches, slots, lens, self_vis, slabs, vecs, eps, R):
     kv = torch.empty((L, 2, n, d), device=dev, dtype=torch.float32)
     for l in range(L):
         sl, vec = slabs[l].float(), vecs[l].float()
+        if scales is not None:
+            sl = sl * scales[l][:, None, :]
         h = F.layer_norm(xacc, (d,), vec[0], vec[1], eps)
         q, k, v = (h @ sl[i] + vec[6 + i] for i in range(3))
         kv[l, 0], kv[l, 1] = k, v
         kc = caches[slots, l, 0].float()                           # (n,H,W,hd)
         vc = caches[slots, l, 1].float()
+        if kv_scales is not None:
+            kc = kc * kv_scales[slots, l, 0]
+            vc = vc * kv_scales[slots, l, 1]
         qh = q.reshape(n, H, hd)
         sc = torch.einsum("nhd,nhwd->nhw", qh, kc) * scale
         sc = sc.masked_fill(~seen[:, None, :], -1e30)
@@ -101,10 +141,16 @@ def _stack_reference(x, caches, slots, lens, self_vis, slabs, vecs, eps, R):
             fc = F.gelu(h2 @ sl[4 + i] + vec[9 + i], approximate="tanh")
             out = out + fc @ sl[4 + R + i]
         xacc = xacc + out
-    return xacc.to(x.dtype), kv.to(caches.dtype)
+    return xacc.to(x.dtype), kv.to(_kv_dtype(x, caches, kv_scales))
 
 
-def decode_stack_reference(x, cache, pos: int, slabs, vecs, *, eps, R=4):
+def _kv_dtype(x, cache, kv_scales):
+    """The emitted rows' dtype: the cache's, or x's over an int8 cache."""
+    return x.dtype if kv_scales is not None else cache.dtype
+
+
+def decode_stack_reference(x, cache, pos: int, slabs, vecs, scales=None, *,
+                           eps, R=4, kv_scales=None):
     """Plain version of :func:`decode_stack`."""
     n = x.shape[0]
     dev = x.device
@@ -112,82 +158,116 @@ def decode_stack_reference(x, cache, pos: int, slabs, vecs, *, eps, R=4):
     return _stack_reference(
         x, cache[None], torch.zeros(n, dtype=torch.long, device=dev),
         torch.full((n,), int(pos), device=dev), rows[None, :] <= rows[:, None],
-        slabs, vecs, eps, R)
+        slabs, vecs, eps, R, scales,
+        None if kv_scales is None else kv_scales[None])
 
 
-def decode_stack_batch_reference(x, caches, poss, slabs, vecs, *, eps, R=4):
+def decode_stack_batch_reference(x, caches, poss, slabs, vecs, scales=None,
+                                 *, eps, R=4, kv_scales=None):
     """Plain version of :func:`decode_stack_batch`."""
     B = x.shape[0]
     rows = torch.arange(B, device=x.device)
     return _stack_reference(x, caches, rows, poss.to(x.device).long(),
                             rows[None, :] == rows[:, None], slabs, vecs, eps,
-                            R)
+                            R, scales, kv_scales)
 
 
-def _launch(name, x, cache, slot_stride, poss, pos0, slabs, vecs, eps, R):
+def _variant(name, scales, kv_scales):
+    """The launch-counted name of one instantiation: the JAX function's name
+    plus ``_int8`` (int8 slabs) and/or ``_kvq`` (int8 cache)."""
+    return name + ("_int8" if scales is not None else "") \
+        + ("_kvq" if kv_scales is not None else "")
+
+
+def _check(name, t, tname, dtypes, shape, dev):
+    if t.device != dev or t.dtype not in dtypes or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: {tname} must be a contiguous "
+                         f"{' or '.join(map(str, dtypes))} tensor of shape "
+                         f"{shape} on {dev}; got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _launch(name, x, cache, slot_stride, poss, pos0, slabs, vecs, scales,
+            kv_scales, eps, R):
     n, d = x.shape
     L, S = slabs.shape[:2]
     H, W, hd = cache.shape[-3:]
-    if S != 4 + 2 * R or vecs.shape != (L, 9 + R, d) \
-            or slabs.shape != (L, S, d, d) or H * hd != d:
-        raise ValueError(f"{name}: slabs {tuple(slabs.shape)}, vecs "
-                         f"{tuple(vecs.shape)}, cache {tuple(cache.shape)}, "
-                         f"x {tuple(x.shape)}")
+    if S != 4 + 2 * R or H * hd != d:
+        raise ValueError(f"{name}: slabs {tuple(slabs.shape)}, cache "
+                         f"{tuple(cache.shape)}, x {tuple(x.shape)}")
     if not stack_supported(d=d, hd=hd, n=n):
         raise ValueError(f"{name}: kernel lacks d={d}, hd={hd}, n={n} "
                          f"(gate with stack_supported())")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: unsupported dtype {x.dtype}")
-    for tname, t in (("x", x), ("cache", cache), ("slabs", slabs),
-                     ("vecs", vecs)):
-        if t.device != x.device or t.dtype != x.dtype \
-                or not t.is_contiguous():
-            raise ValueError(f"{name}: {tname} must be a contiguous tensor "
-                             f"of x's device and dtype")
+    dev, dt, i8 = x.device, x.dtype, torch.int8
+    _check(name, x, "x", (dt,), (n, d), dev)
+    _check(name, slabs, "slabs", (i8,) if scales is not None else (dt,),
+           (L, S, d, d), dev)
+    _check(name, vecs, "vecs", (dt,), (L, 9 + R, d), dev)
+    _check(name, cache, "cache", (i8,) if kv_scales is not None else (dt,),
+           tuple(cache.shape[:-5]) + (L, 2, H, W, hd), dev)
+    if scales is not None:
+        _check(name, scales, "scales", (torch.float32,), (L, S, d), dev)
+    if kv_scales is not None:
+        _check(name, kv_scales, "kv_scales", (torch.float32,),
+               tuple(cache.shape[:-1]) + (1,), dev)
     lib = _build.library()
-    ws = torch.empty(lib.lg_decode_stack_workspace(n, d, R),
-                     device=x.device, dtype=torch.float32)
+    ws = torch.empty(lib.lg_decode_stack_workspace(n, d, R), device=dev,
+                     dtype=torch.float32)
     x_out = torch.empty_like(x)
-    kv = torch.empty((L, 2, n, d), device=x.device, dtype=x.dtype)
-    with torch.cuda.device(x.device):
+    kv = torch.empty((L, 2, n, d), device=dev,
+                     dtype=_kv_dtype(x, cache, kv_scales))
+    with torch.cuda.device(dev):
         err = lib.lg_decode_stack(
             x.data_ptr(), cache.data_ptr(), slot_stride,
             None if poss is None else poss.data_ptr(), pos0,
-            slabs.data_ptr(), vecs.data_ptr(), x_out.data_ptr(),
-            kv.data_ptr(), ws.data_ptr(), n, L, d, H, W, R, float(eps),
-            float(1.0 / float(hd) ** 0.5), int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            slabs.data_ptr(), vecs.data_ptr(),
+            None if scales is None else scales.data_ptr(),
+            None if kv_scales is None else kv_scales.data_ptr(),
+            x_out.data_ptr(), kv.data_ptr(), ws.data_ptr(), n, L, d, H, W, R,
+            float(eps), float(1.0 / float(hd) ** 0.5),
+            int(dt == torch.bfloat16), int(scales is not None),
+            int(kv_scales is not None),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, name)
     runtime.count_launch(name)
     return x_out, kv
 
 
-def decode_stack(x, cache, pos: int, slabs, vecs, *, eps, R=4):
+def decode_stack(x, cache, pos: int, slabs, vecs, scales=None, *, eps, R=4,
+                 kv_scales=None):
     """n decode rows at positions pos..pos+n-1 through the whole stack.
 
     x (n, d) residual input (embeddings summed); cache (L, 2, H, W, hd);
-    ``pos`` a host int; slabs/vecs from :func:`pack_gpt_stack`.  Returns
-    ``(x_out (n, d), kv (L, 2, n, d))``: cache rows < pos are seen by every
-    row, the n in-flight rows see each other causally (``extend``
-    semantics), and the caller scatters ``kv`` into rows pos..pos+n-1."""
+    ``pos`` a host int; slabs/vecs/scales from :func:`pack_gpt_stack`.
+    Returns ``(x_out (n, d), kv (L, 2, n, d))``: cache rows < pos are seen
+    by every row, the n in-flight rows see each other causally (``extend``
+    semantics, at full precision), and the caller scatters ``kv`` into rows
+    pos..pos+n-1.  ``kv_scales`` (L, 2, H, W, 1) f32: ``cache`` is the int8
+    row store; ``kv`` is then in x's dtype."""
     if not x.is_cuda:
-        return decode_stack_reference(x, cache, pos, slabs, vecs, eps=eps,
-                                      R=R)
-    return _launch("decode_stack", x, cache, 0, None, int(pos), slabs, vecs,
-                   eps, R)
+        return decode_stack_reference(x, cache, pos, slabs, vecs, scales,
+                                      eps=eps, R=R, kv_scales=kv_scales)
+    return _launch(_variant("decode_stack", scales, kv_scales), x, cache, 0,
+                   None, int(pos), slabs, vecs, scales, kv_scales, eps, R)
 
 
-def decode_stack_batch(x, caches, poss, slabs, vecs, *, eps, R=4):
+def decode_stack_batch(x, caches, poss, slabs, vecs, scales=None, *, eps,
+                       R=4, kv_scales=None):
     """B independent slots, one row each, through the whole stack with one
     weight stream.
 
     x (B, d); caches (B, L, 2, H, W, hd); poss a (B,) int32 tensor on x's
-    device.  Row b attends slot b's cache rows < poss[b] plus its own new
-    row.  Returns ``(x_out (B, d), kv (L, 2, B, d))``; the caller scatters
-    slot b's rows at poss[b]."""
+    device; ``kv_scales`` (B, L, 2, H, W, 1) as in :func:`decode_stack`.
+    Row b attends slot b's cache rows < poss[b] plus its own new row.
+    Returns ``(x_out (B, d), kv (L, 2, B, d))``; the caller scatters slot
+    b's rows at poss[b]."""
     if not x.is_cuda:
         return decode_stack_batch_reference(x, caches, poss, slabs, vecs,
-                                            eps=eps, R=R)
+                                            scales, eps=eps, R=R,
+                                            kv_scales=kv_scales)
     B = x.shape[0]
     if caches.shape[0] != B or poss.shape != (B,) \
             or poss.device != x.device or poss.dtype != torch.int32 \
@@ -195,5 +275,6 @@ def decode_stack_batch(x, caches, poss, slabs, vecs, *, eps, R=4):
         raise ValueError(f"decode_stack_batch: caches {tuple(caches.shape)}"
                          f" and poss {tuple(poss.shape)} {poss.dtype} must "
                          f"match x's {B} rows (poss int32 on the card)")
-    return _launch("decode_stack_batch", x, caches, caches[0].numel(), poss,
-                   0, slabs, vecs, eps, R)
+    return _launch(_variant("decode_stack_batch", scales, kv_scales), x,
+                   caches, caches[0].numel(), poss, 0, slabs, vecs, scales,
+                   kv_scales, eps, R)

@@ -12,9 +12,14 @@ __all__ = ["device_kind", "device_name", "kernels_in_use", "KERNELS",
            "launch_counts", "reset_launch_counts"]
 
 # Every hand-written kernel of the port, by wrapper name.  A wrapper adds one
-# to its count where it launches its kernel, and nowhere else.
+# to its count where it launches its kernel, and nowhere else.  The stack
+# kernel's int8 instantiations count under their own names, as the JAX
+# package has a Pallas variant for each.
 KERNELS = ("attention_fwd", "decode_attention", "decode_stack",
-           "decode_stack_batch", "attention_bwd_dq", "attention_bwd_dkv",
+           "decode_stack_batch", "decode_stack_int8", "decode_stack_kvq",
+           "decode_stack_int8_kvq", "decode_stack_batch_int8",
+           "decode_stack_batch_kvq", "decode_stack_batch_int8_kvq",
+           "attention_bwd_dq", "attention_bwd_dkv",
            "layernorm_fwd", "layernorm_bwd", "elementwise", "reduce",
            "matmul", "softmax_fwd", "softmax_bwd")
 _launches = dict.fromkeys(KERNELS, 0)

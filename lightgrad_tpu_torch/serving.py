@@ -1,7 +1,8 @@
 """Continuous-batching inference engine over KV-cache decoding.
 
 Counterpart of ``lightgrad_tpu/serving.py``.  A fixed number of decode slots
-shares one stacked cache ``(slots, L, 2, H, W, hd)``; between ticks the host
+shares one stacked cache ``(slots, L, 2, H, W, hd)`` (under ``quantize_kv``
+the pair of its int8 rows and row scales); between ticks the host
 admits queued requests into free slots (one prefill each) and retires
 finished ones, so short requests never wait for long ones and nobody is
 padded to the longest request of a batch.
@@ -18,7 +19,8 @@ once per tick.  Mixed signatures sample on the host, one step per tick.
 import numpy as np
 import torch
 
-from .models.decoding import _device_sample, _window
+from .models.decoding import (_device, _device_sample, _window, cache_slot,
+                              stacked_zeros)
 from .models.gpt import _sample
 
 __all__ = ["Request", "InferenceEngine"]
@@ -71,9 +73,8 @@ class InferenceEngine:
             model._kv_fns = model._kv_functions()
         init_cache, self._prefill, _ = model._kv_fns
         self._step_batch = model._kv_fns.step_batch
-        c0 = init_cache()
-        self._device = c0.device
-        self._caches = c0.new_zeros((slots,) + tuple(c0.shape))
+        self._caches = stacked_zeros(init_cache(), slots)
+        self._device = _device(self._caches)
         if generator is None:
             generator = torch.Generator(device=self._device).manual_seed(0)
         self.generator = generator
@@ -119,7 +120,7 @@ class InferenceEngine:
             toks[:len(req.prompt)] = torch.as_tensor(req.prompt)
             # prefill writes the slot's rows of the stacked cache in place
             # (the JAX engine rebuilt the stacked array around a fresh cache)
-            _, logits = self._prefill(self._caches[slot],
+            _, logits = self._prefill(cache_slot(self._caches, slot),
                                       toks.to(self._device), len(req.prompt))
             self.stats["prefills"] += 1
             req.tokens.append(_sample(logits.float().cpu().numpy(),

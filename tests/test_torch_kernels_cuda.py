@@ -21,6 +21,7 @@ from lightgrad_tpu_torch.ops.decode_stack import (
 from lightgrad_tpu_torch.ops.layernorm import (
     layernorm_bwd_dx, layernorm_bwd_dx_reference, layernorm_fwd,
     layernorm_fwd_reference)
+from lightgrad_tpu_torch.models.gpt import quantize_rows
 from lightgrad_tpu_torch.ops.runtime import (launch_counts,
                                              reset_launch_counts)
 
@@ -180,6 +181,66 @@ def test_decode_stack_batch_kernel(dev, dtype):
         _close(a, b, dtype)
 
 
+def _int8_slabs(slabs):
+    """int8 slabs and their (L, S, d) f32 scales per output column."""
+    s = slabs.float().abs().amax(-2).clamp_min(1e-8) / 127.0
+    q = torch.clamp(torch.round(slabs.float() / s[..., None, :]), -127, 127)
+    return q.to(torch.int8), s
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,pos", [(1, 0), (1, 200), (4, 37), (8, 255)])
+@pytest.mark.parametrize("variant", ["int8", "kvq", "int8_kvq"])
+def test_decode_stack_int8_kernels(dev, variant, n, pos, dtype):
+    """The six int8 instantiations (here the three single-stream ones, the
+    batched three below) against the plain version on the same operands."""
+    g = torch.Generator(device=dev).manual_seed(n * 1000 + pos + 7)
+    slabs, vecs, H, W = _stack_inputs(g, dtype)
+    scales = None
+    if "int8" in variant:
+        slabs, scales = _int8_slabs(slabs)
+    cache = _randn(g, slabs.shape[0], 2, H, W, 64, dtype=dtype)
+    kvs = None
+    if "kvq" in variant:
+        cache, kvs = quantize_rows(cache)
+    x = _randn(g, n, slabs.shape[-1], dtype=dtype)
+    reset_launch_counts()
+    got = decode_stack(x, cache, pos, slabs, vecs, scales, eps=1e-5,
+                       kv_scales=kvs)
+    torch.cuda.synchronize()
+    assert launch_counts()["decode_stack_" + variant] == 1
+    want = decode_stack_reference(x, cache, pos, slabs, vecs, scales,
+                                  eps=1e-5, kv_scales=kvs)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == dtype
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["int8", "kvq", "int8_kvq"])
+def test_decode_stack_batch_int8_kernels(dev, variant, dtype):
+    g = torch.Generator(device=dev).manual_seed(9)
+    slabs, vecs, H, W = _stack_inputs(g, dtype)
+    scales = None
+    if "int8" in variant:
+        slabs, scales = _int8_slabs(slabs)
+    poss = torch.tensor([0, 3, 255, 17, 64], device=dev, dtype=torch.int32)
+    caches = _randn(g, 5, slabs.shape[0], 2, H, W, 64, dtype=dtype)
+    kvs = None
+    if "kvq" in variant:
+        caches, kvs = quantize_rows(caches)
+    x = _randn(g, 5, slabs.shape[-1], dtype=dtype)
+    reset_launch_counts()
+    got = decode_stack_batch(x, caches, poss, slabs, vecs, scales, eps=1e-5,
+                             kv_scales=kvs)
+    torch.cuda.synchronize()
+    assert launch_counts()["decode_stack_batch_" + variant] == 1
+    want = decode_stack_batch_reference(x, caches, poss, slabs, vecs, scales,
+                                        eps=1e-5, kv_scales=kvs)
+    for a, b in zip(got, want):
+        _close(a, b, dtype)
+
+
 def test_wrappers_raise_on_what_the_kernels_lack(dev):
     q = torch.zeros(2, 16, 32, device=dev)
     with pytest.raises(ValueError):
@@ -205,6 +266,12 @@ def test_wrappers_raise_on_what_the_kernels_lack(dev):
                      torch.zeros(1, 2, 12, 16, 64, device=dev), 0,
                      torch.zeros(1, 12, 768, 768, device=dev),
                      torch.zeros(1, 13, 768, device=dev), eps=1e-5)  # n = 9
+    with pytest.raises(ValueError):               # int8 slabs, no scales
+        decode_stack(torch.zeros(1, 768, device=dev),
+                     torch.zeros(1, 2, 12, 16, 64, device=dev), 0,
+                     torch.zeros(1, 12, 768, 768, device=dev,
+                                 dtype=torch.int8),
+                     torch.zeros(1, 13, 768, device=dev), eps=1e-5)
 
 
 # --- the generic op set of the lightgrad tape --------------------------------

@@ -252,8 +252,7 @@ def test_repeated_indices_accumulate():
 def test_unported_ops_raise():
     t = TTensor.from_numpy(np.ones((1, 1, 4, 4), np.float32))
     w = TTensor.from_numpy(np.ones((1, 1, 3, 3), np.float32))
-    for fn in (lambda: t.conv(w), lambda: t.quant_linear(w, w),
-               lambda: t.ring_attention(t, t)):
+    for fn in (lambda: t.conv(w), lambda: t.ring_attention(t, t)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn()
 
