@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port's paths on one NVIDIA GPU: GPT-2 serving (float
 and int8) and training (torch.autograd), BERT-base masked-LM training, its
-int8 ``QuantLinear`` forward and the gradient-descent example on the
+int8 ``QuantLinear`` forward, the gradient-descent example, and the conv
+path (ResNet-18 training, the MNIST CNN and ResNet-20 examples) on the
 lightgrad tape.
 
     python3 chip_smoke.py
@@ -14,7 +15,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      times of both, of one PyTorch call computing the same function where
      there is one, and the kernel's bound (the least time of its bytes at
      3.35 TB/s or its operations at the dtype's peak); the stack kernel's
-     six int8 instantiations on GPT-2 small's own quantized weights;
+     six int8 instantiations on GPT-2 small's own quantized weights; the
+     three conv kernels at ResNet-18's shapes (batch 32) and on grouped /
+     dilated, 1-D and 3-D cases, timed at layer 1's shape;
   4. serving path, GPT-2 small at its published widths (vocab 50257, 1024
      positions, d 768, 12 layers, 12 heads; seeded random weights), once in
      float32 and once after ``model.to(torch.bfloat16)``: ``generate``,
@@ -44,7 +47,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
      forward against the float model's logits (cosine) and one backward;
   7. the tape's smallest path, examples/gradient_descent.py's loop (64 x 64)
      for 20 epochs: the loss must fall;
-  8. every kernel of each path was launched by that path, and every kernel
+  8. the conv path on the tape, float32: (a) ResNet-18 at its torchvision
+     widths (7x7/s2 stem, 3x3/s2 max pool, stages of 64-512, 1000 classes;
+     seeded random weights) on 32 x 3 x 224 x 224 random images, AdamW, 5
+     steps on one batch -- the loss must be finite and fall, step 1's
+     logits and every parameter's gradient must match a plain twin (the
+     ``_reference`` versions under torch autograd, in f32 and f64), the
+     BatchNorm running statistics must move and an eval forward be finite;
+     (b) examples/mnist.py's CNN (AdaBelief) and examples/resnet.py's
+     ResNet-20 (AdamW) for 40 steps each through data.MNIST ->
+     DeviceDataset.offsets() -> narrow on synthetic digits
+     (LIGHTGRAD_FAKE_DATA=1) -- the loss must fall; test accuracy over
+     2,000 digits;
+  9. every kernel of each path was launched by that path, and every kernel
      of the package by some path.
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -52,6 +67,7 @@ exits non-zero and prints no result.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -107,6 +123,13 @@ KERNEL_SOURCES = {
                     "lightgrad_tpu/ops/softmax.py:38"),
     "softmax_bwd": ("triton", "lightgrad_tpu_torch/ops/softmax.py",
                     "lightgrad_tpu/ops/softmax.py:38"),
+    # a grid dimension over groups takes the place of _group_matmul (:90)
+    "conv_fwd": ("cuda", "lightgrad_tpu_torch/csrc/conv.cu",
+                 "lightgrad_tpu/ops/conv.py:107"),
+    "conv_bwd_dx": ("cuda", "lightgrad_tpu_torch/csrc/conv.cu",
+                    "lightgrad_tpu/ops/conv.py:122"),
+    "conv_bwd_dw": ("cuda", "lightgrad_tpu_torch/csrc/conv.cu",
+                    "lightgrad_tpu/ops/conv.py:122"),
 }
 SERVING_KERNELS = ("attention_fwd", "decode_attention", "decode_stack",
                    "decode_stack_batch")
@@ -120,6 +143,8 @@ BERT_KERNELS = ("elementwise", "reduce", "matmul", "softmax_fwd",
                 "softmax_bwd", "layernorm_fwd", "layernorm_bwd")
 FLASH_KERNELS = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv")
 TAPE_KERNELS = ("elementwise", "reduce", "matmul")
+CONV_KERNELS = ("conv_fwd", "conv_bwd_dx", "conv_bwd_dw")
+CONV_PATH_KERNELS = CONV_KERNELS + TAPE_KERNELS
 # Kernel vs plain version, max |err| <= tol * max(1, max |reference|).
 # float32: the same f32 math summed in another order (FFMA chains against
 # cuBLAS/ATen reductions, no TF32).  bfloat16: bf16 inputs, f32 sums, one
@@ -139,6 +164,25 @@ BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
                  max_position_embeddings=512, type_vocab_size=2,
                  layer_norm_eps=1e-12)
 BERT_BATCH, BERT_SEQ, BERT_STEPS, BERT_LR = 8, 128, 5, 1e-4
+# torchvision resnet18 at ImageNet's 224 x 224, batch 32
+RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS, RESNET_LR = 32, 224, 5, 1e-3
+# ResNet-18's convolutions at batch 32, inputs after padding: (name, x, w,
+# stride)
+RESNET18_CONVS = (
+    ("stem 3->64 7x7/s2", (32, 3, 230, 230), (64, 3, 7, 7), 2),
+    ("layer1 64->64 3x3", (32, 64, 58, 58), (64, 64, 3, 3), 1),
+    ("layer2 64->128 3x3/s2", (32, 64, 58, 58), (128, 64, 3, 3), 2),
+    ("projection 64->128 1x1/s2", (32, 64, 56, 56), (128, 64, 1, 1), 2),
+    ("layer4 512->512 3x3", (32, 512, 9, 9), (512, 512, 3, 3), 1),
+)
+# (name, x, w, strides, dilation, groups) at small sizes
+CONV_ODD_CASES = (
+    ("grouped g=4, dilated d=2", (4, 32, 21, 19), (64, 8, 3, 3), 1, 2, 4),
+    ("1-D", (4, 16, 129), (32, 16, 5), 2, 1, 1),
+    ("3-D", (2, 8, 9, 10, 11), (16, 8, 3, 3, 3), (1, 2, 2), 1, 1),
+)
+# examples/mnist.py and examples/resnet.py: batch 128; about 40 steps here
+MNIST_BATCH, MNIST_STEPS = 128, 40
 # One H100 SXM (NVIDIA's data sheet, dense rates at 700 W): HBM bytes
 # a second and dense peak operations a second by input type
 HBM_BPS = 3.35e12
@@ -998,6 +1042,87 @@ def phase_tape_kernels(results):
         torch.cuda.empty_cache()
 
 
+def phase_conv_kernels(results):
+    """Phase 3, the conv kernels: forward, input gradient and weight
+    gradient vs their plain versions at ResNet-18's shapes (batch 32) and on
+    a grouped + dilated, a 1-D and a 3-D case, in f32 and bf16; each timed
+    at layer 1's shape beside the library's call (cuDNN, TF32 off)."""
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from lightgrad_tpu_torch.ops.conv import (conv_bwd_dw,
+                                              conv_bwd_dw_reference,
+                                              conv_bwd_dx,
+                                              conv_bwd_dx_reference,
+                                              conv_fwd, conv_fwd_reference)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    cases = [(n, x, w, st, 1, 1) for n, x, w, st in RESNET18_CONVS] \
+        + list(CONV_ODD_CASES)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = KERNEL_TOL[dtype]
+        isz = torch.tensor([], dtype=dtype).element_size()
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(shape, generator=g, device=dev)
+                    * scale).to(dtype)
+
+        def operands(xs, ws):
+            # fan-in scaled weights: outputs of order 1
+            fan_in = ws[1] * int(np.prod(ws[2:]))
+            return rnd(*xs), rnd(*ws, scale=fan_in ** -0.5)
+
+        err = dict.fromkeys(CONV_KERNELS, 0.0)
+        for name, xs, ws, st, dl, grp in cases:
+            x, w = operands(xs, ws)
+            checks = []
+            want = conv_fwd_reference(x, w, st, dl, grp)
+            checks.append(("conv_fwd", conv_fwd(x, w, st, dl, grp), want))
+            gy = rnd(*want.shape)
+            checks.append(("conv_bwd_dx",
+                           conv_bwd_dx(gy, w, x.shape, st, dl, grp),
+                           conv_bwd_dx_reference(gy, w, x.shape, st, dl,
+                                                 grp)))
+            checks.append(("conv_bwd_dw",
+                           conv_bwd_dw(gy, x, w.shape, st, dl, grp),
+                           conv_bwd_dw_reference(gy, x, w.shape, st, dl,
+                                                 grp)))
+            for kernel, got, want in checks:
+                err[kernel] = max(err[kernel], check(
+                    f"{kernel} {name} x{tuple(xs)}", dtype, got, want, tol))
+                discriminates(kernel, dtype, want, tol, torch.zeros_like(want))
+            del x, w, gy, checks, got, want
+            torch.cuda.empty_cache()
+
+        # times at layer 1's shape
+        _, xs, ws, st = RESNET18_CONVS[1]
+        x, w = operands(xs, ws)
+        y = conv_fwd(x, w, st)
+        gy = rnd(*y.shape)
+        ops = 2 * y.numel() * int(np.prod(ws[1:]))
+        nbytes = (x.numel() + w.numel() + y.numel()) * isz
+        record(results, dtype, "conv_fwd", err["conv_fwd"],
+               cuda_ms(lambda: conv_fwd(x, w, st)),
+               cuda_ms(lambda: conv_fwd_reference(x, w, st), 5),
+               cost=(nbytes, ops),
+               library_ms=cuda_ms(lambda: F.conv2d(x, w, stride=st)))
+        record(results, dtype, "conv_bwd_dx", err["conv_bwd_dx"],
+               cuda_ms(lambda: conv_bwd_dx(gy, w, x.shape, st)),
+               cuda_ms(lambda: conv_bwd_dx_reference(gy, w, x.shape, st), 5),
+               cost=(nbytes, ops),
+               library_ms=cuda_ms(lambda: conv2d_input(x.shape, w, gy,
+                                                        stride=st)))
+        record(results, dtype, "conv_bwd_dw", err["conv_bwd_dw"],
+               cuda_ms(lambda: conv_bwd_dw(gy, x, w.shape, st)),
+               cuda_ms(lambda: conv_bwd_dw_reference(gy, x, w.shape, st), 5),
+               cost=(nbytes, ops),
+               library_ms=cuda_ms(lambda: conv2d_weight(x, w.shape, gy,
+                                                         stride=st)))
+        del x, w, y, gy
+        torch.cuda.empty_cache()
+
+
 def bert_batch(cfg):
     """8 x 128 random tokens; valid lengths from 64-128 (a padding mask);
     masked-LM labels on 15% of the valid positions, -100 elsewhere."""
@@ -1078,11 +1203,11 @@ def plain_bert(p, cfg, ids, mask):
     return lin(x, "decoder")
 
 
-def bert_grad_check(model, grads32, grads64):
+def tape_grad_check(model, grads32, grads64):
     """Step 1's tape gradient of every parameter vs the plain twin, in
     float32 (the tape's precision) and in float64: max |tape - twin| /
-    max |twin| within PATH_TOL for each parameter and each twin.  A key
-    projection's bias has a zero gradient in exact arithmetic (softmax
+    max |twin| within PATH_TOL for each parameter and each twin.  BERT's
+    key projection's bias has a zero gradient in exact arithmetic (softmax
     ignores a per-row constant), so its error is taken relative to the same
     layer's query bias gradient."""
     tol = PATH_TOL[torch.float32]
@@ -1121,11 +1246,12 @@ def bert_step(model, opt, x_ids, x_mask, y):
 # kernel-name fragment -> the family a step's device time is summed under
 KERNEL_FAMILIES = (("matmul_kernel", "matmul"), ("ew_kernel", "elementwise"),
                    ("reduce_rows", "reduce"), ("softmax_", "softmax"),
-                   ("ln_", "layernorm"), ("flash", "attention"))
+                   ("ln_", "layernorm"), ("flash", "attention"),
+                   ("conv_", "conv"), ("sum_partials", "conv"))
 
 
-def bert_step_breakdown(step, step_s, host_s):
-    """Where one BERT step's time goes: the tape's ops a step (counted by
+def step_breakdown(step, step_s, host_s):
+    """Where one tape step's time goes: the tape's ops a step (counted by
     the tape's own profiler), the host time that queues forward + backward
     per op, and the device time of each kernel family in one step traced by
     torch.profiler, with the device's idle share of the step's wall time."""
@@ -1224,7 +1350,7 @@ def phase_bert(card):
                   PATH_TOL[torch.float32])
             log(f"  step-1 loss {loss.item():.5f}, plain twin "
                 f"{plain_loss:.5f}")
-            bert_grad_check(model, grads32, grads64)
+            tape_grad_check(model, grads32, grads64)
             del grads32, grads64, plain_logits
             # the peak of a training step, without the twin's gradients
             torch.cuda.reset_peak_memory_stats()
@@ -1247,7 +1373,7 @@ def phase_bert(card):
         f"{ {k: v // BERT_STEPS for k, v in counts.items() if v} }")
     if not ok:
         raise AssertionError(f"BERT loss not finite and falling: {losses}")
-    bert_step_breakdown(
+    step_breakdown(
         lambda: bert_step(model, opt, x_ids, x_mask, y), float(np.median(
             times[1:])), float(np.median(host[1:])))
 
@@ -1346,6 +1472,367 @@ def phase_tape_example():
     return counts
 
 
+class _PlainConv(torch.autograd.Function):
+    """Convolution for the plain twin: the kernels' plain versions in both
+    directions."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        from lightgrad_tpu_torch.ops.conv import conv_fwd_reference
+
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        return conv_fwd_reference(x, w, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        from lightgrad_tpu_torch.ops.conv import (conv_bwd_dw_reference,
+                                                  conv_bwd_dx_reference)
+
+        x, w = ctx.saved_tensors
+        gx = conv_bwd_dx_reference(g, w, x.shape, ctx.stride) \
+            if ctx.needs_input_grad[0] else None
+        return gx, conv_bwd_dw_reference(g, x, w.shape, ctx.stride), None
+
+
+class _MaskedRelu(torch.autograd.Function):
+    """ReLU that keeps the elements of a given mask (the tape's own
+    decisions), in both directions."""
+
+    @staticmethod
+    def forward(ctx, x, mask):
+        ctx.save_for_backward(mask)
+        return torch.where(mask, x, torch.zeros_like(x))
+
+    @staticmethod
+    def backward(ctx, g):
+        (mask,) = ctx.saved_tensors
+        return torch.where(mask, g, torch.zeros_like(g)), None
+
+
+class _MaskedMax(torch.autograd.Function):
+    """Max over axis 0 whose gradient goes to the given winners (the tape's
+    own), every one of them, as the tape's max does."""
+
+    @staticmethod
+    def forward(ctx, x, winners):
+        ctx.save_for_backward(winners)
+        return x.amax(0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (winners,) = ctx.saved_tensors
+        return torch.where(winners, g.unsqueeze(0), torch.zeros_like(g)), \
+            None
+
+
+class TapeDecisions:
+    """Records, during forward passes of the tape, each ReLU's mask (input
+    > 0) and each max over axis 0's winners (input == max), in call order.
+    ReLU and max pooling have discontinuous derivatives: a pre-activation
+    within rounding of 0 (``h + skip`` cancelling to ~1e-8) or two window
+    values within rounding of each other decide differently in any two
+    evaluations, and each such flip moves whole weight gradients.  A twin
+    that takes the tape's decisions checks the arithmetic alone."""
+
+    def __enter__(self):
+        from lightgrad_tpu_torch.autograd.cuda import ops
+
+        self.relu, self.max = [], []
+        self._ops, self._ew, self._reduce = ops, ops.ew, ops.kreduce
+
+        def ew(body, *xs, **kwargs):
+            if body == "f_relu":
+                self.relu.append(xs[0] > 0)
+            return self._ew(body, *xs, **kwargs)
+
+        def kreduce(x, op, axis=None, keepdims=False):
+            y = self._reduce(x, op, axis=axis, keepdims=keepdims)
+            if op == "max" and axis == 0:
+                self.max.append(x == (y if keepdims else y.unsqueeze(0)))
+            return y
+
+        ops.ew, ops.kreduce = ew, kreduce
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.ew, self._ops.kreduce = self._ew, self._reduce
+
+
+def plain_resnet(p, model, x, decisions=None):
+    """A ResNet's logits through the plain PyTorch versions of the kernels
+    (``_reference``) in the tape's formulas -- BatchNorm on the batch's
+    statistics, max pooling as a max over shifted slices of a -1e30 pad --
+    differentiable by torch autograd: the twin the tape's step must meet.
+    ``p``: the model's parameters by name; ``model`` gives the layout;
+    ``decisions``: a :class:`TapeDecisions` whose ReLU masks and max
+    winners the twin takes instead of its own."""
+    import torch.nn.functional as F
+
+    masks = iter(decisions.relu) if decisions else None
+    winners = iter(decisions.max) if decisions else None
+
+    def relu(t):
+        return _MaskedRelu.apply(t, next(masks)) if masks else t.relu()
+
+    def conv(y, name, layer):
+        if layer.p:
+            y = F.pad(y, (layer.p,) * 4)
+        return _PlainConv.apply(y, p[name + ".w"], layer.s)
+
+    def bn(y, name):
+        c = (1, y.shape[1], 1, 1)
+        d = y - y.mean((0, 2, 3)).reshape(c)
+        v = (d * d).mean((0, 2, 3)).reshape(c)
+        return d / (v + 1e-5) ** 0.5 * p[name + ".weight"].reshape(c) \
+            + p[name + ".bias"].reshape(c)
+
+    y = relu(bn(conv(x, "stem", model.stem), "bstem"))
+    if model.stem_pool:
+        y = F.pad(y, (1, 1, 1, 1), value=-1e30)
+        oh, ow = (y.shape[2] - 3) // 2 + 1, (y.shape[3] - 3) // 2 + 1
+        y = torch.stack([y[:, :, i:i + 2 * oh - 1:2, j:j + 2 * ow - 1:2]
+                         for i in range(3) for j in range(3)])
+        y = _MaskedMax.apply(y, next(winners)) if winners else y.amax(0)
+    for i, blk in enumerate(model.blocks):
+        pre = f"blocks.{i}."
+        h = relu(bn(conv(y, pre + "c1", blk.c1), pre + "b1"))
+        h = bn(conv(h, pre + "c2", blk.c2), pre + "b2")
+        skip = y if blk.proj is None else \
+            bn(conv(y, pre + "proj", blk.proj), pre + "bproj")
+        y = relu(h + skip)
+    # the head in plain torch, which keeps the f64 twin in f64 (the matmul
+    # kernel's plain version sums in f32)
+    return y.mean((2, 3)) @ p["fc.weight"].T + p["fc.bias"]
+
+
+def resnet_step(model, opt, x, y):
+    """One classification training step of a ResNet on the tape."""
+    from lightgrad_tpu_torch import loss as lg_loss
+
+    loss = lg_loss.cross_entropy(model(x), y)
+    opt.zero_grad()
+    loss.backward()
+    opt.step()
+
+
+def phase_resnet18(card):
+    """Phase 8a: ResNet-18 at its torchvision widths on the lightgrad tape,
+    float32, AdamW, 5 steps on one batch of random images; step 1 checked
+    against the plain twin in f32 and f64, which take the tape's ReLU and
+    max-pool decisions (:class:`TapeDecisions`).  Returns the 5 steps'
+    launch counts."""
+    import torch.nn.functional as F
+
+    from lightgrad_tpu_torch import loss as lg_loss
+    from lightgrad_tpu_torch import no_grad, optim, random as lg_random
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.models import resnet18
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    lg_random.seed(0)
+    model = resnet18()
+    n_params = sum(int(np.prod(t.shape)) for t in model.parameters())
+    B, dev = RESNET_BATCH, torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    S = RESNET_IMAGE
+    xd = torch.randn(B, 3, S, S, generator=gen, device=dev)
+    yd = torch.randint(0, 1000, (B,), generator=gen, device=dev)
+    log(f"  {n_params / 1e6:.2f} M parameters, {B} x 3 x {S} x {S} images")
+
+    # the plain twin on the step-1 weights, in f32 and in f64
+    def twin(dtype, decisions=None):
+        params = {n: t.data.detach().to(dtype).requires_grad_(True)
+                  for n, t in model.named_parameters()}
+        logits = plain_resnet(params, model, xd.to(dtype), decisions)
+        loss = F.cross_entropy(logits, yd)
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        return logits.detach(), loss.item(), grads
+
+    opt = optim.AdamW(list(model.parameters()), lr=RESNET_LR)
+    x = Tensor(xd, requires_grad=False)
+    y = Tensor(yd.to(torch.int32), requires_grad=False)
+    stats0 = {n: b.data.clone() for n, b in model.named_buffers()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times, host = [], [], []
+    for step in range(RESNET_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if step == 0:
+            with TapeDecisions() as decisions:
+                logits = model(x)
+        else:
+            logits = model(x)
+        loss = lg_loss.cross_entropy(logits, y)
+        opt.zero_grad()
+        loss.backward()
+        host.append(time.perf_counter() - t0)   # forward + backward queued
+        if step == 0:               # the checks' time is not the step's
+            torch.cuda.synchronize()
+            c0 = time.perf_counter()
+            own = twin(torch.float32)[2]
+            plain_logits, plain_loss, grads32 = twin(torch.float32,
+                                                     decisions)
+            grads64 = twin(torch.float64, decisions)[2]
+            check("ResNet-18 logits vs the plain twin", torch.float32,
+                  logits.data, plain_logits, PATH_TOL[torch.float32])
+            log(f"  step-1 loss {loss.item():.5f}, plain twin "
+                f"{plain_loss:.5f}")
+            flips = max(
+                (t.grad.data - own[n]).abs().max().item()
+                / max(own[n].abs().max().item(), 1e-30)
+                for n, t in model.named_parameters())
+            log(f"  the twins take the tape's {len(decisions.relu)} ReLU "
+                f"masks and {len(decisions.max)} max-pool winners; with its "
+                f"own, the f32 twin's gradients are {flips:.3e} off "
+                f"(decisions that flip under rounding)")
+            tape_grad_check(model, grads32, grads64)
+            del grads32, grads64, plain_logits, own, decisions
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 += time.perf_counter() - c0
+        opt.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        del logits, loss
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ok = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    img_s = B / float(np.median(times[1:]))
+    log(f"  losses: {[round(v, 4) for v in losses]} "
+        f"({'finite, falling' if ok else 'FAIL'})")
+    log(f"  {B} images a step: {img_s:.1f} images/s (median of steps "
+        f"2-{RESNET_STEPS}, step times {[round(t, 4) for t in times]} s); "
+        f"peak memory of steps 2-{RESNET_STEPS} {peak / 2**30:.2f} GiB; "
+        f"{card}")
+    log(f"  launches per step: "
+        f"{ {k: v // RESNET_STEPS for k, v in counts.items() if v} }")
+    if not ok:
+        raise AssertionError(f"ResNet-18 loss not finite and falling: "
+                             f"{losses}")
+    still = [n for n, b in model.named_buffers()
+             if torch.equal(b.data, stats0[n])]
+    model.eval()
+    with no_grad():
+        ev = model(x).data
+    model.train()
+    finite = bool(torch.isfinite(ev).all())
+    log(f"  BatchNorm running statistics: {len(stats0) - len(still)} of "
+        f"{len(stats0)} moved; eval forward {tuple(ev.shape)} "
+        f"{'finite' if finite else 'NOT finite'}")
+    if still or not finite:
+        raise AssertionError(f"running statistics that did not move: "
+                             f"{still}; eval forward finite: {finite}")
+    step_breakdown(lambda: resnet_step(model, opt, x, y),
+                   float(np.median(times[1:])), float(np.median(host[1:])))
+    del model, opt, x, y, ev
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mnist_cnn():
+    """examples/mnist.py's CNN on the port's layers."""
+    from lightgrad_tpu_torch import nn
+
+    class CNN(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.c1 = nn.Conv2d(1, 8, kernelsize=3, pad=1)
+            self.c2 = nn.Conv2d(8, 16, kernelsize=3, pad=1)
+            self.l1 = nn.Linear(7 * 7 * 16, 10)
+
+        def forward(self, x):
+            y = self.c1(x).max_pool(kernel=(2, 2)).relu()
+            y = self.c2(y).max_pool(kernel=(2, 2)).relu()
+            return self.l1(y.reshape(y.shape[0], -1))
+
+    return CNN()
+
+
+def train_digits(model, opt, train, test, card):
+    """The examples' loop, eagerly: MNIST_STEPS steps of batches narrowed
+    from the resident set by DeviceDataset.offsets(), then the accuracy of
+    an eval() pass over the test digits.  Returns the steps' launch
+    counts."""
+    from lightgrad_tpu_torch import loss as lg_loss
+    from lightgrad_tpu_torch import no_grad
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    xs, ys = train.tensors
+    B = MNIST_BATCH
+    losses = []
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while len(losses) < MNIST_STEPS:
+        for off in train.offsets():
+            if len(losses) >= MNIST_STEPS:
+                break
+            x = xs.narrow(off, B).reshape(B, 1, 28, 28)
+            loss = lg_loss.cross_entropy(model(x), ys.narrow(off, B))
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    model.eval()
+    correct = total = 0
+    with no_grad():
+        for x, y in test:
+            pred = model(x.reshape(x.shape[0], 1, 28, 28)).numpy().argmax(-1)
+            correct += int((pred == y.numpy()).sum())
+            total += len(pred)
+    model.train()
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    ok = all(np.isfinite(losses)) and last < first
+    log(f"  {MNIST_STEPS} steps in {dt:.2f} s ({MNIST_STEPS / dt:.1f} "
+        f"steps/s, eager); loss {first:.4f} -> {last:.4f} (means of the "
+        f"first and last 5 steps, {'falling' if ok else 'FAIL'}); test "
+        f"accuracy {correct / total:.4f} over {total} digits; {card}")
+    if not ok:
+        raise AssertionError(f"loss not finite and falling: {losses}")
+    return counts
+
+
+def phase_digits(card):
+    """Phase 8b: the JAX examples' own paths on synthetic digits:
+    examples/mnist.py's CNN (AdaBelief, lr 3e-3) and examples/resnet.py's
+    ResNet-20 (AdamW, lr 3e-3, weight decay 0.01), batch 128, through
+    data.MNIST -> DeviceDataset.offsets() -> narrow.  Returns {name: launch
+    counts}."""
+    from lightgrad_tpu_torch import data, optim, random as lg_random
+    from lightgrad_tpu_torch.models import resnet20
+
+    os.environ["LIGHTGRAD_FAKE_DATA"] = "1"
+    mnist = data.MNIST(train=True, batchsize=MNIST_BATCH)
+    train = data.DeviceDataset(mnist.tensors, batchsize=MNIST_BATCH)
+    test = data.MNIST(train=False, n=2_000, shuffle=False, batchsize=256)
+    log(f"  {train.n} training digits resident on the card, "
+        f"{test.n} test digits")
+    counts = {}
+    lg_random.seed(0)
+    model = mnist_cnn()
+    log("  MNIST CNN (examples/mnist.py), AdaBelief lr 3e-3:")
+    counts["MNIST CNN"] = train_digits(
+        model, optim.AdaBelief(list(model.parameters()), lr=3e-3), train,
+        test, card)
+    lg_random.seed(0)
+    model = resnet20(num_classes=10, in_channels=1)
+    log("  ResNet-20 (examples/resnet.py), AdamW lr 3e-3, weight decay "
+        "0.01:")
+    counts["ResNet-20"] = train_digits(
+        model, optim.AdamW(list(model.parameters()), lr=3e-3,
+                           weight_decay=0.01), train, test, card)
+    del model, train, test, mnist
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1386,8 +1873,9 @@ def main():
     phase_kernels(model, results)
     phase_train_kernels(results)
     phase_tape_kernels(results)
+    phase_conv_kernels(results)
 
-    # 4.-8. each path, with the kernels it launched
+    # 4.-9. each path, with the kernels it launched
     launches = dict.fromkeys(KERNELS, 0)
 
     def tally(path, counts, path_kernels):
@@ -1427,6 +1915,13 @@ def main():
     phase_quant_bert()
     log("lightgrad tape, gradient descent example (64 x 64):")
     tally("gradient descent", phase_tape_example(), TAPE_KERNELS)
+    log("conv path on the tape, ResNet-18 (torchvision widths), float32, "
+        "AdamW:")
+    tally("ResNet-18", phase_resnet18(card), CONV_PATH_KERNELS)
+    log("conv path on the tape, the JAX examples on synthetic digits, "
+        "float32:")
+    for name, counts in phase_digits(card).items():
+        tally(name, counts, CONV_PATH_KERNELS)
     missing = [k for k in KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels no path launched: {missing}")

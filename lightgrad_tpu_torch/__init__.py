@@ -6,11 +6,14 @@ JAX package's names.  Ported so far: lightgrad's define-by-run tape
 the nn/loss/optim layers over it, int8 ``quant`` and BERT on it; and, on
 ``torch.autograd``, GPT-2 serving (KV decoding, the continuous-batching
 engine, int8 weights and KV cache) and training (forward, losses,
-optimizers, master-weight AMP).  Both run on hand-written
-Hopper kernels on a CUDA device and on their plain PyTorch versions on the
-CPU."""
+optimizers, master-weight AMP).  The tape also carries the vision path:
+convolution, BatchNorm and pooling layers, ResNet (``models.resnet18``,
+``resnet20``) and the ``data`` pipeline (``DeviceDataset``, MNIST).  Both
+run on hand-written Hopper kernels on a CUDA device and on their plain
+PyTorch versions on the CPU."""
 
-from . import amp, autograd, loss, nn, ops, optim, quant, random
+from . import (amp, autograd, data, loss, models, nn, ops, optim, quant,
+               random)
 from .autograd import (AbstractTensor, CudaTensor, Function, Gradients,
                        Tensor, no_grad)
 from .models import GPT, GPTConfig, ByteTokenizer, generate_batch
@@ -29,7 +32,8 @@ def einsum(spec: str, *operands):
     return operands[0].einsum(spec, *operands[1:])
 
 
-__all__ = ["amp", "autograd", "loss", "nn", "ops", "optim", "quant", "random",
+__all__ = ["amp", "autograd", "data", "loss", "models", "nn", "ops", "optim",
+           "quant", "random",
            "AbstractTensor", "CudaTensor", "Function", "Gradients", "Tensor",
            "no_grad", "empty", "zeros", "ones", "uniform", "xavier",
            "from_numpy", "einsum", "GPT", "GPTConfig", "ByteTokenizer",

@@ -4,7 +4,8 @@ Counterpart of ``lightgrad_tpu/autograd/tpu/ops.py``, op for op.  Every
 elementwise op and fused two-gradient backward goes through ``ew`` (the
 elementwise kernel), every product through ``matmul`` (the matmul kernel),
 every sum, max and min through ``reduce`` (the reduce kernel), softmax,
-LayerNorm and attention through their fused kernels.  On CPU tensors each
+LayerNorm and attention through their fused kernels, convolution through
+the implicit-GEMM conv kernels.  On CPU tensors each
 wrapper runs its plain version.  What the JAX package leaves to XLA --
 gathers, scatters, reshapes, padding, concatenation, einsum, cumsum, random
 draws -- is plain PyTorch here.
@@ -12,7 +13,7 @@ draws -- is plain PyTorch here.
 Value semantics: a movement op may return a view that shares its input's
 storage, so no op ever writes into storage it did not allocate.  In-place
 ops compute a fresh buffer and rebind (``_set_data``), ``setitem`` writes a
-clone.  ``conv`` and ``ring_attention`` are not ported yet and raise.
+clone.  ``ring_attention`` is not ported yet and raises.
 """
 
 import numpy as np
@@ -25,6 +26,8 @@ from ..tensor import AbstractTensor
 from .tensor import CudaTensor, torch_dtype
 from ...ops.attention import attention_bwd as kattn_bwd
 from ...ops.attention import attention_fwd_res as kattn_fwd_res
+from ...ops.conv import conv_bwd as kconv_bwd
+from ...ops.conv import conv_fwd as kconv_fwd
 from ...ops.elementwise import ew
 from ...ops.layernorm import layernorm_bwd_dx as kln_bwd_dx
 from ...ops.layernorm import layernorm_fwd as kln_fwd
@@ -220,17 +223,49 @@ class contiguous(Function):
         return g
 
 
+def _positive_steps(idx, shape):
+    """``(idx', dims)`` with ``x[idx] == x.flip(dims)[idx']`` and every step
+    of ``idx'`` positive: torch slices take no negative step (the JAX
+    package's flipped kernels of ``conv_transpose`` use one).  Only an
+    index of slices and ints (and one Ellipsis) can carry one."""
+    parts = idx if isinstance(idx, tuple) else (idx,)
+    if not any(isinstance(i, slice) and i.step is not None and i.step < 0
+               for i in parts):
+        return idx, ()
+    if not all(isinstance(i, (slice, int)) or i is Ellipsis for i in parts):
+        raise NotImplementedError(f"negative slice steps beside {idx!r}")
+    if Ellipsis in parts:
+        at = parts.index(Ellipsis)
+        fill = (slice(None),) * (len(shape) - len(parts) + 1)
+        parts = parts[:at] + fill + parts[at + 1:]
+    out, dims = [], []
+    for d, i in enumerate(parts):
+        if isinstance(i, slice) and i.step is not None and i.step < 0:
+            r = range(*i.indices(shape[d]))
+            n = shape[d] - 1
+            i = slice(n - r[0], n - r[-1] + 1, -i.step) if len(r) \
+                else slice(0, 0)
+            dims.append(d)
+        out.append(i)
+    return tuple(out), tuple(dims)
+
+
 @CudaTensor.register_op("__getitem__")
 class getitem(Function):
     def forward(ctx, a, idx):
         idx = _unwrap_index(idx, a.data.device)
-        ctx.save_for_backward(a.shape, a.dtype, idx)
-        return _t(a.data[idx])
+        idx, flips = _positive_steps(idx, a.shape)
+        ctx.save_for_backward(a.shape, a.dtype, idx, flips)
+        x = a.data.flip(flips) if flips else a.data
+        return _t(x[idx])
 
     def backward(ctx, g):
-        shape, dtype, idx = ctx.get_saved_tensors()
+        shape, dtype, idx, flips = ctx.get_saved_tensors()
         gd = g.data.to(dtype)
         out = torch.zeros(shape, dtype=dtype, device=gd.device)
+        if flips:
+            out[idx] = gd
+            return _t(out.flip(flips))
         parts = idx if isinstance(idx, tuple) else (idx,)
         if all(_is_advanced(i) for i in parts):
             # repeated indices (embedding rows, loss picks) must accumulate
@@ -423,6 +458,26 @@ class cumsum(Function):
 
 
 # ---------------------------------------------------------------------------
+# convolution
+# ---------------------------------------------------------------------------
+@CudaTensor.register_op()
+class conv(Function):
+    """N-D convolution, x (B, Cin, *S) with w (Cout, Cin/groups, *K), VALID
+    padding.  The input gradient is computed only when ``x`` needs one (an
+    image batch does not)."""
+
+    def forward(ctx, x, w, strides=1, dilation=1, groups=1):
+        ctx.save_for_backward(x.data, w.data, strides, dilation, groups)
+        return _t(kconv_fwd(x.data, w.data, strides, dilation, groups))
+
+    def backward(ctx, g):
+        xd, wd, strides, dilation, groups = ctx.get_saved_tensors()
+        gx, gw = kconv_bwd(g.data, xd, wd, strides, dilation, groups,
+                           need_dx=ctx.parents[0].requires_grad)
+        return (None if gx is None else _t(gx)), _t(gw)
+
+
+# ---------------------------------------------------------------------------
 # not ported yet
 # ---------------------------------------------------------------------------
 def _unported(name, item):
@@ -436,7 +491,6 @@ def _unported(name, item):
     CudaTensor.register_op(name, Op, overwrite=True)
 
 
-_unported("conv", "queue 2, kernel 4: the MNIST-CNN/ResNet slice")
 _unported("ring_attention", "queue 2, kernel 10: the parallel layer")
 
 

@@ -23,6 +23,8 @@ _NP_TO_TORCH = {
     np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float32,
     np.dtype(np.float16): torch.float16, np.dtype(np.int32): torch.int32,
     np.dtype(np.int64): torch.int32, np.dtype(np.int8): torch.int8,
+    # MNIST's int16 labels: the integer kernels take int32
+    np.dtype(np.int16): torch.int32,
     np.dtype(np.uint8): torch.uint8, np.dtype(np.bool_): torch.bool,
 }
 

@@ -4,7 +4,8 @@ Two tapes share this package.  The lightgrad tape (``Function``,
 ``AbstractTensor``) gets here, as in ``lightgrad_tpu/autograd/ops.py``, its
 device-agnostic layer: the operator dunders, the ``sub/div/rsub/rdiv``
 composites, ``sigmoid/tanh/softmax/gelu`` fallbacks (the CUDA backend
-overrides them with fused ops), ``mean``, ``pad`` and the pooling family.
+overrides them with fused ops), ``mean``, ``pad``, the pooling family
+(``max_pool2d`` with overlapping, padded windows) and ``conv_transpose``.
 Composites record their primitive sub-ops directly on the tape.
 
 The GPT-2 model is a ``torch.nn.Module`` on ``torch.autograd``; its fused
@@ -222,6 +223,33 @@ def max_pool(t, kernel: tuple = (2, 2)):
 
 
 @composite
+def max_pool2d(t, kernel: tuple = (2, 2), stride=None, padding: int = 0):
+    """Torch-semantics max pooling over the trailing (H, W) dims:
+    overlapping windows (stride < kernel) and padding, unlike ``max_pool``,
+    whose reshape needs stride == kernel.  Windows are ``kh*kw`` shifted
+    strided slices stacked on a new axis, so the backward comes from
+    getitem / concat / max."""
+    kh, kw = kernel if isinstance(kernel, tuple) else (kernel, kernel)
+    sh, sw = (stride if isinstance(stride, tuple) else (stride, stride)) \
+        if stride is not None else (kh, kw)
+    if padding:
+        # a finite -inf: padded cells never win the max
+        t = t.pad(padding, dims=(-2, -1), value=-1e30)
+    h, w = t.shape[-2:]
+    oh, ow = (h - kh) // sh + 1, (w - kw) // sw + 1
+    lead = tuple(slice(None) for _ in t.shape[:-2])
+    slices = []
+    for i in range(kh):
+        for j in range(kw):
+            s = t[lead + (slice(i, i + (oh - 1) * sh + 1, sh),
+                          slice(j, j + (ow - 1) * sw + 1, sw))]
+            slices.append(s.reshape(1, *s.shape))
+    if len(slices) == 1:
+        return slices[0].max(axis=0, keepdims=False)
+    return slices[0].concat(*slices[1:], axis=0).max(axis=0, keepdims=False)
+
+
+@composite
 def min_pool(t, kernel: tuple = (2, 2)):
     return t.pool(kernel=kernel).min(axis=0, keepdims=False)
 
@@ -231,7 +259,65 @@ def mean_pool(t, kernel: tuple = (2, 2)):
     return t.pool(kernel=kernel).mean(axis=0, keepdims=False)
 
 
+@composite
+def conv_transpose(t, w, strides: int = 1, dilation: int = 1, groups: int = 1,
+                   output_padding: int = 0, pad: int = 0):
+    """Transposed (fractionally-strided) convolution, 1-D or 2-D.
+
+    Torch semantics and weight layout ``(Cin, Cout/g, *K)``: output spatial
+    ``(s-1)*stride - 2*pad + (k-1)*dilation + 1 + output_padding``.  Built
+    from primitives -- zero-dilate the input (reshape + pad + reshape),
+    flip and transpose the kernel, a stride-1 conv -- so the tape gives the
+    backward."""
+    n = w.ndim - 2
+    assert n in (1, 2), f"conv_transpose supports 1-D/2-D, got {n}-D"
+    st, dl = strides, dilation
+    assert isinstance(st, int) and isinstance(dl, int), \
+        "conv_transpose takes scalar stride/dilation"
+    k_eff = tuple((k - 1) * dl + 1 for k in w.shape[2:])
+    assert all(0 <= pad <= ke - 1 for ke in k_eff), \
+        f"pad must be in [0, k_eff-1], got {pad} vs {k_eff}"
+    b, cin = t.shape[0], t.shape[1]
+    spatial = t.shape[2:]
+
+    if st > 1:
+        # zero-dilate: x[..., i] -> position i*st.  Split each spatial dim
+        # into (S, 1), grow the singleton to st with a right zero-pad, then
+        # flatten and crop the trailing st-1 zeros.
+        if n == 2:
+            sh, sw = spatial
+            y = t.reshape(b, cin, sh, 1, sw, 1)
+            y = y.pad((0, st - 1), dims=(-1,))      # (b,c,sh,1,sw,st)
+            y = y.transpose(0, 1, 2, 5, 4, 3)       # (b,c,sh,st,sw,1)
+            y = y.pad((0, st - 1), dims=(-1,))      # (b,c,sh,st,sw,st)
+            y = y.reshape(b, cin, sh * st, sw * st)
+            t = y[:, :, : (sh - 1) * st + 1, : (sw - 1) * st + 1]
+        else:
+            (sw,) = spatial
+            y = t.reshape(b, cin, sw, 1).pad((0, st - 1), dims=(-1,))
+            t = y.reshape(b, cin, sw * st)[:, :, : (sw - 1) * st + 1]
+
+    lo = tuple(ke - 1 - pad for ke in k_eff)
+    hi = tuple(ke - 1 - pad + output_padding for ke in k_eff)
+    assert len(set(lo)) == 1 and len(set(hi)) == 1, \
+        "anisotropic kernels need equal k_eff"
+    if lo[0] > 0 or hi[0] > 0:
+        t = t.pad((lo[0], hi[0]), dims=tuple(range(-n, 0)))
+
+    # weight (Cin, Cout/g, *K) -> flipped, per-group-transposed
+    # (Cout, Cin/g, *K)
+    flip = (slice(None), slice(None)) + (slice(None, None, -1),) * n
+    wf = w[flip]
+    og = w.shape[1]
+    wf = wf.reshape(groups, cin // groups, og, *w.shape[2:])
+    wf = wf.transpose(0, 2, 1, *range(3, 3 + n))
+    wf = wf.reshape(groups * og, cin // groups, *w.shape[2:])
+    return t.conv(wf, strides=1, dilation=dl, groups=groups)
+
+
 AbstractTensor.register_method("pool", pool)
 AbstractTensor.register_method("max_pool", max_pool)
+AbstractTensor.register_method("max_pool2d", max_pool2d)
 AbstractTensor.register_method("min_pool", min_pool)
 AbstractTensor.register_method("mean_pool", mean_pool)
+AbstractTensor.register_method("conv_transpose", conv_transpose)

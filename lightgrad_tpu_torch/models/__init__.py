@@ -1,3 +1,5 @@
 from .gpt import GPTConfig, GPT, ByteTokenizer
 from .decoding import KVFns, ParamFn, generate_batch
 from .bert import BertConfig, BertModel, BertForMaskedLM
+from .resnet import (BasicBlock, ResNet, load_torchvision_state_dict,
+                     resnet18, resnet20)

@@ -4,9 +4,14 @@ Counterpart of ``lightgrad_tpu/nn.py`` for the layers the ported paths
 need, with its names and parameter names: ``Module`` (``parameters``,
 ``named_parameters``, ``register_buffer``, ``named_buffers``,
 ``load_parameters``, ``state_dict``, ``train``/``eval``), ``ModuleList``,
-``Sequential``, ``Linear``,
+``Sequential``, ``Linear``, ``Conv2d``, ``ConvTranspose2d``,
+``BatchNorm2d``, ``GroupNorm``, ``MaxPool2d``, ``AvgPool2d``,
 ``Embedding``, ``LayerNorm``, ``Dropout``, ``ReLU``, ``GELU``, ``Tanh``,
 ``Flatten``.  Parameters are lightgrad tensors (``CudaTensor``).
+
+A buffer stays a buffer when an in-place op rebinds its attribute
+(``self.running_mean *= ...``); in the JAX package that assignment also
+files the buffer among the parameters.
 
 The JAX package's ``register_param_or_module`` tells its ``jit`` step
 compiler to drop programs that captured a rebound parameter; ``jit`` is not
@@ -20,8 +25,10 @@ import torch
 from .autograd import AbstractTensor, Tensor
 from .autograd.cuda.tensor import torch_dtype
 
-__all__ = ["Module", "ModuleList", "Sequential", "Linear", "LayerNorm",
-           "Embedding", "Dropout", "ReLU", "GELU", "Tanh", "Flatten"]
+__all__ = ["Module", "ModuleList", "Sequential", "Linear", "Conv2d",
+           "ConvTranspose2d", "BatchNorm2d", "LayerNorm", "Embedding",
+           "Dropout", "ReLU", "GELU", "Tanh", "Flatten", "GroupNorm",
+           "MaxPool2d", "AvgPool2d"]
 
 
 def _fan_in_uniform(shape, fan_in):
@@ -70,7 +77,9 @@ class Module:
         return self.forward(*args, **kwargs)
 
     def __setattr__(self, name, val):
-        if isinstance(val, (AbstractTensor, Module)):
+        if name in self._buffers:
+            self._buffers[name] = val
+        elif isinstance(val, (AbstractTensor, Module)):
             self.register_param_or_module(name, val)
         object.__setattr__(self, name, val)
 
@@ -223,6 +232,126 @@ class Linear(Module):
         return y + self.bias if self.bias is not None else y
 
 
+class Conv2d(Module):
+    """2-D convolution.  ``pad`` takes an int (symmetric), a ``(lo, hi)``
+    pair (asymmetric), or ``"same"`` (stride-1 output size == input size,
+    even kernels too) / ``"valid"`` (no padding).  ``dilation`` spaces the
+    kernel taps; ``groups`` splits the channels into independent
+    convolutions (both channel counts divisible by it)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernelsize: int = 3, stride: int = 1, pad=None,
+                 bias: bool = True, dilation: int = 1, groups: int = 1):
+        super().__init__()
+        assert in_channels % groups == 0 and out_channels % groups == 0, \
+            f"groups={groups} must divide channels ({in_channels}, " \
+            f"{out_channels})"
+        fan_in = (in_channels // groups) * kernelsize * kernelsize
+        self.w = _fan_in_uniform(
+            (out_channels, in_channels // groups, kernelsize, kernelsize),
+            fan_in)
+        self.b = _fan_in_uniform((1, out_channels, 1, 1), fan_in) \
+            if bias else None
+        self.s, self.d, self.g = stride, dilation, groups
+        k_eff = (kernelsize - 1) * dilation + 1
+        if pad is None:
+            pad = k_eff // 2
+        if pad == "same":
+            pad = ((k_eff - 1) // 2, k_eff // 2)
+        elif pad == "valid":
+            pad = 0
+        assert isinstance(pad, (int, tuple)), f"bad pad spec {pad!r}"
+        self.p = pad
+
+    def forward(self, x):
+        x = _amp_input(x, self.w)
+        needs_pad = self.p != 0 and self.p != (0, 0)
+        y = (x.pad(self.p) if needs_pad else x).conv(
+            self.w, strides=self.s, dilation=self.d, groups=self.g)
+        return y + self.b if self.b is not None else y
+
+
+class ConvTranspose2d(Module):
+    """2-D transposed convolution: torch's weight layout ``(in_channels,
+    out_channels/groups, k, k)`` and output size, on the ``conv_transpose``
+    composite."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernelsize: int = 3, stride: int = 1, pad: int = 0,
+                 output_padding: int = 0, bias: bool = True,
+                 dilation: int = 1, groups: int = 1):
+        super().__init__()
+        assert in_channels % groups == 0 and out_channels % groups == 0
+        fan_in = (in_channels // groups) * kernelsize * kernelsize
+        self.w = _fan_in_uniform(
+            (in_channels, out_channels // groups, kernelsize, kernelsize),
+            fan_in)
+        self.b = _fan_in_uniform((1, out_channels, 1, 1), fan_in) \
+            if bias else None
+        self.s, self.p, self.op = stride, pad, output_padding
+        self.d, self.g = dilation, groups
+
+    def forward(self, x):
+        y = _amp_input(x, self.w).conv_transpose(
+            self.w, strides=self.s, dilation=self.d, groups=self.g,
+            output_padding=self.op, pad=self.p)
+        return y + self.b if self.b is not None else y
+
+
+class BatchNorm2d(Module):
+    """Batch normalization over (B, C, H, W) with running statistics.
+
+    The running mean and variance are buffers: in ``state_dict``, never
+    among the parameters.  In training they are updated under ``no_grad``
+    by the tape's in-place ops, which rebind the same tensor objects; the
+    variance tracked is the unbiased one, as torch's.  The update reads
+    graph-free copies of the batch statistics: the JAX package's
+    ``detach()`` cuts them from the tape in place, so its training gradient
+    treats them as constants; here the gradient is the true one."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1, affine: bool = True):
+        super().__init__()
+        self.c = num_features
+        self.eps, self.momentum = eps, momentum
+        if affine:
+            self.weight = Tensor.ones((num_features,))
+            self.bias = Tensor.zeros((num_features,))
+        else:
+            self.weight = self.bias = None
+        self.register_buffer("running_mean", Tensor.zeros(
+            (num_features,), requires_grad=False))
+        self.register_buffer("running_var", Tensor.ones(
+            (num_features,), requires_grad=False))
+
+    def forward(self, x):
+        assert len(x.shape) == 4 and x.shape[1] == self.c, x.shape
+        c = self.c
+        if self.training:
+            m = x.mean(axis=(0, 2, 3))
+            d = x - m.reshape(1, c, 1, 1)
+            v = (d * d).mean(axis=(0, 2, 3))
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            from .autograd import no_grad
+
+            with no_grad():
+                mom = self.momentum
+                self.running_mean *= (1.0 - mom)
+                self.running_mean += m.copy(requires_grad=False) * mom
+                self.running_var *= (1.0 - mom)
+                self.running_var += v.copy(requires_grad=False) * (
+                    mom * n / max(n - 1, 1))
+            xh = d / (v.reshape(1, c, 1, 1) + self.eps).pow(0.5)
+        else:
+            m = self.running_mean.reshape(1, c, 1, 1)
+            v = self.running_var.reshape(1, c, 1, 1)
+            xh = (x - m) / (v + self.eps).pow(0.5)
+        if self.weight is not None:
+            xh = xh * self.weight.reshape(1, c, 1, 1) \
+                + self.bias.reshape(1, c, 1, 1)
+        return xh
+
+
 class LayerNorm(Module):
     def __init__(self, shape, eps: float = 1e-5):
         super().__init__()
@@ -248,6 +377,59 @@ class Embedding(Module):
 
     def forward(self, ids):
         return self.weight[ids]
+
+
+class GroupNorm(Module):
+    """Group normalization: normalize over (C/groups, *spatial) per group,
+    per-channel affine; no running statistics."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
+                 affine: bool = True):
+        super().__init__()
+        assert num_channels % num_groups == 0, (num_groups, num_channels)
+        self.groups, self.channels, self.eps = num_groups, num_channels, eps
+        if affine:
+            self.weight = Tensor.ones((num_channels,))
+            self.bias = Tensor.zeros((num_channels,))
+
+    def forward(self, x):
+        n, c = x.shape[0], x.shape[1]
+        assert c == self.channels, (c, self.channels)
+        xs = x.reshape(n, self.groups, -1)
+        mu = xs.mean(axis=-1, keepdims=True)
+        d = xs - mu
+        var = (d * d).mean(axis=-1, keepdims=True)
+        xn = (d * (var + self.eps) ** -0.5).reshape(*x.shape)
+        if not hasattr(self, "weight"):
+            return xn
+        shape = (1, c) + (1,) * (len(x.shape) - 2)
+        return xn * self.weight.reshape(*shape) + self.bias.reshape(*shape)
+
+
+class MaxPool2d(Module):
+    """Module over the ``max_pool2d`` op (torch semantics: stride defaults
+    to the kernel, int padding pads with -inf)."""
+
+    def __init__(self, kernel: int = 2, stride: int = None, padding: int = 0):
+        super().__init__()
+        self.kernel = (kernel, kernel) if isinstance(kernel, int) else kernel
+        self.stride, self.padding = stride, padding
+
+    def forward(self, x):
+        return x.max_pool2d(kernel=self.kernel, stride=self.stride,
+                            padding=self.padding)
+
+
+class AvgPool2d(Module):
+    """Module over ``mean_pool`` (non-overlapping windows: stride ==
+    kernel)."""
+
+    def __init__(self, kernel: int = 2):
+        super().__init__()
+        self.kernel = (kernel, kernel) if isinstance(kernel, int) else kernel
+
+    def forward(self, x):
+        return x.mean_pool(kernel=self.kernel)
 
 
 class Dropout(Module):

@@ -8,6 +8,8 @@ tensors it runs the plain version.  Kernels build at first use
 from .attention import (attention_bwd, attention_bwd_dkv, attention_bwd_dq,
                         attention_bwd_reference, attention_fwd,
                         attention_fwd_res, attention_fwd_reference)
+from .conv import (conv_bwd, conv_bwd_reference, conv_fwd,
+                   conv_fwd_reference)
 from .decode_attention import decode_attention, decode_attention_reference
 from .decode_stack import (decode_stack, decode_stack_batch,
                            decode_stack_batch_reference,

@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL, _S = ctypes.c_longlong, ctypes.c_char_p
+_GEOM = ctypes.POINTER(ctypes.c_int)
 # entry point -> (argtypes, restype).  The launchers return the launch's
 # cudaError_t as an int.
 _SIGNATURES = {
@@ -59,6 +60,13 @@ _SIGNATURES = {
     # sBn, is_bf16, stream
     "lg_matmul": ([_P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL,
                    _LL, _LL, _LL, _I, _P], _I),
+    # x, w, y, geom (19 ints: B, Cin, Cout, G, D, H, W, OD, OH, OW, KD, KH,
+    # KW, strides, dilations), is_bf16, stream
+    "lg_conv_fwd": ([_P, _P, _P, _GEOM, _I, _P], _I),
+    # gy, w, gx, geom, is_bf16, stream
+    "lg_conv_bwd_dx": ([_P, _P, _P, _GEOM, _I, _P], _I),
+    # gy, x, gw, f32 partials, geom, splits, chunk, is_bf16, stream
+    "lg_conv_bwd_dw": ([_P, _P, _P, _P, _GEOM, _I, _LL, _I, _P], _I),
     "lg_error_string": ([_I], _S),
 }
 

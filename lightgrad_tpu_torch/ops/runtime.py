@@ -21,7 +21,8 @@ KERNELS = ("attention_fwd", "decode_attention", "decode_stack",
            "decode_stack_batch_kvq", "decode_stack_batch_int8_kvq",
            "attention_bwd_dq", "attention_bwd_dkv",
            "layernorm_fwd", "layernorm_bwd", "elementwise", "reduce",
-           "matmul", "softmax_fwd", "softmax_bwd")
+           "matmul", "softmax_fwd", "softmax_bwd", "conv_fwd", "conv_bwd_dx",
+           "conv_bwd_dw")
 _launches = dict.fromkeys(KERNELS, 0)
 
 

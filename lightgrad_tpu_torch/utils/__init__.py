@@ -1,1 +1,2 @@
+from .fetch import fetch
 from .profiler import Profiler, Tracker

@@ -3,9 +3,11 @@
 ``load_numpy_params(model, named)`` copies ``{name: array}`` -- for example
 ``{n: np.asarray(t.data) for n, t in jax_model.named_parameters()}`` -- into
 the port's model: a ``torch.nn.Module`` (GPT-2) or a lightgrad
-``nn.Module`` (BERT), the latter through its ``load_parameters``.  Both
-packages store Linear weights as torch's (out, in), so nothing is
-transposed; names and shapes must match exactly.
+``nn.Module`` (BERT, ResNet), the latter through its ``load_parameters``.
+A lightgrad module takes its buffers too (BatchNorm's running statistics),
+so the JAX model's whole ``state_dict()`` loads.  Both packages store
+Linear weights as torch's (out, in) and convolution kernels as (out, in,
+*K), so nothing is transposed; names and shapes must match exactly.
 """
 
 import numpy as np
@@ -19,6 +21,8 @@ __all__ = ["load_numpy_params"]
 @torch.no_grad()
 def load_numpy_params(model, named: dict):
     params = dict(model.named_parameters())
+    if isinstance(model, nn.Module):
+        params.update(model.named_buffers())
     missing = sorted(set(params) - set(named))
     extra = sorted(set(named) - set(params))
     if missing or extra:

@@ -13,6 +13,8 @@ from lightgrad_tpu_torch.ops.attention import (attention_bwd,
                                                attention_bwd_reference,
                                                attention_fwd_res,
                                                attention_fwd_reference)
+from lightgrad_tpu_torch.ops.conv import (conv_bwd, conv_bwd_reference,
+                                          conv_fwd, conv_fwd_reference)
 from lightgrad_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference)
 from lightgrad_tpu_torch.ops.decode_stack import (
@@ -272,6 +274,15 @@ def test_wrappers_raise_on_what_the_kernels_lack(dev):
                      torch.zeros(1, 12, 768, 768, device=dev,
                                  dtype=torch.int8),
                      torch.zeros(1, 13, 768, device=dev), eps=1e-5)
+    x = torch.zeros(2, 3, 8, 8, device=dev)
+    with pytest.raises(TypeError):                # float64
+        conv_fwd(x.double(), torch.zeros(4, 3, 3, 3, device=dev,
+                                         dtype=torch.float64))
+    with pytest.raises(TypeError):                # operands on two devices
+        conv_fwd(x, torch.zeros(4, 3, 3, 3))
+    with pytest.raises(ValueError):               # kernel past the input
+        conv_bwd(torch.zeros(2, 4, 1, 1, device=dev), x,
+                 torch.zeros(4, 3, 9, 9, device=dev))
 
 
 # --- the generic op set of the lightgrad tape --------------------------------
@@ -414,3 +425,42 @@ def test_softmax_kernels(dev, shape, dtype):
         == 1
     _close(y, softmax_fwd_reference(x), dtype)
     _close(dx, softmax_bwd_reference(dy, y), dtype)
+
+
+# --- convolution: ResNet-18's shapes at batch 2, and the odd cases ----------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xs,ws,st,dl,groups", [
+    ((2, 3, 230, 230), (64, 3, 7, 7), 2, 1, 1),      # the stem
+    ((2, 64, 58, 58), (64, 64, 3, 3), 1, 1, 1),      # layer 1
+    ((2, 64, 58, 58), (128, 64, 3, 3), 2, 1, 1),     # layer 2's first conv
+    ((2, 64, 56, 56), (128, 64, 1, 1), 2, 1, 1),     # the 1x1/s2 projection
+    ((2, 512, 9, 9), (512, 512, 3, 3), 1, 1, 1),     # layer 4
+    ((2, 1, 30, 30), (8, 1, 3, 3), 1, 1, 1),         # MNIST's first conv
+    ((2, 16, 21, 19), (32, 4, 3, 3), 1, 2, 4),       # grouped, dilated
+    ((2, 8, 17, 15), (8, 1, 3, 3), 2, 1, 8),         # depthwise, strided
+    ((2, 6, 37), (10, 6, 5), 2, 1, 1),               # 1-D
+    ((2, 4, 7, 9, 8), (6, 2, 3, 2, 3), (1, 2, 1), (2, 1, 1), 2),  # 3-D
+], ids=str)
+def test_conv_kernels(dev, xs, ws, st, dl, groups, dtype):
+    g = torch.Generator(device=dev).manual_seed(sum(xs) + sum(ws))
+    x = _randn(g, *xs, dtype=dtype)
+    w = _randn(g, *ws, scale=0.1, dtype=dtype)
+    reset_launch_counts()
+    y = conv_fwd(x, w, st, dl, groups)
+    torch.cuda.synchronize()
+    assert launch_counts()["conv_fwd"] == 1
+    want = conv_fwd_reference(x, w, st, dl, groups)
+    assert y.shape == want.shape and y.dtype == want.dtype
+    _close(y, want, dtype)
+    gy = _randn(g, *want.shape, dtype=dtype)
+    reset_launch_counts()
+    gx, gw = conv_bwd(gy, x, w, st, dl, groups)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["conv_bwd_dx"] == counts["conv_bwd_dw"] == 1
+    rgx, rgw = conv_bwd_reference(gy, x, w, st, dl, groups)
+    _close(gx, rgx, dtype)
+    _close(gw, rgw, dtype)
+    again = conv_bwd(gy, x, w, st, dl, groups)        # no atomics
+    assert torch.equal(gx, again[0]) and torch.equal(gw, again[1])
+    assert conv_bwd(gy, x, w, st, dl, groups, need_dx=False)[0] is None

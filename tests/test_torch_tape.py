@@ -251,10 +251,12 @@ def test_repeated_indices_accumulate():
 
 def test_unported_ops_raise():
     t = TTensor.from_numpy(np.ones((1, 1, 4, 4), np.float32))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t.ring_attention(t, t)
+    # conv is ported: a 3x3 window of ones over ones sums 9 taps
     w = TTensor.from_numpy(np.ones((1, 1, 3, 3), np.float32))
-    for fn in (lambda: t.conv(w), lambda: t.ring_attention(t, t)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+    np.testing.assert_array_equal(t.conv(w).numpy(),
+                                  np.full((1, 1, 2, 2), 9.0, np.float32))
 
 
 def test_random_draws_follow_the_seed():

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import lightgrad_tpu.nn as jax_nn
+from lightgrad_tpu.autograd.tensor import AbstractTensor as JaxAbstractTensor
 from lightgrad_tpu.ops import runtime as jax_runtime
 
 
@@ -45,3 +47,22 @@ def cpu_device():
     prev = device.set_default_device("cpu")
     yield
     device.set_default_device(prev)
+
+
+@pytest.fixture
+def jax_batchnorm_true_gradient(monkeypatch):
+    """The JAX package's ``BatchNorm2d`` updates its running statistics from
+    ``m.detach()`` / ``v.detach()``, and its ``detach`` cuts a tensor from
+    the tape in place: its training gradient treats the batch mean and
+    variance as constants.  The port's keeps them on the tape.  For parity,
+    the JAX layer runs here with a ``detach`` that returns a new graph-free
+    tensor, as the port's ``BatchNorm2d`` reads ``copy()``."""
+    forward = jax_nn.BatchNorm2d.forward
+
+    def patched(self, x):
+        with monkeypatch.context() as m:
+            m.setattr(JaxAbstractTensor, "detach",
+                      lambda t: t.copy(requires_grad=False))
+            return forward(self, x)
+
+    monkeypatch.setattr(jax_nn.BatchNorm2d, "forward", patched)
