@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port's paths on one NVIDIA GPU: GPT-2 serving (float
-and int8) and training (torch.autograd), BERT-base masked-LM training, its
-int8 ``QuantLinear`` forward, the gradient-descent example, and the conv
-path (ResNet-18 training, the MNIST CNN and ResNet-20 examples) on the
-lightgrad tape.
+and int8) and training (torch.autograd; two-pass and fused flash backward),
+chunked attention through ``flash_block``, BERT-base masked-LM training
+(padding mask and ``attention_lengths``), its int8 ``QuantLinear`` forward,
+the gradient-descent example, and the conv path (ResNet-18 training, the
+MNIST CNN and ResNet-20 examples) on the lightgrad tape.
 
     python3 chip_smoke.py
 
@@ -17,7 +18,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      3.35 TB/s or its operations at the dtype's peak); the stack kernel's
      six int8 instantiations on GPT-2 small's own quantized weights; the
      three conv kernels at ResNet-18's shapes (batch 32) and on grouped /
-     dilated, 1-D and 3-D cases, timed at layer 1's shape;
+     dilated, 1-D and 3-D cases, timed at layer 1's shape; the flash
+     kernels with per-row lengths at BERT-base's attention shape (8 x 12
+     heads of 128 x 64, lengths 64-128; G 1 and 2, causal and not), the
+     fused flash backward at GPT-2's 96 x 1024 x 64 (causal, against the
+     plain version and the two passes, bit for bit on a rerun) and
+     ``flash_block`` at the chunk shape 96 x 256 x 64 with a nonzero lse
+     cotangent;
   4. serving path, GPT-2 small at its published widths (vocab 50257, 1024
      positions, d 768, 12 layers, 12 heads; seeded random weights), once in
      float32 and once after ``model.to(torch.bfloat16)``: ``generate``,
@@ -31,10 +38,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      bytes; in bfloat16, one long-context ``generate`` (960-token prompt)
      with the float and the int8 cache;
   5. training path, the same model on 8 x 1024 random tokens: (a) float32
-     with Adam, (b) bfloat16 ``MixedPrecision`` with AdamW, 5 steps each on
+     with Adam, (b) bfloat16 ``MixedPrecision`` with AdamW, (c) as (b) with
+     the fused flash backward (``set_flash_fused(True)``), 5 steps each on
      one batch -- the loss must be finite and fall, and step 1's gradients
      of every parameter must match a plain step (the ``_reference`` versions
-     under torch autograd);
+     under torch autograd); then chunked attention, ring attention's math in
+     one process: 96 x 1024 x 64 causal in 4 chunks of 256 rows through
+     ``flash_block``, merged as ``_merge`` does, one backward with an lse
+     term, against one full call, in float32 and bfloat16;
   6. the lightgrad tape, BERT-base at its published widths (HF
      bert-base-uncased: vocab 30522, hidden 768, 12 layers, 12 heads,
      intermediate 3072, 512 positions; seeded random weights) on 8 x 128
@@ -43,8 +54,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      batch -- the loss must be finite and fall, step 1's logits and every
      parameter's gradient must match a plain twin (the ``_reference``
      versions under torch autograd), and one unmasked step must take the
-     flash kernels; then a fresh BERT-base after ``quantize_module``: one
-     forward against the float model's logits (cosine) and one backward;
+     flash kernels; then a fresh BERT-base with the same weights through
+     ``attention_lengths`` (the flash kernels with per-row lengths), 5 steps
+     on the same batch, held to the same twin (valid rows' logits, every
+     gradient) and to the masked run's logits; then a fresh BERT-base after
+     ``quantize_module``: one forward against the float model's logits
+     (cosine) and one backward;
   7. the tape's smallest path, examples/gradient_descent.py's loop (64 x 64)
      for 20 epochs: the loss must fall;
   8. the conv path on the tape, float32: (a) ResNet-18 at its torchvision
@@ -58,7 +73,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      ResNet-20 (AdamW) for 40 steps each through data.MNIST ->
      DeviceDataset.offsets() -> narrow on synthetic digits
      (LIGHTGRAD_FAKE_DATA=1) -- the loss must fall; test accuracy over
-     2,000 digits;
+     2,000 digits; and one ``narrow`` forward + backward at a device start
+     under ``torch.cuda.set_sync_debug_mode("error")``;
   9. every kernel of each path was launched by that path, and every kernel
      of the package by some path.
 The line before the last is a JSON object of per-kernel results; the last
@@ -109,6 +125,12 @@ KERNEL_SOURCES = {
                          "lightgrad_tpu/ops/attention.py:604"),
     "attention_bwd_dkv": ("cuda", "lightgrad_tpu_torch/csrc/flash_bwd.cu",
                           "lightgrad_tpu/ops/attention.py:636"),
+    "attention_bwd_fused": ("cuda", "lightgrad_tpu_torch/csrc/flash_bwd.cu",
+                            "lightgrad_tpu/ops/attention.py:516"),
+    # the (out, lse) unit over the flash kernels of flash_fwd.cu and
+    # flash_bwd.cu, with lse's cotangent as dcap - dlse
+    "flash_block": ("cuda", "lightgrad_tpu_torch/ops/attention.py",
+                    "lightgrad_tpu/ops/attention.py:884"),
     "layernorm_fwd": ("triton", "lightgrad_tpu_torch/ops/layernorm.py",
                       "lightgrad_tpu/ops/layernorm.py:54"),
     "layernorm_bwd": ("triton", "lightgrad_tpu_torch/ops/layernorm.py",
@@ -131,6 +153,11 @@ KERNEL_SOURCES = {
     "conv_bwd_dw": ("cuda", "lightgrad_tpu_torch/csrc/conv.cu",
                     "lightgrad_tpu/ops/conv.py:122"),
 }
+KERNEL_NOTES = {
+    "flash_block": "launches no kernel of its own: it counts one a direction "
+                   "beside the flash kernels it launches, which count too; "
+                   "its times are theirs through its wrappers",
+}
 SERVING_KERNELS = ("attention_fwd", "decode_attention", "decode_stack",
                    "decode_stack_batch")
 # quantization mode -> the stack kernel's instantiations its serving runs
@@ -142,6 +169,12 @@ TRAINING_KERNELS = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv",
 BERT_KERNELS = ("elementwise", "reduce", "matmul", "softmax_fwd",
                 "softmax_bwd", "layernorm_fwd", "layernorm_bwd")
 FLASH_KERNELS = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv")
+# BERT's attention_lengths step: the flash kernels take the softmax's place
+BERT_LENGTHS_KERNELS = ("elementwise", "reduce", "matmul", "layernorm_fwd",
+                        "layernorm_bwd") + FLASH_KERNELS
+FUSED_KERNELS = ("attention_fwd", "attention_bwd_fused", "layernorm_fwd",
+                 "layernorm_bwd")
+FLASH_BLOCK_KERNELS = ("flash_block",) + FLASH_KERNELS
 TAPE_KERNELS = ("elementwise", "reduce", "matmul")
 CONV_KERNELS = ("conv_fwd", "conv_bwd_dx", "conv_bwd_dw")
 CONV_PATH_KERNELS = CONV_KERNELS + TAPE_KERNELS
@@ -156,6 +189,7 @@ KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # paths round every product and LayerNorm to bf16, at different points.
 PATH_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 8, 5, 6e-4
+CHUNKS = 4      # chunked attention: 4 chunks of 256 rows of a 1024 window
 GPT2_SMALL = dict(vocab_size=50257, n_positions=1024, n_embd=768,
                   n_layer=12, n_head=12, layer_norm_epsilon=1e-5)
 # HF bert-base-uncased config.json
@@ -283,24 +317,26 @@ def bound_ms(nbytes, ops, dtype):
 
 
 def record(results, dtype, name, err, ms=None, plain_ms=None,
-           timing="eager", cost=None, library_ms=None):
+           timing="eager", cost=None, library_ms=None, variant=""):
     """Fold one comparison (and, when timed, both times) into ``results``:
     f32 under plain keys, bf16 under ``bf16_`` keys.  ``timing`` says how
     the times were taken: "eager" (:func:`cuda_ms`, launch work included)
     or "graph" (:func:`graph_ms`, device time only).  A timed record also
     takes ``cost``, the (bytes, operations) of the timed call, for its
     bound, and ``library_ms``, one PyTorch call's time for the same
-    function (None where PyTorch has none)."""
+    function (None where PyTorch has none).  ``variant`` prefixes the time
+    keys of a second call shape of the kernel (e.g. "lengths_")."""
     r = results.setdefault(name, {"max_abs_err": 0.0})
     key = "" if dtype == torch.float32 else "bf16_"
     r[key + "max_abs_err"] = max(r.get(key + "max_abs_err", 0.0), err)
     if ms is not None:
+        key += variant
         r[key + "ms"], r[key + "plain_ms"] = ms, plain_ms
         r[key + "bound_ms"], r[key + "bound_by"] = bound_ms(*cost, dtype)
         r[key + "library_ms"] = library_ms
-        r["timing"] = timing
+        r.setdefault("timing", timing)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        log(f"  {name} {str(dtype)[6:]}: kernel {ms:.4f} ms, "
+        log(f"  {name} {variant}{str(dtype)[6:]}: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, library {lib}, bound "
             f"{r[key + 'bound_ms']:.4f} ms ({r[key + 'bound_by']})")
 
@@ -829,15 +865,240 @@ def phase_train_kernels(results):
         torch.cuda.empty_cache()
 
 
-def phase_train(dtype, card):
+def phase_flash_kernels(results):
+    """Phase 3, the rest of the flash surface: the flash kernels with
+    per-row lengths at BERT-base's attention shape (G 1 and 2, causal and
+    not; padded rows exactly 0), the fused backward at GPT-2's training
+    shape against the plain version and the two passes (bit for bit on a
+    rerun), and flash_block at the chunk shape with a nonzero lse
+    cotangent."""
+    import torch.nn.functional as F
+
+    from lightgrad_tpu_torch.autograd import flash_block
+    from lightgrad_tpu_torch.ops.attention import (
+        FUSED_ROWS, attention_bwd, attention_bwd_dkv, attention_bwd_dq,
+        attention_bwd_fused, attention_bwd_fused_reference,
+        attention_bwd_reference, attention_fwd_res, attention_fwd_reference,
+        flash_block_bwd, flash_block_fwd, flash_block_reference,
+        set_flash_fused)
+
+    dev, f32 = torch.device("cuda"), torch.float32
+    g = torch.Generator(device=dev).manual_seed(8)
+    H = BERT_BASE["num_attention_heads"]
+    B, S, hd = BERT_BATCH, BERT_SEQ, BERT_BASE["hidden_size"] // H
+    bh, sc = B * H, hd ** -0.5
+    # bert_batch's lengths (its rng's first draw, 64-128), one made full
+    lengths = np.random.default_rng(0).integers(S // 2, S + 1, size=B)
+    lengths[0] = S
+    lens = torch.as_tensor(lengths, device=dev,
+                           dtype=torch.int32).repeat_interleave(H)
+    pad = torch.arange(S, device=dev)[None, :] >= lens[:, None]
+    # valid (query, key) pairs of each row block, and the share of (B*H, S)
+    # rows that are valid: what these lengths need of the inputs
+    L = lens.double()
+    pairs = {False: float((L * L).sum()), True: float((L * (L + 1) / 2).sum())}
+    valid = float(L.sum()) / (bh * S)
+    TB, T = TRAIN_BATCH * GPT2_SMALL["n_head"], GPT2_SMALL["n_positions"]
+    C = T // CHUNKS
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = KERNEL_TOL[dtype]
+        isz = torch.tensor([], dtype=dtype).element_size()
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+        # lengths: BERT's self-attention through attention_lengths
+        for G, causal in ((1, False), (1, True), (2, False), (2, True)):
+            q, do = rnd(bh, S, hd), rnd(bh, S, hd)
+            k, v = rnd(bh // G, S, hd), rnd(bh // G, S, hd)
+            out, lse = attention_fwd_res(q, k, v, sc, causal, lengths=lens)
+            got = attention_bwd(do, q, k, v, sc, causal, out=out, lse=lse,
+                                lengths=lens)
+            ro, rl = attention_fwd_reference(q, k, v, sc, causal, lens)
+            want = attention_bwd_reference(do, q, k, v, sc, causal,
+                                           lengths=lens)
+            tag = f"lengths ({bh}, {S}, {hd}) G={G} causal={causal}"
+            err = check(f"attention_fwd {tag} out", dtype, out, ro, tol)
+            check(f"attention_fwd {tag} lse", dtype, lse, rl,
+                  KERNEL_TOL[f32])
+            errs = [check(f"attention_bwd {tag} {n}", dtype, a, w, tol)
+                    for n, a, w in zip(("dq", "dk", "dv"), got, want)]
+            for w in (ro, *want):
+                discriminates("flash lengths", dtype, w, tol,
+                              torch.zeros_like(w))
+            zero = [out[pad], lse[..., 0][pad], got[0][pad]]
+            if G == 1:
+                zero += [got[1][pad], got[2][pad]]
+            if any(bool((z != 0).any()) for z in zero):
+                raise AssertionError(f"{tag}: a padded row is not 0")
+            record(results, dtype, "attention_fwd", err)
+            record(results, dtype, "attention_bwd_dq", errs[0])
+            record(results, dtype, "attention_bwd_dkv", max(errs[1:]))
+            if G == 2 or causal:
+                continue
+            # times of BERT's call: G 1, not causal.  Bounds: the valid rows
+            # of every input are read, the outputs written in full (padded
+            # rows as zeros)
+            tile, n = bh * S * hd * isz, pairs[False]
+            rows = bh * S * 4                   # one f32 (B*H, S) row set
+            q4, k4, v4 = (t.reshape(B, H, S, hd) for t in (q, k, v))
+            keep = ~pad.reshape(B, H, 1, S)[:, :1]
+            record(results, dtype, "attention_fwd", 0.0,
+                   cuda_ms(lambda: attention_fwd_res(q, k, v, sc, False,
+                                                     lengths=lens)),
+                   cuda_ms(lambda: attention_fwd_reference(q, k, v, sc,
+                                                           False, lens)),
+                   cost=(3 * valid * tile + tile + rows + bh * 4, 4 * hd * n),
+                   library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                       q4, k4, v4, attn_mask=keep)), variant="lengths_")
+            dcap = (do.float() * out.float()).sum(-1).contiguous()
+            plain_ms = cuda_ms(lambda: attention_bwd_reference(
+                do, q, k, v, sc, False, lengths=lens), 5)
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+            og = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                og, (qg, kg, vg), do.reshape(B, H, S, hd),
+                retain_graph=True), 5)
+            record(results, dtype, "attention_bwd_dq", 0.0,
+                   cuda_ms(lambda: attention_bwd_dq(do, q, k, v, lse, dcap,
+                                                    sc, False, lens)),
+                   plain_ms, cost=(valid * (4 * tile + 2 * rows) + tile
+                                   + bh * 4, 6 * hd * n),
+                   library_ms=lib_ms, variant="lengths_")
+            record(results, dtype, "attention_bwd_dkv", 0.0,
+                   cuda_ms(lambda: attention_bwd_dkv(do, q, k, v, lse, dcap,
+                                                     sc, False, lens)),
+                   plain_ms, cost=(valid * (4 * tile + 2 * rows) + 2 * tile
+                                   + bh * 4, 8 * hd * n),
+                   library_ms=lib_ms, variant="lengths_")
+            del qg, kg, vg, og
+        torch.cuda.empty_cache()
+
+        # the fused backward at GPT-2's training shape, causal
+        q, k, v, do = (rnd(TB, T, hd) for _ in range(4))
+        out, lse = attention_fwd_res(q, k, v, sc, True)
+        dcap = (do.float() * out.float()).sum(-1).contiguous()
+        two = attention_bwd(do, q, k, v, sc, True, out=out, lse=lse)
+        prev = set_flash_fused(True)
+        try:
+            got = attention_bwd(do, q, k, v, sc, True, out=out, lse=lse)
+            again = attention_bwd(do, q, k, v, sc, True, out=out, lse=lse)
+        finally:
+            set_flash_fused(prev)
+        want = attention_bwd_reference(do, q, k, v, sc, True)
+        tag = f"attention_bwd_fused ({TB}, {T}, {hd}) causal"
+        errs = [check(f"{tag} {n}", dtype, a, w, tol)
+                for n, a, w in zip(("dq", "dk", "dv"), got, want)]
+        for n, a, w in zip(("dq", "dk", "dv"), got, two):
+            check(f"{tag} {n} vs the two passes", dtype, a, w, tol)
+        for w in want:
+            discriminates("attention_bwd_fused", dtype, w, tol,
+                          torch.zeros_like(w))
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{tag}: two calls differ")
+        nk = -(-T // FUSED_ROWS[hd])
+        slab_bytes = nk * TB * T * hd * 4
+        log(f"  {tag}: two calls bit-identical; dq slabs {nk} x {TB} x {T} "
+            f"x {hd} f32 = {slab_bytes / 1e6:.1f} MB")
+        del two, got, again, want
+        torch.cuda.empty_cache()
+        q4, k4, v4 = (t.reshape(TRAIN_BATCH, -1, T, hd).detach()
+                      .requires_grad_() for t in (q, k, v))
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        tile, gemm = TB * T * hd * isz, TB * T * (T + 1) * hd
+        record(results, dtype, "attention_bwd_fused", max(errs),
+               cuda_ms(lambda: attention_bwd_fused(do, q, k, v, lse, dcap, sc,
+                                                   True)),
+               cuda_ms(lambda: attention_bwd_fused_reference(
+                   do, q, k, v, out, lse, dcap, sc, True), 3),
+               cost=(7 * tile + 2 * TB * T * 4 + 2 * slab_bytes, 5 * gemm),
+               library_ms=cuda_ms(lambda: torch.autograd.grad(
+                   o4, (q4, k4, v4), do.reshape(q4.shape),
+                   retain_graph=True), 5))
+        prev = set_flash_fused(True)
+        try:
+            fused_ms = cuda_ms(lambda: attention_bwd(do, q, k, v, sc, True,
+                                                     out=out, lse=lse))
+        finally:
+            set_flash_fused(prev)
+        two_ms = cuda_ms(lambda: attention_bwd(do, q, k, v, sc, True, out=out,
+                                               lse=lse))
+        log(f"  attention_bwd {str(dtype)[6:]} ({TB}, {T}, {hd}) causal: "
+            f"rowsum + fused kernel + slab sum {fused_ms:.4f} ms, rowsum + "
+            f"two passes {two_ms:.4f} ms")
+        del q, k, v, do, out, lse, dcap, q4, k4, v4, o4
+        torch.cuda.empty_cache()
+
+        # flash_block at the chunk shape, lse cotangent nonzero
+        q, k, v = (rnd(TB, C, hd) for _ in range(3))
+        w = torch.randn(TB, C, hd, generator=g, device=dev)
+        wl = torch.randn(TB, C, 1, generator=g, device=dev)
+
+        def run(fn, causal):
+            ts = [t.clone().requires_grad_() for t in (q, k, v)]
+            o, l = fn(*ts, sc, causal)
+            ((o.float() * w).sum() + (l * wl).sum()).backward()
+            return [o, l] + [t.grad for t in ts]
+
+        err = 0.0
+        for causal in (True, False):
+            got, want = run(flash_block, causal), \
+                run(flash_block_reference, causal)
+            for n, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+                err = max(err, check(
+                    f"flash_block ({TB}, {C}, {hd}) causal={causal} {n}",
+                    dtype, a, b, KERNEL_TOL[f32] if n == "lse" else tol))
+                if n != "lse":
+                    discriminates("flash_block", dtype, b, tol,
+                                  torch.zeros_like(b))
+        # times: a ring round off the diagonal (not causal), forward (out,
+        # lse) beside the library's lse-returning attention; the backward
+        # (dlse != 0) beside torch autograd of the plain version
+        q4, k4, v4 = (t.reshape(TRAIN_BATCH, -1, C, hd) for t in (q, k, v))
+        try:
+            torch.ops.aten._scaled_dot_product_efficient_attention(
+                q4, k4, v4, None, True)
+            lib_ms = cuda_ms(lambda: torch.ops.aten.
+                             _scaled_dot_product_efficient_attention(
+                                 q4, k4, v4, None, True))
+        except RuntimeError as e:
+            lib_ms = None
+            log(f"  flash_block {str(dtype)[6:]}: no library time, the "
+                f"efficient-attention op refused the call: "
+                f"{str(e).splitlines()[0][:160]}")
+        tile = TB * C * hd * isz
+        record(results, dtype, "flash_block", err,
+               cuda_ms(lambda: flash_block_fwd(q, k, v, sc, False)),
+               cuda_ms(lambda: flash_block_reference(q, k, v, sc, False)),
+               cost=(4 * tile + TB * C * 4, 4 * TB * C * C * hd),
+               library_ms=lib_ms)
+        out, lse = flash_block_fwd(q, k, v, sc, False)
+        gout, glse = w.to(dtype), wl
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        ro, rl = flash_block_reference(*ts, sc, False)
+        record(results, dtype, "flash_block", 0.0,
+               cuda_ms(lambda: flash_block_bwd(gout, glse, q, k, v, out, lse,
+                                               sc, False)),
+               cuda_ms(lambda: torch.autograd.grad(
+                   (ro, rl), ts, (gout, glse), retain_graph=True), 5),
+               cost=(8 * tile + 2 * TB * C * 4, 10 * TB * C * C * hd),
+               library_ms=None, variant="bwd_")
+        del q, k, v, w, wl, out, lse, ts, ro, rl, q4, k4, v4
+        torch.cuda.empty_cache()
+
+
+def phase_train(dtype, card, fused=False):
     """Phase 5 for one configuration: (a) float32 + Adam, (b) bfloat16
-    MixedPrecision + AdamW; 5 steps on one batch of random tokens.  Returns
-    the kernels' launch counts of the 5 steps."""
+    MixedPrecision + AdamW, (c) as (b) with ``fused``: the fused flash
+    backward (``set_flash_fused(True)`` for the steps); 5 steps on one batch
+    of random tokens.  Returns the kernels' launch counts of the 5 steps,
+    tokens/s and peak memory."""
     import torch.nn.functional as F
 
     from lightgrad_tpu_torch import GPT, GPTConfig, amp, optim
     from lightgrad_tpu_torch.loss import cross_entropy
     from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightgrad_tpu_torch.ops.attention import set_flash_fused
 
     dev = torch.device("cuda")
     cfg = GPTConfig(**GPT2_SMALL)
@@ -867,24 +1128,28 @@ def phase_train(dtype, card):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     losses, times = [], []
-    for step in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits = model(ids)
-        loss = cross_entropy(logits.reshape(B * T, V), tgt)
-        zero_grad()
-        loss.backward()
-        if step == 0:               # the check's time is not the step's
+    prev = set_flash_fused(fused)
+    try:
+        for step in range(TRAIN_STEPS):
             torch.cuda.synchronize()
-            c0 = time.perf_counter()
-            grad_check(params, plain_grads, dtype)
-            del plain_grads
-            t0 += time.perf_counter() - c0
-        update()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(float(loss.detach()))
-        del logits, loss
+            t0 = time.perf_counter()
+            logits = model(ids)
+            loss = cross_entropy(logits.reshape(B * T, V), tgt)
+            zero_grad()
+            loss.backward()
+            if step == 0:               # the check's time is not the step's
+                torch.cuda.synchronize()
+                c0 = time.perf_counter()
+                grad_check(params, plain_grads, dtype)
+                del plain_grads
+                t0 += time.perf_counter() - c0
+            update()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss.detach()))
+            del logits, loss
+    finally:
+        set_flash_fused(prev)
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     ok = all(np.isfinite(losses)) and losses[-1] < losses[0]
@@ -897,6 +1162,86 @@ def phase_train(dtype, card):
     if not ok:
         raise AssertionError(f"training loss not finite and falling: "
                              f"{losses}")
+    return counts, tok_s, peak
+
+
+def chunked_attention(q, k, v, scale, n, block):
+    """Causal attention of (B, S, D) q, k, v as ring attention computes it,
+    in one process: query chunk i merges ``block`` over its diagonal chunk
+    (causal) with every earlier chunk (not causal), each an (out, lse)
+    pair, by the JAX package's ``_merge``.  Returns (out, lse)."""
+    c = q.shape[-2] // n
+    outs, lses = [], []
+    for i in range(n):
+        rows = slice(i * c, (i + 1) * c)
+        qi = q[:, rows]
+        acc, lse = block(qi, k[:, rows], v[:, rows], scale, True)
+        acc = acc.float()
+        for j in range(i):
+            cols = slice(j * c, (j + 1) * c)
+            out_r, lse_r = block(qi, k[:, cols], v[:, cols], scale, False)
+            lse_new = torch.logaddexp(lse, lse_r)
+            acc = (acc * torch.exp(lse - lse_new)
+                   + out_r.float() * torch.exp(lse_r - lse_new))
+            lse = lse_new
+        outs.append(acc.to(q.dtype))
+        lses.append(lse)
+    return torch.cat(outs, 1), torch.cat(lses, 1)
+
+
+def phase_chunked(card):
+    """Phase 5, chunked attention through flash_block at GPT-2 small's
+    attention width (96 x 1024 x 64, causal) in float32 and bfloat16:
+    CHUNKS chunks, one backward of sum(out * w) + sum(lse * wl) by torch
+    autograd, held against one full flash call (forward, and the backward
+    with lse's cotangent as dcap - dlse).  Returns {dtype: launch
+    counts}."""
+    from lightgrad_tpu_torch.autograd import flash_block
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightgrad_tpu_torch.ops.attention import (attention_fwd_res,
+                                                   flash_block_bwd)
+
+    dev = torch.device("cuda")
+    TB, T = TRAIN_BATCH * GPT2_SMALL["n_head"], GPT2_SMALL["n_positions"]
+    hd = GPT2_SMALL["n_embd"] // GPT2_SMALL["n_head"]
+    sc = hd ** -0.5
+    g = torch.Generator(device=dev).manual_seed(13)
+    counts = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = KERNEL_TOL[dtype]
+        q, k, v = (torch.randn(TB, T, hd, generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+        w = torch.randn(TB, T, hd, generator=g, device=dev)
+        wl = torch.randn(TB, T, 1, generator=g, device=dev)
+        times = []
+        for _ in range(2):          # the second run is timed
+            ts = [t.clone().requires_grad_() for t in (q, k, v)]
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out, lse = chunked_attention(*ts, sc, CHUNKS, flash_block)
+            ((out.float() * w).sum() + (lse * wl).sum()).backward()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts[dtype] = launch_counts()
+        f_out, f_lse = attention_fwd_res(q, k, v, sc, True)
+        want = flash_block_bwd(w.to(dtype), wl, q, k, v, f_out, f_lse, sc,
+                               True)
+        tag = f"chunked ({TB}, {T}, {hd}) causal, {CHUNKS} chunks vs one call"
+        check(f"{tag} out", dtype, out, f_out, tol)
+        check(f"{tag} lse", dtype, lse, f_lse, KERNEL_TOL[torch.float32])
+        for n, t, b in zip(("dq", "dk", "dv"), ts, want):
+            check(f"{tag} {n}", dtype, t.grad, b, tol)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f_out, f_lse = attention_fwd_res(q, k, v, sc, True)
+        flash_block_bwd(w.to(dtype), wl, q, k, v, f_out, f_lse, sc, True)
+        torch.cuda.synchronize()
+        log(f"  {str(dtype)[6:]}: forward + backward {times[1] * 1e3:.2f} "
+            f"ms in {CHUNKS} chunks ({CHUNKS * (CHUNKS + 1) // 2} blocks), "
+            f"{(time.perf_counter() - t0) * 1e3:.2f} ms in one call; {card}")
+        del q, k, v, w, wl, ts, out, lse, f_out, f_lse, want
+        torch.cuda.empty_cache()
     return counts
 
 
@@ -1231,11 +1576,12 @@ def tape_grad_check(model, grads32, grads64):
         raise AssertionError(f"gradients beyond tolerance: {bad}")
 
 
-def bert_step(model, opt, x_ids, x_mask, y):
-    """One masked-LM training step of BERT on the tape."""
+def bert_step(model, opt, x_ids, y, **inputs):
+    """One masked-LM training step of BERT on the tape; ``inputs`` gives
+    ``attention_mask`` or ``attention_lengths``."""
     from lightgrad_tpu_torch import loss as lg_loss
 
-    logits = model(x_ids, attention_mask=x_mask)
+    logits = model(x_ids, **inputs)
     loss = lg_loss.cross_entropy(logits.reshape(-1, logits.shape[-1]), y,
                                  ignore_index=-100)
     opt.zero_grad()
@@ -1286,49 +1632,15 @@ def step_breakdown(step, step_s, host_s):
         + ", ".join(f"{f} {t:.2f} ms ({n[f]})" for f, t in ms.items()))
 
 
-def phase_bert(card):
-    """Phase 6: BERT-base masked-LM training on the lightgrad tape (float32,
-    AdamW, 5 steps on one batch), checked against the plain twin.  Returns
-    the launch counts of the 5 masked steps and of the unmasked step."""
-    import torch.nn.functional as F
-
+def bert_steps(model, opt, x_ids, y, card, step1_check, **inputs):
+    """BERT_STEPS masked-LM steps of ``model`` on one batch (``inputs``:
+    ``attention_mask`` or ``attention_lengths``), then where a step's time
+    goes.  ``step1_check(logits, loss)`` runs after step 1's backward, and
+    its time is not the step's.  Returns the steps' launch counts."""
     from lightgrad_tpu_torch import loss as lg_loss
-    from lightgrad_tpu_torch import optim, random as lg_random
-    from lightgrad_tpu_torch.autograd import Tensor
-    from lightgrad_tpu_torch.models.bert import BertConfig, BertForMaskedLM
     from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    lg_random.seed(0)
-    cfg = BertConfig(**BERT_BASE)
-    model = BertForMaskedLM(cfg)
-    ids, mask, labels, lengths = bert_batch(cfg)
-    B, S, V = BERT_BATCH, BERT_SEQ, cfg.vocab_size
-    log(f"  valid lengths {lengths.tolist()}, {int((labels >= 0).sum())} "
-        f"labelled positions")
-    dev = torch.device("cuda")
-    tids = torch.tensor(ids, device=dev).long()
-    tmask = torch.tensor(mask, device=dev)
-    tlabels = torch.tensor(labels, device=dev).long()
-
-    # the plain twin on the same weights, in f32 and in f64
-    def twin(dtype):
-        params = {n: t.data.detach().to(dtype).requires_grad_(True)
-                  for n, t in model.named_parameters()}
-        logits = plain_bert(params, cfg, tids, tmask.to(dtype))
-        loss = F.cross_entropy(logits.reshape(B * S, V), tlabels,
-                               ignore_index=-100)
-        grads = dict(zip(params, torch.autograd.grad(
-            loss, list(params.values()))))
-        return logits.detach(), loss.item(), grads
-
-    plain_logits, plain_loss, grads32 = twin(torch.float32)
-    _, _, grads64 = twin(torch.float64)
-    torch.cuda.empty_cache()
-
-    opt = optim.AdamW(list(model.parameters()), lr=BERT_LR)
-    x_ids = Tensor.from_numpy(ids, requires_grad=False)
-    x_mask = Tensor.from_numpy(mask, requires_grad=False)
-    y = Tensor.from_numpy(labels, requires_grad=False)
+    B, S = x_ids.shape
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -1336,7 +1648,8 @@ def phase_bert(card):
     for step in range(BERT_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits = model(x_ids, attention_mask=x_mask)
+        logits = model(x_ids, **inputs)
+        V = logits.shape[-1]
         loss = lg_loss.cross_entropy(logits.reshape(B * S, V), y,
                                      ignore_index=-100)
         opt.zero_grad()
@@ -1345,13 +1658,7 @@ def phase_bert(card):
         if step == 0:               # the checks' time is not the step's
             torch.cuda.synchronize()
             c0 = time.perf_counter()
-            check("BERT-base masked-LM logits vs the plain twin",
-                  torch.float32, logits.data, plain_logits,
-                  PATH_TOL[torch.float32])
-            log(f"  step-1 loss {loss.item():.5f}, plain twin "
-                f"{plain_loss:.5f}")
-            tape_grad_check(model, grads32, grads64)
-            del grads32, grads64, plain_logits
+            step1_check(logits, loss)
             # the peak of a training step, without the twin's gradients
             torch.cuda.reset_peak_memory_stats()
             t0 += time.perf_counter() - c0
@@ -1373,9 +1680,70 @@ def phase_bert(card):
         f"{ {k: v // BERT_STEPS for k, v in counts.items() if v} }")
     if not ok:
         raise AssertionError(f"BERT loss not finite and falling: {losses}")
-    step_breakdown(
-        lambda: bert_step(model, opt, x_ids, x_mask, y), float(np.median(
-            times[1:])), float(np.median(host[1:])))
+    step_breakdown(lambda: bert_step(model, opt, x_ids, y, **inputs),
+                   float(np.median(times[1:])), float(np.median(host[1:])))
+    return counts
+
+
+def phase_bert(card):
+    """Phase 6: BERT-base masked-LM training on the lightgrad tape (float32,
+    AdamW, 5 steps on one batch) with the padding mask, checked against the
+    plain twin, and one unmasked step; then a fresh BERT-base with the same
+    weights through ``attention_lengths``, held to the same twin.  Returns
+    the launch counts of the 5 masked steps, the unmasked step and the 5
+    lengths steps."""
+    import torch.nn.functional as F
+
+    from lightgrad_tpu_torch import loss as lg_loss
+    from lightgrad_tpu_torch import optim, random as lg_random
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    lg_random.seed(0)
+    cfg = BertConfig(**BERT_BASE)
+    model = BertForMaskedLM(cfg)
+    ids, mask, labels, lengths = bert_batch(cfg)
+    B, S, V = BERT_BATCH, BERT_SEQ, cfg.vocab_size
+    log(f"  valid lengths {lengths.tolist()}, {int((labels >= 0).sum())} "
+        f"labelled positions")
+    dev, f32 = torch.device("cuda"), torch.float32
+    tids = torch.tensor(ids, device=dev).long()
+    tmask = torch.tensor(mask, device=dev)
+    tlabels = torch.tensor(labels, device=dev).long()
+    valid = tmask.bool()
+
+    # the plain twin on the step-1 weights, in f32 and in f64: computed
+    # once, it holds both branches
+    def twin(dtype):
+        params = {n: t.data.detach().to(dtype).requires_grad_(True)
+                  for n, t in model.named_parameters()}
+        logits = plain_bert(params, cfg, tids, tmask.to(dtype))
+        loss = F.cross_entropy(logits.reshape(B * S, V), tlabels,
+                               ignore_index=-100)
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        return logits.detach(), loss.item(), grads
+
+    plain_logits, plain_loss, grads32 = twin(torch.float32)
+    _, _, grads64 = twin(torch.float64)
+    torch.cuda.empty_cache()
+
+    opt = optim.AdamW(list(model.parameters()), lr=BERT_LR)
+    x_ids = Tensor.from_numpy(ids, requires_grad=False)
+    x_mask = Tensor.from_numpy(mask, requires_grad=False)
+    y = Tensor.from_numpy(labels, requires_grad=False)
+    masked_rows = {}
+
+    def check_masked(logits, loss):
+        check("BERT-base masked-LM logits vs the plain twin", f32,
+              logits.data, plain_logits, PATH_TOL[f32])
+        log(f"  step-1 loss {loss.item():.5f}, plain twin {plain_loss:.5f}")
+        tape_grad_check(model, grads32, grads64)
+        masked_rows["logits"] = logits.data[valid]
+
+    counts = bert_steps(model, opt, x_ids, y, card, check_masked,
+                        attention_mask=x_mask)
 
     # one unmasked step: self-attention takes the flash kernels
     reset_launch_counts()
@@ -1392,7 +1760,35 @@ def phase_bert(card):
         raise AssertionError("unmasked BERT step: loss not finite")
     del model, opt, loss
     torch.cuda.empty_cache()
-    return counts, flash
+
+    # attention_lengths: a fresh BERT-base, the same weights and batch.
+    # The two branches differ only at padded query rows (zeros here), which
+    # no valid row attends and no label reads: the same logits on valid
+    # rows and the same gradients in exact arithmetic.
+    log("  attention_lengths (the flash kernels with per-row lengths), a "
+        "fresh BERT-base with the same weights:")
+    lg_random.seed(0)
+    model = BertForMaskedLM(cfg)
+    opt = optim.AdamW(list(model.parameters()), lr=BERT_LR)
+    x_lens = Tensor.from_numpy(lengths.astype(np.int32), requires_grad=False)
+
+    def check_lengths(logits, loss):
+        got = logits.data[valid]
+        check("BERT-base attention_lengths logits (valid rows) vs the plain "
+              "twin", f32, got, plain_logits[valid], PATH_TOL[f32])
+        check("BERT-base attention_lengths logits (valid rows) vs the masked "
+              "run's", f32, got, masked_rows["logits"], PATH_TOL[f32])
+        log(f"  step-1 loss {loss.item():.5f}, plain twin {plain_loss:.5f}")
+        tape_grad_check(model, grads32, grads64)
+
+    lens_counts = bert_steps(model, opt, x_ids, y, card, check_lengths,
+                             attention_lengths=x_lens)
+    if lens_counts["softmax_fwd"] or lens_counts["softmax_bwd"]:
+        raise AssertionError("attention_lengths launched the softmax "
+                             "kernels")
+    del model, opt, grads32, grads64, plain_logits, masked_rows
+    torch.cuda.empty_cache()
+    return counts, flash, lens_counts
 
 
 def phase_quant_bert():
@@ -1833,6 +2229,35 @@ def phase_digits(card):
     return counts
 
 
+def phase_narrow():
+    """Phase 8b: ``narrow`` at a 0-d device start (past n - length, so it
+    clamps), forward and backward, under sync debug mode: the start never
+    reaches the host."""
+    from lightgrad_tpu_torch.autograd import Tensor
+
+    dev = torch.device("cuda")
+    x = Tensor(torch.randn(60_000, 784, device=dev))
+    at = 60_000 - MNIST_BATCH // 2               # past n - length: clamps
+    start = Tensor(torch.tensor(at, device=dev, dtype=torch.int32),
+                   requires_grad=False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = x.narrow(start, MNIST_BATCH)
+        y.backward(allow_fill=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n = 60_000 - MNIST_BATCH
+    ok = torch.equal(y.data, x.data[n:]) and bool(
+        (x.grad.data[n:] == 1).all()) and not bool(x.grad.data[:n].any())
+    log(f"  narrow({tuple(x.shape)}, start {at} -> {n}, {MNIST_BATCH}) "
+        f"forward + backward under sync debug mode \"error\": no "
+        f"synchronisation; rows and gradient {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("narrow at a device start: wrong rows or "
+                             "gradient")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1872,6 +2297,7 @@ def main():
     log("kernels vs plain versions:")
     phase_kernels(model, results)
     phase_train_kernels(results)
+    phase_flash_kernels(results)
     phase_tape_kernels(results)
     phase_conv_kernels(results)
 
@@ -1901,16 +2327,33 @@ def main():
     phase_long_context(model)
     del model
     torch.cuda.empty_cache()
-    for dtype, what in ((torch.float32, "float32, Adam"),
-                        (torch.bfloat16, "bfloat16 MixedPrecision, AdamW")):
+    rates = {}
+    for dtype, what, fused in (
+            (torch.float32, "float32, Adam", False),
+            (torch.bfloat16, "bfloat16 MixedPrecision, AdamW", False),
+            (torch.bfloat16, "bfloat16 MixedPrecision, AdamW, fused flash "
+             "backward", True)):
         log(f"training path, GPT-2 small, {what}:")
-        tally(f"training ({what})", phase_train(dtype, card),
-              TRAINING_KERNELS)
+        counts, *rates[what] = phase_train(dtype, card, fused)
+        tally(f"training ({what})", counts,
+              FUSED_KERNELS if fused else TRAINING_KERNELS)
+        if fused and (counts["attention_bwd_dq"]
+                      or counts["attention_bwd_dkv"]):
+            raise AssertionError("the fused step launched the two passes")
         torch.cuda.empty_cache()
+    (two_s, two_peak), (fused_s, fused_peak) = list(rates.values())[1:]
+    log(f"  bfloat16 step: fused flash backward {fused_s:.1f} tok/s, peak "
+        f"{fused_peak / 2**30:.2f} GiB; two passes {two_s:.1f} tok/s, peak "
+        f"{two_peak / 2**30:.2f} GiB; {card}")
+    log("chunked attention through flash_block, GPT-2 small's attention "
+        "width:")
+    for dtype, counts in phase_chunked(card).items():
+        tally(f"chunked attention ({dtype})", counts, FLASH_BLOCK_KERNELS)
     log("lightgrad tape, BERT-base masked LM, float32, AdamW:")
-    bert, flash = phase_bert(card)
+    bert, flash, lens = phase_bert(card)
     tally("BERT-base (masked)", bert, BERT_KERNELS)
     tally("BERT-base (unmasked)", flash, FLASH_KERNELS)
+    tally("BERT-base (attention_lengths)", lens, BERT_LENGTHS_KERNELS)
     log("lightgrad tape, BERT-base after quantize_module (int8 Linear):")
     phase_quant_bert()
     log("lightgrad tape, gradient descent example (64 x 64):")
@@ -1922,6 +2365,8 @@ def main():
         "float32:")
     for name, counts in phase_digits(card).items():
         tally(name, counts, CONV_PATH_KERNELS)
+    log("narrow at a device start:")
+    phase_narrow()
     missing = [k for k in KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels no path launched: {missing}")
@@ -1932,6 +2377,8 @@ def main():
         rec = {"name": name, "route": route, "source": src,
                "replaces": replaces, "launches": launches[name],
                **results[name]}
+        if name in KERNEL_NOTES:
+            rec["note"] = KERNEL_NOTES[name]
         lacking = [k for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms") if k not in rec]
         if lacking:

@@ -294,17 +294,37 @@ class setitem(Function):
 @CudaTensor.register_op()
 class narrow(Function):
     """``length`` elements along ``axis`` from ``start`` (an int or a 0-d
-    integer tensor)."""
+    integer tensor), as JAX's ``dynamic_slice_in_dim``: a negative start
+    counts from the end, the start is then clamped to ``[0, n - length]``,
+    and a tensor start stays on the device (no read to the host, so no
+    synchronisation).  The backward writes the gradient into zeros at the
+    same rows."""
 
     def forward(ctx, a, start, length: int, axis: int = 0):
-        s = int(_raw(start))
-        ctx.save_for_backward(a.shape, a.dtype, s, axis)
-        return _t(a.data.narrow(axis, s, length))
+        x = a.data
+        axis = axis % x.ndim
+        n = x.shape[axis]
+        if not 0 <= length <= n:
+            raise ValueError(f"narrow: length {length} not in [0, {n}]")
+        start = _raw(start)
+        if isinstance(start, torch.Tensor):
+            st = start.to(x.device).long()
+            st = torch.where(st < 0, st + n, st).clamp(0, n - length)
+            rows = st + torch.arange(length, device=x.device)
+            ctx.save_for_backward(a.shape, a.dtype, axis, rows)
+            return _t(x.index_select(axis, rows))
+        s = int(start)
+        s = min(max(s + n if s < 0 else s, 0), n - length)
+        ctx.save_for_backward(a.shape, a.dtype, axis, s)
+        return _t(x.narrow(axis, s, length))
 
     def backward(ctx, g):
-        shape, dtype, s, axis = ctx.get_saved_tensors()
+        shape, dtype, axis, at = ctx.get_saved_tensors()
         out = torch.zeros(shape, dtype=dtype, device=g.data.device)
-        out.narrow(axis, s, g.shape[axis]).copy_(g.data)
+        if isinstance(at, torch.Tensor):
+            out.index_copy_(axis, at, g.data)
+        else:
+            out.narrow(axis, at, g.shape[axis]).copy_(g.data)
         return (_t(out),)
 
 
@@ -588,17 +608,20 @@ class attention(Function):
     """Fused scaled-dot-product attention over (..., S, D) q/k/v.
 
     ``lengths``: per-example valid lengths of right-padded keys; a (batch,)
-    vector is repeated over the remaining leading (head) dims.  The CUDA
-    kernels do not take ``lengths`` or ``window`` yet and raise."""
+    vector is repeated over the remaining leading (head) dims and goes to
+    the flash kernels as int32.  ``window`` raises on CUDA (not ported)."""
 
     def forward(ctx, q, k, v, scale: float, causal: bool = False,
                 lengths=None, window: int = 0):
         lens = None
         if lengths is not None:
-            lens = torch.as_tensor(_raw(lengths), device=q.data.device)
+            lens = torch.as_tensor(_raw(lengths), device=q.data.device).to(
+                torch.int32).reshape(-1, 1)
             b_flat = int(np.prod(q.shape[:-2]))
-            if lens.shape[0] != b_flat:
-                lens = torch.repeat_interleave(lens, b_flat // lens.shape[0])
+            # (batch,) -> one per (batch, head) row; an expand, which needs
+            # no read of the lengths to the host
+            lens = lens.expand(-1, b_flat // lens.shape[0]).reshape(-1) \
+                .contiguous()
         qd, kd, vd = (t.data.contiguous() for t in (q, k, v))
         out, lse = kattn_fwd_res(qd, kd, vd, scale, causal=causal,
                                  lengths=lens, window=window)

@@ -11,19 +11,22 @@ Composites record their primitive sub-ops directly on the tape.
 The GPT-2 model is a ``torch.nn.Module`` on ``torch.autograd``; its fused
 ``layernorm`` and ``attention`` are the ``torch.autograd.Function``s at the
 end of this module: the forward runs the fused kernel and saves its
-residuals, the backward runs the kernel's backward.  On CUDA tensors both
-directions launch the hand-written kernels (ops/layernorm.py,
-ops/attention.py); on CPU tensors, their plain versions.
+residuals, the backward runs the kernel's backward.  ``flash_block`` is the
+(out, lse) unit of blockwise / ring attention, differentiable through lse.
+On CUDA tensors both directions launch the hand-written kernels
+(ops/layernorm.py, ops/attention.py); on CPU tensors, their plain
+versions.
 """
 
 from functools import reduce as _reduce
 
 import torch
 
-from ..ops.attention import attention_bwd, attention_fwd_res
+from ..ops.attention import (attention_bwd, attention_fwd_res,
+                             flash_block_bwd, flash_block_fwd)
 from ..ops.layernorm import layernorm_bwd_dx, layernorm_fwd
 
-__all__ = ["attention", "layernorm"]
+__all__ = ["attention", "flash_block", "layernorm"]
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -49,20 +52,32 @@ class _LayerNorm(torch.autograd.Function):
 
 
 class _Attention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, scale, causal):
-        out, lse = attention_fwd_res(q, k, v, scale, causal)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale, ctx.causal = scale, causal
-        return out
+    """(out, lse) of the flash forward.  ``attention`` keeps out (lse is
+    not differentiable there); ``flash_block`` (``block``) keeps both, and
+    its backward takes lse's cotangent."""
 
     @staticmethod
-    def backward(ctx, g):
+    def forward(ctx, q, k, v, scale, causal, block):
+        fwd = flash_block_fwd if block else attention_fwd_res
+        out, lse = fwd(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.causal, ctx.block = scale, causal, block
+        if not block:
+            ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, glse):
         q, k, v, out, lse = ctx.saved_tensors
         # the cotangent arrives through transpose(1, 2).reshape: strided
-        dq, dk, dv = attention_bwd(g.contiguous(), q, k, v, ctx.scale,
-                                   ctx.causal, out=out, lse=lse)
-        return dq, dk, dv, None, None
+        g = g.contiguous()
+        if ctx.block:
+            grads = flash_block_bwd(g, glse, q, k, v, out, lse, ctx.scale,
+                                    ctx.causal)
+        else:
+            grads = attention_bwd(g, q, k, v, ctx.scale, ctx.causal, out=out,
+                                  lse=lse)
+        return (*grads, None, None, None)
 
 
 def layernorm(x, w, b, eps: float = 1e-5):
@@ -73,7 +88,17 @@ def layernorm(x, w, b, eps: float = 1e-5):
 def attention(q, k, v, scale: float, causal: bool = False):
     """Fused scaled-dot-product attention over (..., S, D) q/k/v; k and v
     may carry fewer leading rows (grouped-query, kv-major)."""
-    return _Attention.apply(q, k, v, float(scale), bool(causal))
+    return _Attention.apply(q, k, v, float(scale), bool(causal), False)[0]
+
+
+def flash_block(q, k, v, scale: float, causal: bool = False):
+    """(out (B, S, D), lse (B, S, 1) f32) of one (Q, K-chunk) flash pass,
+    differentiable in q, k and v through both outputs: the unit that
+    blockwise and ring attention merge (the JAX package's ``flash_block``).
+    k and v may carry fewer rows (grouped-query)."""
+    # chunks of a longer sequence arrive as strided views
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    return _Attention.apply(q, k, v, float(scale), bool(causal), True)
 
 
 # ---------------------------------------------------------------------------

@@ -25,12 +25,41 @@
 //
 //   dq pass: block = (bh, 64 query rows; 32 at D = 128); q, do and the dq
 //     accumulator live in registers; K and V tiles stream.
-//     dq_i = scale * sum_j ds_ij k_j.
+//     dq_i = scale * sum_j ds_ij k_j.  The pass also refines dcap against
+//     its own p and dp: dcap = rowsum(dO * O) holds the row sum of p * dp
+//     only to f32 rounding, and where a row of dp is nearly constant,
+//     dp - dcap cancels and that rounding becomes ds's error, the same in
+//     every column (at BERT-base depth 2e-3 of the query / key gradients).
+//     The pass sums r_i = sum_j ds_ij (which is dlse_i in exact arithmetic)
+//     and P_i = sum_j p_ij beside a_i = sum_j p_ij k_j; the correction
+//     c_i = r_i / P_i - dlse_i gives dq_i -= scale * c_i * a_i, and
+//     dcap_i + c_i goes to the dk/dv pass (as ops/softmax.py takes its row
+//     sum in two passes).
 //   dk/dv pass: block = (KV row block, 64 key rows; 32 at D = 128); k, v and
 //     both accumulators live in registers; Q, dO, lse and dcap tiles stream,
 //     for all G query heads of the group in turn (TPU: the inner grid index
 //     walks the (head, q block) pairs).  dv_j = sum_i p_ij do_i,
 //     dk_j = scale * sum_i ds_ij q_i, with ds_ij = p_ij (dp_ij - dcap_i).
+//
+//   fused (TPU: _flash_bwd_fused -> _bwd_fused_kernel): block = (bh, 64 key
+//     rows; 32 at D = 128), G = 1; the dk/dv pass's loop, which also
+//     parks each Q tile's ds (BS x key rows) in shared memory beside the
+//     block's K rows, then re-maps the threads to the tile's query rows and
+//     writes dq's share from these keys, scale * ds @ K_blk, as an f32 slab
+//     [key block][bh][query rows].  p and ds are computed once for all three
+//     gradients (5 products a pair instead of the two passes' 6); the price
+//     is nk slabs of (BH, S, D) f32 written and summed after the kernel.
+//     Under `causal` the slab rows of the skipped Q tiles are written as 0,
+//     so a plain sum over the key blocks gives dq.  It takes dcap as given
+//     (a row's keys are spread over the blocks, so nothing can refine dcap
+//     before its ds are used), as the TPU kernel does.
+//
+// Optional per-row valid lengths `lens` (BH int32, both passes; TPU: the
+// lens_ref limit): a pair (i, j) of row block bh counts iff i < lens[bh] and
+// j < lens[bh].  Padded query rows get dq 0 and padded keys dk = dv = 0,
+// written (the accumulators stay 0), and tiles past the length are never
+// loaded.  Under GQA each query head bh = bkv * G + g of the dk/dv pass reads
+// its own length.
 //
 // No atomics; every sum is taken in a fixed order, so results are
 // deterministic.  Under `causal`, tiles wholly above the diagonal are never
@@ -97,8 +126,11 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ dcap, T* __restrict__ dq,
-                    int S, int G, float scale, int causal) {
+                    const float* __restrict__ dcap,
+                    const float* __restrict__ dlse, T* __restrict__ dq,
+                    float* __restrict__ dcap_out,
+                    const int* __restrict__ lens, int S, int G, float scale,
+                    int causal) {
   using C = Cfg<D>;
   constexpr int TPR = C::TPR, BS = C::BS, D4 = C::D4, NC = C::NC;
   __shared__ float4 Ks[BS][D4];
@@ -109,21 +141,25 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t = threadIdx.x;
   const int row = t / TPR, part = t % TPR;
   const int qi = q0 + row;
+  const int limit = lens ? max(0, min(lens[bh], S)) : S;
   const size_t rq = (size_t)bh * S + min(qi, S - 1);
   const T* kb = k + (size_t)(bh / G) * S * D;
   const T* vb = v + (size_t)(bh / G) * S * D;
 
-  float4 qr[NC], dor[NC], acc[NC];
+  float4 qr[NC], dor[NC], acc[NC], pk[NC];  // pk: sum_j p_ij k_j
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     qr[c] = lg_load4(q + rq * D + (c * TPR + part) * 4);
     dor[c] = lg_load4(dout + rq * D + (c * TPR + part) * 4);
     acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    pk[c] = acc[c];
   }
   const float lse_i = lse[rq], dcap_i = dcap[rq];
+  float rsum = 0.f, psum = 0.f;  // sum_j ds_ij, sum_j p_ij
 
-  int nkt = (S + BS - 1) / BS;
+  int nkt = (limit + BS - 1) / BS;
   if (causal) nkt = min(nkt, (q0 + C::kRows - 1) / BS + 1);
+  if (q0 >= limit) nkt = 0;  // every query row of the block is padding
 
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * BS;
@@ -153,24 +189,34 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < kSub; ++jj) {
         const int kj = k0 + j0 + jj;
-        const bool valid = kj < S && (!causal || kj <= qi);
+        const bool valid = kj < limit && qi < limit && (!causal || kj <= qi);
         const float p = valid ? expf(s[jj] * scale - lse_i) : 0.f;
         const float ds = valid ? p * (dp[jj] - dcap_i) : 0.f;
+        rsum += ds;
+        psum += p;
 #pragma unroll
-        for (int c = 0; c < NC; ++c)
-          axpy4(ds, Ks[j0 + jj][c * TPR + part], acc[c]);
+        for (int c = 0; c < NC; ++c) {
+          const float4 kv = Ks[j0 + jj][c * TPR + part];
+          axpy4(ds, kv, acc[c]);
+          axpy4(p, kv, pk[c]);
+        }
       }
     }
   }
 
   if (qi < S) {
+    // a row with no valid key (padding) has P = 0 and no correction
+    const float corr =
+        psum > 0.f ? rsum / psum - (dlse ? dlse[rq] : 0.f) : 0.f;
     T* out = dq + ((size_t)bh * S + qi) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
+      axpy4(-corr, pk[c], acc[c]);
       lg_store4(out + (c * TPR + part) * 4,
                 make_float4(acc[c].x * scale, acc[c].y * scale,
                             acc[c].z * scale, acc[c].w * scale));
     }
+    if (dcap_out && part == 0) dcap_out[rq] = dcap_i + corr;
   }
 }
 
@@ -180,8 +226,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ dcap, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, int G, float scale,
-                     int causal) {
+                     T* __restrict__ dv, const int* __restrict__ lens, int S,
+                     int G, float scale, int causal) {
   using C = Cfg<D>;
   constexpr int TPR = C::TPR, BS = C::BS, D4 = C::D4, NC = C::NC;
   __shared__ float4 Qs[BS][D4];
@@ -205,12 +251,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     dva[c] = dka[c];
   }
 
-  const int nqt = (S + BS - 1) / BS;
   // causal: query tiles wholly before this key block see none of its keys
   const int qt0 = causal ? k0 / BS : 0;
 
   for (int g = 0; g < G; ++g) {
     const int bh = bkv * G + g;
+    const int limit = lens ? max(0, min(lens[bh], S)) : S;
+    if (k0 >= limit) continue;  // this head sees none of the block's keys
+    const int nqt = (limit + BS - 1) / BS;
     const T* qb = q + (size_t)bh * S * D;
     const T* ob = dout + (size_t)bh * S * D;
     for (int qt = qt0; qt < nqt; ++qt) {
@@ -246,7 +294,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int ii = 0; ii < kSub; ++ii) {
           const int qi = q0 + i0 + ii;
-          const bool valid = qi < S && (!causal || kj <= qi);
+          const bool valid = qi < limit && kj < limit && (!causal || kj <= qi);
           const float p = valid ? expf(s[ii] * scale - Ls[i0 + ii]) : 0.f;
           const float ds = valid ? p * (dp[ii] - Ds[i0 + ii]) : 0.f;
 #pragma unroll
@@ -274,24 +322,191 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* dcap, void* dq, int BH, int G,
-              int S, float scale, int causal, cudaStream_t stream) {
+              const void* lse, const void* dcap, const void* dlse, void* dq,
+              void* dcap_out, const void* lens, int BH, int G, int S,
+              float scale, int causal, cudaStream_t stream) {
   dim3 grid((S + Cfg<D>::kRows - 1) / Cfg<D>::kRows, BH);
   flash_bwd_dq_kernel<T, D><<<grid, Cfg<D>::kThreads, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)dcap, (T*)dq, S, G, scale, causal);
+      (const float*)lse, (const float*)dcap, (const float*)dlse, (T*)dq,
+      (float*)dcap_out, (const int*)lens, S, G, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* dcap, void* dk, void* dv, int BH,
-               int G, int S, float scale, int causal, cudaStream_t stream) {
+               const void* lse, const void* dcap, void* dk, void* dv,
+               const void* lens, int BH, int G, int S, float scale,
+               int causal, cudaStream_t stream) {
   dim3 grid((S + Cfg<D>::kRows - 1) / Cfg<D>::kRows, BH / G);
   flash_bwd_dkv_kernel<T, D><<<grid, Cfg<D>::kThreads, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)dcap, (T*)dk, (T*)dv, S, G, scale,
-      causal);
+      (const float*)lse, (const float*)dcap, (T*)dk, (T*)dv,
+      (const int*)lens, S, G, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// Shared memory of the fused kernel, in bytes: the streamed Q and dO tiles,
+// the block's K rows (f32), the tile's ds with a padded row, lse and dcap.
+template <int D>
+constexpr int fused_smem_bytes() {
+  using C = Cfg<D>;
+  return (2 * C::BS + C::kRows) * C::D4 * (int)sizeof(float4) +
+         C::BS * (C::kRows + 1) * (int)sizeof(float) +
+         2 * C::BS * (int)sizeof(float);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Cfg<D>::kThreads)
+flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ dcap,
+                       float* __restrict__ dq_slabs, T* __restrict__ dk,
+                       T* __restrict__ dv, int BH, int S, float scale,
+                       int causal) {
+  using C = Cfg<D>;
+  constexpr int TPR = C::TPR, BS = C::BS, D4 = C::D4, NC = C::NC;
+  constexpr int KR = C::kRows;
+  // the dq step maps the threads onto the tile's query rows as the loop
+  // maps them onto the block's key rows
+  static_assert(BS == KR, "query tile and key block must have equal rows");
+  constexpr int DSW = KR + 1;  // padded: a warp's rows hit distinct banks
+  extern __shared__ float4 smem[];
+  float4(*Qs)[D4] = reinterpret_cast<float4(*)[D4]>(smem);
+  float4(*Os)[D4] = Qs + BS;  // dO
+  float4(*Ks)[D4] = Os + BS;  // the block's K rows
+  float(*dSs)[DSW] = reinterpret_cast<float(*)[DSW]>(Ks + KR);
+  float* Ls = reinterpret_cast<float*>(dSs + BS);  // lse
+  float* Ds = Ls + BS;                              // dcap
+
+  const int bh = blockIdx.y;
+  const int kb = blockIdx.x;
+  const int k0 = kb * KR;
+  const int t = threadIdx.x;
+  const int row = t / TPR, part = t % TPR;
+  const int kj = k0 + row;
+  const size_t rk = (size_t)bh * S + min(kj, S - 1);
+  float* slab = dq_slabs + ((size_t)kb * BH + bh) * S * D;
+
+  float4 kr[NC], vr[NC], dka[NC], dva[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    kr[c] = lg_load4(k + rk * D + (c * TPR + part) * 4);
+    vr[c] = lg_load4(v + rk * D + (c * TPR + part) * 4);
+    dka[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    dva[c] = dka[c];
+  }
+  stage<T, D, KR, C::kThreads>(Ks, k + (size_t)bh * S * D, k0, S);
+
+  const int nqt = (S + BS - 1) / BS;
+  // causal: query tiles wholly before this key block see none of its keys;
+  // their slab rows are written as zeros (k0 = qt0 * BS < S)
+  const int qt0 = causal ? k0 / BS : 0;
+  for (int e = t; e < qt0 * BS * D4; e += C::kThreads)
+    reinterpret_cast<float4*>(slab)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const T* qb = q + (size_t)bh * S * D;
+  const T* ob = dout + (size_t)bh * S * D;
+  for (int qt = qt0; qt < nqt; ++qt) {
+    const int q0 = qt * BS;
+    __syncthreads();  // the previous tile and its ds are no longer read
+    stage<T, D, BS, C::kThreads>(Qs, qb, q0, S);
+    stage<T, D, BS, C::kThreads>(Os, ob, q0, S);
+    for (int r = t; r < BS; r += C::kThreads) {
+      const bool in = q0 + r < S;
+      Ls[r] = in ? lse[(size_t)bh * S + q0 + r] : 0.f;
+      Ds[r] = in ? dcap[(size_t)bh * S + q0 + r] : 0.f;
+    }
+    __syncthreads();
+
+    for (int i0 = 0; i0 < BS; i0 += kSub) {
+      float s[kSub], dp[kSub];
+#pragma unroll
+      for (int ii = 0; ii < kSub; ++ii) {
+        float a = 0.f, b = 0.f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          a = dot4(kr[c], Qs[i0 + ii][c * TPR + part], a);
+          b = dot4(vr[c], Os[i0 + ii][c * TPR + part], b);
+        }
+        s[ii] = a;
+        dp[ii] = b;
+      }
+#pragma unroll
+      for (int ii = 0; ii < kSub; ++ii) {
+        s[ii] = group_sum<TPR>(s[ii]);
+        dp[ii] = group_sum<TPR>(dp[ii]);
+      }
+#pragma unroll
+      for (int ii = 0; ii < kSub; ++ii) {
+        const int qi = q0 + i0 + ii;
+        const bool valid = qi < S && kj < S && (!causal || kj <= qi);
+        const float p = valid ? expf(s[ii] * scale - Ls[i0 + ii]) : 0.f;
+        const float ds = valid ? p * (dp[ii] - Ds[i0 + ii]) : 0.f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          axpy4(p, Os[i0 + ii][c * TPR + part], dva[c]);
+          axpy4(ds, Qs[i0 + ii][c * TPR + part], dka[c]);
+        }
+        if (ii % TPR == part) dSs[i0 + ii][row] = ds;
+      }
+    }
+    __syncthreads();  // the tile's ds is complete
+
+    // dq's share of this key block for query row q0 + row:
+    // scale * sum_j ds[row][j] k_j (rows of K past S are zero in Ks)
+    float4 acc[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int j = 0; j < KR; ++j) {
+      const float w = dSs[row][j];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) axpy4(w, Ks[j][c * TPR + part], acc[c]);
+    }
+    const int qi = q0 + row;
+    if (qi < S) {
+      float4* dst = reinterpret_cast<float4*>(slab + (size_t)qi * D);
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        dst[c * TPR + part] = make_float4(acc[c].x * scale, acc[c].y * scale,
+                                          acc[c].z * scale, acc[c].w * scale);
+    }
+  }
+
+  if (kj < S) {
+    T* dkr = dk + ((size_t)bh * S + kj) * D;
+    T* dvr = dv + ((size_t)bh * S + kj) * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = (c * TPR + part) * 4;
+      lg_store4(dkr + col, make_float4(dka[c].x * scale, dka[c].y * scale,
+                                       dka[c].z * scale, dka[c].w * scale));
+      lg_store4(dvr + col, dva[c]);
+    }
+  }
+}
+
+// ops/attention.py's FUSED_ROWS sizes the dq slabs by these key rows
+static_assert(Cfg<64>::kRows == 64 && Cfg<128>::kRows == 32,
+              "update FUSED_ROWS in ops/attention.py with Cfg<D>::kRows");
+
+template <typename T, int D>
+int launch_fused(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* dcap,
+                 void* dq_slabs, void* dk, void* dv, int BH, int S,
+                 float scale, int causal, cudaStream_t stream) {
+  constexpr int bytes = fused_smem_bytes<D>();  // above the 48 KB default
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_fused_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + Cfg<D>::kRows - 1) / Cfg<D>::kRows, BH);
+  flash_bwd_fused_kernel<T, D><<<grid, Cfg<D>::kThreads, bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)dcap, (float*)dq_slabs, (T*)dk,
+      (T*)dv, BH, S, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -299,49 +514,85 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// Both return cudaErrorInvalidValue for a head dimension the kernels lack.
+// `lens` is null or BH int32 valid lengths; for the dq pass, `dlse` is null
+// or lse's cotangent (dcap = rowsum(dO * O) - dlse), and `dcap_out` null or
+// where the refined dcap goes.  All three entries return
+// cudaErrorInvalidValue for a head dimension the kernels lack.
 int lg_flash_bwd_dq(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* dcap,
-                    void* dq, int BH, int G, int S, int D, float scale,
-                    int causal, int is_bf16, void* stream) {
+                    const void* dlse, void* dq, void* dcap_out,
+                    const void* lens, int BH, int G, int S, int D,
+                    float scale, int causal, int is_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (BH <= 0 || S <= 0) return 0;
   if (D == 64) {
     return is_bf16 ? launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, dcap,
-                                                  dq, BH, G, S, scale, causal,
-                                                  st)
-                   : launch_dq<float, 64>(q, k, v, dout, lse, dcap, dq, BH, G,
-                                          S, scale, causal, st);
+                                                  dlse, dq, dcap_out, lens,
+                                                  BH, G, S, scale, causal, st)
+                   : launch_dq<float, 64>(q, k, v, dout, lse, dcap, dlse, dq,
+                                          dcap_out, lens, BH, G, S, scale,
+                                          causal, st);
   }
   if (D == 128) {
     return is_bf16 ? launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, dcap,
-                                                   dq, BH, G, S, scale,
-                                                   causal, st)
-                   : launch_dq<float, 128>(q, k, v, dout, lse, dcap, dq, BH,
-                                           G, S, scale, causal, st);
+                                                   dlse, dq, dcap_out, lens,
+                                                   BH, G, S, scale, causal,
+                                                   st)
+                   : launch_dq<float, 128>(q, k, v, dout, lse, dcap, dlse, dq,
+                                           dcap_out, lens, BH, G, S, scale,
+                                           causal, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 int lg_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* dcap,
-                     void* dk, void* dv, int BH, int G, int S, int D,
-                     float scale, int causal, int is_bf16, void* stream) {
+                     void* dk, void* dv, const void* lens, int BH, int G,
+                     int S, int D, float scale, int causal, int is_bf16,
+                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (BH <= 0 || S <= 0) return 0;
   if (D == 64) {
     return is_bf16 ? launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, dcap,
-                                                   dk, dv, BH, G, S, scale,
-                                                   causal, st)
+                                                   dk, dv, lens, BH, G, S,
+                                                   scale, causal, st)
                    : launch_dkv<float, 64>(q, k, v, dout, lse, dcap, dk, dv,
-                                           BH, G, S, scale, causal, st);
+                                           lens, BH, G, S, scale, causal, st);
   }
   if (D == 128) {
     return is_bf16 ? launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, dcap,
-                                                    dk, dv, BH, G, S, scale,
-                                                    causal, st)
+                                                    dk, dv, lens, BH, G, S,
+                                                    scale, causal, st)
                    : launch_dkv<float, 128>(q, k, v, dout, lse, dcap, dk, dv,
-                                            BH, G, S, scale, causal, st);
+                                            lens, BH, G, S, scale, causal,
+                                            st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int lg_flash_bwd_fused(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* dcap,
+                       void* dq_slabs, void* dk, void* dv, int BH, int S,
+                       int D, float scale, int causal, int is_bf16,
+                       void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (BH <= 0 || S <= 0) return 0;
+  if (D == 64) {
+    return is_bf16 ? launch_fused<__nv_bfloat16, 64>(q, k, v, dout, lse, dcap,
+                                                     dq_slabs, dk, dv, BH, S,
+                                                     scale, causal, st)
+                   : launch_fused<float, 64>(q, k, v, dout, lse, dcap,
+                                             dq_slabs, dk, dv, BH, S, scale,
+                                             causal, st);
+  }
+  if (D == 128) {
+    return is_bf16 ? launch_fused<__nv_bfloat16, 128>(q, k, v, dout, lse,
+                                                      dcap, dq_slabs, dk, dv,
+                                                      BH, S, scale, causal,
+                                                      st)
+                   : launch_fused<float, 128>(q, k, v, dout, lse, dcap,
+                                              dq_slabs, dk, dv, BH, S, scale,
+                                              causal, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -20,6 +20,12 @@
 // Masking selects (never multiplies), so a garbage or padded row cannot turn
 // into NaN (TPU: _zero_oob_rows); rows past S are zero-filled in shared
 // memory and masked.
+//
+// Optional per-row valid lengths `lens` (BH int32; TPU: the lens_ref limit of
+// _fwd_kernel): key j is valid for row block bh iff j < lens[bh], on top of
+// `causal`, and K tiles past the length are never loaded.  A padded query
+// row (i >= lens[bh]) sees no valid key: it writes zeros and an lse of 0, by
+// select, as the TPU kernel's l_safe epilogue does (L = 0 included).
 #include "common.cuh"
 
 namespace {
@@ -32,8 +38,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int S, int G, float scale,
-                 int causal) {
+                 float* __restrict__ lse, const int* __restrict__ lens,
+                 int S, int G, float scale, int causal) {
   constexpr int BK = (D == 128) ? 32 : 64;  // keys per shared-memory tile
   constexpr int D4 = D / 4;                 // float4 words in a row
   constexpr int NC = D4 / 2;                // float4 words this thread owns
@@ -45,6 +51,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t = threadIdx.x;
   const int row = t >> 1, half = t & 1;
   const int qi = q0 + row;
+  const int limit = lens ? max(0, min(lens[bh], S)) : S;
   const T* qrow = q + ((size_t)bh * S + min(qi, S - 1)) * D;
   const T* kb = k + (size_t)(bh / G) * S * D;
   const T* vb = v + (size_t)(bh / G) * S * D;
@@ -57,8 +64,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   float m = LG_NEG, l = 0.f;
 
-  int nkt = (S + BK - 1) / BK;
+  int nkt = (limit + BK - 1) / BK;
   if (causal) nkt = min(nkt, (q0 + kBQ - 1) / BK + 1);
+  if (q0 >= limit) nkt = 0;  // every row of the block is padding
 
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * BK;
@@ -95,7 +103,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         p += __shfl_xor_sync(0xffffffffu, p, 1);
         p *= scale;
         const int kj = k0 + j;
-        const bool valid = kj < S && (!causal || kj <= qi);
+        const bool valid = kj < limit && (!causal || kj <= qi);
         s[jj] = valid ? p : LG_NEG;
         ok |= (valid ? 1u : 0u) << jj;
         mx = fmaxf(mx, s[jj]);
@@ -124,26 +132,29 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (qi < S) {
-    const float inv = 1.f / l;
+    // a valid row always sees key 0, so l > 0 there; padded rows select 0
+    const bool ok = qi < limit;
+    const float inv = ok ? 1.f / l : 0.f;
     T* orow = out + ((size_t)bh * S + qi) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       lg_store4(orow + (2 * c + half) * 4,
-                make_float4(acc[c].x * inv, acc[c].y * inv, acc[c].z * inv,
-                            acc[c].w * inv));
+                ok ? make_float4(acc[c].x * inv, acc[c].y * inv,
+                                 acc[c].z * inv, acc[c].w * inv)
+                   : make_float4(0.f, 0.f, 0.f, 0.f));
     }
-    if (half == 0) lse[(size_t)bh * S + qi] = m + logf(l);
+    if (half == 0) lse[(size_t)bh * S + qi] = ok ? m + logf(l) : 0.f;
   }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           int BH, int G, int S, float scale, int causal,
+           const void* lens, int BH, int G, int S, float scale, int causal,
            cudaStream_t stream) {
   dim3 grid((S + kBQ - 1) / kBQ, BH);
   flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse, S, G,
-      scale, causal);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse,
+      (const int*)lens, S, G, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -155,23 +166,24 @@ const char* lg_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Returns cudaErrorInvalidValue for a head dimension the kernel lacks.
+// `lens` is null or BH int32 valid lengths.  Returns cudaErrorInvalidValue
+// for a head dimension the kernel lacks.
 int lg_flash_fwd(const void* q, const void* k, const void* v, void* out,
-                 void* lse, int BH, int G, int S, int D, float scale,
-                 int causal, int is_bf16, void* stream) {
+                 void* lse, const void* lens, int BH, int G, int S, int D,
+                 float scale, int causal, int is_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (BH <= 0 || S <= 0) return 0;
   if (D == 64) {
-    return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, out, lse, BH, G, S,
-                                               scale, causal, st)
-                   : launch<float, 64>(q, k, v, out, lse, BH, G, S, scale,
-                                       causal, st);
+    return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, out, lse, lens, BH,
+                                               G, S, scale, causal, st)
+                   : launch<float, 64>(q, k, v, out, lse, lens, BH, G, S,
+                                       scale, causal, st);
   }
   if (D == 128) {
-    return is_bf16 ? launch<__nv_bfloat16, 128>(q, k, v, out, lse, BH, G, S,
-                                                scale, causal, st)
-                   : launch<float, 128>(q, k, v, out, lse, BH, G, S, scale,
-                                        causal, st);
+    return is_bf16 ? launch<__nv_bfloat16, 128>(q, k, v, out, lse, lens, BH,
+                                                G, S, scale, causal, st)
+                   : launch<float, 128>(q, k, v, out, lse, lens, BH, G, S,
+                                        scale, causal, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -110,12 +110,15 @@ class DeviceDataset(Dataset):
 
             for off in ds.offsets():
                 loss = train_step(xs.narrow(off, B), ys.narrow(off, B))
-        """
+
+        One device ``arange`` an epoch: no upload and no read to the host
+        a batch."""
         if self._shuffle:
             self.shuffle()
+        offs = torch.arange(len(self), dtype=torch.int32,
+                            device=self._tensors[0].data.device) * self._bs
         for i in range(len(self)):
-            yield Tensor.from_numpy(np.int32(i * self._bs),
-                                    requires_grad=False)
+            yield Tensor(offs[i], requires_grad=False)
 
 
 class LMDataset(DeviceDataset):

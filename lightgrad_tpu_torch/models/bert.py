@@ -11,8 +11,9 @@ LayerNorm kernels.  Self-attention has the JAX model's three branches:
 * ``attention_mask`` given: the materialised branch, ``softmax(q k^T *
   scale + mask) v`` -- two products and the softmax kernel;
 * neither mask nor lengths: the fused flash-attention kernels;
-* ``attention_lengths``: the flash kernels with per-example lengths, which
-  the CUDA kernels do not take yet (they raise; the CPU plain version runs).
+* ``attention_lengths``: the flash kernels with per-example lengths:
+  padded keys are masked out of every softmax inside the kernel and padded
+  query rows output zeros (no additive mask, no softmax kernel).
 
 Not ported yet: ``scan_layers``/``remat`` (the ``scan`` slice), the
 sequence-parallel ring branch (the parallel layer), ``from_pretrained``,

@@ -6,8 +6,11 @@ tensors it runs the plain version.  Kernels build at first use
 (``_build.library`` for CUDA, Triton's own compiler for Triton)."""
 
 from .attention import (attention_bwd, attention_bwd_dkv, attention_bwd_dq,
+                        attention_bwd_fused, attention_bwd_fused_reference,
                         attention_bwd_reference, attention_fwd,
-                        attention_fwd_res, attention_fwd_reference)
+                        attention_fwd_res, attention_fwd_reference,
+                        flash_block_bwd, flash_block_fwd,
+                        flash_block_reference, set_flash_fused)
 from .conv import (conv_bwd, conv_bwd_reference, conv_fwd,
                    conv_fwd_reference)
 from .decode_attention import decode_attention, decode_attention_reference

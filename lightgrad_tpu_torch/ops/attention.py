@@ -3,10 +3,13 @@
 Counterpart of ``lightgrad_tpu/ops/attention.py``.  On CUDA tensors
 :func:`attention_fwd` and :func:`attention_fwd_res` launch the hand-written
 flash-forward kernel (``csrc/flash_fwd.cu``) and :func:`attention_bwd` the
-two flash-backward kernels (``csrc/flash_bwd.cu``: the dq pass
-:func:`attention_bwd_dq` and the dk/dv pass :func:`attention_bwd_dkv`); on
-CPU tensors they run :func:`attention_fwd_reference` and
-:func:`attention_bwd_reference`, the plain versions of the same functions.
+flash backward (``csrc/flash_bwd.cu``): the two passes, the dq pass
+:func:`attention_bwd_dq` and the dk/dv pass :func:`attention_bwd_dkv`, or,
+after ``set_flash_fused(True)`` and where its rule allows, the fused kernel
+:func:`attention_bwd_fused`.  All three kernels take per-row ``lengths``.
+:func:`flash_block_fwd` / :func:`flash_block_bwd` are the two directions of
+``flash_block`` (``autograd/ops.py``): (out, lse) differentiable through
+lse.  On CPU tensors every wrapper runs its plain version.
 
 Layout as in the JAX package: q (..., S, D); k, v (..., S, D) with the
 leading dims' product B/G -- query row block ``b`` reads KV block ``b // G``
@@ -22,36 +25,62 @@ from . import _build, runtime
 
 __all__ = ["attention_fwd", "attention_fwd_res", "attention_fwd_reference",
            "attention_bwd", "attention_bwd_dq", "attention_bwd_dkv",
-           "attention_bwd_reference"]
+           "attention_bwd_fused", "attention_bwd_fused_reference",
+           "attention_bwd_reference", "set_flash_fused", "flash_block_fwd",
+           "flash_block_bwd", "flash_block_reference"]
 
 _NEG_INF = -1e30
+# Backward scheme selector, as the JAX package's _FUSED_BWD: off by default.
+_FUSED_BWD = False
+# Key rows per block of the fused kernel by head dim: Cfg<D>::kRows of
+# csrc/flash_bwd.cu, which asserts these values.  dq is the sum of one slab
+# per block, in the kernel and in its plain version.
+FUSED_ROWS = {64: 64, 128: 32}
+_LLAMA_SLICE = "ROADMAP.md queue 1 item 2, the LLaMA slice"
+
+
+def set_flash_fused(on: bool) -> bool:
+    """Let :func:`attention_bwd` take the fused backward kernel where it
+    can (no ``lengths``, no ``window``, G == 1); returns the previous
+    setting."""
+    global _FUSED_BWD
+    prev = _FUSED_BWD
+    _FUSED_BWD = bool(on)
+    return prev
+
+
+def _masks(bkv, groups, s, dev, causal, lengths, window):
+    """Key validity, broadcastable to (bkv, G, s, s), and query-row validity,
+    (bkv, G, s, 1); None where nothing is masked."""
+    keys = rows = None
+    if causal:
+        row = torch.arange(s, device=dev)[:, None]
+        col = torch.arange(s, device=dev)[None, :]
+        keys = col <= row
+        if window:
+            keys = keys & (row - col < window)
+    if lengths is not None:
+        lens = torch.as_tensor(lengths, device=dev).reshape(bkv * groups, 1)
+        valid = torch.arange(s, device=dev)[None, :] < lens      # (b, s)
+        cols = valid.reshape(bkv, groups, 1, s)
+        keys = cols if keys is None else keys & cols
+        rows = valid.reshape(bkv, groups, s, 1)
+    return keys, rows
 
 
 def _probs(q4, k3, scale, causal, lengths, window):
     """Softmax probabilities (f32) of the grouped scores, with the scores
     and the row validity mask (None without ``lengths``)."""
     bkv, groups, s, _ = q4.shape
-    dev = q4.device
     scores = torch.einsum("bgqd,bkd->bgqk", q4, k3) * scale
-    rowv = None
-    if causal:
-        row = torch.arange(s, device=dev)[:, None]
-        col = torch.arange(s, device=dev)[None, :]
-        ok = col <= row
-        if window:
-            ok = ok & (row - col < window)
-        scores = scores.masked_fill(~ok, _NEG_INF)
-    if lengths is not None:
-        lens = torch.as_tensor(lengths, device=dev).reshape(bkv * groups, 1)
-        valid = torch.arange(s, device=dev)[None, :] < lens      # (b, s)
-        colm = valid.reshape(bkv, groups, 1, s)
-        rowv = valid.reshape(bkv, groups, s, 1)
-        scores = scores.masked_fill(~colm, _NEG_INF)
+    keys, rows = _masks(bkv, groups, s, q4.device, causal, lengths, window)
+    if keys is not None:
+        scores = scores.masked_fill(~keys, _NEG_INF)
     p = torch.softmax(scores, dim=-1)
-    if rowv is not None:
+    if rows is not None:
         # padded query rows: zeros (the JAX package's contract)
-        p = torch.where(rowv, p, 0.0)
-    return p, scores, rowv
+        p = torch.where(rows, p, 0.0)
+    return p, scores, rows
 
 
 def _grouped(q, k, *rest):
@@ -95,6 +124,60 @@ def attention_bwd_reference(g, q, k, v, scale: float, causal: bool = False,
             dv.to(v.dtype).reshape(v.shape))
 
 
+def _bwd_from_residuals(g, q, k, v, lse, dcap, scale, causal, lengths=None,
+                        slab_rows=None, refine=False, dlse=None):
+    """Plain PyTorch (dq, dk, dv, dcap) in the flash kernels' own
+    arithmetic, from the forward's ``lse`` and ``dcap`` (rowsum(g * out),
+    less lse's cotangent ``dlse`` where there is one): p = exp(s * scale -
+    lse) and ds = p (dp - dcap) on the valid pairs, zero elsewhere.
+    ``refine``: the dq pass's correction, dcap += sum_j ds_ij / sum_j p_ij
+    - dlse_i, before ds is used; the dcap returned is the one used.
+    ``slab_rows``: dq as the sum of one slab a block of that many keys, the
+    fused kernel's scheme."""
+    (b, bkv, s, d), q4, (k3, v3) = _grouped(q, k, v)
+    groups = b // bkv
+    g4 = g.reshape(q4.shape).float()
+    scores = torch.einsum("bgqd,bkd->bgqk", q4, k3) * scale
+    p = torch.exp(scores - lse.reshape(bkv, groups, s, 1).float())
+    dp = torch.einsum("bgqd,bkd->bgqk", g4, v3)
+    ds = p * (dp - dcap.reshape(bkv, groups, s, 1).float())
+    keys, rows = _masks(bkv, groups, s, q.device, causal, lengths, 0)
+    for m in (keys, rows):
+        if m is not None:       # select: masked scores may overflow exp
+            p, ds = torch.where(m, p, 0.0), torch.where(m, ds, 0.0)
+    dcap = dcap.reshape(bkv, groups, s, 1).float()
+    if refine:
+        psum = p.sum(-1, keepdim=True)
+        corr = ds.sum(-1, keepdim=True) / psum.clamp_min(1e-30)
+        if dlse is not None:
+            corr = corr - dlse.reshape(corr.shape).float()
+        corr = torch.where(psum > 0, corr, 0.0)
+        ds, dcap = ds - corr * p, dcap + corr
+    dv = torch.einsum("bgqk,bgqd->bkd", p, g4)
+    dk = torch.einsum("bgqk,bgqd->bkd", ds, q4) * scale
+    if slab_rows is None:
+        dq = torch.einsum("bgqk,bkd->bgqd", ds, k3) * scale
+    else:
+        dq = torch.stack([
+            torch.einsum("bgqk,bkd->bgqd", ds[..., j:j + slab_rows],
+                         k3[:, j:j + slab_rows]) * scale
+            for j in range(0, s, slab_rows)]).sum(0)
+    return (dq.to(q.dtype).reshape(q.shape), dk.to(k.dtype).reshape(k.shape),
+            dv.to(v.dtype).reshape(v.shape), dcap.reshape(b, s))
+
+
+def attention_bwd_fused_reference(g, q, k, v, out, lse, dcap, scale: float,
+                                  causal: bool = False):
+    """Plain PyTorch (dq, dk, dv) of the fused backward (the JAX package's
+    ``_flash_bwd_fused``): per-key-block f32 dq slabs, then their sum.
+    G == 1, no lengths or window.  ``out`` is accepted for the signature's
+    sake; ``dcap`` carries what it gives."""
+    if prod(q.shape[:-2]) != prod(k.shape[:-2]):
+        raise ValueError("the fused backward takes no grouped-query call")
+    return _bwd_from_residuals(g, q, k, v, lse, dcap, scale, causal,
+                               slab_rows=FUSED_ROWS.get(q.shape[-1], 64))[:3]
+
+
 def _check(fn, q, k, v, **same_as_q):
     """Validate a CUDA call; returns (b, bkv, s, d)."""
     s, d = q.shape[-2], q.shape[-1]
@@ -107,7 +190,8 @@ def _check(fn, q, k, v, **same_as_q):
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{fn}: unsupported dtype {q.dtype}")
     if d not in (64, 128):
-        raise ValueError(f"{fn}: head dim {d} not in (64, 128)")
+        raise ValueError(f"{fn}: head dim {d} not in (64, 128) on CUDA "
+                         f"(other head dims: {_LLAMA_SLICE})")
     if k.shape[-2:] != (s, d) or v.shape != k.shape or b % bkv \
             or any(t.shape != q.shape for t in same_as_q.values()):
         raise ValueError(f"{fn}: shapes q {tuple(q.shape)}, "
@@ -115,82 +199,154 @@ def _check(fn, q, k, v, **same_as_q):
     return b, bkv, s, d
 
 
+def _lens_ptr(fn, lengths, q, b):
+    """The kernels' ``lens`` argument: None (no lengths) or the pointer of a
+    contiguous int32 tensor of B elements on q's device."""
+    if lengths is None:
+        return None
+    if not isinstance(lengths, torch.Tensor) \
+            or lengths.dtype != torch.int32 or lengths.numel() != b \
+            or lengths.device != q.device or not lengths.is_contiguous():
+        raise ValueError(f"{fn}: lengths must be a contiguous int32 tensor "
+                         f"of B = {b} elements on q's device")
+    return lengths.data_ptr()
+
+
+def _no_window(fn, window):
+    if window:
+        raise NotImplementedError(
+            f"{fn} on CUDA: sliding-window attention is not ported yet "
+            f"({_LLAMA_SLICE})")
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _flash_fwd_cuda(q, k, v, scale, causal):
+def _flash_fwd_cuda(q, k, v, scale, causal, lengths=None):
     b, bkv, s, d = _check("attention_fwd", q, k, v)
+    lens = _lens_ptr("attention_fwd", lengths, q, b)
     out = torch.empty_like(q)
     lse = torch.empty((b, s, 1), device=q.device, dtype=torch.float32)
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.lg_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, b // bkv, s, d, float(scale),
+            lse.data_ptr(), lens, b, b // bkv, s, d, float(scale),
             int(bool(causal)), int(q.dtype == torch.bfloat16), _stream(q))
     _build.check(err, "lg_flash_fwd")
     runtime.count_launch("attention_fwd")
     return out, lse
 
 
-def _bwd_launch(entry, fn, g, q, k, v, lse, dcap, scale, causal, *outs):
+def _bwd_check(fn, g, q, k, v, lse, dcap, **rows):
+    """Validate a backward call; ``rows``: more f32 tensors of B*S
+    elements (None where absent)."""
     b, bkv, s, d = _check(fn, q, k, v, g=g)
-    for name, t in (("lse", lse), ("dcap", dcap)):
-        if t.dtype != torch.float32 or t.numel() != b * s \
-                or t.device != q.device or not t.is_contiguous():
+    for name, t in dict(lse=lse, dcap=dcap, **rows).items():
+        if t is not None and (t.dtype != torch.float32 or t.numel() != b * s
+                              or t.device != q.device
+                              or not t.is_contiguous()):
             raise ValueError(f"{fn}: {name} must be a contiguous float32 "
                              f"tensor of B*S = {b * s} elements")
+    return b, bkv, s, d
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _bwd_launch(entry, fn, g, q, k, v, lse, dcap, scale, causal, lengths,
+                ptrs, **rows):
+    """Launch a backward pass; ``ptrs`` follow dcap in the entry's order."""
+    b, bkv, s, d = _bwd_check(fn, g, q, k, v, lse, dcap, **rows)
+    lens = _lens_ptr(fn, lengths, q, b)
     with torch.cuda.device(q.device):
         err = getattr(_build.library(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), dcap.data_ptr(), *(t.data_ptr() for t in outs),
-            b, b // bkv, s, d, float(scale), int(bool(causal)),
-            int(q.dtype == torch.bfloat16), _stream(q))
+            lse.data_ptr(), dcap.data_ptr(), *ptrs, lens, b, b // bkv, s, d,
+            float(scale), int(bool(causal)), int(q.dtype == torch.bfloat16),
+            _stream(q))
     _build.check(err, entry)
     runtime.count_launch(fn)
 
 
 def attention_bwd_dq(g, q, k, v, lse, dcap, scale: float,
-                     causal: bool = False):
+                     causal: bool = False, lengths=None, dlse=None,
+                     dcap_out=None):
     """dq of the flash backward given the forward's ``lse`` and
-    ``dcap = rowsum(g * out)`` (f32, B*S): the dq kernel on CUDA, the plain
-    recompute version (which needs neither) on CPU."""
+    ``dcap = rowsum(g * out) - dlse`` (f32, B*S; ``dlse``, lse's cotangent,
+    where there is one): the dq kernel on CUDA, its plain version (the same
+    arithmetic from lse and dcap) on CPU.  The pass refines dcap against
+    its own p and dp, which corrects dq; ``dcap_out`` (f32, B*S) receives
+    the refined dcap, which the dk/dv pass should take."""
     if not q.is_cuda:
-        return attention_bwd_reference(g, q, k, v, scale, causal)[0]
+        dq, _, _, refined = _bwd_from_residuals(
+            g, q, k, v, lse, dcap, scale, causal, lengths, refine=True,
+            dlse=dlse)
+        if dcap_out is not None:
+            dcap_out.copy_(refined.reshape(dcap_out.shape))
+        return dq
     dq = torch.empty_like(q)
     _bwd_launch("lg_flash_bwd_dq", "attention_bwd_dq", g, q, k, v, lse, dcap,
-                scale, causal, dq)
+                scale, causal, lengths,
+                (_ptr(dlse), dq.data_ptr(), _ptr(dcap_out)), dlse=dlse,
+                dcap_out=dcap_out)
     return dq
 
 
 def attention_bwd_dkv(g, q, k, v, lse, dcap, scale: float,
-                      causal: bool = False):
-    """(dk, dv) of the flash backward, as :func:`attention_bwd_dq`."""
+                      causal: bool = False, lengths=None):
+    """(dk, dv) of the flash backward, as :func:`attention_bwd_dq`; dcap is
+    taken as given (the dq pass's refined one, on the backward's path)."""
     if not q.is_cuda:
-        return attention_bwd_reference(g, q, k, v, scale, causal)[1:]
+        return _bwd_from_residuals(g, q, k, v, lse, dcap, scale, causal,
+                                   lengths)[1:3]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_launch("lg_flash_bwd_dkv", "attention_bwd_dkv", g, q, k, v, lse,
-                dcap, scale, causal, dk, dv)
+                dcap, scale, causal, lengths, (dk.data_ptr(), dv.data_ptr()))
     return dk, dv
 
 
-def _cuda_unported(fn, lengths, window):
-    if lengths is not None or window:
-        raise NotImplementedError(
-            f"{fn} on CUDA: lengths/window are not ported yet")
+def attention_bwd_fused(g, q, k, v, lse, dcap, scale: float,
+                        causal: bool = False):
+    """(dq, dk, dv) from one fused kernel (G == 1, no lengths): dk and dv
+    directly, dq as nk = ceil(S / block rows) unreduced f32 slabs of
+    (B, S, D) -- nk * B * S * D * 4 bytes, 403 MB at B 96, S 1024, D 64 --
+    summed in a fixed order after the kernel, as the JAX package leaves
+    that sum to XLA.  The plain version on CPU."""
+    if not q.is_cuda:
+        return attention_bwd_fused_reference(g, q, k, v, None, lse, dcap,
+                                             scale, causal)
+    fn = "attention_bwd_fused"
+    b, bkv, s, d = _bwd_check(fn, g, q, k, v, lse, dcap)
+    if b != bkv:
+        raise ValueError(f"{fn}: the fused kernel takes no grouped-query "
+                         f"call (B {b}, KV rows {bkv})")
+    nk = -(-s // FUSED_ROWS[d])
+    slabs = torch.empty((nk, *q.shape), device=q.device, dtype=torch.float32)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _build.library().lg_flash_bwd_fused(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), dcap.data_ptr(), slabs.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, s, d, float(scale), int(bool(causal)),
+            int(q.dtype == torch.bfloat16), _stream(q))
+    _build.check(err, "lg_flash_bwd_fused")
+    runtime.count_launch(fn)
+    return slabs.sum(0).to(q.dtype), dk, dv
 
 
 def attention_fwd_res(q, k, v, scale: float, causal: bool = False,
                       lengths=None, window: int = 0):
-    """(out, lse): flash kernel on CUDA, plain version on CPU.  ``lengths``
-    and ``window`` are served by the plain version only; on CUDA they raise
-    until the decoder-training slice ports them."""
+    """(out, lse): the flash kernel on CUDA, with ``lengths`` (a contiguous
+    int32 tensor of B elements) or without; the plain version on CPU.
+    ``window`` is served by the plain version only and raises on CUDA."""
     if window:
         assert causal, "sliding window attention is causal-only"
     if q.is_cuda:
-        _cuda_unported("attention_fwd", lengths, window)
-        return _flash_fwd_cuda(q, k, v, scale, causal)
+        _no_window("attention_fwd", window)
+        return _flash_fwd_cuda(q, k, v, scale, causal, lengths)
     return attention_fwd_reference(q, k, v, scale, causal, lengths, window)
 
 
@@ -199,22 +355,67 @@ def attention_fwd(q, k, v, scale: float, causal: bool = False,
     return attention_fwd_res(q, k, v, scale, causal, lengths, window)[0]
 
 
+def _flash_bwd(g, q, k, v, out, lse, scale, causal, dlse=None,
+               lengths=None):
+    """The flash backward from the forward's (out, lse), as the JAX
+    package's ``_flash_bwd``: dcap = rowsum(g * out) in f32, less lse's
+    cotangent ``dlse`` where it has one; then the fused kernel where the
+    switch and its rule allow, else the two passes, the dk/dv pass taking
+    the dq pass's refined dcap."""
+    if out is None or lse is None or out.shape != q.shape:
+        raise ValueError("the flash backward needs the forward's out and lse")
+    # a plain reduction, as the JAX package leaves it to XLA
+    dcap = (g.float() * out.float()).sum(-1)
+    if dlse is not None:
+        dlse = dlse.float().reshape(dcap.shape).contiguous()
+        dcap = dcap - dlse
+    dcap = dcap.contiguous()
+    if _FUSED_BWD and lengths is None \
+            and prod(q.shape[:-2]) == prod(k.shape[:-2]):
+        return attention_bwd_fused(g, q, k, v, lse, dcap, scale, causal)
+    refined = torch.empty_like(dcap)
+    dq = attention_bwd_dq(g, q, k, v, lse, dcap, scale, causal, lengths,
+                          dlse=dlse, dcap_out=refined)
+    return (dq, *attention_bwd_dkv(g, q, k, v, lse, refined, scale, causal,
+                                   lengths))
+
+
 def attention_bwd(g, q, k, v, scale: float, causal: bool = False,
                   out=None, lse=None, lengths=None, window: int = 0):
     """(dq, dk, dv) of ``attention_fwd`` for the output cotangent ``g``.
-    On CUDA the two flash-backward kernels, which need the forward's
-    ``out`` and ``lse``; on CPU the plain recompute version."""
+    On CUDA the flash backward kernels, which need the forward's ``out``
+    and ``lse``: the two passes, or the fused kernel after
+    ``set_flash_fused(True)`` where there are no lengths and G == 1.  On
+    CPU the plain recompute version."""
     if window:
         assert causal, "sliding window attention is causal-only"
+    if not q.is_cuda:
+        return attention_bwd_reference(g, q, k, v, scale, causal, out, lse,
+                                       lengths, window)
+    _no_window("attention_bwd", window)
+    return _flash_bwd(g, q, k, v, out, lse, scale, causal, lengths=lengths)
+
+
+def flash_block_fwd(q, k, v, scale: float, causal: bool = False):
+    """Forward of ``flash_block`` (the JAX package's kernel 10): one
+    (Q, K-chunk) flash pass, (out, lse), on the flash-forward kernel."""
+    out, lse = attention_fwd_res(q, k, v, scale, causal)
     if q.is_cuda:
-        _cuda_unported("attention_bwd", lengths, window)
-        if out is None or lse is None or out.shape != q.shape:
-            raise ValueError("attention_bwd on CUDA needs the forward's "
-                             "out and lse")
-        # D = rowsum(dO * O) in f32: a plain reduction, as the JAX package
-        # leaves it to XLA
-        dcap = (g.float() * out.float()).sum(-1).contiguous()
-        dq = attention_bwd_dq(g, q, k, v, lse, dcap, scale, causal)
-        return (dq, *attention_bwd_dkv(g, q, k, v, lse, dcap, scale, causal))
-    return attention_bwd_reference(g, q, k, v, scale, causal, out, lse,
-                                   lengths, window)
+        runtime.count_launch("flash_block")
+    return out, lse
+
+
+def flash_block_bwd(g, glse, q, k, v, out, lse, scale: float,
+                    causal: bool = False):
+    """Backward of ``flash_block`` for the cotangents of out (``g``) and of
+    lse (``glse``): lse's enters every score as dcap - dlse."""
+    grads = _flash_bwd(g, q, k, v, out, lse, scale, causal, dlse=glse)
+    if q.is_cuda:
+        runtime.count_launch("flash_block")
+    return grads
+
+
+def flash_block_reference(q, k, v, scale: float, causal: bool = False):
+    """Plain ``flash_block``: (out, lse) of :func:`attention_fwd_reference`,
+    differentiable in q, k and v by torch autograd, lse included."""
+    return attention_fwd_reference(q, k, v, scale, causal)

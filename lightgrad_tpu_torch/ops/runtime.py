@@ -14,15 +14,16 @@ __all__ = ["device_kind", "device_name", "kernels_in_use", "KERNELS",
 # Every hand-written kernel of the port, by wrapper name.  A wrapper adds one
 # to its count where it launches its kernel, and nowhere else.  The stack
 # kernel's int8 instantiations count under their own names, as the JAX
-# package has a Pallas variant for each.
+# package has a Pallas variant for each.  ``flash_block`` counts one in each
+# direction, beside the flash kernels it launches.
 KERNELS = ("attention_fwd", "decode_attention", "decode_stack",
            "decode_stack_batch", "decode_stack_int8", "decode_stack_kvq",
            "decode_stack_int8_kvq", "decode_stack_batch_int8",
            "decode_stack_batch_kvq", "decode_stack_batch_int8_kvq",
-           "attention_bwd_dq", "attention_bwd_dkv",
-           "layernorm_fwd", "layernorm_bwd", "elementwise", "reduce",
-           "matmul", "softmax_fwd", "softmax_bwd", "conv_fwd", "conv_bwd_dx",
-           "conv_bwd_dw")
+           "attention_bwd_dq", "attention_bwd_dkv", "attention_bwd_fused",
+           "flash_block", "layernorm_fwd", "layernorm_bwd", "elementwise",
+           "reduce", "matmul", "softmax_fwd", "softmax_bwd", "conv_fwd",
+           "conv_bwd_dx", "conv_bwd_dw")
 _launches = dict.fromkeys(KERNELS, 0)
 
 

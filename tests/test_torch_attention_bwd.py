@@ -61,6 +61,22 @@ def test_attention_bwd_passes_match_the_whole():
         torch.testing.assert_close(a, b)
 
 
+def test_dq_pass_refines_dcap():
+    """The dq pass corrects dcap against its own p and dp: given a dcap off
+    by 1e-3 (and an lse cotangent), its dq and its refined dcap are those
+    of the exact one."""
+    q, k, v, g = (torch.from_numpy(a) for a in _inputs(40, 2, seed=6))
+    out, lse = attention_fwd_res(q, k, v, 0.125, causal=True)
+    dlse = torch.from_numpy(rand(np.random.default_rng(1), 4, 40))
+    dcap = (g * out).sum(-1) - dlse
+    want = attention_bwd_dq(g, q, k, v, lse, dcap, 0.125, True, dlse=dlse)
+    refined = torch.empty_like(dcap)
+    got = attention_bwd_dq(g, q, k, v, lse, dcap + 1e-3, 0.125, True,
+                           dlse=dlse, dcap_out=refined)
+    torch.testing.assert_close(got, want, **TOL)
+    torch.testing.assert_close(refined, dcap, **TOL)
+
+
 @pytest.mark.parametrize("G", [1, 2])
 @pytest.mark.parametrize("causal", [False, True])
 def test_attention_function_grads_match_autograd(causal, G):

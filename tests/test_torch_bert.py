@@ -5,7 +5,8 @@ batch with a padding mask (the materialised attention branch: the matmul,
 softmax, elementwise and reduce kernels' plain versions) and masked-LM
 labels (-100 elsewhere).  Checked against the JAX model: the logits,
 step 1's gradient of every parameter, every parameter after 3 AdamW steps,
-and the unmasked (flash) branch's logits."""
+the unmasked (flash) branch's logits, and the ``attention_lengths`` branch's
+valid-row logits and gradients."""
 
 import numpy as np
 import pytest
@@ -124,6 +125,41 @@ def test_unmasked_forward_takes_the_flash_branch(mode, monkeypatch):
     tlogits = tm(TTensor.from_numpy(ids, requires_grad=False))
     assert len(calls) == CFG["num_hidden_layers"]
     np.testing.assert_allclose(tlogits.numpy(), jlogits.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("mode", ["pallas", "xla"])
+def test_attention_lengths_matches_jax(mode):
+    """``attention_lengths`` (the flash kernels with per-example lengths)
+    against the JAX model on the same branch: the valid rows' logits, the
+    loss and step 1's gradient of every parameter; and the valid rows
+    against the port's own padding-mask branch (tests/test_bert.py checks
+    the JAX model so)."""
+    jm, tm = _models()
+    ids, mask, labels = _batch(3)
+    lengths = mask.sum(1).astype(np.int32)
+    valid = mask.astype(bool)
+
+    def run(T, pkg, model):
+        logits = model(T.from_numpy(ids, requires_grad=False),
+                       attention_lengths=T.from_numpy(lengths,
+                                                      requires_grad=False))
+        loss = pkg.loss.cross_entropy(
+            logits.reshape(B * S, CFG["vocab_size"]),
+            T.from_numpy(labels, requires_grad=False), ignore_index=-100)
+        loss.backward()
+        return logits.numpy(), loss.numpy()
+
+    with jax_kernel_mode(mode):
+        jlogits, jloss = run(JTensor, light, jm)
+    tlogits, tloss = run(TTensor, lt, tm)
+    np.testing.assert_allclose(tlogits[valid], jlogits[valid], **TOL)
+    np.testing.assert_allclose(tloss, jloss, **TOL)
+    jgrads = dict(jm.named_parameters())
+    for name, p in tm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), jgrads[name].grad.numpy(),
+                                   err_msg=name, **TOL)
+    masked, _ = _loss(TTensor, lt, tm, ids, mask, labels)
+    np.testing.assert_allclose(tlogits[valid], masked.numpy()[valid], **TOL)
 
 
 def test_hf_names_round_trip():

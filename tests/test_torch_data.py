@@ -83,6 +83,13 @@ def test_device_dataset_offsets_and_narrow():
         np.testing.assert_array_equal(tx.narrow(off, 4).numpy(),
                                       xs[4 * i: 4 * i + 4])
         np.testing.assert_array_equal(ds[i][1].numpy(), ys[4 * i: 4 * i + 4])
+    # every offset narrows the batch that __getitem__ gives, epoch after
+    # epoch (one device arange each)
+    for _ in range(2):
+        for i, off in enumerate(ds.offsets()):
+            for t, want in zip(ds.tensors, ds[i]):
+                np.testing.assert_array_equal(t.narrow(off, 4).numpy(),
+                                              want.numpy())
     # tensors from another dataset are taken over, not copied back to numpy
     again = tdata.DeviceDataset(ds.tensors, shuffle=False, batchsize=4)
     np.testing.assert_array_equal(again.tensors[0].numpy(), xs)

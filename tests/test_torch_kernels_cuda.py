@@ -9,10 +9,13 @@ no JAX, so it also runs where only PyTorch is installed:
 import pytest
 import torch
 
+from lightgrad_tpu_torch.autograd import flash_block
 from lightgrad_tpu_torch.ops.attention import (attention_bwd,
                                                attention_bwd_reference,
                                                attention_fwd_res,
-                                               attention_fwd_reference)
+                                               attention_fwd_reference,
+                                               flash_block_reference,
+                                               set_flash_fused)
 from lightgrad_tpu_torch.ops.conv import (conv_bwd, conv_bwd_reference,
                                           conv_fwd, conv_fwd_reference)
 from lightgrad_tpu_torch.ops.decode_attention import (
@@ -91,6 +94,199 @@ def test_flash_bwd_kernels(dev, S, G, D, causal, dtype):
     again = attention_bwd(do, q, k, v, D ** -0.5, causal, out=out, lse=lse)
     for a, b in zip(got, again):              # no atomics: bit for bit
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,G,D,causal", [(128, 1, 64, False),
+                                          (128, 1, 64, True),
+                                          (128, 2, 64, False),
+                                          (100, 2, 128, True)])
+def test_flash_kernels_with_lengths(dev, S, G, D, causal, dtype):
+    """Per-row lengths from 0 to S: padded query rows give out 0 and lse 0,
+    padded keys dk = dv = 0, padded rows dq 0, and nothing is NaN."""
+    g = torch.Generator(device=dev).manual_seed(3 * S + G + D + causal)
+    B = 8
+    q, do = (_randn(g, B, S, D, dtype=dtype) for _ in range(2))
+    k, v = (_randn(g, B // G, S, D, dtype=dtype) for _ in range(2))
+    lens = torch.tensor([S, 0, 1, 63, 64, 65, S - 1, S // 2], device=dev,
+                        dtype=torch.int32)
+    reset_launch_counts()
+    out, lse = attention_fwd_res(q, k, v, D ** -0.5, causal, lengths=lens)
+    got = attention_bwd(do, q, k, v, D ** -0.5, causal, out=out, lse=lse,
+                        lengths=lens)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["attention_fwd"] == counts["attention_bwd_dq"] \
+        == counts["attention_bwd_dkv"] == 1
+    ref_out, ref_lse = attention_fwd_reference(q, k, v, D ** -0.5, causal,
+                                               lens)
+    _close(out, ref_out, dtype)
+    _close(lse, ref_lse, torch.float32)
+    want = attention_bwd_reference(do, q, k, v, D ** -0.5, causal,
+                                   lengths=lens)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a.float()).all()
+        _close(a, b, dtype)
+    rows = torch.arange(S, device=dev)[None, :] >= lens[:, None].long()
+    assert (out[rows] == 0).all() and (lse[..., 0][rows] == 0).all()
+    assert (got[0][rows] == 0).all()
+    if G == 1:
+        assert (got[1][rows] == 0).all() and (got[2][rows] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,D,causal", [(1024, 64, True), (100, 64, False),
+                                        (200, 128, True), (96, 128, False)])
+def test_flash_fused_backward_kernel(dev, S, D, causal, dtype):
+    """The fused kernel against the plain version and the two passes, bit
+    for bit on a rerun; calls it cannot take stay on the two passes."""
+    g = torch.Generator(device=dev).manual_seed(11 * S + D + causal)
+    q, do, k, v = (_randn(g, 4, S, D, dtype=dtype) for _ in range(4))
+    out, lse = attention_fwd_res(q, k, v, D ** -0.5, causal=causal)
+    two_pass = attention_bwd(do, q, k, v, D ** -0.5, causal, out=out, lse=lse)
+    prev = set_flash_fused(True)
+    try:
+        reset_launch_counts()
+        got = attention_bwd(do, q, k, v, D ** -0.5, causal, out=out, lse=lse)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts["attention_bwd_fused"] == 1
+        assert counts["attention_bwd_dq"] == counts["attention_bwd_dkv"] == 0
+        again = attention_bwd(do, q, k, v, D ** -0.5, causal, out=out,
+                              lse=lse)
+        # lengths and grouped-query calls take the two passes
+        reset_launch_counts()
+        lens = torch.full((4,), S // 2, device=dev, dtype=torch.int32)
+        o2, l2 = attention_fwd_res(q, k, v, D ** -0.5, causal, lengths=lens)
+        attention_bwd(do, q, k, v, D ** -0.5, causal, out=o2, lse=l2,
+                      lengths=lens)
+        o3, l3 = attention_fwd_res(q, k[:2], v[:2], D ** -0.5, causal)
+        attention_bwd(do, q, k[:2], v[:2], D ** -0.5, causal, out=o3, lse=l3)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts["attention_bwd_fused"] == 0
+        assert counts["attention_bwd_dq"] == counts["attention_bwd_dkv"] == 2
+    finally:
+        set_flash_fused(prev)
+    want = attention_bwd_reference(do, q, k, v, D ** -0.5, causal)
+    for a, b, c, d in zip(got, want, two_pass, again):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        _close(a, b, dtype)
+        _close(a, c, dtype)
+        assert torch.equal(a, d)                  # no atomics: bit for bit
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_block_kernel(dev, causal, dtype):
+    """flash_block's out, lse and its gradients with a nonzero lse
+    cotangent against torch autograd through the plain version, on chunks
+    of a longer sequence (strided views)."""
+    g = torch.Generator(device=dev).manual_seed(21 + causal)
+    q, k, v = (_randn(g, 8, 512, 64, dtype=dtype) for _ in range(3))
+    w = _randn(g, 8, 256, 64)
+    wl = _randn(g, 8, 256, 1)
+
+    def run(fn):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        o, l = fn(*(t[:, 256:] for t in ts), 0.125, causal)
+        ((o.float() * w).sum() + (l * wl).sum()).backward()
+        return (o, l, *(t.grad[:, 256:] for t in ts))
+
+    reset_launch_counts()
+    got = run(flash_block)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["flash_block"] == 2 and counts["attention_fwd"] == 1
+    assert counts["attention_bwd_dq"] == counts["attention_bwd_dkv"] == 1
+    want = run(flash_block_reference)
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a.float()).all(), name
+        _close(a, b, torch.float32 if name == "lse" else dtype)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_dq_kernel_refines_dcap(dev, D):
+    """Given a dcap off by 1e-3 and an lse cotangent, the dq kernel's dq and
+    refined dcap are those of the exact dcap."""
+    from lightgrad_tpu_torch.ops.attention import attention_bwd_dq
+
+    g = torch.Generator(device=dev).manual_seed(D)
+    q, k, v, do = (_randn(g, 4, 300, D) for _ in range(4))
+    out, lse = attention_fwd_res(q, k, v, D ** -0.5, causal=True)
+    dlse = _randn(g, 4, 300)
+    dcap = ((do * out).sum(-1) - dlse).contiguous()
+    want = attention_bwd_dq(do, q, k, v, lse, dcap, D ** -0.5, True,
+                            dlse=dlse)
+    refined = torch.empty_like(dcap)
+    got = attention_bwd_dq(do, q, k, v, lse, dcap + 1e-3, D ** -0.5, True,
+                           dlse=dlse, dcap_out=refined)
+    _close(got, want, torch.float32)
+    _close(refined, dcap, torch.float32)
+
+
+def test_lengths_must_be_int32_of_the_rows(dev):
+    q = torch.zeros(2, 16, 64, device=dev)
+    for bad in (torch.tensor([3, 16], device=dev),              # int64
+                torch.tensor([3], device=dev, dtype=torch.int32),
+                torch.tensor([3, 16], dtype=torch.int32)):      # on the host
+        with pytest.raises(ValueError):
+            attention_fwd_res(q, q, q, 1.0, lengths=bad)
+    with pytest.raises(NotImplementedError, match="LLaMA"):
+        attention_fwd_res(q, q, q, 1.0, causal=True, window=4)
+    with pytest.raises(ValueError, match="LLaMA"):
+        attention_fwd_res(q[..., :32].contiguous(), q[..., :32].contiguous(),
+                          q[..., :32].contiguous(), 1.0)
+
+
+def test_narrow_and_offsets_do_not_synchronise(dev):
+    """A device start never reaches the host: narrow's forward and
+    backward, and DeviceDataset.offsets(), under sync debug mode."""
+    from lightgrad_tpu_torch import data
+    from lightgrad_tpu_torch.autograd import Tensor
+
+    x = Tensor(torch.randn(64, 5, device=dev))
+    ds = data.DeviceDataset((torch.arange(40.0).reshape(20, 2),),
+                            shuffle=False, batchsize=4)
+    start = Tensor(torch.tensor(60, device=dev, dtype=torch.int32),
+                   requires_grad=False)          # the upload syncs: before
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = x.narrow(start, 8)                    # clamps to 56
+        y.backward(allow_fill=True)               # narrow's backward alone
+        offs = list(ds.offsets())
+        batch = ds.tensors[0].narrow(offs[2], 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(y.data, x.data[56:])
+    want = torch.zeros_like(x.data)
+    want[56:] = 1.0
+    assert torch.equal(x.grad.data, want)
+    assert torch.equal(batch.data.cpu(),
+                       torch.arange(16.0, 24.0).reshape(4, 2))
+
+
+def test_tape_attention_lengths_does_not_synchronise(dev):
+    """The tape's attention op with (batch,) lengths, forward and
+    backward: the lengths never reach the host."""
+    from lightgrad_tpu_torch.autograd import Tensor
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (Tensor(_randn(g, 2, 3, 128, 64)) for _ in range(3))
+    lens = Tensor(torch.tensor([128, 70], device=dev, dtype=torch.int32),
+                  requires_grad=False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = q.attention(k, v, scale=0.125, lengths=lens)
+        y.backward(allow_fill=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = attention_fwd_reference(q.data, k.data, v.data, 0.125,
+                                   lengths=lens.data.repeat_interleave(3))[0]
+    _close(y.data, want, torch.float32)
+    assert torch.isfinite(q.grad.data).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -156,6 +156,23 @@ def test_op_forward_and_gradient_match_jax(name, mode):
     _check(fn, arrays, mode)
 
 
+@pytest.mark.parametrize("tensor_start", [False, True])
+@pytest.mark.parametrize("start,axis", [(0, 0), (2, 1), (3, 1), (9, 1),
+                                        (-1, 2), (-7, 2)])
+def test_narrow_clamps_like_jax(start, axis, tensor_start):
+    """``narrow`` with an int or a 0-d int32 tensor start, forward and
+    gradient: a start past n - length clamps, a negative one counts from
+    the end, as JAX's ``dynamic_slice_in_dim`` does."""
+
+    def fn(a):
+        T = type(a)
+        st = T.from_numpy(np.int32(start), requires_grad=False) \
+            if tensor_start else start
+        return a.narrow(st, 2, axis=axis)
+
+    _check(fn, _arrays([S]), "xla")
+
+
 @pytest.mark.parametrize("name", ["eq", "ge", "gt"])
 def test_compare_ops_match_jax(name):
     a, b = _arrays([S, (5,)])
