@@ -2,8 +2,10 @@
 and int8) and training (torch.autograd; two-pass and fused flash backward),
 chunked attention through ``flash_block``, BERT-base masked-LM training
 (padding mask and ``attention_lengths``), its int8 ``QuantLinear`` forward,
-the gradient-descent example, and the conv path (ResNet-18 training, the
-MNIST CNN and ResNet-20 examples) on the lightgrad tape.
+the gradient-descent example, the conv path (ResNet-18 training, the
+MNIST CNN and ResNet-20 examples) on the lightgrad tape, and the LLaMA
+family (Mistral-7B and Gemma-2B serving, and training on the tape; the
+char example).
 
     python3 chip_smoke.py
 
@@ -24,7 +26,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      fused flash backward at GPT-2's 96 x 1024 x 64 (causal, against the
      plain version and the two passes, bit for bit on a rerun) and
      ``flash_block`` at the chunk shape 96 x 256 x 64 with a nonzero lse
-     cotangent;
+     cotangent; the LLaMA family's attention: the sliding window at a
+     Mistral-7B layer (32 x 8192 x 128, 8 KV heads, window 4096), head dim
+     256 at Gemma-2B's prefill and training shapes, head dim 32 at the char
+     example's, head dims 8, 16, 80 and 200 and windows of S or more for
+     correctness, and decode attention at Gemma's (1, 8, 256) and
+     Mistral's (8, 4, 128) decode shapes, its error scaled by the
+     reference's rms (plain versions one KV group at a time; the library
+     call is SDPA with ``enable_gqa``);
   4. serving path, GPT-2 small at its published widths (vocab 50257, 1024
      positions, d 768, 12 layers, 12 heads; seeded random weights), once in
      float32 and once after ``model.to(torch.bfloat16)``: ``generate``,
@@ -75,7 +84,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
      (LIGHTGRAD_FAKE_DATA=1) -- the loss must fall; test accuracy over
      2,000 digits; and one ``narrow`` forward + backward at a device start
      under ``torch.cuda.set_sync_debug_mode("error")``;
-  9. every kernel of each path was launched by that path, and every kernel
+  9. the LLaMA family at its published widths, seeded random weights:
+     (a) serving in bfloat16, Mistral-7B (all 32 layers; 8192 positions,
+     cut from 32768) with a 4500-token prompt and Gemma-2B (all 18 layers,
+     W 8192) with a 1000-token prompt: ``generate``, ``generate_batch``,
+     an engine of 4 slots over 8 ragged requests, a teacher-forced check of
+     prefill + cached steps against a plain full-sequence forward, and
+     Mistral's check in float32 at 4 layers; (b) training on the tape,
+     float32, AdamW, 5 steps on one batch at full width cut to 2 layers:
+     Mistral-7B on 1 x 8192 tokens (window active), Gemma-2B on 2 x 1024
+     (head dim 256), each with step 1's logits and gradients against a
+     plain twin; (c) examples/llama.py's char model (40 steps, then 120
+     generated tokens);
+ 10. every kernel of each path was launched by that path, and every kernel
      of the package by some path.
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -217,6 +238,37 @@ CONV_ODD_CASES = (
 )
 # examples/mnist.py and examples/resnet.py: batch 128; about 40 steps here
 MNIST_BATCH, MNIST_STEPS = 128, 40
+# HF mistralai/Mistral-7B-v0.1 config.json; max_position_embeddings cut
+# from 32768 to 8192: the cache window and the prefill length
+MISTRAL_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                  num_hidden_layers=32, num_attention_heads=32,
+                  num_key_value_heads=8, max_position_embeddings=8192,
+                  rms_norm_eps=1e-5, rope_theta=10000.0, sliding_window=4096,
+                  tie_word_embeddings=False)
+# HF google/gemma-2b config.json, no cut
+GEMMA_2B = dict(vocab_size=256000, hidden_size=2048, intermediate_size=16384,
+                num_hidden_layers=18, num_attention_heads=8,
+                num_key_value_heads=1, head_dim=256,
+                max_position_embeddings=8192, rms_norm_eps=1e-6,
+                rope_theta=10000.0, hidden_act="gelu_pytorch_tanh",
+                rms_offset=True, scale_embeddings=True,
+                tie_word_embeddings=True)
+# examples/llama.py's char model (its vocabulary: README.md's characters)
+CHAR_LLAMA = dict(hidden_size=128, intermediate_size=256, num_hidden_layers=4,
+                  num_attention_heads=4, num_key_value_heads=2,
+                  max_position_embeddings=192)
+# (name, config, generate's prompt length, generate_batch's prompts, the
+# engine's prompts): Mistral's prompts run prefill and decode past its band
+LLAMA_SERVING = (("Mistral-7B", MISTRAL_7B, 4500, (4500, 1000, 60),
+                  (4600, 32, 700, 2100, 90, 4100, 300, 1500)),
+                 ("Gemma-2B", GEMMA_2B, 1000, (1000, 300, 40),
+                  (1200, 16, 500, 800, 64, 1000, 200, 640)))
+# (name, config, batch, sequence): training at full width, 2 layers
+LLAMA_TRAINING = (("Mistral-7B", MISTRAL_7B, 1, 8192),
+                  ("Gemma-2B", GEMMA_2B, 2, 1024))
+LLAMA_LR = 3e-4
+LLAMA_SERVING_KERNELS = ("attention_fwd", "decode_attention")
+LLAMA_TRAIN_KERNELS = TAPE_KERNELS + FLASH_KERNELS
 # One H100 SXM (NVIDIA's data sheet, dense rates at 700 W): HBM bytes
 # a second and dense peak operations a second by input type
 HBM_BPS = 3.35e12
@@ -306,6 +358,27 @@ def discriminates(name, dtype, want, tol, *wrong):
                                  f"wrong output is within {tol}")
 
 
+def check_rms(name, dtype, got, want, tol, *wrong):
+    """:func:`check` with the error scaled by the reference's rms, not by
+    max(1, max |ref|): for outputs far below 1 (attention averaging
+    thousands of random value rows, ~0.03), where the latter would pass an
+    error of a third of a typical value.  Every output in ``wrong`` must
+    fail it."""
+    rms = want.float().pow(2).mean().sqrt().item()
+    abs_err = (got.float() - want.float()).abs().max().item()
+    ok = bool(torch.isfinite(got.float()).all()) and abs_err <= tol * rms
+    log(f"  {name} {str(dtype)[6:]}: max_abs_err={abs_err:.3e} "
+        f"rms(ref)={rms:.3e} err/rms={abs_err / rms:.3e} tol={tol:.0e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} {dtype}: {abs_err} > {tol} * rms {rms}")
+    for w in wrong:
+        if (w.float() - want.float()).abs().max().item() <= tol * rms:
+            raise AssertionError(f"{name} {dtype}: degenerate inputs, a "
+                                 f"wrong output is within {tol} * rms")
+    return abs_err
+
+
 def bound_ms(nbytes, ops, dtype):
     """The least time the card could take for a call: its bytes (each input
     read once, each output written once) at HBM_BPS or its operations at
@@ -325,12 +398,16 @@ def record(results, dtype, name, err, ms=None, plain_ms=None,
     takes ``cost``, the (bytes, operations) of the timed call, for its
     bound, and ``library_ms``, one PyTorch call's time for the same
     function (None where PyTorch has none).  ``variant`` prefixes the time
-    keys of a second call shape of the kernel (e.g. "lengths_")."""
+    keys, and the error, of a second call shape of the kernel (e.g.
+    "lengths_")."""
     r = results.setdefault(name, {"max_abs_err": 0.0})
     key = "" if dtype == torch.float32 else "bf16_"
     r[key + "max_abs_err"] = max(r.get(key + "max_abs_err", 0.0), err)
     if ms is not None:
         key += variant
+        if variant:
+            r[key + "max_abs_err"] = max(r.get(key + "max_abs_err", 0.0),
+                                         err)
         r[key + "ms"], r[key + "plain_ms"] = ms, plain_ms
         r[key + "bound_ms"], r[key + "bound_by"] = bound_ms(*cost, dtype)
         r[key + "library_ms"] = library_ms
@@ -943,7 +1020,7 @@ def phase_flash_kernels(results):
             rows = bh * S * 4                   # one f32 (B*H, S) row set
             q4, k4, v4 = (t.reshape(B, H, S, hd) for t in (q, k, v))
             keep = ~pad.reshape(B, H, 1, S)[:, :1]
-            record(results, dtype, "attention_fwd", 0.0,
+            record(results, dtype, "attention_fwd", err,
                    cuda_ms(lambda: attention_fwd_res(q, k, v, sc, False,
                                                      lengths=lens)),
                    cuda_ms(lambda: attention_fwd_reference(q, k, v, sc,
@@ -959,13 +1036,13 @@ def phase_flash_kernels(results):
             lib_ms = cuda_ms(lambda: torch.autograd.grad(
                 og, (qg, kg, vg), do.reshape(B, H, S, hd),
                 retain_graph=True), 5)
-            record(results, dtype, "attention_bwd_dq", 0.0,
+            record(results, dtype, "attention_bwd_dq", errs[0],
                    cuda_ms(lambda: attention_bwd_dq(do, q, k, v, lse, dcap,
                                                     sc, False, lens)),
                    plain_ms, cost=(valid * (4 * tile + 2 * rows) + tile
                                    + bh * 4, 6 * hd * n),
                    library_ms=lib_ms, variant="lengths_")
-            record(results, dtype, "attention_bwd_dkv", 0.0,
+            record(results, dtype, "attention_bwd_dkv", max(errs[1:]),
                    cuda_ms(lambda: attention_bwd_dkv(do, q, k, v, lse, dcap,
                                                      sc, False, lens)),
                    plain_ms, cost=(valid * (4 * tile + 2 * rows) + 2 * tile
@@ -1076,7 +1153,7 @@ def phase_flash_kernels(results):
         gout, glse = w.to(dtype), wl
         ts = [t.clone().requires_grad_() for t in (q, k, v)]
         ro, rl = flash_block_reference(*ts, sc, False)
-        record(results, dtype, "flash_block", 0.0,
+        record(results, dtype, "flash_block", err,
                cuda_ms(lambda: flash_block_bwd(gout, glse, q, k, v, out, lse,
                                                sc, False)),
                cuda_ms(lambda: torch.autograd.grad(
@@ -1548,37 +1625,40 @@ def plain_bert(p, cfg, ids, mask):
     return lin(x, "decoder")
 
 
-def tape_grad_check(model, grads32, grads64):
+def tape_grad_check(model, grads32, grads64=None):
     """Step 1's tape gradient of every parameter vs the plain twin, in
-    float32 (the tape's precision) and in float64: max |tape - twin| /
-    max |twin| within PATH_TOL for each parameter and each twin.  BERT's
-    key projection's bias has a zero gradient in exact arithmetic (softmax
-    ignores a per-row constant), so its error is taken relative to the same
-    layer's query bias gradient."""
+    float32 (the tape's precision) and, where given, in float64: max |tape
+    - twin| / max |twin| within PATH_TOL for each parameter and each twin.
+    BERT's key projection's bias has a zero gradient in exact arithmetic
+    (softmax ignores a per-row constant), so its error is taken relative to
+    the same layer's query bias gradient."""
     tol = PATH_TOL[torch.float32]
-    rel = {32: {}, 64: {}}
+    twins = {32: grads32, 64: grads64}
+    twins = {bits: g for bits, g in twins.items() if g is not None}
+    rel = {bits: {} for bits in twins}
     for name, t in model.named_parameters():
         got = t.grad.data.double()
         if not torch.isfinite(got).all():
             raise AssertionError(f"gradient of {name} is not finite")
         ref_name = name.replace("self.key.bias", "self.query.bias")
-        for bits, grads in ((32, grads32), (64, grads64)):
+        for bits, grads in twins.items():
             ref = max(grads[ref_name].double().abs().max().item(), 1e-30)
             rel[bits][name] = (got - grads[name].double()).abs().max().item() \
                 / ref
     bad = sorted(n for bits in rel for n in rel[bits] if rel[bits][n] > tol)
     worst = {bits: max(r, key=r.get) for bits, r in rel.items()}
-    log(f"  step-1 gradients of {len(rel[32])} parameters: worst rel vs the "
-        f"f32 twin {rel[32][worst[32]]:.3e} ({worst[32]}), vs the f64 twin "
-        f"{rel[64][worst[64]]:.3e} ({worst[64]}); tol {tol:.0e} "
-        f"{'ok' if not bad else 'FAIL'}")
+    log(f"  step-1 gradients of {len(rel[32])} parameters: worst rel "
+        + ", ".join(f"vs the f{bits} twin {rel[bits][w]:.3e} ({w})"
+                    for bits, w in worst.items())
+        + f"; tol {tol:.0e} {'ok' if not bad else 'FAIL'}")
     if bad:
         raise AssertionError(f"gradients beyond tolerance: {bad}")
 
 
-def bert_step(model, opt, x_ids, y, **inputs):
-    """One masked-LM training step of BERT on the tape; ``inputs`` gives
-    ``attention_mask`` or ``attention_lengths``."""
+def tape_step(model, opt, x_ids, y, **inputs):
+    """One training step of a language model on the tape (labels -100
+    ignored); ``inputs`` gives BERT's ``attention_mask`` or
+    ``attention_lengths``."""
     from lightgrad_tpu_torch import loss as lg_loss
 
     logits = model(x_ids, **inputs)
@@ -1632,11 +1712,12 @@ def step_breakdown(step, step_s, host_s):
         + ", ".join(f"{f} {t:.2f} ms ({n[f]})" for f, t in ms.items()))
 
 
-def bert_steps(model, opt, x_ids, y, card, step1_check, **inputs):
-    """BERT_STEPS masked-LM steps of ``model`` on one batch (``inputs``:
-    ``attention_mask`` or ``attention_lengths``), then where a step's time
-    goes.  ``step1_check(logits, loss)`` runs after step 1's backward, and
-    its time is not the step's.  Returns the steps' launch counts."""
+def tape_steps(model, opt, x_ids, y, card, step1_check, **inputs):
+    """BERT_STEPS training steps of a language model on the tape on one
+    batch (``inputs``: BERT's ``attention_mask`` or ``attention_lengths``),
+    then where a step's time goes.  ``step1_check(logits, loss)`` runs after
+    step 1's backward, and its time is not the step's.  Returns the steps'
+    launch counts."""
     from lightgrad_tpu_torch import loss as lg_loss
     from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
 
@@ -1679,8 +1760,8 @@ def bert_steps(model, opt, x_ids, y, card, step1_check, **inputs):
     log(f"  launches per step: "
         f"{ {k: v // BERT_STEPS for k, v in counts.items() if v} }")
     if not ok:
-        raise AssertionError(f"BERT loss not finite and falling: {losses}")
-    step_breakdown(lambda: bert_step(model, opt, x_ids, y, **inputs),
+        raise AssertionError(f"loss not finite and falling: {losses}")
+    step_breakdown(lambda: tape_step(model, opt, x_ids, y, **inputs),
                    float(np.median(times[1:])), float(np.median(host[1:])))
     return counts
 
@@ -1742,7 +1823,7 @@ def phase_bert(card):
         tape_grad_check(model, grads32, grads64)
         masked_rows["logits"] = logits.data[valid]
 
-    counts = bert_steps(model, opt, x_ids, y, card, check_masked,
+    counts = tape_steps(model, opt, x_ids, y, card, check_masked,
                         attention_mask=x_mask)
 
     # one unmasked step: self-attention takes the flash kernels
@@ -1781,7 +1862,7 @@ def phase_bert(card):
         log(f"  step-1 loss {loss.item():.5f}, plain twin {plain_loss:.5f}")
         tape_grad_check(model, grads32, grads64)
 
-    lens_counts = bert_steps(model, opt, x_ids, y, card, check_lengths,
+    lens_counts = tape_steps(model, opt, x_ids, y, card, check_lengths,
                              attention_lengths=x_lens)
     if lens_counts["softmax_fwd"] or lens_counts["softmax_bwd"]:
         raise AssertionError("attention_lengths launched the softmax "
@@ -2258,6 +2339,672 @@ def phase_narrow():
                              "gradient")
 
 
+def _kv_groups(q, *kv_like, extra=()):
+    """Per KV head j: q's heads j*rep..(j+1)*rep-1 (and those of each
+    q-shaped tensor in ``extra``), and K/V head j, as (b, heads, S, hd)
+    views: a grouped-query attention split into independent groups."""
+    kvh = kv_like[0].shape[1]
+    rep = q.shape[1] // kvh
+    for j in range(kvh):
+        qs = [t[:, j * rep:(j + 1) * rep] for t in (q, *extra)]
+        yield qs, [t[:, j:j + 1] for t in kv_like]
+
+
+class _PlainAttention(torch.autograd.Function):
+    """Causal (banded) grouped-query attention for the LLaMA twins: the
+    flash kernels' plain versions (``attention_fwd_reference``,
+    ``attention_bwd_reference``), one KV group at a time, so the f32 scores
+    of a long sequence exist for one group at once; the backward recomputes
+    them.  q (b, H, S, hd), k and v (b, KV, S, hd)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, window):
+        from lightgrad_tpu_torch.ops.attention import attention_fwd_reference
+
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.window = scale, window
+        return torch.cat([attention_fwd_reference(qg, kg, vg, scale, True,
+                                                  window=window)[0]
+                          for (qg,), (kg, vg) in _kv_groups(q, k, v)], 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        from lightgrad_tpu_torch.ops.attention import attention_bwd_reference
+
+        q, k, v = ctx.saved_tensors
+        parts = [attention_bwd_reference(gg, qg, kg, vg, ctx.scale, True,
+                                         window=ctx.window)
+                 for (qg, gg), (kg, vg) in _kv_groups(q, k, v,
+                                                      extra=(g,))]
+        dq, dk, dv = (torch.cat(t, 1) for t in zip(*parts))
+        return dq, dk, dv, None, None
+
+
+def plain_llama(p, cfg, ids):
+    """Logits (b, T, vocab) of ``Llama.forward`` through the plain PyTorch
+    versions of the kernels (``_reference``), differentiable by torch
+    autograd, attention one KV group at a time: the twin of the tape's step
+    and the full-sequence reference of the KV path.  Computes in ``p``'s
+    dtype, every product summed in f32 and rounded once.  Its RoPE tables
+    are its own: pair i of position t turns by t * theta^(-2i / hd), in numpy
+    f32 arithmetic as the model's (torch's f32 power differs by an ulp at
+    some i, which moves position 8191's angles by up to 1e-3)."""
+    from lightgrad_tpu_torch.ops.elementwise import ew_reference
+    from lightgrad_tpu_torch.ops.matmul import matmul_reference
+
+    b, T = ids.shape
+    H, KV, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                 cfg.head_dim)
+    eps, off = cfg.rms_norm_eps, 1.0 if cfg.rms_offset else 0.0
+    emb = p["embed_tokens.weight"]
+    win = cfg.sliding_window or 0
+    win = win if win < T else 0         # the model's rule
+    pair = np.arange(hd // 2, dtype=np.float32)
+    turn = np.float32(1.0) / np.float32(cfg.rope_theta) ** (
+        2 * pair / np.float32(hd))
+    ang = np.arange(T, dtype=np.float32)[:, None] * turn
+    ang = np.concatenate([ang, ang], -1)      # x1 and x2 share pair i's angle
+    cos, sin = (torch.from_numpy(f(ang)).to(device=emb.device,
+                                            dtype=emb.dtype)
+                for f in (np.cos, np.sin))
+
+    def lin(x, name):
+        y = matmul_reference(x, p[name + ".weight"].T)
+        bias = p.get(name + ".bias")
+        return y if bias is None else y + bias
+
+    def rms(x, name):
+        w = p[name + ".weight"]
+        var = (x * x).mean(-1, keepdim=True)
+        return x * (var + eps) ** -0.5 * (w + off if off else w)
+
+    def rope(x):
+        x1, x2 = x[..., :hd // 2], x[..., hd // 2:]
+        return x * cos + torch.cat([-x2, x1], -1) * sin
+
+    def heads(x, n):
+        return x.reshape(b, T, n, hd).transpose(1, 2)
+
+    x = emb[ids]
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype)
+    for l in range(cfg.num_hidden_layers):
+        pre = f"layers.{l}."
+        h = rms(x, pre + "input_layernorm")
+        q = rope(heads(lin(h, pre + "self_attn.q_proj"), H))
+        k = rope(heads(lin(h, pre + "self_attn.k_proj"), KV))
+        v = heads(lin(h, pre + "self_attn.v_proj"), KV)
+        att = _PlainAttention.apply(q, k, v, hd ** -0.5, win)
+        x = x + lin(att.transpose(1, 2).reshape(b, T, H * hd),
+                    pre + "self_attn.o_proj")
+        h2 = rms(x, pre + "post_attention_layernorm")
+        g = lin(h2, pre + "mlp.gate_proj")
+        a = ew_reference("f_gelu", g) if cfg.hidden_act != "silu" \
+            else torch.sigmoid(g) * g
+        x = x + lin(a * lin(h2, pre + "mlp.up_proj"), pre + "mlp.down_proj")
+    x = rms(x, "norm")
+    head = emb if cfg.tie_word_embeddings else p["lm_head.weight"]
+    return matmul_reference(x, head.T)
+
+
+def band_pairs(S, window):
+    """Valid (query, key) pairs of one head under the causal mask, banded
+    by ``window`` (0: none): the work that this call's band needs."""
+    i = np.arange(S)
+    return float(np.minimum(i + 1, window if window else S).sum())
+
+
+def sdpa(q, k, v, band):
+    """One PyTorch call of the same attention: q (H, S, hd), k and v (KV, S,
+    hd) grouped; causal, or under the boolean ``band`` mask."""
+    import torch.nn.functional as F
+
+    if band is None:
+        return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                              is_causal=True, enable_gqa=True)
+    return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                          attn_mask=band, enable_gqa=True)
+
+
+def library_time(what, dtype, timing):
+    """``timing()`` (a library call's milliseconds), or None (logged) where
+    PyTorch refuses the call."""
+    try:
+        return timing()
+    except RuntimeError as e:
+        log(f"  {what} {str(dtype)[6:]}: no library time, PyTorch refused "
+            f"the call: {str(e).splitlines()[0][:160]}")
+        return None
+
+
+def phase_llama_kernels(results):
+    """Phase 3, the LLaMA family's attention kernels: the band (7W, 8W) at
+    a Mistral-7B layer, q (32, 8192, 128) and k/v (8, 8192, 128), window
+    4096; head dim 256 (7D, 8D) at Gemma-2B's prefill, q (8, 8192, 256) and
+    k/v (1, 8192, 256), and its training shape, 2 x 8 heads of 1024; head
+    dim 32 at the char example's 16 x 4 heads of 64, G 2; correctness only
+    at head dims 8, 16 and 80 and at windows of S or more; and decode
+    attention (11D) at Gemma's (1, 8, 256) over W 8192 at pos 4096 and
+    Mistral's (8, 4, 128) at pos 6000, window 4096.  The plain versions run
+    one KV group at a time (a full (32, 8192, 8192) f32 score tensor is 8.6
+    GB); the bounds count the band's pairs only."""
+    import torch.nn.functional as F
+
+    from lightgrad_tpu_torch.ops.attention import (
+        attention_bwd, attention_bwd_dkv, attention_bwd_dq,
+        attention_bwd_reference, attention_fwd_res, attention_fwd_reference)
+    from lightgrad_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference)
+
+    dev, f32 = torch.device("cuda"), torch.float32
+    g = torch.Generator(device=dev).manual_seed(13)
+    M, Gm = MISTRAL_7B, GEMMA_2B
+    mistral = (M["num_attention_heads"], M["num_key_value_heads"],
+               M["max_position_embeddings"],
+               M["hidden_size"] // M["num_attention_heads"],
+               M["sliding_window"])
+    # (variant, H, KV, S, hd, window, with the backward)
+    timed_cases = (("window_", *mistral, True),
+                   ("d256_", Gm["num_attention_heads"],
+                    Gm["num_key_value_heads"], Gm["max_position_embeddings"],
+                    Gm["head_dim"], 0, False),
+                   ("d256_train_", 2 * Gm["num_attention_heads"],
+                    2 * Gm["num_key_value_heads"], 1024, Gm["head_dim"], 0,
+                    True),
+                   ("d32_", 16 * 4, 16 * 2, 64, 32, 0, True))
+    # (H, KV, S, hd, window): correctness only
+    odd_cases = ((8, 4, 256, 8, 100), (8, 4, 256, 16, 256),
+                 (8, 2, 200, 80, 500), (8, 4, 300, 80, 64),
+                 (4, 4, 129, 200, 0))
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = KERNEL_TOL[dtype]
+        isz = torch.tensor([], dtype=dtype).element_size()
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+        for variant, H, KV, S, hd, window, bwd in timed_cases:
+            tag = f"({H}, {S}, {hd}) KV={KV} window={window}"
+            q, k, v, do = rnd(H, S, hd), rnd(KV, S, hd), rnd(KV, S, hd), \
+                rnd(H, S, hd)
+            sc = hd ** -0.5
+            out, lse = attention_fwd_res(q, k, v, sc, True, window=window)
+            got = attention_bwd(do, q, k, v, sc, True, out=out, lse=lse,
+                                window=window) if bwd else None
+            # the first and the last KV group against the plain versions
+            rep = H // KV
+            err, errs = 0.0, [0.0, 0.0, 0.0]
+            for j in sorted({0, KV - 1}):
+                qs, ks = slice(j * rep, (j + 1) * rep), slice(j, j + 1)
+                ro, rl = attention_fwd_reference(q[qs], k[ks], v[ks], sc,
+                                                 True, window=window)
+                err = max(err, check(f"attention_fwd {tag} group {j} out",
+                                     dtype, out[qs], ro, tol))
+                check(f"attention_fwd {tag} group {j} lse", dtype, lse[qs],
+                      rl, KERNEL_TOL[f32])
+                discriminates("attention_fwd", dtype, ro, tol,
+                              torch.zeros_like(ro))
+                if window and j == 0:       # a kernel without the band fails
+                    discriminates("attention_fwd band", dtype, ro, tol,
+                                  attention_fwd_reference(
+                                      q[qs], k[ks], v[ks], sc, True)[0])
+                del ro, rl
+                if bwd:
+                    want = attention_bwd_reference(do[qs], q[qs], k[ks],
+                                                   v[ks], sc, True,
+                                                   window=window)
+                    parts = (got[0][qs], got[1][ks], got[2][ks])
+                    for i, (n, a, w) in enumerate(zip(("dq", "dk", "dv"),
+                                                      parts, want)):
+                        errs[i] = max(errs[i], check(
+                            f"attention_bwd {tag} group {j} {n}", dtype, a, w,
+                            tol))
+                    for w in want:
+                        discriminates("attention_bwd", dtype, w, tol,
+                                      torch.zeros_like(w))
+                    del want
+                torch.cuda.empty_cache()
+            npairs = H * band_pairs(S, window)
+            band = None
+            if window and window < S:
+                i = torch.arange(S, device=dev)
+                band = (i[None, :] <= i[:, None]) \
+                    & (i[:, None] - i[None, :] < window)
+
+            def plain_fwd():
+                for (qg,), (kg, vg) in _kv_groups(q[None], k[None], v[None]):
+                    attention_fwd_reference(qg, kg, vg, sc, True,
+                                            window=window)
+
+            tile, kvt = H * S * hd * isz, KV * S * hd * isz
+            record(results, dtype, "attention_fwd", err,
+                   cuda_ms(lambda: attention_fwd_res(q, k, v, sc, True,
+                                                     window=window)),
+                   cuda_ms(plain_fwd, 2),
+                   cost=(2 * tile + 2 * kvt + H * S * 4, 4 * hd * npairs),
+                   library_ms=library_time(
+                       f"attention_fwd {variant}", dtype,
+                       lambda: cuda_ms(lambda: sdpa(q, k, v, band), 5)),
+                   variant=variant)
+            if bwd:
+                dcap = (do.float() * out.float()).sum(-1).contiguous()
+
+                def plain_bwd():
+                    for (qg, gg), (kg, vg) in _kv_groups(
+                            q[None], k[None], v[None], extra=(do[None],)):
+                        attention_bwd_reference(gg, qg, kg, vg, sc, True,
+                                                window=window)
+
+                def library_bwd():
+                    # the library's backward: dq, dk and dv in one call, its
+                    # time beside both passes
+                    ts = [t.detach().requires_grad_() for t in (q, k, v)]
+                    o = sdpa(*ts, band)
+                    return cuda_ms(lambda: torch.autograd.grad(
+                        o, ts, do[None], retain_graph=True), 5)
+
+                plain_ms = cuda_ms(plain_bwd, 2)
+                lib_ms = library_time(f"attention_bwd {variant}", dtype,
+                                      library_bwd)
+                record(results, dtype, "attention_bwd_dq", errs[0],
+                       cuda_ms(lambda: attention_bwd_dq(
+                           do, q, k, v, lse, dcap, sc, True, window=window)),
+                       plain_ms, cost=(3 * tile + 2 * kvt + 2 * H * S * 4,
+                                       6 * hd * npairs),
+                       library_ms=lib_ms, variant=variant)
+                record(results, dtype, "attention_bwd_dkv", max(errs[1:]),
+                       cuda_ms(lambda: attention_bwd_dkv(
+                           do, q, k, v, lse, dcap, sc, True, window=window)),
+                       plain_ms, cost=(2 * tile + 4 * kvt + 2 * H * S * 4,
+                                       8 * hd * npairs),
+                       library_ms=lib_ms, variant=variant)
+                del dcap
+            del q, k, v, do, out, lse, got, band
+            torch.cuda.empty_cache()
+
+        for H, KV, S, hd, window in odd_cases:
+            tag = f"({H}, {S}, {hd}) KV={KV} window={window}"
+            q, do = rnd(H, S, hd), rnd(H, S, hd)
+            k, v = rnd(KV, S, hd), rnd(KV, S, hd)
+            sc = hd ** -0.5
+            out, lse = attention_fwd_res(q, k, v, sc, True, window=window)
+            got = attention_bwd(do, q, k, v, sc, True, out=out, lse=lse,
+                                window=window)
+            ro, rl = attention_fwd_reference(q, k, v, sc, True,
+                                             window=window)
+            want = attention_bwd_reference(do, q, k, v, sc, True,
+                                           window=window)
+            record(results, dtype, "attention_fwd",
+                   check(f"attention_fwd {tag} out", dtype, out, ro, tol))
+            check(f"attention_fwd {tag} lse", dtype, lse, rl, KERNEL_TOL[f32])
+            errs = [check(f"attention_bwd {tag} {n}", dtype, a, w, tol)
+                    for n, a, w in zip(("dq", "dk", "dv"), got, want)]
+            record(results, dtype, "attention_bwd_dq", errs[0])
+            record(results, dtype, "attention_bwd_dkv", max(errs[1:]))
+
+        # decode attention: (variant, KV, G, hd, W, pos, window)
+        for variant, KV, G, hd, W, pos, window in (
+                ("gemma_", Gm["num_key_value_heads"],
+                 Gm["num_attention_heads"] // Gm["num_key_value_heads"],
+                 Gm["head_dim"], Gm["max_position_embeddings"], 4096, 0),
+                ("mistral_", M["num_key_value_heads"],
+                 M["num_attention_heads"] // M["num_key_value_heads"],
+                 mistral[3], M["max_position_embeddings"], 6000,
+                 M["sliding_window"])):
+            q1 = rnd(KV, G, hd)
+            kc, vc = rnd(KV, W, hd), rnd(KV, W, hd)
+            sc = hd ** -0.5
+            got = decode_attention(q1, kc, vc, pos, sc, window)
+            want = decode_attention_reference(q1, kc, vc, pos, sc, window)
+            lo = max(0, pos - window + 1) if window else 0
+            nv = min(pos, W - 1) + 1 - lo
+            # plausible faults: zeros, the first or the last of the
+            # kernel's 2048-key chunks alone (a broken merge), no band
+            wrong = [torch.zeros_like(want)]
+            if nv > 2048:
+                wrong += [decode_attention_reference(q1, kc, vc, lo + 2047,
+                                                     sc, 2048),
+                          decode_attention_reference(q1, kc, vc, pos, sc,
+                                                     2048)]
+            if window:
+                wrong.append(decode_attention_reference(q1, kc, vc, pos, sc))
+            err = check_rms(f"decode_attention {variant[:-1]} ({KV}, {G}, "
+                            f"{hd}) pos={pos} window={window}", dtype, got,
+                            want, tol, *wrong)
+            del wrong
+            kv_vis = (kc[:, lo:pos + 1][None], vc[:, lo:pos + 1][None])
+            qh = q1.reshape(1, KV * G, 1, hd)
+            record(results, dtype, "decode_attention", err,
+                   cuda_ms(lambda: decode_attention(q1, kc, vc, pos, sc,
+                                                    window)),
+                   cuda_ms(lambda: decode_attention_reference(
+                       q1, kc, vc, pos, sc, window)),
+                   cost=((2 * KV * nv * hd + 2 * KV * G * hd) * isz,
+                         4 * KV * G * nv * hd),
+                   library_ms=library_time(
+                       f"decode_attention {variant}", dtype,
+                       lambda: cuda_ms(lambda: F.scaled_dot_product_attention(
+                           qh, *kv_vis, enable_gqa=True))),
+                   variant=variant)
+            del q1, kc, vc, kv_vis
+        torch.cuda.empty_cache()
+
+
+def llama_model(cfg, dtype, **cut):
+    """A seeded Llama (``lightgrad_tpu_torch.random.seed(0)``) on the card
+    at ``cfg`` (``cut`` overrides fields), its parameters cast to ``dtype``
+    by ``map_parameters``, one at a time (the JAX package's
+    ``amp.cast_module``)."""
+    from lightgrad_tpu_torch import no_grad, random as lg_random
+    from lightgrad_tpu_torch.models.llama import Llama, LlamaConfig
+
+    def cast(t):
+        with no_grad():
+            return t.astype(dtype)._set_requires_grad(t.requires_grad)
+
+    lg_random.seed(0)
+    model = Llama(LlamaConfig(**dict(cfg, **cut)))
+    if dtype != torch.float32:
+        model.map_parameters(cast)
+    torch.cuda.empty_cache()
+    return model
+
+
+def teacher_forced_llama(model, name, dtype, P, steps=4):
+    """Prefill of P random tokens, then ``steps`` cached steps, against the
+    plain full-sequence forward (``plain_llama``) at PATH_TOL."""
+    cfg = model.cfg
+    rng = np.random.default_rng(P)
+    seq = [int(t) for t in rng.integers(0, cfg.vocab_size, P + steps)]
+    fns = model._kv_functions()
+    dev = model.embed_tokens.weight.device
+    toks = torch.zeros(cfg.max_position_embeddings, dtype=torch.long)
+    toks[:P] = torch.tensor(seq[:P])
+    with torch.no_grad():
+        cache, lg = fns.prefill(fns.init_cache(), toks.to(dev), P)
+        rows = [lg]
+        for pos in range(P, len(seq)):
+            cache, lg = fns.step(cache, pos, seq[pos])
+            rows.append(lg)
+        del cache
+        p = {n: t.data for n, t in model.named_parameters()}
+        want = plain_llama(p, cfg, torch.tensor([seq], device=dev))[0, P - 1:]
+    check(f"{name} teacher-forced prefill of {P} + {steps} cached steps vs "
+          f"the plain forward", dtype, torch.stack(rows), want,
+          PATH_TOL[dtype])
+    del rows, want, fns
+    torch.cuda.empty_cache()
+
+
+# kernel-name fragment -> the family a serving call's device time is summed
+# under (bf16 cuBLAS GEMMs on the H100 are nvjet_* kernels)
+SERVING_FAMILIES = (("flash_fwd", "flash forward"),
+                    ("decode_attention", "decode attention"),
+                    ("nvjet", "cuBLAS GEMM"), ("gemm", "cuBLAS GEMM"),
+                    ("cutlass", "cuBLAS GEMM"))
+
+
+def serving_breakdown(model, name, P):
+    """Where a prefill (the prompt padded to the window) and one cached
+    step go: device time by kernel family in one warm call of each traced
+    by torch.profiler, against the call's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fns = model._kv_functions()
+    W = model.cfg.max_position_embeddings
+    dev = model.embed_tokens.weight.device
+    toks = torch.randint(0, model.cfg.vocab_size, (W,), device=dev)
+    cache = fns.init_cache()
+    calls = (("prefill", lambda: fns.prefill(cache, toks, P)),
+             ("step", lambda: fns.step(cache, P, 7)))
+    for what, call in calls:
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as trace:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        fams = sorted({f for _, f in SERVING_FAMILIES}) + ["plain torch"]
+        ms, n = dict.fromkeys(fams, 0.0), dict.fromkeys(fams, 0)
+        for e in trace.events():
+            if e.device_type == DeviceType.CUDA:
+                fam = next((f for k, f in SERVING_FAMILIES if k in e.name),
+                           "plain torch")
+                ms[fam] += e.time_range.elapsed_us() / 1e3
+                n[fam] += 1
+        busy = sum(ms.values())
+        log(f"  {name} {what} (profiled): device {busy:.2f} ms of "
+            f"{wall * 1e3:.2f} ms wall (idle "
+            f"{100 * (1 - busy / (wall * 1e3)):.1f}%): "
+            + ", ".join(f"{f} {t:.2f} ms ({n[f]})" for f, t in ms.items()))
+    del cache, fns
+    torch.cuda.empty_cache()
+
+
+def drive_llama_serving(model, name, prompt_len, batch_lens, engine_lens):
+    """``generate`` (16 new tokens after a ``prompt_len``-token prompt;
+    the decode rate leaves out the prefill, timed apart as a 1-token run),
+    ``generate_batch`` over ragged prompts (8 new tokens) and an
+    ``InferenceEngine`` of 4 slots over 8 ragged requests, with its peak
+    memory and cache bytes.  Returns the launch counts of these calls."""
+    from lightgrad_tpu_torch import InferenceEngine
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(11)
+    prompt = [int(t) for t in rng.integers(0, V, prompt_len)]
+    reset_launch_counts()
+    model.generate(prompt[:8], max_new_tokens=2)    # builds, warms cuBLAS
+    times = {}
+    for n in (1, 16):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.generate(prompt, max_new_tokens=n)
+        torch.cuda.synchronize()
+        times[n] = time.perf_counter() - t0
+    assert len(out) == prompt_len + 16 and all(0 <= t < V for t in out)
+    per_tok = (times[16] - times[1]) / 15
+    log(f"  generate: {prompt_len}-token prompt, 16 new tokens in "
+        f"{times[16]:.3f} s ({16 / times[16]:.1f} tok/s with prefill; "
+        f"prefill {times[1]:.3f} s; decode {per_tok * 1e3:.3f} ms/token, "
+        f"{1 / per_tok:.1f} tok/s)")
+
+    prompts = [[int(t) for t in rng.integers(0, V, n)] for n in batch_lens]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = model.generate_batch(prompts, max_new_tokens=8)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    assert [len(o) for o in outs] == [len(p) + 8 for p in prompts]
+    log(f"  generate_batch: prompts {list(batch_lens)}, 8 new tokens each in "
+        f"{dt:.3f} s ({8 * len(prompts) / dt:.1f} tok/s, prefills "
+        f"included)")
+
+    reqs = [([int(t) for t in rng.integers(0, V, n)],
+             int(rng.integers(4, 17))) for n in engine_lens]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = InferenceEngine(model, slots=4)
+    handles = [engine.submit(p, n) for p, n in reqs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    assert len(done) == len(reqs) and all(r.done for r in handles)
+    for r, (_, n) in zip(handles, reqs):
+        assert r.n_generated == n and all(0 <= t < V for t in r.tokens)
+    ntok = sum(n for _, n in reqs)
+    cache_mb = engine._caches.numel() * engine._caches.element_size() / 1e6
+    log(f"  engine: {len(reqs)} requests (prompts {list(engine_lens)}), "
+        f"{ntok} tokens in {dt:.3f} s ({ntok / dt:.1f} tok/s, prefills "
+        f"included; {engine.stats}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, cache "
+        f"{cache_mb:.1f} MB ({cache_mb / 4:.1f} MB a slot)")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    del engine
+    model.__dict__.pop("_kv_fns", None)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_llama_serving(card):
+    """Serving at the published widths, bfloat16, seeded random weights:
+    Mistral-7B (32 layers; max_position_embeddings cut from 32768 to 8192,
+    the cache window and the prefill length) with a 4500-token prompt, so
+    prefill and decode run past the 4096 band, and Gemma-2B (18 layers, W
+    8192, no cut) with a 1000-token prompt: ``generate``,
+    ``generate_batch``, an engine, and the teacher-forced check against the
+    plain forward; then Mistral-7B's check in float32 at 4 layers.  Returns
+    {path: launch counts}."""
+    counts = {}
+    for name, cfg, P, batch_lens, engine_lens in LLAMA_SERVING:
+        log(f"serving path, {name}, bfloat16, all "
+            f"{cfg['num_hidden_layers']} layers (W "
+            f"{cfg['max_position_embeddings']}):")
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        model = llama_model(cfg, torch.bfloat16)
+        n = sum(t.numel() for t in model.parameters())
+        log(f"  {n / 1e9:.3f} B parameters, "
+            f"{n * 2 / 1e9:.2f} GB in bf16; built in "
+            f"{time.perf_counter() - t0:.1f} s (peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+        counts[name] = drive_llama_serving(model, name, P, batch_lens,
+                                           engine_lens)
+        serving_breakdown(model, name, P)
+        teacher_forced_llama(model, name, torch.bfloat16, P)
+        del model
+        torch.cuda.empty_cache()
+        log(f"  {name} serving phase: {time.perf_counter() - t0:.1f} s")
+    log("serving path, Mistral-7B, float32, 4 layers (the teacher-forced "
+        "check):")
+    _, cfg, P, _, _ = LLAMA_SERVING[0]
+    model = llama_model(cfg, torch.float32, num_hidden_layers=4)
+    teacher_forced_llama(model, "Mistral-7B (4 layers)", torch.float32, P)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_llama_train(card):
+    """Training on the tape, float32, AdamW, LLAMA_STEPS steps on one batch
+    at full width cut to 2 layers: Mistral-7B on 1 x 8192 tokens (the
+    window active) and Gemma-2B on 2 x 1024 (head dim 256).  Step 1's
+    logits and every parameter's gradient against the plain twin
+    (``plain_llama`` under torch autograd); the loss must be finite and
+    fall.  Returns {name: launch counts}."""
+    import torch.nn.functional as F
+
+    from lightgrad_tpu_torch import optim
+    from lightgrad_tpu_torch.autograd import Tensor
+
+    counts = {}
+    for name, cfg, B, S in LLAMA_TRAINING:
+        log(f"training on the tape, {name} (2 of {cfg['num_hidden_layers']} "
+            f"layers), {B} x {S} tokens, float32, AdamW:")
+        t0 = time.perf_counter()
+        model = llama_model(cfg, torch.float32, num_hidden_layers=2)
+        mcfg = model.cfg
+        n = sum(t.numel() for t in model.parameters())
+        V = mcfg.vocab_size
+        ids = np.random.default_rng(12).integers(0, V, (B, S + 1)) \
+            .astype(np.int32)
+        dev = torch.device("cuda")
+        params = {k: t.data.detach().requires_grad_(True)
+                  for k, t in model.named_parameters()}
+        logits = plain_llama(params, mcfg, torch.tensor(ids[:, :-1],
+                                                        device=dev).long())
+        loss = F.cross_entropy(logits.reshape(B * S, V),
+                               torch.tensor(ids[:, 1:].reshape(-1),
+                                            device=dev).long())
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        plain_logits, plain_loss = logits.detach(), loss.item()
+        del params, logits, loss
+        torch.cuda.empty_cache()
+        log(f"  {n / 1e9:.3f} B parameters; plain twin step 1 in "
+            f"{time.perf_counter() - t0:.1f} s (build included)")
+
+        def check_step1(logits, loss):
+            check(f"{name} logits vs the plain twin", torch.float32,
+                  logits.data, plain_logits, PATH_TOL[torch.float32])
+            log(f"  step-1 loss {loss.item():.5f}, plain twin "
+                f"{plain_loss:.5f}")
+            tape_grad_check(model, grads)
+
+        opt = optim.AdamW(list(model.parameters()), lr=LLAMA_LR)
+        counts[name] = tape_steps(
+            model, opt, Tensor.from_numpy(ids[:, :-1], requires_grad=False),
+            Tensor.from_numpy(ids[:, 1:].reshape(-1), requires_grad=False),
+            card, check_step1)
+        del model, opt, grads, plain_logits
+        torch.cuda.empty_cache()
+        log(f"  {name} training phase: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase_llama_example(card):
+    """examples/llama.py's char model on the tape, float32: hidden 128, 4
+    layers, 4 heads, 2 KV heads (head dim 32), 192 positions; Adam at 3e-4,
+    40 steps of 16 x 64 characters of README.md, then ``generate`` of 120
+    tokens at temperature 0.6.  The loss must fall.  Returns the launch
+    counts of both."""
+    from lightgrad_tpu_torch import loss as lg_loss
+    from lightgrad_tpu_torch import optim
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    text = open(os.path.join(here, "README.md")).read()
+    chars = sorted(set(text))
+    stoi = {c: i for i, c in enumerate(chars)}
+    data = np.array([stoi[c] for c in text], dtype=np.int32)
+    steps, batch, seq = 40, 16, 64
+    model = llama_model(dict(CHAR_LLAMA, vocab_size=len(chars)),
+                        torch.float32)
+    opt = optim.Adam(list(model.parameters()), lr=3e-4)
+    rng = np.random.default_rng(0)
+    starts = rng.integers(0, len(data) - seq - 1, steps * batch)
+    xs = Tensor.from_numpy(np.stack([data[s:s + seq] for s in starts]),
+                           requires_grad=False)
+    ys = Tensor.from_numpy(np.stack([data[s + 1:s + seq + 1]
+                                     for s in starts]), requires_grad=False)
+    reset_launch_counts()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        x, y = xs.narrow(i * batch, batch), ys.narrow(i * batch, batch)
+        logits = model(x).reshape(batch * seq, len(chars))
+        loss = lg_loss.cross_entropy(logits, y.reshape(-1))
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    dt = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = model.generate([stoi.get(c, 0) for c in "lightgrad"],
+                         max_new_tokens=120, temperature=0.6)
+    gen_s = time.perf_counter() - t0
+    counts = launch_counts()
+    ok = all(np.isfinite(losses)) and np.mean(losses[-5:]) < np.mean(
+        losses[:5])
+    log(f"  corpus {len(data)} chars, vocab {len(chars)}; losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} over {steps} steps "
+        f"({steps / dt:.1f} steps/s; {'falling' if ok else 'FAIL'})")
+    log(f"  generate: 120 tokens in {gen_s:.2f} s ({120 / gen_s:.1f} tok/s): "
+        f"{''.join(chars[i] for i in out)!r}")
+    if not ok or len(out) != 9 + 120:
+        raise AssertionError(f"char LLaMA: losses {losses}, {len(out)} "
+                             f"tokens")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2300,6 +3047,9 @@ def main():
     phase_flash_kernels(results)
     phase_tape_kernels(results)
     phase_conv_kernels(results)
+    t0 = time.perf_counter()
+    phase_llama_kernels(results)
+    log(f"  LLaMA-family kernel checks: {time.perf_counter() - t0:.1f} s")
 
     # 4.-9. each path, with the kernels it launched
     launches = dict.fromkeys(KERNELS, 0)
@@ -2367,6 +3117,15 @@ def main():
         tally(name, counts, CONV_PATH_KERNELS)
     log("narrow at a device start:")
     phase_narrow()
+    for name, counts in phase_llama_serving(card).items():
+        tally(f"{name} serving", counts, LLAMA_SERVING_KERNELS)
+    for name, counts in phase_llama_train(card).items():
+        tally(f"{name} training", counts, LLAMA_TRAIN_KERNELS)
+    log("examples/llama.py's char model on the tape, float32:")
+    t0 = time.perf_counter()
+    tally("char LLaMA", phase_llama_example(card),
+          LLAMA_TRAIN_KERNELS + ("decode_attention",))
+    log(f"  char LLaMA phase: {time.perf_counter() - t0:.1f} s")
     missing = [k for k in KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels no path launched: {missing}")

@@ -8,7 +8,9 @@ the nn/loss/optim layers over it, int8 ``quant`` and BERT on it; and, on
 engine, int8 weights and KV cache) and training (forward, losses,
 optimizers, master-weight AMP).  The tape also carries the vision path:
 convolution, BatchNorm and pooling layers, ResNet (``models.resnet18``,
-``resnet20``) and the ``data`` pipeline (``DeviceDataset``, MNIST).  Both
+``resnet20``) and the ``data`` pipeline (``DeviceDataset``, MNIST), and the
+LLaMA family (``Llama``: LLaMA, Mistral's sliding window, Qwen2, Gemma),
+trained on the tape and served through its KV functions.  Both
 run on hand-written Hopper kernels on a CUDA device and on their plain
 PyTorch versions on the CPU."""
 
@@ -16,7 +18,8 @@ from . import (amp, autograd, data, loss, models, nn, ops, optim, quant,
                random)
 from .autograd import (AbstractTensor, CudaTensor, Function, Gradients,
                        Tensor, no_grad)
-from .models import GPT, GPTConfig, ByteTokenizer, generate_batch
+from .models import (GPT, GPTConfig, ByteTokenizer, Llama, LlamaConfig,
+                     RMSNorm, generate_batch)
 from .serving import InferenceEngine, Request
 from .weights import load_numpy_params
 
@@ -37,5 +40,5 @@ __all__ = ["amp", "autograd", "data", "loss", "models", "nn", "ops", "optim",
            "AbstractTensor", "CudaTensor", "Function", "Gradients", "Tensor",
            "no_grad", "empty", "zeros", "ones", "uniform", "xavier",
            "from_numpy", "einsum", "GPT", "GPTConfig", "ByteTokenizer",
-           "generate_batch", "InferenceEngine", "Request",
+           "Llama", "LlamaConfig", "RMSNorm", "generate_batch", "InferenceEngine", "Request",
            "load_numpy_params"]

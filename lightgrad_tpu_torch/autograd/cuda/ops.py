@@ -609,7 +609,10 @@ class attention(Function):
 
     ``lengths``: per-example valid lengths of right-padded keys; a (batch,)
     vector is repeated over the remaining leading (head) dims and goes to
-    the flash kernels as int32.  ``window`` raises on CUDA (not ported)."""
+    the flash kernels as int32.  ``window`` > 0 (causal only): the sliding
+    band i - window < j <= i, inside the flash kernels in both directions.
+    k and v may carry fewer heads than q (grouped-query, kv-major): the
+    kernels serve each KV head's query heads without a repeated copy."""
 
     def forward(ctx, q, k, v, scale: float, causal: bool = False,
                 lengths=None, window: int = 0):

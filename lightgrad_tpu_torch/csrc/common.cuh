@@ -82,3 +82,24 @@ __device__ __forceinline__ float lg_warp_max(float v) {
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
+
+// Widen rows [r0, r0 + R) of a (S, d) slab into shared f32 rows of D
+// columns; rows past S and columns past d are zero.  With NT threads a
+// multiple of D / 4, a thread keeps one column word, so its column test
+// and row stride are set once, not per element.
+template <typename T, int D, int R, int NT>
+__device__ __forceinline__ void lg_stage(float4 (*dst)[D / 4], const T* src,
+                                         int r0, int S, int d) {
+  constexpr int D4 = D / 4, kStep = NT / D4;
+  static_assert(NT % D4 == 0 && R % kStep == 0, "uneven tile staging");
+  const int c4 = threadIdx.x % D4, r1 = threadIdx.x / D4;
+  const bool col = c4 * 4 < d;
+  const T* p = src + (size_t)(r0 + r1) * d + c4 * 4;
+#pragma unroll
+  for (int i = 0; i < R / kStep; ++i) {
+    const int r = r1 + i * kStep;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (col && r0 + r < S) val = lg_load4(p + (size_t)i * kStep * d);
+    dst[r][c4] = val;
+  }
+}

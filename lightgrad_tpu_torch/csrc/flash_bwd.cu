@@ -16,15 +16,15 @@
 // resident operand per group of TPR = D / 16 adjacent threads, each thread
 // owning 16 of the D columns in float4 chunks (interleaved, so the group reads
 // TPR adjacent 16-byte words of a shared row: a broadcast, no bank conflict);
-// per-thread registers are therefore the same at D = 64 and D = 128.  (With
+// per-thread registers are therefore the same at every D.  (With
 // 32 columns a thread, the dk/dv pass's four row-sized register arrays
 // spilled at 255 registers.)  The streamed operand is widened to f32 in
 // shared memory once per tile and read by every row of the block.  Partial
 // dot products are reduced across the group with shuffles, four streamed rows
 // at a time for ILP.
 //
-//   dq pass: block = (bh, 64 query rows; 32 at D = 128); q, do and the dq
-//     accumulator live in registers; K and V tiles stream.
+//   dq pass: block = (bh, 64 query rows; 32 at D = 128, 16 at D = 256);
+//     q, do and the dq accumulator live in registers; K and V tiles stream.
 //     dq_i = scale * sum_j ds_ij k_j.  The pass also refines dcap against
 //     its own p and dp: dcap = rowsum(dO * O) holds the row sum of p * dp
 //     only to f32 rounding, and where a row of dp is nearly constant,
@@ -35,10 +35,10 @@
 //     c_i = r_i / P_i - dlse_i gives dq_i -= scale * c_i * a_i, and
 //     dcap_i + c_i goes to the dk/dv pass (as ops/softmax.py takes its row
 //     sum in two passes).
-//   dk/dv pass: block = (KV row block, 64 key rows; 32 at D = 128); k, v and
-//     both accumulators live in registers; Q, dO, lse and dcap tiles stream,
-//     for all G query heads of the group in turn (TPU: the inner grid index
-//     walks the (head, q block) pairs).  dv_j = sum_i p_ij do_i,
+//   dk/dv pass: block = (KV row block, 64 key rows; 32 at D = 128, 16 at
+//     D = 256); k, v and both accumulators live in registers; Q, dO, lse
+//     and dcap tiles stream, for all G query heads of the group in turn
+//     (TPU: the inner grid index walks the (head, q block) pairs).  dv_j = sum_i p_ij do_i,
 //     dk_j = scale * sum_i ds_ij q_i, with ds_ij = p_ij (dp_ij - dcap_i).
 //
 //   fused (TPU: _flash_bwd_fused -> _bwd_fused_kernel): block = (bh, 64 key
@@ -61,6 +61,22 @@
 // loaded.  Under GQA each query head bh = bkv * G + g of the dk/dv pass reads
 // its own length.
 //
+// Optional sliding window `window` (> 0, causal only, both passes; TPU:
+// _valid_mask's band and _pair_relevant's lower edge): a pair (i, j) counts
+// only if i - j < window as well.  The dq pass starts at the first K tile
+// that reaches its first row's band; the dk/dv pass walks, for each of the
+// G query heads of its KV row, only the query tiles in [k0, k0 + kRows - 1
+// + window - 1], the rows whose band reaches one of its keys.
+//
+// Head dims, both passes: any d with d % 8 == 0 and 8 <= d <= 256.  Cfg<D>
+// is instantiated at D = 32, 64, 128 and 256; another d runs the next wider
+// D with rows at stride d, the columns >= d loaded as zeros and never
+// stored.  Each thread owns 16 columns at every D, so TPR = D / 16 threads
+// share a row (16 at D = 256), and the rows a block holds drop with D so that
+// a block stays at 256 threads or fewer (16 rows at D = 256: 256 threads of
+// up to 255 registers fill the SM's 65,536).  The fused kernel takes D 64 and
+// 128 only, at d == D.
+//
 // No atomics; every sum is taken in a fixed order, so results are
 // deterministic.  Under `causal`, tiles wholly above the diagonal are never
 // loaded (TPU: _pair_relevant).  Masks select and never multiply, so padded
@@ -76,11 +92,12 @@ constexpr int kSub = 4;  // streamed rows per shuffle round
 template <int D>
 struct Cfg {
   static constexpr int TPR = D / 16;  // threads per resident row
-  // resident rows (queries or keys) per block: 256 threads at both widths,
-  // so that a thread may use up to 255 registers
-  static constexpr int kRows = (D == 128) ? 32 : 64;
+  // resident rows (queries or keys) per block: 128 threads at D = 32, 256
+  // at the wider D, so that a thread may use up to 255 registers
+  static constexpr int kRows = (D == 256) ? 16 : (D == 128) ? 32 : 64;
   static constexpr int kThreads = kRows * TPR;
-  static constexpr int BS = (D == 128) ? 32 : 64;  // streamed rows per tile
+  // streamed rows per tile
+  static constexpr int BS = (D == 256) ? 16 : (D == 128) ? 32 : 64;
   static constexpr int D4 = D / 4;             // float4 words in a row
   static constexpr int NC = 4;                 // float4 words a thread owns
 };
@@ -107,18 +124,10 @@ __device__ __forceinline__ void axpy4(float s, float4 x, float4& y) {
   y.w = fmaf(s, x.w, y.w);
 }
 
-// Widen rows [r0, r0 + BS) of a (S, D) slab into shared f32; rows past S
-// are zero.
-template <typename T, int D, int BS, int NT>
-__device__ __forceinline__ void stage(float4 (*dst)[D / 4], const T* src,
-                                      int r0, int S) {
-  constexpr int D4 = D / 4;
-  for (int e = threadIdx.x; e < BS * D4; e += NT) {
-    const int r = e / D4, c4 = e % D4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < S) val = lg_load4(src + (size_t)(r0 + r) * D + c4 * 4);
-    dst[r][c4] = val;
-  }
+// Four consecutive columns of a row at column `col`: zeros past d.
+template <typename T>
+__device__ __forceinline__ float4 load_cols(const T* row, int col, int d) {
+  return col < d ? lg_load4(row + col) : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 template <typename T, int D>
@@ -129,8 +138,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ dcap,
                     const float* __restrict__ dlse, T* __restrict__ dq,
                     float* __restrict__ dcap_out,
-                    const int* __restrict__ lens, int S, int G, float scale,
-                    int causal) {
+                    const int* __restrict__ lens, int S, int G, int d,
+                    float scale, int causal, int window) {
   using C = Cfg<D>;
   constexpr int TPR = C::TPR, BS = C::BS, D4 = C::D4, NC = C::NC;
   __shared__ float4 Ks[BS][D4];
@@ -143,14 +152,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qi = q0 + row;
   const int limit = lens ? max(0, min(lens[bh], S)) : S;
   const size_t rq = (size_t)bh * S + min(qi, S - 1);
-  const T* kb = k + (size_t)(bh / G) * S * D;
-  const T* vb = v + (size_t)(bh / G) * S * D;
+  const T* kb = k + (size_t)(bh / G) * S * d;
+  const T* vb = v + (size_t)(bh / G) * S * d;
 
   float4 qr[NC], dor[NC], acc[NC], pk[NC];  // pk: sum_j p_ij k_j
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    qr[c] = lg_load4(q + rq * D + (c * TPR + part) * 4);
-    dor[c] = lg_load4(dout + rq * D + (c * TPR + part) * 4);
+    qr[c] = load_cols(q + rq * d, (c * TPR + part) * 4, d);
+    dor[c] = load_cols(dout + rq * d, (c * TPR + part) * 4, d);
     acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     pk[c] = acc[c];
   }
@@ -160,12 +169,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int nkt = (limit + BS - 1) / BS;
   if (causal) nkt = min(nkt, (q0 + C::kRows - 1) / BS + 1);
   if (q0 >= limit) nkt = 0;  // every query row of the block is padding
+  // the band's lower edge: keys before the first row's band are dead
+  const int kt0 = window > 0 ? max(0, q0 - window + 1) / BS : 0;
+  // this row's valid keys: [klo, khi] (empty for a padded row)
+  const int klo = window > 0 ? qi - window + 1 : 0;
+  const int khi =
+      qi < limit ? (causal ? min(qi, limit - 1) : limit - 1) : -1;
 
-  for (int kt = 0; kt < nkt; ++kt) {
+  for (int kt = kt0; kt < nkt; ++kt) {
     const int k0 = kt * BS;
     __syncthreads();  // the previous tile is no longer read
-    stage<T, D, BS, C::kThreads>(Ks, kb, k0, S);
-    stage<T, D, BS, C::kThreads>(Vs, vb, k0, S);
+    lg_stage<T, D, BS, C::kThreads>(Ks, kb, k0, S, d);
+    lg_stage<T, D, BS, C::kThreads>(Vs, vb, k0, S, d);
     __syncthreads();
 
     for (int j0 = 0; j0 < BS; j0 += kSub) {
@@ -189,7 +204,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < kSub; ++jj) {
         const int kj = k0 + j0 + jj;
-        const bool valid = kj < limit && qi < limit && (!causal || kj <= qi);
+        const bool valid = kj >= klo && kj <= khi;
         const float p = valid ? expf(s[jj] * scale - lse_i) : 0.f;
         const float ds = valid ? p * (dp[jj] - dcap_i) : 0.f;
         rsum += ds;
@@ -208,13 +223,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // a row with no valid key (padding) has P = 0 and no correction
     const float corr =
         psum > 0.f ? rsum / psum - (dlse ? dlse[rq] : 0.f) : 0.f;
-    T* out = dq + ((size_t)bh * S + qi) * D;
+    T* out = dq + ((size_t)bh * S + qi) * d;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       axpy4(-corr, pk[c], acc[c]);
-      lg_store4(out + (c * TPR + part) * 4,
-                make_float4(acc[c].x * scale, acc[c].y * scale,
-                            acc[c].z * scale, acc[c].w * scale));
+      const int col = (c * TPR + part) * 4;
+      if (col < d)
+        lg_store4(out + col, make_float4(acc[c].x * scale, acc[c].y * scale,
+                                         acc[c].z * scale, acc[c].w * scale));
     }
     if (dcap_out && part == 0) dcap_out[rq] = dcap_i + corr;
   }
@@ -227,7 +243,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ dcap, T* __restrict__ dk,
                      T* __restrict__ dv, const int* __restrict__ lens, int S,
-                     int G, float scale, int causal) {
+                     int G, int d, float scale, int causal, int window) {
   using C = Cfg<D>;
   constexpr int TPR = C::TPR, BS = C::BS, D4 = C::D4, NC = C::NC;
   __shared__ float4 Qs[BS][D4];
@@ -245,8 +261,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float4 kr[NC], vr[NC], dka[NC], dva[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    kr[c] = lg_load4(k + rk * D + (c * TPR + part) * 4);
-    vr[c] = lg_load4(v + rk * D + (c * TPR + part) * 4);
+    kr[c] = load_cols(k + rk * d, (c * TPR + part) * 4, d);
+    vr[c] = load_cols(v + rk * d, (c * TPR + part) * 4, d);
     dka[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     dva[c] = dka[c];
   }
@@ -258,14 +274,22 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int bh = bkv * G + g;
     const int limit = lens ? max(0, min(lens[bh], S)) : S;
     if (k0 >= limit) continue;  // this head sees none of the block's keys
-    const int nqt = (limit + BS - 1) / BS;
-    const T* qb = q + (size_t)bh * S * D;
-    const T* ob = dout + (size_t)bh * S * D;
+    // window: rows past k0 + kRows - 1 + window - 1 see none of its keys
+    const int qend =
+        window > 0 ? min(limit, k0 + C::kRows - 1 + window) : limit;
+    const int nqt = (qend + BS - 1) / BS;
+    // the query rows that see this thread's key: [qlo, qhi]
+    const int qlo = causal ? kj : 0;
+    const int qhi = kj < limit ? (window > 0 ? min(limit - 1, kj + window - 1)
+                                             : limit - 1)
+                               : -1;
+    const T* qb = q + (size_t)bh * S * d;
+    const T* ob = dout + (size_t)bh * S * d;
     for (int qt = qt0; qt < nqt; ++qt) {
       const int q0 = qt * BS;
       __syncthreads();  // the previous tile is no longer read
-      stage<T, D, BS, C::kThreads>(Qs, qb, q0, S);
-      stage<T, D, BS, C::kThreads>(Os, ob, q0, S);
+      lg_stage<T, D, BS, C::kThreads>(Qs, qb, q0, S, d);
+      lg_stage<T, D, BS, C::kThreads>(Os, ob, q0, S, d);
       for (int r = t; r < BS; r += C::kThreads) {
         const bool in = q0 + r < S;
         Ls[r] = in ? lse[(size_t)bh * S + q0 + r] : 0.f;
@@ -294,7 +318,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int ii = 0; ii < kSub; ++ii) {
           const int qi = q0 + i0 + ii;
-          const bool valid = qi < limit && kj < limit && (!causal || kj <= qi);
+          const bool valid = qi >= qlo && qi <= qhi;
           const float p = valid ? expf(s[ii] * scale - Ls[i0 + ii]) : 0.f;
           const float ds = valid ? p * (dp[ii] - Ds[i0 + ii]) : 0.f;
 #pragma unroll
@@ -308,11 +332,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (kj < S) {
-    T* dkr = dk + ((size_t)bkv * S + kj) * D;
-    T* dvr = dv + ((size_t)bkv * S + kj) * D;
+    T* dkr = dk + ((size_t)bkv * S + kj) * d;
+    T* dvr = dv + ((size_t)bkv * S + kj) * d;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = (c * TPR + part) * 4;
+      if (col >= d) continue;
       lg_store4(dkr + col, make_float4(dka[c].x * scale, dka[c].y * scale,
                                        dka[c].z * scale, dka[c].w * scale));
       lg_store4(dvr + col, dva[c]);
@@ -320,30 +345,57 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The operands of a two-pass backward call; `dlse`, `dq` and `dcap_out` are
+// the dq pass's, `dk` and `dv` the dk/dv pass's.
+struct BwdArgs {
+  const void *q, *k, *v, *dout, *lse, *dcap, *dlse;
+  void *dq, *dcap_out, *dk, *dv;
+  const void* lens;
+  int BH, G, S, d;
+  float scale;
+  int causal, window;
+};
+
 template <typename T, int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* dcap, const void* dlse, void* dq,
-              void* dcap_out, const void* lens, int BH, int G, int S,
-              float scale, int causal, cudaStream_t stream) {
-  dim3 grid((S + Cfg<D>::kRows - 1) / Cfg<D>::kRows, BH);
+int launch_dq(const BwdArgs& a, cudaStream_t stream) {
+  dim3 grid((a.S + Cfg<D>::kRows - 1) / Cfg<D>::kRows, a.BH);
   flash_bwd_dq_kernel<T, D><<<grid, Cfg<D>::kThreads, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)dcap, (const float*)dlse, (T*)dq,
-      (float*)dcap_out, (const int*)lens, S, G, scale, causal);
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
+      (const float*)a.lse, (const float*)a.dcap, (const float*)a.dlse,
+      (T*)a.dq, (float*)a.dcap_out, (const int*)a.lens, a.S, a.G, a.d,
+      a.scale, a.causal, a.window);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* dcap, void* dk, void* dv,
-               const void* lens, int BH, int G, int S, float scale,
-               int causal, cudaStream_t stream) {
-  dim3 grid((S + Cfg<D>::kRows - 1) / Cfg<D>::kRows, BH / G);
+int launch_dkv(const BwdArgs& a, cudaStream_t stream) {
+  dim3 grid((a.S + Cfg<D>::kRows - 1) / Cfg<D>::kRows, a.BH / a.G);
   flash_bwd_dkv_kernel<T, D><<<grid, Cfg<D>::kThreads, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)dcap, (T*)dk, (T*)dv,
-      (const int*)lens, S, G, scale, causal);
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
+      (const float*)a.lse, (const float*)a.dcap, (T*)a.dk, (T*)a.dv,
+      (const int*)a.lens, a.S, a.G, a.d, a.scale, a.causal, a.window);
   return (int)cudaGetLastError();
+}
+
+// The pass `dkv` (0: dq, 1: dk/dv) at the narrowest instantiation that
+// holds d columns.
+template <typename T>
+int launch_pass(int dkv, const BwdArgs& a, cudaStream_t st) {
+  if (a.d <= 32)
+    return dkv ? launch_dkv<T, 32>(a, st) : launch_dq<T, 32>(a, st);
+  if (a.d <= 64)
+    return dkv ? launch_dkv<T, 64>(a, st) : launch_dq<T, 64>(a, st);
+  if (a.d <= 128)
+    return dkv ? launch_dkv<T, 128>(a, st) : launch_dq<T, 128>(a, st);
+  return dkv ? launch_dkv<T, 256>(a, st) : launch_dq<T, 256>(a, st);
+}
+
+int run_pass(int dkv, const BwdArgs& a, int is_bf16, void* stream) {
+  if (a.d % 8 != 0 || a.d < 8 || a.d > 256) return (int)cudaErrorInvalidValue;
+  if (a.BH <= 0 || a.S <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  return is_bf16 ? launch_pass<__nv_bfloat16>(dkv, a, st)
+                 : launch_pass<float>(dkv, a, st);
 }
 
 // Shared memory of the fused kernel, in bytes: the streamed Q and dO tiles,
@@ -397,7 +449,7 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
     dka[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     dva[c] = dka[c];
   }
-  stage<T, D, KR, C::kThreads>(Ks, k + (size_t)bh * S * D, k0, S);
+  lg_stage<T, D, KR, C::kThreads>(Ks, k + (size_t)bh * S * D, k0, S, D);
 
   const int nqt = (S + BS - 1) / BS;
   // causal: query tiles wholly before this key block see none of its keys;
@@ -411,8 +463,8 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int qt = qt0; qt < nqt; ++qt) {
     const int q0 = qt * BS;
     __syncthreads();  // the previous tile and its ds are no longer read
-    stage<T, D, BS, C::kThreads>(Qs, qb, q0, S);
-    stage<T, D, BS, C::kThreads>(Os, ob, q0, S);
+    lg_stage<T, D, BS, C::kThreads>(Qs, qb, q0, S, D);
+    lg_stage<T, D, BS, C::kThreads>(Os, ob, q0, S, D);
     for (int r = t; r < BS; r += C::kThreads) {
       const bool in = q0 + r < S;
       Ls[r] = in ? lse[(size_t)bh * S + q0 + r] : 0.f;
@@ -514,60 +566,35 @@ int launch_fused(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// `lens` is null or BH int32 valid lengths; for the dq pass, `dlse` is null
-// or lse's cotangent (dcap = rowsum(dO * O) - dlse), and `dcap_out` null or
-// where the refined dcap goes.  All three entries return
-// cudaErrorInvalidValue for a head dimension the kernels lack.
+// `lens` is null or BH int32 valid lengths and `window` 0 (no band) or the
+// band's width; for the dq pass, `dlse` is null or lse's cotangent (dcap =
+// rowsum(dO * O) - dlse), and `dcap_out` null or where the refined dcap goes.
+// The two passes return cudaErrorInvalidValue for a head dimension they lack
+// (d % 8 != 0, d < 8 or d > 256), the fused kernel for d other than 64 and
+// 128.
 int lg_flash_bwd_dq(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* dcap,
                     const void* dlse, void* dq, void* dcap_out,
                     const void* lens, int BH, int G, int S, int D,
-                    float scale, int causal, int is_bf16, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (BH <= 0 || S <= 0) return 0;
-  if (D == 64) {
-    return is_bf16 ? launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, dcap,
-                                                  dlse, dq, dcap_out, lens,
-                                                  BH, G, S, scale, causal, st)
-                   : launch_dq<float, 64>(q, k, v, dout, lse, dcap, dlse, dq,
-                                          dcap_out, lens, BH, G, S, scale,
-                                          causal, st);
-  }
-  if (D == 128) {
-    return is_bf16 ? launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, dcap,
-                                                   dlse, dq, dcap_out, lens,
-                                                   BH, G, S, scale, causal,
-                                                   st)
-                   : launch_dq<float, 128>(q, k, v, dout, lse, dcap, dlse, dq,
-                                           dcap_out, lens, BH, G, S, scale,
-                                           causal, st);
-  }
-  return (int)cudaErrorInvalidValue;
+                    float scale, int causal, int window, int is_bf16,
+                    void* stream) {
+  const BwdArgs a{q,  k,        v,       dout,    lse,    dcap,
+                  dlse, dq,      dcap_out, nullptr, nullptr, lens,
+                  BH, G,        S,       D,       scale,  causal,
+                  window};
+  return run_pass(0, a, is_bf16, stream);
 }
 
 int lg_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* dcap,
                      void* dk, void* dv, const void* lens, int BH, int G,
-                     int S, int D, float scale, int causal, int is_bf16,
-                     void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (BH <= 0 || S <= 0) return 0;
-  if (D == 64) {
-    return is_bf16 ? launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, dcap,
-                                                   dk, dv, lens, BH, G, S,
-                                                   scale, causal, st)
-                   : launch_dkv<float, 64>(q, k, v, dout, lse, dcap, dk, dv,
-                                           lens, BH, G, S, scale, causal, st);
-  }
-  if (D == 128) {
-    return is_bf16 ? launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, dcap,
-                                                    dk, dv, lens, BH, G, S,
-                                                    scale, causal, st)
-                   : launch_dkv<float, 128>(q, k, v, dout, lse, dcap, dk, dv,
-                                            lens, BH, G, S, scale, causal,
-                                            st);
-  }
-  return (int)cudaErrorInvalidValue;
+                     int S, int D, float scale, int causal, int window,
+                     int is_bf16, void* stream) {
+  const BwdArgs a{q,       k,       v,       dout, lse,  dcap,
+                  nullptr, nullptr, nullptr, dk,   dv,   lens,
+                  BH,      G,       S,       D,    scale, causal,
+                  window};
+  return run_pass(1, a, is_bf16, stream);
 }
 
 int lg_flash_bwd_fused(const void* q, const void* k, const void* v,

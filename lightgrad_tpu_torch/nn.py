@@ -3,7 +3,8 @@
 Counterpart of ``lightgrad_tpu/nn.py`` for the layers the ported paths
 need, with its names and parameter names: ``Module`` (``parameters``,
 ``named_parameters``, ``register_buffer``, ``named_buffers``,
-``load_parameters``, ``state_dict``, ``train``/``eval``), ``ModuleList``,
+``map_parameters``, ``load_parameters``, ``state_dict``,
+``train``/``eval``), ``ModuleList``,
 ``Sequential``, ``Linear``, ``Conv2d``, ``ConvTranspose2d``,
 ``BatchNorm2d``, ``GroupNorm``, ``MaxPool2d``, ``AvgPool2d``,
 ``Embedding``, ``LayerNorm``, ``Dropout``, ``ReLU``, ``GELU``, ``Tanh``,
@@ -112,6 +113,17 @@ class Module:
         """Zero every parameter's gradient."""
         for p in self.parameters():
             p.zero_grad()
+        return self
+
+    def map_parameters(self, fn):
+        """Rebind every parameter to ``fn(parameter)``, recursively (e.g.
+        ``lambda p: p.astype("bfloat16")`` to serve in bf16).  Decode
+        functions built over the old tensors (``_kv_fns``) are dropped."""
+        for key, p in list(self._params.items()):
+            self.__setattr__(key, fn(p))
+        for m in self._modules.values():
+            m.map_parameters(fn)
+        self.__dict__.pop("_kv_fns", None)
         return self
 
     def load_parameters(self, param_dict: dict, prefix: str = "",

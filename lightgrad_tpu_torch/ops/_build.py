@@ -34,17 +34,17 @@ _GEOM = ctypes.POINTER(ctypes.c_int)
 # cudaError_t as an int.
 _SIGNATURES = {
     # q, k, v, out, lse, lens (null or BH int32), BH, G, S, D, scale, causal,
-    # is_bf16, stream
-    "lg_flash_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+    # window, is_bf16, stream
+    "lg_flash_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
                       _P], _I),
     # q, k, v, do, lse, dcap, dlse, dq, dcap_out, lens, BH, G, S, D, scale,
-    # causal, is_bf16, stream
+    # causal, window, is_bf16, stream
     "lg_flash_bwd_dq": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _I, _F, _I, _I, _P], _I),
+                         _I, _F, _I, _I, _I, _P], _I),
     # q, k, v, do, lse, dcap, dk, dv, lens, BH, G, S, D, scale, causal,
-    # is_bf16, stream
+    # window, is_bf16, stream
     "lg_flash_bwd_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _F, _I, _I, _P], _I),
+                          _F, _I, _I, _I, _P], _I),
     # q, k, v, do, lse, dcap, dq slabs, dk, dv, BH, S, D, scale, causal,
     # is_bf16, stream
     "lg_flash_bwd_fused": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

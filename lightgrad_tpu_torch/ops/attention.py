@@ -6,7 +6,9 @@ flash-forward kernel (``csrc/flash_fwd.cu``) and :func:`attention_bwd` the
 flash backward (``csrc/flash_bwd.cu``): the two passes, the dq pass
 :func:`attention_bwd_dq` and the dk/dv pass :func:`attention_bwd_dkv`, or,
 after ``set_flash_fused(True)`` and where its rule allows, the fused kernel
-:func:`attention_bwd_fused`.  All three kernels take per-row ``lengths``.
+:func:`attention_bwd_fused`.  All three kernels take per-row ``lengths``;
+the forward and the two passes take a causal sliding ``window`` and any head
+dim d with d % 8 == 0, 8 <= d <= 256 (the fused kernel d 64 and 128).
 :func:`flash_block_fwd` / :func:`flash_block_bwd` are the two directions of
 ``flash_block`` (``autograd/ops.py``): (out, lse) differentiable through
 lse.  On CPU tensors every wrapper runs its plain version.
@@ -34,15 +36,15 @@ _NEG_INF = -1e30
 _FUSED_BWD = False
 # Key rows per block of the fused kernel by head dim: Cfg<D>::kRows of
 # csrc/flash_bwd.cu, which asserts these values.  dq is the sum of one slab
-# per block, in the kernel and in its plain version.
+# per block, in the kernel and in its plain version.  The fused kernel takes
+# these head dims only; the others are ROADMAP queue 2 row 9D.
 FUSED_ROWS = {64: 64, 128: 32}
-_LLAMA_SLICE = "ROADMAP.md queue 1 item 2, the LLaMA slice"
 
 
 def set_flash_fused(on: bool) -> bool:
     """Let :func:`attention_bwd` take the fused backward kernel where it
-    can (no ``lengths``, no ``window``, G == 1); returns the previous
-    setting."""
+    can (no ``lengths``, no ``window``, G == 1, head dim 64 or 128);
+    returns the previous setting."""
     global _FUSED_BWD
     prev = _FUSED_BWD
     _FUSED_BWD = bool(on)
@@ -125,7 +127,7 @@ def attention_bwd_reference(g, q, k, v, scale: float, causal: bool = False,
 
 
 def _bwd_from_residuals(g, q, k, v, lse, dcap, scale, causal, lengths=None,
-                        slab_rows=None, refine=False, dlse=None):
+                        slab_rows=None, refine=False, dlse=None, window=0):
     """Plain PyTorch (dq, dk, dv, dcap) in the flash kernels' own
     arithmetic, from the forward's ``lse`` and ``dcap`` (rowsum(g * out),
     less lse's cotangent ``dlse`` where there is one): p = exp(s * scale -
@@ -141,7 +143,7 @@ def _bwd_from_residuals(g, q, k, v, lse, dcap, scale, causal, lengths=None,
     p = torch.exp(scores - lse.reshape(bkv, groups, s, 1).float())
     dp = torch.einsum("bgqd,bkd->bgqk", g4, v3)
     ds = p * (dp - dcap.reshape(bkv, groups, s, 1).float())
-    keys, rows = _masks(bkv, groups, s, q.device, causal, lengths, 0)
+    keys, rows = _masks(bkv, groups, s, q.device, causal, lengths, window)
     for m in (keys, rows):
         if m is not None:       # select: masked scores may overflow exp
             p, ds = torch.where(m, p, 0.0), torch.where(m, ds, 0.0)
@@ -183,15 +185,16 @@ def _check(fn, q, k, v, **same_as_q):
     s, d = q.shape[-2], q.shape[-1]
     b, bkv = prod(q.shape[:-2]), prod(k.shape[:-2])
     for name, t in dict(q=q, k=k, v=v, **same_as_q).items():
+        # 16-byte rows: the kernels read four elements at a time
         if t.device != q.device or t.dtype != q.dtype \
-                or not t.is_contiguous():
-            raise ValueError(f"{fn}: {name} must be a contiguous tensor of "
-                             f"q's device and dtype")
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must be a contiguous, 16-byte "
+                             f"aligned tensor of q's device and dtype")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{fn}: unsupported dtype {q.dtype}")
-    if d not in (64, 128):
-        raise ValueError(f"{fn}: head dim {d} not in (64, 128) on CUDA "
-                         f"(other head dims: {_LLAMA_SLICE})")
+    if d % 8 or not 8 <= d <= 256:
+        raise ValueError(f"{fn}: head dim {d} on CUDA must be a multiple of "
+                         f"8 in [8, 256]")
     if k.shape[-2:] != (s, d) or v.shape != k.shape or b % bkv \
             or any(t.shape != q.shape for t in same_as_q.values()):
         raise ValueError(f"{fn}: shapes q {tuple(q.shape)}, "
@@ -212,18 +215,11 @@ def _lens_ptr(fn, lengths, q, b):
     return lengths.data_ptr()
 
 
-def _no_window(fn, window):
-    if window:
-        raise NotImplementedError(
-            f"{fn} on CUDA: sliding-window attention is not ported yet "
-            f"({_LLAMA_SLICE})")
-
-
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _flash_fwd_cuda(q, k, v, scale, causal, lengths=None):
+def _flash_fwd_cuda(q, k, v, scale, causal, lengths=None, window=0):
     b, bkv, s, d = _check("attention_fwd", q, k, v)
     lens = _lens_ptr("attention_fwd", lengths, q, b)
     out = torch.empty_like(q)
@@ -233,7 +229,8 @@ def _flash_fwd_cuda(q, k, v, scale, causal, lengths=None):
         err = lib.lg_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), lens, b, b // bkv, s, d, float(scale),
-            int(bool(causal)), int(q.dtype == torch.bfloat16), _stream(q))
+            int(bool(causal)), min(int(window), s),
+            int(q.dtype == torch.bfloat16), _stream(q))
     _build.check(err, "lg_flash_fwd")
     runtime.count_launch("attention_fwd")
     return out, lse
@@ -257,7 +254,7 @@ def _ptr(t):
 
 
 def _bwd_launch(entry, fn, g, q, k, v, lse, dcap, scale, causal, lengths,
-                ptrs, **rows):
+                window, ptrs, **rows):
     """Launch a backward pass; ``ptrs`` follow dcap in the entry's order."""
     b, bkv, s, d = _bwd_check(fn, g, q, k, v, lse, dcap, **rows)
     lens = _lens_ptr(fn, lengths, q, b)
@@ -265,15 +262,15 @@ def _bwd_launch(entry, fn, g, q, k, v, lse, dcap, scale, causal, lengths,
         err = getattr(_build.library(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), dcap.data_ptr(), *ptrs, lens, b, b // bkv, s, d,
-            float(scale), int(bool(causal)), int(q.dtype == torch.bfloat16),
-            _stream(q))
+            float(scale), int(bool(causal)), min(int(window), s),
+            int(q.dtype == torch.bfloat16), _stream(q))
     _build.check(err, entry)
     runtime.count_launch(fn)
 
 
 def attention_bwd_dq(g, q, k, v, lse, dcap, scale: float,
                      causal: bool = False, lengths=None, dlse=None,
-                     dcap_out=None):
+                     dcap_out=None, window: int = 0):
     """dq of the flash backward given the forward's ``lse`` and
     ``dcap = rowsum(g * out) - dlse`` (f32, B*S; ``dlse``, lse's cotangent,
     where there is one): the dq kernel on CUDA, its plain version (the same
@@ -283,28 +280,29 @@ def attention_bwd_dq(g, q, k, v, lse, dcap, scale: float,
     if not q.is_cuda:
         dq, _, _, refined = _bwd_from_residuals(
             g, q, k, v, lse, dcap, scale, causal, lengths, refine=True,
-            dlse=dlse)
+            dlse=dlse, window=window)
         if dcap_out is not None:
             dcap_out.copy_(refined.reshape(dcap_out.shape))
         return dq
     dq = torch.empty_like(q)
     _bwd_launch("lg_flash_bwd_dq", "attention_bwd_dq", g, q, k, v, lse, dcap,
-                scale, causal, lengths,
+                scale, causal, lengths, window,
                 (_ptr(dlse), dq.data_ptr(), _ptr(dcap_out)), dlse=dlse,
                 dcap_out=dcap_out)
     return dq
 
 
 def attention_bwd_dkv(g, q, k, v, lse, dcap, scale: float,
-                      causal: bool = False, lengths=None):
+                      causal: bool = False, lengths=None, window: int = 0):
     """(dk, dv) of the flash backward, as :func:`attention_bwd_dq`; dcap is
     taken as given (the dq pass's refined one, on the backward's path)."""
     if not q.is_cuda:
         return _bwd_from_residuals(g, q, k, v, lse, dcap, scale, causal,
-                                   lengths)[1:3]
+                                   lengths, window=window)[1:3]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_launch("lg_flash_bwd_dkv", "attention_bwd_dkv", g, q, k, v, lse,
-                dcap, scale, causal, lengths, (dk.data_ptr(), dv.data_ptr()))
+                dcap, scale, causal, lengths, window,
+                (dk.data_ptr(), dv.data_ptr()))
     return dk, dv
 
 
@@ -323,6 +321,10 @@ def attention_bwd_fused(g, q, k, v, lse, dcap, scale: float,
     if b != bkv:
         raise ValueError(f"{fn}: the fused kernel takes no grouped-query "
                          f"call (B {b}, KV rows {bkv})")
+    if d not in FUSED_ROWS:
+        raise ValueError(f"{fn}: the fused kernel takes head dims "
+                         f"{sorted(FUSED_ROWS)}, not {d} (ROADMAP queue 2 "
+                         f"row 9D)")
     nk = -(-s // FUSED_ROWS[d])
     slabs = torch.empty((nk, *q.shape), device=q.device, dtype=torch.float32)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -341,12 +343,12 @@ def attention_fwd_res(q, k, v, scale: float, causal: bool = False,
                       lengths=None, window: int = 0):
     """(out, lse): the flash kernel on CUDA, with ``lengths`` (a contiguous
     int32 tensor of B elements) or without; the plain version on CPU.
-    ``window`` is served by the plain version only and raises on CUDA."""
+    ``window`` > 0 bands the causal mask: row i sees keys i - window < j <=
+    i (Mistral's semantics; a window of S or more bands nothing)."""
     if window:
         assert causal, "sliding window attention is causal-only"
     if q.is_cuda:
-        _no_window("attention_fwd", window)
-        return _flash_fwd_cuda(q, k, v, scale, causal, lengths)
+        return _flash_fwd_cuda(q, k, v, scale, causal, lengths, window)
     return attention_fwd_reference(q, k, v, scale, causal, lengths, window)
 
 
@@ -356,12 +358,12 @@ def attention_fwd(q, k, v, scale: float, causal: bool = False,
 
 
 def _flash_bwd(g, q, k, v, out, lse, scale, causal, dlse=None,
-               lengths=None):
+               lengths=None, window=0):
     """The flash backward from the forward's (out, lse), as the JAX
     package's ``_flash_bwd``: dcap = rowsum(g * out) in f32, less lse's
     cotangent ``dlse`` where it has one; then the fused kernel where the
-    switch and its rule allow, else the two passes, the dk/dv pass taking
-    the dq pass's refined dcap."""
+    switch and its rule allow (the JAX rule, and a head dim it takes), else
+    the two passes, the dk/dv pass taking the dq pass's refined dcap."""
     if out is None or lse is None or out.shape != q.shape:
         raise ValueError("the flash backward needs the forward's out and lse")
     # a plain reduction, as the JAX package leaves it to XLA
@@ -370,14 +372,15 @@ def _flash_bwd(g, q, k, v, out, lse, scale, causal, dlse=None,
         dlse = dlse.float().reshape(dcap.shape).contiguous()
         dcap = dcap - dlse
     dcap = dcap.contiguous()
-    if _FUSED_BWD and lengths is None \
+    if _FUSED_BWD and lengths is None and not window \
+            and q.shape[-1] in FUSED_ROWS \
             and prod(q.shape[:-2]) == prod(k.shape[:-2]):
         return attention_bwd_fused(g, q, k, v, lse, dcap, scale, causal)
     refined = torch.empty_like(dcap)
     dq = attention_bwd_dq(g, q, k, v, lse, dcap, scale, causal, lengths,
-                          dlse=dlse, dcap_out=refined)
+                          dlse=dlse, dcap_out=refined, window=window)
     return (dq, *attention_bwd_dkv(g, q, k, v, lse, refined, scale, causal,
-                                   lengths))
+                                   lengths, window=window))
 
 
 def attention_bwd(g, q, k, v, scale: float, causal: bool = False,
@@ -385,15 +388,15 @@ def attention_bwd(g, q, k, v, scale: float, causal: bool = False,
     """(dq, dk, dv) of ``attention_fwd`` for the output cotangent ``g``.
     On CUDA the flash backward kernels, which need the forward's ``out``
     and ``lse``: the two passes, or the fused kernel after
-    ``set_flash_fused(True)`` where there are no lengths and G == 1.  On
-    CPU the plain recompute version."""
+    ``set_flash_fused(True)`` where there are no lengths or window, G == 1
+    and the head dim is 64 or 128.  On CPU the plain recompute version."""
     if window:
         assert causal, "sliding window attention is causal-only"
     if not q.is_cuda:
         return attention_bwd_reference(g, q, k, v, scale, causal, out, lse,
                                        lengths, window)
-    _no_window("attention_bwd", window)
-    return _flash_bwd(g, q, k, v, out, lse, scale, causal, lengths=lengths)
+    return _flash_bwd(g, q, k, v, out, lse, scale, causal, lengths=lengths,
+                      window=window)
 
 
 def flash_block_fwd(q, k, v, scale: float, causal: bool = False):

@@ -6,7 +6,8 @@ Counterpart of ``lightgrad_tpu/ops/decode_attention.py``.  On CUDA tensors
 launch); on CPU tensors it runs :func:`decode_attention_reference`.
 
 Grouped-query native: q is (KV, G, hd), the G query heads served by each KV
-head; the cache is (KV, W, hd).  ``pos`` is a host int.
+head (G <= 8 on CUDA); the cache is (KV, W, hd), with any head dim hd % 8 ==
+0, 8 <= hd <= 256.  ``pos`` is a host int.
 """
 
 import torch
@@ -49,6 +50,9 @@ def decode_attention(q, kc, vc, pos: int, scale: float, window: int = 0):
     if kc.shape != (KV, W, hd) or vc.shape != kc.shape:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} vs cache "
                          f"{tuple(kc.shape)}, {tuple(vc.shape)}")
+    if hd % 8 or not 8 <= hd <= 256 or not 1 <= G <= 8:
+        raise ValueError(f"decode_attention: head dim {hd} (a multiple of 8 "
+                         f"in [8, 256]) or group {G} (1..8) the kernel lacks")
     pos = int(pos)
     out = torch.empty_like(q)
     lib = _build.library()

@@ -39,9 +39,9 @@ def load_numpy_params(model, named: dict):
         arrays[name] = arr
     # checked all before changing any
     if isinstance(model, nn.Module):
-        model.load_parameters(arrays)
-        return model
-    for name, t in params.items():
-        t.copy_(torch.tensor(arrays[name]))
+        model.load_parameters(arrays)   # rebinds each tensor's storage
+    else:
+        for name, t in params.items():
+            t.copy_(torch.tensor(arrays[name]))
     model.__dict__.pop("_kv_fns", None)    # decode functions hold old weights
     return model

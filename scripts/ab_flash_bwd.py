@@ -9,10 +9,14 @@ JSON line:
 
 - the card's name and power limit (``nvidia-smi``);
 - at GPT-2 small's attention shape at batch 8 (96 x 1024 x 64, causal), in
-  float32 and bfloat16, CUDA-event means over 20 calls of: rowsum + the two
+  float32 and bfloat16, CUDA-event means over 20 calls of: the forward
+  (``attention_fwd_res``; also at batch 1, 12 x 1024 x 64), rowsum + the two
   backward passes (``attention_bwd``), the dq pass alone, the dk/dv pass
   alone, and, where the checkout has ``set_flash_fused``, rowsum + the
   fused kernel + its slab sum;
+- the forward at the LLaMA family's prefill shapes, where the checkout
+  takes them (else null): Mistral-7B's layer (32 x 8192 x 128, 8 KV
+  heads, window 4096) and Gemma-2B's (8 x 8192 x 256, 1 KV head);
 - GPT-2 small (published widths, random weights from seed 0), bf16
   ``MixedPrecision`` + AdamW on 8 x 1024 random tokens: tok/s as the median
   of steps 2-N and the peak memory, with the two-pass backward, and with the
@@ -50,7 +54,8 @@ def cuda_ms(fn, iters=20):
 
 
 def backward_times(att):
-    """ms of the flash backward's pieces at 96 x 1024 x 64, causal."""
+    """ms of the flash forward and the backward's pieces at 96 x 1024 x 64
+    (the forward also at 12 x 1024 x 64), causal."""
     dev = torch.device("cuda")
     bh, s, hd = BATCH * GPT2_SMALL["n_head"], GPT2_SMALL["n_positions"], 64
     sc = hd ** -0.5
@@ -64,6 +69,11 @@ def backward_times(att):
         dcap = (do.float() * out.float()).sum(-1).contiguous()
         name = str(dtype)[6:]
         res[name] = {
+            "fwd_ms": cuda_ms(lambda: att.attention_fwd_res(q, k, v, sc,
+                                                            True)),
+            "fwd_b1_ms": cuda_ms(lambda: att.attention_fwd_res(
+                q[:GPT2_SMALL["n_head"]], k[:GPT2_SMALL["n_head"]],
+                v[:GPT2_SMALL["n_head"]], sc, True)),
             "two_pass_ms": cuda_ms(lambda: att.attention_bwd(
                 do, q, k, v, sc, True, out=out, lse=lse)),
             "dq_ms": cuda_ms(lambda: att.attention_bwd_dq(
@@ -80,6 +90,33 @@ def backward_times(att):
                 fused(prev)
         del q, k, v, do, out, lse, dcap
         torch.cuda.empty_cache()
+    return res
+
+
+# (name, query heads, KV heads, S, head dim, window)
+LLAMA_FWD = (("mistral_window", 32, 8, 8192, 128, 4096),
+             ("gemma_d256", 8, 1, 8192, 256, 0))
+
+
+def llama_forward_times(att):
+    """ms of the causal forward at the LLaMA prefill shapes, f32 and
+    bf16; null where the checkout refuses the shape."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    res = {}
+    for name, h, kvh, s, hd, window in LLAMA_FWD:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(h, s, hd, generator=g, device=dev).to(dtype)
+            k, v = (torch.randn(kvh, s, hd, generator=g, device=dev)
+                    .to(dtype) for _ in range(2))
+            key = f"{name}_{str(dtype)[6:]}_ms"
+            try:
+                res[key] = cuda_ms(lambda: att.attention_fwd_res(
+                    q, k, v, hd ** -0.5, True, window=window))
+            except (RuntimeError, ValueError, TypeError):
+                res[key] = None
+            del q, k, v
+            torch.cuda.empty_cache()
     return res
 
 
@@ -139,6 +176,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     rec = {"tree": args.tree, "card": smi, "backward": backward_times(att),
+           "llama_forward": llama_forward_times(att),
            "train_bf16": train_step(lg, args.steps)}
     fused = getattr(att, "set_flash_fused", None)
     if fused is not None:

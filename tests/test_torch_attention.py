@@ -49,7 +49,7 @@ def test_attention_fwd_res_matches_jax(S, causal, G, mode):
 @pytest.mark.parametrize("mode", ["pallas", "xla"])
 def test_attention_fwd_window_and_lengths_on_cpu(mode):
     """The plain version serves ``window`` and ``lengths`` (on CUDA the
-    kernel takes ``lengths``; ``window`` is not ported there yet)."""
+    kernel takes both)."""
     q, k, v = _inputs(64, 1, seed=3)
     lens = np.array([64, 40, 1, 17], np.int32)
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))

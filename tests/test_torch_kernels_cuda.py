@@ -11,6 +11,7 @@ import torch
 
 from lightgrad_tpu_torch.autograd import flash_block
 from lightgrad_tpu_torch.ops.attention import (attention_bwd,
+                                               attention_bwd_fused,
                                                attention_bwd_reference,
                                                attention_fwd_res,
                                                attention_fwd_reference,
@@ -94,6 +95,68 @@ def test_flash_bwd_kernels(dev, S, G, D, causal, dtype):
     again = attention_bwd(do, q, k, v, D ** -0.5, causal, out=out, lse=lse)
     for a, b in zip(got, again):              # no atomics: bit for bit
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,G,D,window", [(300, 4, 128, 64),
+                                          (257, 2, 64, 100),
+                                          (200, 1, 32, 17),
+                                          (150, 2, 8, 40),
+                                          (130, 1, 80, 130),
+                                          (100, 8, 256, 33),
+                                          (90, 1, 200, 1000),
+                                          (64, 2, 16, 0),
+                                          (70, 1, 256, 0)])
+def test_flash_kernels_window_and_head_dims(dev, S, G, D, window, dtype):
+    """The band (below, at and past S) and every instantiation (D 32, 64,
+    128, 256, and 8, 16, 80, 200 through a wider one): forward and both
+    backward passes against the plain versions, causal, grouped."""
+    g = torch.Generator(device=dev).manual_seed(5 * S + G + D + window)
+    B = 8
+    q, do = (_randn(g, B, S, D, dtype=dtype) for _ in range(2))
+    k, v = (_randn(g, B // G, S, D, dtype=dtype) for _ in range(2))
+    sc = D ** -0.5
+    reset_launch_counts()
+    out, lse = attention_fwd_res(q, k, v, sc, causal=True, window=window)
+    got = attention_bwd(do, q, k, v, sc, True, out=out, lse=lse,
+                        window=window)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["attention_fwd"] == counts["attention_bwd_dq"] \
+        == counts["attention_bwd_dkv"] == 1
+    ro, rl = attention_fwd_reference(q, k, v, sc, True, window=window)
+    _close(out, ro, dtype)
+    _close(lse, rl, torch.float32)
+    want = attention_bwd_reference(do, q, k, v, sc, True, window=window)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        _close(a, b, dtype)
+    if 0 < window < S:      # the band reaches something: a wrong one fails
+        full = attention_fwd_reference(q, k, v, sc, True)[0]
+        assert (full.float() - ro.float()).abs().max() > 0.05
+
+
+def test_tape_attention_window_grouped(dev):
+    """The tape's attention op with a window and grouped K/V (a Mistral
+    layer's call shape, small): both directions launch the kernels and
+    match torch autograd through the plain forward."""
+    from lightgrad_tpu_torch.autograd import Tensor
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    data = [_randn(g, 2, h, 96, 128) for h in (8, 2, 2)]
+    q, k, v = (Tensor(t) for t in data)
+    reset_launch_counts()
+    y = q.attention(k, v, scale=128 ** -0.5, causal=True, window=24)
+    (y * y).sum().backward()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["attention_fwd"] == counts["attention_bwd_dq"] == 1
+    ts = [t.clone().requires_grad_() for t in data]
+    ref = attention_fwd_reference(*ts, 128 ** -0.5, True, window=24)[0]
+    (ref * ref).sum().backward()
+    _close(y.data, ref, torch.float32)
+    for t, r in zip((q, k, v), ts):
+        _close(t.grad.data, r.grad, torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -232,11 +295,9 @@ def test_lengths_must_be_int32_of_the_rows(dev):
                 torch.tensor([3, 16], dtype=torch.int32)):      # on the host
         with pytest.raises(ValueError):
             attention_fwd_res(q, q, q, 1.0, lengths=bad)
-    with pytest.raises(NotImplementedError, match="LLaMA"):
-        attention_fwd_res(q, q, q, 1.0, causal=True, window=4)
-    with pytest.raises(ValueError, match="LLaMA"):
-        attention_fwd_res(q[..., :32].contiguous(), q[..., :32].contiguous(),
-                          q[..., :32].contiguous(), 1.0)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        attention_fwd_res(q[..., :20].contiguous(), q[..., :20].contiguous(),
+                          q[..., :20].contiguous(), 1.0)
 
 
 def test_narrow_and_offsets_do_not_synchronise(dev):
@@ -311,6 +372,28 @@ def test_layernorm_kernels(dev, r, c, dtype):
     torch.cuda.synchronize()
     assert launch_counts()["layernorm_bwd"] == 1
     _close(dx, layernorm_bwd_dx_reference(gy, w, xhat, rstd), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,hd,W,pos,window", [(1, 8, 256, 8192, 8191, 0),
+                                                  (1, 8, 256, 8192, 4096, 0),
+                                                  (8, 4, 128, 8192, 6000,
+                                                   4096),
+                                                  (2, 3, 8, 64, 40, 9),
+                                                  (2, 2, 80, 3000, 2999, 0),
+                                                  (3, 1, 16, 100, 50, 0)])
+def test_decode_attention_head_dims(dev, KV, G, hd, W, pos, window, dtype):
+    """Any head dim, G up to 8, and visible ranges past one chunk of
+    scores (2048 keys): Gemma-2B's and Mistral-7B's decode shapes."""
+    g = torch.Generator(device=dev).manual_seed(pos + hd)
+    q = _randn(g, KV, G, hd, dtype=dtype)
+    kc, vc = (_randn(g, KV, W, hd, dtype=dtype) for _ in range(2))
+    reset_launch_counts()
+    out = decode_attention(q, kc, vc, pos, hd ** -0.5, window)
+    torch.cuda.synchronize()
+    assert launch_counts()["decode_attention"] == 1
+    _close(out, decode_attention_reference(q, kc, vc, pos, hd ** -0.5,
+                                           window), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -440,12 +523,16 @@ def test_decode_stack_batch_int8_kernels(dev, variant, dtype):
 
 
 def test_wrappers_raise_on_what_the_kernels_lack(dev):
-    q = torch.zeros(2, 16, 32, device=dev)
-    with pytest.raises(ValueError):
-        attention_fwd_res(q, q, q, 1.0)                       # D = 32
+    for d in (4, 20, 264):
+        q = torch.zeros(2, 16, d, device=dev)
+        with pytest.raises(ValueError):
+            attention_fwd_res(q, q, q, 1.0)                   # head dim
+        with pytest.raises(ValueError):
+            decode_attention(q[:, :1], q, q, 3, 1.0)
     q = torch.zeros(2, 16, 64, device=dev)
-    with pytest.raises(NotImplementedError):
-        attention_fwd_res(q, q, q, 1.0, causal=True, window=4)
+    with pytest.raises(ValueError):                           # G = 9
+        decode_attention(torch.zeros(1, 9, 64, device=dev), q[:1], q[:1], 3,
+                         1.0)
     with pytest.raises(ValueError):
         attention_fwd_res(q, q.transpose(0, 1), q, 1.0)       # strided
     out, lse = attention_fwd_res(q, q, q, 1.0, causal=True)
@@ -454,8 +541,9 @@ def test_wrappers_raise_on_what_the_kernels_lack(dev):
     with pytest.raises(ValueError):
         attention_bwd(q.transpose(0, 1).contiguous().transpose(0, 1), q, q,
                       q, 1.0, True, out=out, lse=lse)         # strided g
-    with pytest.raises(NotImplementedError):
-        attention_bwd(q, q, q, q, 1.0, True, out=out, lse=lse, window=4)
+    q80 = torch.zeros(2, 16, 80, device=dev)
+    with pytest.raises(ValueError, match="9D"):               # fused, D 80
+        attention_bwd_fused(q80, q80, q80, q80, lse, lse[..., 0], 1.0, True)
     with pytest.raises(ValueError):
         layernorm_fwd(q, torch.ones(32, device=dev), torch.zeros(32,
                                                                  device=dev))
