@@ -3,9 +3,11 @@ and int8) and training (torch.autograd; two-pass and fused flash backward),
 chunked attention through ``flash_block``, BERT-base masked-LM training
 (padding mask and ``attention_lengths``), its int8 ``QuantLinear`` forward,
 the gradient-descent example, the conv path (ResNet-18 training, the
-MNIST CNN and ResNet-20 examples) on the lightgrad tape, and the LLaMA
+MNIST CNN and ResNet-20 examples) on the lightgrad tape, the LLaMA
 family (Mistral-7B and Gemma-2B serving, and training on the tape; the
-char example).
+char example), and the GPT-NeoX / Pythia family (Pythia-1B and -2.8B
+training on the tape through the fused flash backward; Pythia-1B
+``generate``).
 
     python3 chip_smoke.py
 
@@ -23,8 +25,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      dilated, 1-D and 3-D cases, timed at layer 1's shape; the flash
      kernels with per-row lengths at BERT-base's attention shape (8 x 12
      heads of 128 x 64, lengths 64-128; G 1 and 2, causal and not), the
-     fused flash backward at GPT-2's 96 x 1024 x 64 (causal, against the
-     plain version and the two passes, bit for bit on a rerun) and
+     fused flash backward at GPT-2's 96 x 1024 x 64 (causal, bit for bit on
+     a rerun) and
      ``flash_block`` at the chunk shape 96 x 256 x 64 with a nonzero lse
      cotangent; the LLaMA family's attention: the sliding window at a
      Mistral-7B layer (32 x 8192 x 128, 8 KV heads, window 4096), head dim
@@ -33,7 +35,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
      correctness, and decode attention at Gemma's (1, 8, 256) and
      Mistral's (8, 4, 128) decode shapes, its error scaled by the
      reference's rms (plain versions one KV group at a time; the library
-     call is SDPA with ``enable_gqa``);
+     call is SDPA with ``enable_gqa``); the fused flash backward at
+     Pythia-1B's attention (2 x 8 heads of 2048 x 256), Pythia-2.8B's (32
+     heads of 2048 x 80) and head dim 32, causal, timed beside the two
+     passes and SDPA's backward, and at head dims 200 and 80 without the
+     causal mask -- at every shape the fused kernel against its plain
+     version and the two passes against theirs, within one ulp of each
+     element plus the tolerance times the reference's rms, its bound from
+     the function's own bytes and products (its dq slabs' traffic logged
+     apart);
   4. serving path, GPT-2 small at its published widths (vocab 50257, 1024
      positions, d 768, 12 layers, 12 heads; seeded random weights), once in
      float32 and once after ``model.to(torch.bfloat16)``: ``generate``,
@@ -96,7 +106,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
      (head dim 256), each with step 1's logits and gradients against a
      plain twin; (c) examples/llama.py's char model (40 steps, then 120
      generated tokens);
- 10. every kernel of each path was launched by that path, and every kernel
+ 10. the GPT-NeoX / Pythia family at its published widths, seeded random
+     weights, on the tape in float32 with ``set_flash_fused(True)``: (a)
+     Pythia-1B (all 16 layers, head dim 256, rotary_pct 0.25, parallel
+     residual; 1.01 B parameters) and Pythia-2.8B (2 of 32 layers, head
+     dim 80) trained with AdamW, 5 steps on 2 x 2048 and 1 x 2048 tokens,
+     step 1's logits and gradients against a plain twin, the fused kernel
+     launched and the two passes not; (b) Pythia-1B greedy ``generate``,
+     8 tokens after a 64-token prompt, each the argmax of the twin's
+     logits on the same 2048-token window;
+ 11. every kernel of each path was launched by that path, and every kernel
      of the package by some path.
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -269,6 +288,28 @@ LLAMA_TRAINING = (("Mistral-7B", MISTRAL_7B, 1, 8192),
 LLAMA_LR = 3e-4
 LLAMA_SERVING_KERNELS = ("attention_fwd", "decode_attention")
 LLAMA_TRAIN_KERNELS = TAPE_KERNELS + FLASH_KERNELS
+# HF EleutherAI/pythia-1b config.json (GPTNeoXForCausalLM; 1.01 B
+# parameters), no cut
+PYTHIA_1B = dict(vocab_size=50304, hidden_size=2048, intermediate_size=8192,
+                 num_hidden_layers=16, num_attention_heads=8,
+                 max_position_embeddings=2048, rotary_pct=0.25,
+                 rotary_emb_base=10000.0, layer_norm_eps=1e-5,
+                 use_parallel_residual=True)
+# HF EleutherAI/pythia-2.8b config.json
+PYTHIA_2P8B = dict(PYTHIA_1B, hidden_size=2560, intermediate_size=10240,
+                   num_hidden_layers=32, num_attention_heads=32)
+# (name, config, layers kept, batch, sequence): training at full width on
+# the model's full context; Pythia-2.8B cut from 32 layers to 2
+NEOX_TRAINING = (("Pythia-1B", PYTHIA_1B, 16, 2, 2048),
+                 ("Pythia-2.8B", PYTHIA_2P8B, 2, 1, 2048))
+NEOX_LR = 3e-4
+# Pythia-1B generate: prompt tokens, new tokens (each a 2048-token forward)
+NEOX_PROMPT, NEOX_NEW = 64, 8
+NEOX_TRAIN_KERNELS = TAPE_KERNELS + ("attention_fwd", "attention_bwd_fused",
+                                     "layernorm_fwd", "layernorm_bwd")
+# a forward alone: no loss, so no row reduction
+NEOX_GENERATE_KERNELS = ("elementwise", "matmul", "attention_fwd",
+                         "layernorm_fwd")
 # One H100 SXM (NVIDIA's data sheet, dense rates at 700 W): HBM bytes
 # a second and dense peak operations a second by input type
 HBM_BPS = 3.35e12
@@ -374,6 +415,39 @@ def check_rms(name, dtype, got, want, tol, *wrong):
         raise AssertionError(f"{name} {dtype}: {abs_err} > {tol} * rms {rms}")
     for w in wrong:
         if (w.float() - want.float()).abs().max().item() <= tol * rms:
+            raise AssertionError(f"{name} {dtype}: degenerate inputs, a "
+                                 f"wrong output is within {tol} * rms")
+    return abs_err
+
+
+# one unit in the last place of a value of the output type, relative to it
+ULP = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7}
+
+
+def check_ulp(name, dtype, got, want, tol, *wrong):
+    """:func:`check_rms` with one unit in the last place of each reference
+    element allowed beside it: |got - want| <= tol * rms + ULP |want| on
+    every element.  For a causal backward, whose largest gradients (the
+    first query rows') lie 10-60 rms out, where rounding a bfloat16 output
+    alone moves them by a tenth of an rms.  Every output in ``wrong`` must
+    fail it."""
+    ref = want.float()
+    rms = ref.pow(2).mean().sqrt().item()
+
+    def excess(t):
+        return ((t.float() - ref).abs() - ULP[dtype] * ref.abs()).max().item()
+
+    abs_err = (got.float() - ref).abs().max().item()
+    over = excess(got) / rms
+    ok = bool(torch.isfinite(got.float()).all()) and over <= tol
+    log(f"  {name} {str(dtype)[6:]}: max_abs_err={abs_err:.3e} "
+        f"rms(ref)={rms:.3e} (err - ulp)/rms={over:.3e} tol={tol:.0e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} {dtype}: {over} rms past one ulp > "
+                             f"{tol}")
+    for w in wrong:
+        if excess(w) <= tol * rms:
             raise AssertionError(f"{name} {dtype}: degenerate inputs, a "
                                  f"wrong output is within {tol} * rms")
     return abs_err
@@ -942,22 +1016,127 @@ def phase_train_kernels(results):
         torch.cuda.empty_cache()
 
 
+def fused_bwd_case(results, dtype, g, B, H, S, hd, causal, timed,
+                   variant=""):
+    """Kernel 9 at one shape, B * H rows of S x hd: ``attention_bwd`` under
+    the switch (rowsum, the fused kernel, the slab sum) against the fused
+    kernel's plain version, and without it (the two passes) against
+    theirs, the recompute backward, each by :func:`check_ulp` with the
+    other causal mask's output among those it must refuse; bit-identical on
+    a rerun.  ``timed``: the fused kernel beside its plain version, its
+    bound and SDPA's backward, and ``attention_bwd`` both ways; with a
+    ``variant``, also the two passes, recorded under it."""
+    import torch.nn.functional as F
+
+    from lightgrad_tpu_torch.ops.attention import (
+        attention_bwd, attention_bwd_dkv, attention_bwd_dq,
+        attention_bwd_fused, attention_bwd_fused_reference,
+        attention_bwd_reference, attention_fwd_res, fused_rows,
+        set_flash_fused)
+
+    tol = KERNEL_TOL[dtype]
+    isz = torch.tensor([], dtype=dtype).element_size()
+    bh, sc = B * H, hd ** -0.5
+    q, k, v, do = (torch.randn((bh, S, hd), generator=g,
+                               device=g.device).to(dtype) for _ in range(4))
+    out, lse = attention_fwd_res(q, k, v, sc, causal)
+    dcap = (do.float() * out.float()).sum(-1).contiguous()
+
+    def both_ways():
+        prev = set_flash_fused(True)
+        try:
+            return attention_bwd(do, q, k, v, sc, causal, out=out, lse=lse)
+        finally:
+            set_flash_fused(prev)
+
+    got, again = both_ways(), both_ways()
+    two = attention_bwd(do, q, k, v, sc, causal, out=out, lse=lse)
+    want = attention_bwd_fused_reference(do, q, k, v, out, lse, dcap, sc,
+                                         causal)
+    # what a kernel with the mask dropped (or added) returns
+    wrong = attention_bwd_fused_reference(do, q, k, v, out, lse, dcap, sc,
+                                          not causal)
+    tag = f"attention_bwd_fused ({bh}, {S}, {hd}) causal={causal}"
+    names = ("dq", "dk", "dv")
+    errs = [check_ulp(f"{tag} {n}", dtype, a, w, tol, z, torch.zeros_like(w))
+            for n, a, w, z in zip(names, got, want, wrong)]
+    del want
+    want = attention_bwd_reference(do, q, k, v, sc, causal)
+    two_errs = [check_ulp(f"{tag} two passes {n}", dtype, a, w, tol, z)
+                for n, a, w, z in zip(names, two, want, wrong)]
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{tag}: two calls differ")
+    del got, again, two, want, wrong
+    torch.cuda.empty_cache()
+    record(results, dtype, "attention_bwd_fused", max(errs))
+    record(results, dtype, "attention_bwd_dq", two_errs[0])
+    record(results, dtype, "attention_bwd_dkv", max(two_errs[1:]))
+    nk = -(-S // fused_rows(hd))
+    slab_bytes = nk * bh * S * hd * 4
+    log(f"  {tag}: two calls bit-identical; dq slabs {nk} x {bh} x {S} x "
+        f"{hd} f32 = {slab_bytes / 1e9:.3f} GB, written and read back by "
+        f"the algorithm: {2 * slab_bytes / HBM_BPS * 1e3:.4f} ms at the "
+        f"HBM rate, beyond the function's bound")
+    if not timed:
+        return
+    # the function's own bytes: q, k, v, dO, lse and dcap read, dq, dk and
+    # dv written; its operations: s, dp, dv, dk and dq, 2 hd each per pair
+    pairs = bh * S * (S + 1) / 2 if causal else bh * S * S
+    tile, rows = bh * S * hd * isz, bh * S * 4
+
+    def library_bwd():
+        # dq, dk and dv in one call, beside the fused kernel and both passes
+        ts = [t.reshape(B, H, S, hd).detach().requires_grad_()
+              for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*ts, is_causal=causal)
+        return cuda_ms(lambda: torch.autograd.grad(
+            o, ts, do.reshape(ts[0].shape), retain_graph=True), 5)
+
+    lib_ms = library_time(f"attention_bwd {variant}", dtype, library_bwd)
+    record(results, dtype, "attention_bwd_fused", max(errs),
+           cuda_ms(lambda: attention_bwd_fused(do, q, k, v, lse, dcap, sc,
+                                               causal)),
+           cuda_ms(lambda: attention_bwd_fused_reference(
+               do, q, k, v, out, lse, dcap, sc, causal), 2),
+           cost=(7 * tile + 2 * rows, 10 * hd * pairs),
+           library_ms=lib_ms, variant=variant)
+    if variant:
+        # the two passes on the same inputs, like for like
+        plain_ms = cuda_ms(lambda: attention_bwd_reference(
+            do, q, k, v, sc, causal), 2)
+        record(results, dtype, "attention_bwd_dq", two_errs[0],
+               cuda_ms(lambda: attention_bwd_dq(do, q, k, v, lse, dcap, sc,
+                                                causal)), plain_ms,
+               cost=(5 * tile + 2 * rows, 6 * hd * pairs),
+               library_ms=lib_ms, variant=variant)
+        record(results, dtype, "attention_bwd_dkv", max(two_errs[1:]),
+               cuda_ms(lambda: attention_bwd_dkv(do, q, k, v, lse, dcap, sc,
+                                                 causal)), plain_ms,
+               cost=(6 * tile + 2 * rows, 8 * hd * pairs),
+               library_ms=lib_ms, variant=variant)
+    fused_ms = cuda_ms(both_ways)
+    two_ms = cuda_ms(lambda: attention_bwd(do, q, k, v, sc, causal, out=out,
+                                           lse=lse))
+    log(f"  attention_bwd {variant[:-1]} {str(dtype)[6:]} ({bh}, {S}, {hd}) "
+        f"causal={causal}: rowsum + fused kernel + slab sum {fused_ms:.4f} "
+        f"ms, rowsum + two passes {two_ms:.4f} ms")
+    del q, k, v, do, out, lse, dcap
+    torch.cuda.empty_cache()
+
+
 def phase_flash_kernels(results):
     """Phase 3, the rest of the flash surface: the flash kernels with
     per-row lengths at BERT-base's attention shape (G 1 and 2, causal and
     not; padded rows exactly 0), the fused backward at GPT-2's training
-    shape against the plain version and the two passes (bit for bit on a
-    rerun), and flash_block at the chunk shape with a nonzero lse
-    cotangent."""
+    shape (:func:`fused_bwd_case`), and flash_block at the chunk shape with
+    a nonzero lse cotangent."""
     import torch.nn.functional as F
 
     from lightgrad_tpu_torch.autograd import flash_block
     from lightgrad_tpu_torch.ops.attention import (
-        FUSED_ROWS, attention_bwd, attention_bwd_dkv, attention_bwd_dq,
-        attention_bwd_fused, attention_bwd_fused_reference,
+        attention_bwd, attention_bwd_dkv, attention_bwd_dq,
         attention_bwd_reference, attention_fwd_res, attention_fwd_reference,
-        flash_block_bwd, flash_block_fwd, flash_block_reference,
-        set_flash_fused)
+        flash_block_bwd, flash_block_fwd, flash_block_reference)
 
     dev, f32 = torch.device("cuda"), torch.float32
     g = torch.Generator(device=dev).manual_seed(8)
@@ -1052,59 +1231,9 @@ def phase_flash_kernels(results):
         torch.cuda.empty_cache()
 
         # the fused backward at GPT-2's training shape, causal
-        q, k, v, do = (rnd(TB, T, hd) for _ in range(4))
-        out, lse = attention_fwd_res(q, k, v, sc, True)
-        dcap = (do.float() * out.float()).sum(-1).contiguous()
-        two = attention_bwd(do, q, k, v, sc, True, out=out, lse=lse)
-        prev = set_flash_fused(True)
-        try:
-            got = attention_bwd(do, q, k, v, sc, True, out=out, lse=lse)
-            again = attention_bwd(do, q, k, v, sc, True, out=out, lse=lse)
-        finally:
-            set_flash_fused(prev)
-        want = attention_bwd_reference(do, q, k, v, sc, True)
-        tag = f"attention_bwd_fused ({TB}, {T}, {hd}) causal"
-        errs = [check(f"{tag} {n}", dtype, a, w, tol)
-                for n, a, w in zip(("dq", "dk", "dv"), got, want)]
-        for n, a, w in zip(("dq", "dk", "dv"), got, two):
-            check(f"{tag} {n} vs the two passes", dtype, a, w, tol)
-        for w in want:
-            discriminates("attention_bwd_fused", dtype, w, tol,
-                          torch.zeros_like(w))
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"{tag}: two calls differ")
-        nk = -(-T // FUSED_ROWS[hd])
-        slab_bytes = nk * TB * T * hd * 4
-        log(f"  {tag}: two calls bit-identical; dq slabs {nk} x {TB} x {T} "
-            f"x {hd} f32 = {slab_bytes / 1e6:.1f} MB")
-        del two, got, again, want
-        torch.cuda.empty_cache()
-        q4, k4, v4 = (t.reshape(TRAIN_BATCH, -1, T, hd).detach()
-                      .requires_grad_() for t in (q, k, v))
-        o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-        tile, gemm = TB * T * hd * isz, TB * T * (T + 1) * hd
-        record(results, dtype, "attention_bwd_fused", max(errs),
-               cuda_ms(lambda: attention_bwd_fused(do, q, k, v, lse, dcap, sc,
-                                                   True)),
-               cuda_ms(lambda: attention_bwd_fused_reference(
-                   do, q, k, v, out, lse, dcap, sc, True), 3),
-               cost=(7 * tile + 2 * TB * T * 4 + 2 * slab_bytes, 5 * gemm),
-               library_ms=cuda_ms(lambda: torch.autograd.grad(
-                   o4, (q4, k4, v4), do.reshape(q4.shape),
-                   retain_graph=True), 5))
-        prev = set_flash_fused(True)
-        try:
-            fused_ms = cuda_ms(lambda: attention_bwd(do, q, k, v, sc, True,
-                                                     out=out, lse=lse))
-        finally:
-            set_flash_fused(prev)
-        two_ms = cuda_ms(lambda: attention_bwd(do, q, k, v, sc, True, out=out,
-                                               lse=lse))
-        log(f"  attention_bwd {str(dtype)[6:]} ({TB}, {T}, {hd}) causal: "
-            f"rowsum + fused kernel + slab sum {fused_ms:.4f} ms, rowsum + "
-            f"two passes {two_ms:.4f} ms")
-        del q, k, v, do, out, lse, dcap, q4, k4, v4, o4
-        torch.cuda.empty_cache()
+        fused_bwd_case(results, dtype, g, TRAIN_BATCH, GPT2_SMALL["n_head"],
+                       T, GPT2_SMALL["n_embd"] // GPT2_SMALL["n_head"], True,
+                       True)
 
         # flash_block at the chunk shape, lse cotangent nonzero
         q, k, v = (rnd(TB, C, hd) for _ in range(3))
@@ -1672,7 +1801,9 @@ def tape_step(model, opt, x_ids, y, **inputs):
 # kernel-name fragment -> the family a step's device time is summed under
 KERNEL_FAMILIES = (("matmul_kernel", "matmul"), ("ew_kernel", "elementwise"),
                    ("reduce_rows", "reduce"), ("softmax_", "softmax"),
-                   ("ln_", "layernorm"), ("flash", "attention"),
+                   ("ln_", "layernorm"),
+                   ("flash_bwd_fused", "fused flash backward"),
+                   ("flash", "attention"),
                    ("conv_", "conv"), ("sum_partials", "conv"))
 
 
@@ -2891,6 +3022,52 @@ def phase_llama_serving(card):
     return counts
 
 
+def twin_checked_steps(name, model, plain, B, S, lr, card):
+    """BERT_STEPS AdamW steps of a tape language model on one batch of B x S
+    random tokens (``tape_steps``), step 1's logits and every parameter's
+    gradient held against ``plain(params, cfg, ids)`` under torch autograd
+    (the twin's gradients are dropped once checked, before the steps whose
+    peak memory is reported).  Returns the steps' launch counts."""
+    import torch.nn.functional as F
+
+    from lightgrad_tpu_torch import optim
+    from lightgrad_tpu_torch.autograd import Tensor
+
+    t0 = time.perf_counter()
+    mcfg = model.cfg
+    n = sum(t.numel() for t in model.parameters())
+    V = mcfg.vocab_size
+    ids = np.random.default_rng(12).integers(0, V, (B, S + 1)) \
+        .astype(np.int32)
+    dev = torch.device("cuda")
+    params = {k: t.data.detach().requires_grad_(True)
+              for k, t in model.named_parameters()}
+    logits = plain(params, mcfg, torch.tensor(ids[:, :-1], device=dev).long())
+    loss = F.cross_entropy(logits.reshape(B * S, V),
+                           torch.tensor(ids[:, 1:].reshape(-1),
+                                        device=dev).long())
+    grads = dict(zip(params, torch.autograd.grad(
+        loss, list(params.values()))))
+    plain_logits, plain_loss = logits.detach(), loss.item()
+    del params, logits, loss
+    torch.cuda.empty_cache()
+    log(f"  {n / 1e9:.3f} B parameters; plain twin step 1 in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def check_step1(logits, loss):
+        check(f"{name} logits vs the plain twin", torch.float32,
+              logits.data, plain_logits, PATH_TOL[torch.float32])
+        log(f"  step-1 loss {loss.item():.5f}, plain twin {plain_loss:.5f}")
+        tape_grad_check(model, grads)
+        grads.clear()
+
+    opt = optim.AdamW(list(model.parameters()), lr=lr)
+    return tape_steps(
+        model, opt, Tensor.from_numpy(ids[:, :-1], requires_grad=False),
+        Tensor.from_numpy(ids[:, 1:].reshape(-1), requires_grad=False),
+        card, check_step1)
+
+
 def phase_llama_train(card):
     """Training on the tape, float32, AdamW, LLAMA_STEPS steps on one batch
     at full width cut to 2 layers: Mistral-7B on 1 x 8192 tokens (the
@@ -2898,51 +3075,15 @@ def phase_llama_train(card):
     logits and every parameter's gradient against the plain twin
     (``plain_llama`` under torch autograd); the loss must be finite and
     fall.  Returns {name: launch counts}."""
-    import torch.nn.functional as F
-
-    from lightgrad_tpu_torch import optim
-    from lightgrad_tpu_torch.autograd import Tensor
-
     counts = {}
     for name, cfg, B, S in LLAMA_TRAINING:
         log(f"training on the tape, {name} (2 of {cfg['num_hidden_layers']} "
             f"layers), {B} x {S} tokens, float32, AdamW:")
         t0 = time.perf_counter()
         model = llama_model(cfg, torch.float32, num_hidden_layers=2)
-        mcfg = model.cfg
-        n = sum(t.numel() for t in model.parameters())
-        V = mcfg.vocab_size
-        ids = np.random.default_rng(12).integers(0, V, (B, S + 1)) \
-            .astype(np.int32)
-        dev = torch.device("cuda")
-        params = {k: t.data.detach().requires_grad_(True)
-                  for k, t in model.named_parameters()}
-        logits = plain_llama(params, mcfg, torch.tensor(ids[:, :-1],
-                                                        device=dev).long())
-        loss = F.cross_entropy(logits.reshape(B * S, V),
-                               torch.tensor(ids[:, 1:].reshape(-1),
-                                            device=dev).long())
-        grads = dict(zip(params, torch.autograd.grad(
-            loss, list(params.values()))))
-        plain_logits, plain_loss = logits.detach(), loss.item()
-        del params, logits, loss
-        torch.cuda.empty_cache()
-        log(f"  {n / 1e9:.3f} B parameters; plain twin step 1 in "
-            f"{time.perf_counter() - t0:.1f} s (build included)")
-
-        def check_step1(logits, loss):
-            check(f"{name} logits vs the plain twin", torch.float32,
-                  logits.data, plain_logits, PATH_TOL[torch.float32])
-            log(f"  step-1 loss {loss.item():.5f}, plain twin "
-                f"{plain_loss:.5f}")
-            tape_grad_check(model, grads)
-
-        opt = optim.AdamW(list(model.parameters()), lr=LLAMA_LR)
-        counts[name] = tape_steps(
-            model, opt, Tensor.from_numpy(ids[:, :-1], requires_grad=False),
-            Tensor.from_numpy(ids[:, 1:].reshape(-1), requires_grad=False),
-            card, check_step1)
-        del model, opt, grads, plain_logits
+        counts[name] = twin_checked_steps(name, model, plain_llama, B, S,
+                                          LLAMA_LR, card)
+        del model
         torch.cuda.empty_cache()
         log(f"  {name} training phase: {time.perf_counter() - t0:.1f} s")
     return counts
@@ -3005,6 +3146,197 @@ def phase_llama_example(card):
     return counts
 
 
+def phase_neox_kernels(results):
+    """Phase 3, the fused flash backward at every head dim: Pythia-1B's
+    attention, 2 x 8 heads of 2048 x 256 (the D 256 instantiation, 16 key
+    rows a block, 128 dq slabs), Pythia-2.8B's, 32 heads of 2048 x 80 (D
+    128's at row stride 80), and D 32 at 64 heads of 256 x 32, causal, each
+    by :func:`fused_bwd_case`, timed with the two passes on the same
+    inputs; correctness only at head dims 200 and 80 without the causal
+    mask, S no multiple of the block's rows."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    # (variant, batch, heads, S, hd, causal, timed): the training phase's
+    # batches over the models' full context
+    (_, p1, _, b1, s1), (_, p28, _, b28, s28) = NEOX_TRAINING
+    cases = (("pythia1b_", b1, p1["num_attention_heads"], s1,
+              p1["hidden_size"] // p1["num_attention_heads"], True, True),
+             ("pythia2p8b_", b28, p28["num_attention_heads"], s28,
+              p28["hidden_size"] // p28["num_attention_heads"], True, True),
+             ("d32_", 4, 16, 256, 32, True, True),
+             ("", 1, 8, 300, 200, False, False),
+             ("", 2, 4, 129, 80, False, False))
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in cases:
+            fused_bwd_case(results, dtype, g, *case[1:], variant=case[0])
+
+
+def plain_neox(p, cfg, ids):
+    """Logits (b, T, vocab) of ``NeoX.forward`` through the plain PyTorch
+    versions of the kernels (``_reference``), differentiable by torch
+    autograd, attention one head at a time (``_PlainAttention``): the twin
+    of the tape's step and of ``generate``.  Its partial-RoPE tables are its
+    own: pair i of the first ``rot`` dims of position t turns by t *
+    base^(-2i / rot), in numpy f32 arithmetic as the model's; the other
+    dims pass through."""
+    from lightgrad_tpu_torch.ops.elementwise import ew_reference
+    from lightgrad_tpu_torch.ops.layernorm import layernorm_fwd_reference
+    from lightgrad_tpu_torch.ops.matmul import matmul_reference
+
+    b, T = ids.shape
+    H = cfg.num_attention_heads
+    hd = cfg.hidden_size // H
+    rot = int(hd * cfg.rotary_pct)
+    emb = p["embed_in.weight"]
+    pair = np.arange(rot // 2, dtype=np.float32)
+    turn = np.float32(1.0) / np.float32(cfg.rotary_emb_base) ** (
+        2 * pair / np.float32(rot))
+    ang = np.arange(T, dtype=np.float32)[:, None] * turn
+    ang = np.concatenate([ang, ang], -1)      # x1 and x2 share pair i's angle
+    cos, sin = (torch.from_numpy(f(ang)).to(device=emb.device,
+                                            dtype=emb.dtype)
+                for f in (np.cos, np.sin))
+
+    def ln(x, name):
+        return layernorm_fwd_reference(x, p[name + ".weight"],
+                                       p[name + ".bias"],
+                                       cfg.layer_norm_eps)[0]
+
+    def lin(x, name):
+        y = matmul_reference(x, p[name + ".weight"].T)
+        bias = p.get(name + ".bias")
+        return y if bias is None else y + bias
+
+    def rope(x):
+        xr = x[..., :rot]
+        x1, x2 = xr[..., :rot // 2], xr[..., rot // 2:]
+        return torch.cat([xr * cos + torch.cat([-x2, x1], -1) * sin,
+                          x[..., rot:]], -1)
+
+    def attn(h, pre):
+        qkv = lin(h, pre + "attention.query_key_value")
+        qkv = qkv.reshape(b, T, H, 3 * hd).transpose(1, 2)
+        q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
+        att = _PlainAttention.apply(rope(q), rope(k), v, hd ** -0.5, 0)
+        return lin(att.transpose(1, 2).reshape(b, T, H * hd),
+                   pre + "attention.dense")
+
+    def mlp(h, pre):
+        a = ew_reference("f_gelu_exact", lin(h, pre + "mlp.dense_h_to_4h"))
+        return lin(a, pre + "mlp.dense_4h_to_h")
+
+    x = emb[ids]
+    for l in range(cfg.num_hidden_layers):
+        pre = f"layers.{l}."
+        if cfg.use_parallel_residual:
+            x = (x + attn(ln(x, pre + "input_layernorm"), pre)
+                 + mlp(ln(x, pre + "post_attention_layernorm"), pre))
+        else:
+            x = x + attn(ln(x, pre + "input_layernorm"), pre)
+            x = x + mlp(ln(x, pre + "post_attention_layernorm"), pre)
+    return matmul_reference(ln(x, "final_layer_norm"),
+                            p["embed_out.weight"].T)
+
+
+def neox_model(cfg, **cut):
+    """A seeded NeoX (``lightgrad_tpu_torch.random.seed(0)``) on the card,
+    float32, at ``cfg`` (``cut`` overrides fields)."""
+    from lightgrad_tpu_torch import random as lg_random
+    from lightgrad_tpu_torch.models.neox import NeoX, NeoXConfig
+
+    lg_random.seed(0)
+    return NeoX(NeoXConfig(**dict(cfg, **cut)))
+
+
+def phase_neox_train(card):
+    """Training on the tape with the fused flash backward
+    (``set_flash_fused(True)``), float32, AdamW, 5 steps on one batch at
+    full width: Pythia-1B (all 16 layers, head dim 256) on 2 x 2048 tokens
+    and Pythia-2.8B (2 of 32 layers, head dim 80) on 1 x 2048.  Step 1's
+    logits and every parameter's gradient against the plain twin
+    (``plain_neox`` under torch autograd); the loss must be finite and
+    fall, and the steps must not launch the two passes.  Returns {name:
+    launch counts}."""
+    from lightgrad_tpu_torch.ops.attention import set_flash_fused
+
+    counts = {}
+    for name, cfg, L, B, S in NEOX_TRAINING:
+        log(f"training on the tape, {name} ({L} of "
+            f"{cfg['num_hidden_layers']} layers), {B} x {S} tokens, float32, "
+            f"AdamW, fused flash backward:")
+        t0 = time.perf_counter()
+        model = neox_model(cfg, num_hidden_layers=L)
+        prev = set_flash_fused(True)
+        try:
+            counts[name] = twin_checked_steps(name, model, plain_neox, B, S,
+                                              NEOX_LR, card)
+        finally:
+            set_flash_fused(prev)
+        if counts[name]["attention_bwd_dq"] or \
+                counts[name]["attention_bwd_dkv"]:
+            raise AssertionError(f"{name}: the fused step launched the two "
+                                 f"passes")
+        del model
+        torch.cuda.empty_cache()
+        log(f"  {name} training phase: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase_neox_generate(card):
+    """Pythia-1B (all 16 layers, seeded random weights, float32) greedy
+    ``generate``: a NEOX_PROMPT-token prompt and NEOX_NEW new tokens, each a
+    full forward of the 2048-token padded window on the tape.  Each new
+    token must be the argmax of the plain twin's logits on the same padded
+    window, and the tape's logits of the last window must match the twin's
+    at PATH_TOL.  Returns the launch counts of ``generate``."""
+    from lightgrad_tpu_torch import no_grad
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    model = neox_model(PYTHIA_1B)
+    cfg, dev = model.cfg, torch.device("cuda")
+    W = cfg.max_position_embeddings
+    prompt = [int(t) for t in np.random.default_rng(15).integers(
+        0, cfg.vocab_size, NEOX_PROMPT)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.generate(prompt, max_new_tokens=NEOX_NEW)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"  generate: {NEOX_NEW} tokens after a {NEOX_PROMPT}-token prompt "
+        f"in {dt:.2f} s ({dt / NEOX_NEW * 1e3:.1f} ms a token, each a "
+        f"{W}-token forward); {card}")
+    p = {k: t.data for k, t in model.named_parameters()}
+    gaps = []
+    with torch.no_grad():
+        for i in range(NEOX_NEW):
+            ctx = out[:NEOX_PROMPT + i]
+            window = np.zeros((1, W), np.int32)
+            window[0, :len(ctx)] = ctx
+            logits = plain_neox(p, cfg, torch.tensor(window, device=dev)
+                                .long())[0]
+            row = logits[len(ctx) - 1]
+            top2 = row.topk(2).values
+            gaps.append((top2[0] - top2[1]).item())
+            if int(row.argmax()) != out[len(ctx)]:
+                raise AssertionError(
+                    f"Pythia-1B generate: token {i} is {out[len(ctx)]}, the "
+                    f"twin's argmax {int(row.argmax())}")
+    # the last window's real rows: the tape's forward against the twin's
+    rows = slice(NEOX_PROMPT - 1, NEOX_PROMPT + NEOX_NEW - 1)
+    with no_grad():
+        got = model(Tensor.from_numpy(window, requires_grad=False))
+    check(f"Pythia-1B generate's last window, rows {rows.start}-"
+          f"{rows.stop - 1}, vs the plain twin", torch.float32,
+          got.data[0, rows], logits[rows], PATH_TOL[torch.float32])
+    log(f"  tokens {out[NEOX_PROMPT:]} equal the twin's argmax at every "
+        f"step (smallest top-2 gap {min(gaps):.3e})")
+    del model, p, got, logits
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3050,6 +3382,10 @@ def main():
     t0 = time.perf_counter()
     phase_llama_kernels(results)
     log(f"  LLaMA-family kernel checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_neox_kernels(results)
+    log(f"  fused backward at Pythia's head dims: "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # 4.-9. each path, with the kernels it launched
     launches = dict.fromkeys(KERNELS, 0)
@@ -3126,6 +3462,13 @@ def main():
     tally("char LLaMA", phase_llama_example(card),
           LLAMA_TRAIN_KERNELS + ("decode_attention",))
     log(f"  char LLaMA phase: {time.perf_counter() - t0:.1f} s")
+    for name, counts in phase_neox_train(card).items():
+        tally(f"{name} training", counts, NEOX_TRAIN_KERNELS)
+    log("Pythia-1B generate on the tape, float32, greedy:")
+    t0 = time.perf_counter()
+    tally("Pythia-1B generate", phase_neox_generate(card),
+          NEOX_GENERATE_KERNELS)
+    log(f"  Pythia-1B generate phase: {time.perf_counter() - t0:.1f} s")
     missing = [k for k in KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels no path launched: {missing}")

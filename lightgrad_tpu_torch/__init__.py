@@ -10,7 +10,8 @@ optimizers, master-weight AMP).  The tape also carries the vision path:
 convolution, BatchNorm and pooling layers, ResNet (``models.resnet18``,
 ``resnet20``) and the ``data`` pipeline (``DeviceDataset``, MNIST), and the
 LLaMA family (``Llama``: LLaMA, Mistral's sliding window, Qwen2, Gemma),
-trained on the tape and served through its KV functions.  Both
+trained on the tape and served through its KV functions, and the GPT-NeoX /
+Pythia family (``NeoX``) on the tape.  Both
 run on hand-written Hopper kernels on a CUDA device and on their plain
 PyTorch versions on the CPU."""
 
@@ -19,7 +20,7 @@ from . import (amp, autograd, data, loss, models, nn, ops, optim, quant,
 from .autograd import (AbstractTensor, CudaTensor, Function, Gradients,
                        Tensor, no_grad)
 from .models import (GPT, GPTConfig, ByteTokenizer, Llama, LlamaConfig,
-                     RMSNorm, generate_batch)
+                     NeoX, NeoXConfig, RMSNorm, generate_batch)
 from .serving import InferenceEngine, Request
 from .weights import load_numpy_params
 
@@ -40,5 +41,6 @@ __all__ = ["amp", "autograd", "data", "loss", "models", "nn", "ops", "optim",
            "AbstractTensor", "CudaTensor", "Function", "Gradients", "Tensor",
            "no_grad", "empty", "zeros", "ones", "uniform", "xavier",
            "from_numpy", "einsum", "GPT", "GPTConfig", "ByteTokenizer",
-           "Llama", "LlamaConfig", "RMSNorm", "generate_batch", "InferenceEngine", "Request",
+           "Llama", "LlamaConfig", "NeoX", "NeoXConfig", "RMSNorm",
+           "generate_batch", "InferenceEngine", "Request",
            "load_numpy_params"]

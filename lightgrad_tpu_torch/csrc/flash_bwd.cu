@@ -42,17 +42,20 @@
 //     dk_j = scale * sum_i ds_ij q_i, with ds_ij = p_ij (dp_ij - dcap_i).
 //
 //   fused (TPU: _flash_bwd_fused -> _bwd_fused_kernel): block = (bh, 64 key
-//     rows; 32 at D = 128), G = 1; the dk/dv pass's loop, which also
-//     parks each Q tile's ds (BS x key rows) in shared memory beside the
-//     block's K rows, then re-maps the threads to the tile's query rows and
-//     writes dq's share from these keys, scale * ds @ K_blk, as an f32 slab
-//     [key block][bh][query rows].  p and ds are computed once for all three
-//     gradients (5 products a pair instead of the two passes' 6); the price
-//     is nk slabs of (BH, S, D) f32 written and summed after the kernel.
-//     Under `causal` the slab rows of the skipped Q tiles are written as 0,
-//     so a plain sum over the key blocks gives dq.  It takes dcap as given
-//     (a row's keys are spread over the blocks, so nothing can refine dcap
-//     before its ds are used), as the TPU kernel does.
+//     rows; 32 at D = 128, 16 at D = 256), G = 1; the dk/dv pass's loop,
+//     which also parks each Q tile's ds (BS x key rows) in shared memory
+//     beside the block's K rows, then re-maps the threads to the tile's
+//     query rows and writes dq's share from these keys, scale * ds @ K_blk,
+//     as an f32 slab [key block][bh][query rows].  p and ds are computed
+//     once for all three gradients (5 products a pair instead of the two
+//     passes' 6); the price is nk slabs of (BH, S, d) f32 written and
+//     summed after the kernel -- at Pythia-1B's 16 x 2048 x 256, 128 slabs,
+//     4.3 GB a layer written and read back, which bounds it at that shape
+//     (the TPU kernel's own cost).  Under `causal` the slab rows of the skipped
+//     Q tiles are written as 0, so a plain sum over the key blocks gives
+//     dq.  It takes dcap as given (a row's keys are spread over the blocks,
+//     so nothing can refine dcap before its ds are used), as the TPU kernel
+//     does.
 //
 // Optional per-row valid lengths `lens` (BH int32, both passes; TPU: the
 // lens_ref limit): a pair (i, j) of row block bh counts iff i < lens[bh] and
@@ -74,8 +77,8 @@
 // stored.  Each thread owns 16 columns at every D, so TPR = D / 16 threads
 // share a row (16 at D = 256), and the rows a block holds drop with D so that
 // a block stays at 256 threads or fewer (16 rows at D = 256: 256 threads of
-// up to 255 registers fill the SM's 65,536).  The fused kernel takes D 64 and
-// 128 only, at d == D.
+// up to 255 registers fill the SM's 65,536).  The fused kernel takes the same
+// head dims the same way, its dq slabs at row stride d too.
 //
 // No atomics; every sum is taken in a fixed order, so results are
 // deterministic.  Under `causal`, tiles wholly above the diagonal are never
@@ -415,7 +418,7 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const float* __restrict__ lse,
                        const float* __restrict__ dcap,
                        float* __restrict__ dq_slabs, T* __restrict__ dk,
-                       T* __restrict__ dv, int BH, int S, float scale,
+                       T* __restrict__ dv, int BH, int S, int d, float scale,
                        int causal) {
   using C = Cfg<D>;
   constexpr int TPR = C::TPR, BS = C::BS, D4 = C::D4, NC = C::NC;
@@ -439,32 +442,34 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row = t / TPR, part = t % TPR;
   const int kj = k0 + row;
   const size_t rk = (size_t)bh * S + min(kj, S - 1);
-  float* slab = dq_slabs + ((size_t)kb * BH + bh) * S * D;
+  // slab [kb][bh] holds (S, d) f32 rows at stride d
+  float* slab = dq_slabs + ((size_t)kb * BH + bh) * S * d;
 
   float4 kr[NC], vr[NC], dka[NC], dva[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    kr[c] = lg_load4(k + rk * D + (c * TPR + part) * 4);
-    vr[c] = lg_load4(v + rk * D + (c * TPR + part) * 4);
+    kr[c] = load_cols(k + rk * d, (c * TPR + part) * 4, d);
+    vr[c] = load_cols(v + rk * d, (c * TPR + part) * 4, d);
     dka[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     dva[c] = dka[c];
   }
-  lg_stage<T, D, KR, C::kThreads>(Ks, k + (size_t)bh * S * D, k0, S, D);
+  lg_stage<T, D, KR, C::kThreads>(Ks, k + (size_t)bh * S * d, k0, S, d);
 
   const int nqt = (S + BS - 1) / BS;
   // causal: query tiles wholly before this key block see none of its keys;
   // their slab rows are written as zeros (k0 = qt0 * BS < S)
   const int qt0 = causal ? k0 / BS : 0;
-  for (int e = t; e < qt0 * BS * D4; e += C::kThreads)
+  const size_t nzero = (size_t)qt0 * BS * (d / 4);
+  for (size_t e = t; e < nzero; e += C::kThreads)
     reinterpret_cast<float4*>(slab)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  const T* qb = q + (size_t)bh * S * D;
-  const T* ob = dout + (size_t)bh * S * D;
+  const T* qb = q + (size_t)bh * S * d;
+  const T* ob = dout + (size_t)bh * S * d;
   for (int qt = qt0; qt < nqt; ++qt) {
     const int q0 = qt * BS;
     __syncthreads();  // the previous tile and its ds are no longer read
-    lg_stage<T, D, BS, C::kThreads>(Qs, qb, q0, S, D);
-    lg_stage<T, D, BS, C::kThreads>(Os, ob, q0, S, D);
+    lg_stage<T, D, BS, C::kThreads>(Qs, qb, q0, S, d);
+    lg_stage<T, D, BS, C::kThreads>(Os, ob, q0, S, d);
     for (int r = t; r < BS; r += C::kThreads) {
       const bool in = q0 + r < S;
       Ls[r] = in ? lse[(size_t)bh * S + q0 + r] : 0.f;
@@ -507,7 +512,8 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the tile's ds is complete
 
     // dq's share of this key block for query row q0 + row:
-    // scale * sum_j ds[row][j] k_j (rows of K past S are zero in Ks)
+    // scale * sum_j ds[row][j] k_j (rows of K past S, and columns past d,
+    // are zero in Ks)
     float4 acc[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -519,20 +525,23 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     const int qi = q0 + row;
     if (qi < S) {
-      float4* dst = reinterpret_cast<float4*>(slab + (size_t)qi * D);
+      float4* dst = reinterpret_cast<float4*>(slab + (size_t)qi * d);
 #pragma unroll
       for (int c = 0; c < NC; ++c)
-        dst[c * TPR + part] = make_float4(acc[c].x * scale, acc[c].y * scale,
-                                          acc[c].z * scale, acc[c].w * scale);
+        if ((c * TPR + part) * 4 < d)
+          dst[c * TPR + part] =
+              make_float4(acc[c].x * scale, acc[c].y * scale,
+                          acc[c].z * scale, acc[c].w * scale);
     }
   }
 
   if (kj < S) {
-    T* dkr = dk + ((size_t)bh * S + kj) * D;
-    T* dvr = dv + ((size_t)bh * S + kj) * D;
+    T* dkr = dk + ((size_t)bh * S + kj) * d;
+    T* dvr = dv + ((size_t)bh * S + kj) * d;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = (c * TPR + part) * 4;
+      if (col >= d) continue;
       lg_store4(dkr + col, make_float4(dka[c].x * scale, dka[c].y * scale,
                                        dka[c].z * scale, dka[c].w * scale));
       lg_store4(dvr + col, dva[c]);
@@ -541,25 +550,43 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ops/attention.py's FUSED_ROWS sizes the dq slabs by these key rows
-static_assert(Cfg<64>::kRows == 64 && Cfg<128>::kRows == 32,
+static_assert(Cfg<32>::kRows == 64 && Cfg<64>::kRows == 64 &&
+                  Cfg<128>::kRows == 32 && Cfg<256>::kRows == 16,
               "update FUSED_ROWS in ops/attention.py with Cfg<D>::kRows");
 
+// The operands of a fused backward call.
+struct FusedArgs {
+  const void *q, *k, *v, *dout, *lse, *dcap;
+  void *dq_slabs, *dk, *dv;
+  int BH, S, d;
+  float scale;
+  int causal;
+};
+
 template <typename T, int D>
-int launch_fused(const void* q, const void* k, const void* v,
-                 const void* dout, const void* lse, const void* dcap,
-                 void* dq_slabs, void* dk, void* dv, int BH, int S,
-                 float scale, int causal, cudaStream_t stream) {
-  constexpr int bytes = fused_smem_bytes<D>();  // above the 48 KB default
+int launch_fused(const FusedArgs& a, cudaStream_t stream) {
+  // 41 KB at D 32, 66 KB at D 64, 54 KB at D 128, 50 KB at D 256: above
+  // the 48 KB default at the wider D
+  constexpr int bytes = fused_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_fused_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + Cfg<D>::kRows - 1) / Cfg<D>::kRows, BH);
+  dim3 grid((a.S + Cfg<D>::kRows - 1) / Cfg<D>::kRows, a.BH);
   flash_bwd_fused_kernel<T, D><<<grid, Cfg<D>::kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)dcap, (float*)dq_slabs, (T*)dk,
-      (T*)dv, BH, S, scale, causal);
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
+      (const float*)a.lse, (const float*)a.dcap, (float*)a.dq_slabs,
+      (T*)a.dk, (T*)a.dv, a.BH, a.S, a.d, a.scale, a.causal);
   return (int)cudaGetLastError();
+}
+
+// The fused kernel at the narrowest instantiation that holds d columns.
+template <typename T>
+int launch_fused_d(const FusedArgs& a, cudaStream_t st) {
+  if (a.d <= 32) return launch_fused<T, 32>(a, st);
+  if (a.d <= 64) return launch_fused<T, 64>(a, st);
+  if (a.d <= 128) return launch_fused<T, 128>(a, st);
+  return launch_fused<T, 256>(a, st);
 }
 
 }  // namespace
@@ -569,9 +596,8 @@ extern "C" {
 // `lens` is null or BH int32 valid lengths and `window` 0 (no band) or the
 // band's width; for the dq pass, `dlse` is null or lse's cotangent (dcap =
 // rowsum(dO * O) - dlse), and `dcap_out` null or where the refined dcap goes.
-// The two passes return cudaErrorInvalidValue for a head dimension they lack
-// (d % 8 != 0, d < 8 or d > 256), the fused kernel for d other than 64 and
-// 128.
+// All three return cudaErrorInvalidValue for a head dimension they lack
+// (d % 8 != 0, d < 8 or d > 256).
 int lg_flash_bwd_dq(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* dcap,
                     const void* dlse, void* dq, void* dcap_out,
@@ -602,26 +628,13 @@ int lg_flash_bwd_fused(const void* q, const void* k, const void* v,
                        void* dq_slabs, void* dk, void* dv, int BH, int S,
                        int D, float scale, int causal, int is_bf16,
                        void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+  if (D % 8 != 0 || D < 8 || D > 256) return (int)cudaErrorInvalidValue;
   if (BH <= 0 || S <= 0) return 0;
-  if (D == 64) {
-    return is_bf16 ? launch_fused<__nv_bfloat16, 64>(q, k, v, dout, lse, dcap,
-                                                     dq_slabs, dk, dv, BH, S,
-                                                     scale, causal, st)
-                   : launch_fused<float, 64>(q, k, v, dout, lse, dcap,
-                                             dq_slabs, dk, dv, BH, S, scale,
-                                             causal, st);
-  }
-  if (D == 128) {
-    return is_bf16 ? launch_fused<__nv_bfloat16, 128>(q, k, v, dout, lse,
-                                                      dcap, dq_slabs, dk, dv,
-                                                      BH, S, scale, causal,
-                                                      st)
-                   : launch_fused<float, 128>(q, k, v, dout, lse, dcap,
-                                              dq_slabs, dk, dv, BH, S, scale,
-                                              causal, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const FusedArgs a{q, k, v, dout, lse, dcap, dq_slabs, dk, dv,
+                    BH, S, D, scale, causal};
+  cudaStream_t st = (cudaStream_t)stream;
+  return is_bf16 ? launch_fused_d<__nv_bfloat16>(a, st)
+                 : launch_fused_d<float>(a, st);
 }
 
 }  // extern "C"

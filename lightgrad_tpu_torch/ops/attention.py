@@ -7,8 +7,8 @@ flash backward (``csrc/flash_bwd.cu``): the two passes, the dq pass
 :func:`attention_bwd_dq` and the dk/dv pass :func:`attention_bwd_dkv`, or,
 after ``set_flash_fused(True)`` and where its rule allows, the fused kernel
 :func:`attention_bwd_fused`.  All three kernels take per-row ``lengths``;
-the forward and the two passes take a causal sliding ``window`` and any head
-dim d with d % 8 == 0, 8 <= d <= 256 (the fused kernel d 64 and 128).
+the forward and the two passes take a causal sliding ``window``, and all
+three any head dim d with d % 8 == 0, 8 <= d <= 256.
 :func:`flash_block_fwd` / :func:`flash_block_bwd` are the two directions of
 ``flash_block`` (``autograd/ops.py``): (out, lse) differentiable through
 lse.  On CPU tensors every wrapper runs its plain version.
@@ -28,22 +28,29 @@ from . import _build, runtime
 __all__ = ["attention_fwd", "attention_fwd_res", "attention_fwd_reference",
            "attention_bwd", "attention_bwd_dq", "attention_bwd_dkv",
            "attention_bwd_fused", "attention_bwd_fused_reference",
-           "attention_bwd_reference", "set_flash_fused", "flash_block_fwd",
-           "flash_block_bwd", "flash_block_reference"]
+           "attention_bwd_reference", "fused_rows", "set_flash_fused",
+           "flash_block_fwd", "flash_block_bwd", "flash_block_reference"]
 
 _NEG_INF = -1e30
 # Backward scheme selector, as the JAX package's _FUSED_BWD: off by default.
 _FUSED_BWD = False
-# Key rows per block of the fused kernel by head dim: Cfg<D>::kRows of
-# csrc/flash_bwd.cu, which asserts these values.  dq is the sum of one slab
-# per block, in the kernel and in its plain version.  The fused kernel takes
-# these head dims only; the others are ROADMAP queue 2 row 9D.
-FUSED_ROWS = {64: 64, 128: 32}
+# Key rows per block of the fused kernel by instantiation D: Cfg<D>::kRows
+# of csrc/flash_bwd.cu, which asserts these values.  A head dim d runs the
+# narrowest D >= d.  dq is the sum of one slab per block, in the kernel and
+# in its plain version.
+FUSED_ROWS = {32: 64, 64: 64, 128: 32, 256: 16}
+
+
+def fused_rows(d: int) -> int:
+    """Key rows a block of the fused kernel holds at head dim ``d``: those
+    of the instantiation that serves d (d 80: D 128's 32).  A d past 256,
+    which only the plain version takes, gets D 256's."""
+    return FUSED_ROWS[min((D for D in FUSED_ROWS if D >= d), default=256)]
 
 
 def set_flash_fused(on: bool) -> bool:
-    """Let :func:`attention_bwd` take the fused backward kernel where it
-    can (no ``lengths``, no ``window``, G == 1, head dim 64 or 128);
+    """Let :func:`attention_bwd` take the fused backward kernel where the
+    JAX package's rule does (no ``lengths``, no ``window``, G == 1);
     returns the previous setting."""
     global _FUSED_BWD
     prev = _FUSED_BWD
@@ -177,7 +184,7 @@ def attention_bwd_fused_reference(g, q, k, v, out, lse, dcap, scale: float,
     if prod(q.shape[:-2]) != prod(k.shape[:-2]):
         raise ValueError("the fused backward takes no grouped-query call")
     return _bwd_from_residuals(g, q, k, v, lse, dcap, scale, causal,
-                               slab_rows=FUSED_ROWS.get(q.shape[-1], 64))[:3]
+                               slab_rows=fused_rows(q.shape[-1]))[:3]
 
 
 def _check(fn, q, k, v, **same_as_q):
@@ -308,11 +315,12 @@ def attention_bwd_dkv(g, q, k, v, lse, dcap, scale: float,
 
 def attention_bwd_fused(g, q, k, v, lse, dcap, scale: float,
                         causal: bool = False):
-    """(dq, dk, dv) from one fused kernel (G == 1, no lengths): dk and dv
-    directly, dq as nk = ceil(S / block rows) unreduced f32 slabs of
-    (B, S, D) -- nk * B * S * D * 4 bytes, 403 MB at B 96, S 1024, D 64 --
-    summed in a fixed order after the kernel, as the JAX package leaves
-    that sum to XLA.  The plain version on CPU."""
+    """(dq, dk, dv) from one fused kernel (G == 1, no lengths, any head dim
+    the two passes take): dk and dv directly, dq as nk = ceil(S / block
+    rows) unreduced f32 slabs of (B, S, d) -- nk * B * S * d * 4 bytes, 403
+    MB at B 96, S 1024, d 64, 4.3 GB at B 16, S 2048, d 256 -- summed in a
+    fixed order after the kernel, as the JAX package leaves that sum to
+    XLA.  The plain version on CPU."""
     if not q.is_cuda:
         return attention_bwd_fused_reference(g, q, k, v, None, lse, dcap,
                                              scale, causal)
@@ -321,11 +329,7 @@ def attention_bwd_fused(g, q, k, v, lse, dcap, scale: float,
     if b != bkv:
         raise ValueError(f"{fn}: the fused kernel takes no grouped-query "
                          f"call (B {b}, KV rows {bkv})")
-    if d not in FUSED_ROWS:
-        raise ValueError(f"{fn}: the fused kernel takes head dims "
-                         f"{sorted(FUSED_ROWS)}, not {d} (ROADMAP queue 2 "
-                         f"row 9D)")
-    nk = -(-s // FUSED_ROWS[d])
+    nk = -(-s // fused_rows(d))
     slabs = torch.empty((nk, *q.shape), device=q.device, dtype=torch.float32)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
@@ -362,8 +366,8 @@ def _flash_bwd(g, q, k, v, out, lse, scale, causal, dlse=None,
     """The flash backward from the forward's (out, lse), as the JAX
     package's ``_flash_bwd``: dcap = rowsum(g * out) in f32, less lse's
     cotangent ``dlse`` where it has one; then the fused kernel where the
-    switch and its rule allow (the JAX rule, and a head dim it takes), else
-    the two passes, the dk/dv pass taking the dq pass's refined dcap."""
+    switch and the JAX rule allow (no lengths, no window, G == 1), else the
+    two passes, the dk/dv pass taking the dq pass's refined dcap."""
     if out is None or lse is None or out.shape != q.shape:
         raise ValueError("the flash backward needs the forward's out and lse")
     # a plain reduction, as the JAX package leaves it to XLA
@@ -373,7 +377,6 @@ def _flash_bwd(g, q, k, v, out, lse, scale, causal, dlse=None,
         dcap = dcap - dlse
     dcap = dcap.contiguous()
     if _FUSED_BWD and lengths is None and not window \
-            and q.shape[-1] in FUSED_ROWS \
             and prod(q.shape[:-2]) == prod(k.shape[:-2]):
         return attention_bwd_fused(g, q, k, v, lse, dcap, scale, causal)
     refined = torch.empty_like(dcap)
@@ -388,8 +391,8 @@ def attention_bwd(g, q, k, v, scale: float, causal: bool = False,
     """(dq, dk, dv) of ``attention_fwd`` for the output cotangent ``g``.
     On CUDA the flash backward kernels, which need the forward's ``out``
     and ``lse``: the two passes, or the fused kernel after
-    ``set_flash_fused(True)`` where there are no lengths or window, G == 1
-    and the head dim is 64 or 128.  On CPU the plain recompute version."""
+    ``set_flash_fused(True)`` where there are no lengths or window and
+    G == 1.  On CPU the plain recompute version."""
     if window:
         assert causal, "sliding window attention is causal-only"
     if not q.is_cuda:

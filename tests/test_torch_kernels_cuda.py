@@ -159,6 +159,65 @@ def test_tape_attention_window_grouped(dev):
         _close(t.grad.data, r.grad, torch.float32)
 
 
+@pytest.mark.parametrize("hidden,heads", [(512, 2), (320, 4)])
+def test_tape_neox_step_fused_backward(dev, hidden, heads):
+    """A 2-layer Pythia-shaped NeoX (head dim 256, or 80; rotary_pct 0.25,
+    parallel residual) one step on the tape with the fused flash backward,
+    against the same weights on the CPU, whose ops run the kernels' plain
+    versions (the recompute backward for attention): logits and every
+    gradient; the fused kernel launched once a layer and the two passes
+    never."""
+    import numpy as np
+
+    from lightgrad_tpu_torch import load_numpy_params
+    from lightgrad_tpu_torch import loss as lg_loss
+    from lightgrad_tpu_torch import random as lg_random
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.autograd.cuda import device
+    from lightgrad_tpu_torch.models.neox import NeoX, NeoXConfig
+
+    cfg = dict(vocab_size=512, hidden_size=hidden,
+               intermediate_size=4 * hidden, num_hidden_layers=2,
+               num_attention_heads=heads, max_position_embeddings=256)
+    B, S = 2, 200
+    ids = np.random.default_rng(hidden).integers(0, 512, (B, S + 1))
+    ids = ids.astype(np.int32)
+
+    def step(model):
+        logits = model(Tensor.from_numpy(ids[:, :-1], requires_grad=False))
+        loss = lg_loss.cross_entropy(
+            logits.reshape(B * S, 512),
+            Tensor.from_numpy(ids[:, 1:].reshape(-1), requires_grad=False))
+        loss.backward()
+        return logits.data.cpu(), {n: t.grad.data.cpu()
+                                   for n, t in model.named_parameters()}
+
+    lg_random.seed(0)
+    model = NeoX(NeoXConfig(**cfg))
+    state = {n: t.numpy() for n, t in model.named_parameters()}
+    prev = set_flash_fused(True)
+    try:
+        reset_launch_counts()
+        logits, grads = step(model)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        prev_dev = device.set_default_device("cpu")
+        try:
+            twin = NeoX(NeoXConfig(**cfg))
+            load_numpy_params(twin, state)
+            want_logits, want = step(twin)
+        finally:
+            device.set_default_device(prev_dev)
+    finally:
+        set_flash_fused(prev)
+    assert counts["attention_bwd_fused"] == 2
+    assert counts["attention_bwd_dq"] == counts["attention_bwd_dkv"] == 0
+    _close(logits, want_logits, torch.float32)
+    for n, g in grads.items():
+        err = (g - want[n]).abs().max().item()
+        assert err <= 1e-3 * want[n].abs().max().item(), (n, err)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,G,D,causal", [(128, 1, 64, False),
                                           (128, 1, 64, True),
@@ -199,10 +258,16 @@ def test_flash_kernels_with_lengths(dev, S, G, D, causal, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,D,causal", [(1024, 64, True), (100, 64, False),
-                                        (200, 128, True), (96, 128, False)])
+                                        (200, 128, True), (96, 128, False),
+                                        (300, 32, True), (100, 32, False),
+                                        (200, 80, True), (129, 80, False),
+                                        (150, 200, True), (100, 200, False),
+                                        (300, 256, True), (64, 256, False)])
 def test_flash_fused_backward_kernel(dev, S, D, causal, dtype):
     """The fused kernel against the plain version and the two passes, bit
-    for bit on a rerun; calls it cannot take stay on the two passes."""
+    for bit on a rerun, at every instantiation (D 32, 64, 128, 256) and
+    through the next wider one (d 80, 200); calls the JAX rule keeps off it
+    (lengths, grouped queries) stay on the two passes."""
     g = torch.Generator(device=dev).manual_seed(11 * S + D + causal)
     q, do, k, v = (_randn(g, 4, S, D, dtype=dtype) for _ in range(4))
     out, lse = attention_fwd_res(q, k, v, D ** -0.5, causal=causal)
@@ -541,9 +606,10 @@ def test_wrappers_raise_on_what_the_kernels_lack(dev):
     with pytest.raises(ValueError):
         attention_bwd(q.transpose(0, 1).contiguous().transpose(0, 1), q, q,
                       q, 1.0, True, out=out, lse=lse)         # strided g
-    q80 = torch.zeros(2, 16, 80, device=dev)
-    with pytest.raises(ValueError, match="9D"):               # fused, D 80
-        attention_bwd_fused(q80, q80, q80, q80, lse, lse[..., 0], 1.0, True)
+    for d in (20, 264):                             # fused, head dim
+        qd = torch.zeros(2, 16, d, device=dev)
+        with pytest.raises(ValueError, match="head dim"):
+            attention_bwd_fused(qd, qd, qd, qd, lse, lse[..., 0], 1.0, True)
     with pytest.raises(ValueError):
         layernorm_fwd(q, torch.ones(32, device=dev), torch.zeros(32,
                                                                  device=dev))

@@ -35,6 +35,7 @@ def test_importing_the_port_loads_no_jax():
             "bert, lightgrad_tpu_torch.quant, lightgrad_tpu_torch.data, "
             "lightgrad_tpu_torch.models.resnet, lightgrad_tpu_torch.ops.conv, "
             "lightgrad_tpu_torch.models.llama, "
+            "lightgrad_tpu_torch.models.neox, "
             "lightgrad_tpu_torch.utils.fetch; bad = [m for m in sys.modules "
             "if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lightgrad_tpu')]; print(bad); "
