@@ -33,9 +33,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
      256 at Gemma-2B's prefill and training shapes, head dim 32 at the char
      example's, head dims 8, 16, 80 and 200 and windows of S or more for
      correctness, and decode attention at Gemma's (1, 8, 256) and
-     Mistral's (8, 4, 128) decode shapes, its error scaled by the
-     reference's rms (plain versions one KV group at a time; the library
-     call is SDPA with ``enable_gqa``); the fused flash backward at
+     Mistral's (8, 4, 128) decode shapes, split over blocks (the record
+     carries n_split), its error scaled by the reference's rms past one ulp
+     (one split's range alone must fail), its merge kernel timed alone on
+     the plain split's partials, both timed by CUDA graph beside SDPA
+     (plain versions one KV group at a time; the library call is SDPA with
+     ``enable_gqa``); the bf16 flash forward (tensor cores) everywhere
+     within FWD_TOL of the reference's rms past one ulp, with zeros, no
+     causal mask, no band and a last K tile dropped failing it; the
+     forward at BERT-base's 96 x 128 x 64 without a mask (the call shape
+     of the TPU kernel's two-heads-a-step variant); the fused flash backward at
      Pythia-1B's attention (2 x 8 heads of 2048 x 256), Pythia-2.8B's (32
      heads of 2048 x 80) and head dim 32, causal, timed beside the two
      passes and SDPA's backward, and at head dims 200 and 80 without the
@@ -141,6 +148,10 @@ KERNEL_SOURCES = {
                       "lightgrad_tpu/ops/attention.py:267"),
     "decode_attention": ("cuda", "lightgrad_tpu_torch/csrc/decode_attention.cu",
                          "lightgrad_tpu/ops/decode_attention.py:64"),
+    # the second launch of #11 where it splits a head's keys
+    "decode_attention_merge": ("cuda",
+                               "lightgrad_tpu_torch/csrc/decode_attention.cu",
+                               "lightgrad_tpu/ops/decode_attention.py:64"),
     "decode_stack": ("cuda", "lightgrad_tpu_torch/csrc/decode_stack.cu",
                      "lightgrad_tpu/ops/decode_stack.py:282"),
     "decode_stack_batch": ("cuda", "lightgrad_tpu_torch/csrc/decode_stack.cu",
@@ -194,6 +205,10 @@ KERNEL_SOURCES = {
                     "lightgrad_tpu/ops/conv.py:122"),
 }
 KERNEL_NOTES = {
+    "decode_attention_merge": "decode attention's second launch where it "
+                              "splits a KV head's keys over blocks: the "
+                              "merge of the splits' partials; timed alone "
+                              "on partials of the plain split arithmetic",
     "flash_block": "launches no kernel of its own: it counts one a direction "
                    "beside the flash kernels it launches, which count too; "
                    "its times are theirs through its wrappers",
@@ -223,6 +238,13 @@ CONV_PATH_KERNELS = CONV_KERNELS + TAPE_KERNELS
 # cuBLAS/ATen reductions, no TF32).  bfloat16: bf16 inputs, f32 sums, one
 # rounding of the output to bf16 (2^-8 relative) on either side.
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# The bf16 flash forward rounds P to bf16 before P V, as the TPU kernel
+# does (p.astype(v.dtype)), so its outputs are held by check_ulp: error past
+# one ulp of each element within FWD_TOL times the reference's rms.  SDPA's
+# bf16 flash kernel rounds P the same way and errs as much at the LLaMA
+# prefill shapes (3.6e-2 at Mistral-7B's band, 3.8e-2 at Gemma-2B's: the
+# "library's" lines of phase 3, PERF.md §6).
+FWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-2}
 # KV-cache decoding vs a plain full-sequence forward of the same model, and
 # step 1's gradients (max |err| / max |reference| per parameter) vs a plain
 # step.  float32: other summation order through 12 layers.  bfloat16: both
@@ -286,7 +308,8 @@ LLAMA_SERVING = (("Mistral-7B", MISTRAL_7B, 4500, (4500, 1000, 60),
 LLAMA_TRAINING = (("Mistral-7B", MISTRAL_7B, 1, 8192),
                   ("Gemma-2B", GEMMA_2B, 2, 1024))
 LLAMA_LR = 3e-4
-LLAMA_SERVING_KERNELS = ("attention_fwd", "decode_attention")
+LLAMA_SERVING_KERNELS = ("attention_fwd", "decode_attention",
+                         "decode_attention_merge")
 LLAMA_TRAIN_KERNELS = TAPE_KERNELS + FLASH_KERNELS
 # HF EleutherAI/pythia-1b config.json (GPTNeoXForCausalLM; 1.01 B
 # parameters), no cut
@@ -453,6 +476,45 @@ def check_ulp(name, dtype, got, want, tol, *wrong):
     return abs_err
 
 
+def last_rows_dropped(q, k, v, scale, rows, drop):
+    """A plausible fault of a causal forward: its last ``rows`` query rows
+    of each head over the keys before the last ``drop`` (a last K tile
+    never loaded), f32; q (H, S, d), k and v (KV, S, d) grouped."""
+    H, S, _ = q.shape
+    rep = H // k.shape[0]
+    qs = q[:, S - rows:].float().reshape(k.shape[0], rep, rows, -1)
+    sc = torch.einsum("kgqd,ksd->kgqs", qs, k[:, :S - drop].float()) * scale
+    out = torch.einsum("kgqs,ksd->kgqd", torch.softmax(sc, -1),
+                       v[:, :S - drop].float())
+    return out.reshape(H, rows, -1)
+
+
+def check_fwd(name, dtype, out, ref, *wrong, q=None, k=None, v=None,
+              scale=None, drop=0, library=None):
+    """The flash forward's output against its plain version: f32 by
+    :func:`check`; bf16 by :func:`check_ulp` at FWD_TOL, every output in
+    ``wrong`` failing it, and, with ``drop`` (a causal call's last K tile's
+    keys) where S exceeds it, its last 64 rows held apart against the same
+    rows over all keys but the last ``drop``.  ``library``: the same call
+    by PyTorch, whose error by the same measure is logged beside."""
+    if dtype == torch.float32:
+        err = check(name, dtype, out, ref, FWD_TOL[dtype])
+        discriminates(name, dtype, ref, FWD_TOL[dtype], *wrong)
+        return err
+    err = check_ulp(name, dtype, out, ref, FWD_TOL[dtype], *wrong)
+    if library is not None:
+        r = ref.float()
+        over = ((library.float() - r).abs() - ULP[dtype] * r.abs()).max()
+        log(f"  {name} {str(dtype)[6:]}: the library's (err - ulp)/rms="
+            f"{over.item() / r.pow(2).mean().sqrt().item():.3e}")
+    if drop and out.shape[-2] > drop:
+        rows = min(64, out.shape[-2] - drop)
+        check_ulp(f"{name} last {rows} rows", dtype, out[:, -rows:],
+                  ref[:, -rows:], FWD_TOL[dtype],
+                  last_rows_dropped(q, k, v, scale, rows, drop))
+    return err
+
+
 def bound_ms(nbytes, ops, dtype):
     """The least time the card could take for a call: its bytes (each input
     read once, each output written once) at HBM_BPS or its operations at
@@ -524,7 +586,7 @@ def phase_kernels(model, results):
     from lightgrad_tpu_torch.ops.attention import (attention_fwd_res,
                                                    attention_fwd_reference)
     from lightgrad_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_reference)
+        decode_attention, decode_attention_reference, decode_splits)
     from lightgrad_tpu_torch.ops.decode_stack import (
         decode_stack, decode_stack_batch, decode_stack_batch_reference,
         decode_stack_reference, pack_gpt_stack)
@@ -550,7 +612,12 @@ def phase_kernels(model, results):
         q, k, v = rnd(H, W, hd), rnd(H, W, hd), rnd(H, W, hd)
         out, lse = attention_fwd_res(q, k, v, sc, causal=True)
         ro, rl = attention_fwd_reference(q, k, v, sc, True)
-        err = check("attention_fwd out", dtype, out, ro, tol)
+        err = check_fwd("attention_fwd out", dtype, out, ro,
+                        torch.zeros_like(ro),
+                        attention_fwd_reference(q, k, v, sc, False)[0],
+                        q=q, k=k, v=v, scale=sc, drop=64,
+                        library=F.scaled_dot_product_attention(
+                            q, k, v, is_causal=True))
         check("attention_fwd lse", dtype, lse, rl, KERNEL_TOL[torch.float32])
         record(results, dtype, "attention_fwd", err,
                cuda_ms(lambda: attention_fwd_res(q, k, v, sc, True)),
@@ -568,14 +635,17 @@ def phase_kernels(model, results):
             want = decode_attention_reference(q1, kc, vc, pos, sc)
             err = check(f"decode_attention pos={pos}", dtype, got, want, tol)
             record(results, dtype, "decode_attention", err)
-        record(results, dtype, "decode_attention", 0.0,
-               cuda_ms(lambda: decode_attention(q1, kc, vc, 512, sc)),
-               cuda_ms(lambda: decode_attention_reference(q1, kc, vc, 512,
-                                                          sc)),
-               cost=((2 * H * hd + 2 * 513 * H * hd) * isz,
-                     4 * H * 513 * hd),
-               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                   q1, kc[:, :513], vc[:, :513])))
+        # times by CUDA graph (the device's time: a call is microseconds,
+        # less than its launch work), the library's too
+        timed(results, dtype, "decode_attention", 0.0,
+              lambda: decode_attention(q1, kc, vc, 512, sc),
+              lambda: decode_attention_reference(q1, kc, vc, 512, sc),
+              ((2 * H * hd + 2 * 513 * H * hd) * isz, 4 * H * 513 * hd),
+              lambda: F.scaled_dot_product_attention(q1, kc[:, :513],
+                                                     vc[:, :513]))
+        results["decode_attention"][("bf16_" if isz == 2 else "")
+                                    + "n_split"] = decode_splits(H, 513, hd,
+                                                                 dtype)
 
         # whole-stack kernel on the model's own packed weights, float and
         # int8 (slabs, cache or both)
@@ -1174,7 +1244,8 @@ def phase_flash_kernels(results):
             want = attention_bwd_reference(do, q, k, v, sc, causal,
                                            lengths=lens)
             tag = f"lengths ({bh}, {S}, {hd}) G={G} causal={causal}"
-            err = check(f"attention_fwd {tag} out", dtype, out, ro, tol)
+            err = check_fwd(f"attention_fwd {tag} out", dtype, out, ro,
+                            torch.zeros_like(ro))
             check(f"attention_fwd {tag} lse", dtype, lse, rl,
                   KERNEL_TOL[f32])
             errs = [check(f"attention_bwd {tag} {n}", dtype, a, w, tol)
@@ -1228,6 +1299,28 @@ def phase_flash_kernels(results):
                                    + bh * 4, 8 * hd * n),
                    library_ms=lib_ms, variant="lengths_")
             del qg, kg, vg, og
+        torch.cuda.empty_cache()
+
+        # the call shape of the TPU kernel's two-heads-a-step variant
+        # (_fwd_kernel_pair: G 1, no lengths, no window, not causal, d <=
+        # 64, an even B), which the same kernel serves: BERT-base's heads
+        q, k, v = rnd(bh, S, hd), rnd(bh, S, hd), rnd(bh, S, hd)
+        out, lse = attention_fwd_res(q, k, v, sc, False)
+        ro, rl = attention_fwd_reference(q, k, v, sc, False)
+        err = check_fwd(f"attention_fwd pair ({bh}, {S}, {hd}) out", dtype,
+                        out, ro, torch.zeros_like(ro),
+                        attention_fwd_reference(q, k, v, sc, True)[0])
+        check(f"attention_fwd pair ({bh}, {S}, {hd}) lse", dtype, lse, rl,
+              KERNEL_TOL[f32])
+        q4, k4, v4 = (t.reshape(B, H, S, hd) for t in (q, k, v))
+        tile = bh * S * hd * isz
+        record(results, dtype, "attention_fwd", err,
+               cuda_ms(lambda: attention_fwd_res(q, k, v, sc, False)),
+               cuda_ms(lambda: attention_fwd_reference(q, k, v, sc, False)),
+               cost=(4 * tile + bh * S * 4, 4 * bh * S * S * hd),
+               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                   q4, k4, v4)), variant="pair_")
+        del q, k, v, out, lse, ro, rl, q4, k4, v4
         torch.cuda.empty_cache()
 
         # the fused backward at GPT-2's training shape, causal
@@ -2625,7 +2718,9 @@ def phase_llama_kernels(results):
         attention_bwd, attention_bwd_dkv, attention_bwd_dq,
         attention_bwd_reference, attention_fwd_res, attention_fwd_reference)
     from lightgrad_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_reference)
+        decode_attention, decode_attention_reference, decode_merge,
+        decode_merge_reference, decode_splits, split_bounds, split_partials,
+        visible_range)
 
     dev, f32 = torch.device("cuda"), torch.float32
     g = torch.Generator(device=dev).manual_seed(13)
@@ -2662,6 +2757,11 @@ def phase_llama_kernels(results):
             out, lse = attention_fwd_res(q, k, v, sc, True, window=window)
             got = attention_bwd(do, q, k, v, sc, True, out=out, lse=lse,
                                 window=window) if bwd else None
+            band = None
+            if window and window < S:
+                i = torch.arange(S, device=dev)
+                band = (i[None, :] <= i[:, None]) \
+                    & (i[:, None] - i[None, :] < window)
             # the first and the last KV group against the plain versions
             rep = H // KV
             err, errs = 0.0, [0.0, 0.0, 0.0]
@@ -2669,17 +2769,28 @@ def phase_llama_kernels(results):
                 qs, ks = slice(j * rep, (j + 1) * rep), slice(j, j + 1)
                 ro, rl = attention_fwd_reference(q[qs], k[ks], v[ks], sc,
                                                  True, window=window)
-                err = max(err, check(f"attention_fwd {tag} group {j} out",
-                                     dtype, out[qs], ro, tol))
+                # plausible faults: zeros; in the first group no causal
+                # mask, the band dropped, and (check_fwd) the last K tile
+                wrong = [torch.zeros_like(ro)]
+                if j == 0:
+                    wrong.append(attention_fwd_reference(
+                        q[qs], k[ks], v[ks], sc, False)[0])
+                    if window:
+                        wrong.append(attention_fwd_reference(
+                            q[qs], k[ks], v[ks], sc, True)[0])
+                lib = None
+                if j == 0 and dtype == torch.bfloat16:
+                    lib = library_time(f"attention_fwd {variant}", dtype,
+                                       lambda: sdpa(q[qs], k[ks], v[ks],
+                                                    band)[0])
+                err = max(err, check_fwd(
+                    f"attention_fwd {tag} group {j} out", dtype, out[qs], ro,
+                    *wrong, q=q[qs], k=k[ks], v=v[ks], scale=sc,
+                    drop=32 if hd > 128 else 64, library=lib))
+                del lib
                 check(f"attention_fwd {tag} group {j} lse", dtype, lse[qs],
                       rl, KERNEL_TOL[f32])
-                discriminates("attention_fwd", dtype, ro, tol,
-                              torch.zeros_like(ro))
-                if window and j == 0:       # a kernel without the band fails
-                    discriminates("attention_fwd band", dtype, ro, tol,
-                                  attention_fwd_reference(
-                                      q[qs], k[ks], v[ks], sc, True)[0])
-                del ro, rl
+                del ro, rl, wrong
                 if bwd:
                     want = attention_bwd_reference(do[qs], q[qs], k[ks],
                                                    v[ks], sc, True,
@@ -2696,11 +2807,6 @@ def phase_llama_kernels(results):
                     del want
                 torch.cuda.empty_cache()
             npairs = H * band_pairs(S, window)
-            band = None
-            if window and window < S:
-                i = torch.arange(S, device=dev)
-                band = (i[None, :] <= i[:, None]) \
-                    & (i[:, None] - i[None, :] < window)
 
             def plain_fwd():
                 for (qg,), (kg, vg) in _kv_groups(q[None], k[None], v[None]):
@@ -2766,7 +2872,8 @@ def phase_llama_kernels(results):
             want = attention_bwd_reference(do, q, k, v, sc, True,
                                            window=window)
             record(results, dtype, "attention_fwd",
-                   check(f"attention_fwd {tag} out", dtype, out, ro, tol))
+                   check_fwd(f"attention_fwd {tag} out", dtype, out, ro,
+                             torch.zeros_like(ro)))
             check(f"attention_fwd {tag} lse", dtype, lse, rl, KERNEL_TOL[f32])
             errs = [check(f"attention_bwd {tag} {n}", dtype, a, w, tol)
                     for n, a, w in zip(("dq", "dk", "dv"), got, want)]
@@ -2787,36 +2894,65 @@ def phase_llama_kernels(results):
             sc = hd ** -0.5
             got = decode_attention(q1, kc, vc, pos, sc, window)
             want = decode_attention_reference(q1, kc, vc, pos, sc, window)
-            lo = max(0, pos - window + 1) if window else 0
-            nv = min(pos, W - 1) + 1 - lo
-            # plausible faults: zeros, the first or the last of the
-            # kernel's 2048-key chunks alone (a broken merge), no band
+            lo, hi = visible_range(W, pos, window)
+            nv = hi + 1 - lo
+            n_split = decode_splits(KV, nv, hd, dtype)
+            bounds = split_bounds(lo, nv, n_split)
+            # plausible faults: zeros, the first or the last 2048 keys
+            # alone, the first or the last split's range alone (a broken
+            # merge), no band
             wrong = [torch.zeros_like(want)]
             if nv > 2048:
                 wrong += [decode_attention_reference(q1, kc, vc, lo + 2047,
                                                      sc, 2048),
                           decode_attention_reference(q1, kc, vc, pos, sc,
                                                      2048)]
+            for s0, s1 in ((bounds[0], bounds[1]), (bounds[-2], bounds[-1])):
+                wrong.append(decode_attention_reference(q1, kc, vc, s1 - 1,
+                                                        sc, s1 - s0))
             if window:
                 wrong.append(decode_attention_reference(q1, kc, vc, pos, sc))
-            err = check_rms(f"decode_attention {variant[:-1]} ({KV}, {G}, "
-                            f"{hd}) pos={pos} window={window}", dtype, got,
-                            want, tol, *wrong)
+            # one ulp of each element allowed beside the rms share: the bf16
+            # kernel rounds P to bf16 (as the TPU kernel does), and a
+            # rounding of the output may land on the neighbouring value
+            err = check_ulp(f"decode_attention {variant[:-1]} ({KV}, {G}, "
+                            f"{hd}) pos={pos} window={window} n_split="
+                            f"{n_split}", dtype, got, want, tol, *wrong)
             del wrong
             kv_vis = (kc[:, lo:pos + 1][None], vc[:, lo:pos + 1][None])
             qh = q1.reshape(1, KV * G, 1, hd)
+            # device time by CUDA graph, the library's too
             record(results, dtype, "decode_attention", err,
-                   cuda_ms(lambda: decode_attention(q1, kc, vc, pos, sc,
-                                                    window)),
-                   cuda_ms(lambda: decode_attention_reference(
-                       q1, kc, vc, pos, sc, window)),
+                   graph_ms(lambda: decode_attention(q1, kc, vc, pos, sc,
+                                                     window)),
+                   graph_ms(lambda: decode_attention_reference(
+                       q1, kc, vc, pos, sc, window)), timing="graph",
                    cost=((2 * KV * nv * hd + 2 * KV * G * hd) * isz,
                          4 * KV * G * nv * hd),
                    library_ms=library_time(
                        f"decode_attention {variant}", dtype,
-                       lambda: cuda_ms(lambda: F.scaled_dot_product_attention(
+                       lambda: graph_ms(lambda: F.scaled_dot_product_attention(
                            qh, *kv_vis, enable_gqa=True))),
                    variant=variant)
+            key = ("bf16_" if dtype == torch.bfloat16 else "") + variant
+            results["decode_attention"][key + "n_split"] = n_split
+            # the merge kernel alone, on the plain split's partials at this
+            # call's splits: its bytes are the partials and the output
+            part = split_partials(q1, kc, vc, pos, sc, window, n_split)
+            mout = decode_merge(part, torch.empty_like(q1), n_split)
+            mref = decode_merge_reference(part, KV, G, hd, n_split, dtype)
+            merr = check_ulp(f"decode_attention_merge {variant[:-1]} "
+                             f"n_split={n_split}", dtype, mout, mref, tol,
+                             torch.zeros_like(mref))
+            record(results, dtype, "decode_attention_merge", merr,
+                   graph_ms(lambda: decode_merge(part, mout, n_split)),
+                   graph_ms(lambda: decode_merge_reference(
+                       part, KV, G, hd, n_split, dtype)), timing="graph",
+                   cost=(part.numel() * 4 + KV * G * hd * isz,
+                         3 * part.numel()),
+                   library_ms=None,
+                   variant="" if variant == "gemma_" else variant)
+            del part, mout, mref
             del q1, kc, vc, kv_vis
         torch.cuda.empty_cache()
 
@@ -2871,6 +3007,7 @@ def teacher_forced_llama(model, name, dtype, P, steps=4):
 # under (bf16 cuBLAS GEMMs on the H100 are nvjet_* kernels)
 SERVING_FAMILIES = (("flash_fwd", "flash forward"),
                     ("decode_attention", "decode attention"),
+                    ("decode_merge", "decode attention"),
                     ("nvjet", "cuBLAS GEMM"), ("gemm", "cuBLAS GEMM"),
                     ("cutlass", "cuBLAS GEMM"))
 

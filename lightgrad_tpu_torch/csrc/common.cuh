@@ -70,6 +70,26 @@ __device__ __forceinline__ void lg_store4(__nv_bfloat16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
+// 16 bytes global -> shared (a shared-window address), asynchronously;
+// `bytes` 0 writes zeros and reads nothing.  Completion: lg_cp_async_commit
+// closes a group, lg_cp_async_wait<N> waits until at most N are in flight.
+__device__ __forceinline__ void lg_cp_async16(uint32_t dst, const void* src,
+                                              int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void lg_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void lg_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ uint32_t lg_smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 __device__ __forceinline__ float lg_warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

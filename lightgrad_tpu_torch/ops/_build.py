@@ -49,9 +49,12 @@ _SIGNATURES = {
     # is_bf16, stream
     "lg_flash_bwd_fused": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _F, _I, _I, _P], _I),
-    # q, kc, vc, out, KV, G, W, hd, pos, window, scale, is_bf16, stream
-    "lg_decode_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                             _P], _I),
+    # q, kc, vc, out, partials (null with n_split 1), KV, G, W, hd, pos,
+    # window, scale, n_split, is_bf16, stream
+    "lg_decode_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                             _I, _I, _P], _I),
+    # partials, out, KV, G, hd, n_split, is_bf16, stream
+    "lg_decode_merge": ([_P, _P, _I, _I, _I, _I, _I, _P], _I),
     # x, cache, slot_stride, poss, pos0, slabs, vecs, scales, kv_scales,
     # x_out, kv_out, ws, n, L, d, H, W, R, eps, scale, is_bf16, w_int8,
     # kv_int8, stream

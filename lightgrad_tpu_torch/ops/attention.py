@@ -2,7 +2,8 @@
 
 Counterpart of ``lightgrad_tpu/ops/attention.py``.  On CUDA tensors
 :func:`attention_fwd` and :func:`attention_fwd_res` launch the hand-written
-flash-forward kernel (``csrc/flash_fwd.cu``) and :func:`attention_bwd` the
+flash-forward kernel (``csrc/flash_fwd.cu``: bfloat16 on the tensor cores,
+float32 on the CUDA cores) and :func:`attention_bwd` the
 flash backward (``csrc/flash_bwd.cu``): the two passes, the dq pass
 :func:`attention_bwd_dq` and the dk/dv pass :func:`attention_bwd_dkv`, or,
 after ``set_flash_fused(True)`` and where its rule allows, the fused kernel

@@ -15,9 +15,12 @@ __all__ = ["device_kind", "device_name", "kernels_in_use", "KERNELS",
 # to its count where it launches its kernel, and nowhere else.  The stack
 # kernel's int8 instantiations count under their own names, as the JAX
 # package has a Pallas variant for each.  ``flash_block`` counts one in each
-# direction, beside the flash kernels it launches.
-KERNELS = ("attention_fwd", "decode_attention", "decode_stack",
-           "decode_stack_batch", "decode_stack_int8", "decode_stack_kvq",
+# direction, beside the flash kernels it launches.  Decode attention counts
+# its split kernel once a call and, where it splits a head's keys, the merge
+# of the splits under its own name.
+KERNELS = ("attention_fwd", "decode_attention", "decode_attention_merge",
+           "decode_stack", "decode_stack_batch", "decode_stack_int8",
+           "decode_stack_kvq",
            "decode_stack_int8_kvq", "decode_stack_batch_int8",
            "decode_stack_batch_kvq", "decode_stack_batch_int8_kvq",
            "attention_bwd_dq", "attention_bwd_dkv", "attention_bwd_fused",

@@ -20,7 +20,8 @@ from lightgrad_tpu_torch.ops.attention import (attention_bwd,
 from lightgrad_tpu_torch.ops.conv import (conv_bwd, conv_bwd_reference,
                                           conv_fwd, conv_fwd_reference)
 from lightgrad_tpu_torch.ops.decode_attention import (
-    decode_attention, decode_attention_reference)
+    decode_attention, decode_attention_reference, decode_merge,
+    decode_merge_reference, split_partials, visible_range)
 from lightgrad_tpu_torch.ops.decode_stack import (
     decode_stack, decode_stack_batch, decode_stack_batch_reference,
     decode_stack_reference)
@@ -134,6 +135,60 @@ def test_flash_kernels_window_and_head_dims(dev, S, G, D, window, dtype):
     if 0 < window < S:      # the band reaches something: a wrong one fails
         full = attention_fwd_reference(q, k, v, sc, True)[0]
         assert (full.float() - ro.float()).abs().max() > 0.05
+
+
+# the bf16 forward rounds P to bf16 before P V, as the TPU kernel does
+# (p.astype(v.dtype)): error held to tol * rms(ref) plus one ulp of each
+# element, f32 to the f32 tolerance
+FWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+ULP = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7}
+
+
+def _close_ulp(got, want, dtype, tol=None):
+    ref = want.float()
+    rms = ref.pow(2).mean().sqrt().item()
+    excess = ((got.float() - ref).abs() - ULP[dtype] * ref.abs()).max()
+    assert excess.item() <= (FWD_TOL[dtype] if tol is None else tol) * rms
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,G,D,causal,window,lens", [
+    (100, 1, 8, True, 0, None), (130, 2, 24, False, 0, None),
+    (257, 4, 80, True, 0, None), (65, 8, 200, True, 0, None),
+    (129, 1, 64, False, 0, "edges"), (200, 2, 128, True, 0, "edges"),
+    (300, 1, 256, True, 17, None), (150, 4, 128, True, 40, None),
+    (64, 1, 32, False, 0, None), (1, 1, 64, True, 0, None)])
+def test_flash_fwd_every_instantiation(dev, S, G, D, causal, window, lens,
+                                       dtype):
+    """The forward (bf16: the tensor-core kernel, D 64, 128, 256; f32: the
+    SIMT kernel) at head dims that are no instantiation (8, 24, 80, 200), S
+    not a multiple of the 64-row tiles, G 1-8, causal and not, a window
+    narrower than a K tile, and lengths of 0, 1 and S (padded rows exactly
+    0, their lse 0)."""
+    g = torch.Generator(device=dev).manual_seed(11 * S + G + D + window)
+    B = 8
+    q = _randn(g, B, S, D, dtype=dtype)
+    k, v = (_randn(g, B // G, S, D, dtype=dtype) for _ in range(2))
+    lengths = None
+    if lens:
+        lengths = torch.tensor([0, 1, S, S // 2, 3, S - 1, S, 2],
+                               device=dev, dtype=torch.int32)
+    reset_launch_counts()
+    out, lse = attention_fwd_res(q, k, v, D ** -0.5, causal,
+                                 lengths=lengths, window=window)
+    torch.cuda.synchronize()
+    assert launch_counts()["attention_fwd"] == 1
+    ro, rl = attention_fwd_reference(q, k, v, D ** -0.5, causal, lengths,
+                                     window)
+    _close_ulp(out, ro, dtype)
+    _close(lse, rl, torch.float32)
+    if lengths is not None:
+        pad = torch.arange(S, device=dev)[None, :] >= lengths[:, None]
+        assert bool((out[pad] == 0).all()) and bool((lse[..., 0][pad] == 0)
+                                                    .all())
+    again, _ = attention_fwd_res(q, k, v, D ** -0.5, causal, lengths=lengths,
+                                 window=window)
+    assert torch.equal(out, again)
 
 
 def test_tape_attention_window_grouped(dev):
@@ -472,6 +527,58 @@ def test_decode_attention_kernel(dev, pos, window, dtype):
     torch.cuda.synchronize()
     _close(out, decode_attention_reference(q, kc, vc, pos, 0.125, window),
            dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,hd,W,pos,window,n_split", [
+    (1, 8, 256, 8192, 4096, 0, None), (8, 4, 128, 8192, 6000, 4096, None),
+    (12, 1, 64, 1024, 512, 0, None), (2, 3, 8, 64, 0, 0, None),
+    (2, 2, 80, 3000, 5000, 0, None), (1, 8, 256, 8192, 4096, 0, 256),
+    (1, 5, 200, 700, 699, 0, 11), (4, 2, 40, 300, 250, 100, 100),
+    (3, 8, 24, 129, 128, 0, 2), (2, 4, 128, 500, 300, 0, 1)])
+def test_decode_attention_splits(dev, monkeypatch, KV, G, hd, W, pos, window,
+                                 n_split, dtype):
+    """The split kernel and its merge at the planner's splits (Gemma-2B's,
+    Mistral-7B's and GPT-2's decode shapes, pos 0, pos past W) and at forced
+    ones (256, one key a split, 1, 2): against the plain version, one
+    launch of the split kernel, the merge exactly where there are splits,
+    and bit for bit on a rerun."""
+    import lightgrad_tpu_torch.ops.decode_attention  # noqa: F401
+    import sys
+    mod = sys.modules["lightgrad_tpu_torch.ops.decode_attention"]
+    lo, hi = visible_range(W, pos, window)
+    if n_split is not None:
+        monkeypatch.setattr(mod, "decode_splits", lambda *a: n_split)
+    n = mod.decode_splits(KV, hi - lo + 1, hd, dtype)
+    g = torch.Generator(device=dev).manual_seed(pos + hd + G)
+    q = _randn(g, KV, G, hd, dtype=dtype)
+    kc, vc = (_randn(g, KV, W, hd, dtype=dtype) for _ in range(2))
+    reset_launch_counts()
+    out = decode_attention(q, kc, vc, pos, hd ** -0.5, window)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["decode_attention"] == 1
+    assert counts["decode_attention_merge"] == (n > 1)
+    want = decode_attention_reference(q, kc, vc, pos, hd ** -0.5, window)
+    _close_ulp(out, want, dtype, 1e-2 if dtype == torch.bfloat16 else 1e-4)
+    assert torch.equal(out, decode_attention(q, kc, vc, pos, hd ** -0.5,
+                                             window))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_merge_kernel(dev, dtype):
+    """The merge kernel alone against its plain version, on partials made
+    by the plain split arithmetic (Gemma-2B's shape, 65 splits)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = _randn(g, 1, 8, 256, dtype=dtype)
+    kc, vc = (_randn(g, 1, 8192, 256, dtype=dtype) for _ in range(2))
+    part = split_partials(q, kc, vc, 4096, 0.0625, 0, 65)
+    reset_launch_counts()
+    out = decode_merge(part, torch.empty_like(q), 65)
+    torch.cuda.synchronize()
+    assert launch_counts()["decode_attention_merge"] == 1
+    _close_ulp(out, decode_merge_reference(part, 1, 8, 256, 65, dtype), dtype,
+               1e-2 if dtype == torch.bfloat16 else 1e-5)
 
 
 def _stack_inputs(g, dtype, L=3, d=768, W=256, R=4):
