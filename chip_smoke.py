@@ -48,9 +48,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      passes and SDPA's backward, and at head dims 200 and 80 without the
      causal mask -- at every shape the fused kernel against its plain
      version and the two passes against theirs, within one ulp of each
-     element plus the tolerance times the reference's rms, its bound from
-     the function's own bytes and products (its dq slabs' traffic logged
-     apart);
+     element plus the tolerance times the reference's rms (in bf16 the
+     plain versions round p and ds to bf16 as the TPU kernels and the
+     tensor-core kernels do), its bound from the function's own bytes and
+     products; the backward's kernels at GPT-2's, Pythia's, the Mistral-7B
+     layer's and Gemma-2B's training shapes also by CUDA graph, and SDPA's
+     backward by CUDA graph (forward and backward less the forward);
   4. serving path, GPT-2 small at its published widths (vocab 50257, 1024
      positions, d 768, 12 layers, 12 heads; seeded random weights), once in
      float32 and once after ``model.to(torch.bfloat16)``: ``generate``,
@@ -447,18 +450,22 @@ def check_rms(name, dtype, got, want, tol, *wrong):
 ULP = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7}
 
 
-def check_ulp(name, dtype, got, want, tol, *wrong):
+def check_ulp(name, dtype, got, want, tol, *wrong, allow=None):
     """:func:`check_rms` with one unit in the last place of each reference
     element allowed beside it: |got - want| <= tol * rms + ULP |want| on
     every element.  For a causal backward, whose largest gradients (the
     first query rows') lie 10-60 rms out, where rounding a bfloat16 output
-    alone moves them by a tenth of an rms.  Every output in ``wrong`` must
-    fail it."""
+    alone moves them by a tenth of an rms.  ``allow``: a further allowance
+    per element (:func:`bwd_reference`'s, for the bf16 backward).  Every
+    output in ``wrong`` must fail it."""
     ref = want.float()
     rms = ref.pow(2).mean().sqrt().item()
+    slack = ULP[dtype] * ref.abs()
+    if allow is not None:
+        slack = slack + allow.float()
 
     def excess(t):
-        return ((t.float() - ref).abs() - ULP[dtype] * ref.abs()).max().item()
+        return ((t.float() - ref).abs() - slack).max().item()
 
     abs_err = (got.float() - ref).abs().max().item()
     over = excess(got) / rms
@@ -515,6 +522,145 @@ def check_fwd(name, dtype, out, ref, *wrong, q=None, k=None, v=None,
     return err
 
 
+def bwd_plain(dtype, do, q, k, v, out, lse, scale, causal, lengths=None,
+              window=0):
+    """The port's plain version of the two backward passes: in f32 the
+    recompute backward; in bf16 the passes' own arithmetic from the
+    forward's (out, lse), p and ds rounded to bf16 before their products
+    as the TPU kernels do (``attention_bwd_passes_reference``)."""
+    from lightgrad_tpu_torch.ops.attention import (
+        attention_bwd_passes_reference, attention_bwd_reference)
+
+    if dtype == torch.float32:
+        return attention_bwd_reference(do, q, k, v, scale, causal,
+                                       lengths=lengths, window=window)
+    return attention_bwd_passes_reference(do, q, k, v, out, lse, scale,
+                                          causal, lengths, window)
+
+
+# Rounding p or ds to bf16 is a discrete decision: where the f32 value lies
+# within the f32 noise of its computation (the product sums' order, exp2
+# against exp) of a bf16 rounding boundary, either neighbour is the TPU
+# kernels' arithmetic, and one ulp of ds at the first query rows (|ds| ~
+# 16 at d 256) moves a gradient by up to a tenth of its rms.  The plain
+# version's own f32 and f64 evaluations differ by 1.4e-2 of the rms past
+# one ulp at these shapes (PERF.md §6).  The noise is bounded as the
+# kernels compute: an f32 sum of d products errs by at most d 2^-24 of the
+# sum of their magnitudes; forming exp's argument (s * scale - lse, three
+# roundings) and exp2 itself add a few f32 ulps; ds's difference and
+# product one each.
+EPS = 2.0 ** -24
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at |x| (x f64, nonzero where it counts)."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(1e-300)))
+    return torch.exp2(e - 7)
+
+
+def _ambiguous(x, noise):
+    """One bf16 ulp where x lies within ``noise`` of a rounding boundary (a
+    midpoint between two bf16 values), else 0."""
+    ulp = _bf16_ulp(x)
+    off = (x - x.to(torch.bfloat16).double()).abs()
+    return torch.where((ulp / 2 - off <= noise) & (x != 0), ulp, 0.0)
+
+
+def bwd_reference(dtype, do, q, k, v, out, lse, scale, causal, lengths=None,
+                  window=0):
+    """The plain version the backward kernels are held against, and a
+    per-element allowance beside one ulp of the output (None in f32).
+    f32: the recompute backward (:func:`bwd_plain`).  bf16: the TPU
+    kernels' arithmetic (p and ds rounded to bf16 before their products,
+    no dcap refinement; the two passes and the fused kernel alike)
+    evaluated in f64 from the forward's (out, lse), and, per output
+    element, the sum over its terms whose rounded factor sits within its
+    f32 noise (EPS) of a rounding boundary of one ulp of that factor times
+    the other factor's magnitude: what those roundings, taken either way,
+    can move it by.  q, do (B, S, d); k, v (B/G, S, d)."""
+    if dtype == torch.float32:
+        return bwd_plain(dtype, do, q, k, v, out, lse, scale, causal,
+                         lengths, window), (None, None, None)
+    f64 = torch.float64
+    b, s, d = q.shape
+    bkv = k.shape[0]
+    G = b // bkv
+    q4, g4 = (t.reshape(bkv, G, s, d).to(f64) for t in (q, do))
+    k3, v3 = k.to(f64), v.to(f64)
+    dcap = (do.float() * out.float()).sum(-1).reshape(bkv, G, s, 1).to(f64)
+    p = torch.exp(torch.einsum("bgqd,bkd->bgqk", q4, k3) * scale
+                  - lse.reshape(bkv, G, s, 1).to(f64))
+    dp = torch.einsum("bgqd,bkd->bgqk", g4, v3)
+    ds = p * (dp - dcap)
+    i = torch.arange(s, device=q.device)
+    valid = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        valid = i[None, :] <= i[:, None]
+        if window:
+            valid = valid & (i[:, None] - i[None, :] < window)
+    valid = valid.expand(bkv, G, s, s)
+    if lengths is not None:
+        ok = i[None, :] < lengths.reshape(b, 1).long()            # (b, s)
+        ok = ok.reshape(bkv, G, s)
+        valid = valid & ok[..., None, :] & ok[..., :, None]
+    p, ds = torch.where(valid, p, 0.0), torch.where(valid, ds, 0.0)
+    # f32 noise bounds: p's relative one (s's sum, the argument, exp2) and
+    # ds's absolute one (p's, dp's sum, the difference and the product)
+    arg = (torch.log(p.clamp_min(1e-300)).abs()
+           + 2 * lse.reshape(bkv, G, s, 1).to(f64).abs())
+    rel = (d * EPS * scale * torch.einsum("bgqd,bkd->bgqk", q4.abs(),
+                                          k3.abs())
+           + 2 * EPS * arg + 4 * EPS)
+    del arg
+    amb_p = _ambiguous(p, p * rel)
+    amb_ds = _ambiguous(ds, ds.abs() * (rel + 2 * EPS) + p * (
+        d * EPS * torch.einsum("bgqd,bkd->bgqk", g4.abs(), v3.abs())
+        + EPS * (dp - dcap).abs()))
+    del dp, rel
+    pr, dsr = (t.to(torch.bfloat16).to(f64) for t in (p, ds))
+    del p, ds
+    want = (torch.einsum("bgqk,bkd->bgqd", dsr, k3) * scale,
+            torch.einsum("bgqk,bgqd->bkd", dsr, q4) * scale,
+            torch.einsum("bgqk,bgqd->bkd", pr, g4))
+    allow = (torch.einsum("bgqk,bkd->bgqd", amb_ds, k3.abs()) * scale,
+             torch.einsum("bgqk,bgqd->bkd", amb_ds, q4.abs()) * scale,
+             torch.einsum("bgqk,bgqd->bkd", amb_p, g4.abs()))
+    return ([w.reshape(t.shape) for w, t in zip(want, (q, k, v))],
+            [a.reshape(t.shape).float() for a, t in zip(allow, (q, k, v))])
+
+
+def check_bwd(name, dtype, got, want, tol, *wrong, allow=None):
+    """A backward output against :func:`bwd_reference`'s: f32 by
+    :func:`check`; bf16 by :func:`check_ulp` at the same ``tol`` with the
+    reference's rounding allowance, a zero output and every one in
+    ``wrong`` failing it."""
+    if dtype == torch.float32:
+        return check(name, dtype, got, want, tol)
+    if allow is not None:
+        rms = want.double().pow(2).mean().sqrt().item()
+        log(f"  {name} {str(dtype)[6:]}: rounding allowance max "
+            f"{allow.max().item() / rms:.3e}, mean "
+            f"{allow.mean().item() / rms:.3e} of the rms")
+    return check_ulp(name, dtype, got, want, tol, torch.zeros_like(want),
+                     *wrong, allow=allow)
+
+
+def sdpa_bwd_ms(q, k, v, do, **kw):
+    """PyTorch's SDPA backward (dq, dk and dv in one
+    ``torch.autograd.grad``) by CUDA graph: the graph time of forward and
+    backward together less the forward's alone (a graph captures a
+    backward only with its forward).  q, k, v and do in SDPA's (B, H, S,
+    d) layout; ``kw`` go to SDPA."""
+    import torch.nn.functional as F
+
+    ts = [t.detach().requires_grad_() for t in (q, k, v)]
+    both = graph_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*ts, **kw), ts, do), 10)
+    with torch.no_grad():
+        fwd = graph_ms(lambda: F.scaled_dot_product_attention(*ts, **kw), 10)
+    return both - fwd
+
+
 def bound_ms(nbytes, ops, dtype):
     """The least time the card could take for a call: its bytes (each input
     read once, each output written once) at HBM_BPS or its operations at
@@ -526,7 +672,8 @@ def bound_ms(nbytes, ops, dtype):
 
 
 def record(results, dtype, name, err, ms=None, plain_ms=None,
-           timing="eager", cost=None, library_ms=None, variant=""):
+           timing="eager", cost=None, library_ms=None, variant="",
+           graph=None):
     """Fold one comparison (and, when timed, both times) into ``results``:
     f32 under plain keys, bf16 under ``bf16_`` keys.  ``timing`` says how
     the times were taken: "eager" (:func:`cuda_ms`, launch work included)
@@ -535,7 +682,8 @@ def record(results, dtype, name, err, ms=None, plain_ms=None,
     bound, and ``library_ms``, one PyTorch call's time for the same
     function (None where PyTorch has none).  ``variant`` prefixes the time
     keys, and the error, of a second call shape of the kernel (e.g.
-    "lengths_")."""
+    "lengths_").  ``graph``: the kernel's CUDA-graph time beside an eager
+    ``ms`` (``graph_ms``)."""
     r = results.setdefault(name, {"max_abs_err": 0.0})
     key = "" if dtype == torch.float32 else "bf16_"
     r[key + "max_abs_err"] = max(r.get(key + "max_abs_err", 0.0), err)
@@ -548,9 +696,12 @@ def record(results, dtype, name, err, ms=None, plain_ms=None,
         r[key + "bound_ms"], r[key + "bound_by"] = bound_ms(*cost, dtype)
         r[key + "library_ms"] = library_ms
         r.setdefault("timing", timing)
+        if graph is not None:
+            r[key + "graph_ms"] = graph
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        log(f"  {name} {variant}{str(dtype)[6:]}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, library {lib}, bound "
+        by_graph = "" if graph is None else f" ({graph:.4f} ms by graph)"
+        log(f"  {name} {variant}{str(dtype)[6:]}: kernel {ms:.4f} ms"
+            f"{by_graph}, plain {plain_ms:.4f} ms, library {lib}, bound "
             f"{r[key + 'bound_ms']:.4f} ms ({r[key + 'bound_by']})")
 
 
@@ -982,8 +1133,7 @@ def phase_train_kernels(results):
     import torch.nn.functional as F
 
     from lightgrad_tpu_torch.ops.attention import (
-        attention_bwd, attention_bwd_dkv, attention_bwd_dq,
-        attention_bwd_reference, attention_fwd_res)
+        attention_bwd, attention_bwd_dkv, attention_bwd_dq, attention_fwd_res)
     from lightgrad_tpu_torch.ops.layernorm import (
         layernorm_bwd_dx, layernorm_bwd_dx_reference, layernorm_fwd,
         layernorm_fwd_reference)
@@ -1009,44 +1159,50 @@ def phase_train_kernels(results):
             sc = hd ** -0.5
             out, lse = attention_fwd_res(q, k, v, sc, causal)
             got = attention_bwd(do, q, k, v, sc, causal, out=out, lse=lse)
-            want = attention_bwd_reference(do, q, k, v, sc, causal)
+            want, allow = bwd_reference(dtype, do, q, k, v, out, lse, sc,
+                                        causal)
             tag = f"attention_bwd ({bh}, {S}, {hd}) G={G} causal={causal}"
-            errs = [check(f"{tag} {n}", dtype, a, w, tol)
-                    for n, a, w in zip(("dq", "dk", "dv"), got, want)]
+            errs = [check_bwd(f"{tag} {n}", dtype, a, w, tol, allow=al)
+                    for n, a, w, al in zip(("dq", "dk", "dv"), got, want,
+                                           allow)]
+            del want, allow
             record(results, dtype, "attention_bwd_dq", errs[0])
             record(results, dtype, "attention_bwd_dkv", max(errs[1:]))
             if S != T:
                 continue
             dcap = (do.float() * out.float()).sum(-1).contiguous()
-            plain_ms = cuda_ms(lambda: attention_bwd_reference(
-                do, q, k, v, sc, causal), 5)
+            plain_ms = cuda_ms(lambda: bwd_plain(
+                dtype, do, q, k, v, out, lse, sc, causal), 5)
             # the library's backward computes dq, dk and dv in one call: its
-            # time stands beside both passes
-            q4, k4, v4 = (t.reshape(B, H, S, hd).detach().requires_grad_()
-                          for t in (q, k, v))
-            o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-            lib_ms = cuda_ms(lambda: torch.autograd.grad(
-                o4, (q4, k4, v4), do.reshape(B, H, S, hd),
-                retain_graph=True), 5)
+            # time (by CUDA graph) stands beside both passes
+            q4, k4, v4, do4 = (t.reshape(B, H, S, hd) for t in (q, k, v, do))
+            lib_ms = library_time("attention_bwd", dtype, lambda: sdpa_bwd_ms(
+                q4, k4, v4, do4, is_causal=True))
+            ts = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+            o4 = F.scaled_dot_product_attention(*ts, is_causal=True)
+            eager = cuda_ms(lambda: torch.autograd.grad(
+                o4, ts, do4, retain_graph=True), 5)
+            log(f"  attention_bwd SDPA {str(dtype)[6:]}: {eager:.4f} ms "
+                f"eager")
             tile = bh * S * hd * isz
             pairs = bh * S * (S + 1) * hd      # causal: half of S x S
-            record(results, dtype, "attention_bwd_dq", 0.0,
-                   cuda_ms(lambda: attention_bwd_dq(do, q, k, v, lse, dcap,
-                                                    sc, causal)), plain_ms,
-                   cost=(5 * tile + 2 * bh * S * 4, 3 * pairs),
-                   library_ms=lib_ms)
-            record(results, dtype, "attention_bwd_dkv", 0.0,
-                   cuda_ms(lambda: attention_bwd_dkv(do, q, k, v, lse, dcap,
-                                                     sc, causal)), plain_ms,
-                   cost=(6 * tile + 2 * bh * S * 4, 4 * pairs),
-                   library_ms=lib_ms)
-            del q4, k4, v4, o4
+            dq_fn = lambda: attention_bwd_dq(do, q, k, v, lse, dcap, sc,
+                                             causal)
+            dkv_fn = lambda: attention_bwd_dkv(do, q, k, v, lse, dcap, sc,
+                                               causal)
+            record(results, dtype, "attention_bwd_dq", 0.0, cuda_ms(dq_fn),
+                   plain_ms, cost=(5 * tile + 2 * bh * S * 4, 3 * pairs),
+                   library_ms=lib_ms, graph=graph_ms(dq_fn))
+            record(results, dtype, "attention_bwd_dkv", 0.0, cuda_ms(dkv_fn),
+                   plain_ms, cost=(6 * tile + 2 * bh * S * 4, 4 * pairs),
+                   library_ms=lib_ms, graph=graph_ms(dkv_fn))
+            del q4, k4, v4, do4, ts, o4
             whole = cuda_ms(lambda: attention_bwd(do, q, k, v, sc, causal,
                                                   out=out, lse=lse))
             log(f"  attention_bwd {str(dtype)[6:]}: rowsum + both kernels "
                 f"{whole:.4f} ms, plain {plain_ms:.4f} ms (the plain time "
                 f"stands beside each pass)")
-            del q, do, k, v, out, lse, got, want, dcap
+            del q, do, k, v, out, lse, got, dcap
             torch.cuda.empty_cache()
 
         # LayerNorm at the training path's rows: (B*T, d)
@@ -1089,20 +1245,20 @@ def phase_train_kernels(results):
 def fused_bwd_case(results, dtype, g, B, H, S, hd, causal, timed,
                    variant=""):
     """Kernel 9 at one shape, B * H rows of S x hd: ``attention_bwd`` under
-    the switch (rowsum, the fused kernel, the slab sum) against the fused
-    kernel's plain version, and without it (the two passes) against
-    theirs, the recompute backward, each by :func:`check_ulp` with the
-    other causal mask's output among those it must refuse; bit-identical on
-    a rerun.  ``timed``: the fused kernel beside its plain version, its
-    bound and SDPA's backward, and ``attention_bwd`` both ways; with a
-    ``variant``, also the two passes, recorded under it."""
+    the switch (rowsum, the fused kernel, the cast of its f32 dq) against
+    the fused kernel's plain version, and without it (the two passes)
+    against theirs (:func:`bwd_reference`), each by :func:`check_ulp` with
+    the other causal mask's output among those it must refuse;
+    bit-identical on a rerun.  ``timed``: the fused kernel beside its plain
+    version, its bound and SDPA's backward (by CUDA graph), and
+    ``attention_bwd`` both ways; with a ``variant``, also the two passes,
+    recorded under it."""
     import torch.nn.functional as F
 
     from lightgrad_tpu_torch.ops.attention import (
         attention_bwd, attention_bwd_dkv, attention_bwd_dq,
         attention_bwd_fused, attention_bwd_fused_reference,
-        attention_bwd_reference, attention_fwd_res, fused_rows,
-        set_flash_fused)
+        attention_fwd_res, fused_rows, set_flash_fused)
 
     tol = KERNEL_TOL[dtype]
     isz = torch.tensor([], dtype=dtype).element_size()
@@ -1121,19 +1277,23 @@ def fused_bwd_case(results, dtype, g, B, H, S, hd, causal, timed,
 
     got, again = both_ways(), both_ways()
     two = attention_bwd(do, q, k, v, sc, causal, out=out, lse=lse)
-    want = attention_bwd_fused_reference(do, q, k, v, out, lse, dcap, sc,
-                                         causal)
+    # bf16: one reference for both (no dcap refinement in either); f32: the
+    # fused kernel's plain version, and the recompute backward
+    want, allow = bwd_reference(dtype, do, q, k, v, out, lse, sc, causal)
+    fused_want = want if dtype == torch.bfloat16 else \
+        attention_bwd_fused_reference(do, q, k, v, out, lse, dcap, sc, causal)
     # what a kernel with the mask dropped (or added) returns
     wrong = attention_bwd_fused_reference(do, q, k, v, out, lse, dcap, sc,
                                           not causal)
     tag = f"attention_bwd_fused ({bh}, {S}, {hd}) causal={causal}"
     names = ("dq", "dk", "dv")
-    errs = [check_ulp(f"{tag} {n}", dtype, a, w, tol, z, torch.zeros_like(w))
-            for n, a, w, z in zip(names, got, want, wrong)]
-    del want
-    want = attention_bwd_reference(do, q, k, v, sc, causal)
-    two_errs = [check_ulp(f"{tag} two passes {n}", dtype, a, w, tol, z)
-                for n, a, w, z in zip(names, two, want, wrong)]
+    errs = [check_ulp(f"{tag} {n}", dtype, a, w, tol, z, torch.zeros_like(w),
+                      allow=al)
+            for n, a, w, z, al in zip(names, got, fused_want, wrong, allow)]
+    two_errs = [check_ulp(f"{tag} two passes {n}", dtype, a, w, tol, z,
+                          allow=al)
+                for n, a, w, z, al in zip(names, two, want, wrong, allow)]
+    del fused_want, allow
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{tag}: two calls differ")
     del got, again, two, want, wrong
@@ -1141,12 +1301,11 @@ def fused_bwd_case(results, dtype, g, B, H, S, hd, causal, timed,
     record(results, dtype, "attention_bwd_fused", max(errs))
     record(results, dtype, "attention_bwd_dq", two_errs[0])
     record(results, dtype, "attention_bwd_dkv", max(two_errs[1:]))
-    nk = -(-S // fused_rows(hd))
-    slab_bytes = nk * bh * S * hd * 4
-    log(f"  {tag}: two calls bit-identical; dq slabs {nk} x {bh} x {S} x "
-        f"{hd} f32 = {slab_bytes / 1e9:.3f} GB, written and read back by "
-        f"the algorithm: {2 * slab_bytes / HBM_BPS * 1e3:.4f} ms at the "
-        f"HBM rate, beyond the function's bound")
+    nk = -(-S // fused_rows(hd, dtype))
+    log(f"  {tag}: two calls bit-identical; dq summed in the kernel over "
+        f"{nk} key blocks of {fused_rows(hd, dtype)} rows into one f32 "
+        f"buffer of {bh * S * hd * 4 / 1e6:.1f} MB (the TPU kernel's slabs: "
+        f"{nk * bh * S * hd * 4 / 1e9:.3f} GB)")
     if not timed:
         return
     # the function's own bytes: q, k, v, dO, lse and dcap read, dq, dk and
@@ -1155,40 +1314,48 @@ def fused_bwd_case(results, dtype, g, B, H, S, hd, causal, timed,
     tile, rows = bh * S * hd * isz, bh * S * 4
 
     def library_bwd():
-        # dq, dk and dv in one call, beside the fused kernel and both passes
-        ts = [t.reshape(B, H, S, hd).detach().requires_grad_()
-              for t in (q, k, v)]
+        # dq, dk and dv in one call, beside the fused kernel and both
+        # passes: by CUDA graph, its eager time logged
+        q4, k4, v4, do4 = (t.reshape(B, H, S, hd) for t in (q, k, v, do))
+        ts = [t.detach().requires_grad_() for t in (q4, k4, v4)]
         o = F.scaled_dot_product_attention(*ts, is_causal=causal)
-        return cuda_ms(lambda: torch.autograd.grad(
-            o, ts, do.reshape(ts[0].shape), retain_graph=True), 5)
+        eager = cuda_ms(lambda: torch.autograd.grad(o, ts, do4,
+                                                    retain_graph=True), 5)
+        log(f"  attention_bwd SDPA {variant}{str(dtype)[6:]}: {eager:.4f} "
+            f"ms eager")
+        del o, ts
+        return sdpa_bwd_ms(q4, k4, v4, do4, is_causal=causal)
 
     lib_ms = library_time(f"attention_bwd {variant}", dtype, library_bwd)
+    fused_fn = lambda: attention_bwd_fused(do, q, k, v, lse, dcap, sc, causal)
     record(results, dtype, "attention_bwd_fused", max(errs),
-           cuda_ms(lambda: attention_bwd_fused(do, q, k, v, lse, dcap, sc,
-                                               causal)),
+           cuda_ms(fused_fn),
            cuda_ms(lambda: attention_bwd_fused_reference(
                do, q, k, v, out, lse, dcap, sc, causal), 2),
            cost=(7 * tile + 2 * rows, 10 * hd * pairs),
-           library_ms=lib_ms, variant=variant)
+           library_ms=lib_ms, variant=variant, graph=graph_ms(fused_fn, 10))
     if variant:
         # the two passes on the same inputs, like for like
-        plain_ms = cuda_ms(lambda: attention_bwd_reference(
-            do, q, k, v, sc, causal), 2)
+        plain_ms = cuda_ms(lambda: bwd_plain(
+            dtype, do, q, k, v, out, lse, sc, causal), 2)
+        dq_fn = lambda: attention_bwd_dq(do, q, k, v, lse, dcap, sc, causal)
+        dkv_fn = lambda: attention_bwd_dkv(do, q, k, v, lse, dcap, sc,
+                                           causal)
         record(results, dtype, "attention_bwd_dq", two_errs[0],
-               cuda_ms(lambda: attention_bwd_dq(do, q, k, v, lse, dcap, sc,
-                                                causal)), plain_ms,
+               cuda_ms(dq_fn), plain_ms,
                cost=(5 * tile + 2 * rows, 6 * hd * pairs),
-               library_ms=lib_ms, variant=variant)
+               library_ms=lib_ms, variant=variant,
+               graph=graph_ms(dq_fn, 10))
         record(results, dtype, "attention_bwd_dkv", max(two_errs[1:]),
-               cuda_ms(lambda: attention_bwd_dkv(do, q, k, v, lse, dcap, sc,
-                                                 causal)), plain_ms,
+               cuda_ms(dkv_fn), plain_ms,
                cost=(6 * tile + 2 * rows, 8 * hd * pairs),
-               library_ms=lib_ms, variant=variant)
+               library_ms=lib_ms, variant=variant,
+               graph=graph_ms(dkv_fn, 10))
     fused_ms = cuda_ms(both_ways)
     two_ms = cuda_ms(lambda: attention_bwd(do, q, k, v, sc, causal, out=out,
                                            lse=lse))
     log(f"  attention_bwd {variant[:-1]} {str(dtype)[6:]} ({bh}, {S}, {hd}) "
-        f"causal={causal}: rowsum + fused kernel + slab sum {fused_ms:.4f} "
+        f"causal={causal}: rowsum + fused kernel + dq cast {fused_ms:.4f} "
         f"ms, rowsum + two passes {two_ms:.4f} ms")
     del q, k, v, do, out, lse, dcap
     torch.cuda.empty_cache()
@@ -1204,9 +1371,9 @@ def phase_flash_kernels(results):
 
     from lightgrad_tpu_torch.autograd import flash_block
     from lightgrad_tpu_torch.ops.attention import (
-        attention_bwd, attention_bwd_dkv, attention_bwd_dq,
-        attention_bwd_reference, attention_fwd_res, attention_fwd_reference,
-        flash_block_bwd, flash_block_fwd, flash_block_reference)
+        attention_bwd, attention_bwd_dkv, attention_bwd_dq, attention_fwd_res,
+        attention_fwd_reference, flash_block_bwd, flash_block_fwd,
+        flash_block_reference)
 
     dev, f32 = torch.device("cuda"), torch.float32
     g = torch.Generator(device=dev).manual_seed(8)
@@ -1241,15 +1408,17 @@ def phase_flash_kernels(results):
             got = attention_bwd(do, q, k, v, sc, causal, out=out, lse=lse,
                                 lengths=lens)
             ro, rl = attention_fwd_reference(q, k, v, sc, causal, lens)
-            want = attention_bwd_reference(do, q, k, v, sc, causal,
-                                           lengths=lens)
+            want, allow = bwd_reference(dtype, do, q, k, v, out, lse, sc,
+                                        causal, lens)
             tag = f"lengths ({bh}, {S}, {hd}) G={G} causal={causal}"
             err = check_fwd(f"attention_fwd {tag} out", dtype, out, ro,
                             torch.zeros_like(ro))
             check(f"attention_fwd {tag} lse", dtype, lse, rl,
                   KERNEL_TOL[f32])
-            errs = [check(f"attention_bwd {tag} {n}", dtype, a, w, tol)
-                    for n, a, w in zip(("dq", "dk", "dv"), got, want)]
+            errs = [check_bwd(f"attention_bwd {tag} {n}", dtype, a, w, tol,
+                              allow=al)
+                    for n, a, w, al in zip(("dq", "dk", "dv"), got, want,
+                                           allow)]
             for w in (ro, *want):
                 discriminates("flash lengths", dtype, w, tol,
                               torch.zeros_like(w))
@@ -1279,8 +1448,8 @@ def phase_flash_kernels(results):
                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                        q4, k4, v4, attn_mask=keep)), variant="lengths_")
             dcap = (do.float() * out.float()).sum(-1).contiguous()
-            plain_ms = cuda_ms(lambda: attention_bwd_reference(
-                do, q, k, v, sc, False, lengths=lens), 5)
+            plain_ms = cuda_ms(lambda: bwd_plain(
+                dtype, do, q, k, v, out, lse, sc, False, lens), 5)
             qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
             og = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep)
             lib_ms = cuda_ms(lambda: torch.autograd.grad(
@@ -2715,8 +2884,8 @@ def phase_llama_kernels(results):
     import torch.nn.functional as F
 
     from lightgrad_tpu_torch.ops.attention import (
-        attention_bwd, attention_bwd_dkv, attention_bwd_dq,
-        attention_bwd_reference, attention_fwd_res, attention_fwd_reference)
+        attention_bwd, attention_bwd_dkv, attention_bwd_dq, attention_fwd_res,
+        attention_fwd_reference)
     from lightgrad_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_reference, decode_merge,
         decode_merge_reference, decode_splits, split_bounds, split_partials,
@@ -2792,15 +2961,16 @@ def phase_llama_kernels(results):
                       rl, KERNEL_TOL[f32])
                 del ro, rl, wrong
                 if bwd:
-                    want = attention_bwd_reference(do[qs], q[qs], k[ks],
-                                                   v[ks], sc, True,
-                                                   window=window)
+                    want, allow = bwd_reference(
+                        dtype, do[qs], q[qs], k[ks], v[ks], out[qs], lse[qs],
+                        sc, True, window=window)
                     parts = (got[0][qs], got[1][ks], got[2][ks])
-                    for i, (n, a, w) in enumerate(zip(("dq", "dk", "dv"),
-                                                      parts, want)):
-                        errs[i] = max(errs[i], check(
+                    for i, (n, a, w, al) in enumerate(zip(
+                            ("dq", "dk", "dv"), parts, want, allow)):
+                        errs[i] = max(errs[i], check_bwd(
                             f"attention_bwd {tag} group {j} {n}", dtype, a, w,
-                            tol))
+                            tol, allow=al))
+                    del allow
                     for w in want:
                         discriminates("attention_bwd", dtype, w, tol,
                                       torch.zeros_like(w))
@@ -2827,34 +2997,46 @@ def phase_llama_kernels(results):
                 dcap = (do.float() * out.float()).sum(-1).contiguous()
 
                 def plain_bwd():
-                    for (qg, gg), (kg, vg) in _kv_groups(
-                            q[None], k[None], v[None], extra=(do[None],)):
-                        attention_bwd_reference(gg, qg, kg, vg, sc, True,
-                                                window=window)
+                    for (qg, gg, og, lg), (kg, vg) in _kv_groups(
+                            q[None], k[None], v[None],
+                            extra=(do[None], out[None], lse[None])):
+                        bwd_plain(dtype, gg, qg, kg, vg, og, lg, sc, True,
+                                  window=window)
 
                 def library_bwd():
                     # the library's backward: dq, dk and dv in one call, its
-                    # time beside both passes
+                    # time (by CUDA graph; eager logged) beside both passes
                     ts = [t.detach().requires_grad_() for t in (q, k, v)]
                     o = sdpa(*ts, band)
-                    return cuda_ms(lambda: torch.autograd.grad(
+                    eager = cuda_ms(lambda: torch.autograd.grad(
                         o, ts, do[None], retain_graph=True), 5)
+                    log(f"  attention_bwd SDPA {variant}{str(dtype)[6:]}: "
+                        f"{eager:.4f} ms eager")
+                    del o, ts
+                    kw = ({"is_causal": True} if band is None
+                          else {"attn_mask": band})
+                    return sdpa_bwd_ms(q[None], k[None], v[None], do[None],
+                                       enable_gqa=True, **kw)
 
                 plain_ms = cuda_ms(plain_bwd, 2)
                 lib_ms = library_time(f"attention_bwd {variant}", dtype,
                                       library_bwd)
+                dq_fn = lambda: attention_bwd_dq(do, q, k, v, lse, dcap, sc,
+                                                 True, window=window)
+                dkv_fn = lambda: attention_bwd_dkv(do, q, k, v, lse, dcap,
+                                                   sc, True, window=window)
                 record(results, dtype, "attention_bwd_dq", errs[0],
-                       cuda_ms(lambda: attention_bwd_dq(
-                           do, q, k, v, lse, dcap, sc, True, window=window)),
-                       plain_ms, cost=(3 * tile + 2 * kvt + 2 * H * S * 4,
-                                       6 * hd * npairs),
-                       library_ms=lib_ms, variant=variant)
+                       cuda_ms(dq_fn), plain_ms,
+                       cost=(3 * tile + 2 * kvt + 2 * H * S * 4,
+                             6 * hd * npairs),
+                       library_ms=lib_ms, variant=variant,
+                       graph=graph_ms(dq_fn, 5))
                 record(results, dtype, "attention_bwd_dkv", max(errs[1:]),
-                       cuda_ms(lambda: attention_bwd_dkv(
-                           do, q, k, v, lse, dcap, sc, True, window=window)),
-                       plain_ms, cost=(2 * tile + 4 * kvt + 2 * H * S * 4,
-                                       8 * hd * npairs),
-                       library_ms=lib_ms, variant=variant)
+                       cuda_ms(dkv_fn), plain_ms,
+                       cost=(2 * tile + 4 * kvt + 2 * H * S * 4,
+                             8 * hd * npairs),
+                       library_ms=lib_ms, variant=variant,
+                       graph=graph_ms(dkv_fn, 5))
                 del dcap
             del q, k, v, do, out, lse, got, band
             torch.cuda.empty_cache()
@@ -2869,14 +3051,16 @@ def phase_llama_kernels(results):
                                 window=window)
             ro, rl = attention_fwd_reference(q, k, v, sc, True,
                                              window=window)
-            want = attention_bwd_reference(do, q, k, v, sc, True,
-                                           window=window)
+            want, allow = bwd_reference(dtype, do, q, k, v, out, lse, sc,
+                                        True, window=window)
             record(results, dtype, "attention_fwd",
                    check_fwd(f"attention_fwd {tag} out", dtype, out, ro,
                              torch.zeros_like(ro)))
             check(f"attention_fwd {tag} lse", dtype, lse, rl, KERNEL_TOL[f32])
-            errs = [check(f"attention_bwd {tag} {n}", dtype, a, w, tol)
-                    for n, a, w in zip(("dq", "dk", "dv"), got, want)]
+            errs = [check_bwd(f"attention_bwd {tag} {n}", dtype, a, w, tol,
+                              allow=al)
+                    for n, a, w, al in zip(("dq", "dk", "dv"), got, want,
+                                           allow)]
             record(results, dtype, "attention_bwd_dq", errs[0])
             record(results, dtype, "attention_bwd_dkv", max(errs[1:]))
 
@@ -3285,8 +3469,8 @@ def phase_llama_example(card):
 
 def phase_neox_kernels(results):
     """Phase 3, the fused flash backward at every head dim: Pythia-1B's
-    attention, 2 x 8 heads of 2048 x 256 (the D 256 instantiation, 16 key
-    rows a block, 128 dq slabs), Pythia-2.8B's, 32 heads of 2048 x 80 (D
+    attention, 2 x 8 heads of 2048 x 256 (the D 256 instantiation; f32 16
+    key rows a block, bf16 64), Pythia-2.8B's, 32 heads of 2048 x 80 (D
     128's at row stride 80), and D 32 at 64 heads of 256 x 32, causal, each
     by :func:`fused_bwd_case`, timed with the two passes on the same
     inputs; correctness only at head dims 200 and 80 without the causal

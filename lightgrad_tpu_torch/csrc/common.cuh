@@ -79,6 +79,13 @@ __device__ __forceinline__ void lg_cp_async16(uint32_t dst, const void* src,
                "l"(src), "r"(bytes)
                : "memory");
 }
+// 4 bytes global -> shared (through L1); `bytes` 0 writes a zero word.
+__device__ __forceinline__ void lg_cp_async4(uint32_t dst, const void* src,
+                                             int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
 __device__ __forceinline__ void lg_cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -41,14 +41,14 @@ _SIGNATURES = {
     # causal, window, is_bf16, stream
     "lg_flash_bwd_dq": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _F, _I, _I, _I, _P], _I),
-    # q, k, v, do, lse, dcap, dk, dv, lens, BH, G, S, D, scale, causal,
-    # window, is_bf16, stream
-    "lg_flash_bwd_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _F, _I, _I, _I, _P], _I),
-    # q, k, v, do, lse, dcap, dq slabs, dk, dv, BH, S, D, scale, causal,
-    # is_bf16, stream
-    "lg_flash_bwd_fused": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _F, _I, _I, _P], _I),
+    # q, k, v, do, lse, dcap, dk, dv, partials (null with gsplit 1), lens,
+    # BH, G, S, D, scale, causal, window, gsplit, is_bf16, stream
+    "lg_flash_bwd_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _F, _I, _I, _I, _I, _P], _I),
+    # q, k, v, do, lse, dcap, dq (f32), turns (int32 zeros), dk, dv, BH, S,
+    # D, scale, causal, is_bf16, stream
+    "lg_flash_bwd_fused": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _F, _I, _I, _P], _I),
     # q, kc, vc, out, partials (null with n_split 1), KV, G, W, hd, pos,
     # window, scale, n_split, is_bf16, stream
     "lg_decode_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,

@@ -7,7 +7,8 @@ float32 on the CUDA cores) and :func:`attention_bwd` the
 flash backward (``csrc/flash_bwd.cu``): the two passes, the dq pass
 :func:`attention_bwd_dq` and the dk/dv pass :func:`attention_bwd_dkv`, or,
 after ``set_flash_fused(True)`` and where its rule allows, the fused kernel
-:func:`attention_bwd_fused`.  All three kernels take per-row ``lengths``;
+:func:`attention_bwd_fused` (bfloat16 on the tensor cores, float32 on the
+CUDA cores, as the forward).  All three kernels take per-row ``lengths``;
 the forward and the two passes take a causal sliding ``window``, and all
 three any head dim d with d % 8 == 0, 8 <= d <= 256.
 :func:`flash_block_fwd` / :func:`flash_block_bwd` are the two directions of
@@ -29,24 +30,29 @@ from . import _build, runtime
 __all__ = ["attention_fwd", "attention_fwd_res", "attention_fwd_reference",
            "attention_bwd", "attention_bwd_dq", "attention_bwd_dkv",
            "attention_bwd_fused", "attention_bwd_fused_reference",
-           "attention_bwd_reference", "fused_rows", "set_flash_fused",
+           "attention_bwd_passes_reference", "attention_bwd_reference",
+           "dkv_splits", "fused_rows", "set_flash_fused",
            "flash_block_fwd", "flash_block_bwd", "flash_block_reference"]
 
 _NEG_INF = -1e30
 # Backward scheme selector, as the JAX package's _FUSED_BWD: off by default.
 _FUSED_BWD = False
-# Key rows per block of the fused kernel by instantiation D: Cfg<D>::kRows
-# of csrc/flash_bwd.cu, which asserts these values.  A head dim d runs the
-# narrowest D >= d.  dq is the sum of one slab per block, in the kernel and
-# in its plain version.
-FUSED_ROWS = {32: 64, 64: 64, 128: 32, 256: 16}
+# Key rows per block of the fused kernel by dtype and instantiation D
+# (float32: Cfg<D>::kRows, bfloat16: Tc<D>::BR of csrc/flash_bwd.cu, which
+# asserts these values).  A head dim d runs the narrowest D >= d.  dq is the
+# sum of the key blocks' shares in ascending order, in the kernel and in its
+# plain version.
+FUSED_ROWS = {torch.float32: {32: 64, 64: 64, 128: 32, 256: 16},
+              torch.bfloat16: {64: 64, 128: 64, 256: 64}}
 
 
-def fused_rows(d: int) -> int:
-    """Key rows a block of the fused kernel holds at head dim ``d``: those
-    of the instantiation that serves d (d 80: D 128's 32).  A d past 256,
-    which only the plain version takes, gets D 256's."""
-    return FUSED_ROWS[min((D for D in FUSED_ROWS if D >= d), default=256)]
+def fused_rows(d: int, dtype=torch.float32) -> int:
+    """Key rows a block of the fused kernel holds at head dim ``d`` in
+    ``dtype``: those of the instantiation that serves d (f32 d 80: D 128's
+    32).  A d past 256, which only the plain version takes, gets D 256's."""
+    rows = FUSED_ROWS[torch.bfloat16 if dtype == torch.bfloat16
+                      else torch.float32]
+    return rows[min((D for D in rows if D >= d), default=256)]
 
 
 def set_flash_fused(on: bool) -> bool:
@@ -134,16 +140,25 @@ def attention_bwd_reference(g, q, k, v, scale: float, causal: bool = False,
             dv.to(v.dtype).reshape(v.shape))
 
 
+def _rounded(x, dtype):
+    """``x`` rounded to the inputs' ``dtype`` and widened back: the TPU
+    kernels' ``p.astype`` / ``ds.astype`` before a product (the bf16
+    kernels' tensor-core operands); the identity in float32."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
 def _bwd_from_residuals(g, q, k, v, lse, dcap, scale, causal, lengths=None,
-                        slab_rows=None, refine=False, dlse=None, window=0):
+                        block_rows=None, refine=False, dlse=None, window=0):
     """Plain PyTorch (dq, dk, dv, dcap) in the flash kernels' own
     arithmetic, from the forward's ``lse`` and ``dcap`` (rowsum(g * out),
     less lse's cotangent ``dlse`` where there is one): p = exp(s * scale -
-    lse) and ds = p (dp - dcap) on the valid pairs, zero elsewhere.
-    ``refine``: the dq pass's correction, dcap += sum_j ds_ij / sum_j p_ij
-    - dlse_i, before ds is used; the dcap returned is the one used.
-    ``slab_rows``: dq as the sum of one slab a block of that many keys, the
-    fused kernel's scheme."""
+    lse) and ds = p (dp - dcap) on the valid pairs, zero elsewhere, both
+    rounded to the input dtype before their products (bfloat16), as the
+    TPU kernels do.  ``refine``: the float32 dq pass's correction, dcap +=
+    sum_j ds_ij / sum_j p_ij - dlse_i, before ds is used; the dcap
+    returned is the one used.  ``block_rows``: dq as the sum of the shares
+    of key blocks of that many keys, taken in ascending order, the fused
+    kernel's scheme."""
     (b, bkv, s, d), q4, (k3, v3) = _grouped(q, k, v)
     groups = b // bkv
     g4 = g.reshape(q4.shape).float()
@@ -163,15 +178,17 @@ def _bwd_from_residuals(g, q, k, v, lse, dcap, scale, causal, lengths=None,
             corr = corr - dlse.reshape(corr.shape).float()
         corr = torch.where(psum > 0, corr, 0.0)
         ds, dcap = ds - corr * p, dcap + corr
+    p, ds = _rounded(p, q.dtype), _rounded(ds, q.dtype)
     dv = torch.einsum("bgqk,bgqd->bkd", p, g4)
     dk = torch.einsum("bgqk,bgqd->bkd", ds, q4) * scale
-    if slab_rows is None:
+    if block_rows is None:
         dq = torch.einsum("bgqk,bkd->bgqd", ds, k3) * scale
     else:
-        dq = torch.stack([
-            torch.einsum("bgqk,bkd->bgqd", ds[..., j:j + slab_rows],
-                         k3[:, j:j + slab_rows]) * scale
-            for j in range(0, s, slab_rows)]).sum(0)
+        dq = None
+        for j in range(0, s, block_rows):
+            share = torch.einsum("bgqk,bkd->bgqd", ds[..., j:j + block_rows],
+                                 k3[:, j:j + block_rows]) * scale
+            dq = share if dq is None else dq + share
     return (dq.to(q.dtype).reshape(q.shape), dk.to(k.dtype).reshape(k.shape),
             dv.to(v.dtype).reshape(v.shape), dcap.reshape(b, s))
 
@@ -179,13 +196,39 @@ def _bwd_from_residuals(g, q, k, v, lse, dcap, scale, causal, lengths=None,
 def attention_bwd_fused_reference(g, q, k, v, out, lse, dcap, scale: float,
                                   causal: bool = False):
     """Plain PyTorch (dq, dk, dv) of the fused backward (the JAX package's
-    ``_flash_bwd_fused``): per-key-block f32 dq slabs, then their sum.
-    G == 1, no lengths or window.  ``out`` is accepted for the signature's
-    sake; ``dcap`` carries what it gives."""
+    ``_flash_bwd_fused``): dq as the f32 sum of the key blocks' shares in
+    ascending order (the JAX package's slabs, summed in the kernel's
+    order), cast to q's dtype.  G == 1, no lengths or window.  ``out`` is
+    accepted for the signature's sake; ``dcap`` carries what it gives."""
     if prod(q.shape[:-2]) != prod(k.shape[:-2]):
         raise ValueError("the fused backward takes no grouped-query call")
-    return _bwd_from_residuals(g, q, k, v, lse, dcap, scale, causal,
-                               slab_rows=fused_rows(q.shape[-1]))[:3]
+    return _bwd_from_residuals(
+        g, q, k, v, lse, dcap, scale, causal,
+        block_rows=fused_rows(q.shape[-1], q.dtype))[:3]
+
+
+def _dcap(g, out, dlse=None):
+    """dcap = rowsum(g * out) in f32, less lse's cotangent ``dlse`` where
+    there is one; a plain reduction, as the JAX package leaves it to XLA.
+    Returns (dcap, dlse), both contiguous f32 (dlse None without one)."""
+    dcap = (g.float() * out.float()).sum(-1)
+    if dlse is not None:
+        dlse = dlse.float().reshape(dcap.shape).contiguous()
+        dcap = dcap - dlse
+    return dcap.contiguous(), dlse
+
+
+def attention_bwd_passes_reference(g, q, k, v, out, lse, scale: float,
+                                   causal: bool = False, lengths=None,
+                                   window: int = 0, dlse=None):
+    """Plain PyTorch (dq, dk, dv) of the two passes from the forward's
+    (out, lse), in their arithmetic: dcap from :func:`_dcap`, refined by
+    the float32 dq pass (not in bfloat16, as the TPU kernel), p and ds
+    rounded to bfloat16 before their products in bfloat16."""
+    dcap, dlse = _dcap(g, out, dlse)
+    return _bwd_from_residuals(g, q, k, v, lse, dcap, scale, causal, lengths,
+                               refine=q.dtype != torch.bfloat16, dlse=dlse,
+                               window=window)[:3]
 
 
 def _check(fn, q, k, v, **same_as_q):
@@ -262,18 +305,29 @@ def _ptr(t):
 
 
 def _bwd_launch(entry, fn, g, q, k, v, lse, dcap, scale, causal, lengths,
-                window, ptrs, **rows):
-    """Launch a backward pass; ``ptrs`` follow dcap in the entry's order."""
+                window, ptrs, tail=(), **rows):
+    """Launch a backward pass; ``ptrs`` follow dcap, and ``tail`` window,
+    in the entry's order."""
     b, bkv, s, d = _bwd_check(fn, g, q, k, v, lse, dcap, **rows)
     lens = _lens_ptr(fn, lengths, q, b)
     with torch.cuda.device(q.device):
         err = getattr(_build.library(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), dcap.data_ptr(), *ptrs, lens, b, b // bkv, s, d,
-            float(scale), int(bool(causal)), min(int(window), s),
+            float(scale), int(bool(causal)), min(int(window), s), *tail,
             int(q.dtype == torch.bfloat16), _stream(q))
     _build.check(err, entry)
     runtime.count_launch(fn)
+
+
+def dkv_splits(kv_rows: int, groups: int, s: int, sms: int) -> int:
+    """Blocks that share a KV row's query heads in the bf16 dk/dv pass: the
+    fewest (a divisor of G) that bring its grid of KV rows x 64-key blocks
+    to two blocks an SM, or G.  Each writes f32 dk / dv partials, summed
+    after the kernel in order."""
+    want = -(-2 * sms // (kv_rows * -(-s // 64)))
+    return max(n for n in range(1, groups + 1)
+               if groups % n == 0 and n <= max(1, want))
 
 
 def attention_bwd_dq(g, q, k, v, lse, dcap, scale: float,
@@ -282,13 +336,15 @@ def attention_bwd_dq(g, q, k, v, lse, dcap, scale: float,
     """dq of the flash backward given the forward's ``lse`` and
     ``dcap = rowsum(g * out) - dlse`` (f32, B*S; ``dlse``, lse's cotangent,
     where there is one): the dq kernel on CUDA, its plain version (the same
-    arithmetic from lse and dcap) on CPU.  The pass refines dcap against
-    its own p and dp, which corrects dq; ``dcap_out`` (f32, B*S) receives
-    the refined dcap, which the dk/dv pass should take."""
+    arithmetic from lse and dcap) on CPU.  In float32 the pass refines
+    dcap against its own p and dp, which corrects dq; ``dcap_out`` (f32,
+    B*S) receives the refined dcap, which the dk/dv pass should take.  In
+    bfloat16 (the tensor-core kernel) it takes dcap as given, as the TPU
+    kernel does, and ``dcap_out`` receives dcap."""
     if not q.is_cuda:
         dq, _, _, refined = _bwd_from_residuals(
-            g, q, k, v, lse, dcap, scale, causal, lengths, refine=True,
-            dlse=dlse, window=window)
+            g, q, k, v, lse, dcap, scale, causal, lengths,
+            refine=q.dtype != torch.bfloat16, dlse=dlse, window=window)
         if dcap_out is not None:
             dcap_out.copy_(refined.reshape(dcap_out.shape))
         return dq
@@ -303,25 +359,41 @@ def attention_bwd_dq(g, q, k, v, lse, dcap, scale: float,
 def attention_bwd_dkv(g, q, k, v, lse, dcap, scale: float,
                       causal: bool = False, lengths=None, window: int = 0):
     """(dk, dv) of the flash backward, as :func:`attention_bwd_dq`; dcap is
-    taken as given (the dq pass's refined one, on the backward's path)."""
+    taken as given (the dq pass's, on the backward's path).  In bfloat16
+    with few KV rows the query heads of a group are shared over
+    :func:`dkv_splits` blocks, whose f32 partials are summed after the
+    kernel in order."""
     if not q.is_cuda:
         return _bwd_from_residuals(g, q, k, v, lse, dcap, scale, causal,
                                    lengths, window=window)[1:3]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    kv_rows, s = prod(k.shape[:-2]), q.shape[-2]
+    splits, part = 1, None
+    if q.dtype == torch.bfloat16 and prod(q.shape[:-2]) > kv_rows:
+        splits = dkv_splits(
+            kv_rows, prod(q.shape[:-2]) // kv_rows, s,
+            torch.cuda.get_device_properties(q.device).multi_processor_count)
+    if splits > 1:
+        part = torch.empty((splits, 2, *k.shape), device=q.device,
+                           dtype=torch.float32)
     _bwd_launch("lg_flash_bwd_dkv", "attention_bwd_dkv", g, q, k, v, lse,
                 dcap, scale, causal, lengths, window,
-                (dk.data_ptr(), dv.data_ptr()))
+                (dk.data_ptr(), dv.data_ptr(), _ptr(part)), (splits,))
+    if part is not None:        # the partials' sum, in order
+        sums = part.sum(0)
+        dk.copy_(sums[0])
+        dv.copy_(sums[1])
     return dk, dv
 
 
 def attention_bwd_fused(g, q, k, v, lse, dcap, scale: float,
                         causal: bool = False):
     """(dq, dk, dv) from one fused kernel (G == 1, no lengths, any head dim
-    the two passes take): dk and dv directly, dq as nk = ceil(S / block
-    rows) unreduced f32 slabs of (B, S, d) -- nk * B * S * d * 4 bytes, 403
-    MB at B 96, S 1024, d 64, 4.3 GB at B 16, S 2048, d 256 -- summed in a
-    fixed order after the kernel, as the JAX package leaves that sum to
-    XLA.  The plain version on CPU."""
+    the two passes take): dk and dv directly; dq summed by the kernel into
+    one f32 (B, S, d) buffer, the key blocks' shares in ascending order
+    (a turn counter per query tile, B * ceil(S / fused_rows) int32 beside a
+    work-item ticket), then cast to q's dtype, as the JAX package casts
+    its slab sum.  The plain version on CPU."""
     if not q.is_cuda:
         return attention_bwd_fused_reference(g, q, k, v, None, lse, dcap,
                                              scale, causal)
@@ -330,18 +402,19 @@ def attention_bwd_fused(g, q, k, v, lse, dcap, scale: float,
     if b != bkv:
         raise ValueError(f"{fn}: the fused kernel takes no grouped-query "
                          f"call (B {b}, KV rows {bkv})")
-    nk = -(-s // fused_rows(d))
-    slabs = torch.empty((nk, *q.shape), device=q.device, dtype=torch.float32)
+    nk = -(-s // fused_rows(d, q.dtype))
+    dq = torch.empty(q.shape, device=q.device, dtype=torch.float32)
+    turns = torch.zeros(1 + b * nk, device=q.device, dtype=torch.int32)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = _build.library().lg_flash_bwd_fused(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), dcap.data_ptr(), slabs.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, s, d, float(scale), int(bool(causal)),
-            int(q.dtype == torch.bfloat16), _stream(q))
+            lse.data_ptr(), dcap.data_ptr(), dq.data_ptr(), turns.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, s, d, float(scale),
+            int(bool(causal)), int(q.dtype == torch.bfloat16), _stream(q))
     _build.check(err, "lg_flash_bwd_fused")
     runtime.count_launch(fn)
-    return slabs.sum(0).to(q.dtype), dk, dv
+    return dq.to(q.dtype), dk, dv
 
 
 def attention_fwd_res(q, k, v, scale: float, causal: bool = False,
@@ -368,15 +441,11 @@ def _flash_bwd(g, q, k, v, out, lse, scale, causal, dlse=None,
     package's ``_flash_bwd``: dcap = rowsum(g * out) in f32, less lse's
     cotangent ``dlse`` where it has one; then the fused kernel where the
     switch and the JAX rule allow (no lengths, no window, G == 1), else the
-    two passes, the dk/dv pass taking the dq pass's refined dcap."""
+    two passes, the dk/dv pass taking the dq pass's dcap (refined in
+    float32)."""
     if out is None or lse is None or out.shape != q.shape:
         raise ValueError("the flash backward needs the forward's out and lse")
-    # a plain reduction, as the JAX package leaves it to XLA
-    dcap = (g.float() * out.float()).sum(-1)
-    if dlse is not None:
-        dlse = dlse.float().reshape(dcap.shape).contiguous()
-        dcap = dcap - dlse
-    dcap = dcap.contiguous()
+    dcap, dlse = _dcap(g, out, dlse)
     if _FUSED_BWD and lengths is None and not window \
             and prod(q.shape[:-2]) == prod(k.shape[:-2]):
         return attention_bwd_fused(g, q, k, v, lse, dcap, scale, causal)

@@ -17,6 +17,11 @@ JSON line:
 - the forward at the LLaMA family's prefill shapes, where the checkout
   takes them (else null): Mistral-7B's layer (32 x 8192 x 128, 8 KV
   heads, window 4096) and Gemma-2B's (8 x 8192 x 256, 1 KV head);
+- the backward's pieces by CUDA graph (device time of 10 replayed calls) at
+  the shapes of PERF.md's rows 8, 8D, 8W, 9 and 9D, float32 and bfloat16:
+  the dq pass, the dk/dv pass and, where G is 1, the fused kernel (with its
+  dq sum and cast); PyTorch's SDPA backward (dq, dk, dv in one
+  ``torch.autograd.grad``) beside them, its eager time too;
 - GPT-2 small (published widths, random weights from seed 0), bf16
   ``MixedPrecision`` + AdamW on 8 x 1024 random tokens: tok/s as the median
   of steps 2-N and the peak memory, with the two-pass backward, and with the
@@ -51,6 +56,117 @@ def cuda_ms(fn, iters=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=10):
+    """Device time of one call: ``iters`` calls captured in a CUDA graph,
+    replayed between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / iters
+
+
+# (row, query heads, KV heads, S, head dim, window): PERF.md's rows 8 / 9
+# (GPT-2 small at batch 8), 8D (16 x 1024 x 256, 2 KV heads), 9D
+# (Pythia-1B's and Pythia-2.8B's layers) and 8W (Mistral-7B's layer)
+BWD_ROWS = (("8_9_gpt2", 96, 96, 1024, 64, 0),
+            ("8D_d256", 16, 2, 1024, 256, 0),
+            ("9D_pythia1b", 16, 16, 2048, 256, 0),
+            ("9D_pythia2p8b", 32, 32, 2048, 80, 0),
+            ("8W_mistral", 32, 8, 8192, 128, 4096))
+
+
+def sdpa_backward_ms(q, k, v, do, window):
+    """PyTorch's SDPA backward (dq, dk and dv in one
+    ``torch.autograd.grad``) at q (H, S, d), k and v (KV, S, d), causal
+    (banded by a boolean mask where ``window``): its CUDA-graph time, as the
+    graph time of forward and backward together less that of the forward
+    alone (a graph captures the backward only with its forward), and its
+    eager time over a retained graph."""
+    import torch.nn.functional as F
+
+    s = q.shape[1]
+    ts = [t.detach().unsqueeze(0).requires_grad_() for t in (q, k, v)]
+    kw = {"enable_gqa": k.shape[0] != q.shape[0]}
+    if window:
+        i = torch.arange(s, device=q.device)
+        kw["attn_mask"] = (i[None, :] <= i[:, None]) & \
+            (i[:, None] - i[None, :] < window)
+    else:
+        kw["is_causal"] = True
+    g = do.unsqueeze(0)
+    both = graph_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*ts, **kw), ts, g))
+    with torch.no_grad():
+        fwd = graph_ms(lambda: F.scaled_dot_product_attention(*ts, **kw))
+    o = F.scaled_dot_product_attention(*ts, **kw)
+    eager = cuda_ms(lambda: torch.autograd.grad(o, ts, g, retain_graph=True),
+                    5)
+    return both - fwd, eager
+
+
+def backward_rows(att):
+    """Graph-timed ms of the backward's pieces at BWD_ROWS, causal, and of
+    SDPA's backward at the same inputs; null where the checkout refuses a
+    call."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+    fused = getattr(att, "set_flash_fused", None)
+    res = {}
+    for name, h, kvh, s, hd, window in BWD_ROWS:
+        for dtype in (torch.float32, torch.bfloat16):
+            sc = hd ** -0.5
+            q, do = (torch.randn(h, s, hd, generator=g, device=dev).to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn(kvh, s, hd, generator=g, device=dev)
+                    .to(dtype) for _ in range(2))
+            out, lse = att.attention_fwd_res(q, k, v, sc, True,
+                                             window=window)
+            dcap = (do.float() * out.float()).sum(-1).contiguous()
+            r = {}
+
+            def timed(key, fn):
+                try:
+                    r[key] = graph_ms(fn)
+                except (RuntimeError, ValueError, TypeError):
+                    r[key] = None
+
+            timed("dq_ms", lambda: att.attention_bwd_dq(
+                do, q, k, v, lse, dcap, sc, True, window=window))
+            timed("dkv_ms", lambda: att.attention_bwd_dkv(
+                do, q, k, v, lse, dcap, sc, True, window=window))
+            if kvh == h and fused is not None:
+                timed("fused_ms", lambda: att.attention_bwd_fused(
+                    do, q, k, v, lse, dcap, sc, True))
+            try:
+                r["sdpa_bwd_ms"], r["sdpa_bwd_eager_ms"] = sdpa_backward_ms(
+                    q, k, v, do, window)
+            except RuntimeError:
+                r["sdpa_bwd_ms"] = r["sdpa_bwd_eager_ms"] = None
+            res[f"{name}_{str(dtype)[6:]}"] = r
+            del q, k, v, do, out, lse, dcap
+            torch.cuda.empty_cache()
+    return res
 
 
 def backward_times(att):
@@ -176,6 +292,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     rec = {"tree": args.tree, "card": smi, "backward": backward_times(att),
+           "backward_rows": backward_rows(att),
            "llama_forward": llama_forward_times(att),
            "train_bf16": train_step(lg, args.steps)}
     fused = getattr(att, "set_flash_fused", None)

@@ -1,5 +1,5 @@
 """Port parity: the fused flash backward (one kernel for dq, dk and dv; dq
-as per-key-block f32 slabs summed after).  The port's plain version
+as the f32 sum of the key blocks' shares in ascending order).  The port's plain version
 against the JAX package's ``_flash_bwd_fused``, reached through its
 ``set_flash_fused(True)`` in pallas (interpret) mode, at head dims 8 to
 256, and the port's own switch and rule (the JAX rule: no lengths, no
@@ -65,8 +65,8 @@ def test_fused_backward_matches_jax_fused(S, D, causal):
 
 
 def test_fused_slabs_sum_to_the_recompute_backward():
-    """At D 128 the plain version sums four 32-key slabs: the same
-    gradients as the recompute backward."""
+    """At D 128 the f32 plain version sums four 32-key blocks' shares: the
+    same gradients as the recompute backward."""
     q, k, v, g = (torch.from_numpy(a) for a in _inputs(128, 128, seed=3))
     out, lse = attention_fwd_res(q, k, v, 0.09, True)
     dcap = (g * out).sum(-1)
@@ -98,13 +98,19 @@ def test_switch_returns_the_previous_setting_and_the_rule(monkeypatch):
         assert set_flash_fused(False) is True
 
 
-@pytest.mark.parametrize("d,rows", [(8, 64), (32, 64), (64, 64), (80, 32),
-                                    (128, 32), (136, 16), (256, 16)])
-def test_fused_rows_follow_the_instantiation(d, rows):
-    """A head dim runs the narrowest instantiation that holds it, whose key
-    rows a block set the dq slabs the plain version sums (csrc/flash_bwd.cu
-    asserts them)."""
-    assert fused_rows(d) == rows
+@pytest.mark.parametrize("d,dtype,rows", [
+    (8, torch.float32, 64), (32, torch.float32, 64), (64, torch.float32, 64),
+    (80, torch.float32, 32), (128, torch.float32, 32),
+    (136, torch.float32, 16), (256, torch.float32, 16),
+    (8, torch.bfloat16, 64), (80, torch.bfloat16, 64),
+    (136, torch.bfloat16, 64), (256, torch.bfloat16, 64)])
+def test_fused_rows_follow_the_instantiation(d, dtype, rows):
+    """A head dim runs the narrowest instantiation of its dtype that holds
+    it (f32: the CUDA-core kernel's 64, 64, 32, 16 key rows at D 32, 64,
+    128, 256; bf16: the tensor-core kernel's 64 at D 64, 128, 256), whose
+    key rows a block set the key blocks whose dq shares the plain version
+    sums in order (csrc/flash_bwd.cu asserts them)."""
+    assert fused_rows(d, dtype) == rows
 
 
 @pytest.mark.parametrize("D", [80, 256])

@@ -12,11 +12,13 @@ import torch
 from lightgrad_tpu_torch.autograd import flash_block
 from lightgrad_tpu_torch.ops.attention import (attention_bwd,
                                                attention_bwd_fused,
+                                               attention_bwd_fused_reference,
+                                               attention_bwd_passes_reference,
                                                attention_bwd_reference,
                                                attention_fwd_res,
                                                attention_fwd_reference,
                                                flash_block_reference,
-                                               set_flash_fused)
+                                               fused_rows, set_flash_fused)
 from lightgrad_tpu_torch.ops.conv import (conv_bwd, conv_bwd_reference,
                                           conv_fwd, conv_fwd_reference)
 from lightgrad_tpu_torch.ops.decode_attention import (
@@ -357,6 +359,112 @@ def test_flash_fused_backward_kernel(dev, S, D, causal, dtype):
         _close(a, b, dtype)
         _close(a, c, dtype)
         assert torch.equal(a, d)                  # no atomics: bit for bit
+
+
+# The bf16 backward kernels (tensor cores) round p and ds to bf16 as the TPU
+# kernels do; their plain versions round the same way, so only the sums'
+# order and an operand that rounds the other way part them: past one ulp
+# of each element, within BWD_TOL of the reference's rms.
+BWD_TOL = 1e-2
+
+
+@pytest.mark.parametrize("S,G,D,causal,window,lens", [
+    (300, 1, 64, True, 0, None), (257, 4, 64, False, 0, None),
+    (200, 1, 128, True, 0, "edges"), (300, 4, 128, True, 64, None),
+    (150, 2, 256, True, 0, None), (100, 1, 256, True, 33, None),
+    (129, 4, 8, False, 0, "edges"), (200, 4, 80, True, 40, None),
+    (90, 2, 200, False, 0, None), (64, 1, 256, False, 0, "edges")])
+def test_flash_bwd_tc_kernels(dev, S, G, D, causal, window, lens):
+    """The bf16 tensor-core dq and dk/dv passes at every instantiation (D
+    64, 128, 256) and through a wider one (d 8, 80, 200), with lengths of
+    0, 1 and S, a window and GQA 4:1, against the two passes' plain
+    version; bit for bit on a rerun; padded rows exactly 0."""
+    g = torch.Generator(device=dev).manual_seed(13 * S + G + D + window)
+    B, bf16 = 8, torch.bfloat16
+    q, do = (_randn(g, B, S, D, dtype=bf16) for _ in range(2))
+    k, v = (_randn(g, B // G, S, D, dtype=bf16) for _ in range(2))
+    lengths = None
+    if lens:
+        lengths = torch.tensor([0, 1, S, S // 2, 3, S - 1, S, 2],
+                               device=dev, dtype=torch.int32)
+    sc = D ** -0.5
+    out, lse = attention_fwd_res(q, k, v, sc, causal, lengths=lengths,
+                                 window=window)
+    reset_launch_counts()
+    got = attention_bwd(do, q, k, v, sc, causal, out=out, lse=lse,
+                        lengths=lengths, window=window)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["attention_bwd_dq"] == counts["attention_bwd_dkv"] == 1
+    want = attention_bwd_passes_reference(do, q, k, v, out, lse, sc, causal,
+                                          lengths, window)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype == bf16
+        _close_ulp(a, b, bf16, BWD_TOL)
+    again = attention_bwd(do, q, k, v, sc, causal, out=out, lse=lse,
+                          lengths=lengths, window=window)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if lengths is not None:
+        pad = torch.arange(S, device=dev)[None, :] >= lengths[:, None].long()
+        assert bool((got[0][pad] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,D,causal", [(1024, 64, True), (200, 64, False),
+                                        (300, 128, True), (129, 80, False),
+                                        (256, 256, True), (100, 200, False),
+                                        (200, 8, True)])
+def test_flash_fused_kernel_orders_dq(dev, S, D, causal, dtype):
+    """The fused kernel (bf16: tensor cores; f32: CUDA cores), dq summed
+    over the key blocks in order in the kernel, against its plain version,
+    which sums in the same order: bit for bit on a rerun."""
+    g = torch.Generator(device=dev).manual_seed(17 * S + D + causal)
+    q, do, k, v = (_randn(g, 8, S, D, dtype=dtype) for _ in range(4))
+    sc = D ** -0.5
+    out, lse = attention_fwd_res(q, k, v, sc, causal)
+    dcap = (do.float() * out.float()).sum(-1).contiguous()
+    reset_launch_counts()
+    got = attention_bwd_fused(do, q, k, v, lse, dcap, sc, causal)
+    torch.cuda.synchronize()
+    assert launch_counts()["attention_bwd_fused"] == 1
+    want = attention_bwd_fused_reference(do, q, k, v, out, lse, dcap, sc,
+                                         causal)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype == dtype
+        if dtype == torch.float32:
+            _close(a, b, dtype)
+        else:
+            _close_ulp(a, b, dtype, BWD_TOL)
+    for _ in range(3):
+        again = attention_bwd_fused(do, q, k, v, lse, dcap, sc, causal)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fused_kernel_keeps_no_dq_slabs(dev, dtype):
+    """At a Pythia-1B-shaped call (4 x 2048 x 256, causal) the fused call
+    allocates its outputs, one f32 dq buffer and the turn counters: far
+    below the nk x BH x S x d f32 slabs of the TPU kernel's scheme."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, S, D = 4, 2048, 256
+    q, do, k, v = (_randn(g, B, S, D, dtype=dtype) for _ in range(4))
+    out, lse = attention_fwd_res(q, k, v, D ** -0.5, True)
+    dcap = (do.float() * out.float()).sum(-1).contiguous()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = attention_bwd_fused(do, q, k, v, lse, dcap, D ** -0.5, True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    isz = q.element_size()
+    nk = -(-S // fused_rows(D, dtype))
+    # dq f32 (and its cast), dk, dv, the ticket and turns, 1 MB of slack
+    bound = B * S * D * (4 + 3 * isz) + 4 * (1 + B * nk) + 2 ** 20
+    slabs = nk * B * S * D * 4
+    assert peak <= bound < slabs, (peak, bound, slabs)
+    assert all(torch.isfinite(t.float()).all() for t in got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
