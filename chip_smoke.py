@@ -34,11 +34,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
      example's, head dims 8, 16, 80 and 200 and windows of S or more for
      correctness, and decode attention at Gemma's (1, 8, 256) and
      Mistral's (8, 4, 128) decode shapes, split over blocks (the record
-     carries n_split), its error scaled by the reference's rms past one ulp
-     (one split's range alone must fail), its merge kernel timed alone on
-     the plain split's partials, both timed by CUDA graph beside SDPA
-     (plain versions one KV group at a time; the library call is SDPA with
-     ``enable_gqa``); the bf16 flash forward (tensor cores) everywhere
+     carries n_split, planned from the window, never the position), its
+     error scaled by the reference's rms past one ulp (one split's range
+     alone must fail), its merge kernel timed alone on the plain split's
+     partials, both timed by CUDA graph beside SDPA (plain versions one KV
+     group at a time; the library call is SDPA with ``enable_gqa``); the
+     batched decode attention (LLaMA's ``step_batch``: 4 slots at their
+     own device positions over a stacked cache's strided views, one
+     launch) at both engines' shapes against its plain version and one
+     reference a slot, captured in a CUDA graph and replayed after the
+     positions move; the bf16 flash forward (tensor cores) everywhere
      within FWD_TOL of the reference's rms past one ulp, with zeros, no
      causal mask, no band and a last K tile dropped failing it; the
      forward at BERT-base's 96 x 128 x 64 without a mask (the call shape
@@ -53,7 +58,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      tensor-core kernels do), its bound from the function's own bytes and
      products; the backward's kernels at GPT-2's, Pythia's, the Mistral-7B
      layer's and Gemma-2B's training shapes also by CUDA graph, and SDPA's
-     backward by CUDA graph (forward and backward less the forward);
+     backward by CUDA graph (forward and backward less the forward); the
+     tape's matmul (``wgmma`` tensor cores: bf16 one pass, f32 three tf32
+     passes) at BERT-base's products and by CUDA graph at four shapes
+     (MATMUL_SHAPES: row 3's decoder, Mistral-7B's MLP up-projection and
+     its weight gradient, Pythia-1B's QKV) with the f32 bound at three tf32
+     passes (TF32_OPS), and the f32 kernel against a float64 product within
+     4x cuBLAS f32's error, a bar cuBLAS with TF32 on must fail;
   4. serving path, GPT-2 small at its published widths (vocab 50257, 1024
      positions, d 768, 12 layers, 12 heads; seeded random weights), once in
      float32 and once after ``model.to(torch.bfloat16)``: ``generate``,
@@ -110,7 +121,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      W 8192) with a 1000-token prompt: ``generate``, ``generate_batch``,
      an engine of 4 slots over 8 ragged requests, a teacher-forced check of
      prefill + cached steps against a plain full-sequence forward, and
-     Mistral's check in float32 at 4 layers; (b) training on the tape,
+     Mistral's check in float32 at 4 layers; a profiled prefill, step and
+     engine tick (``step_batch`` over 4 slots: its launches, ms a token,
+     device idle share, one batched decode-attention launch a layer); (b)
+     training on the tape,
      float32, AdamW, 5 steps on one batch at full width cut to 2 layers:
      Mistral-7B on 1 x 8192 tokens (window active), Gemma-2B on 2 x 1024
      (head dim 256), each with step 1's logits and gradients against a
@@ -132,6 +146,7 @@ line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero and prints no result.
 """
 
+import importlib
 import json
 import os
 import subprocess
@@ -151,6 +166,9 @@ KERNEL_SOURCES = {
                       "lightgrad_tpu/ops/attention.py:267"),
     "decode_attention": ("cuda", "lightgrad_tpu_torch/csrc/decode_attention.cu",
                          "lightgrad_tpu/ops/decode_attention.py:64"),
+    "decode_attention_batch": ("cuda",
+                               "lightgrad_tpu_torch/csrc/decode_attention.cu",
+                               "lightgrad_tpu/ops/decode_attention.py:64"),
     # the second launch of #11 where it splits a head's keys
     "decode_attention_merge": ("cuda",
                                "lightgrad_tpu_torch/csrc/decode_attention.cu",
@@ -208,6 +226,12 @@ KERNEL_SOURCES = {
                     "lightgrad_tpu/ops/conv.py:122"),
 }
 KERNEL_NOTES = {
+    "decode_attention_batch": "decode attention's kernel with a slot axis: "
+                              "B slots at their own device positions in one "
+                              "launch, the call shape of the JAX package's "
+                              "jax.vmap of the kernel under LLaMA's batched "
+                              "step (lightgrad_tpu/models/llama.py:591); "
+                              "timed at Mistral-7B's 4-slot engine shape",
     "decode_attention_merge": "decode attention's second launch where it "
                               "splits a KV head's keys over blocks: the "
                               "merge of the splits' partials; timed alone "
@@ -312,7 +336,7 @@ LLAMA_TRAINING = (("Mistral-7B", MISTRAL_7B, 1, 8192),
                   ("Gemma-2B", GEMMA_2B, 2, 1024))
 LLAMA_LR = 3e-4
 LLAMA_SERVING_KERNELS = ("attention_fwd", "decode_attention",
-                         "decode_attention_merge")
+                         "decode_attention_batch", "decode_attention_merge")
 LLAMA_TRAIN_KERNELS = TAPE_KERNELS + FLASH_KERNELS
 # HF EleutherAI/pythia-1b config.json (GPTNeoXForCausalLM; 1.01 B
 # parameters), no cut
@@ -340,6 +364,17 @@ NEOX_GENERATE_KERNELS = ("elementwise", "matmul", "attention_fwd",
 # a second and dense peak operations a second by input type
 HBM_BPS = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# the tf32 tensor-core rate: the f32 matmul kernel's bound counts its three
+# tf32 passes (hi hi, hi lo, lo hi) at this rate
+TF32_OPS = 495e12
+# the tape's products timed in phase 3: (variant, M, N, K, A read along m,
+# B given as W^T): BERT-base's decoder (PERF.md row 3, the record's main
+# shape), Mistral-7B's MLP up-projection, its weight gradient with the batch
+# folded into K, Pythia-1B's QKV
+MATMUL_SHAPES = (("", 1024, 30522, 768, False, True),
+                 ("mistral_up_", 8192, 14336, 4096, False, True),
+                 ("mistral_up_dw_", 4096, 14336, 8192, True, False),
+                 ("pythia_qkv_", 4096, 6144, 2048, False, True))
 
 
 def log(*a):
@@ -390,12 +425,12 @@ def graph_ms(fn, iters=20):
 
 
 def timed(results, dtype, name, err, kernel, plain, cost, library,
-          iters=20):
+          iters=20, variant="", peak=None):
     """Record ``kernel``, ``plain`` and ``library`` by device time (graph
     replay)."""
     record(results, dtype, name, err, graph_ms(kernel, iters),
            graph_ms(plain, iters), timing="graph", cost=cost,
-           library_ms=graph_ms(library, iters))
+           library_ms=graph_ms(library, iters), variant=variant, peak=peak)
 
 
 def errors(got, want):
@@ -661,19 +696,20 @@ def sdpa_bwd_ms(q, k, v, do, **kw):
     return both - fwd
 
 
-def bound_ms(nbytes, ops, dtype):
+def bound_ms(nbytes, ops, dtype, peak=None):
     """The least time the card could take for a call: its bytes (each input
     read once, each output written once) at HBM_BPS or its operations at
-    the input type's peak, whichever is longer, and which of the two."""
+    the input type's peak (``peak`` where the kernel's operations run at
+    another rate), whichever is longer, and which of the two."""
     by_bytes = nbytes / HBM_BPS * 1e3
-    by_ops = ops / PEAK_OPS[dtype] * 1e3
+    by_ops = ops / (peak or PEAK_OPS[dtype]) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                           "operations")
 
 
 def record(results, dtype, name, err, ms=None, plain_ms=None,
            timing="eager", cost=None, library_ms=None, variant="",
-           graph=None):
+           graph=None, peak=None):
     """Fold one comparison (and, when timed, both times) into ``results``:
     f32 under plain keys, bf16 under ``bf16_`` keys.  ``timing`` says how
     the times were taken: "eager" (:func:`cuda_ms`, launch work included)
@@ -693,7 +729,8 @@ def record(results, dtype, name, err, ms=None, plain_ms=None,
             r[key + "max_abs_err"] = max(r.get(key + "max_abs_err", 0.0),
                                          err)
         r[key + "ms"], r[key + "plain_ms"] = ms, plain_ms
-        r[key + "bound_ms"], r[key + "bound_by"] = bound_ms(*cost, dtype)
+        r[key + "bound_ms"], r[key + "bound_by"] = bound_ms(*cost, dtype,
+                                                            peak)
         r[key + "library_ms"] = library_ms
         r.setdefault("timing", timing)
         if graph is not None:
@@ -737,7 +774,7 @@ def phase_kernels(model, results):
     from lightgrad_tpu_torch.ops.attention import (attention_fwd_res,
                                                    attention_fwd_reference)
     from lightgrad_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_reference, decode_splits)
+        decode_attention, decode_attention_reference, plan_splits)
     from lightgrad_tpu_torch.ops.decode_stack import (
         decode_stack, decode_stack_batch, decode_stack_batch_reference,
         decode_stack_reference, pack_gpt_stack)
@@ -795,8 +832,8 @@ def phase_kernels(model, results):
               lambda: F.scaled_dot_product_attention(q1, kc[:, :513],
                                                      vc[:, :513]))
         results["decode_attention"][("bf16_" if isz == 2 else "")
-                                    + "n_split"] = decode_splits(H, 513, hd,
-                                                                 dtype)
+                                    + "n_split"] = plan_splits(H, W, 0, hd,
+                                                               dtype)
 
         # whole-stack kernel on the model's own packed weights, float and
         # int8 (slabs, cache or both)
@@ -1824,11 +1861,50 @@ def phase_tape_kernels(results):
                              matmul_reference(gy, w_dec), tol),
                   check("matmul vjp dW.T (decoder)", dtype, gb,
                         matmul_reference(x.T, gy), tol))
-        timed(results, dtype, "matmul", err, lambda: matmul(x, w_dec.T),
-              lambda: matmul_reference(x, w_dec.T),
-              ((R * d + d * V + R * V) * isz, 2 * R * d * V),
-              lambda: torch.matmul(x, w_dec.T), 10)
+        record(results, dtype, "matmul", err)
         del logits, w_dec, gy, ga, gb
+        if dtype == torch.float32:
+            # the three tf32 passes reach f32 accuracy: against the f64
+            # product within 4x cuBLAS f32's own error (TF32 off; at least
+            # 4 ulps of the product's scale), a bar that one tf32 pass
+            # (cuBLAS with TF32 on) fails
+            a, b = rnd(R, d), rnd(f, d, scale=0.03).T
+            want = torch.matmul(a.double(), b.double())
+
+            def f64_err(t):
+                return ((t.double() - want).abs().max()
+                        / want.abs().max()).item()
+            got, lib = f64_err(matmul(a, b)), f64_err(torch.matmul(a, b))
+            torch.backends.cuda.matmul.allow_tf32 = True
+            one = f64_err(torch.matmul(a, b))
+            torch.backends.cuda.matmul.allow_tf32 = False
+            bar = max(4 * lib, 4 * 2.0 ** -23)
+            ok = got <= bar < one
+            log(f"  matmul f32 vs float64 ({R} x {d} @ {d} x {f}): kernel "
+                f"{got:.3e}, cuBLAS f32 {lib:.3e}, cuBLAS TF32 {one:.3e} "
+                f"(bar {bar:.3e}: {'ok' if ok else 'FAIL'})")
+            if not ok:
+                raise AssertionError(f"matmul f32: {got} against 4 x {lib} "
+                                     f"(TF32 {one})")
+            del a, b, want
+        # device time by CUDA graph at the tape's shapes (MATMUL_SHAPES);
+        # the f32 bound counts three tf32 passes at TF32_OPS
+        for variant, M_, N_, K_, a_t, b_t in MATMUL_SHAPES:
+            a = rnd(*((K_, M_) if a_t else (M_, K_)))
+            b = rnd(*((N_, K_) if b_t else (K_, N_)), scale=K_ ** -0.5)
+            a, b = (a.T if a_t else a), (b.T if b_t else b)
+            err = check(f"matmul {M_} x {K_} @ {K_} x {N_}"
+                        f"{' (A read along m)' if a_t else ''}", dtype,
+                        matmul(a, b), matmul_reference(a, b), tol)
+            ops = 2 * M_ * N_ * K_
+            timed(results, dtype, "matmul", err, lambda: matmul(a, b),
+                  lambda: matmul_reference(a, b),
+                  ((M_ * K_ + K_ * N_ + M_ * N_) * isz,
+                   ops if dtype == torch.bfloat16 else 3 * ops),
+                  lambda: torch.matmul(a, b), 10, variant=variant,
+                  peak=None if dtype == torch.bfloat16 else TF32_OPS)
+            del a, b
+            torch.cuda.empty_cache()
 
         # softmax of the masked scores and its gradient
         sm = scores + mask
@@ -2061,7 +2137,8 @@ def tape_step(model, opt, x_ids, y, **inputs):
 
 
 # kernel-name fragment -> the family a step's device time is summed under
-KERNEL_FAMILIES = (("matmul_kernel", "matmul"), ("ew_kernel", "elementwise"),
+KERNEL_FAMILIES = (("matmul_tc_kernel", "matmul"),
+                   ("ew_kernel", "elementwise"),
                    ("reduce_rows", "reduce"), ("softmax_", "softmax"),
                    ("ln_", "layernorm"),
                    ("flash_bwd_fused", "fused flash backward"),
@@ -2887,9 +2964,10 @@ def phase_llama_kernels(results):
         attention_bwd, attention_bwd_dkv, attention_bwd_dq, attention_fwd_res,
         attention_fwd_reference)
     from lightgrad_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_reference, decode_merge,
-        decode_merge_reference, decode_splits, split_bounds, split_partials,
-        visible_range)
+        decode_attention, decode_attention_batch,
+        decode_attention_batch_reference, decode_attention_reference,
+        decode_merge, decode_merge_reference, plan_splits, split_bounds,
+        split_partials, visible_range)
 
     dev, f32 = torch.device("cuda"), torch.float32
     g = torch.Generator(device=dev).manual_seed(13)
@@ -3080,7 +3158,8 @@ def phase_llama_kernels(results):
             want = decode_attention_reference(q1, kc, vc, pos, sc, window)
             lo, hi = visible_range(W, pos, window)
             nv = hi + 1 - lo
-            n_split = decode_splits(KV, nv, hd, dtype)
+            # planned from the most rows the cache shows, not from pos
+            n_split = plan_splits(KV, W, window, hd, dtype)
             bounds = split_bounds(lo, nv, n_split)
             # plausible faults: zeros, the first or the last 2048 keys
             # alone, the first or the last split's range alone (a broken
@@ -3138,6 +3217,79 @@ def phase_llama_kernels(results):
                    variant="" if variant == "gemma_" else variant)
             del part, mout, mref
             del q1, kc, vc, kv_vis
+
+        # the batched decode attention (LLaMA's step_batch: the JAX
+        # package's jax.vmap of the kernel) at the engines' 4 slots, each at
+        # its own device position, over the strided slot views of a stacked
+        # (B, L, 2, KV, W, hd) cache cut to one layer
+        for variant, KV, G, hd, W, window, poss in (
+                ("gemma_", Gm["num_key_value_heads"],
+                 Gm["num_attention_heads"] // Gm["num_key_value_heads"],
+                 Gm["head_dim"], Gm["max_position_embeddings"], 0,
+                 (1200, 16, 500, 800)),
+                ("mistral_", M["num_key_value_heads"],
+                 M["num_attention_heads"] // M["num_key_value_heads"],
+                 mistral[3], M["max_position_embeddings"],
+                 M["sliding_window"], (4600, 32, 700, 2100))):
+            B, sc = len(poss), hd ** -0.5
+            caches = rnd(B, 1, 2, KV, W, hd)
+            kc, vc = caches[:, 0, 0], caches[:, 0, 1]
+            qb = rnd(B, KV, G, hd)
+            pt = torch.tensor(poss, device=dev, dtype=torch.int32)
+            got = decode_attention_batch(qb, kc, vc, pt, sc, window)
+            want = decode_attention_batch_reference(qb, kc, vc, pt, sc,
+                                                    window)
+            singles = torch.stack([decode_attention_reference(
+                qb[b], kc[b], vc[b], p, sc, window)
+                for b, p in enumerate(poss)])
+            err = check_ulp(f"decode_attention_batch {variant[:-1]} B={B} "
+                            f"poss={list(poss)}", dtype, got, want, tol,
+                            torch.zeros_like(want), singles.roll(1, 0))
+            check("decode_attention_batch vs one reference a slot", dtype,
+                  want, singles, tol)
+            # one capture, replayed after the positions move
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                decode_attention_batch(qb, kc, vc, pt, sc, window)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = decode_attention_batch(qb, kc, vc, pt, sc, window)
+            moved = [p + 37 for p in poss]
+            pt.copy_(torch.tensor(moved, device=dev))
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(replayed, decode_attention_batch(
+                    qb, kc, vc, pt, sc, window)):
+                raise AssertionError("decode_attention_batch: a replay at "
+                                     "moved positions differs from an eager "
+                                     "call")
+            del graph
+            pt.copy_(torch.tensor(poss, device=dev))
+            nvis = [visible_range(W, p, window) for p in poss]
+            nbytes = sum(2 * KV * (hi - lo + 1) * hd for lo, hi in nvis) \
+                * isz + 2 * B * KV * G * hd * isz
+            ops = sum(4 * KV * G * (hi - lo + 1) * hd for lo, hi in nvis)
+            key_mask = torch.stack([(torch.arange(W, device=dev) >= lo)
+                                    & (torch.arange(W, device=dev) <= hi)
+                                    for lo, hi in nvis])[:, None, None, :]
+            qh = qb.reshape(B, KV * G, 1, hd)
+            record(results, dtype, "decode_attention_batch", err,
+                   graph_ms(lambda: decode_attention_batch(qb, kc, vc, pt, sc,
+                                                           window)),
+                   graph_ms(lambda: decode_attention_batch_reference(
+                       qb, kc, vc, pt, sc, window)), timing="graph",
+                   cost=(nbytes, ops),
+                   library_ms=library_time(
+                       f"decode_attention_batch {variant}", dtype,
+                       lambda: graph_ms(lambda: F.scaled_dot_product_attention(
+                           qh, kc, vc, attn_mask=key_mask, enable_gqa=True))),
+                   variant="" if variant == "mistral_" else variant)
+            results["decode_attention_batch"][
+                ("bf16_" if dtype == torch.bfloat16 else "") + variant
+                + "n_split"] = plan_splits(KV, W, window, hd, dtype)
+            del caches, kc, vc, qb, key_mask, qh
         torch.cuda.empty_cache()
 
 
@@ -3196,29 +3348,42 @@ SERVING_FAMILIES = (("flash_fwd", "flash forward"),
                     ("cutlass", "cuBLAS GEMM"))
 
 
-def serving_breakdown(model, name, P):
-    """Where a prefill (the prompt padded to the window) and one cached
-    step go: device time by kernel family in one warm call of each traced
-    by torch.profiler, against the call's wall time."""
+def serving_breakdown(model, name, P, slots=4):
+    """Where a prefill (the prompt padded to the window), one cached step
+    and one engine tick (``step_batch`` over ``slots`` slots near P) go:
+    device time by kernel family in one warm call of each traced by
+    torch.profiler, against the call's wall time, with the kernels a call
+    launches; the tick must launch the batched decode attention once a
+    layer for all slots."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
     fns = model._kv_functions()
-    W = model.cfg.max_position_embeddings
+    W, L = model.cfg.max_position_embeddings, model.cfg.num_hidden_layers
     dev = model.embed_tokens.weight.device
     toks = torch.randint(0, model.cfg.vocab_size, (W,), device=dev)
     cache = fns.init_cache()
+    caches = torch.stack([fns.init_cache() for _ in range(slots)])
+    poss = torch.tensor([P + 3 * b for b in range(slots)], device=dev,
+                        dtype=torch.int32)
+    ticks = torch.randint(0, model.cfg.vocab_size, (slots,), device=dev)
     calls = (("prefill", lambda: fns.prefill(cache, toks, P)),
-             ("step", lambda: fns.step(cache, P, 7)))
+             ("step", lambda: fns.step(cache, P, 7)),
+             (f"engine tick (step_batch, {slots} slots)",
+              lambda: fns.step_batch(caches, poss, ticks)))
     for what, call in calls:
         call()
         torch.cuda.synchronize()
+        reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as trace:
             t0 = time.perf_counter()
             call()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        counts = launch_counts()
         fams = sorted({f for _, f in SERVING_FAMILIES}) + ["plain torch"]
         ms, n = dict.fromkeys(fams, 0.0), dict.fromkeys(fams, 0)
         for e in trace.events():
@@ -3230,9 +3395,22 @@ def serving_breakdown(model, name, P):
         busy = sum(ms.values())
         log(f"  {name} {what} (profiled): device {busy:.2f} ms of "
             f"{wall * 1e3:.2f} ms wall (idle "
-            f"{100 * (1 - busy / (wall * 1e3)):.1f}%): "
+            f"{100 * (1 - busy / (wall * 1e3)):.1f}%), {sum(n.values())} "
+            f"kernels: "
             + ", ".join(f"{f} {t:.2f} ms ({n[f]})" for f, t in ms.items()))
-    del cache, fns
+        if what.startswith("engine tick"):
+            log(f"  {name} engine tick: {sum(n.values())} launches for "
+                f"{slots} slots, {wall * 1e3 / slots:.3f} ms of wall time a "
+                f"token; decode_attention_batch launched "
+                f"{counts['decode_attention_batch']} times for {L} layers")
+            if counts["decode_attention_batch"] != L \
+                    or counts["decode_attention"]:
+                raise AssertionError(f"{name}: a tick launched "
+                                     f"{counts['decode_attention_batch']} "
+                                     f"batched decode attentions for {L} "
+                                     f"layers (and "
+                                     f"{counts['decode_attention']} single)")
+    del cache, caches, fns
     torch.cuda.empty_cache()
 
 
@@ -3292,8 +3470,9 @@ def drive_llama_serving(model, name, prompt_len, batch_lens, engine_lens):
     ntok = sum(n for _, n in reqs)
     cache_mb = engine._caches.numel() * engine._caches.element_size() / 1e6
     log(f"  engine: {len(reqs)} requests (prompts {list(engine_lens)}), "
-        f"{ntok} tokens in {dt:.3f} s ({ntok / dt:.1f} tok/s, prefills "
-        f"included; {engine.stats}); peak memory "
+        f"{ntok} tokens in {dt:.3f} s ({ntok / dt:.1f} tok/s, "
+        f"{dt * 1e3 / ntok:.3f} ms a token, prefills included; "
+        f"{engine.stats}); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, cache "
         f"{cache_mb:.1f} MB ({cache_mb / 4:.1f} MB a slot)")
     torch.cuda.synchronize()
@@ -3710,9 +3889,17 @@ def main():
 
     # 4.-9. each path, with the kernels it launched
     launches = dict.fromkeys(KERNELS, 0)
+    # the matmul kernel's operand loaders, counted a path (the element
+    # loader serves operands whose rows cannot feed 16-byte copies)
+    loaders = importlib.import_module(
+        "lightgrad_tpu_torch.ops.matmul").loader_counts
+    loaders.update(dict.fromkeys(loaders, 0))
 
     def tally(path, counts, path_kernels):
         log(f"  launches: {counts}")
+        if any(loaders.values()):
+            log(f"  matmul operand loaders: {dict(loaders)}")
+            loaders.update(dict.fromkeys(loaders, 0))
         missing = [k for k in path_kernels if counts[k] == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the {path} "

@@ -2,6 +2,9 @@
 
 Counterpart of ``lightgrad_tpu/amp.py``:
 
+* :func:`set_matmul_precision` sets the float32 matmul kernel's precision:
+  'highest' (the default: three tf32 passes, float32 accuracy, as the TPU's
+  HIGHEST passes) or 'default' (operands rounded to bf16, one pass);
 * :func:`cast_module` casts a module's parameters to a dtype in place;
 * :class:`GradScaler` is dynamic loss scaling with tensor-resident state;
 * :class:`MixedPrecision` is the master-weight recipe: f32 masters are
@@ -18,7 +21,16 @@ device.
 
 import torch
 
-__all__ = ["cast_module", "GradScaler", "MixedPrecision"]
+from .ops.matmul import set_precision as _set_precision
+
+__all__ = ["set_matmul_precision", "cast_module", "GradScaler",
+           "MixedPrecision"]
+
+
+def set_matmul_precision(p: str) -> str:
+    """'highest' (float32 accuracy, the default) or 'default' (bf16 passes)
+    for the tape's float32 products; returns the previous setting."""
+    return _set_precision(p)
 
 
 def cast_module(module, dtype=torch.bfloat16):

@@ -3,27 +3,35 @@
 //
 // Replaces the TPU kernel lightgrad_tpu/ops/decode_attention.py::
 // decode_attention -> _kernel: scores + `col <= pos` mask (+ sliding-window
-// band) + softmax + context.  Layout: q (KV, G, hd) -- the G query heads
-// served by each KV head; kc, vc (KV, W, hd); out (KV, G, hd).
+// band) + softmax + context, and its call shape under the JAX package's
+// jax.vmap (LLaMA's batched step): a slot axis.  Layout: q (B, KV, G, hd)
+// -- B slots, the G query heads served by each KV head; each slot's kc, vc
+// (KV, W, hd), slots a fixed stride apart (the strided views of a stacked
+// cache); out as q.  Slot b's position is read by the kernel from device
+// memory (the TPU kernel's SMEM scalar), so a launch captured in a CUDA
+// graph replays at whatever position the tensor holds then.
 //
 // What bounds it on this card: the cache bytes, 2 * nv * hd elements per KV
 // head over the nv visible keys, read once; the arithmetic is two
 // multiply-adds per element and query row.  A call is short (microseconds),
 // so what counts is how many bytes are in flight and how few steps wait on
-// each other.  The grid is (KV, n_split): block s of head h takes the s-th
-// of n_split contiguous, non-empty ranges of the visible keys [lo, hi]
-// (boundaries lo + s * nv / n_split; the planner `decode_splits` of
-// ops/decode_attention.py aims at two blocks an SM), so a model with one KV
-// head (Gemma-2B) still fills the card.  Only the visible rows are read --
-// masked rows would contribute exp(-1e30 - m) = 0, so skipping them is
-// exact.  Each block's four warps keep online-softmax states of their own
-// (running max m, denominator l, context acc; f32), folded at the end in
-// warp order (`finish`).  With n_split 1 the block writes the output;
-// otherwise it writes its partial (m, l, acc[G, hd]) to scratch the wrapper
-// allocates, and decode_merge_kernel, a second launch that starts while the
-// first runs (programmatic dependent launch) and waits for its results,
-// writes out = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M), M = max_s
-// m_s, in a fixed order (no atomics).
+// each other.  The grid is (KV, n_split, B): block s of head h takes the
+// s-th of n_split contiguous ranges of slot b's visible keys [lo, hi]
+// (boundaries lo + s * nv / n_split).  The planner `plan_splits` of
+// ops/decode_attention.py aims at two blocks an SM over the most rows the
+// cache can show (the window, or W), never the position, so a model with
+// one KV head (Gemma-2B) still fills the card; at a short position ranges
+// are short or, past nv, empty: such a block writes an empty partial
+// (m LG_NEG, l 0), which the merge weighs e^(LG_NEG - M) = 0.  Only the
+// visible rows are read -- masked rows would contribute exp(-1e30 - m) = 0,
+// so skipping them is exact.  Each block's four warps keep online-softmax
+// states of their own (running max m, denominator l, context acc; f32),
+// folded at the end in warp order (`finish`).  With n_split 1 the block
+// writes the output; otherwise it writes its partial (m, l, acc[G, hd]) to
+// scratch the wrapper allocates, and decode_merge_kernel, a second launch
+// that starts while the first runs (programmatic dependent launch) and
+// waits for its results, writes out = sum_s acc_s e^(m_s - M) / sum_s l_s
+// e^(m_s - M), M = max_s m_s, in a fixed order (no atomics), for all slots.
 //
 // bfloat16 (decode_attention_tc_kernel): the tensor cores take the
 // products, so the block is a pipe for bytes.  A block stages its range in
@@ -56,6 +64,50 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;
 constexpr int kMaxSplit = 256;  // the merge's weights are in shared memory
+
+// The operands of a launch: B slots of q (B, KV, G, hd), caches of KV
+// heads of W rows each slot (slot b's at kc / vc + b * c_slot), out like q.
+// Slot b's token sits at poss[b] (int32 on the device, read by the kernel)
+// or, without poss, at pos0 for every slot.
+struct DecArgs {
+  const void* q;
+  const void* kc;
+  const void* vc;
+  void* out;
+  float* part;        // B * KV * n_split * G * (hd + 2) f32, or nullptr
+  const int* poss;    // (B,) or nullptr
+  int pos0;
+  long long c_slot;
+  int KV, G, W, hd, window, n_split;
+  float scale;
+};
+
+// Block (h, sp, z)'s keys: slot z's visible rows [lo, hi] = [max(0, pos -
+// window + 1), min(pos, W - 1)], nv of them, cut into n_split contiguous
+// ranges at lo + s * nv / n_split.  n_split is planned from the most rows
+// the cache can show (the window, or W), so at a short position some
+// ranges are empty: their blocks write an empty partial (running max
+// LG_NEG, sum 0), which the merge weighs by e^(LG_NEG - M) = 0.
+struct KeyRange {
+  int b, n;
+};
+__device__ __forceinline__ KeyRange key_range(const DecArgs& a) {
+  const int pos = a.poss ? a.poss[blockIdx.z] : a.pos0;
+  const int hi = min(pos, a.W - 1);
+  const int lo = a.window > 0 ? max(0, pos - a.window + 1) : 0;
+  const long long nv = max(0, hi - lo + 1);
+  const int sp = blockIdx.y;
+  const int b = lo + (int)(sp * nv / a.n_split);
+  return {b, lo + (int)((sp + 1) * nv / a.n_split) - b};
+}
+
+// elements of one slot's q / out, and floats of one slot's partials
+__device__ __forceinline__ size_t slot_elems(const DecArgs& a) {
+  return (size_t)a.KV * a.G * a.hd;
+}
+__device__ __forceinline__ size_t slot_part(const DecArgs& a) {
+  return (size_t)a.KV * a.n_split * a.G * (a.hd + 2);
+}
 
 // a 16-byte chunk of four f32 elements
 __device__ __forceinline__ void widen(const uint4& u, float (&x)[4]) {
@@ -159,13 +211,17 @@ template <typename T>
 __global__ void __launch_bounds__(32 * kWarpsM)
 decode_merge_kernel(const float* __restrict__ part, T* __restrict__ out,
                     int KV, int G, int hd, int n_split) {
+  // z: (slot, 32-column chunk)
   __shared__ float wgt[kMaxSplit];
   __shared__ float sums[kWarpsM][32];
   __shared__ float inv_l;
   wait_primary();
   const int h = blockIdx.x, g = blockIdx.y;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int col = blockIdx.z * 32 + lane;
+  const int nzc = (hd + 31) / 32, slot = blockIdx.z / nzc;
+  const int col = (blockIdx.z % nzc) * 32 + lane;
+  part += (size_t)slot * KV * n_split * G * (hd + 2);
+  out += (size_t)slot * KV * G * hd;
   const size_t nacc = (size_t)KV * n_split * G * hd;
   const float* pm = part + nacc + (size_t)h * n_split * G + g;
   const float* pl = pm + (size_t)KV * n_split * G;
@@ -223,11 +279,7 @@ __host__ __device__ constexpr int steps_of(int held) {
 // LPR lanes a key row, NCH 16-byte chunks a lane, GP query rows held
 template <int LPR, int NCH, int GP>
 __global__ void __launch_bounds__(kThreads, 2)
-decode_attention_kernel(const float* __restrict__ q,
-                        const float* __restrict__ kc,
-                        const float* __restrict__ vc, float* __restrict__ out,
-                        float* __restrict__ part, int G, int W, int hd,
-                        int lo, int nv, int n_split, float scale) {
+decode_attention_kernel(const DecArgs a) {
   constexpr int EPC = 4;               // elements a 16-byte chunk
   constexpr int RPW = 32 / LPR;        // streams a warp
   constexpr int NA = NCH * EPC;        // context elements a lane a row
@@ -239,9 +291,18 @@ decode_attention_kernel(const float* __restrict__ q,
   float* smem = reinterpret_cast<float*>(smem4);
   launch_dependents();
 
-  const int h = blockIdx.x, sp = blockIdx.y;
-  const int b = lo + (int)((long long)sp * nv / n_split);
-  const int n = lo + (int)((long long)(sp + 1) * nv / n_split) - b;
+  const int G = a.G, W = a.W, hd = a.hd, n_split = a.n_split;
+  const float scale = a.scale;
+  const size_t z = blockIdx.z;
+  const float* __restrict__ q =
+      static_cast<const float*>(a.q) + z * slot_elems(a);
+  const float* __restrict__ kc = static_cast<const float*>(a.kc) + z * a.c_slot;
+  const float* __restrict__ vc = static_cast<const float*>(a.vc) + z * a.c_slot;
+  float* __restrict__ out = static_cast<float*>(a.out) + z * slot_elems(a);
+  float* __restrict__ part = a.part ? a.part + z * slot_part(a) : nullptr;
+  const int h = blockIdx.x;
+  const KeyRange kr0 = key_range(a);
+  const int b = kr0.b, n = kr0.n;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int sub = lane / LPR, cl = lane % LPR;
   const int chunks = hd / EPC;  // 16-byte chunks a row
@@ -396,9 +457,8 @@ decode_attention_kernel(const float* __restrict__ q,
 }
 
 template <int LPR, int NCH, int GP>
-int launch_f32(const void* q, const void* kc, const void* vc, void* out,
-               void* part, int KV, int G, int W, int hd, int lo, int nv,
-               int n_split, float scale, cudaStream_t stream) {
+int launch_f32(const DecArgs& a, int B, cudaStream_t stream) {
+  const int G = a.G, hd = a.hd;
   constexpr int kU = steps_of(GP * NCH * 4);  // as in the kernel
   const size_t scores = sizeof(float) * kWarps * GP * kU * (32 / LPR);
   const size_t ends = finish_bytes(G, hd);
@@ -409,20 +469,14 @@ int launch_f32(const void* q, const void* kc, const void* vc, void* out,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<dim3(KV, n_split), kThreads, smem, stream>>>(
-      (const float*)q, (const float*)kc, (const float*)vc, (float*)out,
-      (float*)part, G, W, hd, lo, nv, n_split, scale);
+  kernel<<<dim3(a.KV, a.n_split, B), kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // float32: the narrowest instantiation whose lanes hold a row's chunks
-int launch_f32_hd(const void* q, const void* kc, const void* vc, void* out,
-                  void* part, int KV, int G, int W, int hd, int lo, int nv,
-                  int n_split, float scale, cudaStream_t st) {
-  const int chunks = hd / 4;
-#define LG_DECODE_G(LPR, NCH, GP)                                           \
-  return launch_f32<LPR, NCH, GP>(q, kc, vc, out, part, KV, G, W, hd, lo, \
-                                  nv, n_split, scale, st)
+int launch_f32_hd(const DecArgs& a, int B, cudaStream_t st) {
+  const int chunks = a.hd / 4, G = a.G;
+#define LG_DECODE_G(LPR, NCH, GP) return launch_f32<LPR, NCH, GP>(a, B, st)
 #define LG_DECODE(LPR, NCH)               \
   {                                       \
     if (G == 1) LG_DECODE_G(LPR, NCH, 1); \
@@ -489,21 +543,24 @@ __device__ __forceinline__ uint32_t tile_off(int r, int c) {
 // the four warps and merges the splits.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_tc_kernel(const bf16* __restrict__ q,
-                           const bf16* __restrict__ kc,
-                           const bf16* __restrict__ vc, bf16* __restrict__ out,
-                           float* __restrict__ part, int G, int W, int hd,
-                           int lo, int nv, int n_split, int ring,
-                           float scale) {
+decode_attention_tc_kernel(const DecArgs a, int ring) {
   using C = DecTc<D>;
   constexpr int C8 = D / 8;  // 16-byte chunks a staged row
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const uint32_t s0 = lg_smem_u32(smem4);
 
-  const int h = blockIdx.x, sp = blockIdx.y;
-  const int b = lo + (int)((long long)sp * nv / n_split);
-  const int n = lo + (int)((long long)(sp + 1) * nv / n_split) - b;
+  const int G = a.G, W = a.W, hd = a.hd, n_split = a.n_split;
+  const float scale = a.scale;
+  const size_t z = blockIdx.z;
+  const bf16* __restrict__ q = static_cast<const bf16*>(a.q) + z * slot_elems(a);
+  const bf16* __restrict__ kc = static_cast<const bf16*>(a.kc) + z * a.c_slot;
+  const bf16* __restrict__ vc = static_cast<const bf16*>(a.vc) + z * a.c_slot;
+  bf16* __restrict__ out = static_cast<bf16*>(a.out) + z * slot_elems(a);
+  float* __restrict__ part = a.part ? a.part + z * slot_part(a) : nullptr;
+  const int h = blockIdx.x;
+  const KeyRange kr0 = key_range(a);
+  const int b = kr0.b, n = kr0.n;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int g = lane >> 2, tq = lane & 3;
   const bf16* kh = kc + ((size_t)h * W + b) * hd;
@@ -637,11 +694,11 @@ decode_attention_tc_kernel(const bf16* __restrict__ q,
 }
 
 template <int D>
-int launch_tc(const void* q, const void* kc, const void* vc, void* out,
-              void* part, int KV, int G, int W, int hd, int lo, int nv,
-              int n_split, float scale, cudaStream_t stream) {
+int launch_tc(const DecArgs& a, int nv, int B, cudaStream_t stream) {
   using C = DecTc<D>;
-  const int most = (nv + n_split - 1) / n_split;  // the longest range
+  const int G = a.G, hd = a.hd;
+  // the longest range of the most rows the cache can show
+  const int most = (nv + a.n_split - 1) / a.n_split;
   const int nst = (most + kTcKeys - 1) / kTcKeys;
   const int ring = nst < C::kStages ? nst : C::kStages;
   const size_t ends = finish_bytes(G, hd);
@@ -657,66 +714,68 @@ int launch_tc(const void* q, const void* kc, const void* vc, void* out,
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
-  kernel<<<dim3(KV, n_split), kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)kc, (const bf16*)vc, (bf16*)out,
-      (float*)part, G, W, hd, lo, nv, n_split, ring > 1 ? ring : 2, scale);
+  kernel<<<dim3(a.KV, a.n_split, B), kThreads, smem, stream>>>(
+      a, ring > 1 ? ring : 2);
   return (int)cudaGetLastError();
 }
 
-int launch_tc_hd(const void* q, const void* kc, const void* vc, void* out,
-                 void* part, int KV, int G, int W, int hd, int lo, int nv,
-                 int n_split, float scale, cudaStream_t st) {
-  if (hd <= 64)
-    return launch_tc<64>(q, kc, vc, out, part, KV, G, W, hd, lo, nv, n_split,
-                         scale, st);
-  if (hd <= 128)
-    return launch_tc<128>(q, kc, vc, out, part, KV, G, W, hd, lo, nv,
-                          n_split, scale, st);
-  return launch_tc<256>(q, kc, vc, out, part, KV, G, W, hd, lo, nv, n_split,
-                        scale, st);
+int launch_tc_hd(const DecArgs& a, int nv, int B, cudaStream_t st) {
+  if (a.hd <= 64) return launch_tc<64>(a, nv, B, st);
+  if (a.hd <= 128) return launch_tc<128>(a, nv, B, st);
+  return launch_tc<256>(a, nv, B, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// pos: the token's absolute position; keys at [max(0, pos-window+1), pos]
-// (window = 0: [0, pos]) are visible, clamped to the cache's W rows.
-// n_split: blocks a KV head, 1..min(nv, 256); above 1 the blocks write f32
-// partials to `part` (KV * n_split * G * (hd + 2) floats), which
+// B slots, each one token's queries q (B, KV, G, hd) over its own cache:
+// kc, vc (KV, W, hd) at kc / vc + b * c_slot elements (c_slot 0 with B 1).
+// Slot b's token is at poss[b] (B int32 on the device, read by the kernel:
+// a captured launch replays at any position) or, with poss null, at pos0;
+// keys at [max(0, pos - window + 1), pos] (window = 0: [0, pos]) are
+// visible, clamped to the cache's W rows.  n_split: blocks a KV head,
+// 1..min(min(W, window or W), 256), planned by the caller from the most
+// rows the cache can show, never from pos; above 1 the blocks write f32
+// partials to `part` (B * KV * n_split * G * (hd + 2) floats), which
 // lg_decode_merge combines into `out`.  Returns cudaErrorInvalidValue for
 // shapes the kernel lacks (hd % 8 != 0, hd < 8, hd > 256, G outside 1..8,
-// an n_split outside its range).
+// an n_split outside its range, a host pos0 that sees no key).
 int lg_decode_attention(const void* q, const void* kc, const void* vc,
-                        void* out, void* part, int KV, int G, int W, int hd,
-                        int pos, int window, float scale, int n_split,
-                        int is_bf16, void* stream) {
-  if (hd % 8 != 0 || hd < 8 || hd > 256 || G < 1 || G > kMaxG)
+                        void* out, void* part, const void* poss, int pos0,
+                        int B, long long c_slot, int KV, int G, int W, int hd,
+                        int window, float scale, int n_split, int is_bf16,
+                        void* stream) {
+  if (hd % 8 != 0 || hd < 8 || hd > 256 || G < 1 || G > kMaxG || B < 1 ||
+      B > 65535 || W < 1 || window < 0)
     return (int)cudaErrorInvalidValue;
-  const int hi = pos < W - 1 ? pos : W - 1;
-  int lo = window > 0 ? pos - window + 1 : 0;
-  if (lo < 0) lo = 0;
-  if (pos < 0 || lo > hi) return (int)cudaErrorInvalidValue;
-  const int nv = hi - lo + 1;
+  const int nv = window > 0 && window < W ? window : W;  // the most rows
   if (n_split < 1 || n_split > nv || n_split > kMaxSplit ||
       (n_split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (poss == nullptr) {
+    const int hi = pos0 < W - 1 ? pos0 : W - 1;
+    const int lo = window > 0 && pos0 - window + 1 > 0 ? pos0 - window + 1 : 0;
+    if (pos0 < 0 || lo > hi) return (int)cudaErrorInvalidValue;
+  }
+  const DecArgs a{q,  kc, vc, out, static_cast<float*>(part),
+                  static_cast<const int*>(poss), pos0, c_slot, KV, G, W, hd,
+                  window, n_split, scale};
   cudaStream_t st = (cudaStream_t)stream;
-  return is_bf16 ? launch_tc_hd(q, kc, vc, out, part, KV, G, W, hd, lo, nv,
-                                n_split, scale, st)
-                 : launch_f32_hd(q, kc, vc, out, part, KV, G, W, hd, lo, nv,
-                                 n_split, scale, st);
+  return is_bf16 ? launch_tc_hd(a, nv, B, st) : launch_f32_hd(a, B, st);
 }
 
-// The merge of lg_decode_attention's n_split partials into out (KV, G, hd),
-// launched behind it on the same stream (programmatic dependent launch: its
-// blocks start while the split kernel runs and wait for its results).
-int lg_decode_merge(const void* part, void* out, int KV, int G, int hd,
-                    int n_split, int is_bf16, void* stream) {
-  if (n_split < 2 || n_split > kMaxSplit || G < 1 || G > kMaxG)
+// The merge of lg_decode_attention's n_split partials into out (B, KV, G,
+// hd), launched behind it on the same stream (programmatic dependent
+// launch: its blocks start while the split kernel runs and wait for its
+// results).
+int lg_decode_merge(const void* part, void* out, int B, int KV, int G,
+                    int hd, int n_split, int is_bf16, void* stream) {
+  if (n_split < 2 || n_split > kMaxSplit || G < 1 || G > kMaxG || B < 1 ||
+      (long long)B * ((hd + 31) / 32) > 65535)
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(KV, G, (hd + 31) / 32);
+  cfg.gridDim = dim3(KV, G, B * ((hd + 31) / 32));
   cfg.blockDim = dim3(32 * kWarpsM);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = (cudaStream_t)stream;

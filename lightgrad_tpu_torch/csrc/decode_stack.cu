@@ -20,7 +20,9 @@
 // quantizes kv_out into the cache.  One kernel serves extend and batched
 // mode through a per-row table:
 //   extend mode (poss == nullptr): every row is in slot 0 at positions
-//     pos0 .. pos0+n-1; row r attends cache rows < pos0 plus in-flight rows
+//     pos0 .. pos0+n-1 (pos0 read from pos_dev on the device where given,
+//     so a captured launch replays at any position); row r attends cache
+//     rows < pos0 plus in-flight rows
 //     j <= r (the causal self-block);
 //   batched mode: row r is in slot r at position poss[r]; it attends its own
 //     cache rows < poss[r] plus its own new row.
@@ -91,6 +93,7 @@ struct StackParams {
   long long slot_stride; // elements between slots
   const int* poss;       // (n,) batched positions, or nullptr (extend)
   int pos0;              // extend-mode position of row 0
+  const int* pos_dev;    // the same as an int32 on the device, or nullptr
   const void* slabs;     // (L, 4+2R, d, d)
   const void* vecs;      // (L, 9+R, d)
   const float* scales;   // (L, 4+2R, d) when TW is int8, else unused
@@ -294,7 +297,8 @@ decode_stack_kernel(StackParams p) {
     //    and emits the row's new K/V
     for (int it = blockIdx.x; it < n * H * NS; it += gridDim.x) {
       const int r = it / (H * NS), h = (it / NS) % H, s = it % NS;
-      const int len = min(p.poss ? p.poss[r] : p.pos0, W);
+      const int len = min(p.poss ? p.poss[r] : p.pos_dev ? *p.pos_dev : p.pos0,
+                          W);
       const int lo = (int)((long long)len * s / NS);
       const int hi = (int)((long long)len * (s + 1) / NS);
       const long long slot = p.poss ? r : 0;
@@ -543,7 +547,8 @@ int lg_decode_stack_grid(int is_bf16, int w_int8, int kv_int8) {
 }
 
 int lg_decode_stack(const void* x, const void* cache, long long slot_stride,
-                    const void* poss, int pos0, const void* slabs,
+                    const void* poss, int pos0, const void* pos_dev,
+                    const void* slabs,
                     const void* vecs, const void* scales,
                     const void* kv_scales, void* x_out, void* kv_out,
                     void* ws, int n, int L, int d, int H, int W, int R,
@@ -557,6 +562,7 @@ int lg_decode_stack(const void* x, const void* cache, long long slot_stride,
                       slot_stride,
                       static_cast<const int*>(poss),
                       pos0,
+                      static_cast<const int*>(pos_dev),
                       slabs,
                       vecs,
                       static_cast<const float*>(scales),

@@ -1,20 +1,23 @@
 // Tensor-core building blocks, written out in PTX: Hopper's `wgmma` products
-// of a 64-row warpgroup tile (bf16 in, f32 accumulators), a warp's
-// `mma.sync` m16n8k16 product with its `ldmatrix` operand loads, shared-memory
+// of a 64-row warpgroup tile (bf16 in at N 32-256, with the transpose bits;
+// tf32 in at N 128, k-major only; f32 accumulators), a warp's `mma.sync`
+// m16n8k16 product with its `ldmatrix` operand loads, shared-memory
 // matrix descriptors for the 128-byte swizzle, a tile copy by `cp.async`
-// (common.cuh) with zero-fill, and the fences between them.
+// (common.cuh) with zero-fill, the fences between them, mbarriers for a
+// producer / consumer ring of stages, and tf32 rounding.
 //
 // Layout: a tile operand lives in shared memory as 64-column (128-byte)
 // blocks of R rows each, 1024-byte aligned; the 16-byte chunk c of row r
 // sits at chunk position c ^ (r % 8) of its 128-byte row (the hardware's
 // 128-byte swizzle).  Read K-major (the product's depth along the row: Q and
 // K of S = Q K^T) a block's 8-row groups lie 1024 bytes apart (SBO) and a
-// 16-deep step adds 32 bytes to the start address; read MN-major (the
-// output's columns along the row: V of O = P V, through the transpose bit)
-// the 64-column blocks lie R * 128 bytes apart (LBO) and the 8-row groups of
-// the depth 1024 bytes apart (SBO).  A 16-bit A operand read from shared
-// memory may be MN-major the same way (the flash backward's dS, stored with
-// the keys, its depth, as rows).
+// 16-deep step (8-deep in tf32) adds 32 bytes to the start address; read
+// MN-major (the output's columns along the row: V of O = P V, through the
+// transpose bit) the 64-column blocks lie R * 128 bytes apart (LBO) and the
+// 8-row groups of the depth 1024 bytes apart (SBO).  A 16-bit A operand
+// read from shared memory may be MN-major the same way (the flash
+// backward's dS, stored with the keys, its depth, as rows; a transposed
+// matmul operand).
 //
 // Accumulator fragment of m64nNk16 (N / 2 floats a thread): element e of
 // thread (warp w, lane l) of the warpgroup holds row 16 w + l / 4 + 8
@@ -203,6 +206,136 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
       "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
       "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+// d[128] += A (64 x 16, smem) * B (16 x 256, smem); TA / TB: the operand is
+// MN-major (read through the transpose bit) rather than K-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+      "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+      "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+      "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d[64] (+)= A (64 x 8, smem, K-major) * B (8 x 128, smem, K-major), tf32
+// operands (the 13 low mantissa bits of each 32-bit word are not read);
+// tf32 takes no transpose bit
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// ---- mbarriers: a ring of stages between a producer and consumers -------
+// A barrier completes a phase when `count` arrivals have been made; a wait
+// on parity p returns once the phase with parity p has completed (a fresh
+// barrier is in phase 0, so a wait on parity 1 passes at once).
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// makes initialised barriers visible before any thread uses them (a block
+// barrier must follow)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::
+          "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// wait until at most N wgmma groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// 16 bytes into shared memory.  No "memory" clobber: the compiler may move
+// global loads across it, while volatile asm keeps it before the fence and
+// the barrier arrival that publish it.
+__device__ __forceinline__ void st_shared16(uint32_t addr, uint32_t a,
+                                            uint32_t b, uint32_t c,
+                                            uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(a), "r"(b), "r"(c), "r"(d));
+}
+
+// x rounded to tf32 (10 mantissa bits), to nearest, ties to even, as a
+// 32-bit word whose 13 low bits are zero; infinities and NaNs pass as they
+// are
+__device__ __forceinline__ uint32_t tf32_rne(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if ((u & 0x7F800000u) == 0x7F800000u) return u;
+  return (u + 0xFFFu + ((u >> 13) & 1u)) & ~0x1FFFu;
 }
 
 

@@ -336,7 +336,9 @@ class GPT(nn.Module):
             with the K scale on the score column and the V scale on the
             probabilities."""
             n = q.shape[1]
-            store(cache, (l, slice(None), slice(None), slice(pos, pos + n)),
+            # a device position (n 1) as a one-element index tensor
+            at = pos if isinstance(pos, torch.Tensor) else slice(pos, pos + n)
+            store(cache, (l, slice(None), slice(None), at),
                   torch.stack([k, v]))
             rows = pos + torch.arange(n, device=q.device)
             vis = rows[:, None] >= torch.arange(W, device=q.device)[None]
@@ -401,12 +403,22 @@ class GPT(nn.Module):
             return cache, head(x[n_real - 1][None])[0]
 
         def step(p, cache, pos, tok):
-            """One token at host position ``pos``: returns (cache, logits)."""
-            x = (p["wte.weight"][tok] + p["wpe.weight"][pos])[None]
+            """One token at position ``pos`` (a host int, or an int32 scalar
+            on the model's device, which the kernels read there and nothing
+            reads to the host): returns (cache, logits)."""
+            # device scalars as one-element index tensors (a 0-d tensor
+            # index would be read to the host)
+            if isinstance(pos, torch.Tensor):
+                pos = at = pos.reshape(1)
+            else:
+                at = slice(pos, pos + 1)
+            emb = (p["wte.weight"][tok.reshape(1)]
+                   if isinstance(tok, torch.Tensor) else p["wte.weight"][tok])
+            x = emb + p["wpe.weight"][at]                           # (1, d)
             if "stack#slabs" in p:
                 x, kv = stack(decode_stack, x, cache, pos)
-                store(cache, (slice(None),) * 3 + (pos,),
-                      kv.reshape(L, 2, H, hd))
+                store(cache, (slice(None),) * 3 + (at,),
+                      kv.reshape(L, 2, H, 1, hd))
             else:
                 x = _layers(cache, x, pos)
             return cache, head(x)[0]
@@ -436,7 +448,8 @@ class GPT(nn.Module):
             B = toks.shape[0]
             pc = poss.long().clamp(max=W - 1)
             if "stack#slabs" not in p or not stack_supported(d=d, hd=hd, n=B):
-                out = [step(p, cache_slot(caches, b), int(pc[b]), toks[b])[1]
+                pi = pc.int()
+                out = [step(p, cache_slot(caches, b), pi[b], toks[b])[1]
                        for b in range(B)]
                 return caches, torch.stack(out)
             x = p["wte.weight"][toks] + p["wpe.weight"][pc]

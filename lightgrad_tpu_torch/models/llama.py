@@ -14,7 +14,9 @@ window inside the kernels, in both directions.
 Serving (:meth:`Llama._kv_functions`) is plain PyTorch over the parameters'
 tensors, as it was plain XLA in the JAX package, except for its two kernels:
 prefill's causal (and banded) attention through the flash forward, and each
-decode step's attention through the decode-attention kernel.
+decode step's attention through the decode-attention kernel -- one launch
+for all slots in ``step_batch``, which runs the B slots as one batch (the
+JAX package's ``jax.vmap`` of ``step``), positions kept on the device.
 
 Not ported yet (ROADMAP queue 1): Mixtral's mixture of experts, int8
 ``quantize_serving`` / ``quantize_kv``, ``scan_layers`` / ``remat``, the
@@ -29,8 +31,8 @@ import torch.nn.functional as F
 from .. import nn
 from ..autograd import Tensor, no_grad
 from ..ops.attention import attention_fwd
-from ..ops.decode_attention import decode_attention
-from .decoding import KVFns, ParamFn, cache_slot
+from ..ops.decode_attention import decode_attention, decode_attention_batch
+from .decoding import KVFns, ParamFn
 
 __all__ = ["LlamaConfig", "Llama", "RMSNorm"]
 
@@ -52,11 +54,11 @@ class LlamaConfig:
         if num_local_experts:
             raise NotImplementedError(
                 "LlamaConfig: num_local_experts (Mixtral's MoE) is not "
-                "ported yet (ROADMAP.md queue 1 item 2)")
+                "ported yet (ROADMAP.md queue 1 item 3)")
         if scan_layers or remat:
             raise NotImplementedError(
                 "LlamaConfig: scan_layers / remat are not ported yet "
-                "(ROADMAP.md queue 1 item 6)")
+                "(ROADMAP.md queue 1 item 5)")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.intermediate_size = intermediate_size
@@ -161,7 +163,7 @@ class LlamaAttention(nn.Module):
         if getattr(self, "_sequence_parallel", None) is not None:
             raise NotImplementedError(
                 "LlamaAttention: the sequence-parallel ring branch is not "
-                "ported yet (ROADMAP.md queue 1 item 3)")
+                "ported yet (ROADMAP.md queue 1 item 7)")
         if hasattr(q, "attention"):
             # grouped-query inside the flash kernels: no repeated K/V
             ctx = q.attention(k, v, scale=scale, causal=True, window=win)
@@ -263,7 +265,7 @@ class Llama(nn.Module):
 
         if num_beams > 1:
             raise NotImplementedError("beam search is not ported yet "
-                                      "(ROADMAP.md queue 1 item 5)")
+                                      "(ROADMAP.md queue 1 item 4)")
         ids = list(ids)
         rng = rng or np.random.default_rng(0)
         if use_cache:
@@ -371,15 +373,23 @@ class Llama(nn.Module):
             return cache, head(x)[0]
 
         def step(p, cache, pos, tok):
-            """One token at host position ``pos``: returns (cache, logits)."""
-            x = embed(tok)[None]                                # (1, d)
-            c, s_ = cos_w[pos][None, None], sin_w[pos][None, None]
+            """One token at position ``pos`` (a host int, or an int32 scalar
+            on the model's device, never read to the host): returns (cache,
+            logits).  A device position and token index as one-element
+            tensors (a 0-d tensor index would be read to the host)."""
+            if isinstance(tok, torch.Tensor):
+                x = embed(tok.reshape(1))                       # (1, d)
+            else:
+                x = embed(tok)[None]
+            at = (pos.reshape(1) if isinstance(pos, torch.Tensor)
+                  else slice(pos, pos + 1))
+            c, s_ = cos_w[at][None], sin_w[at][None]             # (1, 1, hd)
             for l in range(L):
                 pre = f"layers.{l}."
                 q, k, v = qkv(x, pre)
                 q = rope(q.reshape(H, 1, hd), c, s_)
-                cache[l, 0, :, pos] = rope(k.reshape(KV, 1, hd), c, s_)[:, 0]
-                cache[l, 1, :, pos] = v.reshape(KV, hd)
+                cache[l, 0, :, at] = rope(k.reshape(KV, 1, hd), c, s_)
+                cache[l, 1, :, at] = v.reshape(KV, 1, hd)
                 # grouped-query decode attention: the rep query heads of
                 # each KV head in one block, no repeated K/V
                 att = decode_attention(q.reshape(KV, rep, hd), cache[l, 0],
@@ -390,14 +400,32 @@ class Llama(nn.Module):
 
         def step_batch(p, caches, poss, toks):
             """B independent slots, one token each: caches (B, L, 2, KV, W,
-            hd), poss (B,) int32 and toks (B,) on the model's device; one
-            ``step`` a slot (the JAX package vmaps ``step``).  Positions
-            past the window clamp, as the JAX package's gathers and slice
-            updates do."""
-            pc = poss.long().clamp(max=W - 1).tolist()
-            out = [step(p, cache_slot(caches, b), pc[b], toks[b])[1]
-                   for b in range(toks.shape[0])]
-            return caches, torch.stack(out)
+            hd), poss (B,) int32 and toks (B,) on the model's device.  One
+            pass over all slots, as the JAX package's ``jax.vmap`` of
+            ``step``: the B rows through each product, RoPE gathered at
+            poss, each slot's K/V row written by one device-indexed scatter,
+            and one batched decode-attention launch a layer.  Positions past
+            the window clamp for the gathers and the scatter, as the JAX
+            package's do; the attention takes them as they are, as its
+            kernel does (keys ``<= pos``, clamped to W)."""
+            B = toks.shape[0]
+            pc = poss.long().clamp(max=W - 1)
+            x = embed(toks)                                      # (B, d)
+            c, s_ = cos_w[pc][:, None], sin_w[pc][:, None]       # (B, 1, hd)
+            slots = torch.arange(B, device=x.device)
+            for l in range(L):
+                pre = f"layers.{l}."
+                q, k, v = qkv(x, pre)
+                q = rope(q.reshape(B, H, hd), c, s_)
+                k = rope(k.reshape(B, KV, hd), c, s_)
+                caches[:, l][slots, :, :, pc] = torch.stack(
+                    [k, v.reshape(B, KV, hd)], 1)
+                att = decode_attention_batch(
+                    q.reshape(B, KV, rep, hd), caches[:, l, 0],
+                    caches[:, l, 1], poss, scale, window=swin)
+                x = x + mm(att.reshape(B, H * hd), pre + "self_attn.o_proj")
+                x = x + mlp(x, pre)
+            return caches, head(rms(x, "norm"))
 
         return KVFns(init_cache, ParamFn(prefill, p), ParamFn(step, p),
                      None, ParamFn(step_batch, p))

@@ -13,7 +13,9 @@ from .attention import (attention_bwd, attention_bwd_dkv, attention_bwd_dq,
                         flash_block_reference, set_flash_fused)
 from .conv import (conv_bwd, conv_bwd_reference, conv_fwd,
                    conv_fwd_reference)
-from .decode_attention import decode_attention, decode_attention_reference
+from .decode_attention import (decode_attention, decode_attention_batch,
+                               decode_attention_batch_reference,
+                               decode_attention_reference)
 from .decode_stack import (decode_stack, decode_stack_batch,
                            decode_stack_batch_reference,
                            decode_stack_reference, pack_gpt_stack,
@@ -21,7 +23,8 @@ from .decode_stack import (decode_stack, decode_stack_batch,
 from .elementwise import ew, ew_reference
 from .layernorm import (layernorm_bwd_dx, layernorm_bwd_dx_reference,
                         layernorm_fwd, layernorm_fwd_reference)
-from .matmul import matmul, matmul_reference, matmul_vjp
+from .matmul import (matmul, matmul_default_reference, matmul_reference,
+                     matmul_tf32x3_reference, matmul_vjp)
 from .reduce import reduce, reduce_reference
 from .runtime import (KERNELS, device_kind, device_name, kernels_in_use,
                       launch_counts, reset_launch_counts)

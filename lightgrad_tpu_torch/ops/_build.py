@@ -49,26 +49,26 @@ _SIGNATURES = {
     # D, scale, causal, is_bf16, stream
     "lg_flash_bwd_fused": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                             _I, _F, _I, _I, _P], _I),
-    # q, kc, vc, out, partials (null with n_split 1), KV, G, W, hd, pos,
-    # window, scale, n_split, is_bf16, stream
-    "lg_decode_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                             _I, _I, _P], _I),
-    # partials, out, KV, G, hd, n_split, is_bf16, stream
-    "lg_decode_merge": ([_P, _P, _I, _I, _I, _I, _I, _P], _I),
-    # x, cache, slot_stride, poss, pos0, slabs, vecs, scales, kv_scales,
-    # x_out, kv_out, ws, n, L, d, H, W, R, eps, scale, is_bf16, w_int8,
-    # kv_int8, stream
-    "lg_decode_stack": ([_P, _P, _LL, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                         _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P], _I),
+    # q, kc, vc, out, partials (null with n_split 1), poss (null: pos0),
+    # pos0, B, c_slot, KV, G, W, hd, window, scale, n_split, is_bf16, stream
+    "lg_decode_attention": ([_P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _I,
+                             _I, _I, _F, _I, _I, _P], _I),
+    # partials, out, B, KV, G, hd, n_split, is_bf16, stream
+    "lg_decode_merge": ([_P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+    # x, cache, slot_stride, poss, pos0, pos_dev, slabs, vecs, scales,
+    # kv_scales, x_out, kv_out, ws, n, L, d, H, W, R, eps, scale, is_bf16,
+    # w_int8, kv_int8, stream
+    "lg_decode_stack": ([_P, _P, _LL, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P], _I),
     # n, d, R -> f32 workspace elements the stack kernel needs
     "lg_decode_stack_workspace": ([_I, _I, _I], _LL),
     # is_bf16, w_int8, kv_int8 -> blocks of that instantiation's cooperative
     # grid (0: refused)
     "lg_decode_stack_grid": ([_I, _I, _I], _I),
     # A, B, C, M, N, K, batch, B2, sAb1, sAb2, sAm, sAk, sBb1, sBb2, sBk,
-    # sBn, is_bf16, stream
+    # sBn, kind, loader_a, loader_b, stream
     "lg_matmul": ([_P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL,
-                   _LL, _LL, _LL, _I, _P], _I),
+                   _LL, _LL, _LL, _I, _I, _I, _P], _I),
     # x, w, y, geom (19 ints: B, Cin, Cout, G, D, H, W, OD, OH, OW, KD, KH,
     # KW, strides, dilations), is_bf16, stream
     "lg_conv_fwd": ([_P, _P, _P, _GEOM, _I, _P], _I),

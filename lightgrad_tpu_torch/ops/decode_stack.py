@@ -149,15 +149,19 @@ def _kv_dtype(x, cache, kv_scales):
     return x.dtype if kv_scales is not None else cache.dtype
 
 
-def decode_stack_reference(x, cache, pos: int, slabs, vecs, scales=None, *,
+def decode_stack_reference(x, cache, pos, slabs, vecs, scales=None, *,
                            eps, R=4, kv_scales=None):
-    """Plain version of :func:`decode_stack`."""
+    """Plain version of :func:`decode_stack` (``pos`` a host int or a
+    one-element tensor, not read to the host)."""
     n = x.shape[0]
     dev = x.device
     rows = torch.arange(n, device=dev)
+    if isinstance(pos, torch.Tensor):
+        pos = pos.reshape(()).to(device=dev, dtype=torch.long)
     return _stack_reference(
         x, cache[None], torch.zeros(n, dtype=torch.long, device=dev),
-        torch.full((n,), int(pos), device=dev), rows[None, :] <= rows[:, None],
+        torch.zeros(n, dtype=torch.long, device=dev) + pos,
+        rows[None, :] <= rows[:, None],
         slabs, vecs, eps, R, scales,
         None if kv_scales is None else kv_scales[None])
 
@@ -189,7 +193,7 @@ def _check(name, t, tname, dtypes, shape, dev):
 
 
 def _launch(name, x, cache, slot_stride, poss, pos0, slabs, vecs, scales,
-            kv_scales, eps, R):
+            kv_scales, eps, R, pos_dev=None):
     n, d = x.shape
     L, S = slabs.shape[:2]
     H, W, hd = cache.shape[-3:]
@@ -223,6 +227,7 @@ def _launch(name, x, cache, slot_stride, poss, pos0, slabs, vecs, scales,
         err = lib.lg_decode_stack(
             x.data_ptr(), cache.data_ptr(), slot_stride,
             None if poss is None else poss.data_ptr(), pos0,
+            None if pos_dev is None else pos_dev.data_ptr(),
             slabs.data_ptr(), vecs.data_ptr(),
             None if scales is None else scales.data_ptr(),
             None if kv_scales is None else kv_scales.data_ptr(),
@@ -236,12 +241,13 @@ def _launch(name, x, cache, slot_stride, poss, pos0, slabs, vecs, scales,
     return x_out, kv
 
 
-def decode_stack(x, cache, pos: int, slabs, vecs, scales=None, *, eps, R=4,
+def decode_stack(x, cache, pos, slabs, vecs, scales=None, *, eps, R=4,
                  kv_scales=None):
     """n decode rows at positions pos..pos+n-1 through the whole stack.
 
     x (n, d) residual input (embeddings summed); cache (L, 2, H, W, hd);
-    ``pos`` a host int; slabs/vecs/scales from :func:`pack_gpt_stack`.
+    ``pos`` a host int or a one-element int32 tensor on x's device, which
+    the kernel reads there; slabs/vecs/scales from :func:`pack_gpt_stack`.
     Returns ``(x_out (n, d), kv (L, 2, n, d))``: cache rows < pos are seen
     by every row, the n in-flight rows see each other causally (``extend``
     semantics, at full precision), and the caller scatters ``kv`` into rows
@@ -250,8 +256,17 @@ def decode_stack(x, cache, pos: int, slabs, vecs, scales=None, *, eps, R=4,
     if not x.is_cuda:
         return decode_stack_reference(x, cache, pos, slabs, vecs, scales,
                                       eps=eps, R=R, kv_scales=kv_scales)
-    return _launch(_variant("decode_stack", scales, kv_scales), x, cache, 0,
-                   None, int(pos), slabs, vecs, scales, kv_scales, eps, R)
+    name = _variant("decode_stack", scales, kv_scales)
+    if isinstance(pos, torch.Tensor):
+        if pos.dtype != torch.int32 or pos.numel() != 1 \
+                or pos.device != x.device:
+            raise ValueError(f"{name}: pos must be one int32 on {x.device}, "
+                             f"got {pos.dtype} {tuple(pos.shape)} on "
+                             f"{pos.device}")
+        return _launch(name, x, cache, 0, None, 0, slabs, vecs, scales,
+                       kv_scales, eps, R, pos_dev=pos)
+    return _launch(name, x, cache, 0, None, int(pos), slabs, vecs, scales,
+                   kv_scales, eps, R)
 
 
 def decode_stack_batch(x, caches, poss, slabs, vecs, scales=None, *, eps,

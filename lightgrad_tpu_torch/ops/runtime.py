@@ -9,16 +9,18 @@ dispatch rule, so this module only reports what that rule will do.
 import torch
 
 __all__ = ["device_kind", "device_name", "kernels_in_use", "KERNELS",
-           "launch_counts", "reset_launch_counts"]
+           "COPIES", "launch_counts", "reset_launch_counts"]
 
 # Every hand-written kernel of the port, by wrapper name.  A wrapper adds one
 # to its count where it launches its kernel, and nowhere else.  The stack
 # kernel's int8 instantiations count under their own names, as the JAX
 # package has a Pallas variant for each.  ``flash_block`` counts one in each
 # direction, beside the flash kernels it launches.  Decode attention counts
-# its split kernel once a call and, where it splits a head's keys, the merge
-# of the splits under its own name.
-KERNELS = ("attention_fwd", "decode_attention", "decode_attention_merge",
+# its split kernel once a call (``decode_attention_batch``: once for all
+# slots) and, where it splits a head's keys, the merge of the splits under
+# its own name.
+KERNELS = ("attention_fwd", "decode_attention", "decode_attention_batch",
+           "decode_attention_merge",
            "decode_stack", "decode_stack_batch", "decode_stack_int8",
            "decode_stack_kvq",
            "decode_stack_int8_kvq", "decode_stack_batch_int8",
@@ -27,7 +29,11 @@ KERNELS = ("attention_fwd", "decode_attention", "decode_attention_merge",
            "flash_block", "layernorm_fwd", "layernorm_bwd", "elementwise",
            "reduce", "matmul", "softmax_fwd", "softmax_bwd", "conv_fwd",
            "conv_bwd_dx", "conv_bwd_dw")
-_launches = dict.fromkeys(KERNELS, 0)
+# Copies a wrapper makes before a launch, counted beside the kernels: the
+# matmul wrapper's packing of an operand whose batch strides the kernel
+# cannot walk.
+COPIES = ("matmul_pack",)
+_launches = dict.fromkeys(KERNELS + COPIES, 0)
 
 
 def count_launch(name: str):

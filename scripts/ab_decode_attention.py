@@ -10,8 +10,9 @@ for float32 and bfloat16 the CUDA-event mean over 50 eager calls of
 from 50 calls replayed in a CUDA graph (``*_graph``), and its max abs error
 against the plain version, at
 
-- GPT-2 small's step: q (12, 1, 64), W 1024, pos 512;
-- Mistral-7B's: q (8, 4, 128), W 8192, pos 6000, window 4096, and pos 1500;
+- GPT-2 small's step: q (12, 1, 64), W 1024, pos 512, and pos 10;
+- Mistral-7B's: q (8, 4, 128), W 8192, pos 6000, window 4096, pos 4500
+  (its serving path's ``generate``) and pos 1500;
 - Gemma-2B's: q (1, 8, 256), W 8192, pos 4096, and pos 1000 (null where
   the checkout's kernel refuses head dim 256);
 - examples/llama.py's char model: q (2, 2, 32), W 192, pos 100.
@@ -30,6 +31,8 @@ import torch
 
 # (name, KV, G, hd, W, pos, window)
 SHAPES = (("gpt2", 12, 1, 64, 1024, 512, 0),
+          ("gpt2_pos10", 12, 1, 64, 1024, 10, 0),
+          ("mistral_4500", 8, 4, 128, 8192, 4500, 4096),
           ("mistral", 8, 4, 128, 8192, 6000, 4096),
           ("gemma", 1, 8, 256, 8192, 4096, 0),
           ("mistral_short", 8, 4, 128, 8192, 1500, 4096),

@@ -39,8 +39,8 @@ from functools import lru_cache  # noqa: E402
 
 from lightgrad_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_attention_reference, decode_attention_split_reference,
-    decode_merge, decode_merge_reference, decode_splits, split_bounds,
-    split_partials, visible_range)
+    decode_merge, decode_merge_reference, decode_splits, max_visible,
+    plan_splits, split_bounds, split_partials, visible_range)
 
 SPLIT_W = 16
 
@@ -68,8 +68,8 @@ def _split_case(G, hd, pos, window, mode):
 @pytest.mark.parametrize("n_split", [1, 2, 3, 7, 40])
 def test_split_reference_matches_jax(n_split, pos, window, G, hd, mode):
     """The split kernel's ranges and merge (n_split past the visible keys
-    clamps to one key a range) against the JAX package's decode_attention,
-    pallas (interpret) and xla modes."""
+    leaves ranges empty, whose partials the merge weighs 0) against the
+    JAX package's decode_attention, pallas (interpret) and xla modes."""
     q, kc, vc, want = _split_case(G, hd, pos, window, mode)
     got = decode_attention_split_reference(
         torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc), pos,
@@ -117,17 +117,19 @@ SERVING_DECODE = [(1, 256, 8192, 4096, 0),        # Gemma-2B
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("KV,hd,W,pos,window", SERVING_DECODE)
 def test_decode_splits_cover_the_range_once(KV, hd, W, pos, window, dtype):
-    """The planner's ranges cover [lo, hi] exactly once, none empty, at
-    most 256; one split where the range is a single key."""
+    """The planner's ranges cover [lo, hi] exactly once, at most 256.  The
+    count is planned from the most rows the cache can show, never from
+    pos, so where it exceeds the visible rows max(0, n - nv) ranges are
+    empty, and none is where it does not."""
     lo, hi = visible_range(W, pos, window)
     nv = hi - lo + 1
-    n = decode_splits(KV, nv, hd, dtype)
-    assert 1 <= n <= min(nv, 256)
+    n = plan_splits(KV, W, window, hd, dtype)
+    assert n == decode_splits(KV, max_visible(W, window), hd, dtype)
+    assert 1 <= n <= min(max_visible(W, window), 256)
     b = split_bounds(lo, nv, n)
     assert b[0] == lo and b[-1] == hi + 1 and len(b) == n + 1
-    assert all(e > s for s, e in zip(b[:-1], b[1:]))
-    if nv == 1:
-        assert n == 1
+    assert all(e >= s for s, e in zip(b[:-1], b[1:]))
+    assert sum(e == s for s, e in zip(b[:-1], b[1:])) == max(0, n - nv)
 
 
 def test_decode_splits_at_the_serving_shapes():

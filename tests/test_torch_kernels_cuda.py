@@ -22,8 +22,9 @@ from lightgrad_tpu_torch.ops.attention import (attention_bwd,
 from lightgrad_tpu_torch.ops.conv import (conv_bwd, conv_bwd_reference,
                                           conv_fwd, conv_fwd_reference)
 from lightgrad_tpu_torch.ops.decode_attention import (
-    decode_attention, decode_attention_reference, decode_merge,
-    decode_merge_reference, split_partials, visible_range)
+    decode_attention, decode_attention_batch,
+    decode_attention_batch_reference, decode_attention_reference,
+    decode_merge, decode_merge_reference, split_partials)
 from lightgrad_tpu_torch.ops.decode_stack import (
     decode_stack, decode_stack_batch, decode_stack_batch_reference,
     decode_stack_reference)
@@ -647,17 +648,17 @@ def test_decode_attention_kernel(dev, pos, window, dtype):
 def test_decode_attention_splits(dev, monkeypatch, KV, G, hd, W, pos, window,
                                  n_split, dtype):
     """The split kernel and its merge at the planner's splits (Gemma-2B's,
-    Mistral-7B's and GPT-2's decode shapes, pos 0, pos past W) and at forced
-    ones (256, one key a split, 1, 2): against the plain version, one
-    launch of the split kernel, the merge exactly where there are splits,
-    and bit for bit on a rerun."""
+    Mistral-7B's and GPT-2's decode shapes, pos 0, pos past W; planned from
+    the most rows the cache shows, so short positions leave blocks empty)
+    and at forced ones (256, one key a split, 1, 2): against the plain
+    version, one launch of the split kernel, the merge exactly where there
+    are splits, and bit for bit on a rerun."""
     import lightgrad_tpu_torch.ops.decode_attention  # noqa: F401
     import sys
     mod = sys.modules["lightgrad_tpu_torch.ops.decode_attention"]
-    lo, hi = visible_range(W, pos, window)
     if n_split is not None:
         monkeypatch.setattr(mod, "decode_splits", lambda *a: n_split)
-    n = mod.decode_splits(KV, hi - lo + 1, hd, dtype)
+    n = mod.plan_splits(KV, W, window, hd, dtype)
     g = torch.Generator(device=dev).manual_seed(pos + hd + G)
     q = _randn(g, KV, G, hd, dtype=dtype)
     kc, vc = (_randn(g, KV, W, hd, dtype=dtype) for _ in range(2))
@@ -671,6 +672,170 @@ def test_decode_attention_splits(dev, monkeypatch, KV, G, hd, W, pos, window,
     _close_ulp(out, want, dtype, 1e-2 if dtype == torch.bfloat16 else 1e-4)
     assert torch.equal(out, decode_attention(q, kc, vc, pos, hd ** -0.5,
                                              window))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,hd,W,window,poss", [
+    (8, 4, 128, 8192, 4096, (4600, 32, 700, 8191)),   # Mistral-7B's engine
+    (1, 8, 256, 8192, 0, (1200, 16, 500, 0)),         # Gemma-2B's
+    (2, 3, 80, 300, 40, (0, 299, 150, 320, 77))])     # any hd, past W
+def test_decode_attention_batch_kernel(dev, KV, G, hd, W, window, poss,
+                                       dtype):
+    """The slot axis: B slots at their own device positions over the
+    strided per-slot views of a stacked (B, L, 2, KV, W, hd) cache, one
+    launch for all (and one merge), against the plain batched version and
+    against B single calls."""
+    g = torch.Generator(device=dev).manual_seed(hd + W)
+    B, L = len(poss), 2
+    caches = _randn(g, B, L, 2, KV, W, hd, dtype=dtype)
+    q = _randn(g, B, KV, G, hd, dtype=dtype)
+    pt = torch.tensor(poss, device=dev, dtype=torch.int32)
+    kc, vc = caches[:, 1, 0], caches[:, 1, 1]
+    reset_launch_counts()
+    out = decode_attention_batch(q, kc, vc, pt, hd ** -0.5, window)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["decode_attention_batch"] == 1
+    assert counts["decode_attention_merge"] <= 1
+    want = decode_attention_batch_reference(q, kc, vc, pt, hd ** -0.5,
+                                            window)
+    _close_ulp(out, want, dtype, 1e-2 if dtype == torch.bfloat16 else 1e-4)
+    for b, pos in enumerate(poss):
+        one = decode_attention(q[b], kc[b].contiguous(), vc[b].contiguous(),
+                               pos, hd ** -0.5, window)
+        assert torch.equal(one, out[b])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,hd,W,window", [(8, 4, 128, 8192, 4096),
+                                              (1, 8, 256, 8192, 0),
+                                              (12, 1, 64, 1024, 0)])
+def test_decode_attention_replays_at_a_device_position(dev, KV, G, hd, W,
+                                                       window, dtype):
+    """Captured in a CUDA graph at one position, decode attention replays
+    at whatever position the int32 tensor then holds: each replay equals an
+    eager call at the new position (single and batched)."""
+    g = torch.Generator(device=dev).manual_seed(hd)
+    q = _randn(g, KV, G, hd, dtype=dtype)
+    kc, vc = (_randn(g, KV, W, hd, dtype=dtype) for _ in range(2))
+    qb = _randn(g, 3, KV, G, hd, dtype=dtype)
+    kb, vb = (_randn(g, 3, KV, W, hd, dtype=dtype) for _ in range(2))
+    pos = torch.tensor([5], device=dev, dtype=torch.int32)
+    poss = torch.tensor([5, 9, 1], device=dev, dtype=torch.int32)
+    fns = (lambda: decode_attention(q, kc, vc, pos, hd ** -0.5, window),
+           lambda: decode_attention_batch(qb, kb, vb, poss, hd ** -0.5,
+                                          window))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for fn in fns]
+    # past W; far past it only unbanded (a band there sees no key)
+    for p in (5, 100, W - 1, W + 300) + (() if window else (2 * W,)):
+        pos.fill_(p)
+        poss.copy_(torch.tensor([p, max(0, p - 77), p // 2], device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], decode_attention(q, kc, vc, p,
+                                                     hd ** -0.5, window))
+        assert torch.equal(outs[1], decode_attention_batch(
+            qb, kb, vb, poss.clone(), hd ** -0.5, window))
+        _close_ulp(outs[0], decode_attention_reference(
+            q, kc, vc, p, hd ** -0.5, window), dtype,
+            1e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+def _sync_free(fn):
+    """Run ``fn`` under sync debug mode "error": any host read of a device
+    value raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("window", [None, 6])
+def test_llama_step_and_step_batch_do_not_synchronise(dev, window):
+    """LLaMA's step at a device position and its batched step_batch never
+    read a position to the host; step_batch equals one step a slot."""
+    from lightgrad_tpu_torch import random as lg_random
+    from lightgrad_tpu_torch.models.llama import Llama, LlamaConfig
+
+    lg_random.seed(0)
+    model = Llama(LlamaConfig(vocab_size=64, hidden_size=64,
+                              intermediate_size=96, num_hidden_layers=2,
+                              num_attention_heads=4, num_key_value_heads=2,
+                              max_position_embeddings=16,
+                              sliding_window=window))
+    fns = model._kv_functions()
+    toks = torch.randint(0, 64, (16,), device=dev)
+    caches = torch.stack([fns.init_cache() for _ in range(3)])
+    for b, n in enumerate((5, 9, 2)):
+        fns.prefill(caches[b], toks, n)
+    poss = torch.tensor([5, 9, 2], device=dev, dtype=torch.int32)
+    nxt = torch.tensor([3, 7, 11], device=dev)
+    ref = caches.clone()
+    singles = [fns.step(ref[b], poss[b], nxt[b])[1] for b in range(3)]
+    _, logits = _sync_free(lambda: fns.step_batch(caches, poss, nxt))
+    one = _sync_free(lambda: fns.step(ref[0].clone(), poss[0], nxt[0])[1])
+    for b in range(3):
+        _close(logits[b], singles[b], torch.float32)
+    _close(one, singles[0], torch.float32)
+    _close(caches, ref, torch.float32)
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_llama_generate_batch_and_engine_match_generate(dev, window):
+    """On the card: LLaMA's greedy ``generate_batch`` (the batched
+    ``step_batch``) and an engine of 2 slots over 3 ragged requests give
+    each prompt's one-by-one ``generate`` tokens."""
+    from lightgrad_tpu_torch import InferenceEngine, random as lg_random
+    from lightgrad_tpu_torch.models.llama import Llama, LlamaConfig
+
+    lg_random.seed(1)
+    model = Llama(LlamaConfig(vocab_size=61, hidden_size=64,
+                              intermediate_size=96, num_hidden_layers=2,
+                              num_attention_heads=4, num_key_value_heads=2,
+                              max_position_embeddings=32,
+                              sliding_window=window))
+    g = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, 61, (n,), generator=g).tolist()
+               for n in (4, 13, 9)]
+    want = [model.generate(p, max_new_tokens=7) for p in prompts]
+    assert model.generate_batch(prompts, max_new_tokens=7) == want
+    engine = InferenceEngine(model, slots=2)
+    reqs = [engine.submit(p, 7) for p in prompts]
+    engine.run()
+    assert [r.tokens for r in reqs] == want
+
+
+def test_gpt_step_does_not_synchronise(dev):
+    """GPT-2's step at a device position, through the stack kernel and
+    through the unrolled branch, never reads it to the host."""
+    from lightgrad_tpu_torch import GPT, GPTConfig
+
+    cfg = GPTConfig(vocab_size=128, n_positions=64, n_embd=128, n_layer=2,
+                    n_head=2)
+    model = GPT(cfg, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, 128, (64,), device=dev)
+    for pack in (True, False):
+        fns = model._kv_functions(pack_stack=pack)
+        cache = fns.init_cache()
+        fns.prefill(cache, toks, 10)
+        ref = cache.clone()
+        want = fns.step(ref, 10, 42)[1]
+        pos = torch.tensor(10, device=dev, dtype=torch.int32)
+        tok = torch.tensor(42, device=dev)
+        got = _sync_free(lambda: fns.step(cache, pos, tok)[1])
+        _close(got, want, torch.float32)
+        _close(cache, ref, torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -972,6 +1137,139 @@ def test_matmul_kernel_attention_views_and_vjp(dev, dtype):
     _close(ga, matmul_reference(gy, w), dtype)
     _close(gb, matmul_reference(x.reshape(-1, 768).T,
                                 gy.reshape(-1, 3072)), dtype)
+
+
+def _f64_err(got, a, b):
+    """Largest error of ``got`` against the float64 product a @ b, over the
+    largest |element| of that product (at least 1)."""
+    want = torch.matmul(a.double(), b.double())
+    return ((got.double() - want).abs().max()
+            / want.abs().max().clamp_min(1.0)).item()
+
+
+def _misaligned(g, *shape, dtype):
+    """A tensor of ``shape`` whose storage starts one element past a 16-byte
+    boundary, so its rows cannot feed 16-byte copies."""
+    n = 1
+    for s in shape:
+        n *= s
+    return _randn(g, n + 1, dtype=dtype)[1:].reshape(shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ragged", "small_k", "both_transposed",
+                                  "broadcast_batch", "attention_views",
+                                  "misaligned", "no_unit_stride", "k_zero",
+                                  "folded_vjp", "gemv"])
+def test_matmul_tensor_core_shapes(dev, case, dtype):
+    """The tensor-core kernel at the edges of its contract: ragged M, N and
+    K (M < 64, K not a multiple of a stage's depth), both operands
+    transposed, a broadcast batch, attention's (b, h, s, d) views, operands
+    at a storage offset that breaks 16-byte alignment, operands with no
+    unit stride (element loads), K = 0, the VJP's
+    weight gradient with the batch folded into K, and one row.  bf16
+    against the plain version; f32 against the float64 product within
+    TOL[f32] and within 4x cuBLAS f32's own error (TF32 off)."""
+    import importlib
+    mm = importlib.import_module("lightgrad_tpu_torch.ops.matmul")
+    g = torch.Generator(device=dev).manual_seed(21)
+    r = lambda *s: _randn(g, *s, dtype=dtype)  # noqa: E731
+    if case == "ragged":
+        pairs = [(r(37, 19), r(19, 45)), (r(5, 200), r(200, 130))]
+    elif case == "small_k":
+        pairs = [(r(70, 3), r(3, 300)), (r(129, 33), r(33, 257))]
+    elif case == "both_transposed":
+        pairs = [(r(96, 200).T, r(72, 96).T), (r(40, 8).T, r(16, 40).T)]
+    elif case == "broadcast_batch":
+        pairs = [(r(2, 1, 70, 64), r(3, 64, 136)), (r(150, 72), r(4, 72, 24))]
+    elif case == "attention_views":
+        q = r(2, 200, 4 * 64).reshape(2, 200, 4, 64).transpose(1, 2)
+        k = r(2, 200, 4 * 64).reshape(2, 200, 4, 64).transpose(1, 2)
+        pairs = [(q, k.transpose(-1, -2)), (r(2, 4, 200, 200), k)]
+    elif case == "misaligned":
+        pairs = [(_misaligned(g, 130, 64, dtype=dtype), r(64, 96)),
+                 (r(130, 64), _misaligned(g, 96, 64, dtype=dtype).T)]
+    elif case == "no_unit_stride":
+        pairs = [(r(40, 96)[:, ::2], r(48, 30)),
+                 (r(40, 48), r(48, 60)[:, ::2])]
+    elif case == "k_zero":
+        pairs = [(r(33, 0), r(0, 17))]
+    elif case == "folded_vjp":
+        pairs = []
+    else:
+        pairs = [(r(1, 768), r(3072, 768).T), (r(768, 1).T, r(768, 40))]
+    for a, b in pairs:
+        mm.loader_counts.update(dict.fromkeys(mm.LOADERS, 0))
+        reset_launch_counts()
+        got = matmul(a, b)
+        torch.cuda.synchronize()
+        assert launch_counts()["matmul"] == 1
+        assert launch_counts()["matmul_pack"] == 0
+        assert got.shape == torch.broadcast_shapes(
+            a.shape[:-2], b.shape[:-2]) + (a.shape[-2], b.shape[-1])
+        if case == "misaligned":   # 4-byte copies (f32), element loads
+            n_elem = mm.loader_counts["elem-k"] + mm.loader_counts["elem-mn"]
+            assert (n_elem, mm.loader_counts["scalar"]) == (
+                (1, 0) if dtype == torch.float32 else (0, 1))
+        _check_matmul(got, a, b, dtype)
+    if case == "folded_vjp":
+        x, w = r(4, 96, 160), r(120, 160)
+        gy = r(4, 96, 120)
+        ga, gb = matmul_vjp(gy, x, w.T)
+        _check_matmul(ga, gy, w, dtype)
+        _check_matmul(gb, x.reshape(-1, 160).T, gy.reshape(-1, 120), dtype)
+
+
+# f32 against float64: 4x cuBLAS f32's own error, or 4 ulps of the
+# product's scale where cuBLAS is exact to its last bits (a short K)
+F32_ULPS = 4 * 2.0 ** -23
+
+
+def _check_matmul(got, a, b, dtype):
+    if dtype == torch.bfloat16:
+        _close(got, matmul_reference(a, b), dtype)
+        return
+    err = _f64_err(got, a, b)
+    lib = _f64_err(torch.matmul(a, b), a, b)
+    assert err <= TOL[torch.float32], err
+    assert err <= max(4 * lib, F32_ULPS), (err, lib)
+
+
+def test_matmul_f32_is_not_one_tf32_pass(dev):
+    """The f32 kernel meets the bar that cuBLAS with TF32 on fails: within
+    4x cuBLAS f32's error against the float64 product (TF32 off)."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    a, b = _randn(g, 1024, 768), _randn(g, 3072, 768).T
+    err = _f64_err(matmul(a, b), a, b)
+    lib = _f64_err(torch.matmul(a, b), a, b)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = _f64_err(torch.matmul(a, b), a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    bar = max(4 * lib, F32_ULPS)
+    assert err <= bar, (err, lib)
+    assert tf32 > bar, (tf32, bar)                # the bar tells them apart
+
+
+@pytest.mark.parametrize("sa,sb", [((1024, 768), (3072, 768)),
+                                   ((37, 19), (45, 19))])
+def test_matmul_default_precision(dev, sa, sb):
+    """set_precision('default'): f32 operands rounded to bf16, one pass, an
+    f32 result, against its plain version."""
+    from lightgrad_tpu_torch.ops.matmul import (matmul_default_reference,
+                                                set_precision)
+    g = torch.Generator(device=dev).manual_seed(23)
+    a, b = _randn(g, *sa), _randn(g, *sb).T
+    prev = set_precision("default")
+    try:
+        got = matmul(a, b)
+    finally:
+        set_precision(prev)
+    assert got.dtype == torch.float32
+    want = matmul_default_reference(a, b)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * max(1.0, want.abs().max().item()), err
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
