@@ -21,8 +21,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      there is one, and the kernel's bound (the least time of its bytes at
      3.35 TB/s or its operations at the dtype's peak); the stack kernel's
      six int8 instantiations on GPT-2 small's own quantized weights; the
-     three conv kernels at ResNet-18's shapes (batch 32) and on grouped /
-     dilated, 1-D and 3-D cases, timed at layer 1's shape; the flash
+     conv kernels of both routes (tensor cores: every one of ResNet-18's 11
+     convolutions at batch 32 and ResNet-20's 6 wider ones on the digits
+     path at batch 128; CUDA cores: narrow channels) and the
+     grouped, dilated, 1-D and 3-D cases, each gradient repeated bit for
+     bit, timed by CUDA graph at layer 1's shape (the CUDA-core route at
+     ResNet-20's 16-channel layer) beside cuDNN, the channels-last staging
+     against its plain version; LayerNorm and flash_block's backward also
+     by CUDA graph; the flash
      kernels with per-row lengths at BERT-base's attention shape (8 x 12
      heads of 128 x 64, lengths 64-128; G 1 and 2, causal and not), the
      fused flash backward at GPT-2's 96 x 1024 x 64 (causal, bit for bit on
@@ -217,13 +223,22 @@ KERNEL_SOURCES = {
                     "lightgrad_tpu/ops/softmax.py:38"),
     "softmax_bwd": ("triton", "lightgrad_tpu_torch/ops/softmax.py",
                     "lightgrad_tpu/ops/softmax.py:38"),
-    # a grid dimension over groups takes the place of _group_matmul (:90)
-    "conv_fwd": ("cuda", "lightgrad_tpu_torch/csrc/conv.cu",
+    # a grid dimension over groups takes the place of _group_matmul (:90);
+    # the tensor-core route (conv_tc.cu) and the CUDA-core one (conv.cu)
+    "conv_fwd": ("cuda", "lightgrad_tpu_torch/csrc/conv_tc.cu",
                  "lightgrad_tpu/ops/conv.py:107"),
-    "conv_bwd_dx": ("cuda", "lightgrad_tpu_torch/csrc/conv.cu",
+    "conv_bwd_dx": ("cuda", "lightgrad_tpu_torch/csrc/conv_tc.cu",
                     "lightgrad_tpu/ops/conv.py:122"),
-    "conv_bwd_dw": ("cuda", "lightgrad_tpu_torch/csrc/conv.cu",
+    "conv_bwd_dw": ("cuda", "lightgrad_tpu_torch/csrc/conv_tc.cu",
                     "lightgrad_tpu/ops/conv.py:122"),
+    "conv_layout": ("cuda", "lightgrad_tpu_torch/csrc/conv_tc.cu",
+                    "lightgrad_tpu/ops/conv.py:107"),
+    "conv_fwd_simt": ("cuda", "lightgrad_tpu_torch/csrc/conv.cu",
+                      "lightgrad_tpu/ops/conv.py:107"),
+    "conv_bwd_dx_simt": ("cuda", "lightgrad_tpu_torch/csrc/conv.cu",
+                         "lightgrad_tpu/ops/conv.py:122"),
+    "conv_bwd_dw_simt": ("cuda", "lightgrad_tpu_torch/csrc/conv.cu",
+                         "lightgrad_tpu/ops/conv.py:122"),
 }
 KERNEL_NOTES = {
     "decode_attention_batch": "decode attention's kernel with a slot axis: "
@@ -236,6 +251,15 @@ KERNEL_NOTES = {
                               "splits a KV head's keys over blocks: the "
                               "merge of the splits' partials; timed alone "
                               "on partials of the plain split arithmetic",
+    "conv_layout": "the tensor-core conv route's staging (NCHW to "
+                   "channels-last, the weight's reorders), the part of the "
+                   "JAX package's patch matrix (_conv_fwd_impl) this route "
+                   "keeps in device memory; timed on layer 1's x",
+    "conv_fwd_simt": "the CUDA-core conv route for narrow channel counts "
+                     "(ops/conv.py conv_route); timed at ResNet-20's "
+                     "16-channel layer",
+    "conv_bwd_dx_simt": "as conv_fwd_simt",
+    "conv_bwd_dw_simt": "as conv_fwd_simt",
     "flash_block": "launches no kernel of its own: it counts one a direction "
                    "beside the flash kernels it launches, which count too; "
                    "its times are theirs through its wrappers",
@@ -259,7 +283,13 @@ FUSED_KERNELS = ("attention_fwd", "attention_bwd_fused", "layernorm_fwd",
 FLASH_BLOCK_KERNELS = ("flash_block",) + FLASH_KERNELS
 TAPE_KERNELS = ("elementwise", "reduce", "matmul")
 CONV_KERNELS = ("conv_fwd", "conv_bwd_dx", "conv_bwd_dw")
-CONV_PATH_KERNELS = CONV_KERNELS + TAPE_KERNELS
+CONV_SIMT_KERNELS = ("conv_fwd_simt", "conv_bwd_dx_simt", "conv_bwd_dw_simt")
+# ResNet-18 runs every conv on the tensor cores; the MNIST CNN every conv on
+# the CUDA cores (Cin 1, 8; Cout 8, 16); ResNet-20 both (16 channels on the
+# CUDA cores, 32 and 64 on the tensor cores)
+CONV_PATH_KERNELS = CONV_KERNELS + ("conv_layout",) + TAPE_KERNELS
+DIGITS_KERNELS = {"MNIST CNN": CONV_SIMT_KERNELS + TAPE_KERNELS,
+                  "ResNet-20": CONV_PATH_KERNELS + CONV_SIMT_KERNELS}
 # Kernel vs plain version, max |err| <= tol * max(1, max |reference|).
 # float32: the same f32 math summed in another order (FFMA chains against
 # cuBLAS/ATen reductions, no TF32).  bfloat16: bf16 inputs, f32 sums, one
@@ -289,20 +319,48 @@ BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
 BERT_BATCH, BERT_SEQ, BERT_STEPS, BERT_LR = 8, 128, 5, 1e-4
 # torchvision resnet18 at ImageNet's 224 x 224, batch 32
 RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS, RESNET_LR = 32, 224, 5, 1e-3
-# ResNet-18's convolutions at batch 32, inputs after padding: (name, x, w,
-# stride)
+# ResNet-18's 11 distinct convolutions at batch 32, inputs after padding:
+# (name, x, w, stride)
 RESNET18_CONVS = (
     ("stem 3->64 7x7/s2", (32, 3, 230, 230), (64, 3, 7, 7), 2),
     ("layer1 64->64 3x3", (32, 64, 58, 58), (64, 64, 3, 3), 1),
     ("layer2 64->128 3x3/s2", (32, 64, 58, 58), (128, 64, 3, 3), 2),
+    ("layer2 128->128 3x3", (32, 128, 30, 30), (128, 128, 3, 3), 1),
     ("projection 64->128 1x1/s2", (32, 64, 56, 56), (128, 64, 1, 1), 2),
+    ("layer3 128->256 3x3/s2", (32, 128, 30, 30), (256, 128, 3, 3), 2),
+    ("layer3 256->256 3x3", (32, 256, 16, 16), (256, 256, 3, 3), 1),
+    ("projection 128->256 1x1/s2", (32, 128, 28, 28), (256, 128, 1, 1), 2),
+    ("layer4 256->512 3x3/s2", (32, 256, 16, 16), (512, 256, 3, 3), 2),
     ("layer4 512->512 3x3", (32, 512, 9, 9), (512, 512, 3, 3), 1),
+    ("projection 256->512 1x1/s2", (32, 256, 14, 14), (512, 256, 1, 1), 2),
 )
-# (name, x, w, strides, dilation, groups) at small sizes
+# (name, x, w, strides, dilation, groups): both routes off ResNet-18's path
 CONV_ODD_CASES = (
     ("grouped g=4, dilated d=2", (4, 32, 21, 19), (64, 8, 3, 3), 1, 2, 4),
+    ("grouped g=4, Cg 16", (4, 64, 21, 19), (128, 16, 3, 3), 1, 1, 4),
     ("1-D", (4, 16, 129), (32, 16, 5), 2, 1, 1),
     ("3-D", (2, 8, 9, 10, 11), (16, 8, 3, 3, 3), (1, 2, 2), 1, 1),
+    ("3-D, 16 -> 32", (2, 16, 9, 10, 11), (32, 16, 3, 3, 3), (1, 2, 2), 1,
+     1),
+    ("MNIST conv1", (128, 1, 30, 30), (8, 1, 3, 3), 1, 1, 1),
+    ("ResNet-20 stem 1->16", (128, 1, 30, 30), (16, 1, 3, 3), 1, 1, 1),
+    ("ResNet-20 16->16", (128, 16, 30, 30), (16, 16, 3, 3), 1, 1, 1),
+)
+# the CUDA-core route's timed shape: ResNet-20's 16-channel layer on the
+# digits path
+SIMT_TIMED = CONV_ODD_CASES[-1]
+# ResNet-20's convolutions on the tensor cores, as the digits path gives
+# them (examples/resnet.py: batch 128, 28 x 28 digits), inputs after
+# padding: (name, x, w, stride)
+RESNET20_TC_CONVS = (
+    ("ResNet-20 16->32 3x3/s2", (128, 16, 30, 30), (32, 16, 3, 3), 2),
+    ("ResNet-20 projection 16->32 1x1/s2", (128, 16, 28, 28),
+     (32, 16, 1, 1), 2),
+    ("ResNet-20 32->32 3x3", (128, 32, 16, 16), (32, 32, 3, 3), 1),
+    ("ResNet-20 32->64 3x3/s2", (128, 32, 16, 16), (64, 32, 3, 3), 2),
+    ("ResNet-20 projection 32->64 1x1/s2", (128, 32, 14, 14),
+     (64, 32, 1, 1), 2),
+    ("ResNet-20 64->64 3x3", (128, 64, 9, 9), (64, 64, 3, 3), 1),
 )
 # examples/mnist.py and examples/resnet.py: batch 128; about 40 steps here
 MNIST_BATCH, MNIST_STEPS = 128, 40
@@ -1253,12 +1311,14 @@ def phase_train_kernels(results):
                   check("layernorm_fwd rstd", dtype, rstd, rrstd,
                         KERNEL_TOL[torch.float32]))
         rows = B * T
-        record(results, dtype, "layernorm_fwd", err,
-               cuda_ms(lambda: layernorm_fwd(x, w, b, 1e-5)),
-               cuda_ms(lambda: layernorm_fwd_reference(x, w, b, 1e-5)),
-               cost=(rows * d * (2 * isz + 4) + 2 * d * isz + rows * 4,
-                     8 * rows * d),
-               library_ms=cuda_ms(lambda: F.layer_norm(x, (d,), w, b, 1e-5)))
+        # device times by CUDA graph: eager times of these 0.02-0.05 ms
+        # calls are Triton's launch work
+        timed(results, dtype, "layernorm_fwd", err,
+              lambda: layernorm_fwd(x, w, b, 1e-5),
+              lambda: layernorm_fwd_reference(x, w, b, 1e-5),
+              (rows * d * (2 * isz + 4) + 2 * d * isz + rows * 4,
+               8 * rows * d),
+              lambda: F.layer_norm(x, (d,), w, b, 1e-5))
         gy = rnd(B * T, d)
         dx = layernorm_bwd_dx(gy, w, xhat, rstd)
         err = check("layernorm_bwd dx", dtype, dx,
@@ -1266,14 +1326,12 @@ def phase_train_kernels(results):
         # the library's input gradient alone: aten's LayerNorm backward
         # with only dx requested
         _, mean, lrstd = torch.ops.aten.native_layer_norm(x, [d], w, b, 1e-5)
-        record(results, dtype, "layernorm_bwd", err,
-               cuda_ms(lambda: layernorm_bwd_dx(gy, w, xhat, rstd)),
-               cuda_ms(lambda: layernorm_bwd_dx_reference(gy, w, xhat, rstd)),
-               cost=(rows * d * (2 * isz + 4) + d * isz + rows * 4,
-                     6 * rows * d),
-               library_ms=cuda_ms(
-                   lambda: torch.ops.aten.native_layer_norm_backward(
-                       gy, x, [d], mean, lrstd, w, b, [True, False, False])))
+        timed(results, dtype, "layernorm_bwd", err,
+              lambda: layernorm_bwd_dx(gy, w, xhat, rstd),
+              lambda: layernorm_bwd_dx_reference(gy, w, xhat, rstd),
+              (rows * d * (2 * isz + 4) + d * isz + rows * 4, 6 * rows * d),
+              lambda: torch.ops.aten.native_layer_norm_backward(
+                  gy, x, [d], mean, lrstd, w, b, [True, False, False]))
         del mean, lrstd
         del x, y, xhat, rstd, gy, dx
         torch.cuda.empty_cache()
@@ -1581,13 +1639,15 @@ def phase_flash_kernels(results):
         gout, glse = w.to(dtype), wl
         ts = [t.clone().requires_grad_() for t in (q, k, v)]
         ro, rl = flash_block_reference(*ts, sc, False)
-        record(results, dtype, "flash_block", err,
-               cuda_ms(lambda: flash_block_bwd(gout, glse, q, k, v, out, lse,
-                                               sc, False)),
+
+        def bwd():
+            return flash_block_bwd(gout, glse, q, k, v, out, lse, sc, False)
+
+        record(results, dtype, "flash_block", err, cuda_ms(bwd),
                cuda_ms(lambda: torch.autograd.grad(
                    (ro, rl), ts, (gout, glse), retain_graph=True), 5),
                cost=(8 * tile + 2 * TB * C * 4, 10 * TB * C * C * hd),
-               library_ms=None, variant="bwd_")
+               library_ms=None, variant="bwd_", graph=graph_ms(bwd))
         del q, k, v, w, wl, out, lse, ts, ro, rl, q4, k4, v4
         torch.cuda.empty_cache()
 
@@ -1933,9 +1993,15 @@ def phase_tape_kernels(results):
 
 def phase_conv_kernels(results):
     """Phase 3, the conv kernels: forward, input gradient and weight
-    gradient vs their plain versions at ResNet-18's shapes (batch 32) and on
-    a grouped + dilated, a 1-D and a 3-D case, in f32 and bf16; each timed
-    at layer 1's shape beside the library's call (cuDNN, TF32 off)."""
+    gradient vs their plain versions at ResNet-18's 11 shapes (batch 32)
+    and ResNet-20's 6 wider ones on the digits path (batch 128), all on
+    the tensor-core route, and on grouped, dilated, 1-D, 3-D and narrow
+    cases (both routes), in f32 and bf16, each on the route conv_route
+    gives it; a repeat of each gradient bit for bit; the staging against
+    its plain version.  Times by CUDA graph (the wrapper's whole call,
+    staging included) at layer 1's shape beside cuDNN (TF32 off), the
+    CUDA-core route at ResNet-20's 16-channel layer on the digits path,
+    the staging on layer 1's x beside torch's channels_last copy."""
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_input, conv2d_weight
 
@@ -1943,12 +2009,17 @@ def phase_conv_kernels(results):
                                               conv_bwd_dw_reference,
                                               conv_bwd_dx,
                                               conv_bwd_dx_reference,
-                                              conv_fwd, conv_fwd_reference)
+                                              conv_fwd, conv_fwd_reference,
+                                              conv_layout,
+                                              conv_layout_reference,
+                                              conv_route)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
-    cases = [(n, x, w, st, 1, 1) for n, x, w, st in RESNET18_CONVS] \
+    tc_convs = RESNET18_CONVS + RESNET20_TC_CONVS
+    cases = [(n, x, w, st, 1, 1) for n, x, w, st in tc_convs] \
         + list(CONV_ODD_CASES)
+    tc_names = {c[0] for c in tc_convs}
     for dtype in (torch.float32, torch.bfloat16):
         tol = KERNEL_TOL[dtype]
         isz = torch.tensor([], dtype=dtype).element_size()
@@ -1962,53 +2033,103 @@ def phase_conv_kernels(results):
             fan_in = ws[1] * int(np.prod(ws[2:]))
             return rnd(*xs), rnd(*ws, scale=fan_in ** -0.5)
 
-        err = dict.fromkeys(CONV_KERNELS, 0.0)
+        err = {}
         for name, xs, ws, st, dl, grp in cases:
+            route = conv_route(xs, ws, grp, dtype)
+            if name in tc_names and route != "tc":
+                raise AssertionError(f"{name}: a ResNet conv on {route}")
+            sfx = "" if route == "tc" else "_simt"
             x, w = operands(xs, ws)
             checks = []
             want = conv_fwd_reference(x, w, st, dl, grp)
             checks.append(("conv_fwd", conv_fwd(x, w, st, dl, grp), want))
             gy = rnd(*want.shape)
-            checks.append(("conv_bwd_dx",
-                           conv_bwd_dx(gy, w, x.shape, st, dl, grp),
-                           conv_bwd_dx_reference(gy, w, x.shape, st, dl,
-                                                 grp)))
-            checks.append(("conv_bwd_dw",
-                           conv_bwd_dw(gy, x, w.shape, st, dl, grp),
-                           conv_bwd_dw_reference(gy, x, w.shape, st, dl,
-                                                 grp)))
+            gx = conv_bwd_dx(gy, w, x.shape, st, dl, grp)
+            gw = conv_bwd_dw(gy, x, w.shape, st, dl, grp)
+            if not (torch.equal(gx, conv_bwd_dx(gy, w, x.shape, st, dl, grp))
+                    and torch.equal(gw, conv_bwd_dw(gy, x, w.shape, st, dl,
+                                                    grp))):
+                raise AssertionError(f"{name} {dtype}: a repeated gradient "
+                                     f"differs")
+            checks.append(("conv_bwd_dx", gx, conv_bwd_dx_reference(
+                gy, w, x.shape, st, dl, grp)))
+            checks.append(("conv_bwd_dw", gw, conv_bwd_dw_reference(
+                gy, x, w.shape, st, dl, grp)))
             for kernel, got, want in checks:
-                err[kernel] = max(err[kernel], check(
+                kernel += sfx
+                err[kernel] = max(err.get(kernel, 0.0), check(
                     f"{kernel} {name} x{tuple(xs)}", dtype, got, want, tol))
                 discriminates(kernel, dtype, want, tol, torch.zeros_like(want))
-            del x, w, gy, checks, got, want
+            del x, w, gy, gx, gw, checks, got, want
             torch.cuda.empty_cache()
 
-        # times at layer 1's shape
+        def conv_times(sfx, xs, ws, st, tc):
+            """Graph times of the three kernels of one route at (xs, ws)
+            beside the plain versions and cuDNN; the f32 tensor-core bound
+            counts three tf32 passes at TF32_OPS."""
+            x, w = operands(xs, ws)
+            y = conv_fwd(x, w, st)
+            gy = rnd(*y.shape)
+            ops = 2 * y.numel() * int(np.prod(ws[1:]))
+            nbytes = (x.numel() + w.numel() + y.numel()) * isz
+            f32tc = tc and dtype == torch.float32
+            cost = (nbytes, 3 * ops if f32tc else ops)
+            peak = TF32_OPS if f32tc else None
+            for kernel, fn, plain, lib in (
+                    ("conv_fwd", lambda: conv_fwd(x, w, st),
+                     lambda: conv_fwd_reference(x, w, st),
+                     lambda: F.conv2d(x, w, stride=st)),
+                    ("conv_bwd_dx", lambda: conv_bwd_dx(gy, w, x.shape, st),
+                     lambda: conv_bwd_dx_reference(gy, w, x.shape, st),
+                     lambda: conv2d_input(x.shape, w, gy, stride=st)),
+                    ("conv_bwd_dw", lambda: conv_bwd_dw(gy, x, w.shape, st),
+                     lambda: conv_bwd_dw_reference(gy, x, w.shape, st),
+                     lambda: conv2d_weight(x, w.shape, gy, stride=st))):
+                timed(results, dtype, kernel + sfx, err[kernel + sfx], fn,
+                      plain, cost, lib, 10, peak=peak)
+            del x, w, y, gy
+            torch.cuda.empty_cache()
+
         _, xs, ws, st = RESNET18_CONVS[1]
-        x, w = operands(xs, ws)
-        y = conv_fwd(x, w, st)
-        gy = rnd(*y.shape)
-        ops = 2 * y.numel() * int(np.prod(ws[1:]))
-        nbytes = (x.numel() + w.numel() + y.numel()) * isz
-        record(results, dtype, "conv_fwd", err["conv_fwd"],
-               cuda_ms(lambda: conv_fwd(x, w, st)),
-               cuda_ms(lambda: conv_fwd_reference(x, w, st), 5),
-               cost=(nbytes, ops),
-               library_ms=cuda_ms(lambda: F.conv2d(x, w, stride=st)))
-        record(results, dtype, "conv_bwd_dx", err["conv_bwd_dx"],
-               cuda_ms(lambda: conv_bwd_dx(gy, w, x.shape, st)),
-               cuda_ms(lambda: conv_bwd_dx_reference(gy, w, x.shape, st), 5),
-               cost=(nbytes, ops),
-               library_ms=cuda_ms(lambda: conv2d_input(x.shape, w, gy,
-                                                        stride=st)))
-        record(results, dtype, "conv_bwd_dw", err["conv_bwd_dw"],
-               cuda_ms(lambda: conv_bwd_dw(gy, x, w.shape, st)),
-               cuda_ms(lambda: conv_bwd_dw_reference(gy, x, w.shape, st), 5),
-               cost=(nbytes, ops),
-               library_ms=cuda_ms(lambda: conv2d_weight(x, w.shape, gy,
-                                                         stride=st)))
-        del x, w, y, gy
+        conv_times("", xs, ws, st, True)
+        _, xs, ws, st, _, _ = SIMT_TIMED
+        conv_times("_simt", xs, ws, st, False)
+
+        # the staging: layer 1's x channels-last, then the weights' reorders
+        _, xs, ws, _ = RESNET18_CONVS[1]
+        x = rnd(*xs)
+        shape = (xs[0], xs[1], int(np.prod(xs[2:])), xs[1])
+        got = conv_layout(x, *shape)
+        ok = torch.equal(got, conv_layout_reference(x, *shape))
+        # the forward's (Cout, Cg, KK) -> (Cout, KK, Cp), the stem's with
+        # its channels padded to one 16-byte chunk, the input gradient's
+        # (G, Og, Cg KK) -> (G, Cg KK, Og)
+        for ts, view in ((ws, (ws[0], ws[1], 9, ws[1])),
+                         ((64, 3, 7, 7), (64, 3, 49, 16 // isz)),
+                         ((128, 64, 3, 3), (1, 128, 576, 128))):
+            t = rnd(*ts)
+            ok = ok and torch.equal(conv_layout(t, *view),
+                                    conv_layout_reference(t, *view))
+        if dtype == torch.float32:     # the tf32 parts the f32 kernels take
+            ok = ok and all(torch.equal(a, b) for a, b in zip(
+                conv_layout(x, *shape, split=True),
+                conv_layout_reference(x, *shape, split=True)))
+        log(f"  conv_layout {str(dtype)[6:]}: x {tuple(xs)} channels-last "
+            f"(f32: and its tf32 parts) and three weight reorders "
+            f"{'equal' if ok else 'DIFFER'}")
+        if not ok:
+            raise AssertionError(f"conv_layout {dtype}: differs from its "
+                                 f"plain version")
+        xcl = x.contiguous(memory_format=torch.channels_last)
+        if not torch.equal(got.reshape(xs[0], *xs[2:], xs[1]),
+                           xcl.permute(0, 2, 3, 1)):
+            raise AssertionError("conv_layout: not torch's channels_last")
+        timed(results, dtype, "conv_layout", 0.0,
+              lambda: conv_layout(x, *shape),
+              lambda: conv_layout_reference(x, *shape),
+              (2 * x.numel() * isz, 0),
+              lambda: x.contiguous(memory_format=torch.channels_last))
+        del x, got, xcl
         torch.cuda.empty_cache()
 
 
@@ -2143,7 +2264,8 @@ KERNEL_FAMILIES = (("matmul_tc_kernel", "matmul"),
                    ("ln_", "layernorm"),
                    ("flash_bwd_fused", "fused flash backward"),
                    ("flash", "attention"),
-                   ("conv_", "conv"), ("sum_partials", "conv"))
+                   ("layout_", "conv layout"), ("conv_", "conv"),
+                   ("sum_partials", "conv"), ("sum_dw", "conv"))
 
 
 def step_breakdown(step, step_s, host_s):
@@ -3954,11 +4076,14 @@ def main():
     tally("gradient descent", phase_tape_example(), TAPE_KERNELS)
     log("conv path on the tape, ResNet-18 (torchvision widths), float32, "
         "AdamW:")
-    tally("ResNet-18", phase_resnet18(card), CONV_PATH_KERNELS)
+    counts = phase_resnet18(card)
+    tally("ResNet-18", counts, CONV_PATH_KERNELS)
+    if any(counts[k] for k in CONV_SIMT_KERNELS):
+        raise AssertionError("a ResNet-18 conv took the CUDA-core route")
     log("conv path on the tape, the JAX examples on synthetic digits, "
         "float32:")
     for name, counts in phase_digits(card).items():
-        tally(name, counts, CONV_PATH_KERNELS)
+        tally(name, counts, DIGITS_KERNELS[name])
     log("narrow at a device start:")
     phase_narrow()
     for name, counts in phase_llama_serving(card).items():

@@ -511,7 +511,7 @@ def _unported(name, item):
     CudaTensor.register_op(name, Op, overwrite=True)
 
 
-_unported("ring_attention", "queue 2, kernel 10: the parallel layer")
+_unported("ring_attention", "queue 1, item 7: the parallel layer")
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,8 @@
-// N-D convolution as implicit GEMM: forward, input gradient and weight
-// gradient, f32 accumulation.
+// N-D convolution as implicit GEMM on the CUDA cores (the "simt" route):
+// forward, input gradient and weight gradient, f32 accumulation, for the
+// calls whose channel counts do not fill the tensor-core route of
+// csrc/conv_tc.cu (ops/conv.py `conv_route`: MNIST's CNN, ResNet-20's
+// 16-channel layers, depthwise and other narrow groups).
 //
 // Replaces kernel 4 of the JAX package, lightgrad_tpu/ops/conv.py: the
 // forward (_conv_fwd_impl, :107), the backward (_conv_bwd_impl, :122) and
@@ -11,10 +14,9 @@
 // row part, fixed for a thread, and a column part, computed once a K slice
 // into shared memory.  A grid dimension walks the groups.
 //
-// Layouts (contiguous): x (B, Cin, D, H, W), w (Cout, Cin/G, KD, KH, KW),
-// y (B, Cout, OD, OH, OW); 1-D and 2-D convolutions come with unit leading
-// spatial dims.  VALID padding (the caller pads), any stride and dilation.
-// With G groups, Cg = Cin/G, Og = Cout/G, KK = KD*KH*KW, per group:
+// Layouts (contiguous, csrc/conv_common.cuh): x (B, Cin, D, H, W), w (Cout,
+// Cin/G, KD, KH, KW), y (B, Cout, OD, OH, OW).  With G groups, Cg = Cin/G,
+// Og = Cout/G, KK = KD*KH*KW, per group:
 //
 //   conv_fwd     y  (B*OS, Og) = patches (B*OS, Cg*KK) @ w^T
 //   conv_bwd_dx  gx (B*S, Cg)  = dy taps (B*S, Og*taps) @ w
@@ -26,31 +28,24 @@
 //                tap (they store zeros).  Each position is written once: no
 //                atomics.
 //   conv_bwd_dw  gw (Og, Cg*KK) = dy^T (Og, B*OS) @ patches (B*OS, Cg*KK)
-//                The reduction over B*OS (100,352 terms at ResNet-18's
-//                layer 1, batch 32) into few outputs is split across blocks
-//                into f32 partial tiles, which a second kernel sums in a
-//                fixed order: deterministic, no atomics.
+//                The reduction over B*OS into few outputs is split across
+//                blocks into f32 partial tiles, which a second kernel sums
+//                in a fixed order: deterministic, no atomics.
 //
 // What bounds it on this card: the f32 FFMA rate and shared-memory
-// bandwidth (no tensor cores yet), as csrc/matmul.cu, whose tiling it
-// shares: a 64 x 64 output tile per 256-thread block, 4 x 4 outputs a
+// bandwidth: a 64 x 64 output tile per 256-thread block, 4 x 4 outputs a
 // thread, 16-deep K slices staged in shared memory as f32 (bf16 inputs sum
 // in f32 and round once on the store).  K = Cg*KK that is no multiple of 16
-// (9 for MNIST's first conv, 147 for ResNet's stem) is masked, never
-// padded.  Element offsets are 64-bit.
-#include "common.cuh"
+// (9 for MNIST's first conv) is masked, never padded.  Element offsets are
+// 64-bit.
+#include "conv_common.cuh"
 
 namespace {
+
 
 constexpr int kBM = 64, kBN = 64, kBK = 16, kThreads = 256;
 constexpr int kPad = 4;  // keeps rows 16-byte aligned, spreads banks
 constexpr int kMaxGrid = 65535;
-
-struct Geom {
-  int B, Cin, Cout, G, D, H, W, OD, OH, OW, KD, KH, KW, sd, sh, sw, dd, dh,
-      dw;
-};
-constexpr int kGeomInts = 19;
 
 // acc += As^T Bs over one K slice: rows ty*4.., columns tx*4..
 __device__ __forceinline__ void tile_fma(float (*As)[kBM + kPad],
@@ -165,25 +160,6 @@ conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // ---------------------------------------------------------------------------
 // input gradient: grid (class M tiles, Cg tiles, G * stride classes)
 // ---------------------------------------------------------------------------
-// The taps of one dimension that reach input positions with residue r
-// modulo the stride s under dilation d: k = k0 + j*p for j < n
-// (k*d = r mod s; p = s / gcd(s, d)).
-struct Taps {
-  int k0, p, n;
-};
-
-__device__ __forceinline__ Taps taps_for(int r, int K, int s, int d) {
-  int p = s;
-  for (int i = 1; i < s; ++i)
-    if ((i * d) % s == 0) {
-      p = i;
-      break;
-    }
-  for (int k = 0; k < p && k < K; ++k)
-    if ((k * d) % s == r) return Taps{k, p, (K - 1 - k) / p + 1};
-  return Taps{0, p, 0};
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 conv_bwd_dx_kernel(const T* __restrict__ gy, const T* __restrict__ w,
@@ -394,38 +370,6 @@ conv_bwd_dw_kernel(const T* __restrict__ gy, const T* __restrict__ x,
       if (n < N) out[(long long)co * N + n] = acc[i][j];
     }
   }
-}
-
-// out[i] = sum over p of part[p][i], p in order
-template <typename T>
-__global__ void sum_partials_kernel(const float* __restrict__ part,
-                                    T* __restrict__ out, long long n,
-                                    int splits) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int p = 0; p < splits; ++p) s += part[p * n + i];
-    out[i] = lg_from_f<T>(s);
-  }
-}
-
-bool geom_of(const int* v, Geom* g) {
-  int* dst = reinterpret_cast<int*>(g);
-  for (int i = 0; i < kGeomInts; ++i) {
-    if (v[i] < 1) return false;
-    dst[i] = v[i];
-  }
-  if (g->Cin % g->G || g->Cout % g->G) return false;
-  const int in[3] = {g->D, g->H, g->W}, out[3] = {g->OD, g->OH, g->OW};
-  const int ks[3] = {g->KD, g->KH, g->KW}, st[3] = {g->sd, g->sh, g->sw};
-  const int dl[3] = {g->dd, g->dh, g->dw};
-  for (int i = 0; i < 3; ++i) {
-    const long long span = (long long)(ks[i] - 1) * dl[i] + 1;
-    if (span > in[i] || out[i] != (in[i] - span) / st[i] + 1) return false;
-  }
-  // weights of one group and tap columns index with 32-bit ints
-  return (long long)g->Cout * (g->Cin / g->G) * ks[0] * ks[1] * ks[2] <
-         (1LL << 31);
 }
 
 }  // namespace

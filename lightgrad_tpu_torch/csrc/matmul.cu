@@ -27,34 +27,22 @@
 // What bounds it on this card: the tensor cores (989 TFLOP/s bf16, 495
 // tf32, so f32x3 at 165) and, at 128-row tiles, the bytes from L2 to
 // shared memory and shared memory's own bandwidth (the f32 split writes
-// and rereads each tile).  Design: a block of three warpgroups over a 128
-// x BN output tile.  Two consumers each own 64 rows x BN columns of f32
-// accumulators and issue the wgmma products from shared memory; one
-// producer warpgroup fills a ring of stages, handing each over by
-// mbarriers (full: 128 producer arrivals; empty: one arrival a consumer
-// warp once it is done with the stage).  Tiles are 128-byte rows in the
-// 128-byte swizzle (csrc/tensor_core.cuh).
-//   bf16 kinds: 128 x 256 tiles, 64-deep stages, a ring of 4.  The
-//             producer's loader is chosen per operand by its strides
-//             (ops/matmul.py `_loader`): bf16 with 16-byte aligned rows
-//             along k or along m / n by cp.async (async-k / async-mn), two
-//             stages in flight, each published when its copies land; an
-//             mn-major tile is read through the wgmma transpose bit, so no
-//             copy transposes.  f32 rounded to bf16 (f32bf16), and bf16
-//             whose rows cannot feed 16-byte copies, through registers.
-//   f32x3:    128 x 128 tiles, 32-deep stages.  The producer copies raw
-//             f32 tiles by cp.async (vec-k: rows along k; vec-mn: rows
-//             along m / n) into a ring of 3; the consumers split stage kt
-//             + 1 into tf32 hi and lo tiles (k-major: tf32 takes no
-//             transpose bit, so an mn-major tile is transposed in 4 x 4
-//             blocks) while the products of stage kt run on the other of
-//             two hi / lo buffers.  The tensor cores add each product into
-//             the accumulators with truncation, so each stage's three
-//             products (the small ones first) start from zero and are
-//             added to the running f32 sum afterwards (round to nearest):
-//             the truncation's bias stays within a stage instead of
-//             growing with K (one accumulator over K = 8192 erred 30x
-//             cuBLAS f32; the stage sums err 0.3x).
+// and rereads each tile).  Design: the producer / consumer ring of
+// csrc/gemm_core.cuh (shared with the convolutions of csrc/conv_tc.cu) over
+// 128 x BN output tiles.
+//   bf16 kinds: 128 x 256 tiles.  The producer's loader is chosen per
+//             operand by its strides (ops/matmul.py `_loader`): bf16 with
+//             16-byte aligned rows along k or along m / n by cp.async
+//             (async-k / async-mn), two stages in flight, each published
+//             when its copies land; an mn-major tile is read through the
+//             wgmma transpose bit, so no copy transposes.  f32 rounded to
+//             bf16 (f32bf16), and bf16 whose rows cannot feed 16-byte
+//             copies, through registers.
+//   f32x3:    128 x 128 tiles.  The producer copies raw f32 tiles by
+//             cp.async (vec-k: rows along k; vec-mn: rows along m / n); the
+//             consumers split them into tf32 hi and lo (gemm_core.cuh; one
+//             accumulator over K = 8192 erred 30x cuBLAS f32, the stage
+//             sums err 0.3x).
 //   scalar:   an operand with no unit stride (or, in the bf16 kinds, rows
 //             not 16-byte aligned) is read element by element; in f32x3 rows
 //             with a unit stride but not 16-byte aligned are copied by
@@ -66,43 +54,18 @@
 #include <initializer_list>
 #include <type_traits>
 
-#include "common.cuh"
-#include "tensor_core.cuh"
+#include "gemm_core.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace lg_gemm;
 
-constexpr int kBM = 128;                 // output rows a block
-constexpr int kThreads = 384;            // consumers 0-255, producer 256-383
-constexpr int kProducer = 256;
-constexpr int kTile = 128 * 128;         // bytes: 128 rows of 128 bytes
 constexpr int kGroupM = 8;               // row tiles a group of blocks visits
 
-enum Kind { kF32x3 = 0, kBf16 = 1, kF32Bf16 = 2 };
 enum Loader {
   kAsyncK = 0, kAsyncMN = 1, kVecK = 2, kVecMN = 3, kScalar = 4,
   kElemK = 5, kElemMN = 6
 };
-
-template <int KIND>
-struct Cfg {
-  // output columns a block: 256 in bf16, 128 in f32x3 (whose stages hold
-  // hi and lo tiles of both operands)
-  static constexpr int BN = KIND == kF32x3 ? 128 : 256;
-  // depth of a stage: 128 bytes of a row, 64 bf16 or 32 tf32 elements
-  static constexpr int BK = KIND == kF32x3 ? 32 : 64;
-  // a stage of the producer's ring: A (128 rows) then B (BN rows) -- in
-  // f32x3 raw f32 tiles, which the consumers split into one of two hi / lo
-  // stages (A hi, A lo, B hi, B lo) after the ring
-  static constexpr int kStageBytes = kTile + BN * 128;
-  static constexpr int kStages = KIND == kF32x3 ? 3 : 4;
-  static constexpr int kSplitBytes = KIND == kF32x3 ? 2 * 4 * kTile : 0;
-  static constexpr int kSmem =
-      kStages * kStageBytes + kSplitBytes + 1024;  // + alignment
-};
-constexpr int kMaxStages = 4;
-constexpr int kLag = 2;   // cp.async stages in flight before publishing
 
 // One operand: element (b1, b2, mn, k) at p + b1 sb1 + b2 sb2 + mn smn + k sk
 // (mn is A's row m or B's column n); n is the extent of mn.
@@ -118,26 +81,8 @@ struct Params {
   int M, N, K, B2, tiles_m, tiles_n;
 };
 
-__device__ __forceinline__ uint32_t sw(int row, int chunk) {
-  return row * 128 + ((chunk ^ (row & 7)) << 4);
-}
-
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-// hi = tf32(x), lo = tf32(x - hi) of four elements, stored at `off` of the
-// hi and lo tiles
-__device__ __forceinline__ void split_store(uint32_t hi, uint32_t lo,
-                                            uint32_t off, float x0, float x1,
-                                            float x2, float x3) {
-  const uint32_t h0 = lg_tc::tf32_rne(x0), h1 = lg_tc::tf32_rne(x1);
-  const uint32_t h2 = lg_tc::tf32_rne(x2), h3 = lg_tc::tf32_rne(x3);
-  lg_tc::st_shared16(hi + off, h0, h1, h2, h3);
-  lg_tc::st_shared16(lo + off, lg_tc::tf32_rne(x0 - __uint_as_float(h0)),
-                     lg_tc::tf32_rne(x1 - __uint_as_float(h1)),
-                     lg_tc::tf32_rne(x2 - __uint_as_float(h2)),
-                     lg_tc::tf32_rne(x3 - __uint_as_float(h3)));
 }
 
 __device__ __forceinline__ void bf16_store(uint32_t addr, const float (&x)[8]) {
@@ -175,17 +120,11 @@ __device__ __forceinline__ void tile_async(const Operand& o, const bf16* base,
   }
 }
 
-// f32 raw tiles by cp.async (f32x3): k-major sources as 128 rows x 32 k
-// (128-byte rows), mn-major ones as 32 k rows x 128 mn (512-byte rows),
-// chunk cm of row kr at chunk position raw_mn_chunk(cm, kr), so that the 4
-// x 4 blocks the conversion reads from a quarter-warp fall in different
-// banks.  Rows 16-byte aligned (vec-k / vec-mn) take 16-byte copies;
-// others with a unit stride (elem-k / elem-mn: the decoder's 30522-wide
-// gradients) 4-byte copies into the same places.
-__device__ __forceinline__ int raw_mn_chunk(int cm, int kr) {
-  return (cm & ~7) | ((cm ^ (kr >> 2)) & 7);
-}
-
+// f32 raw tiles by cp.async (f32x3) in the core's raw layouts (k-major
+// sources as 128 rows x 32 k, mn-major ones as 32 k rows x 128 mn).  Rows
+// 16-byte aligned (vec-k / vec-mn) take 16-byte copies; others with a unit
+// stride (elem-k / elem-mn: the decoder's 30522-wide gradients) 4-byte
+// copies into the same places.
 template <int LOADER>
 __device__ __forceinline__ void raw_async(const Operand& o, const float* base,
                                           int mn0, int k0, int K,
@@ -198,7 +137,7 @@ __device__ __forceinline__ void raw_async(const Operand& o, const float* base,
     if constexpr (along_k) {
       const int r = e >> 3, c = e & 7;
       const float* g = base + (mn0 + r) * o.smn + k0 + 4 * c;
-      const uint32_t d = dst + r * 128 + c * 16;
+      const uint32_t d = dst + raw_k_at(r, c);
       if constexpr (vec) {
         const bool ok = mn0 + r < o.n && k0 + 4 * c < K;
         lg_cp_async16(d, ok ? g : base, ok ? 16 : 0);
@@ -212,7 +151,7 @@ __device__ __forceinline__ void raw_async(const Operand& o, const float* base,
     } else {
       const int kr = e >> 5, cm = e & 31;
       const float* g = base + (k0 + kr) * o.sk + mn0 + 4 * cm;
-      const uint32_t d = dst + kr * 512 + (raw_mn_chunk(cm, kr) << 4);
+      const uint32_t d = dst + raw_mn_at<128>(kr, cm);
       if constexpr (vec) {
         const bool ok = k0 + kr < K && mn0 + 4 * cm < o.n;
         lg_cp_async16(d, ok ? g : base, ok ? 16 : 0);
@@ -241,69 +180,41 @@ __device__ __forceinline__ void raw_tile(const Operand& o, const float* base,
   }
 }
 
-__device__ __forceinline__ float4 lds4(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(addr));
-  return v;
-}
-
 // One operand's raw tile split by the 256 consumer threads (`t`) into its
-// k-major tf32 hi and lo tiles: vec-k / elem-k chunks of 4 k; vec-mn /
-// elem-mn 4 x 4 blocks
-// (4 consecutive mn at 4 consecutive k, transposed: block (j, kq) of
-// thread t at j = 2 bits 3-6 + bit 0, kq = bits 1-2 + 4 bit 7, so the 8
-// threads of a quarter-warp store to 8 different chunk columns); an
-// operand whose rows cannot feed 16-byte copies (scalar) element by
-// element from global memory.
+// k-major tf32 hi and lo tiles (gemm_core.cuh); an operand whose rows
+// cannot feed 16-byte copies (scalar) element by element from global
+// memory.
 __device__ __forceinline__ void split_tile(const Operand& o, uint32_t raw,
                                            const float* base, int mn0,
                                            int k0, int K, uint32_t hi,
                                            uint32_t lo, int t) {
   if (o.loader == kVecMN || o.loader == kElemMN) {
-    const int j = ((t >> 3) & 15) * 2 + (t & 1);
-    const int kq = ((t >> 1) & 3) + 4 * (t >> 7);
-    float4 b[4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int kr = 4 * kq + kk;
-      b[kk] = lds4(raw + kr * 512 + (raw_mn_chunk(j, kr) << 4));
-    }
-    split_store(hi, lo, sw(4 * j, kq), b[0].x, b[1].x, b[2].x, b[3].x);
-    split_store(hi, lo, sw(4 * j + 1, kq), b[0].y, b[1].y, b[2].y, b[3].y);
-    split_store(hi, lo, sw(4 * j + 2, kq), b[0].z, b[1].z, b[2].z, b[3].z);
-    split_store(hi, lo, sw(4 * j + 3, kq), b[0].w, b[1].w, b[2].w, b[3].w);
+    split_raw_mn<128>(raw, hi, lo, t);
+    return;
+  }
+  if (o.loader != kScalar) {
+    split_raw_k<128>(raw, hi, lo, t);
     return;
   }
   float4 v[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int e = t + i * 256, r = e >> 3, c = e & 7;
-    if (o.loader == kVecK || o.loader == kElemK) {
-      v[i] = lds4(raw + r * 128 + c * 16);
-    } else {
-      float x[4];
+    float x[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k = k0 + 4 * c + q;
-        x[q] = mn0 + r < o.n && k < K
-                   ? base[(mn0 + r) * o.smn + (long long)k * o.sk]
-                   : 0.f;
-      }
-      v[i] = make_float4(x[0], x[1], x[2], x[3]);
+    for (int q = 0; q < 4; ++q) {
+      const int k = k0 + 4 * c + q;
+      x[q] = mn0 + r < o.n && k < K
+                 ? base[(mn0 + r) * o.smn + (long long)k * o.sk]
+                 : 0.f;
     }
+    v[i] = make_float4(x[0], x[1], x[2], x[3]);
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int e = t + i * 256;
     split_store(hi, lo, sw(e >> 3, e & 7), v[i].x, v[i].y, v[i].z, v[i].w);
   }
-}
-
-// the consumer warpgroups' own barrier (id 2, 256 threads)
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 2, 256;\n" ::: "memory");
 }
 
 // bf16 tile of R rows through registers, 128 rows a pass: f32 rounded to
@@ -362,52 +273,6 @@ __device__ __forceinline__ void tile_reg_bf16(const Operand& o,
   }
 }
 
-// ---- the consumers' products over one stage ----------------------------
-
-// f32x3: the two small products (lo hi, hi lo) first, then hi hi, all into
-// `part`, which the first product overwrites.  The tensor cores sum each
-// product into the accumulators with truncation, so the stage's sum starts
-// from zero and is added to the running total in f32 (round to nearest)
-// afterwards: the truncations' bias stays within a stage instead of
-// growing with K, and the large hi hi sums come last, truncated 4 times a
-// stage.
-__device__ __forceinline__ void stage_x3(float (&part)[64], uint32_t st,
-                                         int wg) {
-  const uint32_t ahi = st + wg * 8192, alo = ahi + kTile;
-  const uint32_t bhi = st + 2 * kTile, blo = st + 3 * kTile;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {   // 8-deep steps: 32 bytes
-    const uint32_t off = ks * 32;
-    lg_tc::wgmma_tf32_n128(part, lg_tc::desc_sw128(alo + off, 16, 1024),
-                           lg_tc::desc_sw128(bhi + off, 16, 1024), ks > 0);
-    lg_tc::wgmma_tf32_n128(part, lg_tc::desc_sw128(ahi + off, 16, 1024),
-                           lg_tc::desc_sw128(blo + off, 16, 1024), 1);
-  }
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const uint32_t off = ks * 32;
-    lg_tc::wgmma_tf32_n128(part, lg_tc::desc_sw128(ahi + off, 16, 1024),
-                           lg_tc::desc_sw128(bhi + off, 16, 1024), 1);
-  }
-}
-
-// bf16 kinds: acc (64 x 256) += A B over the stage's 64-deep tiles.  TA /
-// TB: the tile is mn-major (16-deep steps of 16 rows, 64-column blocks 64
-// rows x 128 bytes apart) rather than k-major (steps of 32 bytes)
-template <int TA, int TB>
-__device__ __forceinline__ void stage_bf16(float (&acc)[128], uint32_t st,
-                                           int wg) {
-  const uint32_t a = st + wg * 8192, b = st + kTile;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const uint64_t da = TA ? lg_tc::desc_sw128(a + ks * 2048, 8192, 1024)
-                           : lg_tc::desc_sw128(a + ks * 32, 16, 1024);
-    const uint64_t db = TB ? lg_tc::desc_sw128(b + ks * 2048, 8192, 1024)
-                           : lg_tc::desc_sw128(b + ks * 32, 16, 1024);
-    lg_tc::wgmma_ss_n256<TA, TB>(acc, da, db);
-  }
-}
-
 template <int KIND, int TA, int TB>
 __global__ void __launch_bounds__(kThreads, 1)
 matmul_tc_kernel(const Params p) {
@@ -416,7 +281,7 @@ matmul_tc_kernel(const Params p) {
   using TC = TS;
   constexpr int S = C::kStages, BK = C::BK, BN = C::BN, NACC = BN / 2;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bars[2 * kMaxStages];  // full, empty
+  __shared__ __align__(8) uint64_t bars[2 * S];  // full, empty
   const uint32_t tiles = (lg_smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t full = lg_smem_u32(bars), empty = full + 8 * S;
 
@@ -431,13 +296,7 @@ matmul_tc_kernel(const Params p) {
   const long long b1 = z / p.B2, b2 = z % p.B2;
   const int nk = (p.K + BK - 1) / BK;
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      lg_tc::mbar_init(full + 8 * s, 128);
-      lg_tc::mbar_init(empty + 8 * s, 8);   // the consumers' 8 warps
-    }
-    lg_tc::mbar_fence_init();
-  }
+  ring_init<S>(full, empty);
   __syncthreads();
 
   if (threadIdx.x >= kProducer) {
@@ -445,130 +304,64 @@ matmul_tc_kernel(const Params p) {
     const int t = threadIdx.x - kProducer;
     const TS* ab = static_cast<const TS*>(p.a.p) + b1 * p.a.sb1 + b2 * p.a.sb2;
     const TS* bb = static_cast<const TS*>(p.b.p) + b1 * p.b.sb1 + b2 * p.b.sb2;
-    // slot and parity of stage kt: its slot's (kt / S)-th use
-    auto wait_slot = [&](int kt) {
-      lg_tc::mbar_wait(empty + 8 * (kt % S), ((kt / S) & 1) ^ 1);
-      return tiles + (kt % S) * C::kStageBytes;
-    };
     if constexpr (KIND == kF32x3) {
-      // raw f32 tiles into the ring by cp.async, each stage published
-      // kLag stages behind once its copies have landed (an operand with
-      // element loads is read by the consumers themselves)
+      // raw f32 tiles into the ring by cp.async (an operand with element
+      // loads is read by the consumers themselves)
       const float* fa = reinterpret_cast<const float*>(ab);
       const float* fb = reinterpret_cast<const float*>(bb);
-      for (int kt = 0; kt < nk; ++kt) {
-        const uint32_t st = wait_slot(kt);
-        raw_tile(p.a, fa, m0, kt * BK, p.K, st, t);
-        raw_tile(p.b, fb, n0, kt * BK, p.K, st + kTile, t);
-        lg_cp_async_commit();
-        if (kt >= kLag) {
-          lg_cp_async_wait<kLag>();
-          lg_tc::mbar_arrive(full + 8 * ((kt - kLag) % S));
-        }
-      }
-      lg_cp_async_wait<0>();
-      for (int kt = max(0, nk - kLag); kt < nk; ++kt)
-        lg_tc::mbar_arrive(full + 8 * (kt % S));
+      produce<C, false>(
+          tiles, full, empty, nk, true, [&](int kt, uint32_t st) {
+            raw_tile(p.a, fa, m0, kt * BK, p.K, st, t);
+            raw_tile(p.b, fb, n0, kt * BK, p.K, st + kTile, t);
+          });
     } else {
       const bool a_async = KIND == kBf16 && p.a.loader <= kAsyncMN;
       const bool b_async = KIND == kBf16 && p.b.loader <= kAsyncMN;
-      const bool async = a_async && b_async;
-      for (int kt = 0; kt < nk; ++kt) {
-        const uint32_t st = wait_slot(kt);
-        const int k0 = kt * BK;
-        if (a_async)
-          tile_async<kBM>(p.a, reinterpret_cast<const bf16*>(ab), m0, k0,
-                          p.K, st, t);
-        else
-          tile_reg_bf16<TS, kBM>(p.a, ab, m0, k0, p.K, st, t);
-        if (b_async)
-          tile_async<BN>(p.b, reinterpret_cast<const bf16*>(bb), n0, k0, p.K,
-                         st + kTile, t);
-        else
-          tile_reg_bf16<TS, BN>(p.b, bb, n0, k0, p.K, st + kTile, t);
-        lg_cp_async_commit();
-        if (async) {
-          // publish the stage kLag behind once its copies have landed
-          if (kt >= kLag) {
-            lg_cp_async_wait<kLag>();
-            lg_tc::fence_proxy_async();
-            lg_tc::mbar_arrive(full + 8 * ((kt - kLag) % S));
-          }
-        } else {
-          lg_cp_async_wait<0>();
-          lg_tc::fence_proxy_async();
-          lg_tc::mbar_arrive(full + 8 * (kt % S));
-        }
-      }
-      if (async) {
-        lg_cp_async_wait<0>();
-        lg_tc::fence_proxy_async();
-        for (int kt = max(0, nk - kLag); kt < nk; ++kt)
-          lg_tc::mbar_arrive(full + 8 * (kt % S));
-      }
+      produce<C, true>(
+          tiles, full, empty, nk, a_async && b_async,
+          [&](int kt, uint32_t st) {
+            const int k0 = kt * BK;
+            if (a_async)
+              tile_async<kBM>(p.a, reinterpret_cast<const bf16*>(ab), m0, k0,
+                              p.K, st, t);
+            else
+              tile_reg_bf16<TS, kBM>(p.a, ab, m0, k0, p.K, st, t);
+            if (b_async)
+              tile_async<BN>(p.b, reinterpret_cast<const bf16*>(bb), n0, k0,
+                             p.K, st + kTile, t);
+            else
+              tile_reg_bf16<TS, BN>(p.b, bb, n0, k0, p.K, st + kTile, t);
+          });
     }
     return;
   }
 
   // ---- consumers: 64 rows each ----
-  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
-  const int lane = threadIdx.x & 31;
   float acc[NACC];
 #pragma unroll
   for (int e = 0; e < NACC; ++e) acc[e] = 0.f;
   if constexpr (KIND == kF32x3) {
-    // stage kt's raw tiles split into hi / lo stage kt % 2 while the
-    // products of stage kt - 1 run on the other
-    const uint32_t split0 = tiles + S * C::kStageBytes;
     const float* fa = static_cast<const float*>(p.a.p) + b1 * p.a.sb1 +
                       b2 * p.a.sb2;
     const float* fb = static_cast<const float*>(p.b.p) + b1 * p.b.sb1 +
                       b2 * p.b.sb2;
-    auto split = [&](int kt) {
-      const uint32_t raw = tiles + (kt % S) * C::kStageBytes;
-      const uint32_t hl = split0 + (kt & 1) * 4 * kTile;
-      lg_tc::mbar_wait(full + 8 * (kt % S), (kt / S) & 1);
-      split_tile(p.a, raw, fa, m0, kt * BK, p.K, hl, hl + kTile,
-                 threadIdx.x);
-      split_tile(p.b, raw + kTile, fb, n0, kt * BK, p.K, hl + 2 * kTile,
-                 hl + 3 * kTile, threadIdx.x);
-      __syncwarp();
-      if (lane == 0) lg_tc::mbar_arrive(empty + 8 * (kt % S));
-      lg_tc::fence_proxy_async();
-    };
-    float part[64];
-    if (nk > 0) split(0);
-    consumer_sync();
-    for (int kt = 0; kt < nk; ++kt) {
-      lg_tc::fence_regs(part);
-      lg_tc::wg_fence();
-      stage_x3(part, split0 + (kt & 1) * 4 * kTile, wg);
-      lg_tc::wg_commit();
-      if (kt + 1 < nk) split(kt + 1);
-      lg_tc::wg_wait<0>();
-      lg_tc::fence_regs(part);
-#pragma unroll
-      for (int e = 0; e < 64; ++e) acc[e] += part[e];
-      consumer_sync();   // stage kt + 1 split; stage kt's products done
-    }
+    consume_x3<C>(acc, tiles, full, empty, nk,
+                   [&](int kt, uint32_t raw, uint32_t hl) {
+                     split_tile(p.a, raw, fa, m0, kt * BK, p.K, hl,
+                                hl + kTile, threadIdx.x);
+                     split_tile(p.b, raw + kTile, fb, n0, kt * BK, p.K,
+                                hl + 2 * kTile, hl + 2 * kTile + C::kBTile,
+                                threadIdx.x);
+                   });
   } else {
-    for (int kt = 0; kt < nk; ++kt) {
-      lg_tc::mbar_wait(full + 8 * (kt % S), (kt / S) & 1);
-      lg_tc::fence_regs(acc);
-      lg_tc::wg_fence();
-      stage_bf16<TA, TB>(acc, tiles + (kt % S) * C::kStageBytes, wg);
-      lg_tc::wg_commit();
-      lg_tc::wg_wait<1>();   // the previous stage's products are done
-      lg_tc::fence_regs(acc);
-      if (kt > 0 && lane == 0) lg_tc::mbar_arrive(empty + 8 * ((kt - 1) % S));
-    }
-    lg_tc::wg_wait<0>();
-    lg_tc::fence_regs(acc);
+    consume_bf16<TA, TB, C>(acc, tiles, full, empty, nk);
   }
 
   // ---- epilogue: the accumulators to C, pairs of columns at a time ----
   TC* c = static_cast<TC*>(p.c) + (long long)z * p.M * p.N;
   const bool pairs = (p.N & 1) == 0;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int e = 0; e < NACC; e += 2) {
     const int m = m0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * ((e >> 1) & 1);

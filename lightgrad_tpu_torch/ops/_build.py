@@ -76,6 +76,14 @@ _SIGNATURES = {
     "lg_conv_bwd_dx": ([_P, _P, _P, _GEOM, _I, _P], _I),
     # gy, x, gw, f32 partials, geom, splits, chunk, is_bf16, stream
     "lg_conv_bwd_dw": ([_P, _P, _P, _P, _GEOM, _I, _LL, _I, _P], _I),
+    # view (0 fwd, 1 dx, 2 dw), a, a_lo, b, b_lo (the lo parts of f32 fwd
+    # and dx, else null), out, f32 partials (null with splits 1), geom, Cp,
+    # tile width, splits, is_bf16, stream
+    "lg_conv_tc": ([_I, _P, _P, _P, _P, _P, _P, _GEOM, _I, _I, _I, _I, _P],
+                   _I),
+    # in, out (or null), tf32 hi, lo (f32, or null), nb, R, C, P, is_bf16,
+    # stream
+    "lg_conv_layout": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "lg_error_string": ([_I], _S),
 }
 

@@ -18,7 +18,10 @@ __all__ = ["device_kind", "device_name", "kernels_in_use", "KERNELS",
 # direction, beside the flash kernels it launches.  Decode attention counts
 # its split kernel once a call (``decode_attention_batch``: once for all
 # slots) and, where it splits a head's keys, the merge of the splits under
-# its own name.
+# its own name.  Convolution counts each route under its own names (the
+# tensor-core kernels as ``conv_*``, the CUDA-core ones as ``conv_*_simt``),
+# and the tensor-core route's channels-last staging as ``conv_layout``, one
+# a staged tensor.
 KERNELS = ("attention_fwd", "decode_attention", "decode_attention_batch",
            "decode_attention_merge",
            "decode_stack", "decode_stack_batch", "decode_stack_int8",
@@ -28,7 +31,8 @@ KERNELS = ("attention_fwd", "decode_attention", "decode_attention_batch",
            "attention_bwd_dq", "attention_bwd_dkv", "attention_bwd_fused",
            "flash_block", "layernorm_fwd", "layernorm_bwd", "elementwise",
            "reduce", "matmul", "softmax_fwd", "softmax_bwd", "conv_fwd",
-           "conv_bwd_dx", "conv_bwd_dw")
+           "conv_bwd_dx", "conv_bwd_dw", "conv_layout", "conv_fwd_simt",
+           "conv_bwd_dx_simt", "conv_bwd_dw_simt")
 # Copies a wrapper makes before a launch, counted beside the kernels: the
 # matmul wrapper's packing of an operand whose batch strides the kernel
 # cannot walk.

@@ -19,8 +19,9 @@ from lightgrad_tpu_torch.ops.attention import (attention_bwd,
                                                attention_fwd_reference,
                                                flash_block_reference,
                                                fused_rows, set_flash_fused)
-from lightgrad_tpu_torch.ops.conv import (conv_bwd, conv_bwd_reference,
-                                          conv_fwd, conv_fwd_reference)
+from lightgrad_tpu_torch.ops.conv import (conv_bwd, conv_bwd_dw, conv_bwd_dx,
+                                          conv_bwd_reference, conv_fwd,
+                                          conv_fwd_reference, conv_route)
 from lightgrad_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_batch,
     decode_attention_batch_reference, decode_attention_reference,
@@ -1291,27 +1292,56 @@ def test_softmax_kernels(dev, shape, dtype):
 
 
 # --- convolution: ResNet-18's shapes at batch 2, and the odd cases ----------
+# (x, w, strides, dilation, groups, route): the route conv_route gives in
+# both dtypes ("tc": csrc/conv_tc.cu, "simt": csrc/conv.cu)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("xs,ws,st,dl,groups", [
-    ((2, 3, 230, 230), (64, 3, 7, 7), 2, 1, 1),      # the stem
-    ((2, 64, 58, 58), (64, 64, 3, 3), 1, 1, 1),      # layer 1
-    ((2, 64, 58, 58), (128, 64, 3, 3), 2, 1, 1),     # layer 2's first conv
-    ((2, 64, 56, 56), (128, 64, 1, 1), 2, 1, 1),     # the 1x1/s2 projection
-    ((2, 512, 9, 9), (512, 512, 3, 3), 1, 1, 1),     # layer 4
-    ((2, 1, 30, 30), (8, 1, 3, 3), 1, 1, 1),         # MNIST's first conv
-    ((2, 16, 21, 19), (32, 4, 3, 3), 1, 2, 4),       # grouped, dilated
-    ((2, 8, 17, 15), (8, 1, 3, 3), 2, 1, 8),         # depthwise, strided
-    ((2, 6, 37), (10, 6, 5), 2, 1, 1),               # 1-D
-    ((2, 4, 7, 9, 8), (6, 2, 3, 2, 3), (1, 2, 1), (2, 1, 1), 2),  # 3-D
+@pytest.mark.parametrize("xs,ws,st,dl,groups,route", [
+    ((2, 3, 230, 230), (64, 3, 7, 7), 2, 1, 1, "tc"),     # the stem
+    ((2, 64, 58, 58), (64, 64, 3, 3), 1, 1, 1, "tc"),     # layer 1
+    ((2, 64, 58, 58), (128, 64, 3, 3), 2, 1, 1, "tc"),    # layer 2's first
+    ((2, 128, 30, 30), (128, 128, 3, 3), 1, 1, 1, "tc"),  # layer 2
+    ((2, 64, 56, 56), (128, 64, 1, 1), 2, 1, 1, "tc"),    # 1x1/s2 projection
+    ((2, 128, 30, 30), (256, 128, 3, 3), 2, 1, 1, "tc"),  # layer 3's first
+    ((2, 256, 16, 16), (256, 256, 3, 3), 1, 1, 1, "tc"),  # layer 3
+    ((2, 128, 28, 28), (256, 128, 1, 1), 2, 1, 1, "tc"),  # its projection
+    ((2, 256, 16, 16), (512, 256, 3, 3), 2, 1, 1, "tc"),  # layer 4's first
+    ((2, 512, 9, 9), (512, 512, 3, 3), 1, 1, 1, "tc"),    # layer 4 (splits)
+    ((2, 256, 14, 14), (512, 256, 1, 1), 2, 1, 1, "tc"),  # its projection
+    ((2, 64, 13, 11), (128, 16, 3, 3), 1, 1, 4, "tc"),    # grouped, Cg 16
+    ((2, 32, 21, 19), (64, 32, 3, 3), 1, 2, 1, "tc"),     # dilated
+    ((2, 32, 37), (64, 32, 5), 2, 1, 1, "tc"),            # 1-D
+    ((2, 16, 7, 9, 8), (32, 16, 3, 2, 3), (1, 2, 1), (2, 1, 1), 1,
+     "tc"),                                               # 3-D
+    ((2, 1, 30, 30), (8, 1, 3, 3), 1, 1, 1, "simt"),      # MNIST's first conv
+    ((2, 16, 34, 34), (16, 16, 3, 3), 1, 1, 1, "simt"),   # ResNet-20 layer 1
+    ((2, 16, 21, 19), (32, 4, 3, 3), 1, 2, 4, "simt"),    # grouped, dilated
+    ((2, 8, 17, 15), (8, 1, 3, 3), 2, 1, 8, "simt"),      # depthwise, strided
+    ((2, 6, 37), (10, 6, 5), 2, 1, 1, "simt"),            # 1-D
+    ((2, 4, 7, 9, 8), (6, 2, 3, 2, 3), (1, 2, 1), (2, 1, 1), 2,
+     "simt"),                                             # 3-D
+    # ResNet-20 on the digits path (batch 128, 28 x 28): its 16-channel
+    # layer, then every conv on the tensor cores (f32 K 144: a partial stage)
+    ((128, 16, 30, 30), (16, 16, 3, 3), 1, 1, 1, "simt"),
+    ((128, 16, 30, 30), (32, 16, 3, 3), 2, 1, 1, "tc"),
+    ((128, 16, 28, 28), (32, 16, 1, 1), 2, 1, 1, "tc"),
+    ((128, 32, 16, 16), (32, 32, 3, 3), 1, 1, 1, "tc"),
+    ((128, 32, 16, 16), (64, 32, 3, 3), 2, 1, 1, "tc"),
+    ((128, 32, 14, 14), (64, 32, 1, 1), 2, 1, 1, "tc"),
+    ((128, 64, 9, 9), (64, 64, 3, 3), 1, 1, 1, "tc"),
 ], ids=str)
-def test_conv_kernels(dev, xs, ws, st, dl, groups, dtype):
+def test_conv_kernels(dev, xs, ws, st, dl, groups, route, dtype):
+    assert conv_route(xs, ws, groups, dtype) == route
+    sfx = "" if route == "tc" else "_simt"
     g = torch.Generator(device=dev).manual_seed(sum(xs) + sum(ws))
     x = _randn(g, *xs, dtype=dtype)
     w = _randn(g, *ws, scale=0.1, dtype=dtype)
     reset_launch_counts()
     y = conv_fwd(x, w, st, dl, groups)
     torch.cuda.synchronize()
-    assert launch_counts()["conv_fwd"] == 1
+    counts = launch_counts()
+    assert counts["conv_fwd" + sfx] == 1
+    # the tensor-core route stages x and the weight
+    assert counts["conv_layout"] == (2 if route == "tc" else 0)
     want = conv_fwd_reference(x, w, st, dl, groups)
     assert y.shape == want.shape and y.dtype == want.dtype
     _close(y, want, dtype)
@@ -1320,10 +1350,16 @@ def test_conv_kernels(dev, xs, ws, st, dl, groups, dtype):
     gx, gw = conv_bwd(gy, x, w, st, dl, groups)
     torch.cuda.synchronize()
     counts = launch_counts()
-    assert counts["conv_bwd_dx"] == counts["conv_bwd_dw"] == 1
+    assert counts["conv_bwd_dx" + sfx] == counts["conv_bwd_dw" + sfx] == 1
+    # bf16: dy once for both gradients, the weight for dx, x for dw; f32:
+    # dy's tf32 parts and the weight's for dx, raw dy and x for dw
+    want = 3 if dtype == torch.bfloat16 else 4
+    assert counts["conv_layout"] == (want if route == "tc" else 0)
     rgx, rgw = conv_bwd_reference(gy, x, w, st, dl, groups)
     _close(gx, rgx, dtype)
     _close(gw, rgw, dtype)
     again = conv_bwd(gy, x, w, st, dl, groups)        # no atomics
     assert torch.equal(gx, again[0]) and torch.equal(gw, again[1])
+    assert torch.equal(gx, conv_bwd_dx(gy, w, x.shape, st, dl, groups))
+    assert torch.equal(gw, conv_bwd_dw(gy, x, w.shape, st, dl, groups))
     assert conv_bwd(gy, x, w, st, dl, groups, need_dx=False)[0] is None
