@@ -70,7 +70,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      (MATMUL_SHAPES: row 3's decoder, Mistral-7B's MLP up-projection and
      its weight gradient, Pythia-1B's QKV) with the f32 bound at three tf32
      passes (TF32_OPS), and the f32 kernel against a float64 product within
-     4x cuBLAS f32's error, a bar cuBLAS with TF32 on must fail;
+     4x cuBLAS f32's error, a bar cuBLAS with TF32 on must fail; the f32
+     flash backward passes (three tf32 passes on the tensor cores) with
+     their bound at three tf32 passes, and at GPT-2's training shape
+     against a float64 backward within KERNEL_TOL, a bar the same
+     arithmetic with one tf32 pass a product must fail;
   4. serving path, GPT-2 small at its published widths (vocab 50257, 1024
      positions, d 768, 12 layers, 12 heads; seeded random weights), once in
      float32 and once after ``model.to(torch.bfloat16)``: ``generate``,
@@ -659,11 +663,46 @@ def _ambiguous(x, noise):
     return torch.where((ulp / 2 - off <= noise) & (x != 0), ulp, 0.0)
 
 
+def bwd_f64(do, q, k, v, scale, causal, lengths=None, window=0):
+    """(dq, dk, dv) of the recompute backward (the f32 plain version's
+    formulas) evaluated in float64: q, do (B, S, d); k, v (B/G, S, d),
+    grouped; padded query rows and keys (``lengths``) get zeros."""
+    B, S, d = q.shape
+    KV = k.shape[0]
+    q4, g4 = (t.double().reshape(KV, B // KV, S, d) for t in (q, do))
+    k3, v3 = k.double(), v.double()
+    i = torch.arange(S, device=q.device)
+    valid = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        valid = i[None, :] <= i[:, None]
+        if window:
+            valid = valid & (i[:, None] - i[None, :] < window)
+    valid = valid.expand(KV, B // KV, S, S)
+    if lengths is not None:
+        ok = (i[None, :] < lengths.reshape(B, 1).long()).reshape(
+            KV, B // KV, S)
+        valid = valid & ok[..., None, :] & ok[..., :, None]
+    sc = torch.einsum("bgqd,bkd->bgqk", q4, k3) * scale
+    p = torch.softmax(sc.masked_fill(~valid, float("-inf")), -1)
+    p = torch.where(valid, p, 0.0)       # rows with no valid key: zeros
+    del sc
+    dp = torch.einsum("bgqd,bkd->bgqk", g4, v3)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    del dp
+    return (torch.einsum("bgqk,bkd->bgqd", ds, k3).reshape(q.shape) * scale,
+            torch.einsum("bgqk,bgqd->bkd", ds, q4) * scale,
+            torch.einsum("bgqk,bgqd->bkd", p, g4))
+
+
 def bwd_reference(dtype, do, q, k, v, out, lse, scale, causal, lengths=None,
                   window=0):
     """The plain version the backward kernels are held against, and a
     per-element allowance beside one ulp of the output (None in f32).
-    f32: the recompute backward (:func:`bwd_plain`).  bf16: the TPU
+    f32: the recompute backward (:func:`bwd_plain`'s) evaluated in f64
+    (:func:`bwd_f64`): at Pythia-1B's shape the plain version's own f32
+    evaluation errs against f64 by about the tolerance times the rms
+    (``scripts/flash_bwd_variants.py``, PERF.md §6), so it cannot be the
+    bar.  bf16: the TPU
     kernels' arithmetic (p and ds rounded to bf16 before their products,
     no dcap refinement; the two passes and the fused kernel alike)
     evaluated in f64 from the forward's (out, lse), and, per output
@@ -672,8 +711,8 @@ def bwd_reference(dtype, do, q, k, v, out, lse, scale, causal, lengths=None,
     the other factor's magnitude: what those roundings, taken either way,
     can move it by.  q, do (B, S, d); k, v (B/G, S, d)."""
     if dtype == torch.float32:
-        return bwd_plain(dtype, do, q, k, v, out, lse, scale, causal,
-                         lengths, window), (None, None, None)
+        return bwd_f64(do, q, k, v, scale, causal, lengths,
+                       window), (None, None, None)
     f64 = torch.float64
     b, s, d = q.shape
     bkv = k.shape[0]
@@ -763,6 +802,15 @@ def bound_ms(nbytes, ops, dtype, peak=None):
     by_ops = ops / (peak or PEAK_OPS[dtype]) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                           "operations")
+
+
+def pass_cost(dtype, nbytes, ops):
+    """(cost, peak) of a flash backward pass for :func:`record`: in f32 the
+    passes run every product as three tf32 passes, so the bound counts
+    three times the operations at TF32_OPS, as the matmul's does."""
+    if dtype == torch.float32:
+        return (nbytes, 3 * ops), TF32_OPS
+    return (nbytes, ops), None
 
 
 def record(results, dtype, name, err, ms=None, plain_ms=None,
@@ -1222,6 +1270,39 @@ def phase_long_context(model):
     model.quantize_kv(False)
 
 
+def f32_passes_vs_one_pass(tag, do, q, k, v, out, lse, scale, causal, got,
+                           tol):
+    """The f32 passes' (dq, dk, dv) ``got`` against the float64 backward
+    (:func:`bwd_f64`) within ``tol`` of max(1, the largest |element|),
+    a bar the same arithmetic with one tf32 pass a product must fail: the
+    kernels are three tf32 passes, not TF32.  Returns the kernels' error."""
+    from lightgrad_tpu_torch.ops.attention import \
+        attention_bwd_tf32x3_reference
+    from lightgrad_tpu_torch.ops.matmul import tf32_round
+
+    def one_pass(a, b):
+        return torch.matmul(tf32_round(a).double(),
+                            tf32_round(b).double()).float()
+
+    want = bwd_f64(do, q, k, v, scale, causal)
+    one = attention_bwd_tf32x3_reference(do, q, k, v, out, lse, scale,
+                                         causal, product=one_pass)
+
+    def err(xs):
+        return max(((x.double() - w).abs().max()
+                    / w.abs().max().clamp_min(1.0)).item()
+                   for x, w in zip(xs, want))
+
+    kernel, single = err(got), err(one)
+    ok = kernel <= tol < single
+    log(f"  {tag} f32 against f64: kernels {kernel:.3e}, one tf32 pass "
+        f"{single:.3e}, tol {tol:.0e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: f32 passes {kernel}, one tf32 pass "
+                             f"{single} against {tol}")
+    return kernel
+
+
 def phase_train_kernels(results):
     """Phase 3, training kernels: the flash backward and the LayerNorm
     kernels vs their plain versions, at the training path's shapes."""
@@ -1265,6 +1346,10 @@ def phase_train_kernels(results):
             record(results, dtype, "attention_bwd_dkv", max(errs[1:]))
             if S != T:
                 continue
+            if dtype == torch.float32:      # 8 of the heads, in f64
+                f32_passes_vs_one_pass(tag, do[:8], q[:8], k[:8], v[:8],
+                                       out[:8], lse[:8], sc, causal,
+                                       [t[:8] for t in got], tol)
             dcap = (do.float() * out.float()).sum(-1).contiguous()
             plain_ms = cuda_ms(lambda: bwd_plain(
                 dtype, do, q, k, v, out, lse, sc, causal), 5)
@@ -1285,12 +1370,16 @@ def phase_train_kernels(results):
                                              causal)
             dkv_fn = lambda: attention_bwd_dkv(do, q, k, v, lse, dcap, sc,
                                                causal)
+            cost, peak = pass_cost(dtype, 5 * tile + 2 * bh * S * 4,
+                                   3 * pairs)
             record(results, dtype, "attention_bwd_dq", 0.0, cuda_ms(dq_fn),
-                   plain_ms, cost=(5 * tile + 2 * bh * S * 4, 3 * pairs),
-                   library_ms=lib_ms, graph=graph_ms(dq_fn))
+                   plain_ms, cost=cost, library_ms=lib_ms,
+                   graph=graph_ms(dq_fn), peak=peak)
+            cost, peak = pass_cost(dtype, 6 * tile + 2 * bh * S * 4,
+                                   4 * pairs)
             record(results, dtype, "attention_bwd_dkv", 0.0, cuda_ms(dkv_fn),
-                   plain_ms, cost=(6 * tile + 2 * bh * S * 4, 4 * pairs),
-                   library_ms=lib_ms, graph=graph_ms(dkv_fn))
+                   plain_ms, cost=cost, library_ms=lib_ms,
+                   graph=graph_ms(dkv_fn), peak=peak)
             del q4, k4, v4, do4, ts, o4
             whole = cuda_ms(lambda: attention_bwd(do, q, k, v, sc, causal,
                                                   out=out, lse=lse))
@@ -1436,16 +1525,14 @@ def fused_bwd_case(results, dtype, g, B, H, S, hd, causal, timed,
         dq_fn = lambda: attention_bwd_dq(do, q, k, v, lse, dcap, sc, causal)
         dkv_fn = lambda: attention_bwd_dkv(do, q, k, v, lse, dcap, sc,
                                            causal)
+        cost, peak = pass_cost(dtype, 5 * tile + 2 * rows, 6 * hd * pairs)
         record(results, dtype, "attention_bwd_dq", two_errs[0],
-               cuda_ms(dq_fn), plain_ms,
-               cost=(5 * tile + 2 * rows, 6 * hd * pairs),
-               library_ms=lib_ms, variant=variant,
-               graph=graph_ms(dq_fn, 10))
+               cuda_ms(dq_fn), plain_ms, cost=cost, library_ms=lib_ms,
+               variant=variant, graph=graph_ms(dq_fn, 10), peak=peak)
+        cost, peak = pass_cost(dtype, 6 * tile + 2 * rows, 8 * hd * pairs)
         record(results, dtype, "attention_bwd_dkv", max(two_errs[1:]),
-               cuda_ms(dkv_fn), plain_ms,
-               cost=(6 * tile + 2 * rows, 8 * hd * pairs),
-               library_ms=lib_ms, variant=variant,
-               graph=graph_ms(dkv_fn, 10))
+               cuda_ms(dkv_fn), plain_ms, cost=cost, library_ms=lib_ms,
+               variant=variant, graph=graph_ms(dkv_fn, 10), peak=peak)
     fused_ms = cuda_ms(both_ways)
     two_ms = cuda_ms(lambda: attention_bwd(do, q, k, v, sc, causal, out=out,
                                            lse=lse))
@@ -1550,18 +1637,20 @@ def phase_flash_kernels(results):
             lib_ms = cuda_ms(lambda: torch.autograd.grad(
                 og, (qg, kg, vg), do.reshape(B, H, S, hd),
                 retain_graph=True), 5)
+            cost, peak = pass_cost(dtype, valid * (4 * tile + 2 * rows)
+                                   + tile + bh * 4, 6 * hd * n)
             record(results, dtype, "attention_bwd_dq", errs[0],
                    cuda_ms(lambda: attention_bwd_dq(do, q, k, v, lse, dcap,
                                                     sc, False, lens)),
-                   plain_ms, cost=(valid * (4 * tile + 2 * rows) + tile
-                                   + bh * 4, 6 * hd * n),
-                   library_ms=lib_ms, variant="lengths_")
+                   plain_ms, cost=cost, library_ms=lib_ms,
+                   variant="lengths_", peak=peak)
+            cost, peak = pass_cost(dtype, valid * (4 * tile + 2 * rows)
+                                   + 2 * tile + bh * 4, 8 * hd * n)
             record(results, dtype, "attention_bwd_dkv", max(errs[1:]),
                    cuda_ms(lambda: attention_bwd_dkv(do, q, k, v, lse, dcap,
                                                      sc, False, lens)),
-                   plain_ms, cost=(valid * (4 * tile + 2 * rows) + 2 * tile
-                                   + bh * 4, 8 * hd * n),
-                   library_ms=lib_ms, variant="lengths_")
+                   plain_ms, cost=cost, library_ms=lib_ms,
+                   variant="lengths_", peak=peak)
             del qg, kg, vg, og
         torch.cuda.empty_cache()
 
@@ -1643,11 +1732,15 @@ def phase_flash_kernels(results):
         def bwd():
             return flash_block_bwd(gout, glse, q, k, v, out, lse, sc, False)
 
+        # its backward is the two passes: their bound, three tf32 passes
+        # in f32
+        cost, peak = pass_cost(dtype, 8 * tile + 2 * TB * C * 4,
+                               10 * TB * C * C * hd)
         record(results, dtype, "flash_block", err, cuda_ms(bwd),
                cuda_ms(lambda: torch.autograd.grad(
                    (ro, rl), ts, (gout, glse), retain_graph=True), 5),
-               cost=(8 * tile + 2 * TB * C * 4, 10 * TB * C * C * hd),
-               library_ms=None, variant="bwd_", graph=graph_ms(bwd))
+               cost=cost, library_ms=None, variant="bwd_",
+               graph=graph_ms(bwd), peak=peak)
         del q, k, v, w, wl, out, lse, ts, ro, rl, q4, k4, v4
         torch.cuda.empty_cache()
 
@@ -3225,18 +3318,18 @@ def phase_llama_kernels(results):
                                                  True, window=window)
                 dkv_fn = lambda: attention_bwd_dkv(do, q, k, v, lse, dcap,
                                                    sc, True, window=window)
+                cost, peak = pass_cost(dtype, 3 * tile + 2 * kvt
+                                       + 2 * H * S * 4, 6 * hd * npairs)
                 record(results, dtype, "attention_bwd_dq", errs[0],
-                       cuda_ms(dq_fn), plain_ms,
-                       cost=(3 * tile + 2 * kvt + 2 * H * S * 4,
-                             6 * hd * npairs),
+                       cuda_ms(dq_fn), plain_ms, cost=cost,
                        library_ms=lib_ms, variant=variant,
-                       graph=graph_ms(dq_fn, 5))
+                       graph=graph_ms(dq_fn, 5), peak=peak)
+                cost, peak = pass_cost(dtype, 2 * tile + 4 * kvt
+                                       + 2 * H * S * 4, 8 * hd * npairs)
                 record(results, dtype, "attention_bwd_dkv", max(errs[1:]),
-                       cuda_ms(dkv_fn), plain_ms,
-                       cost=(2 * tile + 4 * kvt + 2 * H * S * 4,
-                             8 * hd * npairs),
+                       cuda_ms(dkv_fn), plain_ms, cost=cost,
                        library_ms=lib_ms, variant=variant,
-                       graph=graph_ms(dkv_fn, 5))
+                       graph=graph_ms(dkv_fn, 5), peak=peak)
                 del dcap
             del q, k, v, do, out, lse, got, band
             torch.cuda.empty_cache()

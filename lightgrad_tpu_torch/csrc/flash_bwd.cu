@@ -52,30 +52,60 @@
 //   any other d with d % 8 == 0 on the next wider D (64, 128, 256) at row
 //   stride d, the columns past d zero-filled by stage_rows and never stored.
 //
-// float32, on the CUDA cores (tensor cores would compute f32 as TF32, which
-// the package's 1e-3 f32 tolerances do not allow): FP32 FFMA issue and
-// shared-memory reads bound it.  One row of the resident operand per group
-// of TPR = D / 16 adjacent threads, each owning 16 of the D columns in
-// float4 chunks (interleaved: a group reads TPR adjacent 16-byte words of a
-// shared row, a broadcast); partial dot products are reduced across the
-// group with shuffles, four streamed rows at a time.  The streamed operand
-// is widened to f32 in shared memory once a tile.  Blocks hold 64 rows (32
-// at D 128, 16 at D 256, so that 256 threads of up to 255 registers fit)
-// of D = 32, 64, 128 or 256 columns; another d runs the next wider D.
-//   dq pass (flash_bwd_dq_kernel): q, do and the dq accumulator in
-//     registers; K and V tiles stream.  The pass also refines dcap against
-//     its own p and dp: dcap = rowsum(dO * O) holds the row sum of p * dp
-//     only to f32 rounding, and where a row of dp is nearly constant, dp -
-//     dcap cancels and that rounding becomes ds's error, the same in every
-//     column (at BERT-base depth 2e-3 of the query / key gradients).  The
-//     pass sums r_i = sum_j ds_ij (dlse_i in exact arithmetic) and P_i =
-//     sum_j p_ij beside a_i = sum_j p_ij k_j; c_i = r_i / P_i - dlse_i gives
-//     dq_i -= scale * c_i * a_i, and dcap_i + c_i goes to the dk/dv pass.
-//   dk/dv pass (flash_bwd_dkv_kernel): k, v and both accumulators in
-//     registers; Q, dO, lse and dcap tiles stream, for all G query heads.
-//   fused (flash_bwd_fused_kernel): the dk/dv loop, which also parks each Q
-//     tile's ds in shared memory beside the block's K rows, then re-maps the
-//     threads to the tile's query rows for the key block's share of dq.
+// float32, the two passes on the tensor cores as three tf32 passes, 495
+// TFLOP/s (the TPU kernels compute f32 at Precision.HIGHEST, several bf16
+// passes; the f32 matmul does the same, matmul.cu): each operand x splits
+// into hi = tf32(x) and lo = x - hi, and a product is lo hi + hi lo + hi
+// hi, lo lo dropped.  Warp-level mma.sync m16n8k8 rather than wgmma: tf32
+// wgmma reads only K-major operands from shared memory, so dQ's K and dK's
+// and dV's Q and dO would need transposed hi / lo copies, 4x the raw tile,
+// which does not fit at D 128 and 256.  Here shared memory holds each tile
+// once, raw, and the threads split what they load.
+//   Blocks (F32Tc): D 32 and 64, 4 warps over 64 resident rows; D 96 and
+//   128, 8 warps over 128; D 256, 8 warps over 64, two a 16-row slab, each
+//   taking 128 of the columns, the two summing their halves of S and dP
+//   (S^T and dP^T) over d through shared memory.  Streamed tiles in two
+//   cp.async stages of 32 rows (16 at D 256): keys in the dq pass, queries
+//   in the dk/dv pass.  Shared rows are D + 4 floats apart, so the
+//   ldmatrix rows and the permuted B rows below both hit 32 distinct banks.
+//   Shared memory at D 32 / 64 / 96 / 128 / 256, dq (Q and dO, two stages
+//   of K and V): 36 / 68 / 150 / 198 / 211 KB; dk/dv (K and V, two stages
+//   of Q, dO, lse and dcap): 37 / 69 / 151 / 199 / 211 KB: two blocks an
+//   SM at D 32 and 64 (by registers), one at the others.
+//   S = Q K^T and dP = dO V^T: both operands K-major, read by ldmatrix (an
+//   8 x 4 f32 block is an 8 x 8 b16 matrix whose fragment is tf32's).  P
+//   and dS in f32 on the accumulator fragment, whose columns (2t, 2t + 1)
+//   the next product reads as the depths (t, t + 4) of its A fragment,
+//   with B's rows read by the same permutation: no shuffles.  dQ += dS K,
+//   dV += P^T dO, dK += dS^T Q with K, dO and Q read MN-major by scalar
+//   loads.  Each tile's share of a gradient starts from zero and is added
+//   in f32: the tensor cores truncate as they add, and a sum kept in place
+//   drifts (over Mistral-7B's band, dk 1.4e-4 of the largest f64 element
+//   against 1.2e-6 from zero: scripts/flash_bwd_variants.py's in_place).
+//   dq pass (flash_bwd_dq_tf32_kernel): Q and dO resident; K and V tiles
+//     stream.  The pass also refines dcap against its own p and dp: dcap =
+//     rowsum(dO * O) holds the row sum of p * dp only to f32 rounding, and
+//     where a row of dp is nearly constant, dp - dcap cancels and that
+//     rounding becomes ds's error, the same in every column (at BERT-base
+//     depth 2e-3 of the query / key gradients).  The pass sums r_i = sum_j
+//     ds_ij (dlse_i in exact arithmetic) and P_i = sum_j p_ij beside a_i =
+//     sum_j p_ij k_j (one hi hi pass: c_i below is ~1e-3); c_i = r_i / P_i
+//     - dlse_i gives dq_i -= scale * c_i * a_i, and dcap_i + c_i goes to
+//     the dk/dv pass.
+//   dk/dv pass (flash_bwd_dkv_tf32_kernel): K and V resident; Q, dO, lse
+//     and dcap tiles stream, for all G query heads; with few KV rows the
+//     heads are shared over blocks as in bf16 (ops.attention.dkv_splits).
+// float32 fused (flash_bwd_fused_kernel), on the CUDA cores: FP32 FFMA
+// issue and shared-memory reads bound it.  One row of the resident operand
+// per group of TPR = D / 16 adjacent threads, each owning 16 of the D
+// columns in float4 chunks (interleaved: a group reads TPR adjacent 16-byte
+// words of a shared row, a broadcast); partial dot products are reduced
+// across the group with shuffles, four streamed rows at a time.  Blocks
+// hold 64 key rows (32 at D 128, 16 at D 256) of D = 32, 64, 128 or 256
+// columns; another d runs the next wider D.
+//   The kernel runs the dk/dv loop, which also parks each Q tile's ds in
+//   shared memory beside the block's K rows, then re-maps the threads to
+//   the tile's query rows for the key block's share of dq.
 //
 // dq of the fused kernels, both dtypes: no per-key-block slabs.  Every
 // block adds its share into one f32 (BH, S, d) buffer in key-block order:
@@ -109,7 +139,10 @@
 // 64 / 128 / 256: dq 145 / 212 / 238, none spilled; dk/dv 168 / 250 / 255
 // (8 bytes spilled at D 256); fused 173 / 255 / 255 (20 bytes spilled at D
 // 128 and 256); every bf16 instantiation holds HGMMA (cuobjdump -sass).
-// f32: dq 167-171, dk/dv 229, none spilled; fused 200 at D 32, 128 with
+// f32 passes at D 32 / 64 / 96 / 128 / 256: dq 202 / 249 / 255 / 255 / 255
+// (4 bytes spilled at D 128), dk/dv 188 / 255 / 255 / 255 / 255 (16, 124
+// and 8 bytes spilled at D 96, 128, 256); every f32 pass instantiation
+// holds HMMA (cuobjdump -sass); fused 200 at D 32, 128 with
 // 28-32 bytes spilled at D 64-256 (two blocks an SM).
 #include "common.cuh"
 #include "tensor_core.cuh"
@@ -117,6 +150,7 @@
 namespace {
 
 constexpr int kSub = 4;  // streamed rows per shuffle round
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Cfg {
@@ -159,218 +193,555 @@ __device__ __forceinline__ float4 load_cols(const float* row, int col,
   return col < d ? lg_load4(row + col) : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
+// ---- float32: three tf32 passes on the tensor cores (mma.sync) ----------
+
+// Blocks of the f32 passes at instantiation D (32, 64, 96, 128 or 256;
+// another d runs the next wider D): SLABS slabs of 16 resident
+// rows (queries in the dq pass, keys in the dk/dv pass), WN warps a slab,
+// each taking DW = D / WN of the columns; BK keys a streamed tile in the dq
+// pass, BQ queries in the dk/dv pass.  Shared rows are P = D + 4 floats
+// apart, so that every fragment load (ldmatrix rows, the permuted B rows)
+// hits 32 distinct banks.
 template <int D>
-__global__ void __launch_bounds__(Cfg<D>::kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dcap,
-                    const float* __restrict__ dlse, float* __restrict__ dq,
-                    float* __restrict__ dcap_out,
-                    const int* __restrict__ lens, int S, int G, int d,
-                    float scale, int causal, int window) {
-  using C = Cfg<D>;
-  constexpr int TPR = C::TPR, BS = C::BS, D4 = C::D4, NC = C::NC;
-  __shared__ float4 Ks[BS][D4];
-  __shared__ float4 Vs[BS][D4];
+struct F32Tc {
+  static constexpr int SLABS = D == 96 || D == 128 ? 8 : 4;
+  static constexpr int WN = D == 256 ? 2 : 1;
+  static constexpr int NW = SLABS * WN;
+  static constexpr int kThreads = 32 * NW;
+  static constexpr int BR = 16 * SLABS;  // resident rows a block
+  static constexpr int DW = D / WN;      // columns a warp
+  static constexpr int P = D + 4;        // floats a shared row
+  static constexpr int BK = D == 256 ? 16 : 32;
+  static constexpr int BQ = D == 256 ? 16 : 32;
+  static constexpr int kMinBlocks = D <= 64 ? 2 : 1;
+  // the slab's partial products over d, exchanged between its WN warps:
+  // two 16 x BS fragments a warp
+  static constexpr int kXDq = WN > 1 ? NW * 32 * BK : 0;
+  static constexpr int kXDkv = WN > 1 ? NW * 32 * BQ : 0;
+  // dq: Q and dO resident, two stages of K and V
+  static constexpr int kSmemDq = (2 * BR * P + 4 * BK * P + kXDq) * 4;
+  // dk/dv: K and V resident, two stages of Q, dO, lse and dcap
+  static constexpr int kStageDkv = 2 * BQ * P + 2 * BQ;
+  static constexpr int kSmemDkv = (2 * BR * P + 2 * kStageDkv + kXDkv) * 4;
+  static_assert(kSmemDq <= 232448 && kSmemDkv <= 232448,
+                "a block's shared memory is at most 227 KB");
+};
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * C::kRows;
-  const int t = threadIdx.x;
-  const int row = t / TPR, part = t % TPR;
-  const int qi = q0 + row;
-  const int limit = lens ? max(0, min(lens[bh], S)) : S;
-  const size_t rq = (size_t)bh * S + min(qi, S - 1);
-  const float* kb = k + (size_t)(bh / G) * S * d;
-  const float* vb = v + (size_t)(bh / G) * S * d;
-
-  float4 qr[NC], dor[NC], acc[NC], pk[NC];  // pk: sum_j p_ij k_j
+// Rows [r0, r0 + R) of a (rows, d) f32 slab at row stride d into shared
+// rows P = D + 4 floats apart, by 16-byte cp.async copies; rows >= rows and
+// columns >= d are zero-filled.
+template <int R, int D, int NT>
+__device__ __forceinline__ void stage_f32(uint32_t dst, const float* src,
+                                          int r0, int rows, int d) {
+  constexpr int C4 = D / 4, P = D + 4;
+  static_assert((R * C4) % NT == 0, "uneven tile copy");
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    qr[c] = load_cols(q + rq * d, (c * TPR + part) * 4, d);
-    dor[c] = load_cols(dout + rq * d, (c * TPR + part) * 4, d);
-    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-    pk[c] = acc[c];
+  for (int i = 0; i < R * C4 / NT; ++i) {
+    const int e = threadIdx.x + i * NT;
+    const int r = e / C4, c = e % C4;
+    const bool ok = r0 + r < rows && c * 4 < d;
+    lg_cp_async16(dst + (r * P + c * 4) * 4,
+                  ok ? src + (size_t)(r0 + r) * d + c * 4 : src, ok ? 16 : 0);
   }
-  const float lse_i = lse[rq], dcap_i = dcap[rq];
-  float rsum = 0.f, psum = 0.f;  // sum_j ds_ij, sum_j p_ij
+}
 
-  int nkt = (limit + BS - 1) / BS;
-  if (causal) nkt = min(nkt, (q0 + C::kRows - 1) / BS + 1);
-  if (q0 >= limit) nkt = 0;  // every query row of the block is padding
-  // the band's lower edge: keys before the first row's band are dead
-  const int kt0 = window > 0 ? max(0, q0 - window + 1) / BS : 0;
-  // this row's valid keys: [klo, khi] (empty for a padded row)
-  const int klo = window > 0 ? qi - window + 1 : 0;
-  const int khi =
-      qi < limit ? (causal ? min(qi, limit - 1) : limit - 1) : -1;
+// x = hi + lo: hi = tf32(x), to nearest; lo = x - hi, exact in f32, of
+// which the tensor core reads the top 19 bits
+__device__ __forceinline__ uint32_t tf32_hi(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_hi(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
 
-  for (int kt = kt0; kt < nkt; ++kt) {
-    const int k0 = kt * BS;
-    __syncthreads();  // the previous tile is no longer read
-    lg_stage<float, D, BS, C::kThreads>(Ks, kb, k0, S, d);
-    lg_stage<float, D, BS, C::kThreads>(Vs, vb, k0, S, d);
-    __syncthreads();
+// c (16 x 8) += A (16 x 8) B (8 x 8), tf32 operands, f32 accumulators.
+// Fragments, thread (g = lane / 4, t = lane % 4): A a0 = (g, t), a1 = (g +
+// 8, t), a2 = (g, t + 4), a3 = (g + 8, t + 4); B b0 = (t, g), b1 = (t + 4,
+// g); C c0, c1 = (g, 2t, 2t + 1), c2, c3 = (g + 8, 2t, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-    for (int j0 = 0; j0 < BS; j0 += kSub) {
-      float s[kSub], dp[kSub];
+// the two small products of the three passes, lo hi + hi lo, which a chain
+// sums in an accumulator of their own, beside the hi hi products' one, the
+// two added in f32 at the end.  The tensor cores truncate every sum to the
+// accumulator's width, so one accumulator for all three would truncate at
+// full size three times a depth step instead of once (against f64, twice
+// the error at Pythia-1B's and Mistral-7B's shapes:
+// scripts/flash_bwd_variants.py's interleaved).
+__device__ __forceinline__ void mma_small(float (&c)[4],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          uint32_t bh0, uint32_t bh1,
+                                          uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+}
+
+// t (16 x 8 NB) = X Y^T over the DW columns from c0, three passes: X the
+// warp's 16 rows of a resident tile, Y the 8 NB rows of a streamed one
+// (shared addresses of their first rows, rows P floats apart), both
+// K-major.  ldmatrix reads an 8 x 4 f32 block as an 8 x 8 b16 matrix,
+// whose fragment (row lane / 4, word lane % 4) is the tf32 one: A is the
+// blocks (rows 0-7, 8-15) x (words 0-3, 4-7), B four 4-word blocks of a
+// row block, two 8-deep steps.  t starts from zero each tile; the small
+// products sum apart (mma_small).
+template <int NB, int DW, int P>
+__device__ __forceinline__ void product_xyt(float (&t)[NB][4], uint32_t x,
+                                            uint32_t y, int c0, int lane) {
+  const uint32_t xa =
+      x + (((lane & 7) + ((lane >> 3) & 1) * 8) * P + c0 + (lane >> 4) * 4) * 4;
+  const uint32_t ya = y + ((lane & 7) * P + c0 + (lane >> 3) * 4) * 4;
+  float ts[NB][4];
 #pragma unroll
-      for (int jj = 0; jj < kSub; ++jj) {
-        float a = 0.f, b = 0.f;
+  for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          a = dot4(qr[c], Ks[j0 + jj][c * TPR + part], a);
-          b = dot4(dor[c], Vs[j0 + jj][c * TPR + part], b);
-        }
-        s[jj] = a;
-        dp[jj] = b;
-      }
+    for (int e = 0; e < 4; ++e) t[nb][e] = ts[nb][e] = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < kSub; ++jj) {
-        s[jj] = group_sum<TPR>(s[jj]);
-        dp[jj] = group_sum<TPR>(dp[jj]);
-      }
+  for (int ks = 0; ks < DW / 8; ks += 2) {
+    uint32_t ah[2][4], al[2][4];
 #pragma unroll
-      for (int jj = 0; jj < kSub; ++jj) {
-        const int kj = k0 + j0 + jj;
-        const bool valid = kj >= klo && kj <= khi;
-        const float p = valid ? expf(s[jj] * scale - lse_i) : 0.f;
-        const float ds = valid ? p * (dp[jj] - dcap_i) : 0.f;
-        rsum += ds;
-        psum += p;
+    for (int h = 0; h < 2; ++h) {
+      uint32_t r[4];
+      lg_tc::ldmatrix_x4(r, xa + (ks + h) * 32);
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float4 kv = Ks[j0 + jj][c * TPR + part];
-          axpy4(ds, kv, acc[c]);
-          axpy4(p, kv, pk[c]);
-        }
-      }
+      for (int j = 0; j < 4; ++j)
+        split_tf32(__uint_as_float(r[j]), ah[h][j], al[h][j]);
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      uint32_t r[4], bh[4], bl[4];
+      lg_tc::ldmatrix_x4(r, ya + (nb * 8 * P + ks * 8) * 4);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        split_tf32(__uint_as_float(r[j]), bh[j], bl[j]);
+      mma_small(ts[nb], ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
+      mma_small(ts[nb], ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
+      mma_tf32(t[nb], ah[0], bh[0], bh[1]);
+      mma_tf32(t[nb], ah[1], bh[2], bh[3]);
     }
   }
-
-  if (qi < S) {
-    // a row with no valid key (padding) has P = 0 and no correction
-    const float corr =
-        psum > 0.f ? rsum / psum - (dlse ? dlse[rq] : 0.f) : 0.f;
-    float* out = dq + ((size_t)bh * S + qi) * d;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      axpy4(-corr, pk[c], acc[c]);
-      const int col = (c * TPR + part) * 4;
-      if (col < d)
-        lg_store4(out + col, make_float4(acc[c].x * scale, acc[c].y * scale,
-                                         acc[c].z * scale, acc[c].w * scale));
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) t[nb][e] += ts[nb][e];
+}
+
+// The slab's WN = 2 warps sum their partial products over d: each writes
+// its two fragments to its words of `xb`, and after the block's barrier adds
+// its partner's.  a + b == b + a in f32, so both hold the same bits.
+template <int NB>
+__device__ __forceinline__ void exchange(float (&s)[NB][4],
+                                         float (&dp)[NB][4], float* xb,
+                                         int warp, int partner, int lane) {
+  constexpr int W = 2 * NB * 4 * 32;  // floats a warp
+  float* mine = xb + warp * W + lane;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      mine[(nb * 4 + e) * 32] = s[nb][e];
+      mine[((NB + nb) * 4 + e) * 32] = dp[nb][e];
     }
-    if (dcap_out && part == 0) dcap_out[rq] = dcap_i + corr;
+  __syncthreads();
+  const float* other = xb + partner * W + lane;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[nb][e] += other[(nb * 4 + e) * 32];
+      dp[nb][e] += other[((NB + nb) * 4 + e) * 32];
+    }
+}
+
+// The A fragments (hi, lo) of the next product from a 16 x 8 KB accumulator
+// fragment f: its columns (2t, 2t + 1) of block kb become the fragment's
+// depths (t, t + 4) -- the product's depth is permuted within each 8, and
+// B's rows are read by the same permutation (accumulate below), so no
+// value moves between threads.
+template <int KB>
+__device__ __forceinline__ void to_a(uint32_t (&hi)[KB][4],
+                                     uint32_t (&lo)[KB][4],
+                                     const float (&f)[KB][4]) {
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) {
+    split_tf32(f[kb][0], hi[kb][0], lo[kb][0]);
+    split_tf32(f[kb][2], hi[kb][1], lo[kb][1]);
+    split_tf32(f[kb][1], hi[kb][2], lo[kb][2]);
+    split_tf32(f[kb][3], hi[kb][3], lo[kb][3]);
+  }
+}
+
+// acc (16 x 8 NN) += F Y, three passes (the small ones apart, mma_small):
+// F the 16 x 8 KB A fragments of to_a, Y the tile's 8 KB rows at this
+// warp's columns, MN-major, read as
+// b0 = Y[8 kb + 2t][8 nb + g], b1 = Y[8 kb + 2t + 1][8 nb + g] (y: the
+// thread's first word, Y + 2t P + g + c0).  Each tile's share starts from
+// zero and is added to acc in f32: the tensor cores truncate as they add,
+// so over a long pass a sum kept in place would drift.  PK: also pk += F'
+// Y in one pass, F' the hi fragments `ph` (the dq pass's sum_j p_ij k_j,
+// which multiplies the small dcap correction).
+template <int KB, int NN, int P, bool PK>
+__device__ __forceinline__ void accumulate(float (&acc)[NN][4],
+                                           float (&pk)[NN][4],
+                                           const uint32_t (&fh)[KB][4],
+                                           const uint32_t (&fl)[KB][4],
+                                           const uint32_t (&ph)[KB][4],
+                                           const float* y) {
+#pragma unroll
+  for (int nb = 0; nb < NN; ++nb) {
+    float part[4] = {0.f, 0.f, 0.f, 0.f}, small[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kb = 0; kb < KB; ++kb) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(y[(8 * kb) * P + 8 * nb], bh0, bl0);
+      split_tf32(y[(8 * kb + 1) * P + 8 * nb], bh1, bl1);
+      mma_small(small, fh[kb], fl[kb], bh0, bh1, bl0, bl1);
+      mma_tf32(part, fh[kb], bh0, bh1);
+      if constexpr (PK) mma_tf32(pk[nb], ph[kb], bh0, bh1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] += part[e] + small[e];
+  }
+}
+
+template <int NN>
+__device__ __forceinline__ void zero_frag(float (&x)[NN][4]) {
+#pragma unroll
+  for (int nb = 0; nb < NN; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[nb][e] = 0.f;
+}
+
+// Row i (0: g, 1: g + 8) of a 16 x 8 NN fragment, times mul, to the
+// columns c0 + 8 nb + 2t, + 1 below d of an f32 row.
+template <int NN>
+__device__ __forceinline__ void store_frag(float* row, const float (&x)[NN][4],
+                                           int i, int c0, int lane, int d,
+                                           float mul) {
+#pragma unroll
+  for (int nb = 0; nb < NN; ++nb) {
+    const int c = c0 + nb * 8 + (lane & 3) * 2;
+    if (c < d)
+      *reinterpret_cast<float2*>(row + c) =
+          make_float2(x[nb][2 * i] * mul, x[nb][2 * i + 1] * mul);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(Cfg<D>::kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ dcap, float* __restrict__ dk,
-                     float* __restrict__ dv, const int* __restrict__ lens, int S,
-                     int G, int d, float scale, int causal, int window) {
-  using C = Cfg<D>;
-  constexpr int TPR = C::TPR, BS = C::BS, D4 = C::D4, NC = C::NC;
-  __shared__ float4 Qs[BS][D4];
-  __shared__ float4 Os[BS][D4];  // dO
-  __shared__ float Ls[BS];       // lse
-  __shared__ float Ds[BS];       // dcap
+__global__ void __launch_bounds__(F32Tc<D>::kThreads, F32Tc<D>::kMinBlocks)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ dcap,
+                         const float* __restrict__ dlse, float* __restrict__ dq,
+                         float* __restrict__ dcap_out,
+                         const int* __restrict__ lens, int S, int G, int d,
+                         float scale, int causal, int window) {
+  using C = F32Tc<D>;
+  constexpr int BR = C::BR, BK = C::BK, NT = C::kThreads, P = C::P;
+  constexpr int NB = BK / 8, NN = C::DW / 8;
+  extern __shared__ float4 smem_f4[];
+  float* const sQ = reinterpret_cast<float*>(smem_f4);
+  float* const sO = sQ + BR * P;
+  float* const ring = sO + BR * P;  // stage s: K, then V
+  float* const xb = ring + 4 * BK * P;
+  const uint32_t uQ = lg_smem_u32(sQ), uO = lg_smem_u32(sO);
+  const uint32_t uR = lg_smem_u32(ring);
 
-  const int bkv = blockIdx.y;
-  const int k0 = blockIdx.x * C::kRows;
-  const int t = threadIdx.x;
-  const int row = t / TPR, part = t % TPR;
-  const int kj = k0 + row;
-  const size_t rk = (size_t)bkv * S + min(kj, S - 1);
+  const int bh = blockIdx.x;
+  // causal: the heaviest Q tiles (the last) first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BR, q1 = q0 + BR - 1;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int slab = warp % C::SLABS, c0 = (warp / C::SLABS) * C::DW;
+  const int limit = lens ? max(0, min(lens[bh], S)) : S;
+  const float* kb = k + (size_t)(bh / G) * S * d;
+  const float* vb = v + (size_t)(bh / G) * S * d;
+  const float scale_log2 = scale * kLog2e;
 
-  float4 kr[NC], vr[NC], dka[NC], dva[NC];
+  int nkt = (limit + BK - 1) / BK;
+  if (causal) nkt = min(nkt, q1 / BK + 1);
+  if (q0 >= limit) nkt = 0;  // every row of the block is padding
+  // the band's lower edge: keys before the first row's band are dead
+  const int kt0 = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+
+  // this thread's two query rows: valid keys [klo, khi] (none for a padded
+  // row), lse in base 2, dcap
+  const int r0 = q0 + slab * 16 + lane / 4;
+  int klo[2], khi[2];
+  float lse2[2], dc[2];
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    kr[c] = load_cols(k + rk * d, (c * TPR + part) * 4, d);
-    vr[c] = load_cols(v + rk * d, (c * TPR + part) * 4, d);
-    dka[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-    dva[c] = dka[c];
+  for (int i = 0; i < 2; ++i) {
+    const int qi = r0 + 8 * i;
+    klo[i] = window > 0 ? qi - window + 1 : 0;
+    khi[i] = qi < limit ? (causal ? min(qi, limit - 1) : limit - 1) : -1;
+    const size_t r = (size_t)bh * S + min(qi, S - 1);
+    lse2[i] = lse[r] * kLog2e;
+    dc[i] = dcap[r];
   }
 
-  // causal: query tiles wholly before this key block see none of its keys
-  const int qt0 = causal ? k0 / BS : 0;
+  auto stage_kv = [&](int kt, int s) {
+    stage_f32<BK, D, NT>(uR + s * 2 * BK * P * 4, kb, kt * BK, S, d);
+    stage_f32<BK, D, NT>(uR + (2 * s + 1) * BK * P * 4, vb, kt * BK, S, d);
+  };
+  if (kt0 < nkt) {
+    stage_f32<BR, D, NT>(uQ, q + (size_t)bh * S * d, q0, S, d);
+    stage_f32<BR, D, NT>(uO, dout + (size_t)bh * S * d, q0, S, d);
+    stage_kv(kt0, 0);
+    lg_cp_async_commit();
+  }
 
-  for (int g = 0; g < G; ++g) {
-    const int bh = bkv * G + g;
+  float acc[NN][4], pk[NN][4];  // dQ; sum_j p_ij k_j (the dcap refinement)
+  zero_frag(acc);
+  zero_frag(pk);
+  float rsum[2] = {0.f, 0.f}, psum[2] = {0.f, 0.f};  // sum_j ds_ij, p_ij
+  for (int kt = kt0; kt < nkt; ++kt) {
+    const int s = (kt - kt0) & 1;
+    lg_cp_async_wait<0>();
+    __syncthreads();  // tile kt landed; every warp is done with tile kt - 1
+    if (kt + 1 < nkt) {
+      stage_kv(kt + 1, s ^ 1);
+      lg_cp_async_commit();
+    }
+    const uint32_t uK = uR + s * 2 * BK * P * 4, uV = uK + BK * P * 4;
+
+    // S = Q K^T and dP = dO V^T (over this warp's columns; at WN 2 the
+    // slab's two halves summed)
+    float sc[NB][4], dp[NB][4];
+    product_xyt<NB, C::DW, P>(sc, uQ + slab * 16 * P * 4, uK, c0, lane);
+    product_xyt<NB, C::DW, P>(dp, uO + slab * 16 * P * 4, uV, c0, lane);
+    if constexpr (C::WN > 1)
+      exchange<NB>(sc, dp, xb, warp, (warp + C::SLABS) % C::NW, lane);
+
+    // P and dS = P (dP - dcap) in f32; the mask (a select) only where this
+    // tile holds the diagonal, the band's edge, the length or a padded row
+    const int k0 = kt * BK;
+    const bool edge = (causal && k0 + BK - 1 > q0) ||
+                      (window > 0 && k0 < q1 - window + 1) ||
+                      k0 + BK > limit || q1 >= limit;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = exp2f(fmaf(sc[nb][e], scale_log2, -lse2[i]));
+        if (edge) {
+          const int kj = k0 + nb * 8 + (lane & 3) * 2 + (e & 1);
+          if (kj < klo[i] || kj > khi[i]) p = 0.f;
+        }
+        const float ds = p * (dp[nb][e] - dc[i]);
+        psum[i] += p;
+        rsum[i] += ds;
+        sc[nb][e] = p;
+        dp[nb][e] = ds;
+      }
+
+    // dQ += dS K (three passes) and sum_j p_ij k_j += P K (one: it
+    // multiplies the correction, ~1e-3 of dq); K read MN-major
+    uint32_t dh[NB][4], dl[NB][4], ph[NB][4];
+    to_a(dh, dl, dp);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      ph[nb][0] = tf32_hi(sc[nb][0]);
+      ph[nb][1] = tf32_hi(sc[nb][2]);
+      ph[nb][2] = tf32_hi(sc[nb][1]);
+      ph[nb][3] = tf32_hi(sc[nb][3]);
+    }
+    accumulate<NB, NN, P, true>(
+        acc, pk, dh, dl, ph,
+        ring + s * 2 * BK * P + 2 * (lane & 3) * P + lane / 4 + c0);
+  }
+
+  // the rows' sums over the quad's columns, in a fixed order
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], o);
+      rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], o);
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = r0 + 8 * i;
+    if (qi >= S) continue;
+    const size_t r = (size_t)bh * S + qi;
+    // the dcap refinement: c = sum_j ds_ij / sum_j p_ij - dlse_i, dq_i -=
+    // scale c sum_j p_ij k_j; a row with no valid key has P = 0 and none
+    const float corr =
+        psum[i] > 0.f ? rsum[i] / psum[i] - (dlse ? dlse[r] : 0.f) : 0.f;
+#pragma unroll
+    for (int nb = 0; nb < NN; ++nb)
+#pragma unroll
+      for (int e = 2 * i; e < 2 * i + 2; ++e)
+        acc[nb][e] = fmaf(-corr, pk[nb][e], acc[nb][e]);
+    store_frag<NN>(dq + r * d, acc, i, c0, lane, d, scale);
+    if (dcap_out && c0 == 0 && (lane & 3) == 0) dcap_out[r] = dc[i] + corr;
+  }
+}
+
+// dk/dv with `part` (not null): the block of blockIdx.z walks the query
+// heads [z Gs, (z + 1) Gs) of its group, Gs = ceil(G / gridDim.z), and
+// writes f32 dK and dV partials, part[z][0: dk, 1: dv][KV row][S][d], which
+// the caller sums over z in order.
+template <int D>
+__global__ void __launch_bounds__(F32Tc<D>::kThreads, F32Tc<D>::kMinBlocks)
+flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dcap,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          const int* __restrict__ lens,
+                          float* __restrict__ part, int BH, int S, int G,
+                          int d, float scale, int causal, int window) {
+  using C = F32Tc<D>;
+  constexpr int BR = C::BR, BQ = C::BQ, NT = C::kThreads, P = C::P;
+  constexpr int NB = BQ / 8, NN = C::DW / 8, SZ = C::kStageDkv;
+  extern __shared__ float4 smem_f4[];
+  float* const sK = reinterpret_cast<float*>(smem_f4);
+  float* const sV = sK + BR * P;
+  float* const ring = sV + BR * P;  // stage s: Q, dO, lse, dcap
+  float* const xb = ring + 2 * SZ;
+  const uint32_t uK = lg_smem_u32(sK), uV = lg_smem_u32(sV);
+  const uint32_t uR = lg_smem_u32(ring);
+
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int slab = warp % C::SLABS, c0 = (warp / C::SLABS) * C::DW;
+  const int bkv = blockIdx.x, k0 = blockIdx.y * BR;
+  const float scale_log2 = scale * kLog2e;
+
+  // the query tiles [qa, qe) of head g whose rows see a key of this block
+  auto span = [&](int g, int& qa, int& qe) {
+    const int limit = lens ? max(0, min(lens[bkv * G + g], S)) : S;
+    qa = causal ? k0 / BQ : 0;
+    const int qend = window > 0 ? min(limit, k0 + BR - 1 + window) : limit;
+    qe = k0 < limit ? (qend + BQ - 1) / BQ : qa;
+  };
+  // Q, dO, lse and dcap of tile qt of head g into stage s
+  auto stage = [&](int g, int qt, int s) {
+    const int bh = bkv * G + g, q0 = qt * BQ;
+    const uint32_t st = uR + s * SZ * 4;
+    stage_f32<BQ, D, NT>(st, q + (size_t)bh * S * d, q0, S, d);
+    stage_f32<BQ, D, NT>(st + BQ * P * 4, dout + (size_t)bh * S * d, q0, S,
+                         d);
+    if (t < BQ) {
+      const bool in = q0 + t < S;
+      const size_t r = (size_t)bh * S + (in ? q0 + t : 0);
+      lg_cp_async4(st + (2 * BQ * P + t) * 4, lse + r, in ? 4 : 0);
+      lg_cp_async4(st + (2 * BQ * P + BQ + t) * 4, dcap + r, in ? 4 : 0);
+    }
+  };
+
+  // the (head, tile) walk over the G query heads of the group (TPU: the
+  // inner grid index over (head, q block) pairs), from its first tile
+  const int gs = (G + gridDim.z - 1) / gridDim.z;
+  const int g_end = min(G, (int)(blockIdx.z + 1) * gs);
+  int g = blockIdx.z * gs, qt, qe;
+  if (g < g_end) span(g, qt, qe);
+  while (g < g_end && qt >= qe && ++g < g_end) span(g, qt, qe);
+  if (g < g_end) {
+    stage_f32<BR, D, NT>(uK, k + (size_t)bkv * S * d, k0, S, d);
+    stage_f32<BR, D, NT>(uV, v + (size_t)bkv * S * d, k0, S, d);
+    stage(g, qt, 0);
+    lg_cp_async_commit();
+  }
+
+  float dka[NN][4], dva[NN][4];
+  zero_frag(dka);
+  zero_frag(dva);
+  const int j0 = k0 + slab * 16 + lane / 4;  // this thread's keys j0, + 8
+  for (int it = 0; g < g_end; ++it) {
+    const int s = it & 1;
+    lg_cp_async_wait<0>();
+    __syncthreads();  // this tile landed; every warp is done with the last
+    int ng = g, nqt = qt + 1, nqe = qe;
+    while (nqt >= nqe && ++ng < g_end) span(ng, nqt, nqe);
+    if (ng < g_end) {
+      stage(ng, nqt, s ^ 1);
+      lg_cp_async_commit();
+    }
+
+    const int bh = bkv * G + g, q0 = qt * BQ;
     const int limit = lens ? max(0, min(lens[bh], S)) : S;
-    if (k0 >= limit) continue;  // this head sees none of the block's keys
-    // window: rows past k0 + kRows - 1 + window - 1 see none of its keys
-    const int qend =
-        window > 0 ? min(limit, k0 + C::kRows - 1 + window) : limit;
-    const int nqt = (qend + BS - 1) / BS;
-    // the query rows that see this thread's key: [qlo, qhi]
-    const int qlo = causal ? kj : 0;
-    const int qhi = kj < limit ? (window > 0 ? min(limit - 1, kj + window - 1)
-                                             : limit - 1)
-                               : -1;
-    const float* qb = q + (size_t)bh * S * d;
-    const float* ob = dout + (size_t)bh * S * d;
-    for (int qt = qt0; qt < nqt; ++qt) {
-      const int q0 = qt * BS;
-      __syncthreads();  // the previous tile is no longer read
-      lg_stage<float, D, BS, C::kThreads>(Qs, qb, q0, S, d);
-      lg_stage<float, D, BS, C::kThreads>(Os, ob, q0, S, d);
-      for (int r = t; r < BS; r += C::kThreads) {
-        const bool in = q0 + r < S;
-        Ls[r] = in ? lse[(size_t)bh * S + q0 + r] : 0.f;
-        Ds[r] = in ? dcap[(size_t)bh * S + q0 + r] : 0.f;
-      }
-      __syncthreads();
+    const float* sQ = ring + s * SZ;
+    const float* sO = sQ + BQ * P;
+    const float* Ls = sO + BQ * P;  // lse of the tile's rows
+    const float* Ds = Ls + BQ;      // dcap
 
-      for (int i0 = 0; i0 < BS; i0 += kSub) {
-        float s[kSub], dp[kSub];
+    // S^T = K Q^T and dP^T = V dO^T
+    float st[NB][4], dpt[NB][4];
+    product_xyt<NB, C::DW, P>(st, uK + slab * 16 * P * 4, lg_smem_u32(sQ),
+                              c0, lane);
+    product_xyt<NB, C::DW, P>(dpt, uV + slab * 16 * P * 4, lg_smem_u32(sO),
+                              c0, lane);
+    if constexpr (C::WN > 1)
+      exchange<NB>(st, dpt, xb, warp, (warp + C::SLABS) % C::NW, lane);
+
+    // P^T, and dS^T = P^T (dP^T - dcap); lse and dcap run along the
+    // columns.  The mask (a select) only where this tile holds the
+    // diagonal, the band's edge or the length.
+    const bool edge = (causal && q0 < k0 + BR - 1) ||
+                      (window > 0 && q0 + BQ - 1 - k0 >= window) ||
+                      q0 + BQ > limit || k0 + BR > limit;
+    int qlo[2], qhi[2];
 #pragma unroll
-        for (int ii = 0; ii < kSub; ++ii) {
-          float a = 0.f, b = 0.f;
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            a = dot4(kr[c], Qs[i0 + ii][c * TPR + part], a);
-            b = dot4(vr[c], Os[i0 + ii][c * TPR + part], b);
-          }
-          s[ii] = a;
-          dp[ii] = b;
-        }
-#pragma unroll
-        for (int ii = 0; ii < kSub; ++ii) {
-          s[ii] = group_sum<TPR>(s[ii]);
-          dp[ii] = group_sum<TPR>(dp[ii]);
-        }
-#pragma unroll
-        for (int ii = 0; ii < kSub; ++ii) {
-          const int qi = q0 + i0 + ii;
-          const bool valid = qi >= qlo && qi <= qhi;
-          const float p = valid ? expf(s[ii] * scale - Ls[i0 + ii]) : 0.f;
-          const float ds = valid ? p * (dp[ii] - Ds[i0 + ii]) : 0.f;
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            axpy4(p, Os[i0 + ii][c * TPR + part], dva[c]);
-            axpy4(ds, Qs[i0 + ii][c * TPR + part], dka[c]);
-          }
-        }
-      }
+    for (int i = 0; i < 2; ++i) {
+      const int j = j0 + 8 * i;
+      qlo[i] = causal ? j : 0;
+      qhi[i] = j < limit ? (window > 0 ? min(limit - 1, j + window - 1)
+                                       : limit - 1)
+                         : -1;
     }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, c = nb * 8 + (lane & 3) * 2 + (e & 1);
+        float p = exp2f(fmaf(st[nb][e], scale_log2, -Ls[c] * kLog2e));
+        if (edge && (q0 + c < qlo[i] || q0 + c > qhi[i])) p = 0.f;
+        st[nb][e] = p;
+        dpt[nb][e] = p * (dpt[nb][e] - Ds[c]);
+      }
+
+    // dV += P^T dO and dK += dS^T Q, three passes each; dO and Q read
+    // MN-major
+    const int y0 = 2 * (lane & 3) * P + lane / 4 + c0;
+    uint32_t fh[NB][4], fl[NB][4];
+    to_a(fh, fl, st);
+    accumulate<NB, NN, P, false>(dva, dva, fh, fl, fh, sO + y0);
+    to_a(fh, fl, dpt);
+    accumulate<NB, NN, P, false>(dka, dka, fh, fl, fh, sQ + y0);
+
+    g = ng;
+    qt = nqt;
+    qe = nqe;
   }
 
-  if (kj < S) {
-    float* dkr = dk + ((size_t)bkv * S + kj) * d;
-    float* dvr = dv + ((size_t)bkv * S + kj) * d;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = (c * TPR + part) * 4;
-      if (col >= d) continue;
-      lg_store4(dkr + col, make_float4(dka[c].x * scale, dka[c].y * scale,
-                                       dka[c].z * scale, dka[c].w * scale));
-      lg_store4(dvr + col, dva[c]);
+  for (int i = 0; i < 2; ++i) {
+    const int j = j0 + 8 * i;
+    if (j >= S) continue;
+    const size_t r = ((size_t)bkv * S + j) * d;
+    float *krow = dk + r, *vrow = dv + r;
+    if (part) {
+      const size_t slab_sz = (size_t)(BH / G) * S * d;  // one (KV, S, d)
+      krow = part + 2 * blockIdx.z * slab_sz + r;
+      vrow = krow + slab_sz;
     }
+    store_frag<NN>(krow, dka, i, c0, lane, d, scale);
+    store_frag<NN>(vrow, dva, i, c0, lane, d, 1.f);
   }
 }
 
@@ -422,38 +793,6 @@ struct BwdArgs {
   float scale;
   int causal, window, gsplit;
 };
-
-template <int D>
-int launch_dq(const BwdArgs& a, cudaStream_t stream) {
-  dim3 grid((a.S + Cfg<D>::kRows - 1) / Cfg<D>::kRows, a.BH);
-  flash_bwd_dq_kernel<D><<<grid, Cfg<D>::kThreads, 0, stream>>>(
-      (const float*)a.q, (const float*)a.k, (const float*)a.v,
-      (const float*)a.dout, (const float*)a.lse, (const float*)a.dcap,
-      (const float*)a.dlse, (float*)a.dq, (float*)a.dcap_out,
-      (const int*)a.lens, a.S, a.G, a.d, a.scale, a.causal, a.window);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_dkv(const BwdArgs& a, cudaStream_t stream) {
-  dim3 grid((a.S + Cfg<D>::kRows - 1) / Cfg<D>::kRows, a.BH / a.G);
-  flash_bwd_dkv_kernel<D><<<grid, Cfg<D>::kThreads, 0, stream>>>(
-      (const float*)a.q, (const float*)a.k, (const float*)a.v,
-      (const float*)a.dout, (const float*)a.lse, (const float*)a.dcap,
-      (float*)a.dk, (float*)a.dv, (const int*)a.lens, a.S, a.G, a.d,
-      a.scale, a.causal, a.window);
-  return (int)cudaGetLastError();
-}
-
-// The f32 pass `dkv` (0: dq, 1: dk/dv) at the narrowest instantiation that
-// holds d columns.
-int launch_pass_f32(int dkv, const BwdArgs& a, cudaStream_t st) {
-  if (a.d <= 32) return dkv ? launch_dkv<32>(a, st) : launch_dq<32>(a, st);
-  if (a.d <= 64) return dkv ? launch_dkv<64>(a, st) : launch_dq<64>(a, st);
-  if (a.d <= 128)
-    return dkv ? launch_dkv<128>(a, st) : launch_dq<128>(a, st);
-  return dkv ? launch_dkv<256>(a, st) : launch_dq<256>(a, st);
-}
 
 // Shared memory of the f32 fused kernel, in bytes: the streamed Q and dO
 // tiles, the block's K rows (f32), the tile's ds with a padded row, lse
@@ -622,7 +961,6 @@ flash_bwd_fused_kernel(const float* __restrict__ q,
 // ---- bfloat16: the tensor-core kernels ----------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Tc {
@@ -1138,6 +1476,55 @@ int smem_limit(K kernel, int bytes, bool& done) {
 }
 
 template <int D>
+int launch_dq_tf32(const BwdArgs& a, cudaStream_t st) {
+  using C = F32Tc<D>;
+  static bool sized = false;
+  if (int e = smem_limit(flash_bwd_dq_tf32_kernel<D>, C::kSmemDq, sized))
+    return e;
+  const int nq = (a.S + C::BR - 1) / C::BR;
+  if (nq > 65535) return (int)cudaErrorInvalidValue;
+  flash_bwd_dq_tf32_kernel<D><<<dim3(a.BH, nq), C::kThreads, C::kSmemDq, st>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const float*)a.dout, (const float*)a.lse, (const float*)a.dcap,
+      (const float*)a.dlse, (float*)a.dq, (float*)a.dcap_out,
+      (const int*)a.lens, a.S, a.G, a.d, a.scale, a.causal, a.window);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_tf32(const BwdArgs& a, cudaStream_t st) {
+  using C = F32Tc<D>;
+  static bool sized = false;
+  if (int e = smem_limit(flash_bwd_dkv_tf32_kernel<D>, C::kSmemDkv, sized))
+    return e;
+  const int nk = (a.S + C::BR - 1) / C::BR;
+  if (nk > 65535 || a.gsplit < 1 || a.gsplit > a.G ||
+      (a.gsplit > 1) != (a.part != nullptr))
+    return (int)cudaErrorInvalidValue;
+  flash_bwd_dkv_tf32_kernel<D>
+      <<<dim3(a.BH / a.G, nk, a.gsplit), C::kThreads, C::kSmemDkv, st>>>(
+          (const float*)a.q, (const float*)a.k, (const float*)a.v,
+          (const float*)a.dout, (const float*)a.lse, (const float*)a.dcap,
+          (float*)a.dk, (float*)a.dv, (const int*)a.lens, (float*)a.part,
+          a.BH, a.S, a.G, a.d, a.scale, a.causal, a.window);
+  return (int)cudaGetLastError();
+}
+
+// The f32 pass `dkv` (0: dq, 1: dk/dv) at the narrowest instantiation that
+// holds d columns.
+int launch_pass_f32(int dkv, const BwdArgs& a, cudaStream_t st) {
+  if (a.d <= 32)
+    return dkv ? launch_dkv_tf32<32>(a, st) : launch_dq_tf32<32>(a, st);
+  if (a.d <= 64)
+    return dkv ? launch_dkv_tf32<64>(a, st) : launch_dq_tf32<64>(a, st);
+  if (a.d <= 96)
+    return dkv ? launch_dkv_tf32<96>(a, st) : launch_dq_tf32<96>(a, st);
+  if (a.d <= 128)
+    return dkv ? launch_dkv_tf32<128>(a, st) : launch_dq_tf32<128>(a, st);
+  return dkv ? launch_dkv_tf32<256>(a, st) : launch_dq_tf32<256>(a, st);
+}
+
+template <int D>
 int launch_dq_tc(const BwdArgs& a, cudaStream_t st) {
   static bool sized = false;
   if (int e = smem_limit(flash_bwd_dq_tc_kernel<D>, Tc<D>::kSmemDq, sized))
@@ -1183,7 +1570,6 @@ int launch_pass_bf16(int dkv, const BwdArgs& a, cudaStream_t st) {
 
 int run_pass(int dkv, const BwdArgs& a, int is_bf16, void* stream) {
   if (a.d % 8 != 0 || a.d < 8 || a.d > 256) return (int)cudaErrorInvalidValue;
-  if (!is_bf16 && (a.gsplit != 1 || a.part)) return (int)cudaErrorInvalidValue;
   if (a.BH <= 0 || a.S <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   return is_bf16 ? launch_pass_bf16(dkv, a, st) : launch_pass_f32(dkv, a, st);
@@ -1264,9 +1650,8 @@ int lg_flash_bwd_dq(const void* q, const void* k, const void* v,
   return run_pass(0, a, is_bf16, stream);
 }
 
-// `part`: null, or (bf16 only) where `gsplit` > 1 blocks a KV row write
-// their f32 dk and dv partials, (gsplit, 2, BH / G, S, D), for the caller
-// to sum.
+// `part`: null, or where `gsplit` > 1 blocks a KV row write their f32 dk
+// and dv partials, (gsplit, 2, BH / G, S, D), for the caller to sum.
 int lg_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* dcap,
                      void* dk, void* dv, void* part, const void* lens, int BH,

@@ -5,8 +5,9 @@ Counterpart of ``lightgrad_tpu/ops/attention.py``.  On CUDA tensors
 flash-forward kernel (``csrc/flash_fwd.cu``: bfloat16 on the tensor cores,
 float32 on the CUDA cores) and :func:`attention_bwd` the
 flash backward (``csrc/flash_bwd.cu``): the two passes, the dq pass
-:func:`attention_bwd_dq` and the dk/dv pass :func:`attention_bwd_dkv`, or,
-after ``set_flash_fused(True)`` and where its rule allows, the fused kernel
+:func:`attention_bwd_dq` and the dk/dv pass :func:`attention_bwd_dkv` (both
+dtypes on the tensor cores, float32 as three tf32 passes), or, after
+``set_flash_fused(True)`` and where its rule allows, the fused kernel
 :func:`attention_bwd_fused` (bfloat16 on the tensor cores, float32 on the
 CUDA cores, as the forward).  All three kernels take per-row ``lengths``;
 the forward and the two passes take a causal sliding ``window``, and all
@@ -31,7 +32,8 @@ __all__ = ["attention_fwd", "attention_fwd_res", "attention_fwd_reference",
            "attention_bwd", "attention_bwd_dq", "attention_bwd_dkv",
            "attention_bwd_fused", "attention_bwd_fused_reference",
            "attention_bwd_passes_reference", "attention_bwd_reference",
-           "dkv_splits", "fused_rows", "set_flash_fused",
+           "attention_bwd_tf32x3_reference", "dkv_splits", "fused_rows",
+           "set_flash_fused",
            "flash_block_fwd", "flash_block_bwd", "flash_block_reference"]
 
 _NEG_INF = -1e30
@@ -231,6 +233,50 @@ def attention_bwd_passes_reference(g, q, k, v, out, lse, scale: float,
                                window=window)[:3]
 
 
+def attention_bwd_tf32x3_reference(g, q, k, v, out, lse, scale: float,
+                                   causal: bool = False, lengths=None,
+                                   window: int = 0, dlse=None, product=None):
+    """Plain PyTorch (dq, dk, dv) of the float32 passes' tensor-core
+    arithmetic, for the tests: the arithmetic of
+    :func:`attention_bwd_passes_reference` in float32 (dcap refined by the
+    dq pass) with every product -- s = q k^T, dp = g v^T, dq = ds k, dk =
+    ds^T q and dv = p^T g, the last two over the group's query heads at
+    once -- by ``product`` (default ``matmul_tf32x3_reference``: hi =
+    tf32(x), lo = tf32(x - hi), hi hi + hi lo + lo hi)."""
+    from .matmul import matmul_tf32x3_reference
+
+    mm = product or matmul_tf32x3_reference
+    dcap, dlse = _dcap(g, out, dlse)
+    (b, bkv, s, d), q4, (k3, v3) = _grouped(q, k, v)
+    groups = b // bkv
+    g4 = g.reshape(q4.shape).float()
+    kt, vt = (t.unsqueeze(1).transpose(-1, -2) for t in (k3, v3))
+    p = torch.exp(mm(q4, kt) * scale
+                  - lse.reshape(bkv, groups, s, 1).float())
+    dcap = dcap.reshape(bkv, groups, s, 1)
+    ds = p * (mm(g4, vt) - dcap)
+    keys, rows = _masks(bkv, groups, s, q.device, causal, lengths, window)
+    for m in (keys, rows):
+        if m is not None:       # select: masked scores may overflow exp
+            p, ds = torch.where(m, p, 0.0), torch.where(m, ds, 0.0)
+    psum = p.sum(-1, keepdim=True)
+    corr = ds.sum(-1, keepdim=True) / psum.clamp_min(1e-30)
+    if dlse is not None:
+        corr = corr - dlse.reshape(corr.shape)
+    ds = ds - torch.where(psum > 0, corr, 0.0) * p
+
+    def over_heads(x, y):
+        # (bkv, G, s, s) and (bkv, G, s, d): x^T y summed over the heads
+        return mm(x.permute(0, 3, 1, 2).reshape(bkv, s, groups * s),
+                  y.reshape(bkv, groups * s, d))
+
+    dq = mm(ds, k3.unsqueeze(1)) * scale
+    dk = over_heads(ds, q4) * scale
+    dv = over_heads(p, g4)
+    return (dq.to(q.dtype).reshape(q.shape), dk.to(k.dtype).reshape(k.shape),
+            dv.to(v.dtype).reshape(v.shape))
+
+
 def _check(fn, q, k, v, **same_as_q):
     """Validate a CUDA call; returns (b, bkv, s, d)."""
     s, d = q.shape[-2], q.shape[-1]
@@ -321,7 +367,7 @@ def _bwd_launch(entry, fn, g, q, k, v, lse, dcap, scale, causal, lengths,
 
 
 def dkv_splits(kv_rows: int, groups: int, s: int, sms: int) -> int:
-    """Blocks that share a KV row's query heads in the bf16 dk/dv pass: the
+    """Blocks that share a KV row's query heads in the dk/dv pass: the
     fewest (a divisor of G) that bring its grid of KV rows x 64-key blocks
     to two blocks an SM, or G.  Each writes f32 dk / dv partials, summed
     after the kernel in order."""
@@ -336,11 +382,11 @@ def attention_bwd_dq(g, q, k, v, lse, dcap, scale: float,
     """dq of the flash backward given the forward's ``lse`` and
     ``dcap = rowsum(g * out) - dlse`` (f32, B*S; ``dlse``, lse's cotangent,
     where there is one): the dq kernel on CUDA, its plain version (the same
-    arithmetic from lse and dcap) on CPU.  In float32 the pass refines
-    dcap against its own p and dp, which corrects dq; ``dcap_out`` (f32,
-    B*S) receives the refined dcap, which the dk/dv pass should take.  In
-    bfloat16 (the tensor-core kernel) it takes dcap as given, as the TPU
-    kernel does, and ``dcap_out`` receives dcap."""
+    arithmetic from lse and dcap) on CPU.  In float32 (three tf32 passes a
+    product) the pass refines dcap against its own p and dp, which
+    corrects dq; ``dcap_out`` (f32, B*S) receives the refined dcap, which
+    the dk/dv pass should take.  In bfloat16 it takes dcap as given, as the
+    TPU kernel does, and ``dcap_out`` receives dcap."""
     if not q.is_cuda:
         dq, _, _, refined = _bwd_from_residuals(
             g, q, k, v, lse, dcap, scale, causal, lengths,
@@ -359,17 +405,16 @@ def attention_bwd_dq(g, q, k, v, lse, dcap, scale: float,
 def attention_bwd_dkv(g, q, k, v, lse, dcap, scale: float,
                       causal: bool = False, lengths=None, window: int = 0):
     """(dk, dv) of the flash backward, as :func:`attention_bwd_dq`; dcap is
-    taken as given (the dq pass's, on the backward's path).  In bfloat16
-    with few KV rows the query heads of a group are shared over
-    :func:`dkv_splits` blocks, whose f32 partials are summed after the
-    kernel in order."""
+    taken as given (the dq pass's, on the backward's path).  With few KV
+    rows the query heads of a group are shared over :func:`dkv_splits`
+    blocks, whose f32 partials are summed after the kernel in order."""
     if not q.is_cuda:
         return _bwd_from_residuals(g, q, k, v, lse, dcap, scale, causal,
                                    lengths, window=window)[1:3]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     kv_rows, s = prod(k.shape[:-2]), q.shape[-2]
     splits, part = 1, None
-    if q.dtype == torch.bfloat16 and prod(q.shape[:-2]) > kv_rows:
+    if prod(q.shape[:-2]) > kv_rows:
         splits = dkv_splits(
             kv_rows, prod(q.shape[:-2]) // kv_rows, s,
             torch.cuda.get_device_properties(q.device).multi_processor_count)

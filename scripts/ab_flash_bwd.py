@@ -18,14 +18,19 @@ JSON line:
   takes them (else null): Mistral-7B's layer (32 x 8192 x 128, 8 KV
   heads, window 4096) and Gemma-2B's (8 x 8192 x 256, 1 KV head);
 - the backward's pieces by CUDA graph (device time of 10 replayed calls) at
-  the shapes of PERF.md's rows 8, 8D, 8W, 9 and 9D, float32 and bfloat16:
-  the dq pass, the dk/dv pass and, where G is 1, the fused kernel (with its
-  dq sum and cast); PyTorch's SDPA backward (dq, dk, dv in one
-  ``torch.autograd.grad``) beside them, its eager time too;
-- GPT-2 small (published widths, random weights from seed 0), bf16
-  ``MixedPrecision`` + AdamW on 8 x 1024 random tokens: tok/s as the median
-  of steps 2-N and the peak memory, with the two-pass backward, and with the
-  fused one where the checkout has it.
+  the shapes of PERF.md's rows 8, 8D, 8W, 9 and 9D, causal, and BERT-base's
+  lengths shape (96 x 128 x 64, lengths 64-128, not causal), float32 and
+  bfloat16: the dq pass, the dk/dv pass and, where G is 1 and there are no
+  lengths, the fused kernel (with its dq sum and cast); PyTorch's SDPA
+  backward (dq, dk, dv in one ``torch.autograd.grad``) beside them, its
+  eager time too; in float32 also each pass's largest error against the
+  float64 backward of its first KV group (four heads where G is 1), over
+  max(1, the largest |element|) and over the reference's rms;
+- GPT-2 small (published widths, random weights from seed 0) on 8 x 1024
+  random tokens: tok/s as the median of steps 2-N and the peak memory, in
+  float32 with Adam (the two-pass backward), and in bf16 ``MixedPrecision``
+  + AdamW with the two-pass backward and, where the checkout has it, the
+  fused one.
 
 Run it for two checkouts in the order A, B, B, A within one machine to
 compare them; each run is its own process.
@@ -86,34 +91,97 @@ def graph_ms(fn, iters=10):
     return start.elapsed_time(end) / iters
 
 
-# (row, query heads, KV heads, S, head dim, window): PERF.md's rows 8 / 9
-# (GPT-2 small at batch 8), 8D (16 x 1024 x 256, 2 KV heads), 9D
-# (Pythia-1B's and Pythia-2.8B's layers) and 8W (Mistral-7B's layer)
-BWD_ROWS = (("8_9_gpt2", 96, 96, 1024, 64, 0),
-            ("8D_d256", 16, 2, 1024, 256, 0),
-            ("9D_pythia1b", 16, 16, 2048, 256, 0),
-            ("9D_pythia2p8b", 32, 32, 2048, 80, 0),
-            ("8W_mistral", 32, 8, 8192, 128, 4096))
+# (row, query heads, KV heads, S, head dim, window, causal, lengths):
+# PERF.md's rows 8 / 9 (GPT-2 small at batch 8), 8D (16 x 1024 x 256, 2 KV
+# heads; 64 x 64 x 32, G 2), 9D (Pythia-1B's and Pythia-2.8B's layers), 8W
+# (Mistral-7B's layer) and 8's lengths shape (BERT-base, 8 x 12 heads)
+BWD_ROWS = (("8_9_gpt2", 96, 96, 1024, 64, 0, True, False),
+            ("8D_d256", 16, 2, 1024, 256, 0, True, False),
+            ("9D_pythia1b", 16, 16, 2048, 256, 0, True, False),
+            ("9D_pythia2p8b", 32, 32, 2048, 80, 0, True, False),
+            ("8W_mistral", 32, 8, 8192, 128, 4096, True, False),
+            ("8D_d32", 64, 32, 64, 32, 0, True, False),
+            ("8_lengths", 96, 96, 128, 64, 0, False, True))
 
 
-def sdpa_backward_ms(q, k, v, do, window):
+def bert_lengths(h, s, dev):
+    """chip_smoke.py's BERT lengths: 8 examples of s // 2 to s valid rows
+    (the first full), each repeated over its h / 8 heads."""
+    import numpy as np
+
+    lens = np.random.default_rng(0).integers(s // 2, s + 1, size=8)
+    lens[0] = s
+    return torch.as_tensor(lens, device=dev,
+                           dtype=torch.int32).repeat_interleave(h // 8)
+
+
+def bwd_f64(do, q, k, v, sc, causal, lengths=None, window=0):
+    """(dq, dk, dv) of softmax(q k^T sc) v in float64, by the recompute
+    backward's formulas: q, do (H, S, d); k, v (KV, S, d), grouped; padded
+    query rows and keys (``lengths``) get zero gradients."""
+    H, S, d = q.shape
+    KV = k.shape[0]
+    q4, g4 = (t.double().reshape(KV, H // KV, S, d) for t in (q, do))
+    k3, v3 = k.double(), v.double()
+    i = torch.arange(S, device=q.device)
+    valid = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        valid = i[None, :] <= i[:, None]
+        if window:
+            valid = valid & (i[:, None] - i[None, :] < window)
+    valid = valid.expand(KV, H // KV, S, S)
+    if lengths is not None:
+        ok = (i[None, :] < lengths.reshape(H, 1).long()).reshape(
+            KV, H // KV, S)
+        valid = valid & ok[..., None, :] & ok[..., :, None]
+    s = torch.einsum("bgqd,bkd->bgqk", q4, k3) * sc
+    p = torch.softmax(s.masked_fill(~valid, float("-inf")), -1)
+    p = torch.where(valid, p, 0.0)       # rows with no valid key: zeros
+    del s
+    dp = torch.einsum("bgqd,bkd->bgqk", g4, v3)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    del dp
+    return (torch.einsum("bgqk,bkd->bgqd", ds, k3).reshape(q.shape) * sc,
+            torch.einsum("bgqk,bgqd->bkd", ds, q4) * sc,
+            torch.einsum("bgqk,bgqd->bkd", p, g4))
+
+
+def f64_errors(q, k, v, do, sc, causal, window, lengths, got, over="max"):
+    """Largest error of each of got's (dq, dk, dv) against :func:`bwd_f64`
+    of the first KV group (four query heads where G is 1), over max(1, the
+    largest |element|), or with ``over`` "rms" over the reference's rms."""
+    G = q.shape[0] // k.shape[0]
+    n, kv = (G, 1) if G > 1 else (4, 4)
+    want = bwd_f64(do[:n], q[:n], k[:kv], v[:kv], sc, causal,
+                   None if lengths is None else lengths[:n], window)
+    scale = [w.pow(2).mean().sqrt() if over == "rms"
+             else w.abs().max().clamp_min(1.0) for w in want]
+    return [((a[:m].double() - w).abs().max() / sc_).item()
+            for a, w, m, sc_ in zip(got, want, (n, kv, kv), scale)]
+
+
+def sdpa_backward_ms(q, k, v, do, window, causal=True, lengths=None):
     """PyTorch's SDPA backward (dq, dk and dv in one
     ``torch.autograd.grad``) at q (H, S, d), k and v (KV, S, d), causal
-    (banded by a boolean mask where ``window``): its CUDA-graph time, as the
-    graph time of forward and backward together less that of the forward
-    alone (a graph captures the backward only with its forward), and its
-    eager time over a retained graph."""
+    (banded by a boolean mask where ``window``) or with a key mask from
+    ``lengths``: its CUDA-graph time, as the graph time of forward and
+    backward together less that of the forward alone (a graph captures the
+    backward only with its forward), and its eager time over a retained
+    graph."""
     import torch.nn.functional as F
 
     s = q.shape[1]
     ts = [t.detach().unsqueeze(0).requires_grad_() for t in (q, k, v)]
     kw = {"enable_gqa": k.shape[0] != q.shape[0]}
-    if window:
+    if lengths is not None:
+        i = torch.arange(s, device=q.device)
+        kw["attn_mask"] = (i[None, :] < lengths[:, None])[None, :, None]
+    elif window:
         i = torch.arange(s, device=q.device)
         kw["attn_mask"] = (i[None, :] <= i[:, None]) & \
             (i[:, None] - i[None, :] < window)
     else:
-        kw["is_causal"] = True
+        kw["is_causal"] = causal
     g = do.unsqueeze(0)
     both = graph_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(*ts, **kw), ts, g))
@@ -133,15 +201,16 @@ def backward_rows(att):
     g = torch.Generator(device=dev).manual_seed(10)
     fused = getattr(att, "set_flash_fused", None)
     res = {}
-    for name, h, kvh, s, hd, window in BWD_ROWS:
+    for name, h, kvh, s, hd, window, causal, bert in BWD_ROWS:
+        lens = bert_lengths(h, s, dev) if bert else None
         for dtype in (torch.float32, torch.bfloat16):
             sc = hd ** -0.5
             q, do = (torch.randn(h, s, hd, generator=g, device=dev).to(dtype)
                      for _ in range(2))
             k, v = (torch.randn(kvh, s, hd, generator=g, device=dev)
                     .to(dtype) for _ in range(2))
-            out, lse = att.attention_fwd_res(q, k, v, sc, True,
-                                             window=window)
+            out, lse = att.attention_fwd_res(q, k, v, sc, causal,
+                                             lengths=lens, window=window)
             dcap = (do.float() * out.float()).sum(-1).contiguous()
             r = {}
 
@@ -152,17 +221,24 @@ def backward_rows(att):
                     r[key] = None
 
             timed("dq_ms", lambda: att.attention_bwd_dq(
-                do, q, k, v, lse, dcap, sc, True, window=window))
+                do, q, k, v, lse, dcap, sc, causal, lens, window=window))
             timed("dkv_ms", lambda: att.attention_bwd_dkv(
-                do, q, k, v, lse, dcap, sc, True, window=window))
-            if kvh == h and fused is not None:
+                do, q, k, v, lse, dcap, sc, causal, lens, window=window))
+            if kvh == h and lens is None and fused is not None:
                 timed("fused_ms", lambda: att.attention_bwd_fused(
                     do, q, k, v, lse, dcap, sc, True))
             try:
                 r["sdpa_bwd_ms"], r["sdpa_bwd_eager_ms"] = sdpa_backward_ms(
-                    q, k, v, do, window)
+                    q, k, v, do, window, causal, lens)
             except RuntimeError:
                 r["sdpa_bwd_ms"] = r["sdpa_bwd_eager_ms"] = None
+            if dtype == torch.float32:
+                got = att.attention_bwd(do, q, k, v, sc, causal, out=out,
+                                        lse=lse, lengths=lens, window=window)
+                r["f64_err_dq_dk_dv"], r["f64_err_rms_dq_dk_dv"] = (
+                    f64_errors(q, k, v, do, sc, causal, window, lens, got,
+                               over) for over in ("max", "rms"))
+                del got
             res[f"{name}_{str(dtype)[6:]}"] = r
             del q, k, v, do, out, lse, dcap
             torch.cuda.empty_cache()
@@ -236,9 +312,9 @@ def llama_forward_times(att):
     return res
 
 
-def train_step(lg, steps):
+def train_step(lg, steps, f32=False):
     """tok/s (median of steps 2-N) and peak GiB of GPT-2 small's bf16
-    MixedPrecision + AdamW step."""
+    MixedPrecision + AdamW step, or with ``f32`` its float32 + Adam step."""
     from lightgrad_tpu_torch import GPT, GPTConfig, amp, optim
     from lightgrad_tpu_torch.loss import cross_entropy
 
@@ -247,8 +323,11 @@ def train_step(lg, steps):
     b, t, vocab = BATCH, cfg.n_positions, cfg.vocab_size
     model = GPT(cfg, device=dev,
                 generator=torch.Generator(device=dev).manual_seed(0))
-    mp = amp.MixedPrecision(model, lambda ps: optim.AdamW(ps, lr=LR),
-                            torch.bfloat16)
+    if f32:
+        mp = optim.Adam(model.parameters(), lr=LR)
+    else:
+        mp = amp.MixedPrecision(model, lambda ps: optim.AdamW(ps, lr=LR),
+                                torch.bfloat16)
     g = torch.Generator(device=dev).manual_seed(11)
     ids = torch.randint(0, vocab, (b, t), generator=g, device=dev)
     tgt = torch.randint(0, vocab, (b * t,), generator=g, device=dev)
@@ -294,6 +373,7 @@ def main():
     rec = {"tree": args.tree, "card": smi, "backward": backward_times(att),
            "backward_rows": backward_rows(att),
            "llama_forward": llama_forward_times(att),
+           "train_f32": train_step(lg, args.steps, f32=True),
            "train_bf16": train_step(lg, args.steps)}
     fused = getattr(att, "set_flash_fused", None)
     if fused is not None:

@@ -15,8 +15,10 @@ from lightgrad_tpu_torch.ops.attention import (attention_bwd,
                                                attention_bwd_fused_reference,
                                                attention_bwd_passes_reference,
                                                attention_bwd_reference,
+                                               attention_bwd_tf32x3_reference,
                                                attention_fwd_res,
                                                attention_fwd_reference,
+                                               dkv_splits,
                                                flash_block_reference,
                                                fused_rows, set_flash_fused)
 from lightgrad_tpu_torch.ops.conv import (conv_bwd, conv_bwd_dw, conv_bwd_dx,
@@ -403,6 +405,54 @@ def test_flash_bwd_tc_kernels(dev, S, G, D, causal, window, lens):
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == b.dtype == bf16
         _close_ulp(a, b, bf16, BWD_TOL)
+    again = attention_bwd(do, q, k, v, sc, causal, out=out, lse=lse,
+                          lengths=lengths, window=window)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if lengths is not None:
+        pad = torch.arange(S, device=dev)[None, :] >= lengths[:, None].long()
+        assert bool((got[0][pad] == 0).all())
+
+
+@pytest.mark.parametrize("S,G,D,causal,window,lens", [
+    (300, 1, 64, True, 0, None), (257, 4, 64, False, 0, "edges"),
+    (200, 1, 128, True, 0, "edges"), (300, 4, 128, True, 64, None),
+    (150, 4, 256, True, 0, None), (100, 1, 256, True, 33, None),
+    (130, 2, 32, True, 0, None), (200, 4, 80, True, 40, None),
+    (129, 2, 80, False, 0, "edges"), (64, 1, 256, False, 0, "edges"),
+    (129, 4, 16, False, 0, "edges")])
+def test_flash_bwd_tf32_kernels(dev, S, G, D, causal, window, lens):
+    """The f32 tensor-core dq and dk/dv passes (three tf32 passes) at every
+    instantiation (D 32, 64, 96, 128, 256) and through a wider one (d 16,
+    80),
+    with lengths of 0, 1 and S, a window, and G 4 with the query heads
+    shared over dkv_splits blocks, against the plain version within
+    TOL[f32]; bit for bit on a rerun; padded rows exactly 0."""
+    g = torch.Generator(device=dev).manual_seed(19 * S + G + D + window)
+    B = 8
+    q, do = (_randn(g, B, S, D) for _ in range(2))
+    k, v = (_randn(g, B // G, S, D) for _ in range(2))
+    lengths = None
+    if lens:
+        lengths = torch.tensor([0, 1, S, S // 2, 3, S - 1, S, 2],
+                               device=dev, dtype=torch.int32)
+    sc = D ** -0.5
+    out, lse = attention_fwd_res(q, k, v, sc, causal, lengths=lengths,
+                                 window=window)
+    reset_launch_counts()
+    got = attention_bwd(do, q, k, v, sc, causal, out=out, lse=lse,
+                        lengths=lengths, window=window)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["attention_bwd_dq"] == counts["attention_bwd_dkv"] == 1
+    if G == 4:      # two KV rows: the dk/dv pass shares out the heads
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert dkv_splits(B // G, G, S, sms) > 1
+    want = attention_bwd_reference(do, q, k, v, sc, causal, lengths=lengths,
+                                   window=window)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+        _close(a, b, torch.float32)
     again = attention_bwd(do, q, k, v, sc, causal, out=out, lse=lse,
                           lengths=lengths, window=window)
     for a, b in zip(got, again):
@@ -1019,7 +1069,7 @@ def test_wrappers_raise_on_what_the_kernels_lack(dev):
 # --- the generic op set of the lightgrad tape --------------------------------
 from lightgrad_tpu_torch.ops.elementwise import ew, ew_reference  # noqa: E402
 from lightgrad_tpu_torch.ops.matmul import (matmul, matmul_reference,  # noqa
-                                            matmul_vjp)
+                                            matmul_vjp, tf32_round)
 from lightgrad_tpu_torch.ops.reduce import reduce, reduce_reference  # noqa
 from lightgrad_tpu_torch.ops.softmax import (softmax_bwd,  # noqa: E402
                                              softmax_bwd_reference,
@@ -1251,6 +1301,45 @@ def test_matmul_f32_is_not_one_tf32_pass(dev):
     bar = max(4 * lib, F32_ULPS)
     assert err <= bar, (err, lib)
     assert tf32 > bar, (tf32, bar)                # the bar tells them apart
+
+
+def _one_tf32_pass(a, b):
+    """One tf32 product: each operand rounded to tf32, summed in f64."""
+    return torch.matmul(tf32_round(a).double(), tf32_round(b).double()).float()
+
+
+@pytest.mark.parametrize("D", [64, 256])
+def test_flash_bwd_f32_is_not_one_tf32_pass(dev, D):
+    """The f32 passes meet the bar that the same arithmetic with one tf32
+    pass a product fails: within TOL[f32] of the float64 backward (the
+    largest error over max(1, the largest |element|))."""
+    g = torch.Generator(device=dev).manual_seed(23 + D)
+    q, do, k, v = (_randn(g, 4, 256, D) for _ in range(4))
+    sc = D ** -0.5
+    out, lse = attention_fwd_res(q, k, v, sc, True)
+    got = attention_bwd(do, q, k, v, sc, True, out=out, lse=lse)
+    one = attention_bwd_tf32x3_reference(do, q, k, v, out, lse, sc, True,
+                                         product=_one_tf32_pass)
+    # the causal backward in float64 (the plain version computes in f32)
+    q4, k4, v4, g4 = (t.double() for t in (q, k, v, do))
+    s = torch.einsum("bqd,bkd->bqk", q4, k4) * sc
+    s = s.masked_fill(torch.ones_like(s[0], dtype=torch.bool).triu(1),
+                      float("-inf"))
+    p = torch.softmax(s, -1)
+    dp = torch.einsum("bqd,bkd->bqk", g4, v4)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    want = (torch.einsum("bqk,bkd->bqd", ds, k4) * sc,
+            torch.einsum("bqk,bqd->bkd", ds, q4) * sc,
+            torch.einsum("bqk,bqd->bkd", p, g4))
+
+    def err(x, w):
+        return ((x.double() - w).abs().max()
+                / w.abs().max().clamp_min(1.0)).item()
+
+    kernel = max(err(a, w) for a, w in zip(got, want))
+    tf32 = max(err(a, w) for a, w in zip(one, want))
+    assert kernel <= TOL[torch.float32], kernel
+    assert tf32 > TOL[torch.float32], tf32       # the bar tells them apart
 
 
 @pytest.mark.parametrize("sa,sb", [((1024, 768), (3072, 768)),
