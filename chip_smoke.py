@@ -74,7 +74,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      flash backward passes (three tf32 passes on the tensor cores) with
      their bound at three tf32 passes, and at GPT-2's training shape
      against a float64 backward within KERNEL_TOL, a bar the same
-     arithmetic with one tf32 pass a product must fail;
+     arithmetic with one tf32 pass a product must fail; the f32 flash
+     forward (three tf32 passes too) at GPT-2's prefill shape against a
+     float64 forward, a bar one tf32 pass must fail, and the f32 fused
+     backward against its plain version evaluated in float64;
   4. serving path, GPT-2 small at its published widths (vocab 50257, 1024
      positions, d 768, 12 layers, 12 heads; seeded random weights), once in
      float32 and once after ``model.to(torch.bfloat16)``: ``generate``,
@@ -88,8 +91,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      bytes; in bfloat16, one long-context ``generate`` (960-token prompt)
      with the float and the int8 cache;
   5. training path, the same model on 8 x 1024 random tokens: (a) float32
-     with Adam, (b) bfloat16 ``MixedPrecision`` with AdamW, (c) as (b) with
-     the fused flash backward (``set_flash_fused(True)``), 5 steps each on
+     with Adam, (b) as (a) with the fused flash backward
+     (``set_flash_fused(True)``), (c) bfloat16 ``MixedPrecision`` with
+     AdamW, (d) as (c) with the fused flash backward, 5 steps each on
      one batch -- the loss must be finite and fall, and step 1's gradients
      of every parameter must match a plain step (the ``_reference`` versions
      under torch autograd); then chunked attention, ring attention's math in
@@ -295,8 +299,8 @@ CONV_PATH_KERNELS = CONV_KERNELS + ("conv_layout",) + TAPE_KERNELS
 DIGITS_KERNELS = {"MNIST CNN": CONV_SIMT_KERNELS + TAPE_KERNELS,
                   "ResNet-20": CONV_PATH_KERNELS + CONV_SIMT_KERNELS}
 # Kernel vs plain version, max |err| <= tol * max(1, max |reference|).
-# float32: the same f32 math summed in another order (FFMA chains against
-# cuBLAS/ATen reductions, no TF32).  bfloat16: bf16 inputs, f32 sums, one
+# float32: the same f32 math summed in another order (FFMA chains or three
+# tf32 passes against cuBLAS/ATen reductions, no TF32).  bfloat16: bf16 inputs, f32 sums, one
 # rounding of the output to bf16 (2^-8 relative) on either side.
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # The bf16 flash forward rounds P to bf16 before P V, as the TPU kernel
@@ -804,10 +808,10 @@ def bound_ms(nbytes, ops, dtype, peak=None):
                                                           "operations")
 
 
-def pass_cost(dtype, nbytes, ops):
-    """(cost, peak) of a flash backward pass for :func:`record`: in f32 the
-    passes run every product as three tf32 passes, so the bound counts
-    three times the operations at TF32_OPS, as the matmul's does."""
+def flash_cost(dtype, nbytes, ops):
+    """(cost, peak) of a flash kernel's call for :func:`record`: in f32 the
+    flash kernels run every product as three tf32 passes, so the bound
+    counts three times the operations at TF32_OPS, as the matmul's does."""
     if dtype == torch.float32:
         return (nbytes, 3 * ops), TF32_OPS
     return (nbytes, ops), None
@@ -913,12 +917,15 @@ def phase_kernels(model, results):
                         library=F.scaled_dot_product_attention(
                             q, k, v, is_causal=True))
         check("attention_fwd lse", dtype, lse, rl, KERNEL_TOL[torch.float32])
+        if dtype == torch.float32:
+            f32_fwd_vs_one_pass(f"attention_fwd ({H}, {W}, {hd}) causal", q,
+                                k, v, sc, True, (out, lse), tol)
+        cost, peak = flash_cost(dtype, 4 * H * W * hd * isz + H * W * 4,
+                                2 * H * W * (W + 1) * hd)
         record(results, dtype, "attention_fwd", err,
                cuda_ms(lambda: attention_fwd_res(q, k, v, sc, True)),
                cuda_ms(lambda: attention_fwd_reference(q, k, v, sc, True)),
-               cost=(4 * H * W * hd * isz + H * W * 4,
-                     2 * H * W * (W + 1) * hd),
-               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+               cost=cost, peak=peak, library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                    q, k, v, is_causal=True)))
 
         # decode attention: one token, (H, 1, hd) over W cache rows
@@ -1303,6 +1310,42 @@ def f32_passes_vs_one_pass(tag, do, q, k, v, out, lse, scale, causal, got,
     return kernel
 
 
+def f32_fwd_vs_one_pass(tag, q, k, v, scale, causal, got, tol):
+    """The f32 forward's (out, lse) ``got`` against the forward evaluated
+    in float64 within ``tol`` of max(1, the largest |element|), a bar the
+    same arithmetic with one tf32 pass a product must fail: the kernel is
+    three tf32 passes, not TF32.  Logs the plain f32 version's error beside
+    it.  Returns the kernel's error."""
+    from lightgrad_tpu_torch.ops.attention import (
+        attention_fwd_reference, attention_fwd_tf32x3_reference)
+    from lightgrad_tpu_torch.ops.matmul import tf32_round
+
+    def one_pass(a, b):
+        return torch.matmul(tf32_round(a).double(),
+                            tf32_round(b).double()).float()
+
+    want = attention_fwd_reference(q.double(), k.double(), v.double(), scale,
+                                   causal)
+
+    def err(xs):
+        return max(((x.double() - w).abs().max()
+                    / w.abs().max().clamp_min(1.0)).item()
+                   for x, w in zip(xs, want))
+
+    kernel = err(got)
+    single = err(attention_fwd_tf32x3_reference(q, k, v, scale, causal,
+                                                product=one_pass))
+    plain = err(attention_fwd_reference(q, k, v, scale, causal))
+    ok = kernel <= tol < single
+    log(f"  {tag} f32 against f64: kernel {kernel:.3e}, plain f32 "
+        f"{plain:.3e}, one tf32 pass {single:.3e}, tol {tol:.0e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: f32 forward {kernel}, one tf32 pass "
+                             f"{single} against {tol}")
+    return kernel
+
+
 def phase_train_kernels(results):
     """Phase 3, training kernels: the flash backward and the LayerNorm
     kernels vs their plain versions, at the training path's shapes."""
@@ -1370,12 +1413,12 @@ def phase_train_kernels(results):
                                              causal)
             dkv_fn = lambda: attention_bwd_dkv(do, q, k, v, lse, dcap, sc,
                                                causal)
-            cost, peak = pass_cost(dtype, 5 * tile + 2 * bh * S * 4,
+            cost, peak = flash_cost(dtype, 5 * tile + 2 * bh * S * 4,
                                    3 * pairs)
             record(results, dtype, "attention_bwd_dq", 0.0, cuda_ms(dq_fn),
                    plain_ms, cost=cost, library_ms=lib_ms,
                    graph=graph_ms(dq_fn), peak=peak)
-            cost, peak = pass_cost(dtype, 6 * tile + 2 * bh * S * 4,
+            cost, peak = flash_cost(dtype, 6 * tile + 2 * bh * S * 4,
                                    4 * pairs)
             record(results, dtype, "attention_bwd_dkv", 0.0, cuda_ms(dkv_fn),
                    plain_ms, cost=cost, library_ms=lib_ms,
@@ -1462,10 +1505,15 @@ def fused_bwd_case(results, dtype, g, B, H, S, hd, causal, timed,
     got, again = both_ways(), both_ways()
     two = attention_bwd(do, q, k, v, sc, causal, out=out, lse=lse)
     # bf16: one reference for both (no dcap refinement in either); f32: the
-    # fused kernel's plain version, and the recompute backward
+    # fused kernel's plain version evaluated in f64 from the same lse and
+    # dcap (its f32 evaluation errs against f64 by about the tolerance
+    # times the rms, as the recompute backward's does: bwd_reference), and
+    # the recompute backward in f64
     want, allow = bwd_reference(dtype, do, q, k, v, out, lse, sc, causal)
     fused_want = want if dtype == torch.bfloat16 else \
-        attention_bwd_fused_reference(do, q, k, v, out, lse, dcap, sc, causal)
+        attention_bwd_fused_reference(
+            *(t.double() for t in (do, q, k, v)), out, lse.double(),
+            dcap.double(), sc, causal)
     # what a kernel with the mask dropped (or added) returns
     wrong = attention_bwd_fused_reference(do, q, k, v, out, lse, dcap, sc,
                                           not causal)
@@ -1512,12 +1560,13 @@ def fused_bwd_case(results, dtype, g, B, H, S, hd, causal, timed,
 
     lib_ms = library_time(f"attention_bwd {variant}", dtype, library_bwd)
     fused_fn = lambda: attention_bwd_fused(do, q, k, v, lse, dcap, sc, causal)
+    cost, peak = flash_cost(dtype, 7 * tile + 2 * rows, 10 * hd * pairs)
     record(results, dtype, "attention_bwd_fused", max(errs),
            cuda_ms(fused_fn),
            cuda_ms(lambda: attention_bwd_fused_reference(
                do, q, k, v, out, lse, dcap, sc, causal), 2),
-           cost=(7 * tile + 2 * rows, 10 * hd * pairs),
-           library_ms=lib_ms, variant=variant, graph=graph_ms(fused_fn, 10))
+           cost=cost, library_ms=lib_ms, variant=variant,
+           graph=graph_ms(fused_fn, 10), peak=peak)
     if variant:
         # the two passes on the same inputs, like for like
         plain_ms = cuda_ms(lambda: bwd_plain(
@@ -1525,11 +1574,11 @@ def fused_bwd_case(results, dtype, g, B, H, S, hd, causal, timed,
         dq_fn = lambda: attention_bwd_dq(do, q, k, v, lse, dcap, sc, causal)
         dkv_fn = lambda: attention_bwd_dkv(do, q, k, v, lse, dcap, sc,
                                            causal)
-        cost, peak = pass_cost(dtype, 5 * tile + 2 * rows, 6 * hd * pairs)
+        cost, peak = flash_cost(dtype, 5 * tile + 2 * rows, 6 * hd * pairs)
         record(results, dtype, "attention_bwd_dq", two_errs[0],
                cuda_ms(dq_fn), plain_ms, cost=cost, library_ms=lib_ms,
                variant=variant, graph=graph_ms(dq_fn, 10), peak=peak)
-        cost, peak = pass_cost(dtype, 6 * tile + 2 * rows, 8 * hd * pairs)
+        cost, peak = flash_cost(dtype, 6 * tile + 2 * rows, 8 * hd * pairs)
         record(results, dtype, "attention_bwd_dkv", max(two_errs[1:]),
                cuda_ms(dkv_fn), plain_ms, cost=cost, library_ms=lib_ms,
                variant=variant, graph=graph_ms(dkv_fn, 10), peak=peak)
@@ -1621,13 +1670,14 @@ def phase_flash_kernels(results):
             rows = bh * S * 4                   # one f32 (B*H, S) row set
             q4, k4, v4 = (t.reshape(B, H, S, hd) for t in (q, k, v))
             keep = ~pad.reshape(B, H, 1, S)[:, :1]
+            cost, peak = flash_cost(
+                dtype, 3 * valid * tile + tile + rows + bh * 4, 4 * hd * n)
             record(results, dtype, "attention_fwd", err,
                    cuda_ms(lambda: attention_fwd_res(q, k, v, sc, False,
                                                      lengths=lens)),
                    cuda_ms(lambda: attention_fwd_reference(q, k, v, sc,
                                                            False, lens)),
-                   cost=(3 * valid * tile + tile + rows + bh * 4, 4 * hd * n),
-                   library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                   cost=cost, peak=peak, library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                        q4, k4, v4, attn_mask=keep)), variant="lengths_")
             dcap = (do.float() * out.float()).sum(-1).contiguous()
             plain_ms = cuda_ms(lambda: bwd_plain(
@@ -1637,14 +1687,14 @@ def phase_flash_kernels(results):
             lib_ms = cuda_ms(lambda: torch.autograd.grad(
                 og, (qg, kg, vg), do.reshape(B, H, S, hd),
                 retain_graph=True), 5)
-            cost, peak = pass_cost(dtype, valid * (4 * tile + 2 * rows)
+            cost, peak = flash_cost(dtype, valid * (4 * tile + 2 * rows)
                                    + tile + bh * 4, 6 * hd * n)
             record(results, dtype, "attention_bwd_dq", errs[0],
                    cuda_ms(lambda: attention_bwd_dq(do, q, k, v, lse, dcap,
                                                     sc, False, lens)),
                    plain_ms, cost=cost, library_ms=lib_ms,
                    variant="lengths_", peak=peak)
-            cost, peak = pass_cost(dtype, valid * (4 * tile + 2 * rows)
+            cost, peak = flash_cost(dtype, valid * (4 * tile + 2 * rows)
                                    + 2 * tile + bh * 4, 8 * hd * n)
             record(results, dtype, "attention_bwd_dkv", max(errs[1:]),
                    cuda_ms(lambda: attention_bwd_dkv(do, q, k, v, lse, dcap,
@@ -1667,11 +1717,12 @@ def phase_flash_kernels(results):
               KERNEL_TOL[f32])
         q4, k4, v4 = (t.reshape(B, H, S, hd) for t in (q, k, v))
         tile = bh * S * hd * isz
+        cost, peak = flash_cost(dtype, 4 * tile + bh * S * 4,
+                                4 * bh * S * S * hd)
         record(results, dtype, "attention_fwd", err,
                cuda_ms(lambda: attention_fwd_res(q, k, v, sc, False)),
                cuda_ms(lambda: attention_fwd_reference(q, k, v, sc, False)),
-               cost=(4 * tile + bh * S * 4, 4 * bh * S * S * hd),
-               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+               cost=cost, peak=peak, library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                    q4, k4, v4)), variant="pair_")
         del q, k, v, out, lse, ro, rl, q4, k4, v4
         torch.cuda.empty_cache()
@@ -1719,11 +1770,12 @@ def phase_flash_kernels(results):
                 f"efficient-attention op refused the call: "
                 f"{str(e).splitlines()[0][:160]}")
         tile = TB * C * hd * isz
+        cost, peak = flash_cost(dtype, 4 * tile + TB * C * 4,
+                                4 * TB * C * C * hd)
         record(results, dtype, "flash_block", err,
                cuda_ms(lambda: flash_block_fwd(q, k, v, sc, False)),
                cuda_ms(lambda: flash_block_reference(q, k, v, sc, False)),
-               cost=(4 * tile + TB * C * 4, 4 * TB * C * C * hd),
-               library_ms=lib_ms)
+               cost=cost, library_ms=lib_ms, peak=peak)
         out, lse = flash_block_fwd(q, k, v, sc, False)
         gout, glse = w.to(dtype), wl
         ts = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -1734,7 +1786,7 @@ def phase_flash_kernels(results):
 
         # its backward is the two passes: their bound, three tf32 passes
         # in f32
-        cost, peak = pass_cost(dtype, 8 * tile + 2 * TB * C * 4,
+        cost, peak = flash_cost(dtype, 8 * tile + 2 * TB * C * 4,
                                10 * TB * C * C * hd)
         record(results, dtype, "flash_block", err, cuda_ms(bwd),
                cuda_ms(lambda: torch.autograd.grad(
@@ -1746,9 +1798,9 @@ def phase_flash_kernels(results):
 
 
 def phase_train(dtype, card, fused=False):
-    """Phase 5 for one configuration: (a) float32 + Adam, (b) bfloat16
-    MixedPrecision + AdamW, (c) as (b) with ``fused``: the fused flash
-    backward (``set_flash_fused(True)`` for the steps); 5 steps on one batch
+    """Phase 5 for one configuration: float32 + Adam or bfloat16
+    MixedPrecision + AdamW, with ``fused`` the fused flash backward
+    (``set_flash_fused(True)`` for the steps); 5 steps on one batch
     of random tokens.  Returns the kernels' launch counts of the 5 steps,
     tokens/s and peak memory."""
     import torch.nn.functional as F
@@ -2355,7 +2407,8 @@ KERNEL_FAMILIES = (("matmul_tc_kernel", "matmul"),
                    ("ew_kernel", "elementwise"),
                    ("reduce_rows", "reduce"), ("softmax_", "softmax"),
                    ("ln_", "layernorm"),
-                   ("flash_bwd_fused", "fused flash backward"),
+                   # the fused flash backward: flash_bwd_dkv_*_kernel<D, true>
+                   ("true>(", "fused flash backward"),
                    ("flash", "attention"),
                    ("layout_", "conv layout"), ("conv_", "conv"),
                    ("sum_partials", "conv"), ("sum_dw", "conv"))
@@ -3277,12 +3330,13 @@ def phase_llama_kernels(results):
                                             window=window)
 
             tile, kvt = H * S * hd * isz, KV * S * hd * isz
+            cost, peak = flash_cost(dtype, 2 * tile + 2 * kvt + H * S * 4,
+                                    4 * hd * npairs)
             record(results, dtype, "attention_fwd", err,
                    cuda_ms(lambda: attention_fwd_res(q, k, v, sc, True,
                                                      window=window)),
                    cuda_ms(plain_fwd, 2),
-                   cost=(2 * tile + 2 * kvt + H * S * 4, 4 * hd * npairs),
-                   library_ms=library_time(
+                   cost=cost, peak=peak, library_ms=library_time(
                        f"attention_fwd {variant}", dtype,
                        lambda: cuda_ms(lambda: sdpa(q, k, v, band), 5)),
                    variant=variant)
@@ -3318,13 +3372,13 @@ def phase_llama_kernels(results):
                                                  True, window=window)
                 dkv_fn = lambda: attention_bwd_dkv(do, q, k, v, lse, dcap,
                                                    sc, True, window=window)
-                cost, peak = pass_cost(dtype, 3 * tile + 2 * kvt
+                cost, peak = flash_cost(dtype, 3 * tile + 2 * kvt
                                        + 2 * H * S * 4, 6 * hd * npairs)
                 record(results, dtype, "attention_bwd_dq", errs[0],
                        cuda_ms(dq_fn), plain_ms, cost=cost,
                        library_ms=lib_ms, variant=variant,
                        graph=graph_ms(dq_fn, 5), peak=peak)
-                cost, peak = pass_cost(dtype, 2 * tile + 4 * kvt
+                cost, peak = flash_cost(dtype, 2 * tile + 4 * kvt
                                        + 2 * H * S * 4, 8 * hd * npairs)
                 record(results, dtype, "attention_bwd_dkv", max(errs[1:]),
                        cuda_ms(dkv_fn), plain_ms, cost=cost,
@@ -3863,9 +3917,10 @@ def phase_llama_example(card):
 
 def phase_neox_kernels(results):
     """Phase 3, the fused flash backward at every head dim: Pythia-1B's
-    attention, 2 x 8 heads of 2048 x 256 (the D 256 instantiation; f32 16
-    key rows a block, bf16 64), Pythia-2.8B's, 32 heads of 2048 x 80 (D
-    128's at row stride 80), and D 32 at 64 heads of 256 x 32, causal, each
+    attention, 2 x 8 heads of 2048 x 256 (the D 256 instantiation, 64 key
+    rows a block), Pythia-2.8B's, 32 heads of 2048 x 80 (f32: D 96's 128
+    rows at row stride 80; bf16: D 128's 64), and D 32 at 64 heads of 256 x
+    32, causal, each
     by :func:`fused_bwd_case`, timed with the two passes on the same
     inputs; correctness only at head dims 200 and 80 without the causal
     mask, S no multiple of the block's rows."""
@@ -4139,6 +4194,7 @@ def main():
     rates = {}
     for dtype, what, fused in (
             (torch.float32, "float32, Adam", False),
+            (torch.float32, "float32, Adam, fused flash backward", True),
             (torch.bfloat16, "bfloat16 MixedPrecision, AdamW", False),
             (torch.bfloat16, "bfloat16 MixedPrecision, AdamW, fused flash "
              "backward", True)):
@@ -4150,7 +4206,7 @@ def main():
                       or counts["attention_bwd_dkv"]):
             raise AssertionError("the fused step launched the two passes")
         torch.cuda.empty_cache()
-    (two_s, two_peak), (fused_s, fused_peak) = list(rates.values())[1:]
+    (two_s, two_peak), (fused_s, fused_peak) = list(rates.values())[2:]
     log(f"  bfloat16 step: fused flash backward {fused_s:.1f} tok/s, peak "
         f"{fused_peak / 2**30:.2f} GiB; two passes {two_s:.1f} tok/s, peak "
         f"{two_peak / 2**30:.2f} GiB; {card}")

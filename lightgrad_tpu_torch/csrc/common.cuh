@@ -23,18 +23,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 lg_from_f<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
-// Four consecutive elements (16-byte aligned for f32, 8-byte for bf16).
-__device__ __forceinline__ float4 lg_load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 lg_load4(const __nv_bfloat16* p) {
-  uint2 u = *reinterpret_cast<const uint2*>(p);
-  __nv_bfloat162 a = *reinterpret_cast<__nv_bfloat162*>(&u.x);
-  __nv_bfloat162 b = *reinterpret_cast<__nv_bfloat162*>(&u.y);
-  float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
-  return make_float4(fa.x, fa.y, fb.x, fb.y);
-}
-
 // Two consecutive elements (8-byte aligned for f32, 4-byte for bf16, 2-byte
 // for int8).
 __device__ __forceinline__ float2 lg_load2(const float* p) {
@@ -56,18 +44,6 @@ __device__ __forceinline__ float lg_ldg(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ float lg_ldg(const int8_t* p) {
   return (float)__ldg(reinterpret_cast<const signed char*>(p));
-}
-
-__device__ __forceinline__ void lg_store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void lg_store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&a);
-  u.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 // 16 bytes global -> shared (a shared-window address), asynchronously;
@@ -108,25 +84,4 @@ __device__ __forceinline__ float lg_warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// Widen rows [r0, r0 + R) of a (S, d) slab into shared f32 rows of D
-// columns; rows past S and columns past d are zero.  With NT threads a
-// multiple of D / 4, a thread keeps one column word, so its column test
-// and row stride are set once, not per element.
-template <typename T, int D, int R, int NT>
-__device__ __forceinline__ void lg_stage(float4 (*dst)[D / 4], const T* src,
-                                         int r0, int S, int d) {
-  constexpr int D4 = D / 4, kStep = NT / D4;
-  static_assert(NT % D4 == 0 && R % kStep == 0, "uneven tile staging");
-  const int c4 = threadIdx.x % D4, r1 = threadIdx.x / D4;
-  const bool col = c4 * 4 < d;
-  const T* p = src + (size_t)(r0 + r1) * d + c4 * 4;
-#pragma unroll
-  for (int i = 0; i < R / kStep; ++i) {
-    const int r = r1 + i * kStep;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (col && r0 + r < S) val = lg_load4(p + (size_t)i * kStep * d);
-    dst[r][c4] = val;
-  }
 }

@@ -52,39 +52,19 @@
 //   any other d with d % 8 == 0 on the next wider D (64, 128, 256) at row
 //   stride d, the columns past d zero-filled by stage_rows and never stored.
 //
-// float32, the two passes on the tensor cores as three tf32 passes, 495
-// TFLOP/s (the TPU kernels compute f32 at Precision.HIGHEST, several bf16
-// passes; the f32 matmul does the same, matmul.cu): each operand x splits
-// into hi = tf32(x) and lo = x - hi, and a product is lo hi + hi lo + hi
-// hi, lo lo dropped.  Warp-level mma.sync m16n8k8 rather than wgmma: tf32
-// wgmma reads only K-major operands from shared memory, so dQ's K and dK's
-// and dV's Q and dO would need transposed hi / lo copies, 4x the raw tile,
-// which does not fit at D 128 and 256.  Here shared memory holds each tile
-// once, raw, and the threads split what they load.
-//   Blocks (F32Tc): D 32 and 64, 4 warps over 64 resident rows; D 96 and
-//   128, 8 warps over 128; D 256, 8 warps over 64, two a 16-row slab, each
-//   taking 128 of the columns, the two summing their halves of S and dP
-//   (S^T and dP^T) over d through shared memory.  Streamed tiles in two
-//   cp.async stages of 32 rows (16 at D 256): keys in the dq pass, queries
-//   in the dk/dv pass.  Shared rows are D + 4 floats apart, so the
-//   ldmatrix rows and the permuted B rows below both hit 32 distinct banks.
-//   Shared memory at D 32 / 64 / 96 / 128 / 256, dq (Q and dO, two stages
-//   of K and V): 36 / 68 / 150 / 198 / 211 KB; dk/dv (K and V, two stages
-//   of Q, dO, lse and dcap): 37 / 69 / 151 / 199 / 211 KB: two blocks an
-//   SM at D 32 and 64 (by registers), one at the others.
-//   S = Q K^T and dP = dO V^T: both operands K-major, read by ldmatrix (an
-//   8 x 4 f32 block is an 8 x 8 b16 matrix whose fragment is tf32's).  P
-//   and dS in f32 on the accumulator fragment, whose columns (2t, 2t + 1)
-//   the next product reads as the depths (t, t + 4) of its A fragment,
-//   with B's rows read by the same permutation: no shuffles.  dQ += dS K,
-//   dV += P^T dO, dK += dS^T Q with K, dO and Q read MN-major by scalar
-//   loads.  Each tile's share of a gradient starts from zero and is added
-//   in f32: the tensor cores truncate as they add, and a sum kept in place
-//   drifts (over Mistral-7B's band, dk 1.4e-4 of the largest f64 element
-//   against 1.2e-6 from zero: scripts/flash_bwd_variants.py's in_place).
-//   dq pass (flash_bwd_dq_tf32_kernel): Q and dO resident; K and V tiles
-//     stream.  The pass also refines dcap against its own p and dp: dcap =
-//     rowsum(dO * O) holds the row sum of p * dp only to f32 rounding, and
+// float32, on the tensor cores as three tf32 passes a product, 495 TFLOP/s
+// (flash_tf32.cuh: mma.sync m16n8k8, operands split into hi / lo by the
+// threads as they load them, each tile's share of a sum from zero; blocks,
+// rows and tiles by F32Tc<D>, D 32, 64, 96, 128 and 256).  Shared memory at
+// D 32 / 64 / 96 / 128 / 256, dq (Q and dO, two stages of K and V): 36 / 68
+// / 150 / 198 / 211 KB; dk/dv (K and V, two stages of Q, dO, lse and
+// dcap): 37 / 69 / 151 / 199 / 211 KB, the fused kernel 9 / 9 / 17 / 17 / 4
+// KB more: two blocks an SM at D 32 and 64 (by registers), one at the
+// others.
+//   dq pass (flash_bwd_dq_tf32_kernel): Q and dO resident, K and V tiles
+//     streaming; S = Q K^T and dP = dO V^T, then dQ += dS K with K read
+//     MN-major.  The pass also refines dcap against its own p and dp: dcap
+//     = rowsum(dO * O) holds the row sum of p * dp only to f32 rounding, and
 //     where a row of dp is nearly constant, dp - dcap cancels and that
 //     rounding becomes ds's error, the same in every column (at BERT-base
 //     depth 2e-3 of the query / key gradients).  The pass sums r_i = sum_j
@@ -92,20 +72,19 @@
 //     sum_j p_ij k_j (one hi hi pass: c_i below is ~1e-3); c_i = r_i / P_i
 //     - dlse_i gives dq_i -= scale * c_i * a_i, and dcap_i + c_i goes to
 //     the dk/dv pass.
-//   dk/dv pass (flash_bwd_dkv_tf32_kernel): K and V resident; Q, dO, lse
-//     and dcap tiles stream, for all G query heads; with few KV rows the
-//     heads are shared over blocks as in bf16 (ops.attention.dkv_splits).
-// float32 fused (flash_bwd_fused_kernel), on the CUDA cores: FP32 FFMA
-// issue and shared-memory reads bound it.  One row of the resident operand
-// per group of TPR = D / 16 adjacent threads, each owning 16 of the D
-// columns in float4 chunks (interleaved: a group reads TPR adjacent 16-byte
-// words of a shared row, a broadcast); partial dot products are reduced
-// across the group with shuffles, four streamed rows at a time.  Blocks
-// hold 64 key rows (32 at D 128, 16 at D 256) of D = 32, 64, 128 or 256
-// columns; another d runs the next wider D.
-//   The kernel runs the dk/dv loop, which also parks each Q tile's ds in
-//   shared memory beside the block's K rows, then re-maps the threads to
-//   the tile's query rows for the key block's share of dq.
+//   dk/dv pass (flash_bwd_dkv_tf32_kernel<D, false>): K and V resident; Q,
+//     dO, lse and dcap tiles stream, for all G query heads; S^T = K Q^T and
+//     dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q with dO and Q read
+//     MN-major.  With few KV rows the heads are shared over blocks as in
+//     bf16 (ops.attention.dkv_splits).
+//   fused (flash_bwd_dkv_tf32_kernel<D, true>; G 1, no lengths or window;
+//     no dcap refinement, as the TPU kernel): the dk/dv pass plus, per Q
+//     tile, dS to shared memory (queries as rows, the block's keys along
+//     them, permuted within each 8 into the depth order of the register
+//     fragments) and the key block's share of the tile's dq, dS K, three
+//     passes from zero with dS read by ldmatrix and K from the block's
+//     resident rows, the NW warps taking the tile's rows in 16-row slabs
+//     and its columns in groups, then added to dq after its turn.
 //
 // dq of the fused kernels, both dtypes: no per-key-block slabs.  Every
 // block adds its share into one f32 (BH, S, d) buffer in key-block order:
@@ -118,8 +97,8 @@
 // every head before kb + 1, so it only ever waits on tickets that running
 // blocks hold: no deadlock whatever order the blocks start in.  The sum's
 // order is fixed, so results are bit-identical from run to run, and the
-// buffer sees one read-modify-write of 64 x d f32 per (key block, query
-// tile) pair, mostly in L2 (TPU: nk slabs of (BH, S, d) f32, summed after:
+// buffer sees one read-modify-write of a query tile's rows x d f32 per
+// (key block, query tile) pair, mostly in L2 (TPU: nk slabs of (BH, S, d) f32, summed after:
 // 4.3 GB at Pythia-1B's 16 x 2048 x 256).  The wrapper casts dq to q's dtype.
 //
 // Optional per-row valid lengths `lens` (BH int32, both passes; TPU: the
@@ -135,305 +114,57 @@
 // never loaded (TPU: _pair_relevant).  No atomics but the fused kernel's
 // ticket; every sum is taken in a fixed order, so results are deterministic.
 //
-// Registers (nvcc -Xptxas -v, sm_90a; scripts/ptxas_report.py), bf16 at D
-// 64 / 128 / 256: dq 145 / 212 / 238, none spilled; dk/dv 168 / 250 / 255
-// (8 bytes spilled at D 256); fused 173 / 255 / 255 (20 bytes spilled at D
-// 128 and 256); every bf16 instantiation holds HGMMA (cuobjdump -sass).
-// f32 passes at D 32 / 64 / 96 / 128 / 256: dq 202 / 249 / 255 / 255 / 255
-// (4 bytes spilled at D 128), dk/dv 188 / 255 / 255 / 255 / 255 (16, 124
-// and 8 bytes spilled at D 96, 128, 256); every f32 pass instantiation
-// holds HMMA (cuobjdump -sass); fused 200 at D 32, 128 with
-// 28-32 bytes spilled at D 64-256 (two blocks an SM).
+// Registers (nvcc -Xptxas -v, sm_90a; scripts/ptxas_report.py, which also
+// counts each kernel's HMMA / HGMMA instructions), bf16 at D 64 / 128 /
+// 256: dq 145 / 212 / 238, none spilled; dk/dv 168 / 250 / 255 (8 bytes
+// spilled at D 256); fused 173 / 255 / 255 (20 bytes spilled at D 128 and
+// 256); every bf16 instantiation holds HGMMA.  f32 at D 32 / 64 / 96 / 128
+// / 256: dq 202 / 249 / 255 / 255 / 255 (4 bytes spilled at D 128), dk/dv
+// 188 / 255 / 255 / 255 / 255 (16, 124 and 8 bytes spilled at D 96, 128,
+// 256), fused 200 / 255 / 255 / 255 / 255 (12 and 48 bytes spilled at D 96
+// and 128); every f32 instantiation holds HMMA.
 #include "common.cuh"
+#include "flash_tf32.cuh"
 #include "tensor_core.cuh"
 
 namespace {
 
-constexpr int kSub = 4;  // streamed rows per shuffle round
-constexpr float kLog2e = 1.4426950408889634f;
-
-template <int D>
-struct Cfg {
-  static constexpr int TPR = D / 16;  // threads per resident row
-  // resident rows (queries or keys) per block: 128 threads at D = 32, 256
-  // at the wider D, so that a thread may use up to 255 registers
-  static constexpr int kRows = (D == 256) ? 16 : (D == 128) ? 32 : 64;
-  static constexpr int kThreads = kRows * TPR;
-  // streamed rows per tile
-  static constexpr int BS = (D == 256) ? 16 : (D == 128) ? 32 : 64;
-  static constexpr int D4 = D / 4;             // float4 words in a row
-  static constexpr int NC = 4;                 // float4 words a thread owns
-};
-
-// Sum over the TPR adjacent lanes of one row group.
-template <int TPR>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < TPR; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+// dq's turn counters, at device scope: a block waits (one thread, then the
+// block's barrier) until its key block is next, and passes the turn on once
+// its writes are done.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.global.acquire.gpu.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
   return v;
 }
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.global.release.gpu.b32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
 }
-
-__device__ __forceinline__ void axpy4(float s, float4 x, float4& y) {
-  y.x = fmaf(s, x.x, y.x);
-  y.y = fmaf(s, x.y, y.y);
-  y.z = fmaf(s, x.z, y.z);
-  y.w = fmaf(s, x.w, y.w);
-}
-
-// Four consecutive columns of a row at column `col`: zeros past d.
-__device__ __forceinline__ float4 load_cols(const float* row, int col,
-                                            int d) {
-  return col < d ? lg_load4(row + col) : make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-// ---- float32: three tf32 passes on the tensor cores (mma.sync) ----------
-
-// Blocks of the f32 passes at instantiation D (32, 64, 96, 128 or 256;
-// another d runs the next wider D): SLABS slabs of 16 resident
-// rows (queries in the dq pass, keys in the dk/dv pass), WN warps a slab,
-// each taking DW = D / WN of the columns; BK keys a streamed tile in the dq
-// pass, BQ queries in the dk/dv pass.  Shared rows are P = D + 4 floats
-// apart, so that every fragment load (ldmatrix rows, the permuted B rows)
-// hits 32 distinct banks.
-template <int D>
-struct F32Tc {
-  static constexpr int SLABS = D == 96 || D == 128 ? 8 : 4;
-  static constexpr int WN = D == 256 ? 2 : 1;
-  static constexpr int NW = SLABS * WN;
-  static constexpr int kThreads = 32 * NW;
-  static constexpr int BR = 16 * SLABS;  // resident rows a block
-  static constexpr int DW = D / WN;      // columns a warp
-  static constexpr int P = D + 4;        // floats a shared row
-  static constexpr int BK = D == 256 ? 16 : 32;
-  static constexpr int BQ = D == 256 ? 16 : 32;
-  static constexpr int kMinBlocks = D <= 64 ? 2 : 1;
-  // the slab's partial products over d, exchanged between its WN warps:
-  // two 16 x BS fragments a warp
-  static constexpr int kXDq = WN > 1 ? NW * 32 * BK : 0;
-  static constexpr int kXDkv = WN > 1 ? NW * 32 * BQ : 0;
-  // dq: Q and dO resident, two stages of K and V
-  static constexpr int kSmemDq = (2 * BR * P + 4 * BK * P + kXDq) * 4;
-  // dk/dv: K and V resident, two stages of Q, dO, lse and dcap
-  static constexpr int kStageDkv = 2 * BQ * P + 2 * BQ;
-  static constexpr int kSmemDkv = (2 * BR * P + 2 * kStageDkv + kXDkv) * 4;
-  static_assert(kSmemDq <= 232448 && kSmemDkv <= 232448,
-                "a block's shared memory is at most 227 KB");
-};
-
-// Rows [r0, r0 + R) of a (rows, d) f32 slab at row stride d into shared
-// rows P = D + 4 floats apart, by 16-byte cp.async copies; rows >= rows and
-// columns >= d are zero-filled.
-template <int R, int D, int NT>
-__device__ __forceinline__ void stage_f32(uint32_t dst, const float* src,
-                                          int r0, int rows, int d) {
-  constexpr int C4 = D / 4, P = D + 4;
-  static_assert((R * C4) % NT == 0, "uneven tile copy");
-#pragma unroll
-  for (int i = 0; i < R * C4 / NT; ++i) {
-    const int e = threadIdx.x + i * NT;
-    const int r = e / C4, c = e % C4;
-    const bool ok = r0 + r < rows && c * 4 < d;
-    lg_cp_async16(dst + (r * P + c * 4) * 4,
-                  ok ? src + (size_t)(r0 + r) * d + c * 4 : src, ok ? 16 : 0);
-  }
-}
-
-// x = hi + lo: hi = tf32(x), to nearest; lo = x - hi, exact in f32, of
-// which the tensor core reads the top 19 bits
-__device__ __forceinline__ uint32_t tf32_hi(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_hi(x);
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// c (16 x 8) += A (16 x 8) B (8 x 8), tf32 operands, f32 accumulators.
-// Fragments, thread (g = lane / 4, t = lane % 4): A a0 = (g, t), a1 = (g +
-// 8, t), a2 = (g, t + 4), a3 = (g + 8, t + 4); B b0 = (t, g), b1 = (t + 4,
-// g); C c0, c1 = (g, 2t, 2t + 1), c2, c3 = (g + 8, 2t, 2t + 1).
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the two small products of the three passes, lo hi + hi lo, which a chain
-// sums in an accumulator of their own, beside the hi hi products' one, the
-// two added in f32 at the end.  The tensor cores truncate every sum to the
-// accumulator's width, so one accumulator for all three would truncate at
-// full size three times a depth step instead of once (against f64, twice
-// the error at Pythia-1B's and Mistral-7B's shapes:
-// scripts/flash_bwd_variants.py's interleaved).
-__device__ __forceinline__ void mma_small(float (&c)[4],
-                                          const uint32_t (&ah)[4],
-                                          const uint32_t (&al)[4],
-                                          uint32_t bh0, uint32_t bh1,
-                                          uint32_t bl0, uint32_t bl1) {
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-}
-
-// t (16 x 8 NB) = X Y^T over the DW columns from c0, three passes: X the
-// warp's 16 rows of a resident tile, Y the 8 NB rows of a streamed one
-// (shared addresses of their first rows, rows P floats apart), both
-// K-major.  ldmatrix reads an 8 x 4 f32 block as an 8 x 8 b16 matrix,
-// whose fragment (row lane / 4, word lane % 4) is the tf32 one: A is the
-// blocks (rows 0-7, 8-15) x (words 0-3, 4-7), B four 4-word blocks of a
-// row block, two 8-deep steps.  t starts from zero each tile; the small
-// products sum apart (mma_small).
-template <int NB, int DW, int P>
-__device__ __forceinline__ void product_xyt(float (&t)[NB][4], uint32_t x,
-                                            uint32_t y, int c0, int lane) {
-  const uint32_t xa =
-      x + (((lane & 7) + ((lane >> 3) & 1) * 8) * P + c0 + (lane >> 4) * 4) * 4;
-  const uint32_t ya = y + ((lane & 7) * P + c0 + (lane >> 3) * 4) * 4;
-  float ts[NB][4];
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) t[nb][e] = ts[nb][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < DW / 8; ks += 2) {
-    uint32_t ah[2][4], al[2][4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      uint32_t r[4];
-      lg_tc::ldmatrix_x4(r, xa + (ks + h) * 32);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        split_tf32(__uint_as_float(r[j]), ah[h][j], al[h][j]);
-    }
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      uint32_t r[4], bh[4], bl[4];
-      lg_tc::ldmatrix_x4(r, ya + (nb * 8 * P + ks * 8) * 4);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        split_tf32(__uint_as_float(r[j]), bh[j], bl[j]);
-      mma_small(ts[nb], ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
-      mma_small(ts[nb], ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
-      mma_tf32(t[nb], ah[0], bh[0], bh[1]);
-      mma_tf32(t[nb], ah[1], bh[2], bh[3]);
-    }
-  }
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) t[nb][e] += ts[nb][e];
-}
-
-// The slab's WN = 2 warps sum their partial products over d: each writes
-// its two fragments to its words of `xb`, and after the block's barrier adds
-// its partner's.  a + b == b + a in f32, so both hold the same bits.
-template <int NB>
-__device__ __forceinline__ void exchange(float (&s)[NB][4],
-                                         float (&dp)[NB][4], float* xb,
-                                         int warp, int partner, int lane) {
-  constexpr int W = 2 * NB * 4 * 32;  // floats a warp
-  float* mine = xb + warp * W + lane;
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      mine[(nb * 4 + e) * 32] = s[nb][e];
-      mine[((NB + nb) * 4 + e) * 32] = dp[nb][e];
+__device__ __forceinline__ void dq_wait_turn(const int* turn, int kb) {
+  if (threadIdx.x == 0 && kb > 0)
+    while (ld_acquire(turn) != kb) {
     }
   __syncthreads();
-  const float* other = xb + partner * W + lane;
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[nb][e] += other[(nb * 4 + e) * 32];
-      dp[nb][e] += other[((NB + nb) * 4 + e) * 32];
-    }
+}
+// the barrier orders every thread's writes before thread 0's release, which
+// publishes them (cumulatively) at device scope
+__device__ __forceinline__ void dq_pass_turn(int* turn, int kb) {
+  __syncthreads();
+  if (threadIdx.x == 0) st_release(turn, kb + 1);
 }
 
-// The A fragments (hi, lo) of the next product from a 16 x 8 KB accumulator
-// fragment f: its columns (2t, 2t + 1) of block kb become the fragment's
-// depths (t, t + 4) -- the product's depth is permuted within each 8, and
-// B's rows are read by the same permutation (accumulate below), so no
-// value moves between threads.
-template <int KB>
-__device__ __forceinline__ void to_a(uint32_t (&hi)[KB][4],
-                                     uint32_t (&lo)[KB][4],
-                                     const float (&f)[KB][4]) {
-#pragma unroll
-  for (int kb = 0; kb < KB; ++kb) {
-    split_tf32(f[kb][0], hi[kb][0], lo[kb][0]);
-    split_tf32(f[kb][2], hi[kb][1], lo[kb][1]);
-    split_tf32(f[kb][1], hi[kb][2], lo[kb][2]);
-    split_tf32(f[kb][3], hi[kb][3], lo[kb][3]);
-  }
-}
-
-// acc (16 x 8 NN) += F Y, three passes (the small ones apart, mma_small):
-// F the 16 x 8 KB A fragments of to_a, Y the tile's 8 KB rows at this
-// warp's columns, MN-major, read as
-// b0 = Y[8 kb + 2t][8 nb + g], b1 = Y[8 kb + 2t + 1][8 nb + g] (y: the
-// thread's first word, Y + 2t P + g + c0).  Each tile's share starts from
-// zero and is added to acc in f32: the tensor cores truncate as they add,
-// so over a long pass a sum kept in place would drift.  PK: also pk += F'
-// Y in one pass, F' the hi fragments `ph` (the dq pass's sum_j p_ij k_j,
-// which multiplies the small dcap correction).
-template <int KB, int NN, int P, bool PK>
-__device__ __forceinline__ void accumulate(float (&acc)[NN][4],
-                                           float (&pk)[NN][4],
-                                           const uint32_t (&fh)[KB][4],
-                                           const uint32_t (&fl)[KB][4],
-                                           const uint32_t (&ph)[KB][4],
-                                           const float* y) {
-#pragma unroll
-  for (int nb = 0; nb < NN; ++nb) {
-    float part[4] = {0.f, 0.f, 0.f, 0.f}, small[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int kb = 0; kb < KB; ++kb) {
-      uint32_t bh0, bl0, bh1, bl1;
-      split_tf32(y[(8 * kb) * P + 8 * nb], bh0, bl0);
-      split_tf32(y[(8 * kb + 1) * P + 8 * nb], bh1, bl1);
-      mma_small(small, fh[kb], fl[kb], bh0, bh1, bl0, bl1);
-      mma_tf32(part, fh[kb], bh0, bh1);
-      if constexpr (PK) mma_tf32(pk[nb], ph[kb], bh0, bh1);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nb][e] += part[e] + small[e];
-  }
-}
-
-template <int NN>
-__device__ __forceinline__ void zero_frag(float (&x)[NN][4]) {
-#pragma unroll
-  for (int nb = 0; nb < NN; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[nb][e] = 0.f;
-}
-
-// Row i (0: g, 1: g + 8) of a 16 x 8 NN fragment, times mul, to the
-// columns c0 + 8 nb + 2t, + 1 below d of an f32 row.
-template <int NN>
-__device__ __forceinline__ void store_frag(float* row, const float (&x)[NN][4],
-                                           int i, int c0, int lane, int d,
-                                           float mul) {
-#pragma unroll
-  for (int nb = 0; nb < NN; ++nb) {
-    const int c = c0 + nb * 8 + (lane & 3) * 2;
-    if (c < d)
-      *reinterpret_cast<float2*>(row + c) =
-          make_float2(x[nb][2 * i] * mul, x[nb][2 * i + 1] * mul);
-  }
+// The block's work item (bh, key block) from the ticket at turns[0], in
+// ticket order: key block kb of every head before key block kb + 1, so a
+// block only ever waits on a ticket that a running block holds.
+__device__ __forceinline__ int2 fused_item(int* turns, int BH) {
+  __shared__ int item;
+  if (threadIdx.x == 0) item = atomicAdd(turns, 1);
+  __syncthreads();
+  return make_int2(item % BH, item / BH);
 }
 
 template <int D>
@@ -590,11 +321,14 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
   }
 }
 
-// dk/dv with `part` (not null): the block of blockIdx.z walks the query
-// heads [z Gs, (z + 1) Gs) of its group, Gs = ceil(G / gridDim.z), and
-// writes f32 dK and dV partials, part[z][0: dk, 1: dv][KV row][S][d], which
-// the caller sums over z in order.
-template <int D>
+// dk/dv (FUSED false) or the fused backward (FUSED true: G 1, no lengths or
+// window; the work item from the ticket at turns[0]; each query tile's dq
+// share added to the f32 `dq` in key-block order through `turns`).  dk/dv
+// with `part` (not null): the block of blockIdx.z walks the query heads [z
+// Gs, (z + 1) Gs) of its group, Gs = ceil(G / gridDim.z), and writes f32 dK
+// and dV partials, part[z][0: dk, 1: dv][KV row][S][d], which the caller
+// sums over z in order.
+template <int D, bool FUSED>
 __global__ void __launch_bounds__(F32Tc<D>::kThreads, F32Tc<D>::kMinBlocks)
 flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -603,23 +337,39 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
                           const float* __restrict__ lse,
                           const float* __restrict__ dcap,
                           float* __restrict__ dk, float* __restrict__ dv,
+                          float* __restrict__ dq, int* __restrict__ turns,
                           const int* __restrict__ lens,
                           float* __restrict__ part, int BH, int S, int G,
                           int d, float scale, int causal, int window) {
   using C = F32Tc<D>;
   constexpr int BR = C::BR, BQ = C::BQ, NT = C::kThreads, P = C::P;
   constexpr int NB = BQ / 8, NN = C::DW / 8, SZ = C::kStageDkv;
+  // fused: the tile's dq share, dS K (BQ x D), taken by the NW warps as RS
+  // slabs of 16 queries x CG groups of DQW columns
+  constexpr int RS = BQ / 16, CG = C::NW / RS, DQW = D / CG, NQ = DQW / 8;
+  constexpr int PK = C::PK;
+  static_assert(C::NW % RS == 0 && D % (8 * CG) == 0, "uneven dq share");
   extern __shared__ float4 smem_f4[];
   float* const sK = reinterpret_cast<float*>(smem_f4);
   float* const sV = sK + BR * P;
   float* const ring = sV + BR * P;  // stage s: Q, dO, lse, dcap
   float* const xb = ring + 2 * SZ;
+  float* const sDS = xb + C::kXDkv;  // fused: the tile's dS
   const uint32_t uK = lg_smem_u32(sK), uV = lg_smem_u32(sV);
   const uint32_t uR = lg_smem_u32(ring);
 
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
   const int slab = warp % C::SLABS, c0 = (warp / C::SLABS) * C::DW;
-  const int bkv = blockIdx.x, k0 = blockIdx.y * BR;
+  // the KV row and key block: the grid's, or (fused) the ticket's.  k0 from
+  // blockIdx.y, not kb: the dk/dv pass then spills 124 bytes at D 128, not
+  // 160 (scripts/ptxas_report.py)
+  int bkv = blockIdx.x, k0 = blockIdx.y * BR, kb = blockIdx.y;
+  if constexpr (FUSED) {
+    const int2 item = fused_item(turns, BH);
+    bkv = item.x;
+    kb = item.y;
+    k0 = kb * BR;
+  }
   const float scale_log2 = scale * kLog2e;
 
   // the query tiles [qa, qe) of head g whose rows see a key of this block
@@ -662,6 +412,39 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
   zero_frag(dka);
   zero_frag(dva);
   const int j0 = k0 + slab * 16 + lane / 4;  // this thread's keys j0, + 8
+
+  // fused: this warp's rows and columns of a tile's dq share, and the
+  // share's addition to dq after key block kb - 1's (key block 0 reaches
+  // every query tile, so it writes and the others add)
+  const int rs = warp % RS, cg = warp / RS;
+  const int nq = (S + BQ - 1) / BQ;
+  float share[NQ][4];
+  auto flush_dq = [&](int tile) {
+    int* turn = turns + 1 + (size_t)bkv * nq + tile;
+    dq_wait_turn(turn, kb);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = tile * BQ + rs * 16 + lane / 4 + 8 * i;
+      if (qi >= S) continue;
+      float2* row = reinterpret_cast<float2*>(
+          dq + ((size_t)bkv * S + qi) * d + cg * DQW + (lane & 3) * 2);
+      // every load before any store (the compiler cannot tell that they
+      // do not alias, so interleaved they would run one after another)
+      float2 old[NQ];
+#pragma unroll
+      for (int nb = 0; nb < NQ; ++nb)
+        old[nb] = kb > 0 && cg * DQW + nb * 8 < d ? __ldcg(row + nb * 4)
+                                                 : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int nb = 0; nb < NQ; ++nb)
+        if (cg * DQW + nb * 8 < d)
+          __stcg(row + nb * 4,
+                 make_float2(fmaf(share[nb][2 * i], scale, old[nb].x),
+                             fmaf(share[nb][2 * i + 1], scale, old[nb].y)));
+    }
+    dq_pass_turn(turn, kb);
+  };
+
   for (int it = 0; g < g_end; ++it) {
     const int s = it & 1;
     lg_cp_async_wait<0>();
@@ -724,6 +507,59 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
     to_a(fh, fl, dpt);
     accumulate<NB, NN, P, false>(dka, dka, fh, fl, fh, sQ + y0);
 
+    if constexpr (FUSED) {
+      // dS to shared memory, the tile's queries as rows and the block's
+      // keys along them, permuted within each 8 (key 2u at word u, 2u + 1
+      // at word u + 4): ldmatrix then reads the A fragments of dS K in
+      // to_a's depth order, and K's rows go by accumulate's permutation.
+      // At WN 2 the slab's two warps hold the same dS.
+      if (c0 == 0) {
+        const int g8 = lane >> 2;
+        const int w = slab * 16 + (g8 >> 1) + (g8 & 1) * 4;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sDS[(nb * 8 + (lane & 3) * 2 + (e & 1)) * PK + w + 8 * (e >> 1)] =
+                dpt[nb][e];
+      }
+      __syncthreads();
+      // this tile's share from zero, three passes (the small ones apart),
+      // added to dq at once: held through the next tile's products so that
+      // the wait for the turn overlapped them, it was no faster (4% slower
+      // at GPT-2's shape, within 1.2% at Pythia's: scripts/ab_flash_bwd.py's
+      // fused_lag_ms)
+      zero_frag(share);
+      float small[NQ][4];
+      zero_frag(small);
+      const uint32_t xa =
+          lg_smem_u32(sDS) +
+          ((rs * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * PK +
+           (lane >> 4) * 4) * 4;
+      const float* y = sK + 2 * (lane & 3) * P + lane / 4 + cg * DQW;
+#pragma unroll 4
+      for (int kk = 0; kk < BR / 8; ++kk) {
+        uint32_t r[4], ah[4], al[4];
+        lg_tc::ldmatrix_x4(r, xa + kk * 32);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          split_tf32(__uint_as_float(r[j]), ah[j], al[j]);
+#pragma unroll
+        for (int nb = 0; nb < NQ; ++nb) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(y[(8 * kk) * P + 8 * nb], bh0, bl0);
+          split_tf32(y[(8 * kk + 1) * P + 8 * nb], bh1, bl1);
+          mma_small(small[nb], ah, al, bh0, bh1, bl0, bl1);
+          mma_tf32(share[nb], ah, bh0, bh1);
+        }
+      }
+#pragma unroll
+      for (int nb = 0; nb < NQ; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) share[nb][e] += small[nb][e];
+      flush_dq(qt);
+    }
+
     g = ng;
     qt = nqt;
     qe = nqe;
@@ -745,44 +581,6 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
   }
 }
 
-// dq's turn counters, at device scope: a block waits (one thread, then the
-// block's barrier) until its key block is next, and passes the turn on once
-// its writes are done.
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.global.acquire.gpu.b32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.global.release.gpu.b32 [%0], %1;\n" ::"l"(p), "r"(v)
-               : "memory");
-}
-__device__ __forceinline__ void dq_wait_turn(const int* turn, int kb) {
-  if (threadIdx.x == 0 && kb > 0)
-    while (ld_acquire(turn) != kb) {
-    }
-  __syncthreads();
-}
-// the barrier orders every thread's writes before thread 0's release, which
-// publishes them (cumulatively) at device scope
-__device__ __forceinline__ void dq_pass_turn(int* turn, int kb) {
-  __syncthreads();
-  if (threadIdx.x == 0) st_release(turn, kb + 1);
-}
-
-// The block's work item (bh, key block) from the ticket at turns[0], in
-// ticket order: key block kb of every head before key block kb + 1, so a
-// block only ever waits on a ticket that a running block holds.
-__device__ __forceinline__ int2 fused_item(int* turns, int BH) {
-  __shared__ int item;
-  if (threadIdx.x == 0) item = atomicAdd(turns, 1);
-  __syncthreads();
-  return make_int2(item % BH, item / BH);
-}
-
 // The operands of a two-pass backward call; `dlse`, `dq` and `dcap_out` are
 // the dq pass's, `dk` and `dv` the dk/dv pass's.
 struct BwdArgs {
@@ -793,170 +591,6 @@ struct BwdArgs {
   float scale;
   int causal, window, gsplit;
 };
-
-// Shared memory of the f32 fused kernel, in bytes: the streamed Q and dO
-// tiles, the block's K rows (f32), the tile's ds with a padded row, lse
-// and dcap.
-template <int D>
-constexpr int fused_smem_bytes() {
-  using C = Cfg<D>;
-  return (2 * C::BS + C::kRows) * C::D4 * (int)sizeof(float4) +
-         C::BS * (C::kRows + 1) * (int)sizeof(float) +
-         2 * C::BS * (int)sizeof(float);
-}
-
-// two blocks an SM (at most 128 registers a thread), so that one block's
-// products run while the other waits for its turn at dq
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::kThreads, 2)
-flash_bwd_fused_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const float* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ dcap, float* __restrict__ dq,
-                       int* __restrict__ turns, float* __restrict__ dk,
-                       float* __restrict__ dv, int BH, int S, int d,
-                       float scale, int causal) {
-  using C = Cfg<D>;
-  constexpr int TPR = C::TPR, BS = C::BS, D4 = C::D4, NC = C::NC;
-  constexpr int KR = C::kRows;
-  // the dq step maps the threads onto the tile's query rows as the loop
-  // maps them onto the block's key rows
-  static_assert(BS == KR, "query tile and key block must have equal rows");
-  constexpr int DSW = KR + 1;  // padded: a warp's rows hit distinct banks
-  extern __shared__ float4 smem[];
-  float4(*Qs)[D4] = reinterpret_cast<float4(*)[D4]>(smem);
-  float4(*Os)[D4] = Qs + BS;  // dO
-  float4(*Ks)[D4] = Os + BS;  // the block's K rows
-  float(*dSs)[DSW] = reinterpret_cast<float(*)[DSW]>(Ks + KR);
-  float* Ls = reinterpret_cast<float*>(dSs + BS);  // lse
-  float* Ds = Ls + BS;                              // dcap
-
-  const int2 item = fused_item(turns, BH);
-  const int bh = item.x, kb = item.y;
-  const int k0 = kb * KR;
-  const int t = threadIdx.x;
-  const int row = t / TPR, part = t % TPR;
-  const int kj = k0 + row;
-  const size_t rk = (size_t)bh * S + min(kj, S - 1);
-  const int nqt = (S + BS - 1) / BS;
-  int* turn = turns + 1 + (size_t)bh * nqt;  // turn[qt]: key blocks added
-
-  float4 kr[NC], vr[NC], dka[NC], dva[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    kr[c] = load_cols(k + rk * d, (c * TPR + part) * 4, d);
-    vr[c] = load_cols(v + rk * d, (c * TPR + part) * 4, d);
-    dka[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-    dva[c] = dka[c];
-  }
-  lg_stage<float, D, KR, C::kThreads>(Ks, k + (size_t)bh * S * d, k0, S,
-                                      d);
-
-  // causal: query tiles wholly before this key block see none of its keys
-  // (and key block 0 reaches every tile, so it writes where others add)
-  const int qt0 = causal ? k0 / BS : 0;
-  const float* qb = q + (size_t)bh * S * d;
-  const float* ob = dout + (size_t)bh * S * d;
-  for (int qt = qt0; qt < nqt; ++qt) {
-    const int q0 = qt * BS;
-    __syncthreads();  // the previous tile and its ds are no longer read
-    lg_stage<float, D, BS, C::kThreads>(Qs, qb, q0, S, d);
-    lg_stage<float, D, BS, C::kThreads>(Os, ob, q0, S, d);
-    for (int r = t; r < BS; r += C::kThreads) {
-      const bool in = q0 + r < S;
-      Ls[r] = in ? lse[(size_t)bh * S + q0 + r] : 0.f;
-      Ds[r] = in ? dcap[(size_t)bh * S + q0 + r] : 0.f;
-    }
-    __syncthreads();
-
-    for (int i0 = 0; i0 < BS; i0 += kSub) {
-      float s[kSub], dp[kSub];
-#pragma unroll
-      for (int ii = 0; ii < kSub; ++ii) {
-        float a = 0.f, b = 0.f;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          a = dot4(kr[c], Qs[i0 + ii][c * TPR + part], a);
-          b = dot4(vr[c], Os[i0 + ii][c * TPR + part], b);
-        }
-        s[ii] = a;
-        dp[ii] = b;
-      }
-#pragma unroll
-      for (int ii = 0; ii < kSub; ++ii) {
-        s[ii] = group_sum<TPR>(s[ii]);
-        dp[ii] = group_sum<TPR>(dp[ii]);
-      }
-#pragma unroll
-      for (int ii = 0; ii < kSub; ++ii) {
-        const int qi = q0 + i0 + ii;
-        const bool valid = qi < S && kj < S && (!causal || kj <= qi);
-        const float p = valid ? expf(s[ii] * scale - Ls[i0 + ii]) : 0.f;
-        const float ds = valid ? p * (dp[ii] - Ds[i0 + ii]) : 0.f;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          axpy4(p, Os[i0 + ii][c * TPR + part], dva[c]);
-          axpy4(ds, Qs[i0 + ii][c * TPR + part], dka[c]);
-        }
-        if (ii % TPR == part) dSs[i0 + ii][row] = ds;
-      }
-    }
-    __syncthreads();  // the tile's ds is complete
-
-    // dq's share of this key block for query row q0 + row:
-    // scale * sum_j ds[row][j] k_j (rows of K past S, and columns past d,
-    // are zero in Ks), added to dq after key block kb - 1's
-    float4 acc[NC];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-    for (int j = 0; j < KR; ++j) {
-      const float w = dSs[row][j];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) axpy4(w, Ks[j][c * TPR + part], acc[c]);
-    }
-    dq_wait_turn(turn + qt, kb);
-    const int qi = q0 + row;
-    if (qi < S) {
-      float4* dst = reinterpret_cast<float4*>(dq + ((size_t)bh * S + qi) * d);
-      // every load before any store (the compiler cannot tell that they
-      // do not alias, so interleaved they would run one after another);
-      // key block 0 writes, the others add
-      float4 old[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int w = c * TPR + part;
-        old[c] = kb > 0 && w * 4 < d ? __ldcg(dst + w)
-                                     : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int w = c * TPR + part;
-        if (w * 4 < d)
-          __stcg(dst + w, make_float4(fmaf(acc[c].x, scale, old[c].x),
-                                      fmaf(acc[c].y, scale, old[c].y),
-                                      fmaf(acc[c].z, scale, old[c].z),
-                                      fmaf(acc[c].w, scale, old[c].w)));
-      }
-    }
-    dq_pass_turn(turn + qt, kb);
-  }
-
-  if (kj < S) {
-    float* dkr = dk + ((size_t)bh * S + kj) * d;
-    float* dvr = dv + ((size_t)bh * S + kj) * d;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = (c * TPR + part) * 4;
-      if (col >= d) continue;
-      lg_store4(dkr + col, make_float4(dka[c].x * scale, dka[c].y * scale,
-                                       dka[c].z * scale, dka[c].w * scale));
-      lg_store4(dvr + col, dva[c]);
-    }
-  }
-}
 
 // ---- bfloat16: the tensor-core kernels ----------------------------------
 
@@ -1457,23 +1091,18 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ops/attention.py's FUSED_ROWS sets the key blocks (and query tiles) of
-// the fused kernel's dq order by these rows
-static_assert(Cfg<32>::kRows == 64 && Cfg<64>::kRows == 64 &&
-                  Cfg<128>::kRows == 32 && Cfg<256>::kRows == 16 &&
-                  Tc<64>::BR == 64 && Tc<128>::BR == 64 &&
-                  Tc<256>::BR == 64,
+// ops/attention.py's FUSED_ROWS sets the key blocks of the fused kernels'
+// dq order by these rows, and its TURN_ROWS the turn counters it allocates
+// by the narrowest query tile
+static_assert(F32Tc<32>::BR == 64 && F32Tc<64>::BR == 64 &&
+                  F32Tc<96>::BR == 128 && F32Tc<128>::BR == 128 &&
+                  F32Tc<256>::BR == 64 && Tc<64>::BR == 64 &&
+                  Tc<128>::BR == 64 && Tc<256>::BR == 64,
               "update FUSED_ROWS in ops/attention.py with the kernels' rows");
-
-// Raise a kernel's dynamic shared memory past 48 KB, once.
-template <typename K>
-int smem_limit(K kernel, int bytes, bool& done) {
-  if (done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  done = e == cudaSuccess;
-  return (int)e;
-}
+static_assert(F32Tc<32>::BQ >= 16 && F32Tc<64>::BQ >= 16 &&
+                  F32Tc<96>::BQ >= 16 && F32Tc<128>::BQ >= 16 &&
+                  F32Tc<256>::BQ >= 16 && Tc<64>::BS >= 16,
+              "update TURN_ROWS in ops/attention.py with the query tiles");
 
 template <int D>
 int launch_dq_tf32(const BwdArgs& a, cudaStream_t st) {
@@ -1495,18 +1124,19 @@ template <int D>
 int launch_dkv_tf32(const BwdArgs& a, cudaStream_t st) {
   using C = F32Tc<D>;
   static bool sized = false;
-  if (int e = smem_limit(flash_bwd_dkv_tf32_kernel<D>, C::kSmemDkv, sized))
+  if (int e = smem_limit(flash_bwd_dkv_tf32_kernel<D, false>, C::kSmemDkv,
+                         sized))
     return e;
   const int nk = (a.S + C::BR - 1) / C::BR;
   if (nk > 65535 || a.gsplit < 1 || a.gsplit > a.G ||
       (a.gsplit > 1) != (a.part != nullptr))
     return (int)cudaErrorInvalidValue;
-  flash_bwd_dkv_tf32_kernel<D>
+  flash_bwd_dkv_tf32_kernel<D, false>
       <<<dim3(a.BH / a.G, nk, a.gsplit), C::kThreads, C::kSmemDkv, st>>>(
           (const float*)a.q, (const float*)a.k, (const float*)a.v,
           (const float*)a.dout, (const float*)a.lse, (const float*)a.dcap,
-          (float*)a.dk, (float*)a.dv, (const int*)a.lens, (float*)a.part,
-          a.BH, a.S, a.G, a.d, a.scale, a.causal, a.window);
+          (float*)a.dk, (float*)a.dv, nullptr, nullptr, (const int*)a.lens,
+          (float*)a.part, a.BH, a.S, a.G, a.d, a.scale, a.causal, a.window);
   return (int)cudaGetLastError();
 }
 
@@ -1585,18 +1215,19 @@ struct FusedArgs {
 };
 
 template <int D>
-int launch_fused_f32(const FusedArgs& a, cudaStream_t stream) {
-  // 41 KB at D 32, 66 KB at D 64, 54 KB at D 128, 50 KB at D 256: above
-  // the 48 KB default at the wider D
+int launch_fused_f32(const FusedArgs& a, cudaStream_t st) {
+  using C = F32Tc<D>;
   static bool sized = false;
-  constexpr int bytes = fused_smem_bytes<D>();
-  if (int e = smem_limit(flash_bwd_fused_kernel<D>, bytes, sized)) return e;
-  const int nk = (a.S + Cfg<D>::kRows - 1) / Cfg<D>::kRows;
-  flash_bwd_fused_kernel<D><<<a.BH * nk, Cfg<D>::kThreads, bytes, stream>>>(
-      (const float*)a.q, (const float*)a.k, (const float*)a.v,
-      (const float*)a.dout, (const float*)a.lse, (const float*)a.dcap,
-      (float*)a.dq, (int*)a.turns, (float*)a.dk, (float*)a.dv, a.BH, a.S,
-      a.d, a.scale, a.causal);
+  if (int e = smem_limit(flash_bwd_dkv_tf32_kernel<D, true>, C::kSmemFused,
+                         sized))
+    return e;
+  const int nk = (a.S + C::BR - 1) / C::BR;
+  flash_bwd_dkv_tf32_kernel<D, true>
+      <<<a.BH * nk, C::kThreads, C::kSmemFused, st>>>(
+          (const float*)a.q, (const float*)a.k, (const float*)a.v,
+          (const float*)a.dout, (const float*)a.lse, (const float*)a.dcap,
+          (float*)a.dk, (float*)a.dv, (float*)a.dq, (int*)a.turns, nullptr,
+          nullptr, a.BH, a.S, 1, a.d, a.scale, a.causal, 0);
   return (int)cudaGetLastError();
 }
 
@@ -1625,6 +1256,7 @@ int launch_fused_d(const FusedArgs& a, int is_bf16, cudaStream_t st) {
   }
   if (a.d <= 32) return launch_fused_f32<32>(a, st);
   if (a.d <= 64) return launch_fused_f32<64>(a, st);
+  if (a.d <= 96) return launch_fused_f32<96>(a, st);
   if (a.d <= 128) return launch_fused_f32<128>(a, st);
   return launch_fused_f32<256>(a, st);
 }
@@ -1663,9 +1295,9 @@ int lg_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return run_pass(1, a, is_bf16, stream);
 }
 
-// `dq` is (BH, S, D) f32, written; `turns` 1 + BH * nk int32 zeros, nk =
-// ceil(S / FUSED_ROWS): the work-item ticket, then each (bh, query tile)'s
-// count of key blocks added.
+// `dq` is (BH, S, D) f32, written; `turns` 1 + BH * ceil(S / 16) int32
+// zeros (16: the narrowest query tile, TURN_ROWS in ops/attention.py): the
+// work-item ticket, then each (bh, query tile)'s count of key blocks added.
 int lg_flash_bwd_fused(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* dcap,
                        void* dq, void* turns, void* dk, void* dv, int BH,

@@ -30,17 +30,25 @@
 // grid's first blocks take the last (heaviest) Q tiles of every head, for
 // balance over the 132 SMs.
 //
-// float32: flash_fwd_kernel, on the CUDA cores (tensor cores would compute
-// f32 as TF32, which the package's 1e-3 f32 tolerances do not allow).  What
-// bounds it: FP32 FFMA issue and shared-memory reads.  Design: one
-// 128-thread block per (bh, 64-row Q tile); two threads per query row, each
-// owning half of the head dimension in float4 chunks (interleaved, so the
-// pair reads two adjacent 16-byte words of the same K/V row -- a broadcast,
-// no bank conflict).  K/V tiles of 64 rows are widened to f32 in shared
-// memory once and reused by all 64 query rows.  The online softmax (running
-// max, denominator, f32 context) is updated once per 16 keys, so the
-// rescale costs 1/16 of a key's work.  Under `causal`, K tiles wholly above
-// the diagonal are never loaded (TPU: _pair_relevant).
+// float32: flash_fwd_tf32_kernel, on the tensor cores as three tf32 passes
+// (flash_tf32.cuh: hi hi + hi lo + lo hi, each tile's share from zero; the
+// TPU kernel computes f32 at Precision.HIGHEST).  What bounds it: the 495
+// TFLOP/s of tf32 mma.sync, three passes a product.  A block is F32Tc<D>'s:
+// 4 warps over 64 query rows (8 over 128 at D 96 and 128; at D 256 two
+// warps a 16-row slab, each taking 128 of the columns, the two summing
+// their halves of S over d through shared memory); Q resident, K and V
+// tiles of 32 keys (16 at D 256) through a two-stage cp.async ring, rows D
+// + 4 floats apart.  Per K tile: S = Q K^T with both operands K-major, read
+// by ldmatrix and split into hi / lo by the threads as they load; the
+// online softmax in f32 on the accumulator fragment (a row lives in 4
+// lanes: two shuffles for a max), the mask by select only on the tiles that
+// hold the diagonal, the band's edge, the length or a padded row; O = O
+// corr + P V, with P taken from the accumulator fragment as the A operand
+// (columns 2t, 2t + 1 as depths t, t + 4, V's rows read by the same
+// permutation: no shuffles) and V MN-major by scalar loads.  Skipped as in
+// bf16: K tiles above the block's diagonal, before its first row's band or
+// past the length, and Q tiles of padding alone; under `causal` the
+// heaviest Q tiles first.
 //
 // Both: masking selects (never multiplies), so a garbage or padded row
 // cannot turn into NaN (TPU: _zero_oob_rows); rows past S are zero-filled in
@@ -56,191 +64,196 @@
 // costs O(window) keys instead of O(i).  A window of S or more bands nothing.
 //
 // Head dims: any d with d % 8 == 0 and 8 <= d <= 256 (the TPU kernel takes
-// any).  The kernels are instantiated at D = 32 (f32 only), 64, 128 and 256;
-// a call with another d runs the next wider D, with rows addressed at
-// stride d, the columns >= d loaded as zeros and never stored, so the
-// result is exact.  In f32 at D = 256 four threads share a row (NC stays 16
-// float4 words a thread, as at D = 128; two threads would hold 256 floats
-// of q and context and spill), so a block has 256 threads, and K/V tiles
-// shrink to 16 rows (two 16 KB tiles, inside the 48 KB of static shared
-// memory).
+// any).  The kernels are instantiated at D = 64, 128 and 256 (bf16; d <= 32
+// runs on D 64) and 32, 64, 96, 128 and 256 (f32); a call with another d
+// runs the next wider D, with rows addressed at stride d, the columns >= d
+// loaded as zeros and never stored, so the result is exact.
 #include "common.cuh"
+#include "flash_tf32.cuh"
 #include "tensor_core.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kSub = 16;       // keys per online-softmax update
+// ---- float32: three tf32 passes on the tensor cores --------------------
 
 template <int D>
-struct Fwd {
-  static constexpr int TPR = (D == 256) ? 4 : 2;  // threads per query row
-  static constexpr int kThreads = kBQ * TPR;
-  // keys per shared-memory tile
-  static constexpr int BK = (D == 256) ? 16 : (D == 128) ? 32 : 64;
-  static constexpr int D4 = D / 4;                // float4 words in a row
-  static constexpr int NC = D4 / TPR;             // float4 words a thread owns
-};
+__global__ void __launch_bounds__(F32Tc<D>::kThreads, F32Tc<D>::kMinBlocks)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      float* __restrict__ lse, const int* __restrict__ lens,
+                      int S, int G, int d, float scale, int causal,
+                      int window) {
+  using C = F32Tc<D>;
+  constexpr int BR = C::BR, BK = C::BK, NT = C::kThreads, P = C::P;
+  constexpr int NB = BK / 8, NN = C::DW / 8;
+  extern __shared__ float4 smem_f4[];
+  float* const sQ = reinterpret_cast<float*>(smem_f4);
+  float* const ring = sQ + BR * P;  // stage s: K, then V
+  float* const xb = ring + 4 * BK * P;
+  const uint32_t uQ = lg_smem_u32(sQ), uR = lg_smem_u32(ring);
 
-template <typename T, int D>
-__global__ void __launch_bounds__(Fwd<D>::kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, const int* __restrict__ lens,
-                 int S, int G, int d, float scale, int causal, int window) {
-  using C = Fwd<D>;
-  constexpr int TPR = C::TPR, BK = C::BK, D4 = C::D4, NC = C::NC;
-  __shared__ float4 Ks[BK][D4];
-  __shared__ float4 Vs[BK][D4];
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  const int t = threadIdx.x;
-  const int row = t / TPR, part = t % TPR;
-  const int qi = q0 + row;
-  const int d4 = d / 4;  // float4 words of a row that hold data
+  const int bh = blockIdx.x;
+  // causal: the heaviest Q tiles (the last) first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BR, q1 = q0 + BR - 1;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int slab = warp % C::SLABS, c0 = (warp / C::SLABS) * C::DW;
   const int limit = lens ? max(0, min(lens[bh], S)) : S;
-  const T* qrow = q + ((size_t)bh * S + min(qi, S - 1)) * d;
-  const T* kb = k + (size_t)(bh / G) * S * d;
-  const T* vb = v + (size_t)(bh / G) * S * d;
-
-  float4 qr[NC], acc[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int w = c * TPR + part;
-    qr[c] = w < d4 ? lg_load4(qrow + w * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
-    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m = LG_NEG, l = 0.f;
+  const float* kb = k + (size_t)(bh / G) * S * d;
+  const float* vb = v + (size_t)(bh / G) * S * d;
+  const float scale_log2 = scale * kLog2e;
 
   int nkt = (limit + BK - 1) / BK;
-  if (causal) nkt = min(nkt, (q0 + kBQ - 1) / BK + 1);
+  if (causal) nkt = min(nkt, q1 / BK + 1);
   if (q0 >= limit) nkt = 0;  // every row of the block is padding
   // the band's lower edge: keys before the first row's band are dead
   const int kt0 = window > 0 ? max(0, q0 - window + 1) / BK : 0;
-  // this row's valid keys: [klo, khi] (empty for a padded row)
-  const int klo = window > 0 ? qi - window + 1 : 0;
-  const int khi = causal ? min(qi, limit - 1) : limit - 1;
 
-  for (int kt = kt0; kt < nkt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile is no longer read
-    if constexpr (D == 128) {
-      // element by element: at D 128 this schedules the banded Mistral-7B
-      // prefill 14% faster than lg_stage, which is 4-6% faster at D 64 and
-      // 256 (PERF.md §6, `scripts/ab_flash_bwd.py`)
-      for (int e = t; e < BK * D4; e += C::kThreads) {
-        const int r = e / D4, c4 = e % D4;
-        const int kr = k0 + r;
-        float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-        if (kr < S && c4 < d4) {
-          kv = lg_load4(kb + (size_t)kr * d + c4 * 4);
-          vv = lg_load4(vb + (size_t)kr * d + c4 * 4);
-        }
-        Ks[r][c4] = kv;
-        Vs[r][c4] = vv;
-      }
-    } else {
-      lg_stage<T, D, BK, C::kThreads>(Ks, kb, k0, S, d);
-      lg_stage<T, D, BK, C::kThreads>(Vs, vb, k0, S, d);
-    }
-    __syncthreads();
-
-    for (int j0 = 0; j0 < BK; j0 += kSub) {
-      float s[kSub];
-      unsigned ok = 0u;
-      float mx = m;
+  // this thread's two query rows: valid keys [klo, khi] (none for a padded
+  // row)
+  const int r0 = q0 + slab * 16 + lane / 4;
+  int klo[2], khi[2];
 #pragma unroll
-      for (int jj = 0; jj < kSub; ++jj) {
-        const int j = j0 + jj;
-        float p = 0.f;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float4 kv = Ks[j][c * TPR + part];
-          p = fmaf(qr[c].x, kv.x, p);
-          p = fmaf(qr[c].y, kv.y, p);
-          p = fmaf(qr[c].z, kv.z, p);
-          p = fmaf(qr[c].w, kv.w, p);
-        }
-#pragma unroll
-        for (int o = 1; o < TPR; o <<= 1)
-          p += __shfl_xor_sync(0xffffffffu, p, o);
-        p *= scale;
-        const int kj = k0 + j;
-        const bool valid = kj >= klo && kj <= khi;
-        s[jj] = valid ? p : LG_NEG;
-        ok |= (valid ? 1u : 0u) << jj;
-        mx = fmaxf(mx, s[jj]);
-      }
-      const float corr = expf(m - mx);
-      l *= corr;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        acc[c].x *= corr; acc[c].y *= corr; acc[c].z *= corr; acc[c].w *= corr;
-      }
-#pragma unroll
-      for (int jj = 0; jj < kSub; ++jj) {
-        const float p = ((ok >> jj) & 1u) ? expf(s[jj] - mx) : 0.f;
-        l += p;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float4 vv = Vs[j0 + jj][c * TPR + part];
-          acc[c].x = fmaf(p, vv.x, acc[c].x);
-          acc[c].y = fmaf(p, vv.y, acc[c].y);
-          acc[c].z = fmaf(p, vv.z, acc[c].z);
-          acc[c].w = fmaf(p, vv.w, acc[c].w);
-        }
-      }
-      m = mx;
-    }
+  for (int i = 0; i < 2; ++i) {
+    const int qi = r0 + 8 * i;
+    klo[i] = window > 0 ? qi - window + 1 : 0;
+    khi[i] = qi < limit ? (causal ? min(qi, limit - 1) : limit - 1) : -1;
   }
 
-  if (qi < S) {
-    // a valid row always sees key qi itself, so l > 0 there; padded rows
-    // select 0
-    const bool ok = qi < limit;
-    const float inv = ok ? 1.f / l : 0.f;
-    T* orow = out + ((size_t)bh * S + qi) * d;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int w = c * TPR + part;
-      if (w < d4)
-        lg_store4(orow + w * 4,
-                  ok ? make_float4(acc[c].x * inv, acc[c].y * inv,
-                                   acc[c].z * inv, acc[c].w * inv)
-                     : make_float4(0.f, 0.f, 0.f, 0.f));
+  auto stage_kv = [&](int kt, int s) {
+    stage_f32<BK, D, NT>(uR + s * 2 * BK * P * 4, kb, kt * BK, S, d);
+    stage_f32<BK, D, NT>(uR + (2 * s + 1) * BK * P * 4, vb, kt * BK, S, d);
+  };
+  if (kt0 < nkt) {
+    stage_f32<BR, D, NT>(uQ, q + (size_t)bh * S * d, q0, S, d);
+    stage_kv(kt0, 0);
+    lg_cp_async_commit();
+  }
+
+  float acc[NN][4];  // O, unnormalised
+  zero_frag(acc);
+  // the rows' running max (scores in base 2) and exp-sum over this thread's
+  // columns
+  float m[2] = {LG_NEG, LG_NEG}, l[2] = {0.f, 0.f};
+  for (int kt = kt0; kt < nkt; ++kt) {
+    const int s = (kt - kt0) & 1;
+    lg_cp_async_wait<0>();
+    __syncthreads();  // tile kt landed; every warp is done with tile kt - 1
+    if (kt + 1 < nkt) {
+      stage_kv(kt + 1, s ^ 1);
+      lg_cp_async_commit();
     }
-    if (part == 0) lse[(size_t)bh * S + qi] = ok ? m + logf(l) : 0.f;
+
+    // S = Q K^T (over this warp's columns; at WN 2 the slab's two halves
+    // summed)
+    float sc[NB][4];
+    product_xyt<NB, C::DW, P>(sc, uQ + slab * 16 * P * 4,
+                              uR + s * 2 * BK * P * 4, c0, lane);
+    if constexpr (C::WN > 1)
+      exchange<NB>(sc, xb, warp, (warp + C::SLABS) % C::NW, lane);
+
+    // the mask (a select, so a masked score is never a NaN's source) only
+    // where this tile holds the diagonal, the band's edge, the length or a
+    // padded row
+    const int k0 = kt * BK;
+    const bool edge = (causal && k0 + BK - 1 > q0) ||
+                      (window > 0 && k0 < q1 - window + 1) ||
+                      k0 + BK > limit || q1 >= limit;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float x = sc[nb][e] * scale_log2;
+        if (edge) {
+          const int kj = k0 + nb * 8 + (lane & 3) * 2 + (e & 1);
+          if (kj < klo[i] || kj > khi[i]) x = LG_NEG;
+        }
+        sc[nb][e] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      corr[i] = exp2f(m[i] - mx[i]);
+      m[i] = mx[i];
+      l[i] *= corr[i];
+    }
+    // P in f32: into l, and the A operand of O += P V
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float p = sc[nb][e] == LG_NEG ? 0.f : exp2f(sc[nb][e] - m[i]);
+        l[i] += p;
+        sc[nb][e] = p;
+      }
+#pragma unroll
+    for (int nn = 0; nn < NN; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nn][e] *= corr[e >> 1];
+    uint32_t fh[NB][4], fl[NB][4];
+    to_a(fh, fl, sc);
+    accumulate<NB, NN, P, false>(
+        acc, acc, fh, fl, fh,
+        ring + (2 * s + 1) * BK * P + 2 * (lane & 3) * P + lane / 4 + c0);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int qi = r0 + 8 * i;
+    if (qi >= S) continue;
+    // a valid row always sees key qi itself (or every key < limit), so
+    // l > 0 there; padded rows select 0
+    const bool ok = qi < limit;
+    const size_t r = (size_t)bh * S + qi;
+    store_frag<NN>(out + r * d, acc, i, c0, lane, d, ok ? 1.f / l[i] : 0.f);
+    if (c0 == 0 && (lane & 3) == 0)
+      lse[r] = ok ? (m[i] + log2f(l[i])) * 0.69314718055994531f : 0.f;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           const void* lens, int BH, int G, int S, int d, float scale,
-           int causal, int window, cudaStream_t stream) {
-  dim3 grid((S + kBQ - 1) / kBQ, BH);
-  flash_fwd_kernel<T, D><<<grid, Fwd<D>::kThreads, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse,
-      (const int*)lens, S, G, d, scale, causal, window);
+template <int D>
+int launch_tf32(const void* q, const void* k, const void* v, void* out,
+                void* lse, const void* lens, int BH, int G, int S, int d,
+                float scale, int causal, int window, cudaStream_t stream) {
+  using C = F32Tc<D>;
+  static bool sized = false;
+  if (int e = smem_limit(flash_fwd_tf32_kernel<D>, C::kSmemFwd, sized))
+    return e;
+  const int nq = (S + C::BR - 1) / C::BR;
+  if (nq > 65535) return (int)cudaErrorInvalidValue;
+  flash_fwd_tf32_kernel<D>
+      <<<dim3(BH, nq), C::kThreads, C::kSmemFwd, stream>>>(
+          (const float*)q, (const float*)k, (const float*)v, (float*)out,
+          (float*)lse, (const int*)lens, S, G, d, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
-// the narrowest instantiation that holds d columns
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* out,
-             void* lse, const void* lens, int BH, int G, int S, int d,
-             float scale, int causal, int window, cudaStream_t st) {
+// the narrowest f32 instantiation that holds d columns
+int launch_tf32_d(const void* q, const void* k, const void* v, void* out,
+                  void* lse, const void* lens, int BH, int G, int S, int d,
+                  float scale, int causal, int window, cudaStream_t st) {
   if (d <= 32)
-    return launch<T, 32>(q, k, v, out, lse, lens, BH, G, S, d, scale, causal,
-                         window, st);
+    return launch_tf32<32>(q, k, v, out, lse, lens, BH, G, S, d, scale,
+                           causal, window, st);
   if (d <= 64)
-    return launch<T, 64>(q, k, v, out, lse, lens, BH, G, S, d, scale, causal,
-                         window, st);
+    return launch_tf32<64>(q, k, v, out, lse, lens, BH, G, S, d, scale,
+                           causal, window, st);
+  if (d <= 96)
+    return launch_tf32<96>(q, k, v, out, lse, lens, BH, G, S, d, scale,
+                           causal, window, st);
   if (d <= 128)
-    return launch<T, 128>(q, k, v, out, lse, lens, BH, G, S, d, scale,
+    return launch_tf32<128>(q, k, v, out, lse, lens, BH, G, S, d, scale,
+                            causal, window, st);
+  return launch_tf32<256>(q, k, v, out, lse, lens, BH, G, S, d, scale,
                           causal, window, st);
-  return launch<T, 256>(q, k, v, out, lse, lens, BH, G, S, d, scale, causal,
-                        window, st);
 }
 
 // ---- bfloat16: the tensor-core kernel ----------------------------------
@@ -447,14 +460,9 @@ template <int D>
 int launch_tc(const void* q, const void* k, const void* v, void* out,
               void* lse, const void* lens, int BH, int G, int S, int d,
               float scale, int causal, int window, cudaStream_t stream) {
-  static bool sized = false;  // the dynamic shared memory past 48 KB
-  if (!sized) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Tc<D>::kSmem);
-    if (e != cudaSuccess) return (int)e;
-    sized = true;
-  }
+  static bool sized = false;
+  if (int e = smem_limit(flash_fwd_tc_kernel<D>, Tc<D>::kSmem, sized))
+    return e;
   const int nq = (S + Tc<D>::BQ - 1) / Tc<D>::BQ;
   if (nq > 65535) return (int)cudaErrorInvalidValue;
   flash_fwd_tc_kernel<D><<<dim3(BH, nq), Tc<D>::kThreads, Tc<D>::kSmem,
@@ -498,8 +506,8 @@ int lg_flash_fwd(const void* q, const void* k, const void* v, void* out,
   if (BH <= 0 || S <= 0) return 0;
   return is_bf16 ? launch_tc_d(q, k, v, out, lse, lens, BH, G, S, D, scale,
                                causal, window, st)
-                 : launch_d<float>(q, k, v, out, lse, lens, BH, G, S, D,
-                                   scale, causal, window, st);
+                 : launch_tf32_d(q, k, v, out, lse, lens, BH, G, S, D,
+                                 scale, causal, window, st);
 }
 
 }  // extern "C"

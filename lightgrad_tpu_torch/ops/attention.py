@@ -2,14 +2,15 @@
 
 Counterpart of ``lightgrad_tpu/ops/attention.py``.  On CUDA tensors
 :func:`attention_fwd` and :func:`attention_fwd_res` launch the hand-written
-flash-forward kernel (``csrc/flash_fwd.cu``: bfloat16 on the tensor cores,
-float32 on the CUDA cores) and :func:`attention_bwd` the
+flash-forward kernel (``csrc/flash_fwd.cu``) and :func:`attention_bwd` the
 flash backward (``csrc/flash_bwd.cu``): the two passes, the dq pass
-:func:`attention_bwd_dq` and the dk/dv pass :func:`attention_bwd_dkv` (both
-dtypes on the tensor cores, float32 as three tf32 passes), or, after
-``set_flash_fused(True)`` and where its rule allows, the fused kernel
-:func:`attention_bwd_fused` (bfloat16 on the tensor cores, float32 on the
-CUDA cores, as the forward).  All three kernels take per-row ``lengths``;
+:func:`attention_bwd_dq` and the dk/dv pass :func:`attention_bwd_dkv`, or,
+after ``set_flash_fused(True)`` and where its rule allows, the fused kernel
+:func:`attention_bwd_fused`.  Every kernel runs on the tensor cores:
+bfloat16 in one pass, float32 as three tf32 passes a product
+(``csrc/flash_tf32.cuh``; modelled by :func:`attention_fwd_tf32x3_reference`
+and :func:`attention_bwd_tf32x3_reference`).  All three take per-row
+``lengths``;
 the forward and the two passes take a causal sliding ``window``, and all
 three any head dim d with d % 8 == 0, 8 <= d <= 256.
 :func:`flash_block_fwd` / :func:`flash_block_bwd` are the two directions of
@@ -32,26 +33,30 @@ __all__ = ["attention_fwd", "attention_fwd_res", "attention_fwd_reference",
            "attention_bwd", "attention_bwd_dq", "attention_bwd_dkv",
            "attention_bwd_fused", "attention_bwd_fused_reference",
            "attention_bwd_passes_reference", "attention_bwd_reference",
-           "attention_bwd_tf32x3_reference", "dkv_splits", "fused_rows",
-           "set_flash_fused",
+           "attention_bwd_tf32x3_reference", "attention_fwd_tf32x3_reference",
+           "dkv_splits", "fused_rows", "set_flash_fused",
            "flash_block_fwd", "flash_block_bwd", "flash_block_reference"]
 
 _NEG_INF = -1e30
 # Backward scheme selector, as the JAX package's _FUSED_BWD: off by default.
 _FUSED_BWD = False
 # Key rows per block of the fused kernel by dtype and instantiation D
-# (float32: Cfg<D>::kRows, bfloat16: Tc<D>::BR of csrc/flash_bwd.cu, which
-# asserts these values).  A head dim d runs the narrowest D >= d.  dq is the
-# sum of the key blocks' shares in ascending order, in the kernel and in its
-# plain version.
-FUSED_ROWS = {torch.float32: {32: 64, 64: 64, 128: 32, 256: 16},
+# (float32: F32Tc<D>::BR of csrc/flash_tf32.cuh, bfloat16: Tc<D>::BR of
+# csrc/flash_bwd.cu, which asserts these values).  A head dim d runs the
+# narrowest D >= d.  dq is the sum of the key blocks' shares in ascending
+# order, in the kernel and in its plain version.
+FUSED_ROWS = {torch.float32: {32: 64, 64: 64, 96: 128, 128: 128, 256: 64},
               torch.bfloat16: {64: 64, 128: 64, 256: 64}}
+# The fused kernels' narrowest query tile (float32 at D 256:
+# F32Tc<256>::BQ; csrc/flash_bwd.cu asserts that none is narrower): a call
+# allocates one dq turn counter per (row block, TURN_ROWS query rows).
+TURN_ROWS = 16
 
 
 def fused_rows(d: int, dtype=torch.float32) -> int:
     """Key rows a block of the fused kernel holds at head dim ``d`` in
-    ``dtype``: those of the instantiation that serves d (f32 d 80: D 128's
-    32).  A d past 256, which only the plain version takes, gets D 256's."""
+    ``dtype``: those of the instantiation that serves d (f32 d 80: D 96's
+    128).  A d past 256, which only the plain version takes, gets D 256's."""
     rows = FUSED_ROWS[torch.bfloat16 if dtype == torch.bfloat16
                       else torch.float32]
     return rows[min((D for D in rows if D >= d), default=256)]
@@ -86,11 +91,17 @@ def _masks(bkv, groups, s, dev, causal, lengths, window):
     return keys, rows
 
 
-def _probs(q4, k3, scale, causal, lengths, window):
-    """Softmax probabilities (f32) of the grouped scores, with the scores
-    and the row validity mask (None without ``lengths``)."""
+def _kt(t):
+    """(bkv, s, d) keys (or values) as the (bkv, 1, d, s) right operand of
+    a product over d with (bkv, G, s, d)."""
+    return t.unsqueeze(1).transpose(-1, -2)
+
+
+def _probs(q4, k3, scale, causal, lengths, window, mm=torch.matmul):
+    """Softmax probabilities of the grouped scores (q k^T by ``mm``), with
+    the scores and the row validity mask (None without ``lengths``)."""
     bkv, groups, s, _ = q4.shape
-    scores = torch.einsum("bgqd,bkd->bgqk", q4, k3) * scale
+    scores = mm(q4, _kt(k3)) * scale
     keys, rows = _masks(bkv, groups, s, q4.device, causal, lengths, window)
     if keys is not None:
         scores = scores.masked_fill(~keys, _NEG_INF)
@@ -101,27 +112,53 @@ def _probs(q4, k3, scale, causal, lengths, window):
     return p, scores, rows
 
 
+def _wide(t):
+    """``t`` in the plain versions' working type: float32, or float64 for
+    a float64 input (an evaluation of the same formulas in f64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _grouped(q, k, *rest):
-    """(b, bkv, s, d) of the call, q as (bkv, G, s, d) f32, and k and the
-    other KV-shaped tensors as (bkv, s, d) f32."""
+    """(b, bkv, s, d) of the call, q as (bkv, G, s, d), and k and the
+    other KV-shaped tensors as (bkv, s, d), all in :func:`_wide`'s type."""
     s, d = q.shape[-2], q.shape[-1]
     b, bkv = prod(q.shape[:-2]), prod(k.shape[:-2])
-    q4 = q.reshape(bkv, b // bkv, s, d).float()
-    return (b, bkv, s, d), q4, [t.reshape(bkv, s, d).float()
+    q4 = _wide(q.reshape(bkv, b // bkv, s, d))
+    return (b, bkv, s, d), q4, [_wide(t.reshape(bkv, s, d))
                                 for t in (k, *rest)]
+
+
+def _fwd(q, k, v, scale, causal, lengths, window, mm):
+    """(out, lse) with both products, q k^T and p v, by ``mm``."""
+    (b, _, s, _), q4, (k3, v3) = _grouped(q, k, v)
+    p, scores, rowv = _probs(q4, k3, scale, causal, lengths, window, mm)
+    lse = torch.logsumexp(scores, dim=-1, keepdim=True)
+    if rowv is not None:
+        lse = torch.where(rowv, lse, 0.0)
+    out = mm(p, v3.unsqueeze(1)).to(q.dtype).reshape(q.shape)
+    return out, lse.reshape(b, s, 1)
 
 
 def attention_fwd_reference(q, k, v, scale: float, causal: bool = False,
                             lengths=None, window: int = 0):
     """Plain PyTorch (out, lse): the JAX package's ``xla`` path
-    (``_attn_fwd_impl``) written in torch.  Softmax in float32."""
-    (b, _, s, _), q4, (k3, v3) = _grouped(q, k, v)
-    p, scores, rowv = _probs(q4, k3, scale, causal, lengths, window)
-    lse = torch.logsumexp(scores, dim=-1, keepdim=True)
-    if rowv is not None:
-        lse = torch.where(rowv, lse, 0.0)
-    out = torch.einsum("bgqk,bkd->bgqd", p, v3).to(q.dtype).reshape(q.shape)
-    return out, lse.reshape(b, s, 1)
+    (``_attn_fwd_impl``) written in torch.  Softmax in float32 (float64
+    for float64 inputs)."""
+    return _fwd(q, k, v, scale, causal, lengths, window, torch.matmul)
+
+
+def attention_fwd_tf32x3_reference(q, k, v, scale: float,
+                                   causal: bool = False, lengths=None,
+                                   window: int = 0, product=None):
+    """Plain PyTorch (out, lse) of the float32 forward kernel's tensor-core
+    arithmetic, for the tests: :func:`attention_fwd_reference` with both
+    products -- s = q k^T and out = p v -- by ``product`` (default
+    ``matmul_tf32x3_reference``: hi = tf32(x), lo = tf32(x - hi), hi hi +
+    hi lo + lo hi)."""
+    from .matmul import matmul_tf32x3_reference
+
+    return _fwd(q, k, v, scale, causal, lengths, window,
+                product or matmul_tf32x3_reference)
 
 
 def attention_bwd_reference(g, q, k, v, scale: float, causal: bool = False,
@@ -131,7 +168,7 @@ def attention_bwd_reference(g, q, k, v, scale: float, causal: bool = False,
     ``lse`` are accepted for the signature's sake and not read: the
     probabilities are recomputed from q and k."""
     _, q4, (k3, v3) = _grouped(q, k, v)
-    g4 = g.reshape(q4.shape).float()
+    g4 = _wide(g.reshape(q4.shape))
     p, _, _ = _probs(q4, k3, scale, causal, lengths, window)
     dv = torch.einsum("bgqk,bgqd->bkd", p, g4)
     dp = torch.einsum("bgqd,bkd->bgqk", g4, v3)
@@ -145,12 +182,21 @@ def attention_bwd_reference(g, q, k, v, scale: float, causal: bool = False,
 def _rounded(x, dtype):
     """``x`` rounded to the inputs' ``dtype`` and widened back: the TPU
     kernels' ``p.astype`` / ``ds.astype`` before a product (the bf16
-    kernels' tensor-core operands); the identity in float32."""
-    return x if dtype == torch.float32 else x.to(dtype).float()
+    kernels' tensor-core operands); the identity in float32 and float64."""
+    return x.to(dtype).float() if dtype == torch.bfloat16 else x
+
+
+def _over_heads(mm, x, y):
+    """x^T y summed over a KV group's query heads, by ``mm``: x (bkv, G, s,
+    s) and y (bkv, G, s, d) give (bkv, s, d)."""
+    bkv, groups, s, _ = x.shape
+    return mm(x.permute(0, 3, 1, 2).reshape(bkv, s, groups * s),
+              y.reshape(bkv, groups * s, y.shape[-1]))
 
 
 def _bwd_from_residuals(g, q, k, v, lse, dcap, scale, causal, lengths=None,
-                        block_rows=None, refine=False, dlse=None, window=0):
+                        block_rows=None, refine=False, dlse=None, window=0,
+                        mm=torch.matmul):
     """Plain PyTorch (dq, dk, dv, dcap) in the flash kernels' own
     arithmetic, from the forward's ``lse`` and ``dcap`` (rowsum(g * out),
     less lse's cotangent ``dlse`` where there is one): p = exp(s * scale -
@@ -160,53 +206,60 @@ def _bwd_from_residuals(g, q, k, v, lse, dcap, scale, causal, lengths=None,
     sum_j ds_ij / sum_j p_ij - dlse_i, before ds is used; the dcap
     returned is the one used.  ``block_rows``: dq as the sum of the shares
     of key blocks of that many keys, taken in ascending order, the fused
-    kernel's scheme."""
+    kernel's scheme.  Every product by ``mm``; float64 inputs are
+    evaluated in float64."""
     (b, bkv, s, d), q4, (k3, v3) = _grouped(q, k, v)
     groups = b // bkv
-    g4 = g.reshape(q4.shape).float()
-    scores = torch.einsum("bgqd,bkd->bgqk", q4, k3) * scale
-    p = torch.exp(scores - lse.reshape(bkv, groups, s, 1).float())
-    dp = torch.einsum("bgqd,bkd->bgqk", g4, v3)
-    ds = p * (dp - dcap.reshape(bkv, groups, s, 1).float())
+    wt = q4.dtype
+    g4 = g.reshape(q4.shape).to(wt)
+    scores = mm(q4, _kt(k3)) * scale
+    p = torch.exp(scores - lse.reshape(bkv, groups, s, 1).to(wt))
+    dp = mm(g4, _kt(v3))
+    ds = p * (dp - dcap.reshape(bkv, groups, s, 1).to(wt))
     keys, rows = _masks(bkv, groups, s, q.device, causal, lengths, window)
     for m in (keys, rows):
         if m is not None:       # select: masked scores may overflow exp
             p, ds = torch.where(m, p, 0.0), torch.where(m, ds, 0.0)
-    dcap = dcap.reshape(bkv, groups, s, 1).float()
+    dcap = dcap.reshape(bkv, groups, s, 1).to(wt)
     if refine:
         psum = p.sum(-1, keepdim=True)
         corr = ds.sum(-1, keepdim=True) / psum.clamp_min(1e-30)
         if dlse is not None:
-            corr = corr - dlse.reshape(corr.shape).float()
+            corr = corr - dlse.reshape(corr.shape).to(wt)
         corr = torch.where(psum > 0, corr, 0.0)
         ds, dcap = ds - corr * p, dcap + corr
     p, ds = _rounded(p, q.dtype), _rounded(ds, q.dtype)
-    dv = torch.einsum("bgqk,bgqd->bkd", p, g4)
-    dk = torch.einsum("bgqk,bgqd->bkd", ds, q4) * scale
+    dv = _over_heads(mm, p, g4)
+    dk = _over_heads(mm, ds, q4) * scale
     if block_rows is None:
-        dq = torch.einsum("bgqk,bkd->bgqd", ds, k3) * scale
+        dq = mm(ds, k3.unsqueeze(1)) * scale
     else:
         dq = None
         for j in range(0, s, block_rows):
-            share = torch.einsum("bgqk,bkd->bgqd", ds[..., j:j + block_rows],
-                                 k3[:, j:j + block_rows]) * scale
+            share = mm(ds[..., j:j + block_rows],
+                       k3[:, None, j:j + block_rows]) * scale
             dq = share if dq is None else dq + share
     return (dq.to(q.dtype).reshape(q.shape), dk.to(k.dtype).reshape(k.shape),
             dv.to(v.dtype).reshape(v.shape), dcap.reshape(b, s))
 
 
 def attention_bwd_fused_reference(g, q, k, v, out, lse, dcap, scale: float,
-                                  causal: bool = False):
+                                  causal: bool = False, product=None):
     """Plain PyTorch (dq, dk, dv) of the fused backward (the JAX package's
     ``_flash_bwd_fused``): dq as the f32 sum of the key blocks' shares in
     ascending order (the JAX package's slabs, summed in the kernel's
     order), cast to q's dtype.  G == 1, no lengths or window.  ``out`` is
-    accepted for the signature's sake; ``dcap`` carries what it gives."""
+    accepted for the signature's sake; ``dcap`` carries what it gives.
+    ``product``: every product by it (``matmul_tf32x3_reference`` models
+    the float32 kernel's three tf32 passes; default: plain f32 products).
+    Float64 inputs are evaluated in float64 (the key blocks of a float32
+    call)."""
     if prod(q.shape[:-2]) != prod(k.shape[:-2]):
         raise ValueError("the fused backward takes no grouped-query call")
     return _bwd_from_residuals(
         g, q, k, v, lse, dcap, scale, causal,
-        block_rows=fused_rows(q.shape[-1], q.dtype))[:3]
+        block_rows=fused_rows(q.shape[-1], q.dtype),
+        mm=product or torch.matmul)[:3]
 
 
 def _dcap(g, out, dlse=None):
@@ -250,11 +303,10 @@ def attention_bwd_tf32x3_reference(g, q, k, v, out, lse, scale: float,
     (b, bkv, s, d), q4, (k3, v3) = _grouped(q, k, v)
     groups = b // bkv
     g4 = g.reshape(q4.shape).float()
-    kt, vt = (t.unsqueeze(1).transpose(-1, -2) for t in (k3, v3))
-    p = torch.exp(mm(q4, kt) * scale
+    p = torch.exp(mm(q4, _kt(k3)) * scale
                   - lse.reshape(bkv, groups, s, 1).float())
     dcap = dcap.reshape(bkv, groups, s, 1)
-    ds = p * (mm(g4, vt) - dcap)
+    ds = p * (mm(g4, _kt(v3)) - dcap)
     keys, rows = _masks(bkv, groups, s, q.device, causal, lengths, window)
     for m in (keys, rows):
         if m is not None:       # select: masked scores may overflow exp
@@ -264,15 +316,9 @@ def attention_bwd_tf32x3_reference(g, q, k, v, out, lse, scale: float,
     if dlse is not None:
         corr = corr - dlse.reshape(corr.shape)
     ds = ds - torch.where(psum > 0, corr, 0.0) * p
-
-    def over_heads(x, y):
-        # (bkv, G, s, s) and (bkv, G, s, d): x^T y summed over the heads
-        return mm(x.permute(0, 3, 1, 2).reshape(bkv, s, groups * s),
-                  y.reshape(bkv, groups * s, d))
-
     dq = mm(ds, k3.unsqueeze(1)) * scale
-    dk = over_heads(ds, q4) * scale
-    dv = over_heads(p, g4)
+    dk = _over_heads(mm, ds, q4) * scale
+    dv = _over_heads(mm, p, g4)
     return (dq.to(q.dtype).reshape(q.shape), dk.to(k.dtype).reshape(k.shape),
             dv.to(v.dtype).reshape(v.shape))
 
@@ -436,7 +482,7 @@ def attention_bwd_fused(g, q, k, v, lse, dcap, scale: float,
     """(dq, dk, dv) from one fused kernel (G == 1, no lengths, any head dim
     the two passes take): dk and dv directly; dq summed by the kernel into
     one f32 (B, S, d) buffer, the key blocks' shares in ascending order
-    (a turn counter per query tile, B * ceil(S / fused_rows) int32 beside a
+    (a turn counter per query tile, B * ceil(S / TURN_ROWS) int32 beside a
     work-item ticket), then cast to q's dtype, as the JAX package casts
     its slab sum.  The plain version on CPU."""
     if not q.is_cuda:
@@ -447,9 +493,9 @@ def attention_bwd_fused(g, q, k, v, lse, dcap, scale: float,
     if b != bkv:
         raise ValueError(f"{fn}: the fused kernel takes no grouped-query "
                          f"call (B {b}, KV rows {bkv})")
-    nk = -(-s // fused_rows(d, q.dtype))
     dq = torch.empty(q.shape, device=q.device, dtype=torch.float32)
-    turns = torch.zeros(1 + b * nk, device=q.device, dtype=torch.int32)
+    turns = torch.zeros(1 + b * -(-s // TURN_ROWS), device=q.device,
+                        dtype=torch.int32)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = _build.library().lg_flash_bwd_fused(

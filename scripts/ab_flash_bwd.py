@@ -25,22 +25,32 @@ JSON line:
   backward (dq, dk, dv in one ``torch.autograd.grad``) beside them, its
   eager time too; in float32 also each pass's largest error against the
   float64 backward of its first KV group (four heads where G is 1), over
-  max(1, the largest |element|) and over the reference's rms;
+  max(1, the largest |element|) and over the reference's rms, the same of
+  the fused kernel, and the f32 fused kernel's time in two variants of the
+  checkout's flash_bwd.cu, each built alone (FUSED_VARIANTS; null for a
+  checkout whose source lacks their lines): without its ordered dq
+  read-modify-write (``fused_no_dq_rmw_ms``: the turn wait, the turn
+  hand-over and the dq loads taken out, the share still computed and
+  stored), and with each tile's share held in registers through the next
+  tile's products and added to dq only then, so that the wait for its turn
+  overlaps them (``fused_lag_ms``);
 - GPT-2 small (published widths, random weights from seed 0) on 8 x 1024
   random tokens: tok/s as the median of steps 2-N and the peak memory, in
-  float32 with Adam (the two-pass backward), and in bf16 ``MixedPrecision``
-  + AdamW with the two-pass backward and, where the checkout has it, the
-  fused one.
+  float32 with Adam and in bf16 ``MixedPrecision`` + AdamW, each with the
+  two-pass backward and, where the checkout has it, the fused one.
 
 Run it for two checkouts in the order A, B, B, A within one machine to
 compare them; each run is its own process.
 """
 
 import argparse
+import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -101,7 +111,69 @@ BWD_ROWS = (("8_9_gpt2", 96, 96, 1024, 64, 0, True, False),
             ("9D_pythia2p8b", 32, 32, 2048, 80, 0, True, False),
             ("8W_mistral", 32, 8, 8192, 128, 4096, True, False),
             ("8D_d32", 64, 32, 64, 32, 0, True, False),
+            ("9D_d32", 64, 64, 256, 32, 0, True, False),
             ("8_lengths", 96, 96, 128, 64, 0, False, True))
+
+# variants of the f32 fused kernel: key -> (old, new) lines of flash_bwd.cu.
+# fused_no_dq_rmw_ms: no wait for the turn, no hand-over, no load of the
+# running sum (each share stored as it is); fused_lag_ms: each tile's share
+# (tile pq) added to dq after the next tile's products, the last at the end
+FUSED_VARIANTS = {
+    "fused_no_dq_rmw_ms": (
+        ("(size_t)bkv * nq + tile;\n    dq_wait_turn(turn, kb);",
+         "(size_t)bkv * nq + tile;\n    (void)turn;"),
+        ("    dq_pass_turn(turn, kb);\n  };", "  };"),
+        ("old[nb] = kb > 0 && cg * DQW", "old[nb] = false && cg * DQW")),
+    "fused_lag_ms": (
+        ("  float share[NQ][4];\n  auto flush_dq",
+         "  float share[NQ][4];\n  int pq = -1;\n  auto flush_dq"),
+        ("      zero_frag(share);",
+         "      if (pq >= 0) flush_dq(pq);\n      zero_frag(share);"),
+        ("      flush_dq(qt);\n    }\n", "      pq = qt;\n    }\n"),
+        ("    qe = nqe;\n  }\n\n#pragma unroll\n  for (int i = 0; i < 2; ++i) "
+         "{\n    const int j = j0 + 8 * i;\n    if (j >= S) continue;\n    "
+         "const size_t r = ((size_t)bkv * S + j) * d;",
+         "    qe = nqe;\n  }\n  if constexpr (FUSED) {\n    if (pq >= 0) "
+         "flush_dq(pq);\n  }\n\n#pragma unroll\n  for (int i = 0; i < 2; "
+         "++i) {\n    const int j = j0 + 8 * i;\n    if (j >= S) continue;"
+         "\n    const size_t r = ((size_t)bkv * S + j) * d;")),
+}
+
+
+def variant_builds(build, tmp):
+    """Start building the checkout's flash_bwd.cu alone once per
+    FUSED_VARIANTS entry whose lines it has (``build``: its ops._build
+    module): {key: (library path, nvcc process)}."""
+    text = open(os.path.join(build._CSRC, "flash_bwd.cu")).read()
+    procs = {}
+    for key, subs in FUSED_VARIANTS.items():
+        if not all(old in text for old, _ in subs):
+            continue
+        where = os.path.join(tmp, key)
+        shutil.copytree(build._CSRC, where)
+        path = os.path.join(where, "flash_bwd.cu")
+        patched = text
+        for old, new in subs:
+            patched = patched.replace(old, new)
+        with open(path, "w") as f:
+            f.write(patched)
+        so = os.path.join(where, "lib.so")
+        procs[key] = so, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", so, path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return procs
+
+
+class FusedFrom:
+    """The checkout's kernel library with ``lg_flash_bwd_fused`` taken from
+    another library."""
+
+    def __init__(self, main, lib):
+        self.main, self.lib = main, lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib if name == "lg_flash_bwd_fused"
+                       else self.main, name)
 
 
 def bert_lengths(h, s, dev):
@@ -193,13 +265,24 @@ def sdpa_backward_ms(q, k, v, do, window, causal=True, lengths=None):
     return both - fwd, eager
 
 
-def backward_rows(att):
+def backward_rows(att, builds=()):
     """Graph-timed ms of the backward's pieces at BWD_ROWS, causal, and of
     SDPA's backward at the same inputs; null where the checkout refuses a
-    call."""
+    call.  ``builds``: :func:`variant_builds`'s."""
+    from lightgrad_tpu_torch.ops import _build
+
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(10)
     fused = getattr(att, "set_flash_fused", None)
+    variants = {}
+    for key, (so, proc) in dict(builds).items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            sys.exit(f"ab_flash_bwd: variant {key} failed:\n{log}")
+        variants[key] = ctypes.CDLL(so)
+        entry = variants[key].lg_flash_bwd_fused
+        entry.argtypes, entry.restype = _build._SIGNATURES[
+            "lg_flash_bwd_fused"]
     res = {}
     for name, h, kvh, s, hd, window, causal, bert in BWD_ROWS:
         lens = bert_lengths(h, s, dev) if bert else None
@@ -224,9 +307,21 @@ def backward_rows(att):
                 do, q, k, v, lse, dcap, sc, causal, lens, window=window))
             timed("dkv_ms", lambda: att.attention_bwd_dkv(
                 do, q, k, v, lse, dcap, sc, causal, lens, window=window))
-            if kvh == h and lens is None and fused is not None:
+            has_fused = kvh == h and lens is None and fused is not None
+            if has_fused:
                 timed("fused_ms", lambda: att.attention_bwd_fused(
                     do, q, k, v, lse, dcap, sc, True))
+            for key in FUSED_VARIANTS if has_fused \
+                    and dtype == torch.float32 else ():
+                r[key] = None
+                if key in variants:
+                    main_lib = _build.library()
+                    _build._lib = FusedFrom(main_lib, variants[key])
+                    try:
+                        timed(key, lambda: att.attention_bwd_fused(
+                            do, q, k, v, lse, dcap, sc, True))
+                    finally:
+                        _build._lib = main_lib
             try:
                 r["sdpa_bwd_ms"], r["sdpa_bwd_eager_ms"] = sdpa_backward_ms(
                     q, k, v, do, window, causal, lens)
@@ -238,6 +333,13 @@ def backward_rows(att):
                 r["f64_err_dq_dk_dv"], r["f64_err_rms_dq_dk_dv"] = (
                     f64_errors(q, k, v, do, sc, causal, window, lens, got,
                                over) for over in ("max", "rms"))
+                if has_fused:
+                    got = att.attention_bwd_fused(do, q, k, v, lse, dcap, sc,
+                                                  True)
+                    r["fused_f64_err_dq_dk_dv"], \
+                        r["fused_f64_err_rms_dq_dk_dv"] = (
+                            f64_errors(q, k, v, do, sc, causal, window, lens,
+                                       got, over) for over in ("max", "rms"))
                 del got
             res[f"{name}_{str(dtype)[6:]}"] = r
             del q, k, v, do, out, lse, dcap
@@ -367,18 +469,27 @@ def main():
 
     if os.path.dirname(os.path.dirname(os.path.abspath(lg.__file__))) != tree:
         sys.exit(f"ab_flash_bwd: imported {lg.__file__}, not from {tree}")
+    from lightgrad_tpu_torch.ops import _build
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    rec = {"tree": args.tree, "card": smi, "backward": backward_times(att),
-           "backward_rows": backward_rows(att),
-           "llama_forward": llama_forward_times(att),
-           "train_f32": train_step(lg, args.steps, f32=True),
-           "train_bf16": train_step(lg, args.steps)}
+    tmp = tempfile.mkdtemp()
+    try:
+        builds = variant_builds(_build, tmp)
+        rec = {"tree": args.tree, "card": smi,
+               "backward": backward_times(att),
+               "backward_rows": backward_rows(att, builds)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec.update({"llama_forward": llama_forward_times(att),
+                "train_f32": train_step(lg, args.steps, f32=True),
+                "train_bf16": train_step(lg, args.steps)})
     fused = getattr(att, "set_flash_fused", None)
     if fused is not None:
         prev = fused(True)
         try:
+            rec["train_f32_fused"] = train_step(lg, args.steps, f32=True)
             rec["train_bf16_fused"] = train_step(lg, args.steps)
         finally:
             fused(prev)

@@ -4,9 +4,10 @@ design as it stands, on one card, with their float64 errors.
     python3 scripts/flash_bwd_variants.py
 
 Each variant is ``lightgrad_tpu_torch/csrc/flash_bwd.cu`` with a few lines
-replaced (the script refuses a variant whose lines are gone), built alone
-with the package's nvcc flags into its own library, whose two f32 pass
-entry points stand in for the package's while it is timed.  Variants:
+of it or of the headers it includes (``flash_tf32.cuh``) replaced (the
+script refuses a variant whose lines are gone), built alone with the
+package's nvcc flags into its own library, whose two f32 pass entry points
+stand in for the package's while it is timed.  Variants:
 
 - ``in_place``: each tile's dq / dk / dv share added to the running sum
   inside the tensor cores, not summed from zero and added in f32;
@@ -44,28 +45,33 @@ from lightgrad_tpu_torch.ops import _build  # noqa: E402
 from lightgrad_tpu_torch.ops import attention as att  # noqa: E402
 
 PASSES = ("lg_flash_bwd_dq", "lg_flash_bwd_dkv")
-# variant -> (replacements in flash_bwd.cu, rows it is timed at or None)
+# variant -> (replacements (source file, old, new), rows it is timed at or
+# None)
+TC = "flash_tf32.cuh"
 VARIANTS = {
     "change": ([], None),
-    "in_place": ([("mma_small(small, fh[kb], fl[kb], bh0, bh1, bl0, bl1);",
-                   "mma_small(acc[nb], fh[kb], fl[kb], bh0, bh1, bl0, bl1);"),
-                  ("mma_tf32(part, fh[kb], bh0, bh1);",
+    "in_place": ([(TC, "mma_small(small, fh[kb], fl[kb], bh0, bh1, bl0, "
+                   "bl1);", "mma_small(acc[nb], fh[kb], fl[kb], bh0, bh1, "
+                   "bl0, bl1);"),
+                  (TC, "mma_tf32(part, fh[kb], bh0, bh1);",
                    "mma_tf32(acc[nb], fh[kb], bh0, bh1);"),
-                  ("acc[nb][e] += part[e] + small[e];",
+                  (TC, "acc[nb][e] += part[e] + small[e];",
                    "(void)(part[e] + small[e]);")],
                  None),
-    "interleaved": ([("mma_small(ts[nb],", "mma_small(t[nb],"),
-                     ("mma_small(small,", "mma_small(part,")],
+    "interleaved": ([(TC, "mma_small(ts[nb],", "mma_small(t[nb],"),
+                     (TC, "mma_small(small,", "mma_small(part,")],
                     None),
-    "dq64_bk64": ([("static constexpr int BK = D == 256 ? 16 : 32;",
+    "dq64_bk64": ([(TC, "static constexpr int BK = D == 256 ? 16 : 32;",
                     "static constexpr int BK = D == 256 ? 16 : D == 64 ? 64 "
                     ": 32;")],
                   ("8_9_gpt2", "8D_d32", "8_lengths")),
-    "d80_on_d128": ([("  if (a.d <= 96)\n    return dkv ? launch_dkv_tf32<96>"
-                      "(a, st) : launch_dq_tf32<96>(a, st);\n", "")],
+    "d80_on_d128": ([("flash_bwd.cu", "  if (a.d <= 96)\n    return dkv ? "
+                      "launch_dkv_tf32<96>(a, st) : launch_dq_tf32<96>(a, "
+                      "st);\n", "")],
                     ("9D_pythia2p8b",)),
-    "d32_on_d64": ([("  if (a.d <= 32)\n    return dkv ? launch_dkv_tf32<32>"
-                     "(a, st) : launch_dq_tf32<32>(a, st);\n", "")],
+    "d32_on_d64": ([("flash_bwd.cu", "  if (a.d <= 32)\n    return dkv ? "
+                     "launch_dkv_tf32<32>(a, st) : launch_dq_tf32<32>(a, "
+                     "st);\n", "")],
                    ("8D_d32",)),
 }
 
@@ -80,38 +86,45 @@ class Passes:
         return getattr(self.lib if name in PASSES else self.main, name)
 
 
+def patched_build(src_dir, subs, where):
+    """A copy of ``src_dir`` in directory ``where`` with ``subs`` ((file,
+    old, new), each ``old`` required) applied, and the nvcc process that
+    builds its flash_bwd.cu alone into ``where``/lib.so: (path, Popen)."""
+    shutil.copytree(src_dir, where)
+    for name, old, new in subs:
+        path = os.path.join(where, name)
+        text = open(path).read()
+        if old not in text:
+            sys.exit(f"flash_bwd_variants: {old!r} not in {name}")
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
+    so = os.path.join(where, "lib.so")
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so,
+           os.path.join(where, "flash_bwd.cu")]
+    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+
+def load(so, proc, entries):
+    """The library ``so`` once ``proc`` has built it, with ``entries``'
+    signatures set."""
+    out = proc.communicate()[0]
+    if proc.returncode:
+        sys.exit(f"flash_bwd_variants: {so} failed to build:\n{out}")
+    lib = ctypes.CDLL(so)
+    for fn in entries:
+        f = getattr(lib, fn)
+        f.argtypes, f.restype = _build._SIGNATURES[fn]
+    return lib
+
+
 def build(tmp):
     """{variant: library}, each variant's flash_bwd.cu built alone."""
     src_dir = os.path.join(ROOT, "lightgrad_tpu_torch", "csrc")
-    src = open(os.path.join(src_dir, "flash_bwd.cu")).read()
-    procs = {}
-    for name, (subs, _) in VARIANTS.items():
-        d = os.path.join(tmp, name)
-        shutil.copytree(src_dir, d)
-        text = src
-        for old, new in subs:
-            if old not in text:
-                sys.exit(f"flash_bwd_variants: {name}: {old!r} not found")
-            text = text.replace(old, new)
-        with open(os.path.join(d, "flash_bwd.cu"), "w") as f:
-            f.write(text)
-        so = os.path.join(d, "lib.so")
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so,
-               os.path.join(d, "flash_bwd.cu")]
-        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode:
-            sys.exit(f"flash_bwd_variants: {name} failed to build:\n{out}")
-        lib = ctypes.CDLL(so)
-        for fn in PASSES:
-            f = getattr(lib, fn)
-            f.argtypes, f.restype = _build._SIGNATURES[fn]
-        libs[name] = lib
-    return libs
+    procs = {name: patched_build(src_dir, subs, os.path.join(tmp, name))
+             for name, (subs, _) in VARIANTS.items()}
+    return {name: load(so, proc, PASSES)
+            for name, (so, proc) in procs.items()}
 
 
 def main():

@@ -18,9 +18,11 @@ from lightgrad_tpu_torch.ops.attention import (attention_bwd,
                                                attention_bwd_tf32x3_reference,
                                                attention_fwd_res,
                                                attention_fwd_reference,
+                                               attention_fwd_tf32x3_reference,
                                                dkv_splits,
                                                flash_block_reference,
-                                               fused_rows, set_flash_fused)
+                                               fused_rows, set_flash_fused,
+                                               TURN_ROWS)
 from lightgrad_tpu_torch.ops.conv import (conv_bwd, conv_bwd_dw, conv_bwd_dx,
                                           conv_bwd_reference, conv_fwd,
                                           conv_fwd_reference, conv_route)
@@ -40,7 +42,8 @@ from lightgrad_tpu_torch.ops.runtime import (launch_counts,
 
 pytestmark = pytest.mark.cuda
 
-# f32: FFMA sums in another order than the reference's GEMMs (no TF32);
+# f32: three tf32 passes, summed in another order than the reference's
+# GEMMs (no TF32);
 # bf16: inputs are bf16, sums f32, outputs rounded once to bf16
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
@@ -166,11 +169,11 @@ def _close_ulp(got, want, dtype, tol=None):
     (64, 1, 32, False, 0, None), (1, 1, 64, True, 0, None)])
 def test_flash_fwd_every_instantiation(dev, S, G, D, causal, window, lens,
                                        dtype):
-    """The forward (bf16: the tensor-core kernel, D 64, 128, 256; f32: the
-    SIMT kernel) at head dims that are no instantiation (8, 24, 80, 200), S
-    not a multiple of the 64-row tiles, G 1-8, causal and not, a window
-    narrower than a K tile, and lengths of 0, 1 and S (padded rows exactly
-    0, their lse 0)."""
+    """The forward (bf16: D 64, 128, 256; f32, three tf32 passes: D 32,
+    64, 96, 128, 256) at head dims that are no instantiation (8, 24, 80,
+    200), S not a multiple of the 64-row tiles, G 1-8, causal and not, a
+    window narrower than a K tile, and lengths of 0, 1 and S (padded rows
+    exactly 0, their lse 0)."""
     g = torch.Generator(device=dev).manual_seed(11 * S + G + D + window)
     B = 8
     q = _randn(g, B, S, D, dtype=dtype)
@@ -462,13 +465,108 @@ def test_flash_bwd_tf32_kernels(dev, S, G, D, causal, window, lens):
         assert bool((got[0][pad] == 0).all())
 
 
+@pytest.mark.parametrize("S,G,D,causal,window,lens", [
+    (100, 1, 8, True, 0, None), (130, 2, 40, False, 0, "edges"),
+    (257, 4, 80, True, 1, None), (65, 2, 200, True, 0, "edges"),
+    (300, 1, 96, True, 70, None), (77, 8, 128, False, 0, "edges"),
+    (129, 1, 32, True, 0, "edges"), (1, 1, 256, True, 0, None)])
+def test_flash_fwd_tf32_kernel(dev, S, G, D, causal, window, lens):
+    """The f32 forward (three tf32 passes on the tensor cores) at head dims
+    that are no instantiation (8, 40, 80, 200) and at D 32, 96, 128, 256,
+    S no multiple of the 64- or 128-row query tiles and 32-key tiles, G
+    1-8, a window of 1 and one narrower than a tile, lengths of 0, 1 and S:
+    against the plain version and the three-pass model within TOL[f32];
+    padded rows exactly 0 with an lse of 0; bit for bit on a rerun."""
+    g = torch.Generator(device=dev).manual_seed(29 * S + G + D + window)
+    B = 8
+    q = _randn(g, B, S, D)
+    k, v = (_randn(g, B // G, S, D) for _ in range(2))
+    lengths = None
+    if lens:
+        lengths = torch.tensor([0, 1, S, S // 2, 3, S - 1, S, 2],
+                               device=dev, dtype=torch.int32)
+    sc = D ** -0.5
+    reset_launch_counts()
+    out, lse = attention_fwd_res(q, k, v, sc, causal, lengths=lengths,
+                                 window=window)
+    torch.cuda.synchronize()
+    assert launch_counts()["attention_fwd"] == 1
+    for want in (attention_fwd_reference(q, k, v, sc, causal, lengths,
+                                         window),
+                 attention_fwd_tf32x3_reference(q, k, v, sc, causal, lengths,
+                                                window)):
+        _close(out, want[0], torch.float32)
+        _close(lse, want[1], torch.float32)
+    if lengths is not None:
+        pad = torch.arange(S, device=dev)[None, :] >= lengths[:, None]
+        assert bool((out[pad] == 0).all()) and bool((lse[..., 0][pad] == 0)
+                                                    .all())
+    again = attention_fwd_res(q, k, v, sc, causal, lengths=lengths,
+                              window=window)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.parametrize("D", [64, 256])
+def test_flash_fwd_f32_is_not_one_tf32_pass(dev, D):
+    """The f32 forward meets the bar that the same arithmetic with one tf32
+    pass a product fails: within TOL[f32] of the float64 forward (the
+    largest error over max(1, the largest |element|))."""
+    g = torch.Generator(device=dev).manual_seed(31 + D)
+    q, k, v = (_randn(g, 4, 256, D) for _ in range(3))
+    sc = D ** -0.5
+    got = attention_fwd_res(q, k, v, sc, True)
+    one = attention_fwd_tf32x3_reference(q, k, v, sc, True,
+                                         product=_one_tf32_pass)
+    want = attention_fwd_reference(q.double(), k.double(), v.double(), sc,
+                                   True)
+
+    def err(xs):
+        return max(((x.double() - w).abs().max()
+                    / w.abs().max().clamp_min(1.0)).item()
+                   for x, w in zip(xs, want))
+
+    assert err(got) <= TOL[torch.float32], err(got)
+    assert err(one) > TOL[torch.float32], err(one)   # tells them apart
+
+
+@pytest.mark.parametrize("S,D,causal", [(100, 8, True), (130, 40, False),
+                                        (257, 80, True), (65, 200, True),
+                                        (300, 96, False), (200, 256, True),
+                                        (70, 32, True), (1, 64, True)])
+def test_flash_fused_tf32_kernel(dev, S, D, causal):
+    """The f32 fused backward (three tf32 passes, dq summed over the key
+    blocks in order) at head dims that are no instantiation (8, 40, 80,
+    200) and at D 32, 64, 96, 256, S no multiple of the key blocks (64 or
+    128 rows) or the 32- and 16-row query tiles: against its plain version
+    and the three-pass model within TOL[f32]; bit for bit on reruns."""
+    g = torch.Generator(device=dev).manual_seed(37 * S + D + causal)
+    q, do, k, v = (_randn(g, 4, S, D) for _ in range(4))
+    sc = D ** -0.5
+    out, lse = attention_fwd_res(q, k, v, sc, causal)
+    dcap = (do * out).sum(-1).contiguous()
+    reset_launch_counts()
+    got = attention_bwd_fused(do, q, k, v, lse, dcap, sc, causal)
+    torch.cuda.synchronize()
+    assert launch_counts()["attention_bwd_fused"] == 1
+    for product in (None, matmul_tf32x3_reference):
+        want = attention_bwd_fused_reference(do, q, k, v, out, lse, dcap, sc,
+                                             causal, product=product)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+            _close(a, b, torch.float32)
+    for _ in range(2):
+        again = attention_bwd_fused(do, q, k, v, lse, dcap, sc, causal)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,D,causal", [(1024, 64, True), (200, 64, False),
                                         (300, 128, True), (129, 80, False),
                                         (256, 256, True), (100, 200, False),
                                         (200, 8, True)])
 def test_flash_fused_kernel_orders_dq(dev, S, D, causal, dtype):
-    """The fused kernel (bf16: tensor cores; f32: CUDA cores), dq summed
+    """The fused kernel (tensor cores; f32 as three tf32 passes), dq summed
     over the key blocks in order in the kernel, against its plain version,
     which sums in the same order: bit for bit on a rerun."""
     g = torch.Generator(device=dev).manual_seed(17 * S + D + causal)
@@ -513,7 +611,8 @@ def test_flash_fused_kernel_keeps_no_dq_slabs(dev, dtype):
     isz = q.element_size()
     nk = -(-S // fused_rows(D, dtype))
     # dq f32 (and its cast), dk, dv, the ticket and turns, 1 MB of slack
-    bound = B * S * D * (4 + 3 * isz) + 4 * (1 + B * nk) + 2 ** 20
+    bound = B * S * D * (4 + 3 * isz) + 4 * (1 + B * -(-S // TURN_ROWS)) \
+        + 2 ** 20
     slabs = nk * B * S * D * 4
     assert peak <= bound < slabs, (peak, bound, slabs)
     assert all(torch.isfinite(t.float()).all() for t in got)
@@ -1069,6 +1168,7 @@ def test_wrappers_raise_on_what_the_kernels_lack(dev):
 # --- the generic op set of the lightgrad tape --------------------------------
 from lightgrad_tpu_torch.ops.elementwise import ew, ew_reference  # noqa: E402
 from lightgrad_tpu_torch.ops.matmul import (matmul, matmul_reference,  # noqa
+                                            matmul_tf32x3_reference,
                                             matmul_vjp, tf32_round)
 from lightgrad_tpu_torch.ops.reduce import reduce, reduce_reference  # noqa
 from lightgrad_tpu_torch.ops.softmax import (softmax_bwd,  # noqa: E402
