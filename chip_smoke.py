@@ -1354,8 +1354,9 @@ def phase_train_kernels(results):
     from lightgrad_tpu_torch.ops.attention import (
         attention_bwd, attention_bwd_dkv, attention_bwd_dq, attention_fwd_res)
     from lightgrad_tpu_torch.ops.layernorm import (
-        layernorm_bwd_dx, layernorm_bwd_dx_reference, layernorm_fwd,
-        layernorm_fwd_reference)
+        layernorm_bwd, layernorm_bwd_dx, layernorm_bwd_dx_reference,
+        layernorm_bwd_reference, layernorm_fwd, layernorm_fwd_reference,
+        layernorm_fwd_stats, layernorm_fwd_stats_reference)
 
     cfg = GPT2_SMALL
     d, H, T = cfg["n_embd"], cfg["n_head"], cfg["n_positions"]
@@ -1432,40 +1433,69 @@ def phase_train_kernels(results):
             del q, do, k, v, out, lse, got, dcap
             torch.cuda.empty_cache()
 
-        # LayerNorm at the training path's rows: (B*T, d)
+        # LayerNorm at the training path's rows: (B*T, d).  The autograd
+        # Functions run layernorm_fwd_stats (y and the row statistics) and
+        # layernorm_bwd (dx, dw, db); the JAX signatures' xhat forward and
+        # dx-only backward are checked and timed beside them
         x = rnd(B * T, d) * 2.0 + 0.5
         w, b = rnd(d), rnd(d)
-        y, xhat, rstd = layernorm_fwd(x, w, b, 1e-5)
-        ry, rxhat, rrstd = layernorm_fwd_reference(x, w, b, 1e-5)
-        err = max(check("layernorm_fwd y", dtype, y, ry, tol),
-                  check("layernorm_fwd xhat", dtype, xhat, rxhat,
-                        KERNEL_TOL[torch.float32]),
-                  check("layernorm_fwd rstd", dtype, rstd, rrstd,
-                        KERNEL_TOL[torch.float32]))
+        y, mean, rstd = layernorm_fwd_stats(x, w, b, 1e-5)
+        ry, rmean, rrstd = layernorm_fwd_stats_reference(x, w, b, 1e-5)
+        f32_tol = KERNEL_TOL[torch.float32]
+        err = max(check("layernorm_fwd_stats y", dtype, y, ry, tol),
+                  check("layernorm_fwd_stats mean", dtype, mean, rmean,
+                        f32_tol),
+                  check("layernorm_fwd_stats rstd", dtype, rstd, rrstd,
+                        f32_tol))
+        discriminates("layernorm_fwd", dtype, ry, tol, torch.zeros_like(ry))
+        _, xhat, rstd2 = layernorm_fwd(x, w, b, 1e-5)
+        _, rxhat, _ = layernorm_fwd_reference(x, w, b, 1e-5)
+        err = max(err, check("layernorm_fwd xhat", dtype, xhat, rxhat,
+                             f32_tol),
+                  check("layernorm_fwd rstd", dtype, rstd2, rrstd, f32_tol))
         rows = B * T
         # device times by CUDA graph: eager times of these 0.02-0.05 ms
-        # calls are Triton's launch work
+        # calls are Triton's launch work.  Bytes: x read, y written, w and
+        # b read, mean and rstd written
         timed(results, dtype, "layernorm_fwd", err,
-              lambda: layernorm_fwd(x, w, b, 1e-5),
-              lambda: layernorm_fwd_reference(x, w, b, 1e-5),
-              (rows * d * (2 * isz + 4) + 2 * d * isz + rows * 4,
-               8 * rows * d),
+              lambda: layernorm_fwd_stats(x, w, b, 1e-5),
+              lambda: layernorm_fwd_stats_reference(x, w, b, 1e-5),
+              (2 * rows * d * isz + 2 * d * isz + 8 * rows, 8 * rows * d),
               lambda: F.layer_norm(x, (d,), w, b, 1e-5))
         gy = rnd(B * T, d)
-        dx = layernorm_bwd_dx(gy, w, xhat, rstd)
-        err = check("layernorm_bwd dx", dtype, dx,
-                    layernorm_bwd_dx_reference(gy, w, xhat, rstd), tol)
-        # the library's input gradient alone: aten's LayerNorm backward
-        # with only dx requested
-        _, mean, lrstd = torch.ops.aten.native_layer_norm(x, [d], w, b, 1e-5)
+        got = layernorm_bwd(gy, x, w, mean, rstd)
+        want = layernorm_bwd_reference(gy, x, w, mean, rstd)
+        err = max(check(f"layernorm_bwd {n}", dtype, a, e, tol)
+                  for n, a, e in zip(("dx", "dw", "db"), got, want))
+        discriminates("layernorm_bwd", dtype, want[1], tol,
+                      torch.zeros_like(want[1]))
+        again = layernorm_bwd(gy, x, w, mean, rstd)
+        if not all(torch.equal(a, e) for a, e in zip(got, again)):
+            raise AssertionError(f"layernorm_bwd {dtype}: two runs differ")
+        # the library's whole backward: aten's LayerNorm backward with dx,
+        # dw and db requested.  Bytes: g and x read, dx written, w read, dw
+        # and db written, mean and rstd read
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [d], w, b,
+                                                           1e-5)
         timed(results, dtype, "layernorm_bwd", err,
-              lambda: layernorm_bwd_dx(gy, w, xhat, rstd),
-              lambda: layernorm_bwd_dx_reference(gy, w, xhat, rstd),
+              lambda: layernorm_bwd(gy, x, w, mean, rstd),
+              lambda: layernorm_bwd_reference(gy, x, w, mean, rstd),
+              (3 * rows * d * isz + 3 * d * isz + 8 * rows, 10 * rows * d),
+              lambda: torch.ops.aten.native_layer_norm_backward(
+                  gy, x, [d], lmean, lrstd, w, b, [True, True, True]))
+        # the JAX signature's input gradient alone, beside aten's dx alone
+        dx = layernorm_bwd_dx(gy, w, xhat, rstd2)
+        err = check("layernorm_bwd_dx dx", dtype, dx,
+                    layernorm_bwd_dx_reference(gy, w, xhat, rstd2), tol)
+        timed(results, dtype, "layernorm_bwd", err,
+              lambda: layernorm_bwd_dx(gy, w, xhat, rstd2),
+              lambda: layernorm_bwd_dx_reference(gy, w, xhat, rstd2),
               (rows * d * (2 * isz + 4) + d * isz + rows * 4, 6 * rows * d),
               lambda: torch.ops.aten.native_layer_norm_backward(
-                  gy, x, [d], mean, lrstd, w, b, [True, False, False]))
-        del mean, lrstd
-        del x, y, xhat, rstd, gy, dx
+                  gy, x, [d], lmean, lrstd, w, b, [True, False, False]),
+              variant="dx_")
+        del lmean, lrstd, got, want, again
+        del x, y, mean, rstd, xhat, rstd2, gy, dx
         torch.cuda.empty_cache()
 
 
@@ -2043,6 +2073,34 @@ def phase_tape_kernels(results):
               lambda: reduce(logits, "sum", axis=-1),
               lambda: reduce_reference(logits, "sum", axis=-1),
               ((R * V + R) * isz, R * V), lambda: torch.sum(logits, -1))
+        # the other layout classes of the main paths, sum and max, each
+        # beside torch.sum / torch.amax over the same dims: a column sum at
+        # GPT-2's 8192 x 768 (a bias gradient), BatchNorm's (0, 2, 3) at
+        # ResNet-18's layer-1 activation (read in place, split over R), a
+        # whole tensor (split over R); bytes: input read, output written
+        for variant, t, axis in (
+                ("", logits, -1),
+                ("col_", rnd(TRAIN_BATCH * GPT2_SMALL["n_positions"],
+                             GPT2_SMALL["n_embd"]), 0),
+                ("bn_", rnd(32, 64, 56, 56), (0, 2, 3)),
+                ("whole_", rnd(32, 64, 56, 56), None)):
+            dims = tuple(range(t.dim())) if axis is None else axis
+            for op, lib in (("sum", torch.sum), ("max", torch.amax)):
+                if not variant and op == "sum":
+                    continue            # the record's main line, above
+                want = reduce_reference(t, op, axis=axis)
+                err = check(f"reduce {op} {tuple(t.shape)} axis={axis}",
+                            dtype, reduce(t, op, axis=axis), want, tol)
+                discriminates("reduce", dtype, want, tol,
+                              torch.zeros_like(want))
+                timed(results, dtype, "reduce", err,
+                      lambda: reduce(t, op, axis=axis),
+                      lambda: reduce_reference(t, op, axis=axis),
+                      ((t.numel() + want.numel()) * isz, t.numel()),
+                      lambda: lib(t, dims),
+                      variant=variant + ("max_" if op == "max" else ""))
+            del t
+        torch.cuda.empty_cache()
 
         # matmul: every product of the step and its gradients
         w_qkv, w_up = rnd(d, d, scale=0.03), rnd(f, d, scale=0.03)
@@ -2405,7 +2463,7 @@ def tape_step(model, opt, x_ids, y, **inputs):
 # kernel-name fragment -> the family a step's device time is summed under
 KERNEL_FAMILIES = (("matmul_tc_kernel", "matmul"),
                    ("ew_kernel", "elementwise"),
-                   ("reduce_rows", "reduce"), ("softmax_", "softmax"),
+                   ("lg_reduce_", "reduce"), ("softmax_", "softmax"),
                    ("ln_", "layernorm"),
                    # the fused flash backward: flash_bwd_dkv_*_kernel<D, true>
                    ("true>(", "fused flash backward"),

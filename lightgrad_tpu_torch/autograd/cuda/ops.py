@@ -29,8 +29,8 @@ from ...ops.attention import attention_fwd_res as kattn_fwd_res
 from ...ops.conv import conv_bwd as kconv_bwd
 from ...ops.conv import conv_fwd as kconv_fwd
 from ...ops.elementwise import ew
-from ...ops.layernorm import layernorm_bwd_dx as kln_bwd_dx
-from ...ops.layernorm import layernorm_fwd as kln_fwd
+from ...ops.layernorm import layernorm_bwd as kln_bwd
+from ...ops.layernorm import layernorm_fwd_stats as kln_fwd
 from ...ops.matmul import matmul as kmatmul
 from ...ops.matmul import matmul_vjp
 from ...ops.reduce import reduce as kreduce
@@ -587,20 +587,16 @@ class layernorm(Function):
     """Fused layer normalization over the trailing dims of ``w``'s shape."""
 
     def forward(ctx, x, w, b, eps: float = 1e-5):
-        y, xhat, rstd = kln_fwd(x.data.contiguous(), w.data.contiguous(),
-                                b.data.contiguous(), eps)
-        ctx.save_for_backward(x.shape, w.shape, w.data.contiguous(), xhat,
-                              rstd)
+        xd, wd = x.data.contiguous(), w.data.contiguous()
+        y, mean, rstd = kln_fwd(xd, wd, b.data.contiguous(), eps)
+        # x and the row statistics, no (r, c) residual
+        ctx.save_for_backward(xd, wd, mean, rstd)
         return _t(y)
 
     def backward(ctx, g):
-        x_shape, w_shape, wd, xhat, rstd = ctx.get_saved_tensors()
-        r, c = xhat.shape
-        g2 = g.data.reshape(r, c).contiguous()
-        dx = kln_bwd_dx(g2, wd, xhat, rstd).reshape(x_shape)
-        dw = kreduce(ew("f_mul", g2, xhat), "sum", axis=0).reshape(w_shape)
-        db = kreduce(g2, "sum", axis=0).reshape(w_shape)
-        return _t(dx), _t(dw), _t(db)
+        xd, wd, mean, rstd = ctx.get_saved_tensors()
+        dx, dw, db = kln_bwd(g.data.contiguous(), xd, wd, mean, rstd)
+        return _t(dx.reshape(xd.shape)), _t(dw), _t(db)
 
 
 @CudaTensor.register_op()

@@ -24,31 +24,26 @@ import torch
 
 from ..ops.attention import (attention_bwd, attention_fwd_res,
                              flash_block_bwd, flash_block_fwd)
-from ..ops.layernorm import layernorm_bwd_dx, layernorm_fwd
+from ..ops.layernorm import layernorm_bwd, layernorm_fwd_stats
 
 __all__ = ["attention", "flash_block", "layernorm"]
 
 
 class _LayerNorm(torch.autograd.Function):
+    """Saves x and the row statistics, no (r, c) residual; one backward
+    gives dx, dw and db."""
+
     @staticmethod
     def forward(ctx, x, w, b, eps):
-        y, xhat, rstd = layernorm_fwd(x, w, b, eps)
-        ctx.save_for_backward(w, xhat, rstd)
-        ctx.x_shape = x.shape
+        y, mean, rstd = layernorm_fwd_stats(x, w, b, eps)
+        ctx.save_for_backward(x, w, mean, rstd)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        w, xhat, rstd = ctx.saved_tensors
-        r, c = xhat.shape
-        g2 = g.reshape(r, c).contiguous()
-        dx = layernorm_bwd_dx(g2, w, xhat, rstd).reshape(ctx.x_shape)
-        # weight and bias gradients: plain row sums in f32, as the JAX
-        # package leaves them to its reduce op
-        g32 = g2.float()
-        dw = (g32 * xhat).sum(0).reshape(w.shape).to(w.dtype)
-        db = g32.sum(0).reshape(w.shape).to(w.dtype)
-        return dx, dw, db, None
+        x, w, mean, rstd = ctx.saved_tensors
+        dx, dw, db = layernorm_bwd(g.contiguous(), x, w, mean, rstd)
+        return dx.reshape(x.shape), dw, db, None
 
 
 class _Attention(torch.autograd.Function):

@@ -77,7 +77,7 @@ def test_backward_runs_the_fused_kernels_backwards(monkeypatch):
     _, tm = _models()
     assert all(isinstance(m, LayerNorm) for n, m in tm.named_modules()
                if n.rsplit(".", 1)[-1].startswith("ln_"))
-    calls = {"attention_bwd": 0, "layernorm_bwd_dx": 0}
+    calls = {"attention_bwd": 0, "layernorm_bwd": 0}
     for name in calls:
         fn = getattr(autograd_ops, name)
 
@@ -89,7 +89,7 @@ def test_backward_runs_the_fused_kernels_backwards(monkeypatch):
     ids, tgt = _batch()
     _port_loss(tm, ids, tgt).backward()
     L = CFG["n_layer"]
-    assert calls == {"attention_bwd": L, "layernorm_bwd_dx": 2 * L + 1}
+    assert calls == {"attention_bwd": L, "layernorm_bwd": 2 * L + 1}
 
 
 def test_adam_training_matches_jax():

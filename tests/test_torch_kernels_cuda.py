@@ -34,8 +34,9 @@ from lightgrad_tpu_torch.ops.decode_stack import (
     decode_stack, decode_stack_batch, decode_stack_batch_reference,
     decode_stack_reference)
 from lightgrad_tpu_torch.ops.layernorm import (
-    layernorm_bwd_dx, layernorm_bwd_dx_reference, layernorm_fwd,
-    layernorm_fwd_reference)
+    layernorm_bwd, layernorm_bwd_dx, layernorm_bwd_dx_reference,
+    layernorm_bwd_reference, layernorm_fwd, layernorm_fwd_reference,
+    layernorm_fwd_stats, layernorm_fwd_stats_reference)
 from lightgrad_tpu_torch.models.gpt import quantize_rows
 from lightgrad_tpu_torch.ops.runtime import (launch_counts,
                                              reset_launch_counts)
@@ -754,6 +755,39 @@ def test_layernorm_kernels(dev, r, c, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,c", [(8192, 768), (4096, 2048), (2048, 2560),
+                                 (37, 100)])
+def test_layernorm_autograd_pair(dev, r, c, dtype):
+    """The autograd path's forward (y, mean, rstd: nothing of (r, c) but y)
+    and its one backward (dx, dw, db) against their plain versions; dw and
+    db bitwise the same from run to run."""
+    g = torch.Generator(device=dev).manual_seed(r + c + 1)
+    x = _randn(g, r, c, scale=3.0, dtype=dtype) + 1.5
+    w, b = _randn(g, c, dtype=dtype), _randn(g, c, dtype=dtype)
+    reset_launch_counts()
+    y, mean, rstd = layernorm_fwd_stats(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert launch_counts()["layernorm_fwd"] == 1
+    ry, rmean, rrstd = layernorm_fwd_stats_reference(x, w, b, 1e-5)
+    assert mean.shape == rstd.shape == (r, 1)
+    assert mean.dtype == rstd.dtype == torch.float32
+    _close(y, ry, dtype)
+    _close(mean, rmean, torch.float32)
+    _close(rstd, rrstd, torch.float32)
+    gy = _randn(g, r, c, dtype=dtype)
+    reset_launch_counts()
+    got = layernorm_bwd(gy, x, w, mean, rstd)
+    torch.cuda.synchronize()
+    assert launch_counts()["layernorm_bwd"] == 2
+    want = layernorm_bwd_reference(gy, x, w, mean, rstd)
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype and a.shape == e.shape
+        _close(a, e, dtype)
+    again = layernorm_bwd(gy, x, w, mean, rstd)
+    assert all(torch.equal(a, e) for a, e in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("KV,G,hd,W,pos,window", [(1, 8, 256, 8192, 8191, 0),
                                                   (1, 8, 256, 8192, 4096, 0),
                                                   (8, 4, 128, 8192, 6000,
@@ -1171,6 +1205,10 @@ from lightgrad_tpu_torch.ops.matmul import (matmul, matmul_reference,  # noqa
                                             matmul_tf32x3_reference,
                                             matmul_vjp, tf32_round)
 from lightgrad_tpu_torch.ops.reduce import reduce, reduce_reference  # noqa
+import importlib  # noqa: E402
+
+# the module: the package's ``ops.reduce`` is the function
+rmod = importlib.import_module("lightgrad_tpu_torch.ops.reduce")
 from lightgrad_tpu_torch.ops.softmax import (softmax_bwd,  # noqa: E402
                                              softmax_bwd_reference,
                                              softmax_fwd,
@@ -1233,10 +1271,78 @@ def test_reduce_kernel(dev, shape, axis, op, dtype):
     reset_launch_counts()
     got = reduce(x, op, axis=axis)
     torch.cuda.synchronize()
-    assert launch_counts()["reduce"] == 1
+    assert launch_counts()["reduce"] == _launches(x, axis)
     want = reduce_reference(x, op, axis=axis)
     assert got.shape == want.shape and got.dtype == want.dtype
     _close(got, want, dtype)
+
+
+def _launches(x, axis):
+    """1, or 2 where the plan splits R (the second stage)."""
+    axes = rmod._normalize_axes(axis, x.dim())
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = rmod._plan(x.shape, x.stride(), axes, x.element_size(), n_sm)
+    if plan is None:
+        keep = [d for d in range(x.dim()) if d not in axes]
+        y = x.permute(*keep, *axes).contiguous()
+        plan = rmod._plan(y.shape, y.stride(), range(len(keep), x.dim()),
+                          x.element_size(), n_sm)
+    return 1 + (plan.splits1 * plan.splits2 > 1)
+
+
+# the layout classes of the main paths: rows, columns, BatchNorm's
+# three-stride walk, a whole tensor, and views
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("shape,axis,how", [
+    ((1024, 30522), -1, None), ((8192, 768), 0, None),
+    ((8, 128, 3072), (0, 1), None), ((2, 2048, 6144), (0, 1), None),
+    ((32, 64, 56, 56), (0, 2, 3), None), ((32, 512, 7, 7), (0, 2, 3), None),
+    ((32, 128, 28, 28), (0, 2, 3), None), ((32, 64, 56, 56), None, None),
+    ((9, 32, 64, 56, 56), 0, None), ((1, 8192, 4096), 2, None),
+    ((4097, 33), None, None), ((300, 1000), 0, "t"), ((9, 40, 1000), (0, 2),
+                                                      "slice")])
+def test_reduce_layouts(dev, shape, axis, how, op, dtype):
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = _randn(g, *shape, dtype=dtype)
+    if how == "t":
+        x = x.T
+    elif how == "slice":
+        x = x[1:, ::2, 3:]
+    got = reduce(x, op, axis=axis)
+    want = reduce_reference(x, op, axis=axis)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    _close(got, want, dtype)
+    assert torch.equal(reduce(x, op, axis=axis, keepdims=True),
+                       got.reshape(reduce_reference(
+                           x, op, axis=axis, keepdims=True).shape))
+
+
+def test_reduce_batchnorm_axes_make_no_copy(dev):
+    """(0, 2, 3) over a 32 x 64 x 56 x 56 f32 NCHW tensor is read in place:
+    the call allocates less than 1% of the input beyond nothing."""
+    x = torch.randn(32, 64, 56, 56, device=dev)
+    reduce(x, "sum", axis=(0, 2, 3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    y = reduce(x, "sum", axis=(0, 2, 3))
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - before
+    assert grown < 0.01 * x.numel() * x.element_size(), grown
+    _close(y, reduce_reference(x, "sum", axis=(0, 2, 3)), torch.float32)
+
+
+def test_reduce_split_is_bitwise_repeatable(dev):
+    """A split column sum and a split whole-tensor sum give the same bits
+    in every run (fixed-order partials, no atomics)."""
+    x = torch.randn(8192, 768, device=dev)
+    assert _launches(x, 0) == 2
+    first = reduce(x, "sum", axis=0)
+    for _ in range(3):
+        assert torch.equal(reduce(x, "sum", axis=0), first)
+    whole = reduce(x, "sum")
+    assert torch.equal(reduce(x, "sum"), whole)
 
 
 def test_reduce_kernel_strided_and_int(dev):
