@@ -160,6 +160,7 @@ line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero and prints no result.
 """
 
+import ctypes
 import importlib
 import json
 import os
@@ -441,6 +442,14 @@ MATMUL_SHAPES = (("", 1024, 30522, 768, False, True),
                  ("mistral_up_", 8192, 14336, 4096, False, True),
                  ("mistral_up_dw_", 4096, 14336, 8192, True, False),
                  ("pythia_qkv_", 4096, 6144, 2048, False, True))
+# a tick of the engine's own traffic (drive_serving's 32 requests: prompts
+# 8-48 tokens, 16-128 new, seed 7): its first 8 requests, each at its prompt
+# length plus a draw of its new tokens -- the stack kernel's shape (d)
+_REQ_RNG = np.random.default_rng(7)
+_REQS = [(int(_REQ_RNG.integers(8, 49)), int(_REQ_RNG.integers(16, 129)))
+         for _ in range(32)]
+_REQ_RNG = np.random.default_rng(11)
+ENGINE_POSS = [p + int(_REQ_RNG.integers(0, n)) for p, n in _REQS[:8]]
 
 
 def log(*a):
@@ -841,6 +850,7 @@ def record(results, dtype, name, err, ms=None, plain_ms=None,
         r[key + "ms"], r[key + "plain_ms"] = ms, plain_ms
         r[key + "bound_ms"], r[key + "bound_by"] = bound_ms(*cost, dtype,
                                                             peak)
+        r[key + "bound_share"] = r[key + "bound_ms"] / ms
         r[key + "library_ms"] = library_ms
         r.setdefault("timing", timing)
         if graph is not None:
@@ -975,14 +985,21 @@ def phase_kernels(model, results):
                               check(f"{name} n={n} pos={pos} kv", dtype,
                                     got[1], want[1], tol))
                     record(results, dtype, name, err)
-            x1 = rnd(1, d)
-            record(results, dtype, name, 0.0,
-                   cuda_ms(lambda: decode_stack(x1, c, 512, sl, vecs, scl,
-                                                eps=eps, kv_scales=kvs)),
-                   cuda_ms(lambda: decode_stack_reference(
-                       x1, c, 512, sl, vecs, scl, eps=eps, kv_scales=kvs), 5),
-                   cost=stack_cost(1, L, d, H, [512], dtype, scl is not None,
-                                   kvs is not None))
+            # by CUDA graph (device time): shape (a) n 1 at 512 and at 960
+            # (the long-context phase), (b) n 4 at 37
+            for variant, n, pos in (("", 1, 512), ("pos960_", 1, 960),
+                                    ("n4_", 4, 37)):
+                xt = rnd(n, d)
+                record(results, dtype, name, 0.0,
+                       graph_ms(lambda: decode_stack(
+                           xt, c, pos, sl, vecs, scl, eps=eps,
+                           kv_scales=kvs)),
+                       graph_ms(lambda: decode_stack_reference(
+                           xt, c, pos, sl, vecs, scl, eps=eps,
+                           kv_scales=kvs), 3), timing="graph",
+                       variant=variant,
+                       cost=stack_cost(n, L, d, H, [pos], dtype,
+                                       scl is not None, kvs is not None))
         del cache, cache8, kvs8
         B = 8
         caches = rnd(B, L, 2, H, W, hd)
@@ -994,22 +1011,28 @@ def phase_kernels(model, results):
                     ("_int8", slabs8, scales8, caches, None),
                     ("_kvq", slabs, None, caches8, bkvs8),
                     ("_int8_kvq", slabs8, scales8, caches8, bkvs8))
+        # shape (d): a tick of the engine's own traffic
+        poss_e = torch.tensor(ENGINE_POSS, device=dev, dtype=torch.int32)
         for sfx, sl, scl, c, kvs in variants:
             name = "decode_stack_batch" + sfx
-            got = decode_stack_batch(xb, c, poss, sl, vecs, scl, eps=eps,
-                                     kv_scales=kvs)
-            want = decode_stack_batch_reference(xb, c, poss, sl, vecs, scl,
-                                                eps=eps, kv_scales=kvs)
-            err = max(check(f"{name} B=8 x", dtype, got[0], want[0], tol),
-                      check(f"{name} B=8 kv", dtype, got[1], want[1], tol))
-            record(results, dtype, name, err,
-                   cuda_ms(lambda: decode_stack_batch(
-                       xb, c, poss, sl, vecs, scl, eps=eps, kv_scales=kvs)),
-                   cuda_ms(lambda: decode_stack_batch_reference(
-                       xb, c, poss, sl, vecs, scl, eps=eps, kv_scales=kvs),
-                       5),
-                   cost=stack_cost(B, L, d, H, poss.tolist(), dtype,
-                                   scl is not None, kvs is not None))
+            for variant, pt in (("", poss), ("engine_", poss_e)):
+                got = decode_stack_batch(xb, c, pt, sl, vecs, scl, eps=eps,
+                                         kv_scales=kvs)
+                want = decode_stack_batch_reference(xb, c, pt, sl, vecs, scl,
+                                                    eps=eps, kv_scales=kvs)
+                tag = f"{name} B=8 {variant or 'smoke_'}poss"
+                err = max(check(f"{tag} x", dtype, got[0], want[0], tol),
+                          check(f"{tag} kv", dtype, got[1], want[1], tol))
+                record(results, dtype, name, err,
+                       graph_ms(lambda: decode_stack_batch(
+                           xb, c, pt, sl, vecs, scl, eps=eps,
+                           kv_scales=kvs)),
+                       graph_ms(lambda: decode_stack_batch_reference(
+                           xb, c, pt, sl, vecs, scl, eps=eps,
+                           kv_scales=kvs), 3), timing="graph",
+                       variant=variant,
+                       cost=stack_cost(B, L, d, H, pt.tolist(), dtype,
+                                       scl is not None, kvs is not None))
         del caches, caches8, bkvs8, slabs, vecs
         torch.cuda.empty_cache()
 
@@ -4188,9 +4211,16 @@ def main():
     grids = {f"{t}{'/w8' * w}{'/kv8' * k}": lib.lg_decode_stack_grid(
         t == "bf16", w, k) for t in ("f32", "bf16") for w in (0, 1)
         for k in (0, 1)}
+    slots = ctypes.c_int()
+    smem = {}
+    for t, wb in (("f32", 4), ("bf16", 2), ("w8", 1)):
+        nbytes = lib.lg_decode_stack_smem(8, GPT2_SMALL["n_embd"], 4, wb,
+                                          ctypes.byref(slots))
+        smem[t] = f"{nbytes} B, {slots.value} slots"
     log(f"build: nvcc {_build.build_seconds():.1f} s, loaded in "
         f"{time.perf_counter() - t0:.1f} s; stack kernel grids (blocks) "
-        f"{grids}")
+        f"{grids}; dynamic shared memory at n 8, d 768 by weight type "
+        f"{smem}")
     if not all(grids.values()):
         raise AssertionError(f"a stack kernel instantiation was refused: "
                              f"{grids}")

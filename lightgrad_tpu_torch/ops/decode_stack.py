@@ -33,20 +33,109 @@ import torch.nn.functional as F
 
 from . import _build, runtime
 
-__all__ = ["pack_gpt_stack", "stack_supported", "decode_stack",
-           "decode_stack_batch", "decode_stack_reference",
-           "decode_stack_batch_reference"]
+__all__ = ["pack_gpt_stack", "stack_supported", "plan_stack",
+           "stack_smem", "decode_stack", "decode_stack_batch",
+           "decode_stack_reference", "decode_stack_batch_reference"]
 
 # csrc/decode_stack.cu `supported()`: kHD, the d alignment, kMaxD, kMaxN
 _HD, _D_ALIGN, _MAX_D, _MAX_N = 64, 64, 4096, 8
+# csrc/decode_stack.cu's schedule: kSlotBig, kSlotSmall, kRingMax, kChunk,
+# kPassCols, kThreads, the dynamic shared memory a block may take (kSmemDyn)
+_SLOT_BIG, _SLOT_SMALL, _RING_MAX = 32768, 16384, 196608
+_CHUNK, _PASS_COLS = 32, 1024
+_THREADS, _SMEM_DYN = 256, 232448 - 2048
+
+
+def _share(total, b, G):
+    """(first, count) of ``total`` items dealt to block b of G (the
+    kernel's ``share_of``): counts differ by at most one."""
+    v0 = total * b // G
+    return v0, total * (b + 1) // G - v0
+
+
+def stack_smem(n, d, R, n_sm, wbytes):
+    """(dynamic shared memory bytes, ring slot bytes, ring slots) of a
+    launch (the kernel's ``layout_of``): the ring takes what the staged rows
+    (n x d f32), the K-way reduction (32 KB), a product's column biases and
+    scales (8 KB) and the block's GELU rows leave of 227 KB, at most 192 KB,
+    in 32 KB slots where four fit, else 16 KB."""
+    ve = 16 // wbytes
+    nj = -(-(R * d // ve) // n_sm) * ve
+    other = (n * d * 4 + _THREADS * _MAX_N * 16 + 2 * 4 * _THREADS * 4
+             + ((n * nj * 4 + 15) & ~15))
+    ring = min(_SMEM_DYN - other, _RING_MAX)
+    slot = _SLOT_BIG if ring >= 4 * _SLOT_BIG else _SLOT_SMALL
+    return (ring // slot) * slot + other, slot, ring // slot
+
+
+def plan_stack(n, d, R, H, W, positions, n_sm, wbytes, cbytes=None,
+               batched=True):
+    """The schedule the kernel follows (``make_plan`` in
+    ``csrc/decode_stack.cu``), one entry a block (one block an SM).
+
+    Weights of ``wbytes`` bytes are dealt in 16-byte column vectors, the
+    same columns in every layer: ``qkv`` / ``proj`` columns of the (d, 3d)
+    and (d, d) products, ``fc`` the block's hidden units (its fc columns,
+    and the same rows of fc2 against all d outputs), ``resid`` the residual
+    columns it sums fc2's partials into.  ``chunks``: its attention chunks,
+    (group, head, first cache row, rows), 32-key pieces of the cache rows
+    each group sees (``positions``: one a slot in batched mode, else
+    ``[pos0]`` for the one group of extend mode; clamped to W), dealt
+    evenly in (group, head, chunk) order.  ``stages``: the stages (16 or
+    32 KB, :func:`stack_smem`) a layer the block streams; ``bytes``: the
+    weight and cache bytes a layer it streams (``cbytes`` the cache's
+    element size, ``wbytes`` by default)."""
+    cbytes = cbytes or wbytes
+    slot = stack_smem(n, d, R, n_sm, wbytes)[1]
+    ve = 16 // wbytes
+    lens = [min(max(int(p), 0), W) for p in positions]
+    assert len(lens) == (n if batched else 1)
+    nch = [max(1, -(-ln // _CHUNK)) for ln in lens]
+    chunks = [(g, h, s * _CHUNK, min(_CHUNK, max(0, lens[g] - s * _CHUNK)))
+              for g in range(len(lens)) for h in range(H)
+              for s in range(nch[g])]
+    gw_full = min(d, _PASS_COLS)
+    passes = [gw_full] * (d // gw_full) + ([d % gw_full] if d % gw_full
+                                           else [])
+    blocks = []
+    for b in range(n_sm):
+        e = {}
+        nst = 0
+        nbytes = 0
+        for name, ncols, K in (("qkv", 3 * d, d), ("proj", d, d),
+                               ("fc", R * d, d)):
+            v0, nv = _share(ncols // ve, b, n_sm)
+            e[name] = (v0 * ve, (v0 + nv) * ve)
+            if nv:
+                kt = min(K, (slot // (nv * 16)) & ~3)
+                nst += -(-K // kt)
+            nbytes += nv * 16 * K
+        nj = e["fc"][1] - e["fc"][0]
+        if nj:
+            nst += sum(-(-nj // (slot // (gw * wbytes))) for gw in passes)
+        nbytes += nj * d * wbytes
+        q0, nq = _share(d // 4, b, n_sm)
+        e["resid"] = (4 * q0, 4 * (q0 + nq))
+        c0, nc = _share(len(chunks), b, n_sm)
+        e["chunks"] = chunks[c0:c0 + nc]
+        # a stage holds as many chunks' K and V rows (and int8 row scales)
+        # as fit a slot
+        cps = slot // (2 * _CHUNK * _HD * cbytes + (256 if cbytes == 1
+                                                       else 0))
+        nst += -(-nc // cps)
+        nbytes += sum(2 * rows * _HD * cbytes for *_, rows in e["chunks"])
+        e["stages"], e["bytes"] = nst, nbytes
+        blocks.append(e)
+    return blocks
 
 
 def stack_supported(*, d: int, hd: int, n: int = 8) -> bool:
     """True when the CUDA megakernel takes this shape: head dim 64, d a
-    multiple of 64 up to 4096, 1 <= n <= 8 rows.  Its shared memory (about
-    34 KB a block) and workspace do not depend on the window, so any W fits.
-    ``n=8`` sizes the check for the largest ``extend`` the packed stack may
-    serve."""
+    multiple of 64 up to 4096, 1 <= n <= 8 rows.  Its shared memory
+    (:func:`stack_smem`) and workspace do not depend on the window, so any
+    W fits (the launch refuses only a window of millions of positions,
+    whose chunk count overflows its 32-bit schedule).  ``n=8`` sizes the
+    check for the largest ``extend`` the packed stack may serve."""
     return (hd == _HD and d % _D_ALIGN == 0 and _D_ALIGN <= d <= _MAX_D
             and 1 <= n <= _MAX_N)
 
@@ -218,12 +307,15 @@ def _launch(name, x, cache, slot_stride, poss, pos0, slabs, vecs, scales,
         _check(name, kv_scales, "kv_scales", (torch.float32,),
                tuple(cache.shape[:-1]) + (1,), dev)
     lib = _build.library()
-    ws = torch.empty(lib.lg_decode_stack_workspace(n, d, R), device=dev,
-                     dtype=torch.float32)
     x_out = torch.empty_like(x)
     kv = torch.empty((L, 2, n, d), device=dev,
                      dtype=_kv_dtype(x, cache, kv_scales))
     with torch.cuda.device(dev):
+        ws = torch.empty(lib.lg_decode_stack_workspace(n, d, R), device=dev,
+                         dtype=torch.float32)
+        # the grid barrier's count and the attention pairs' counters
+        sync = torch.zeros(lib.lg_decode_stack_sync_words(), device=dev,
+                           dtype=torch.int32)
         err = lib.lg_decode_stack(
             x.data_ptr(), cache.data_ptr(), slot_stride,
             None if poss is None else poss.data_ptr(), pos0,
@@ -231,7 +323,8 @@ def _launch(name, x, cache, slot_stride, poss, pos0, slabs, vecs, scales,
             slabs.data_ptr(), vecs.data_ptr(),
             None if scales is None else scales.data_ptr(),
             None if kv_scales is None else kv_scales.data_ptr(),
-            x_out.data_ptr(), kv.data_ptr(), ws.data_ptr(), n, L, d, H, W, R,
+            x_out.data_ptr(), kv.data_ptr(), ws.data_ptr(), sync.data_ptr(),
+            n, L, d, H, W, R,
             float(eps), float(1.0 / float(hd) ** 0.5),
             int(dt == torch.bfloat16), int(scales is not None),
             int(kv_scales is not None),

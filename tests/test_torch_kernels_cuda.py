@@ -1064,7 +1064,7 @@ def test_decode_stack_kernel(dev, n, pos, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,n,pos", [(128, 1, 9), (128, 3, 40), (320, 2, 77)])
 def test_decode_stack_kernel_other_widths(dev, d, n, pos, dtype):
-    """Widths whose K chunks are 128 and 64 rows (768 takes 256)."""
+    """Narrow widths: a block owns a vector or none of each product."""
     g = torch.Generator(device=dev).manual_seed(d + n)
     slabs, vecs, H, W = _stack_inputs(g, dtype, L=2, d=d)
     cache = _randn(g, 2, 2, H, W, 64, dtype=dtype)
@@ -1145,6 +1145,130 @@ def test_decode_stack_batch_int8_kernels(dev, variant, dtype):
                              kv_scales=kvs)
     torch.cuda.synchronize()
     assert launch_counts()["decode_stack_batch_" + variant] == 1
+    want = decode_stack_batch_reference(x, caches, poss, slabs, vecs, scales,
+                                        eps=1e-5, kv_scales=kvs)
+    for a, b in zip(got, want):
+        _close(a, b, dtype)
+
+
+def _stack_variant(g, dtype, variant, lead=(), **kw):
+    """Packed operands of one stack instantiation: slabs (int8 with their
+    scales for "int8"), vecs, and a cache (int8 rows with their scales for
+    "kvq") of shape lead + (L, 2, H, W, 64)."""
+    slabs, vecs, H, W = _stack_inputs(g, dtype, **kw)
+    scales = kvs = None
+    if "int8" in variant:
+        slabs, scales = _int8_slabs(slabs)
+    cache = _randn(g, *lead, slabs.shape[0], 2, H, W, 64, dtype=dtype)
+    if "kvq" in variant:
+        cache, kvs = quantize_rows(cache)
+    return slabs, vecs, scales, cache, kvs, W
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["", "int8_kvq"])
+def test_decode_stack_graph_replays_at_new_positions(dev, variant, dtype):
+    """decode_stack (its position an int32 tensor) and decode_stack_batch
+    captured in one CUDA graph replay at new device positions, 0 and W - 1
+    among them, and each replay equals an eager call bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    slabs, vecs, scales, cache, kvs, W = _stack_variant(g, dtype, variant,
+                                                        L=2)
+    _, _, _, caches, bkvs, _ = _stack_variant(g, dtype, variant, (4,), L=2)
+    d = slabs.shape[-1]
+    x1, xb = _randn(g, 1, d, dtype=dtype), _randn(g, 4, d, dtype=dtype)
+    pos = torch.tensor([5], device=dev, dtype=torch.int32)
+    poss = torch.tensor([3, 0, 100, 7], device=dev, dtype=torch.int32)
+
+    def run():
+        return (*decode_stack(x1, cache, pos, slabs, vecs, scales, eps=1e-5,
+                              kv_scales=kvs),
+                *decode_stack_batch(xb, caches, poss, slabs, vecs, scales,
+                                    eps=1e-5, kv_scales=bkvs))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for p, ps in ((0, [0, W - 1, 5, 200]), (W - 1, [W - 1, 0, 0, 31]),
+                  (130, [64, 65, W - 2, 1])):
+        pos.fill_(p)
+        poss.copy_(torch.tensor(ps, device=dev, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = run()
+        for a, b in zip(outs, want):
+            assert torch.equal(a, b), (p, ps)
+    want = decode_stack_reference(x1, cache, pos, slabs, vecs, scales,
+                                  eps=1e-5, kv_scales=kvs)
+    for a, b in zip(outs[:2], want):
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["", "int8", "kvq", "int8_kvq"])
+def test_decode_stack_repeats_bit_for_bit(dev, variant, dtype):
+    """No float atomics: two calls give the same bits (extend mode at n 8
+    and a ragged batch, where many blocks share each attention pair)."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    slabs, vecs, scales, cache, kvs, W = _stack_variant(g, dtype, variant)
+    _, _, _, caches, bkvs, _ = _stack_variant(g, dtype, variant, (8,))
+    d = slabs.shape[-1]
+    x, xb = _randn(g, 8, d, dtype=dtype), _randn(g, 8, d, dtype=dtype)
+    poss = torch.tensor([0, 5, 37, 100, 255, 200, 254, 17], device=dev,
+                        dtype=torch.int32)
+    for call in (lambda: decode_stack(x, cache, 250, slabs, vecs, scales,
+                                      eps=1e-5, kv_scales=kvs),
+                 lambda: decode_stack_batch(xb, caches, poss, slabs, vecs,
+                                            scales, eps=1e-5,
+                                            kv_scales=bkvs)):
+        a, b = call(), call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,n,pos", [(1600, 1, 40), (1600, 8, 63),
+                                     (64, 1, 0), (64, 5, 60)])
+def test_decode_stack_kernel_widest_and_narrowest(dev, d, n, pos, dtype):
+    """GPT-2 XL's width (25 heads; fc2 in two passes of output columns) at
+    2 layers, and d 64 (one head; most blocks own nothing)."""
+    g = torch.Generator(device=dev).manual_seed(d + n + pos)
+    slabs, vecs, H, W = _stack_inputs(g, dtype, L=2, d=d, W=64)
+    cache = _randn(g, 2, 2, H, W, 64, dtype=dtype)
+    x = _randn(g, n, d, dtype=dtype)
+    got = decode_stack(x, cache, pos, slabs, vecs, eps=1e-5)
+    torch.cuda.synchronize()
+    want = decode_stack_reference(x, cache, pos, slabs, vecs, eps=1e-5)
+    for a, b in zip(got, want):
+        _close(a, b, dtype)
+    poss = torch.tensor([0, W - 1, 7], device=dev, dtype=torch.int32)
+    caches = _randn(g, 3, 2, 2, H, W, 64, dtype=dtype)
+    xb = _randn(g, 3, d, dtype=dtype)
+    got = decode_stack_batch(xb, caches, poss, slabs, vecs, eps=1e-5)
+    want = decode_stack_batch_reference(xb, caches, poss, slabs, vecs,
+                                        eps=1e-5)
+    for a, b in zip(got, want):
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["", "int8", "kvq", "int8_kvq"])
+def test_decode_stack_batch_ragged_eight(dev, variant, dtype):
+    """A ragged batch of 8 with a slot at position 0 (no cache row: only its
+    own row) and one at W - 1 (the whole window), GPT-2 small's width."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    slabs, vecs, scales, caches, kvs, W = _stack_variant(g, dtype, variant,
+                                                         (8,))
+    poss = torch.tensor([0, W - 1, 1, 31, 32, 33, 200, W], device=dev,
+                        dtype=torch.int32)
+    x = _randn(g, 8, slabs.shape[-1], dtype=dtype)
+    got = decode_stack_batch(x, caches, poss, slabs, vecs, scales, eps=1e-5,
+                             kv_scales=kvs)
+    torch.cuda.synchronize()
     want = decode_stack_batch_reference(x, caches, poss, slabs, vecs, scales,
                                         eps=1e-5, kv_scales=kvs)
     for a, b in zip(got, want):
