@@ -442,14 +442,49 @@ MATMUL_SHAPES = (("", 1024, 30522, 768, False, True),
                  ("mistral_up_", 8192, 14336, 4096, False, True),
                  ("mistral_up_dw_", 4096, 14336, 8192, True, False),
                  ("pythia_qkv_", 4096, 6144, 2048, False, True))
-# a tick of the engine's own traffic (drive_serving's 32 requests: prompts
-# 8-48 tokens, 16-128 new, seed 7): its first 8 requests, each at its prompt
-# length plus a draw of its new tokens -- the stack kernel's shape (d)
-_REQ_RNG = np.random.default_rng(7)
-_REQS = [(int(_REQ_RNG.integers(8, 49)), int(_REQ_RNG.integers(16, 129)))
-         for _ in range(32)]
-_REQ_RNG = np.random.default_rng(11)
-ENGINE_POSS = [p + int(_REQ_RNG.integers(0, n)) for p, n in _REQS[:8]]
+
+
+def serving_requests(vocab):
+    """drive_serving's engine traffic (bench.py's engine benchmark): 32
+    ragged greedy requests, prompts 8-48 tokens, 16-128 new tokens."""
+    rng7 = np.random.default_rng(7)
+    return [([int(t) for t in rng7.integers(0, vocab,
+                                            int(rng7.integers(8, 49)))],
+             int(rng7.integers(16, 129))) for _ in range(32)]
+
+
+class _Fns(tuple):
+    """(init_cache, prefill, step) and ``step_batch``, as a model's
+    ``_kv_functions`` gives them."""
+
+
+def engine_tick_positions(vocab, window=1024, slots=8, steps_per_tick=8):
+    """The slots' positions at the first step of each tick of the engine
+    as drive_serving runs it over serving_requests(vocab): the engine's own
+    scheduler, on the CPU, over a stand-in model whose logits are zeros.
+    The requests have no end token, so the schedule depends on their
+    lengths alone.  (The middle tick is the stack kernel's shape (d).)"""
+    from types import SimpleNamespace
+
+    from lightgrad_tpu_torch import InferenceEngine
+
+    calls = []
+
+    def step_batch(caches, poss, toks):
+        calls.append(poss.tolist())
+        return caches, torch.zeros(slots, vocab)
+
+    fns = _Fns((lambda: torch.zeros(1),
+                lambda cache, toks, n: (cache, torch.zeros(vocab)), None))
+    fns.step_batch = step_batch
+    model = SimpleNamespace(cfg=SimpleNamespace(n_positions=window),
+                            _kv_fns=fns)
+    engine = InferenceEngine(model, slots=slots,
+                             steps_per_tick=steps_per_tick)
+    for p, n in serving_requests(vocab):
+        engine.submit(p, n)
+    assert len(engine.run()) == 32
+    return calls[::steps_per_tick]
 
 
 def log(*a):
@@ -909,6 +944,10 @@ def phase_kernels(model, results):
     model.quantize_serving(False)
     slabs8, scales8 = qp["stack#slabs"], qp["stack#scales"]
     del qp
+    ticks = engine_tick_positions(cfg.vocab_size, W)
+    engine_poss = ticks[len(ticks) // 2]
+    log(f"  engine tick {len(ticks) // 2} of {len(ticks)}: positions "
+        f"{engine_poss}")
     for dtype in (torch.float32, torch.bfloat16):
         tol = KERNEL_TOL[dtype]
         isz = torch.tensor([], dtype=dtype).element_size()
@@ -1011,8 +1050,8 @@ def phase_kernels(model, results):
                     ("_int8", slabs8, scales8, caches, None),
                     ("_kvq", slabs, None, caches8, bkvs8),
                     ("_int8_kvq", slabs8, scales8, caches8, bkvs8))
-        # shape (d): a tick of the engine's own traffic
-        poss_e = torch.tensor(ENGINE_POSS, device=dev, dtype=torch.int32)
+        # shape (d): the middle tick of the engine's own traffic
+        poss_e = torch.tensor(engine_poss, device=dev, dtype=torch.int32)
         for sfx, sl, scl, c, kvs in variants:
             name = "decode_stack_batch" + sfx
             for variant, pt in (("", poss), ("engine_", poss_e)):
@@ -1119,10 +1158,7 @@ def drive_serving(model, rng):
 
     # the serving traffic of bench.py's engine benchmark: 32 ragged greedy
     # requests, prompts 8-48 tokens, 16-128 new tokens
-    rng7 = np.random.default_rng(7)
-    reqs = [([int(t) for t in rng7.integers(0, vocab,
-                                            int(rng7.integers(8, 49)))],
-             int(rng7.integers(16, 129))) for _ in range(32)]
+    reqs = serving_requests(vocab)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     engine = InferenceEngine(model, slots=8, steps_per_tick=8)

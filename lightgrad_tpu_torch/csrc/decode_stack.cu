@@ -69,8 +69,9 @@
 // residual stays f32 across all layers in the workspace and is rounded to T
 // only at x_out.  Data written in one phase and read by another block later
 // is loaded with __ldcg (L2, never a stale L1 line).  The wrapper allocates
-// the f32 workspace and the zeroed sync words (barrier count, pair
-// counters); the kernel allocates nothing.
+// the f32 workspace, and zeroes once a device the sync words (the barriers'
+// count, the pairs' counters) that every call leaves reusable; the kernel
+// allocates nothing.
 #include <type_traits>
 
 #include "common.cuh"
@@ -96,16 +97,14 @@ constexpr int kMaxN = 8;        // rows per call
 constexpr int kHD = 64;         // head dim
 constexpr int kMaxD = 4096;
 // A ring slot holds one stage: 32 KB where at least four fit, else 16 KB;
-// the ring takes at most 192 KB.  (Builds for scripts/ab_decode_stack.py
-// --variant may drop the weight / cache copies, LG_STACK_NO_WEIGHTS and
-// LG_STACK_NO_CACHE: wrong results, timing only.)
+// the ring takes at most 192 KB.
 constexpr int kSlotBig = 32768, kSlotSmall = 16384;
 constexpr int kRingMax = 196608;
 constexpr int kMaxSlots = kRingMax / kSlotSmall;
 constexpr int kChunk = 32;      // cache rows of one attention chunk
 constexpr int kPassCols = 1024; // fc2 output columns a pass (4 a thread)
 constexpr int kPart = 68;       // floats of one attention partial: m, l, acc
-constexpr int kTicketBase = 32; // sync words: [0] barrier count, tickets
+constexpr int kTicketBase = 32; // sync words: [0, 2) the barriers' count
 constexpr int kSyncWords = 1024;
 // dynamic shared memory a block may take: 227 KB less the static words
 constexpr int kSmemDyn = 232448 - 2048;
@@ -202,10 +201,11 @@ struct Box {
 };
 
 template <typename TW>
-__device__ Box box_of(int v0, int nv, int d) {
+__host__ __device__ Box box_of(int v0, int nv, int d) {
   constexpr int VE = 16 / (int)sizeof(TW);
   const int dv = d / VE;
-  const int vb = min(v0 + nv, (v0 / dv + 1) * dv);  // the next slab's first
+  const int vnext = (v0 / dv + 1) * dv;  // the next slab's first
+  const int vb = v0 + nv < vnext ? v0 + nv : vnext;
   Box x;
   x.col_a = (long long)(v0 / dv) * d * d + (long long)(v0 % dv) * VE;
   x.bytes_a = (vb - v0) * 16;
@@ -215,7 +215,8 @@ __device__ Box box_of(int v0, int nv, int d) {
   return x;
 }
 
-// One block's schedule, the same in every layer.  Products: qkv (K d, N
+// One block's schedule, the same in every layer (ops/decode_stack.py's
+// plan_stack follows the same rule; lg_decode_stack_plan exports it).  Products: qkv (K d, N
 // 3d), proj (d, d), fc (d, Rd) in 16-byte column vectors; fc2 over the
 // block's hidden units (its fc columns) in passes of kPassCols outputs;
 // attention chunks [c0, c1) of TC in (group, head, chunk) order.
@@ -233,9 +234,10 @@ struct Plan {
 };
 
 template <typename TW, typename TC>
-__device__ void make_plan(const StackParams& p, Plan& pl) {
+__host__ __device__ void make_plan(const StackParams& p, Plan& pl, int G,
+                                   int b) {
   constexpr int VE = 16 / (int)sizeof(TW);
-  const int G = gridDim.x, b = blockIdx.x, d = p.d;
+  const int d = p.d;
   Share s = share_of(3 * d / VE, b, G);
   pl.v0q = s.v0;
   pl.nvq = s.nv;
@@ -345,13 +347,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 // (the residual, q / k / v, partials) out of L2.
 __device__ __forceinline__ uint64_t stream_policy() {
   uint64_t pol;
-#ifdef LG_STACK_NO_HINT
-  asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;"
-               : "=l"(pol));
-#else
   asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
                : "=l"(pol));
-#endif
   return pol;
 }
 // bytes (a multiple of 16, both ends 16-byte aligned) global -> shared by
@@ -375,11 +372,6 @@ __device__ __forceinline__ void stream_cp16(uint32_t dst, const void* src,
       : "memory");
 }
 
-#ifdef LG_STACK_NO_WEIGHTS
-constexpr unsigned kWeights = 0;  // timing builds: no weight bytes expected
-#else
-constexpr unsigned kWeights = 1;
-#endif
 // A stage's mbarrier takes an arrival from every thread once its cp.async
 // copies have landed and one from thread 0 with the bulk bytes.
 constexpr unsigned kArrivals = 1 + kThreads;
@@ -423,7 +415,7 @@ __device__ void issue_stage(const StackParams& p, const Plan& pl, int i,
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   if (j < pl.oa) {
     const int k0 = j * pl.ktq, kt = min(pl.ktq, d - k0);
-    if (kWeights) issue_box(slabs, d, pl.q, k0, kt, dst);
+    issue_box(slabs, d, pl.q, k0, kt, dst);
   } else if (j < pl.op) {
     // up to cps consecutive chunks of the block's range, one a region
     const int cf = pl.c0 + (j - pl.oa) * pl.cps;
@@ -431,11 +423,7 @@ __device__ void issue_stage(const StackParams& p, const Plan& pl, int i,
     for (int ci = cf; ci < ce; ++ci) {
       const Chunk c = chunk_at(pl, ci, p.H);
       const uint32_t cd = dst + (ci - cf) * kChunkBytes<TC>;
-#ifdef LG_STACK_NO_CACHE
-      const int rows = 0;
-#else
       const int rows = c.rows;
-#endif
       const long long slot = p.poss ? c.g : 0;
       const size_t krow = (((size_t)l * 2) * p.H + c.h) * (size_t)p.W +
                           (size_t)c.s * kChunk;
@@ -459,10 +447,10 @@ __device__ void issue_stage(const StackParams& p, const Plan& pl, int i,
     }
   } else if (j < pl.of) {
     const int k0 = (j - pl.op) * pl.ktp, kt = min(pl.ktp, d - k0);
-    if (kWeights) issue_box(slabs + (size_t)3 * d * d, d, pl.p, k0, kt, dst);
+    issue_box(slabs + (size_t)3 * d * d, d, pl.p, k0, kt, dst);
   } else if (j < pl.of2) {
     const int k0 = (j - pl.of) * pl.ktf, kt = min(pl.ktf, d - k0);
-    if (kWeights) issue_box(slabs + (size_t)4 * d * d, d, pl.f, k0, kt, dst);
+    issue_box(slabs + (size_t)4 * d * d, d, pl.f, k0, kt, dst);
   } else {
     // fc2: the block's hidden rows, pass `ps` of the output columns; the R
     // fc2 slabs follow each other, so hidden row j is row (4 + R) * d + j
@@ -481,11 +469,9 @@ __device__ void issue_stage(const StackParams& p, const Plan& pl, int i,
     const int r0 = q * jt, rows = min(jt, pl.nj - r0);
     const unsigned rb = gw * (unsigned)sizeof(TW);
     const TW* src = slabs + ((size_t)(4 + p.R) * d + pl.f.hid0 + r0) * d + col0;
-    if (kWeights) {
-      for (int r = t; r < rows; r += kThreads)
-        bulk_copy(dst + r * rb, src + (size_t)r * d, rb, bar, pol);
-      tx = rows * rb;
-    }
+    for (int r = t; r < rows; r += kThreads)
+      bulk_copy(dst + r * rb, src + (size_t)r * d, rb, bar, pol);
+    tx = rows * rb;
   }
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
                    lg_smem_u32(bar))
@@ -501,10 +487,11 @@ struct Ring {
   int issued, cur, limit;
 };
 
-// Issue stages up to `target` (exclusive; at most S - 1 past the next one
-// to use, into slots every thread is done with).  Each phase tops the ring
-// up once its input rows have landed, and within the phase only with its
-// own stages: the copies for later phases then drain while it computes and
+// Issue stages up to `target` (exclusive; at most S past the next one to
+// use: every call follows a __syncthreads after the last read of the stage
+// just used, so all S slots are free).  Each phase tops the ring up once
+// its input rows have landed, and within the phase only with its own
+// stages: the copies for later phases then drain while it computes and
 // waits at its barrier, and queue less in front of the next phase's input
 // loads.  (A ring topped up at every stage delayed them by 2-4 us; a
 // producer warp streaming beside the chain, one stage in flight, was
@@ -513,7 +500,7 @@ template <typename TW, typename TC>
 __device__ __forceinline__ void issue_upto(const StackParams& p,
                                            const Plan& pl, Ring& rg,
                                            int target) {
-  target = min(target, min(rg.cur + p.slots - 1, pl.per_layer * p.L));
+  target = min(target, min(rg.cur + p.slots, pl.per_layer * p.L));
   for (; rg.issued < target; ++rg.issued)
     issue_stage<TW, TC>(p, pl, rg.issued, rg.base, rg.full);
 }
@@ -567,28 +554,47 @@ __device__ __forceinline__ float gelu_tanh(float y) {
          (1.f + tanhf(0.7978845608028654f * (y + 0.044715f * y * y * y)));
 }
 
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* a) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(a)
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* a) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(a)
                : "memory");
   return v;
 }
 
-// Grid-wide barrier `k` (counted from 1) of a call: every block adds one to
-// a zeroed word and waits until it reaches G * k (faster than
+// Grid-wide barriers: every block adds one to a 64-bit count and waits
+// until it reaches base + G * k at the call's k-th barrier (faster than
 // cooperative_groups' grid.sync() at this grid, scripts/ab_decode_stack.py
-// --barriers).  A wait of seconds means a block never came: trap rather
-// than hang the card.
-__device__ __forceinline__ void grid_barrier(unsigned* count, unsigned k) {
+// --barriers).  The count is never reset: a call leaves it a multiple of G
+// above where it found it, so the next call's base is the count rounded
+// down to a multiple of G (no block passes the first barrier before every
+// block has read it), and one zeroed count serves every call on a device.
+// A wait of seconds means a block never came: trap rather than hang the
+// card.
+__device__ __forceinline__ unsigned long long barrier_base(
+    const unsigned long long* count) {
+  const unsigned long long c = ld_acquire(count);
+  return c - c % gridDim.x;
+}
+// The block's arrival (release: its writes before the count) ...
+__device__ __forceinline__ void barrier_arrive(unsigned long long* count) {
   __syncthreads();
-  if (threadIdx.x == 0) {  // release: the block's writes before the count
-    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(count)
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.u64 [%0], 1;" ::"l"(count)
                  : "memory");
-    const unsigned target = gridDim.x * k;
+}
+// ... and its wait, with work that needs no other block's writes between.
+__device__ __forceinline__ void barrier_wait(const unsigned long long* count,
+                                             unsigned long long target) {
+  if (threadIdx.x == 0)
     for (unsigned spins = 0; ld_acquire(count) < target;)
       if (++spins == (1u << 26)) __trap();
-  }
   __syncthreads();
+}
+__device__ __forceinline__ void grid_barrier(unsigned long long* count,
+                                             unsigned long long target) {
+  barrier_arrive(count);
+  barrier_wait(count, target);
 }
 
 // n rows of d f32 from global (written by other blocks: L2) into `h`.
@@ -837,18 +843,23 @@ decode_stack_kernel(StackParams p) {
   float* const att = qkv + (size_t)n * d3;
   float* const fc2p = att + (size_t)n * d;          // (G, n, d)
   float* const attp = fc2p + (size_t)G * n * d;     // (pairs + G, rows, 68)
+  unsigned long long* const count =
+      reinterpret_cast<unsigned long long*>(p.sync);
   unsigned* const tickets = p.sync + kTicketBase;
   const T* const vecs = static_cast<const T*>(p.vecs);
   const T* const x = static_cast<const T*>(p.x);
 
+  // thread 0's barrier target: base + G * k at the k-th
+  unsigned long long target = 0;
   if (threadIdx.x == 0) {
-    make_plan<TW, TC>(p, pl);
+    target = barrier_base(count);
+    make_plan<TW, TC>(p, pl, G, b);
     for (int i = 0; i < p.slots; ++i) mbar_init(full + i, kArrivals);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
   Ring rg{ring, full, 0, 0, 0};
-  issue_upto<TW, TC>(p, pl, rg, p.slots - 1);
+  issue_upto<TW, TC>(p, pl, rg, p.slots);
   // each phase tops the ring up once its input rows have landed; `end`:
   // its own stages' end in the layer
   int lbase = 0;  // the layer's first stage
@@ -864,7 +875,6 @@ decode_stack_kernel(StackParams p) {
                      i % (own.nv * 4);
     xacc[e] = lg_to_f(x[e]);
   }
-  unsigned nbar = 0;
   ColRegs cr;
 
   for (int l = 0; l < L; ++l) {
@@ -902,7 +912,7 @@ decode_stack_kernel(StackParams p) {
     } else {
       pace(pl.oa);
     }
-    grid_barrier(p.sync, ++nbar);
+    grid_barrier(count, target += G);
     LG_STACK_STAMP();
 
     // 2. attention over the block's chunks; the last block of a pair merges
@@ -1108,7 +1118,7 @@ decode_stack_kernel(StackParams p) {
     } else {
       pace(pl.op);
     }
-    grid_barrier(p.sync, ++nbar);
+    grid_barrier(count, target += G);
     LG_STACK_STAMP();
 
     // 3. proj columns, + bias into the residual
@@ -1146,7 +1156,7 @@ decode_stack_kernel(StackParams p) {
     } else {
       pace(pl.of);
     }
-    grid_barrier(p.sync, ++nbar);
+    grid_barrier(count, target += G);
     LG_STACK_STAMP();
 
     // 4. LN2 (every block), the block's hidden units and their fc2 rows
@@ -1227,7 +1237,7 @@ decode_stack_kernel(StackParams p) {
     } else {
       pace(pl.per_layer);
     }
-    grid_barrier(p.sync, ++nbar);
+    grid_barrier(count, target += G);
     LG_STACK_STAMP();
 
     // 5. the residual columns this block owns: the partials of every block
@@ -1270,7 +1280,6 @@ decode_stack_kernel(StackParams p) {
         reinterpret_cast<float4*>(red)[pt * no + o] = s;
       }
       __syncthreads();
-      pace(pl.per_layer);
       if (threadIdx.x < no) {
         float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
         for (int q = 0; q < parts; ++q) {
@@ -1293,14 +1302,14 @@ decode_stack_kernel(StackParams p) {
           xo[3] = lg_from_f<T>(y.w);
         }
       }
-      __syncthreads();
-    } else {
+    }
+    // the next layer's first stages go out while the barrier settles
+    if (l + 1 < L) {
+      barrier_arrive(count);
       pace(pl.per_layer);
+      barrier_wait(count, target += G);
     }
     lbase += pl.per_layer;
-    if (l + 1 < L) {
-      grid_barrier(p.sync, ++nbar);
-    }
     LG_STACK_STAMP();
   }
 }
@@ -1389,6 +1398,36 @@ int dispatch(const StackParams* p, int w_int8, int kv_int8, cudaStream_t st,
   return kv_int8 ? run<T, T, int8_t>(p, st, grid) : run<T, T, T>(p, st, grid);
 }
 
+// make_plan on the host for block b of G (weights TW, cache TC): out gets
+// the qkv, proj and fc columns [first, end), the residual columns, the
+// block's attention chunks [c0, c1) and its stages a layer.
+template <typename TW, typename TC>
+void plan_on_host(StackParams p, int G, int b, int* out) {
+  constexpr int VE = 16 / (int)sizeof(TW);
+  const Layout lay = layout_of(p.n, p.d, p.R, G, sizeof(TW));
+  p.slot = lay.slot;
+  p.slots = lay.slots;
+  Plan pl;
+  make_plan<TW, TC>(p, pl, G, b);
+  const Share own = share_of(p.d / 4, b, G);
+  const int v[] = {pl.v0q * VE, (pl.v0q + pl.nvq) * VE,
+                   pl.v0p * VE, (pl.v0p + pl.nvp) * VE,
+                   pl.v0f * VE, (pl.v0f + pl.nvf) * VE,
+                   own.v0 * 4,  (own.v0 + own.nv) * 4,
+                   pl.c0,       pl.c1,
+                   pl.per_layer};
+  for (int i = 0; i < 11; ++i) out[i] = v[i];
+}
+
+template <typename TW>
+int plan_by_cache(const StackParams& p, int cbytes, int G, int b, int* out) {
+  if (cbytes == 4) plan_on_host<TW, float>(p, G, b, out);
+  else if (cbytes == 2) plan_on_host<TW, __nv_bfloat16>(p, G, b, out);
+  else if (cbytes == 1) plan_on_host<TW, int8_t>(p, G, b, out);
+  else return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1424,6 +1463,30 @@ int lg_decode_stack_grid(int is_bf16, int w_int8, int kv_int8) {
       ? dispatch<__nv_bfloat16>(nullptr, w_int8, kv_int8, nullptr, &blocks)
       : dispatch<float>(nullptr, w_int8, kv_int8, nullptr, &blocks);
   return e ? 0 : blocks;
+}
+
+// Block b's schedule on a grid of G blocks, as the kernel plans it, for
+// tests: n rows at width d with H heads and window W; poss (n host ints)
+// in batched mode, else extend mode at pos0; weights and cache of wbytes /
+// cbytes bytes an element.  out: 11 ints (plan_on_host).
+int lg_decode_stack_plan(int n, int d, int R, int H, int W, const int* poss,
+                         int pos0, int G, int b, int wbytes, int cbytes,
+                         int* out) {
+  if (supported(d, d / H, n) || H * kHD != d || G < 1 || b < 0 || b >= G)
+    return (int)cudaErrorInvalidValue;
+  StackParams p{};
+  p.poss = poss;
+  p.pos0 = pos0;
+  p.n = n;
+  p.L = 1;
+  p.d = d;
+  p.H = H;
+  p.W = W;
+  p.R = R;
+  if (wbytes == 4) return plan_by_cache<float>(p, cbytes, G, b, out);
+  if (wbytes == 2) return plan_by_cache<__nv_bfloat16>(p, cbytes, G, b, out);
+  if (wbytes == 1) return plan_by_cache<int8_t>(p, cbytes, G, b, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 int lg_decode_stack(const void* x, const void* cache, long long slot_stride,

@@ -56,19 +56,24 @@ _SIGNATURES = {
     # partials, out, B, KV, G, hd, n_split, is_bf16, stream
     "lg_decode_merge": ([_P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
     # x, cache, slot_stride, poss, pos0, pos_dev, slabs, vecs, scales,
-    # kv_scales, x_out, kv_out, ws, sync (int32 zeros), n, L, d, H, W, R,
-    # eps, scale, is_bf16, w_int8, kv_int8, stream
+    # kv_scales, x_out, kv_out, ws, sync (int32 words, zeroed once a
+    # device), n, L, d, H, W, R, eps, scale, is_bf16, w_int8, kv_int8,
+    # stream
     "lg_decode_stack": ([_P, _P, _LL, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P],
                         _I),
     # n, d, R -> f32 workspace elements the stack kernel needs on the
     # current device
     "lg_decode_stack_workspace": ([_I, _I, _I], _LL),
-    # -> zeroed int32 words a stack call needs beside its workspace
+    # -> int32 words, zeroed once, that stack calls on a device share
     "lg_decode_stack_sync_words": ([], _I),
     # n, d, R, weight bytes, int* ring slots (or null) -> dynamic shared
     # memory bytes of a stack launch on the current device
     "lg_decode_stack_smem": ([_I, _I, _I, _I, _P], _I),
+    # n, d, R, H, W, poss (n host int32, or null: extend mode), pos0, G, b,
+    # weight bytes, cache bytes, int out[11] -> block b's schedule (tests)
+    "lg_decode_stack_plan": ([_I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I,
+                              _P], _I),
     # is_bf16, w_int8, kv_int8 -> blocks of that instantiation's cooperative
     # grid (0: refused)
     "lg_decode_stack_grid": ([_I, _I, _I], _I),

@@ -281,6 +281,27 @@ def _check(name, t, tname, dtypes, shape, dev):
                          f"{tuple(t.shape)} on {t.device}")
 
 
+# device index -> the int32 words every stack call on it shares: the grid
+# barrier's count, which a call leaves reusable (csrc/decode_stack.cu's
+# grid_barrier), and the attention pairs' counters, each reset by its last
+# block.  Two calls never overlap on a device: a block takes an SM's shared
+# memory, so one call's blocks start only as the other's have left.
+_SYNC = {}
+
+
+def _sync_words(lib, dev):
+    """The device's zeroed sync words, made on its first call outside
+    stream capture (a launch being captured before then gets words of its
+    own, zeroed by a node of the graph)."""
+    sync = _SYNC.get(dev.index)
+    if sync is None:
+        sync = torch.zeros(lib.lg_decode_stack_sync_words(), device=dev,
+                           dtype=torch.int32)
+        if not torch.cuda.is_current_stream_capturing():
+            _SYNC[dev.index] = sync
+    return sync
+
+
 def _launch(name, x, cache, slot_stride, poss, pos0, slabs, vecs, scales,
             kv_scales, eps, R, pos_dev=None):
     n, d = x.shape
@@ -313,9 +334,7 @@ def _launch(name, x, cache, slot_stride, poss, pos0, slabs, vecs, scales,
     with torch.cuda.device(dev):
         ws = torch.empty(lib.lg_decode_stack_workspace(n, d, R), device=dev,
                          dtype=torch.float32)
-        # the grid barrier's count and the attention pairs' counters
-        sync = torch.zeros(lib.lg_decode_stack_sync_words(), device=dev,
-                           dtype=torch.int32)
+        sync = _sync_words(lib, dev)
         err = lib.lg_decode_stack(
             x.data_ptr(), cache.data_ptr(), slot_stride,
             None if poss is None else poss.data_ptr(), pos0,

@@ -35,10 +35,10 @@ JSON line:
   barriers, from ``%globaltimer`` stamps written by block 0: the tree's
   ``csrc/decode_stack.cu`` is built alone with a stamp after every barrier
   (its ``LG_STACK_STAMP()`` hooks where it has them, else after every
-  ``grid.sync();``) and swapped in through ``_build._lib``; each
-  ``--variant NAME=MACRO,...`` adds a build with those ``-D`` macros (the
-  source's design switches), stamped and timed at shapes (a) at 512 and
-  (c).
+  ``grid.sync();``) and swapped in through ``_build._lib``, and timed at
+  shapes (a) at 512 and (c); each ``--variant NAME[+NAME...]`` adds such a
+  build of the source with the edits of ``PATCHES`` (experiments: some
+  give wrong results, and a tree whose source lacks an edit's text fails).
 
 Run it for two checkouts in the order P, C, C, P within one machine to
 compare them; each run is its own process.
@@ -59,22 +59,44 @@ import torch
 HBM_BPS = 3.35e12
 GPT2_SMALL = dict(vocab_size=50257, n_positions=1024, n_embd=768,
                   n_layer=12, n_head=12, layer_norm_epsilon=1e-5)
-# the engine's positions (shape d): a tick of chip_smoke's drive_serving
-# traffic (32 requests, prompts 8-48, 16-128 new tokens, seed 7): the first
-# 8 requests, each at its prompt length plus a draw of its new tokens
-_rng = np.random.default_rng(7)
-_REQS = [(int(_rng.integers(8, 49)), int(_rng.integers(16, 129)))
-         for _ in range(32)]
-_rng = np.random.default_rng(11)
-ENGINE_POSS = [p + int(_rng.integers(0, n)) for p, n in _REQS[:8]]
-# (label, batched, n, positions)
-SHAPES = (("a: n 1, pos 512", False, 1, [512]),
+# (label, batched, n, positions); main() adds shape (d), the middle tick of
+# the engine's own traffic (chip_smoke.engine_tick_positions)
+SHAPES = [("a: n 1, pos 512", False, 1, [512]),
           ("a: n 1, pos 960", False, 1, [960]),
           ("b: n 4, pos 37", False, 4, [37]),
           ("c: B 8, smoke poss", True, 8, [0, 5, 37, 100, 511, 1000, 1023,
-                                           17]),
-          ("d: B 8, engine poss", True, 8, ENGINE_POSS))
+                                           17])]
 VARIANTS = ("", "_int8", "_kvq", "_int8_kvq")
+# --variant edits of csrc/decode_stack.cu: (text, replacement) pairs
+PATCHES = {
+    # no weight copies (the boxes' cp.async, fc2's bulk rows) or no cache
+    # copies: wrong results, the chain of phases alone
+    "no_weights": [("  if (t >= kThreads / nv * nv) return;\n",
+                    "  return;\n"),
+                   ("    for (int r = t; r < rows; r += kThreads)\n"
+                    "      bulk_copy(dst + r * rb, src + (size_t)r * d, rb, "
+                    "bar, pol);\n    tx = rows * rb;\n", "")],
+    "no_cache": [("      const int rows = c.rows;\n",
+                  "      const int rows = 0;\n")],
+    # block 0's stamps inside the phases too (LG_STACK_SUB() hooks)
+    "substamps": [("#ifdef LG_STACK_SUBSTAMPS", "#if 1")],
+    # the stream under L2's normal policy, not evict-first
+    "no_hint": [("L2::evict_first", "L2::evict_normal")],
+    # 16 KB ring slots at every width
+    "slot16": [("  s.slot = ring >= 4 * kSlotBig ? kSlotBig : kSlotSmall;\n",
+                "  s.slot = kSlotSmall;\n")],
+    # one slot of the ring left empty (the design's first version)
+    "ring_less1": [("min(rg.cur + p.slots, pl.per_layer * p.L)",
+                    "min(rg.cur + p.slots - 1, pl.per_layer * p.L)"),
+                   ("issue_upto<TW, TC>(p, pl, rg, p.slots);",
+                    "issue_upto<TW, TC>(p, pl, rg, p.slots - 1);")],
+    # the next layer's first stages issued before the block arrives at the
+    # barrier after phase 5, not while it waits there
+    "pace5_before": [("      barrier_arrive(count);\n      pace(pl.per_layer);\n"
+                      "      barrier_wait(count, target += G);\n",
+                      "      pace(pl.per_layer);\n"
+                      "      grid_barrier(count, target += G);\n")],
+}
 
 
 def log(rec):
@@ -228,13 +250,6 @@ def stack_kernels(iters):
     return out
 
 
-def _requests(vocab):
-    rng7 = np.random.default_rng(7)
-    return [([int(t) for t in rng7.integers(0, vocab,
-                                            int(rng7.integers(8, 49)))],
-             int(rng7.integers(16, 129))) for _ in range(32)]
-
-
 def _profile(fn):
     """(stack kernel device ms, its launches, all device ms, wall ms) of one
     call of ``fn`` under ``torch.profiler``."""
@@ -263,13 +278,14 @@ def _profile(fn):
 
 
 def engine(n_runs):
+    from chip_smoke import serving_requests
     from lightgrad_tpu_torch import InferenceEngine
 
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         model = gpt2(dtype)
         vocab = model.cfg.vocab_size
-        reqs = _requests(vocab)
+        reqs = serving_requests(vocab)
         model.generate(reqs[0][0], max_new_tokens=4)
         rates = []
         for _ in range(n_runs):
@@ -287,7 +303,7 @@ def engine(n_runs):
         # slots at the engine's positions) and one single-stream step
         fns = model._kv_functions()
         caches = torch.stack([fns.init_cache() for _ in range(8)])
-        poss = torch.tensor(ENGINE_POSS, device="cuda", dtype=torch.int32)
+        poss = torch.tensor(SHAPES[-1][3], device="cuda", dtype=torch.int32)
         toks = torch.randint(0, vocab, (8,), device="cuda")
 
         def tick():
@@ -451,9 +467,9 @@ def barriers(tree):
 
 
 def _stamped_builds(tree, variants):
-    """Build the tree's decode_stack.cu alone, with phase stamps, once per
-    (label, defines) of ``variants``, all nvcc processes at once; returns
-    {label: (library path, build seconds)}."""
+    """Build the tree's decode_stack.cu alone, with phase stamps, as it is
+    ("") and with each ``variants`` label's ``PATCHES``, all nvcc processes
+    at once; returns {label: (library path, build seconds)}."""
     from lightgrad_tpu_torch.ops import _build
 
     csrc = os.path.join(tree, "lightgrad_tpu_torch", "csrc")
@@ -466,17 +482,23 @@ def _stamped_builds(tree, variants):
         text = text.replace("grid.sync();", "grid.sync(); lg_stamp(lg_si);")
     work = os.path.join(tree, "lightgrad_tpu_torch", "build", "ab_stamps")
     os.makedirs(work, exist_ok=True)
-    src = os.path.join(work, "decode_stack.cu")
-    with open(src, "w") as f:
-        f.write('#include "common.cuh"\n' + STAMP_PRELUDE + text
-                + STAMP_EPILOGUE)
     procs = {}
     t0 = time.perf_counter()
-    for label, defines in variants:
+    for label in [""] + variants:
+        src_v = text
+        for name in label.split("+") if label else ():
+            for old, new in PATCHES[name]:
+                if old not in src_v:
+                    raise ValueError(f"--variant {name}: {old!r} is not in "
+                                     f"{csrc}/decode_stack.cu")
+                src_v = src_v.replace(old, new)
+        src = os.path.join(work, f"decode_stack_{label or 'tree'}.cu")
+        with open(src, "w") as f:
+            f.write('#include "common.cuh"\n' + STAMP_PRELUDE + src_v
+                    + STAMP_EPILOGUE)
         so = os.path.join(work, f"stamped_{label or 'tree'}.so")
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS,
-               *[f"-D{x}" for x in defines], "-I", csrc, "-shared", "-o",
-               so, src]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-shared",
+               "-o", so, src]
         procs[label] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.PIPE,
                                              text=True))
@@ -492,12 +514,12 @@ def _stamped_builds(tree, variants):
 def stamps(tree, variants, iters):
     """Block 0's phase split of one call of each shape (f32 and bf16, float
     variant), from stamped builds of the tree's decode_stack.cu: the tree as
-    it is ("") at every shape, and each ``variants`` build (macros the
-    source reads) at shapes (a) at 512 and (c), with its graph time."""
+    it is ("") at every shape, and each ``variants`` build (``PATCHES``) at
+    shapes (a) at 512 and (c); every build's graph time at those two."""
     ds = importlib.import_module("lightgrad_tpu_torch.ops.decode_stack")
     from lightgrad_tpu_torch.ops import _build
 
-    builds = _stamped_builds(tree, [("", [])] + variants)
+    builds = _stamped_builds(tree, variants)
     model = gpt2()
     cfg = model.cfg
     L, d, H, W = cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.n_positions
@@ -525,7 +547,8 @@ def stamps(tree, variants, iters):
             for dtype in (torch.float32, torch.bfloat16):
                 pk, caches = packed[dtype]
                 for shape, batched, n, poss in SHAPES:
-                    if label and shape not in (SHAPES[0][0], SHAPES[3][0]):
+                    timed = shape in (SHAPES[0][0], SHAPES[3][0])
+                    if label and not timed:
                         continue
                     x = torch.randn((n, d), generator=g, device=dev).to(dtype)
                     pt = torch.tensor(poss, device=dev, dtype=torch.int32)
@@ -555,7 +578,7 @@ def stamps(tree, variants, iters):
                            "prologue_us": float(sp[:pro].sum()),
                            "phase_us_mean_over_layers":
                                sp[pro:].reshape(L, -1).mean(axis=0).tolist()}
-                    if label:
+                    if timed:
                         rec["ms"], rec["timing"] = graph_ms(run, iters)
                     log(rec)
                     out[f"{label} {shape} {str(dtype)[6:]}"] = rec
@@ -573,9 +596,9 @@ def main():
     ap.add_argument("--barriers", action="store_true")
     ap.add_argument("--stamps", action="store_true")
     ap.add_argument("--variant", action="append", default=[],
-                    metavar="NAME=MACRO[,MACRO]",
+                    metavar="NAME[+NAME]",
                     help="with --stamps: also a build of decode_stack.cu "
-                         "with these -D macros")
+                         f"with these edits, of {sorted(PATCHES)}")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_decode_stack: no CUDA device", file=sys.stderr)
@@ -603,12 +626,16 @@ def main():
                t == "bf16", w, k) for t in ("f32", "bf16") for w in (0, 1)
                for k in (0, 1)}}
     log({"card": smi, "grids": rec["grids"]})
+    sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    from chip_smoke import engine_tick_positions
+    ticks = engine_tick_positions(GPT2_SMALL["vocab_size"])
+    SHAPES.append(("d: B 8, engine tick", True, 8, ticks[len(ticks) // 2]))
+    rec["engine_tick_positions"] = SHAPES[-1][3]
     if args.barriers:
         rec["barriers"] = barriers(tree)
     if args.stamps:
-        rec["stamps"] = stamps(tree, [
-            (v.split("=")[0], [m for m in v.split("=", 1)[1].split(",") if m])
-            for v in args.variant], args.iters)
+        rec["stamps"] = stamps(tree, args.variant, args.iters)
     if not args.no_kernels:
         rec["kernels"] = stack_kernels(args.iters)
     if args.engine:

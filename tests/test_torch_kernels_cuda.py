@@ -6,6 +6,8 @@ no JAX, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -30,9 +32,10 @@ from lightgrad_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_batch,
     decode_attention_batch_reference, decode_attention_reference,
     decode_merge, decode_merge_reference, split_partials)
+from lightgrad_tpu_torch.ops import _build
 from lightgrad_tpu_torch.ops.decode_stack import (
     decode_stack, decode_stack_batch, decode_stack_batch_reference,
-    decode_stack_reference)
+    decode_stack_reference, plan_stack, stack_smem)
 from lightgrad_tpu_torch.ops.layernorm import (
     layernorm_bwd, layernorm_bwd_dx, layernorm_bwd_dx_reference,
     layernorm_bwd_reference, layernorm_fwd, layernorm_fwd_reference,
@@ -1273,6 +1276,50 @@ def test_decode_stack_batch_ragged_eight(dev, variant, dtype):
                                         eps=1e-5, kv_scales=kvs)
     for a, b in zip(got, want):
         _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("wbytes", [1, 2, 4])
+def test_stack_smem_matches_the_kernel(dev, wbytes):
+    """ops.decode_stack.stack_smem is the kernel's own layout: the dynamic
+    shared memory and ring slots of every row count and of the widths from
+    GPT-2 small to XL and d 4096 that stack_supported admits."""
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slots = ctypes.c_int()
+    for d in (64, 128, 768, 1024, 1280, 1600, 2048, 4096):
+        for n in range(1, 9):
+            nbytes = lib.lg_decode_stack_smem(n, d, 4, wbytes,
+                                              ctypes.addressof(slots))
+            want, _, want_slots = stack_smem(n, d, 4, sms, wbytes)
+            assert (nbytes, slots.value) == (want, want_slots), (n, d)
+
+
+@pytest.mark.parametrize("wbytes,cbytes", [(4, 4), (2, 2), (1, 4), (1, 2),
+                                           (4, 1), (2, 1), (1, 1)])
+@pytest.mark.parametrize("n,d,positions", [
+    (1, 768, [512]), (4, 768, [37]), (2, 64, [5000]),
+    (8, 768, [0, 5, 37, 100, 511, 1000, 1023, 17]), (3, 1600, [0, 1023, 7]),
+    (8, 4096, [9, 20, 30, 40, 50, 60, 70, 2000])])
+def test_stack_plan_matches_the_kernel(dev, n, d, positions, wbytes, cbytes):
+    """ops.decode_stack.plan_stack is the kernel's make_plan: each block's
+    columns of every product, its residual columns, its attention chunks
+    and its stages a layer, in extend mode (one position) and batched
+    mode, positions past W among them."""
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    H, W, batched = d // 64, 1024, len(positions) > 1
+    blocks = plan_stack(n, d, 4, H, W, positions, sms, wbytes, cbytes,
+                        batched=batched)
+    poss = (ctypes.c_int * len(positions))(*positions)
+    out = (ctypes.c_int * 11)()
+    c0 = 0
+    for b, e in enumerate(blocks):
+        assert lib.lg_decode_stack_plan(
+            n, d, 4, H, W, ctypes.addressof(poss) if batched else None,
+            positions[0], sms, b, wbytes, cbytes, ctypes.addressof(out)) == 0
+        assert list(out) == [*e["qkv"], *e["proj"], *e["fc"], *e["resid"],
+                             c0, c0 + len(e["chunks"]), e["stages"]], b
+        c0 += len(e["chunks"])
 
 
 def test_wrappers_raise_on_what_the_kernels_lack(dev):
