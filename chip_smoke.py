@@ -77,7 +77,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      arithmetic with one tf32 pass a product must fail; the f32 flash
      forward (three tf32 passes too) at GPT-2's prefill shape against a
      float64 forward, a bar one tf32 pass must fail, and the f32 fused
-     backward against its plain version evaluated in float64;
+     backward against its plain version evaluated in float64; the
+     elementwise kernel at the main paths' classes (GELU, a bias, a
+     per-channel operand and its expanded gradient, the padding mask, a
+     Python scalar, a transposed weight gradient, a rotary slice, vocab-wide
+     rows, a residual add, the one-hot compare) and softmax, by CUDA graph
+     with L2 flushed (operand sets rotated through FLUSH_BYTES); any path
+     that copies an elementwise operand fails the run;
   4. serving path, GPT-2 small at its published widths (vocab 50257, 1024
      positions, d 768, 12 layers, 12 heads; seeded random weights), once in
      float32 and once after ``model.to(torch.bfloat16)``: ``generate``,
@@ -167,6 +173,7 @@ import os
 import subprocess
 import sys
 import time
+from math import prod
 
 import numpy as np
 import torch
@@ -508,30 +515,7 @@ def graph_ms(fn, iters=20):
     """Device time of one call: ``iters`` calls captured in a CUDA graph,
     replayed between two CUDA events.  Unlike :func:`cuda_ms` it leaves out
     the host's launch work, which exceeds a small kernel's run time."""
-    fn()
-    torch.cuda.synchronize()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / iters
-    del graph
-    torch.cuda.empty_cache()
-    return ms
+    return graph_sets_ms(fn, [()] * iters, replays=1)
 
 
 def timed(results, dtype, name, err, kernel, plain, cost, library,
@@ -541,6 +525,140 @@ def timed(results, dtype, name, err, kernel, plain, cost, library,
     record(results, dtype, name, err, graph_ms(kernel, iters),
            graph_ms(plain, iters), timing="graph", cost=cost,
            library_ms=graph_ms(library, iters), variant=variant, peak=peak)
+
+
+# operand sets of an L2-flushed timing span at least this many bytes, so that
+# no replayed call finds its operands in the card's 50 MB L2
+FLUSH_BYTES = 128 << 20
+
+
+def own_bytes(t):
+    """Bytes of the distinct elements a tensor holds: a broadcast (stride
+    0) dim counts once, as an operand is read once at its own size."""
+    return prod(n for n, s in zip(t.shape, t.stride()) if s) \
+        * t.element_size()
+
+
+def operand_sets(make):
+    """Fresh operand tuples from ``make`` until they span FLUSH_BYTES (2 to
+    512 of them)."""
+    sets = [make()]
+    size = sum(own_bytes(t) for t in sets[0] if isinstance(t, torch.Tensor))
+    n = max(2, min(512, -(-FLUSH_BYTES // max(size, 1))))
+    sets += [make() for _ in range(n - 1)]
+    return sets
+
+
+def graph_sets_ms(fn, sets, replays=3):
+    """Device time of one call of ``fn``: one call on each operand set in
+    turn, all captured in a CUDA graph and replayed between two CUDA
+    events; sets spanning FLUSH_BYTES (:func:`operand_sets`) find their
+    operands out of L2.  ``replays`` replays are timed."""
+    calls = [lambda s=s: fn(*s) for s in sets]
+    fn(*sets[0])
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls[1]()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for c in calls:
+            c()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * len(calls))
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def timed_sets(results, dtype, name, err, kernel, plain, cost, library,
+               sets, variant=""):
+    """:func:`timed` over operand sets (:func:`graph_sets_ms`): ``kernel``,
+    ``plain`` and ``library`` (None where PyTorch has no one call) each
+    take one set's operands."""
+    record(results, dtype, name, err, graph_sets_ms(kernel, sets),
+           graph_sets_ms(plain, sets), timing="graph, L2 flushed",
+           cost=cost, variant=variant, library_ms=None if library is None
+           else graph_sets_ms(library, sets))
+
+
+def ew_plain(body, n_out, ops):
+    """``ew_reference`` as a graph can replay it: a Scalar operand as a 0-d
+    device tensor made here, outside the capture."""
+    from lightgrad_tpu_torch.ops.elementwise import Scalar, ew_reference
+
+    dev = next(t for t in ops if isinstance(t, torch.Tensor)).device
+    fixed = {i: torch.tensor(t.value, dtype=t.dtype, device=dev)
+             for i, t in enumerate(ops) if isinstance(t, Scalar)}
+
+    def plain(*xs):
+        return ew_reference(body, *(fixed.get(i, x) for i, x in
+                                    enumerate(xs)), n_out=n_out)
+    return plain
+
+
+def ew_classes(dtype, g):
+    """The main paths' elementwise classes (``scripts/ab_elementwise.py``'s
+    tally; PERF.md §6 row 1) as (variant, body, n_out, make, library):
+    ``make`` draws one operand set, ``library`` is one PyTorch call for the
+    same function (None where none is).  GELU at (1024, 3072) first: the
+    record's main line."""
+    import torch.nn.functional as F
+
+    from lightgrad_tpu_torch.ops.elementwise import scalar
+
+    dev = g.device
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def view(shape, stride):
+        need = sum((n - 1) * s for n, s in zip(shape, stride)) + 1
+        return rnd(need).as_strided(shape, stride)
+
+    out = [
+        ("", "f_gelu", 1, lambda: (rnd(1024, 3072),),
+         lambda x: F.gelu(x, approximate="tanh")),
+        ("bias_", "f_add", 1, lambda: (rnd(8, 128, 3072), rnd(3072)),
+         torch.add),
+        ("bn_", "f_sub", 1, lambda: (rnd(32, 64, 112, 112),
+                                     rnd(1, 64, 1, 1)), torch.sub),
+        ("bn_grad_", "b2_mul", 2, lambda: (
+            rnd(1, 64, 1, 1).expand(32, 64, 56, 56), rnd(32, 64, 56, 56),
+            rnd(32, 64, 56, 56)), None),
+        ("mask_", "f_add", 1, lambda: (rnd(8, 12, 128, 128),
+                                       rnd(8, 1, 1, 128)), torch.add),
+        ("scalar_", "f_mul", 1, lambda: (rnd(8, 12, 128, 128),
+                                         scalar(0.125, dtype)),
+         lambda x, s: torch.mul(x, s.value)),
+        ("trans_", "f_add", 1, lambda: (rnd(8192, 2048),
+                                        rnd(2048, 8192).T), torch.add),
+        ("rotary_", "f_mul", 1, lambda: (
+            view((1, 8, 2048, 64), (12582912, 768, 6144, 1)),
+            rnd(1, 1, 2048, 64)), torch.mul),
+        ("vocab_", "b2_add", 2, lambda: (rnd(8, 128, 30522),
+                                         rnd(8, 128, 30522), rnd(30522)),
+         None),
+        ("residual_", "f_add", 1, lambda: (rnd(1, 8192, 4096),
+                                           rnd(1, 8192, 4096)), torch.add),
+    ]
+    if dtype == torch.float32:
+        out.append(("onehot_", "f_eq", 1, lambda: (
+            torch.randint(0, 32000, (8192, 1), generator=g, device=dev,
+                          dtype=torch.int32),
+            torch.arange(32000, device=dev, dtype=torch.int32)), None))
+    return out
 
 
 def errors(got, want):
@@ -2071,7 +2189,8 @@ def phase_tape_kernels(results):
     1024 rows, d 768, ffn 3072, vocab 30522, 96 heads of 128 x 64)."""
     import torch.nn.functional as F
 
-    from lightgrad_tpu_torch.ops.elementwise import ew, ew_reference
+    from lightgrad_tpu_torch.ops.elementwise import (_READS, ew,
+                                                     ew_reference, scalar)
     from lightgrad_tpu_torch.ops.matmul import (matmul, matmul_reference,
                                                 matmul_vjp)
     from lightgrad_tpu_torch.ops.reduce import reduce, reduce_reference
@@ -2097,8 +2216,11 @@ def phase_tape_kernels(results):
                     * scale).to(dtype)
 
         # elementwise: GELU and its gradient, the padding mask, a fused
-        # two-gradient add, a scalar multiply.  The mask is the path's own:
-        # 0 on valid keys, -1e9 past lengths drawn from 64-128.
+        # two-gradient add, a scalar multiply (by value), each against its
+        # plain version; then the main paths' classes (PERF.md §6, row 1),
+        # each by CUDA graph with L2 flushed beside one PyTorch call.  The
+        # mask is the path's own: 0 on valid keys, -1e9 past lengths drawn
+        # from 64-128.
         h, gh = rnd(R, f), rnd(R, f)
         scores = rnd(B, H, S, S, scale=2.0)
         mask = ((torch.arange(S, device=dev) >= lengths[:, None]) * -1e9
@@ -2108,17 +2230,38 @@ def phase_tape_kernels(results):
         for body, args, n_out in (
                 ("f_gelu", (h,), 1), ("b_gelu", (gh, h), 1),
                 ("f_add", (scores, mask), 1), ("b2_add", (x, x, y), 2),
-                ("f_mul", (x, torch.tensor(0.125, device=dev)), 1)):
+                ("f_mul", (x, scalar(0.125, dtype)), 1)):
             got = ew(body, *args, n_out=n_out)
             want = ew_reference(body, *args, n_out=n_out)
             for i, (a, b) in enumerate(zip(*(
                     (t,) if n_out == 1 else t for t in (got, want)))):
                 err = max(err, check(f"elementwise {body}[{i}] "
                                      f"{tuple(a.shape)}", dtype, a, b, tol))
-        timed(results, dtype, "elementwise", err, lambda: ew("f_gelu", h),
-              lambda: ew_reference("f_gelu", h),
-              (2 * R * f * isz, 10 * R * f),
-              lambda: F.gelu(h, approximate="tanh"))
+        discriminates("elementwise", dtype, ew_reference("f_gelu", h), tol,
+                      torch.zeros_like(h), h)
+        for variant, body, n_out, make, lib in ew_classes(dtype, g):
+            sets = operand_sets(make)
+            outs = [ew(body, *s, n_out=n_out) for s in sets[:2]]
+            want = ew_reference(body, *sets[1], n_out=n_out)
+            e = 0.0
+            for a, b in zip(*((t,) if n_out == 1 else t
+                              for t in (outs[1], want))):
+                e = max(e, check(f"elementwise {variant or 'gelu_'}{body} "
+                                 f"{tuple(a.shape)}", dtype, a, b, tol))
+            err = max(err, e)
+            # the bound's bytes: the operands the body reads (b2_add's
+            # and b2_sub's a and b only shape the output), outputs written
+            reads = _READS.get(body, range(len(sets[0])))
+            nbytes = sum(own_bytes(t) for j, t in enumerate(sets[0])
+                         if j in reads and isinstance(t, torch.Tensor)) + sum(
+                t.numel() * t.element_size() for t in
+                ((outs[0],) if n_out == 1 else outs[0]))
+            plain = ew_plain(body, n_out, sets[0])
+            timed_sets(results, dtype, "elementwise", e,
+                       lambda *s: ew(body, *s, n_out=n_out), plain,
+                       (nbytes, nbytes // 4), lib, sets, variant=variant)
+            del sets, outs, want
+        torch.cuda.empty_cache()
 
         # reduce: bias gradients (column sums), the loss's row max and sum
         logits = rnd(R, V)
@@ -2236,20 +2379,25 @@ def phase_tape_kernels(results):
                                                   1.0)
         discriminates("softmax_fwd", dtype, want, tol,
                       torch.zeros_like(want), one_hot)
-        timed(results, dtype, "softmax_fwd", err, lambda: softmax_fwd(sm),
-              lambda: softmax_fwd_reference(sm),
-              (2 * sm.numel() * isz, 5 * sm.numel()),
-              lambda: torch.softmax(sm, -1))
+        sets = operand_sets(lambda: (rnd(B, H, S, S, scale=2.0) + mask,))
+        timed_sets(results, dtype, "softmax_fwd", err, softmax_fwd,
+                   softmax_fwd_reference,
+                   (2 * sm.numel() * isz, 5 * sm.numel()),
+                   lambda t: torch.softmax(t, -1), sets)
+        del sets
         gs = rnd(B, H, S, S)
         want = softmax_bwd_reference(gs, ys)
         err = check(f"softmax_bwd {tuple(gs.shape)}", dtype,
                     softmax_bwd(gs, ys), want, tol)
         discriminates("softmax_bwd", dtype, want, tol, torch.zeros_like(want))
-        timed(results, dtype, "softmax_bwd", err,
-              lambda: softmax_bwd(gs, ys),
-              lambda: softmax_bwd_reference(gs, ys),
-              (3 * gs.numel() * isz, 4 * gs.numel()),
-              lambda: torch._softmax_backward_data(gs, ys, -1, dtype))
+        sets = operand_sets(lambda: (rnd(B, H, S, S),
+                                     softmax_fwd(rnd(B, H, S, S) + mask)))
+        timed_sets(results, dtype, "softmax_bwd", err, softmax_bwd,
+                   softmax_bwd_reference,
+                   (3 * gs.numel() * isz, 4 * gs.numel()),
+                   lambda a, b: torch._softmax_backward_data(a, b, -1, dtype),
+                   sets)
+        del sets
         torch.cuda.empty_cache()
 
 
@@ -4298,6 +4446,10 @@ def main():
         if missing:
             raise AssertionError(f"kernels never launched on the {path} "
                                  f"path: {missing}")
+        if counts.get("elementwise_copy"):
+            raise AssertionError(f"the {path} path copied "
+                                 f"{counts['elementwise_copy']} elementwise "
+                                 f"operands: a view the kernel cannot read")
         for k in KERNELS:
             launches[k] += counts[k]
 

@@ -28,7 +28,7 @@ from ...ops.attention import attention_bwd as kattn_bwd
 from ...ops.attention import attention_fwd_res as kattn_fwd_res
 from ...ops.conv import conv_bwd as kconv_bwd
 from ...ops.conv import conv_fwd as kconv_fwd
-from ...ops.elementwise import ew
+from ...ops.elementwise import ew, scalar
 from ...ops.layernorm import layernorm_bwd as kln_bwd
 from ...ops.layernorm import layernorm_fwd_stats as kln_fwd
 from ...ops.matmul import matmul as kmatmul
@@ -47,9 +47,10 @@ def _raw(x):
 
 
 def _scalar(b, like):
-    """A Python scalar as a 0-d tensor on ``like``'s device: of ``like``'s
-    dtype when that is floating, else float32 for a float and ``like``'s
-    dtype for an int (jnp's 32-bit promotion)."""
+    """A Python scalar as ``ew`` takes it by value: rounded on the host to
+    ``like``'s dtype when that is floating, else to float32 for a float and
+    ``like``'s dtype for an int (jnp's 32-bit promotion).  No device tensor
+    is made, so nothing is copied to the card and nothing waits for it."""
     if isinstance(b, torch.Tensor):
         return b
     b = b.item() if isinstance(b, np.generic) else b
@@ -57,7 +58,7 @@ def _scalar(b, like):
         dt = like.dtype
     else:
         dt = torch.float32 if isinstance(b, float) else like.dtype
-    return torch.tensor(b, dtype=dt, device=like.device)
+    return scalar(b, dt)
 
 
 def _unwrap_index(idx, dev):

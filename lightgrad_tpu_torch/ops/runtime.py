@@ -35,8 +35,9 @@ KERNELS = ("attention_fwd", "decode_attention", "decode_attention_batch",
            "conv_bwd_dx_simt", "conv_bwd_dw_simt")
 # Copies a wrapper makes before a launch, counted beside the kernels: the
 # matmul wrapper's packing of an operand whose batch strides the kernel
-# cannot walk.
-COPIES = ("matmul_pack",)
+# cannot walk; the elementwise wrapper's copy of a view whose strides do not
+# merge into the kernel's 4 dims.
+COPIES = ("matmul_pack", "elementwise_copy")
 _launches = dict.fromkeys(KERNELS + COPIES, 0)
 
 

@@ -1371,7 +1371,8 @@ def test_wrappers_raise_on_what_the_kernels_lack(dev):
 
 
 # --- the generic op set of the lightgrad tape --------------------------------
-from lightgrad_tpu_torch.ops.elementwise import ew, ew_reference  # noqa: E402
+from lightgrad_tpu_torch.ops.elementwise import (ew, ew_reference,  # noqa
+                                                 scalar)
 from lightgrad_tpu_torch.ops.matmul import (matmul, matmul_reference,  # noqa
                                             matmul_tf32x3_reference,
                                             matmul_vjp, tf32_round)
@@ -1425,6 +1426,263 @@ def test_elementwise_int32_and_views(dev):
     assert torch.equal(ew("f_add", ids, ids), ids + ids)
     x = torch.randn(6, 5, device=dev)
     assert torch.equal(ew("f_neg", x.T), -x.T)       # a transposed view
+
+
+def _strided(g, shape, stride, dtype=torch.float32, offset=0):
+    """A view at ``stride`` (and ``offset``) over fresh random storage."""
+    need = offset + sum((n - 1) * s for n, s in zip(shape, stride)) + 1
+    return _randn(g, need, dtype=dtype).as_strided(shape, stride, offset)
+
+
+# The main paths' elementwise classes (PERF.md §6, row 1): body and
+# operands as the tape gives them to ew: contiguous, views read through
+# their strides, broadcasts, Python scalars (float32, bfloat16, int32).
+_EW_CLASSES = {
+    "GELU (BERT's MLP)": ("f_gelu", lambda g, dt: [_randn(
+        g, 8, 128, 3072, dtype=dt)]),
+    "BatchNorm x - mean (1, C, 1, 1)": ("f_sub", lambda g, dt: [
+        _randn(g, 32, 64, 56, 56, dtype=dt), _randn(g, 1, 64, 1, 1,
+                                                    dtype=dt)]),
+    "BatchNorm at 28x28, padded tiles": ("b2_mul", lambda g, dt: [
+        _randn(g, 32, 128, 28, 28, dtype=dt),
+        _randn(g, 32, 128, 28, 28, dtype=dt),
+        _randn(g, 1, 128, 1, 1, dtype=dt)]),
+    "BatchNorm's expanded gradient": ("b2_mul", lambda g, dt: [
+        _randn(g, 1, 64, 1, 1, dtype=dt).expand(32, 64, 56, 56),
+        _randn(g, 32, 64, 56, 56, dtype=dt),
+        _randn(g, 32, 64, 56, 56, dtype=dt)]),
+    "bias add": ("f_add", lambda g, dt: [_randn(g, 8, 128, 768, dtype=dt),
+                                         _randn(g, 768, dtype=dt)]),
+    "padding mask": ("f_add", lambda g, dt: [
+        _randn(g, 8, 12, 128, 128, dtype=dt),
+        _randn(g, 8, 1, 1, 128, dtype=dt)]),
+    "vocab bias gradient (rows of 30522)": ("b2_add", lambda g, dt: [
+        _randn(g, 8, 128, 30522, dtype=dt),
+        _randn(g, 8, 128, 30522, dtype=dt), _randn(g, 30522, dtype=dt)]),
+    "vocab rows less their max": ("f_sub", lambda g, dt: [
+        _randn(g, 1024, 30522, dtype=dt), _randn(g, 1024, 1, dtype=dt)]),
+    "Pythia's rotary slice (a view)": ("f_mul", lambda g, dt: [
+        _strided(g, (1, 8, 2048, 64), (12582912, 768, 6144, 1), dt),
+        _randn(g, 1, 1, 2048, 64, dtype=dt)]),
+    "a transposed weight gradient": ("f_add", lambda g, dt: [
+        _randn(g, 3072, 768, dtype=dt),
+        _randn(g, 768, 3072, dtype=dt).T]),
+    "a permuted operand (BERT's heads)": ("b2_add", lambda g, dt: [
+        _strided(g, (8, 128, 768), (98304, 1, 128), dt),
+        _randn(g, 8, 128, 768, dtype=dt), _randn(g, 768, dtype=dt)]),
+    "a slice of a padded map (max pool)": ("b_relu", lambda g, dt: [
+        _strided(g, (32, 64, 112, 112), (831744, 12996, 114, 1), dt, 115),
+        _randn(g, 32, 64, 112, 112, dtype=dt)]),
+    "an expanded last dim": ("b2_mul", lambda g, dt: [
+        _strided(g, (1, 8192, 4096), (8192, 1, 0), dt),
+        _randn(g, 1, 8192, 4096, dtype=dt),
+        _randn(g, 1, 8192, 4096, dtype=dt)]),
+    "the one-hot compare (int32)": ("f_eq", lambda g, dt: [
+        torch.randint(0, 500, (4096, 1), generator=g, device=g.device,
+                      dtype=torch.int32),
+        torch.arange(500, device=g.device, dtype=torch.int32)]),
+    "a Python scalar": ("f_mul", lambda g, dt: [
+        _randn(g, 8, 12, 128, 128, dtype=dt), scalar(0.125, dt)]),
+    "a bf16-rounded scalar (1e-5)": ("f_add", lambda g, dt: [
+        _randn(g, 1000, 77, dtype=dt), scalar(1e-5, dt)]),
+    "an int32 tensor by a float scalar": ("f_mul", lambda g, dt: [
+        torch.arange(-5000, 5000, device=g.device, dtype=torch.int32),
+        scalar(0.5, torch.float32)]),
+    "an int32 tensor plus an int scalar": ("f_add", lambda g, dt: [
+        torch.arange(-5000, 5000, device=g.device, dtype=torch.int32),
+        scalar(3, torch.int32)]),
+    "a length not a multiple of the vector width": ("b_gelu", lambda g, dt: [
+        _randn(g, 1000003, dtype=dt), _randn(g, 1000003, dtype=dt)]),
+    "4 canonical dims, a transposed operand": ("b2_mul", lambda g, dt: [
+        _randn(g, 2, 3, 64, 40, dtype=dt), _randn(g, 2, 1, 64, 1, dtype=dt),
+        _strided(g, (2, 3, 64, 40), (7680, 2560, 1, 64), dt)]),
+}
+
+
+def _ew_case(name, dev, dtype):
+    body, make = _EW_CLASSES[name]
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    return body, make(g, dtype), (2 if body.startswith("b2_") else 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(_EW_CLASSES))
+def test_elementwise_main_path_classes(dev, name, dtype):
+    """Each class: one launch, no operand copied, the plain version's
+    values (f32 1e-4, bf16 3e-2 of max(1, |ref|)), bit for bit again on the
+    second call (which skips Triton's binder)."""
+    body, xs, n_out = _ew_case(name, dev, dtype)
+    reset_launch_counts()
+    got = ew(body, *xs, n_out=n_out)
+    again = ew(body, *xs, n_out=n_out)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["elementwise"] == 2 and counts["elementwise_copy"] == 0
+    want = ew_reference(body, *xs, n_out=n_out)
+    for a, b, c in zip(*((t,) if n_out == 1 else t
+                         for t in (got, want, again))):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        _close(a, b, dtype)
+        assert torch.equal(a, c)
+
+
+def test_elementwise_big_offsets(dev, monkeypatch):
+    """The int64 offsets: forced at a small size (every mode), and at a
+    real 2**31 + 17 elements."""
+    import importlib
+    em = importlib.import_module("lightgrad_tpu_torch.ops.elementwise")
+    monkeypatch.setattr(em, "_BIG_LIMIT", 1)
+    em._cached_plan.cache_clear()
+    try:
+        for name in ("bias add", "a transposed weight gradient",
+                     "a slice of a padded map (max pool)",
+                     "vocab bias gradient (rows of 30522)",
+                     "4 canonical dims, a transposed operand"):
+            body, xs, n_out = _ew_case(name, dev, torch.float32)
+            assert em._cached_plan(body, n_out, tuple(
+                (x.shape, x.stride(), x.dtype, x.get_device()) for x in xs
+            )).plan.big
+            got, want = ew(body, *xs, n_out=n_out), ew_reference(
+                body, *xs, n_out=n_out)
+            for a, b in zip(*((t,) if n_out == 1 else t
+                              for t in (got, want))):
+                _close(a, b, torch.float32)
+    finally:
+        em._cached_plan.cache_clear()
+    n = 2 ** 31 + 17
+    x = torch.full((n,), 1.5, device=dev, dtype=torch.bfloat16)
+    x[-3:] = torch.tensor([2.0, -4.0, 8.0], device=dev,
+                          dtype=torch.bfloat16)
+    y = ew("f_mul", x, scalar(-2.0, torch.bfloat16))
+    assert y.dtype == torch.bfloat16
+    assert y[-3:].tolist() == [-4.0, 8.0, -16.0]
+    assert y[:5].tolist() == [-3.0] * 5
+    del x, y
+    torch.cuda.empty_cache()
+
+
+def test_elementwise_int_scalars_of_every_specialisation(dev):
+    """One call signature with int scalars Triton compiles apart (1, a
+    multiple of 16, others) and misaligned views: each later launch, direct
+    or not, runs the kernel compiled for its own arguments."""
+    ids = torch.arange(-500, 500, device=dev, dtype=torch.int32)
+    for v in (1, 3, 16, 1, 5, 32, 1):
+        assert torch.equal(ew("f_add", ids, scalar(v, torch.int32)),
+                           ids + v)
+        assert torch.equal(ew("f_mul", ids, scalar(v, torch.int32)),
+                           ids * v)
+    x = torch.randn(4099, device=dev)
+    for off in (0, 1, 4, 2, 0, 3):
+        v = x[off:off + 4096]
+        assert torch.equal(ew("f_neg", v), -v)
+
+
+def _call_of_ints(em, ids):
+    return em._cached_plan("f_add", 1, (
+        (ids.shape, ids.stride(), ids.dtype, ids.get_device()),
+        (None, None, torch.int32, None)))
+
+
+def test_elementwise_direct_launch_runs_jits_kernel(dev):
+    """Every compiled kernel a call launches directly is the one Triton's
+    JITFunction picks for the same arguments: ``Call.compiled``'s key
+    tells apart what Triton compiles apart (misaligned views, int scalars
+    equal to 1, multiples of 16 and others)."""
+    em = importlib.import_module("lightgrad_tpu_torch.ops.elementwise")
+    ids = torch.arange(-500, 500, device=dev, dtype=torch.int32)
+    x = torch.randn(4099, device=dev)
+    y = torch.randn(4100, device=dev, dtype=torch.bfloat16)
+    cases = [("f_add", (ids, scalar(v, torch.int32))) for v in (1, 3, 16, 32)]
+    cases += [("f_neg", (x[off:off + 4096],)) for off in (0, 1, 4, 3)]
+    cases += [("f_mul", (x[a:a + 4096], y[b:b + 4096]))
+              for a, b in ((0, 0), (1, 0), (0, 3), (2, 1))]
+    for body, xs in cases * 2:      # the second round launches directly
+        ew(body, *xs)
+    for body, xs in cases:
+        call = em._cached_plan(body, 1, tuple(
+            (t.shape, t.stride(), t.dtype, t.get_device())
+            if isinstance(t, torch.Tensor) else (None, None, t.dtype, None)
+            for t in xs))
+        args, align = em._operands(xs, call.plan.copies)
+        outs = [torch.empty(call.plan.shape, device=dev, dtype=dt)
+                for dt in call.dtypes]
+        full = em._arguments(body, call, args, outs)
+        assert em._jit_launch(full, call.plan.grid) is call.compiled[align]
+    # the int scalars: 1, 3, and 16 with 32 (multiples of 16)
+    assert len(_call_of_ints(em, ids).compiled) == 3
+
+
+def test_elementwise_big_wrapped_rows(dev):
+    """Rows walked by the flat index (odd rows of 50257, a vocab's, under a
+    broadcast bias) past 2**31 elements, the last tile partial: the flat
+    length is int64 too, so every tile stores."""
+    em = importlib.import_module("lightgrad_tpu_torch.ops.elementwise")
+    rows, inner = 42740, 50257
+    x = torch.full((rows, inner), 1.5, device=dev, dtype=torch.bfloat16)
+    x[-1, -4:] = torch.tensor([2.0, -4.0, 8.0, 0.25], device=dev,
+                              dtype=torch.bfloat16)
+    b = (torch.arange(inner, device=dev) % 7).to(torch.bfloat16)
+    plan = em._cached_plan("f_add", 1, (
+        (x.shape, x.stride(), x.dtype, 0),
+        (b.shape, b.stride(), b.dtype, 0))).plan
+    assert plan.wrap and plan.big and rows * inner > 2 ** 31
+    assert rows * inner % plan.ib
+    y = ew("f_add", x, b)
+    for r in (0, 1, rows // 2, rows - 2, rows - 1):
+        assert torch.equal(y[r], x[r] + b), r
+    assert y[-1, -4:].tolist() == [b[-4].item() + 2.0, b[-3].item() - 4.0,
+                                   b[-2].item() + 8.0, b[-1].item() + 0.25]
+    del x, y
+    torch.cuda.empty_cache()
+
+
+def test_elementwise_copies_only_what_cannot_merge(dev):
+    """A view whose strides keep 5 dims apart is copied (one
+    elementwise_copy), that operand alone."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    v = _randn(g, 2, 3, 4, 5, 6).permute(0, 2, 1, 4, 3)
+    w = _randn(g, 2, 4, 3, 6, 5)
+    reset_launch_counts()
+    y = ew("f_add", v, w)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["elementwise"] == 1 and counts["elementwise_copy"] == 1
+    assert torch.equal(y, v + w)
+
+
+def test_tape_scalar_ops_do_not_synchronise(dev):
+    """Tape ops with Python scalars (f32, bf16, int32), forward and
+    backward, in-place updates and compares: no device tensor is made for
+    a scalar, so nothing is uploaded and nothing waits."""
+    from lightgrad_tpu_torch.autograd import Tensor
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = Tensor(_randn(g, 64, 48))
+    b = Tensor(_randn(g, 64, 48, dtype=torch.bfloat16), requires_grad=False)
+    i = Tensor(torch.arange(12, device=dev, dtype=torch.int32),
+               requires_grad=False)
+    ew("f_mul", x.data, scalar(0.5, torch.float32))        # compiled here
+
+    def run():
+        y = ((x * 0.5 + 3) / 4.0 - 1e-5) ** 2.0
+        y.backward(allow_fill=True)
+        b2 = b * 1e-5 + 2
+        b2 -= 0.25
+        return y, b2, i * 0.5, i + 3, x.gt(0.1)
+
+    y, b2, h, j, m = _sync_free(run)
+    xd = x.data
+    _close(y.data, ((xd * 0.5 + 3) / 4.0 - 1e-5) ** 2.0, torch.float32)
+    assert b2.dtype == torch.bfloat16 and h.dtype == torch.float32
+    assert j.dtype == torch.int32 and torch.equal(j.data, i.data + 3)
+    assert torch.equal(h.data, i.data.float() * 0.5)
+    assert torch.equal(m.data, (xd > 0.1).float())
+    want = ew_reference("f_add", ew_reference(
+        "f_mul", b.data, torch.tensor(1e-5, dtype=torch.bfloat16)),
+        torch.tensor(2.0, dtype=torch.bfloat16))
+    want = ew_reference("f_sub", want, torch.tensor(0.25,
+                                                    dtype=torch.bfloat16))
+    assert torch.equal(b2.data, want.to(dev))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
