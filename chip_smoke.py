@@ -95,7 +95,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the int8 cache's two branches against each other and its tokens
      against the float cache's), with the engine's peak memory and cache
      bytes; in bfloat16, one long-context ``generate`` (960-token prompt)
-     with the float and the int8 cache;
+     with the float and the int8 cache, and ``generate`` against
+     ``generate_device`` there (wall and device ms a token, idle share,
+     kernels a token: records); in each dtype and quantization mode, the
+     decoding module after the 960-token prompt: ``generate_device``
+     (greedy: ``generate``'s tokens; sampled at temperature 0.9, top-k 50,
+     top-p 0.9: repeats under its seed), ``generate_batch_device`` over 8
+     ragged prompts (each row the single run's, or first differing at a
+     near-tie of the reference's logits), beam search (beam 1 is greedy,
+     beam 4 scores no worse), ``generate_speculative`` and
+     ``generate_speculative_device`` with a 2-layer draft cut from the
+     target (greedy tokens; the acceptance rate printed; the device loop's
+     one host read a round counted), and an engine of sampled requests --
+     every device loop and the engine under
+     ``torch.cuda.set_sync_debug_mode("error")``, their counted transfers
+     (prompt upload, readback, the speculative (n, done)) excepted;
   5. training path, the same model on 8 x 1024 random tokens: (a) float32
      with Adam, (b) as (a) with the fused flash backward
      (``set_flash_fused(True)``), (c) bfloat16 ``MixedPrecision`` with
@@ -141,7 +155,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      W 8192) with a 1000-token prompt: ``generate``, ``generate_batch``,
      an engine of 4 slots over 8 ragged requests, a teacher-forced check of
      prefill + cached steps against a plain full-sequence forward, and
-     Mistral's check in float32 at 4 layers; a profiled prefill, step and
+     Mistral's check in float32 at 4 layers; the decoding module: greedy
+     ``generate_device`` (32 tokens: ``generate``'s) and
+     ``generate_batch_device`` over the engine's first 4 prompts under sync
+     debug mode "error", beam search at beam 2 on Gemma-2B, and
+     ``generate`` against ``generate_device`` (wall and device ms a token,
+     idle share, kernels a token); a profiled prefill, step and
      engine tick (``step_batch`` over 4 slots: its launches, ms a token,
      device idle share, one batched decode-attention launch a layer); (b)
      training on the tape,
@@ -159,8 +178,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      launched and the two passes not; (b) Pythia-1B greedy ``generate``,
      8 tokens after a 64-token prompt, each the argmax of the twin's
      logits on the same 2048-token window;
- 11. every kernel of each path was launched by that path, and every kernel
-     of the package by some path.
+ 11. every kernel of each path was launched by that path (the decoding
+     module's paths included: each GPT-2 one its stack kernel, LLaMA's
+     generate_device decode attention and its merge, generate_batch_device
+     the batched decode attention), and every kernel of the package by
+     some path.
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero and prints no result.
@@ -282,6 +304,14 @@ KERNEL_NOTES = {
 }
 SERVING_KERNELS = ("attention_fwd", "decode_attention", "decode_stack",
                    "decode_stack_batch")
+# phase 4's decoding-module paths -> the stack kernel they run (the int8
+# instantiation's suffix appended under quantization); each prefills
+DEVICE_PATHS = {"generate_device": "decode_stack",
+                "generate_batch_device": "decode_stack_batch",
+                "beam_search": "decode_stack",
+                "generate_speculative": "decode_stack",
+                "generate_speculative_device": "decode_stack",
+                "engine (sampled)": "decode_stack_batch"}
 # quantization mode -> the stack kernel's instantiations its serving runs
 INT8_MODES = {"quantize_serving": "_int8", "quantize_kv": "_kvq",
               "both": "_int8_kvq"}
@@ -327,6 +357,17 @@ TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 8, 5, 6e-4
 CHUNKS = 4      # chunked attention: 4 chunks of 256 rows of a 1024 window
 GPT2_SMALL = dict(vocab_size=50257, n_positions=1024, n_embd=768,
                   n_layer=12, n_head=12, layer_norm_epsilon=1e-5)
+# phase 4's decoding on the device: the long-context prompt and the new
+# tokens of a run, generate_batch_device's 8 ragged prompts, the beam
+# width, and the speculative draft (GPT-2 small's widths, 2 of its 12
+# layers) with its proposals a round
+DEVICE_PROMPT, DEVICE_NEW = 960, 32
+DEVICE_BATCH = (960, 700, 512, 300, 128, 64, 17, 5)
+BEAM_WIDTH, DRAFT_LAYERS, SPEC_K = 4, 2, 4
+# decode_rates: new tokens of the profiled runs (the wall runs take 32)
+PROFILED_NEW = 8
+# the sampled runs' (temperature, top_k, top_p)
+SAMPLED = dict(temperature=0.9, top_k=50, top_p=0.9)
 # HF bert-base-uncased config.json
 BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
                  num_attention_heads=12, intermediate_size=3072,
@@ -411,6 +452,17 @@ LLAMA_TRAINING = (("Mistral-7B", MISTRAL_7B, 1, 8192),
 LLAMA_LR = 3e-4
 LLAMA_SERVING_KERNELS = ("attention_fwd", "decode_attention",
                          "decode_attention_batch", "decode_attention_merge")
+# phase 9a's decoding-module paths -> the kernels each must launch
+LLAMA_DEVICE_PATHS = {
+    "generate_device": ("attention_fwd", "decode_attention",
+                        "decode_attention_merge"),
+    "generate_batch_device": ("attention_fwd", "decode_attention_batch",
+                              "decode_attention_merge"),
+    "beam_search": ("attention_fwd", "decode_attention")}
+# phase 9a's decoding on the device: new tokens of generate_device (and
+# of the timed generate / generate_device runs), of generate_batch_device
+# over the engine's first 4 prompts, and of Gemma-2B's beam search
+LLAMA_DEVICE_NEW, LLAMA_BATCH_NEW, LLAMA_BEAM = 32, 8, (2, 16)
 LLAMA_TRAIN_KERNELS = TAPE_KERNELS + FLASH_KERNELS
 # HF EleutherAI/pythia-1b config.json (GPTNeoXForCausalLM; 1.01 B
 # parameters), no cut
@@ -1401,10 +1453,11 @@ def teacher_forced_int8(model, dtype, mode, rng):
     torch.cuda.empty_cache()
 
 
-def phase_int8_serving(model, dtype):
+def phase_int8_serving(model, draft, dtype):
     """int8 serving for one dtype under each of quantize_serving,
-    quantize_kv and both: the serving entry points, then the teacher-
-    forced checks.  Returns {mode: launch counts}."""
+    quantize_kv and both: the serving entry points, the decoding module's
+    (the draft unquantized), then the teacher-forced checks.  Returns
+    {mode: (launch counts, {decoding path: launch counts})}."""
     from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
 
     counts = {}
@@ -1418,17 +1471,21 @@ def phase_int8_serving(model, dtype):
         rng = np.random.default_rng(4)
         drive_serving(model, rng)
         torch.cuda.synchronize()
-        counts[mode] = launch_counts()   # before the check's own launches
+        served = launch_counts()   # before the checks' own launches
+        counts[mode] = (served, drive_device_decoding(
+            model, draft, dtype, f"{mode} ({dtype})"))
         teacher_forced_int8(model, dtype, mode, rng)
         model.quantize_serving(False).quantize_kv(False)
         torch.cuda.empty_cache()
     return counts
 
 
-def phase_long_context(model):
+def phase_long_context(model, card):
     """The regime the int8 cache is for: a 960-token prompt and 48 new
     tokens through ``generate``, float cache and ``quantize_kv``; the
-    decode rate leaves out the prefill (a 1-token run timed apart)."""
+    decode rate leaves out the prefill (a 1-token run timed apart).  Then
+    ``generate`` against ``generate_device`` at that context (float
+    cache): wall and device ms a token, idle share, kernels a token."""
     rng = np.random.default_rng(5)
     prompt = [int(t) for t in rng.integers(0, model.cfg.vocab_size, 960)]
     outs = {}
@@ -1452,6 +1509,270 @@ def phase_long_context(model):
     log(f"  long context: {same} of 48 greedy tokens equal between the "
         f"caches (random weights: near-ties are common)")
     model.quantize_kv(False)
+    decode_rates(model, "GPT-2 small", prompt, DEVICE_NEW, card)
+
+
+def sync_free(fn):
+    """``fn()`` under torch.cuda.set_sync_debug_mode("error"): any host
+    read of a device value raises, except the decoding module's counted
+    transfers (``_host_io``: a prompt upload, a readback, the speculative
+    loop's (n, done) a round), which run with the mode off."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def path_run(counts, path, fn):
+    """``fn()`` with the kernels' launch counts and the decoding module's
+    host transfers set to 0 before and read after, into counts[path]."""
+    from lightgrad_tpu_torch.models import decoding
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    decoding.host_transfers.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    counts[path] = launch_counts()
+    return out, dict(decoding.host_transfers)
+
+
+def forced_rows(model, seq, P):
+    """The model's decode functions (as they stand) teacher-forced along
+    ``seq``: prefill of seq[:P], then a cached step a token; row j is the
+    logits that predict seq[P + j]."""
+    from lightgrad_tpu_torch.models.decoding import _device
+
+    fns = model._kv_fns
+    W = model.cfg.n_positions if hasattr(model.cfg, "n_positions") \
+        else model.cfg.max_position_embeddings
+    cache = fns.init_cache()
+    toks = torch.zeros(W, dtype=torch.long)
+    toks[:P] = torch.tensor(seq[:P])
+    with torch.no_grad():
+        cache, lg = fns.prefill(cache, toks.to(_device(cache)), P)
+        rows = [lg.float()]
+        for pos in range(P, len(seq) - 1):
+            cache, lg = fns.step(cache, pos, seq[pos])
+            rows.append(lg.float())
+    del cache
+    return torch.stack(rows)
+
+
+def seq_logprob(model, seq, P):
+    """Sum of log p(seq[t] | seq[:t]) over the generated tokens, float64,
+    through the model's cached steps."""
+    rows = forced_rows(model, seq, P).double().log_softmax(-1)
+    return float(rows[torch.arange(len(rows)), torch.tensor(
+        seq[P:], device=rows.device)].sum())
+
+
+def same_greedy(name, model, got, want, P, tol):
+    """Greedy tokens ``got`` equal ``want`` (prompt + generated, P prompt
+    tokens), or first differ where ``want``'s own logits hold a near-tie:
+    ``got``'s token within ``tol`` times the row's largest |logit| of the
+    top (the two paths' kernels sum in other orders).  Returns 1 for such a
+    divergence, else 0."""
+    if got == want:
+        return 0
+    j = next(i for i, (a, b) in enumerate(zip(got[P:], want[P:])) if a != b)
+    row = forced_rows(model, want[:P + j + 1], P)[j]
+    top, scale = row.max().item(), row.abs().max().item()
+    gap = top - row[got[P + j]].item()
+    log(f"  {name}: first differs at generated token {j} ({got[P + j]} for "
+        f"{want[P + j]}), a near-tie of the reference's logits: "
+        f"{gap:.3e} below the top, max |logit| {scale:.3e}")
+    if gap > tol * scale:
+        raise AssertionError(f"{name}: greedy tokens differ at token {j} "
+                             f"where the reference's top-2 gap is {gap:.3e}")
+    return 1
+
+
+class AcceptCount:
+    """Wraps a model's ``extend`` (the speculative verify pass) to count
+    the greedy rounds and the draft proposals the target accepted: the
+    leading proposals equal to the target's argmax.  Device tensors only,
+    read once at the end."""
+
+    def __init__(self, model):
+        self.fns, self.extend = model._kv_fns, model._kv_fns.extend
+        self.rounds, self.accepted = 0, []
+        self.fns.extend = self
+
+    def __call__(self, cache, pos0, toks):
+        cache, rows = self.extend(cache, pos0, toks)
+        self.rounds += 1
+        hit = toks[1:] == rows.argmax(-1)[:-1]
+        self.accepted.append(hit.int().cumprod(0).sum())
+        return cache, rows
+
+    def close(self, k):
+        self.fns.extend = self.extend
+        acc = int(torch.stack(self.accepted).sum()) if self.accepted else 0
+        return acc / max(1, k * self.rounds)
+
+
+def drive_device_decoding(model, draft, dtype, tag):
+    """The decoding module on GPT-2 small after the long-context prompt:
+    ``generate_device`` (greedy: ``generate``'s tokens; sampled: repeats
+    under its seed), ``generate_batch_device`` over 8 ragged prompts
+    (each row the single run's), beam search (beam 1 is greedy; beam
+    BEAM_WIDTH scores no worse), ``generate_speculative`` and
+    ``generate_speculative_device`` with a DRAFT_LAYERS-layer draft (greedy
+    tokens), and an engine of sampled requests.  Every device loop and
+    the engine run under sync debug mode "error".  Returns {path: launch
+    counts}."""
+    from lightgrad_tpu_torch import InferenceEngine
+    from lightgrad_tpu_torch.models.decoding import (
+        beam_search, generate_speculative, generate_speculative_device)
+
+    vocab, N = model.cfg.vocab_size, DEVICE_NEW
+    rng = np.random.default_rng(6)
+    prompt = [int(t) for t in rng.integers(0, vocab, DEVICE_PROMPT)]
+    P = len(prompt)
+    tol = PATH_TOL[dtype]
+    counts = {}
+    want = model.generate(prompt, max_new_tokens=N)
+    got, io = path_run(counts, "generate_device", lambda: sync_free(
+        lambda: model.generate_device(prompt, N)))
+    if got != want:
+        raise AssertionError(f"{tag}: generate_device's greedy tokens "
+                             f"differ from generate's: {got[P:]} "
+                             f"{want[P:]}")
+    a = sync_free(lambda: model.generate_device(prompt, N, seed=7,
+                                                **SAMPLED))
+    b = model.generate_device(prompt, N, seed=7, **SAMPLED)
+    c = model.generate_device(prompt, N, seed=8, **SAMPLED)
+    assert a == b, "a sampled generate_device did not repeat under its seed"
+    assert all(0 <= t < vocab for t in a)
+    log(f"  generate_device: {N} greedy tokens after {P} equal generate's "
+        f"(host transfers {io}); sampled {SAMPLED} repeats under its seed, "
+        f"another seed {'differs' if a != c else 'gives the same tokens'}")
+
+    prompts = [[int(t) for t in rng.integers(0, vocab, n)]
+               for n in DEVICE_BATCH]
+    got_b, io = path_run(counts, "generate_batch_device", lambda: sync_free(
+        lambda: model.generate_batch_device(prompts, N)))
+    near = sum(same_greedy(f"{tag} generate_batch_device row {i}", model,
+                           g, model.generate_device(p, N), len(p), tol)
+               for i, (p, g) in enumerate(zip(prompts, got_b)))
+    log(f"  generate_batch_device: {len(prompts)} ragged prompts "
+        f"{list(DEVICE_BATCH)}, {N} tokens each: {len(prompts) - near} rows "
+        f"equal the single runs, {near} first differ at a near-tie (host "
+        f"transfers {io})")
+
+    b1 = beam_search(model, prompt, N, beam_size=1)
+    if b1 != want:
+        raise AssertionError(f"{tag}: beam 1 differs from greedy")
+    bw, _ = path_run(counts, "beam_search", lambda: beam_search(
+        model, prompt, N, beam_size=BEAM_WIDTH))
+    lp_b, lp_g = seq_logprob(model, bw, P), seq_logprob(model, want, P)
+    log(f"  beam_search: beam 1 equals greedy; beam {BEAM_WIDTH} log-prob "
+        f"{lp_b:.4f}, greedy {lp_g:.4f}")
+    if lp_b < lp_g - 1e-6 * abs(lp_g):
+        raise AssertionError(f"{tag}: beam {BEAM_WIDTH} scores below greedy")
+
+    acc = AcceptCount(model)
+    self_spec = sync_free(lambda: generate_speculative_device(
+        model, model, prompt, N, k=SPEC_K))
+    self_rate, self_rounds = acc.close(SPEC_K), acc.rounds
+    same_greedy(f"{tag} generate_speculative_device, the target as its "
+                f"own draft", model, self_spec, want, P, tol)
+    acc = AcceptCount(model)
+    spec, _ = path_run(counts, "generate_speculative",
+                       lambda: generate_speculative(model, draft, prompt, N,
+                                                    k=SPEC_K))
+    host_rate, host_rounds = acc.close(SPEC_K), acc.rounds
+    acc = AcceptCount(model)
+    spec_d, io = path_run(counts, "generate_speculative_device",
+                          lambda: sync_free(lambda: generate_speculative_device(
+                              model, draft, prompt, N, k=SPEC_K)))
+    rate = acc.close(SPEC_K)
+    reads = io["generate_speculative_device"]
+    for what, out in (("generate_speculative", spec),
+                      ("generate_speculative_device", spec_d)):
+        same_greedy(f"{tag} {what}", model, out, want, P, tol)
+    log(f"  speculative, {DRAFT_LAYERS}-layer draft, k {SPEC_K}: host loop "
+        f"{host_rounds} rounds, acceptance {host_rate:.3f}; device loop "
+        f"{acc.rounds} rounds, acceptance {rate:.3f}, {reads} host transfers "
+        f"(2 uploads, {reads - 3} reads of (n, done), 1 readback); the "
+        f"target as its own draft {self_rounds} rounds, acceptance "
+        f"{self_rate:.3f}; greedy tokens "
+        f"{'equal' if spec == want and spec_d == want else 'checked'} "
+        f"against generate's")
+    if reads - 3 != acc.rounds + 1:
+        raise AssertionError(f"{tag}: the speculative device loop read the "
+                             f"host {reads} times for {acc.rounds} rounds")
+
+    g = torch.Generator(device=model.wte.weight.device).manual_seed(5)
+    engine = InferenceEngine(model, slots=4, steps_per_tick=4, generator=g)
+    reqs = [engine.submit(p, 12, **SAMPLED) for p in prompts[-4:]]
+    _, io = path_run(counts, "engine (sampled)", lambda: sync_free(engine.run))
+    assert all(r.n_generated == 12 and all(0 <= t < vocab for t in r.tokens)
+               for r in reqs)
+    log(f"  engine: 4 sampled requests in {engine.stats['step_dispatches']} "
+        f"ticks under sync debug mode \"error\" (host transfers {io})")
+    del engine
+    torch.cuda.empty_cache()
+    return counts
+
+
+def decode_rates(model, name, prompt, n, card):
+    """Wall and device ms a token of ``generate`` (the host loop: one
+    logits readback and host sampling a token) and ``generate_device`` (no
+    read inside the loop) after ``prompt``: runs of 1 and ``n`` new tokens,
+    the difference over n - 1 (the prefill cancels).  Wall time from
+    unprofiled runs in the order generate, generate_device,
+    generate_device, generate (the host's pace drifts within a call);
+    device time, kernels and copies from torch.profiler traces of runs of
+    1 and PROFILED_NEW tokens (a trace of n tokens at Mistral-7B's 1360
+    kernels a token costs tens of seconds to read).  Records, not gates."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fns = {"generate": lambda k: model.generate(prompt, max_new_tokens=k),
+           "generate_device": lambda k: model.generate_device(prompt, k)}
+
+    def per_token(fn):
+        wall = []
+        for k in (1, n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(k)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        return (wall[1] - wall[0]) / (n - 1)
+
+    for fn in fns.values():
+        fn(2)
+    walls = {what: [] for what in fns}
+    for what in ("generate", "generate_device", "generate_device",
+                 "generate"):
+        walls[what].append(per_token(fns[what]))
+    m = PROFILED_NEW
+    for what, fn in fns.items():
+        busy, kernels, copies = [], [], []
+        for k in (1, m):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as trace:
+                fn(k)
+                torch.cuda.synchronize()
+            ev = [e for e in trace.events() if e.device_type == DeviceType.CUDA]
+            cp = sum(e.name.startswith(("Memcpy", "Memset")) for e in ev)
+            busy.append(sum(e.time_range.elapsed_us() for e in ev) / 1e3)
+            kernels.append(len(ev) - cp)
+            copies.append(cp)
+        dev_ms = (busy[1] - busy[0]) / (m - 1)
+        lo, hi = min(walls[what]), max(walls[what])
+        log(f"  {name} {what}, {n} tokens after {len(prompt)}: "
+            f"{lo:.3f}-{hi:.3f} ms a token of wall time (two runs), "
+            f"{dev_ms:.3f} device ms (idle {100 * (1 - dev_ms / lo):.1f}-"
+            f"{100 * (1 - dev_ms / hi):.1f}%), "
+            f"{(kernels[1] - kernels[0]) / (m - 1):.1f} kernels and "
+            f"{(copies[1] - copies[0]) / (m - 1):.1f} copies a token "
+            f"({m}-token traces); {card}")
 
 
 def f32_passes_vs_one_pass(tag, do, q, k, v, out, lse, scale, causal, got,
@@ -4017,6 +4338,54 @@ def drive_llama_serving(model, name, prompt_len, batch_lens, engine_lens):
     return counts
 
 
+def drive_llama_device(model, name, prompt_len, slot_lens, beam):
+    """The decoding module at a LLaMA model's serving context: greedy
+    ``generate_device`` (LLAMA_DEVICE_NEW tokens: ``generate``'s),
+    ``generate_batch_device`` over the engine's first 4 prompts (each row
+    the single run's), and, where ``beam`` is (width, new tokens), beam
+    search (beam 1 is greedy; the wider beam's log-prob beside greedy's).
+    The device loops run under sync debug mode "error".  Returns {path:
+    launch counts}."""
+    from lightgrad_tpu_torch.models.decoding import beam_search
+
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(12)
+    prompt = [int(t) for t in rng.integers(0, V, prompt_len)]
+    N = LLAMA_DEVICE_NEW
+    counts = {}
+    want = model.generate(prompt, max_new_tokens=N)
+    got, io = path_run(counts, "generate_device", lambda: sync_free(
+        lambda: model.generate_device(prompt, N)))
+    if got != want:
+        raise AssertionError(f"{name}: generate_device's greedy tokens "
+                             f"differ from generate's")
+    prompts = [[int(t) for t in rng.integers(0, V, n)] for n in slot_lens[:4]]
+    got_b, io_b = path_run(counts, "generate_batch_device", lambda: sync_free(
+        lambda: model.generate_batch_device(prompts, LLAMA_BATCH_NEW)))
+    near = sum(same_greedy(f"{name} generate_batch_device row {i}", model, g,
+                           model.generate_device(p, LLAMA_BATCH_NEW), len(p),
+                           PATH_TOL[torch.bfloat16])
+               for i, (p, g) in enumerate(zip(prompts, got_b)))
+    log(f"  generate_device: {N} greedy tokens after {prompt_len} equal "
+        f"generate's (host transfers {io}); generate_batch_device over "
+        f"prompts {list(slot_lens[:4])}, {LLAMA_BATCH_NEW} tokens each: "
+        f"{len(prompts) - near} rows equal the single runs, {near} first "
+        f"differ at a near-tie (host transfers {io_b})")
+    if beam:
+        width, n = beam
+        if beam_search(model, prompt, n, beam_size=1) != want[:prompt_len + n]:
+            raise AssertionError(f"{name}: beam 1 differs from greedy")
+        out, _ = path_run(counts, "beam_search", lambda: beam_search(
+            model, prompt, n, beam_size=width))
+        lp_b = seq_logprob(model, out, prompt_len)
+        lp_g = seq_logprob(model, want[:prompt_len + n], prompt_len)
+        log(f"  beam_search, {n} tokens: beam 1 equals greedy; beam {width} "
+            f"log-prob {lp_b:.4f}, greedy {lp_g:.4f} (a record: a narrow "
+            f"beam may prune greedy's prefix)")
+    torch.cuda.empty_cache()
+    return counts, prompt
+
+
 def phase_llama_serving(card):
     """Serving at the published widths, bfloat16, seeded random weights:
     Mistral-7B (32 layers; max_position_embeddings cut from 32768 to 8192,
@@ -4041,6 +4410,15 @@ def phase_llama_serving(card):
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
         counts[name] = drive_llama_serving(model, name, P, batch_lens,
                                            engine_lens)
+        t1 = time.perf_counter()
+        paths, prompt = drive_llama_device(
+            model, name, P, engine_lens, LLAMA_BEAM if name == "Gemma-2B"
+            else None)
+        for path, c in paths.items():
+            counts[f"{name} {path}"] = c
+        decode_rates(model, name, prompt, LLAMA_DEVICE_NEW, card)
+        model.__dict__.pop("_kv_fns", None)
+        log(f"  {name} decoding module: {time.perf_counter() - t1:.1f} s")
         serving_breakdown(model, name, P)
         teacher_forced_llama(model, name, torch.bfloat16, P)
         del model
@@ -4412,6 +4790,12 @@ def main():
     dev = torch.device("cuda")
     model = GPT(GPTConfig(**GPT2_SMALL), device=dev,
                 generator=torch.Generator(device=dev).manual_seed(0))
+    # the speculative draft: the target's embeddings, first DRAFT_LAYERS
+    # blocks and final LayerNorm (a truncated target, so it agrees often)
+    draft = GPT(GPTConfig(**dict(GPT2_SMALL, n_layer=DRAFT_LAYERS)),
+                device=dev)
+    draft.load_state_dict({n: t for n, t in model.state_dict().items()
+                           if n in draft.state_dict()})
 
     # 3. kernels vs plain versions
     results = {}
@@ -4453,19 +4837,31 @@ def main():
         for k in KERNELS:
             launches[k] += counts[k]
 
+    def tally_decoding(tag, paths, sfx):
+        for path, counts in paths.items():
+            tally(f"{path}, {tag}", counts,
+                  ("attention_fwd", DEVICE_PATHS[path] + sfx))
+
     for dtype in (torch.float32, torch.bfloat16):
         if dtype != torch.float32:
             model.to(dtype)
+            draft.to(dtype)
         log(f"serving path, GPT-2 small, {str(dtype)[6:]}:")
         tally(f"serving ({dtype})", phase_main_path(model, dtype),
               SERVING_KERNELS)
-        for mode, counts in phase_int8_serving(model, dtype).items():
+        t0 = time.perf_counter()
+        tally_decoding(str(dtype), drive_device_decoding(
+            model, draft, dtype, str(dtype)), "")
+        log(f"  decoding module: {time.perf_counter() - t0:.1f} s")
+        for mode, (counts, paths) in phase_int8_serving(
+                model, draft, dtype).items():
             sfx = INT8_MODES[mode]
             tally(f"int8 serving, {mode} ({dtype})", counts,
                   ("decode_stack" + sfx, "decode_stack_batch" + sfx))
+            tally_decoding(f"{mode} ({dtype})", paths, sfx)
     log("long context, GPT-2 small, bfloat16:")
-    phase_long_context(model)
-    del model
+    phase_long_context(model, card)
+    del model, draft
     torch.cuda.empty_cache()
     rates = {}
     for dtype, what, fused in (
@@ -4512,7 +4908,8 @@ def main():
     log("narrow at a device start:")
     phase_narrow()
     for name, counts in phase_llama_serving(card).items():
-        tally(f"{name} serving", counts, LLAMA_SERVING_KERNELS)
+        tally(f"{name} serving", counts, LLAMA_DEVICE_PATHS.get(
+            name.split(" ", 1)[-1], LLAMA_SERVING_KERNELS))
     for name, counts in phase_llama_train(card).items():
         tally(f"{name} training", counts, LLAMA_TRAIN_KERNELS)
     log("examples/llama.py's char model on the tape, float32:")

@@ -186,7 +186,8 @@ class GPT(nn.Module):
         per-layer matrices and a copy of the tied LM head as per-output-
         channel symmetric int8 (scale ``max(absmax, 1e-8) / 127`` in the
         compute dtype).  Training and ``forward`` are untouched.  The decode
-        functions are rebuilt at the next generate call."""
+        functions are rebuilt at the next generate call (models/decoding.py
+        keeps no other state on the model)."""
         self._serve_quant = bool(enable)
         self.__dict__.pop("_kv_fns", None)
         return self
@@ -216,16 +217,21 @@ class GPT(nn.Module):
                  rng: np.random.Generator = None, use_cache: bool = True,
                  top_k: int = 0, top_p: float = 0.0, num_beams: int = 1,
                  eos_id: int = None, repetition_penalty: float = 1.0,
-                 stream=None):
+                 stream=None, length_penalty: float = 1.0):
         """Autoregressive decode; greedy when ``temperature=0``.
 
         ``use_cache=True``: one prefill of the prompt padded to the window,
         then one cached step per token.  ``use_cache=False``: full recompute
         of the right-padded window per token (under the causal mask the pad
-        cannot reach the last real position)."""
-        if num_beams > 1:
-            raise NotImplementedError("beam search is not ported yet")
+        cannot reach the last real position).  ``num_beams > 1``: beam
+        search over the cached step (models/decoding.py)."""
         ids = list(ids)
+        if num_beams > 1:
+            from .decoding import beam_search
+
+            assert temperature == 0.0, "beam search is deterministic"
+            return beam_search(self, ids, max_new_tokens, beam_size=num_beams,
+                               eos_id=eos_id, length_penalty=length_penalty)
         rng = rng or np.random.default_rng(0)
         if use_cache:
             return self._generate_kv(ids, max_new_tokens, temperature, rng,
@@ -336,11 +342,12 @@ class GPT(nn.Module):
             with the K scale on the score column and the V scale on the
             probabilities."""
             n = q.shape[1]
-            # a device position (n 1) as a one-element index tensor
-            at = pos if isinstance(pos, torch.Tensor) else slice(pos, pos + n)
+            rows = pos + torch.arange(n, device=q.device)
+            # a device position's rows as an index tensor
+            at = rows if isinstance(pos, torch.Tensor) else slice(pos,
+                                                                  pos + n)
             store(cache, (l, slice(None), slice(None), at),
                   torch.stack([k, v]))
-            rows = pos + torch.arange(n, device=q.device)
             vis = rows[:, None] >= torch.arange(W, device=q.device)[None]
             if kv_quant:
                 cq, cs = cache
@@ -425,13 +432,20 @@ class GPT(nn.Module):
 
         def extend(p, cache, pos0, toks):
             """Score K tokens at positions pos0..pos0+K-1 in one pass (the
-            speculative-verify primitive); row i attends keys <= pos0+i."""
+            speculative-verify primitive); row i attends keys <= pos0+i.
+            ``pos0`` a host int, or an int32 scalar on the model's device
+            that nothing reads to the host (its rows written through an
+            index tensor, never a 0-d index)."""
             K = toks.shape[0]
+            if isinstance(pos0, torch.Tensor):
+                pos0 = pos0.reshape(1)
             rows = pos0 + torch.arange(K, device=toks.device)
             x = p["wte.weight"][toks] + p["wpe.weight"][rows]
             if "stack#slabs" in p and K <= 8:
                 x, kv = stack(decode_stack, x, cache, pos0)
-                store(cache, (slice(None),) * 3 + (slice(pos0, pos0 + K),),
+                at = (rows if isinstance(pos0, torch.Tensor)
+                      else slice(pos0, pos0 + K))
+                store(cache, (slice(None),) * 3 + (at,),
                       kv.reshape(L, 2, K, H, hd).transpose(2, 3))
             else:
                 x = _layers(cache, x, pos0)
@@ -500,6 +514,31 @@ class GPT(nn.Module):
             cache, logits = step(cache, len(out) - 1, out[-1])
             emit(logits)
         return out
+
+    def generate_device(self, ids, max_new_tokens: int = 20,
+                        temperature: float = 0.0, top_k: int = 0,
+                        top_p: float = 0.0, eos_id: int = None,
+                        seed: int = 0):
+        """Whole-generation decoding on the device (models/decoding.py:
+        generate_device): position, token and sampling stay on the device,
+        one readback a generation instead of one a token."""
+        from .decoding import generate_device
+
+        return generate_device(self, list(ids), max_new_tokens,
+                               temperature=temperature, top_k=top_k,
+                               top_p=top_p, eos_id=eos_id, seed=seed)
+
+    def generate_batch_device(self, prompts, max_new_tokens: int = 20,
+                              temperature: float = 0.0, top_k: int = 0,
+                              top_p: float = 0.0, eos_id: int = None,
+                              seed: int = 0):
+        """Batched whole-generation decoding on the device: B ragged
+        prompts, one ``step_batch`` a round (models/decoding.py)."""
+        from .decoding import generate_batch_device
+
+        return generate_batch_device(self, prompts, max_new_tokens,
+                                     temperature=temperature, top_k=top_k,
+                                     top_p=top_p, eos_id=eos_id, seed=seed)
 
     @torch.no_grad()
     def generate_batch(self, prompts, max_new_tokens: int = 20,

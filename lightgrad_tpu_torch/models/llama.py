@@ -20,8 +20,8 @@ JAX package's ``jax.vmap`` of ``step``), positions kept on the device.
 
 Not ported yet (ROADMAP queue 1): Mixtral's mixture of experts, int8
 ``quantize_serving`` / ``quantize_kv``, ``scan_layers`` / ``remat``, the
-sequence-parallel ring branch, beam search and device-side generation, the
-HF interop and the SentencePiece tokenizer.
+sequence-parallel ring branch, the HF interop and the SentencePiece
+tokenizer.
 """
 
 import numpy as np
@@ -260,13 +260,17 @@ class Llama(nn.Module):
         ``use_cache=True``: one prefill of the prompt padded to the window,
         then one cached step a token.  ``use_cache=False``: a full forward
         of the right-padded window a token (the causal mask keeps the pad
-        from the last real position)."""
+        from the last real position).  ``num_beams > 1``: beam search over
+        the cached step (models/decoding.py)."""
         from .gpt import _sample
 
-        if num_beams > 1:
-            raise NotImplementedError("beam search is not ported yet "
-                                      "(ROADMAP.md queue 1 item 4)")
         ids = list(ids)
+        if num_beams > 1:
+            from .decoding import beam_search
+
+            assert temperature == 0.0, "beam search is deterministic"
+            return beam_search(self, ids, max_new_tokens, beam_size=num_beams,
+                               eos_id=eos_id, length_penalty=length_penalty)
         rng = rng or np.random.default_rng(0)
         if use_cache:
             return self._generate_kv(ids, max_new_tokens, temperature, rng,
@@ -381,15 +385,24 @@ class Llama(nn.Module):
                 x = embed(tok.reshape(1))                       # (1, d)
             else:
                 x = embed(tok)[None]
-            at = (pos.reshape(1) if isinstance(pos, torch.Tensor)
-                  else slice(pos, pos + 1))
-            c, s_ = cos_w[at][None], sin_w[at][None]             # (1, 1, hd)
+            if isinstance(pos, torch.Tensor):
+                # int64 once: each index_copy_ would convert an int32 index
+                at = pos.reshape(1).long()
+                c, s_ = (t.index_select(0, at)[None] for t in (cos_w, sin_w))
+
+                def put(l, j, rows):
+                    cache[l, j].index_copy_(1, at, rows)
+            else:
+                c, s_ = cos_w[pos:pos + 1][None], sin_w[pos:pos + 1][None]
+
+                def put(l, j, rows):
+                    cache[l, j, :, pos:pos + 1] = rows
             for l in range(L):
                 pre = f"layers.{l}."
                 q, k, v = qkv(x, pre)
                 q = rope(q.reshape(H, 1, hd), c, s_)
-                cache[l, 0, :, at] = rope(k.reshape(KV, 1, hd), c, s_)
-                cache[l, 1, :, at] = v.reshape(KV, 1, hd)
+                put(l, 0, rope(k.reshape(KV, 1, hd), c, s_))
+                put(l, 1, v.reshape(KV, 1, hd))
                 # grouped-query decode attention: the rep query heads of
                 # each KV head in one block, no repeated K/V
                 att = decode_attention(q.reshape(KV, rep, hd), cache[l, 0],
@@ -455,6 +468,30 @@ class Llama(nn.Module):
             out.append(_sample(logits.float().cpu().numpy(), temperature, rng,
                                top_k=top_k, top_p=top_p))
         return out
+
+    def generate_device(self, ids, max_new_tokens: int = 20,
+                        temperature: float = 0.0, top_k: int = 0,
+                        top_p: float = 0.0, eos_id: int = None,
+                        seed: int = 0):
+        """Whole-generation decoding on the device (models/decoding.py:
+        generate_device): one readback a generation."""
+        from .decoding import generate_device
+
+        return generate_device(self, list(ids), max_new_tokens,
+                               temperature=temperature, top_k=top_k,
+                               top_p=top_p, eos_id=eos_id, seed=seed)
+
+    def generate_batch_device(self, prompts, max_new_tokens: int = 20,
+                              temperature: float = 0.0, top_k: int = 0,
+                              top_p: float = 0.0, eos_id: int = None,
+                              seed: int = 0):
+        """Batched whole-generation decoding on the device: one
+        ``step_batch`` a round for all prompts."""
+        from .decoding import generate_batch_device
+
+        return generate_batch_device(self, prompts, max_new_tokens,
+                                     temperature=temperature, top_k=top_k,
+                                     top_p=top_p, eos_id=eos_id, seed=seed)
 
     def generate_batch(self, prompts, max_new_tokens: int = 20,
                        temperature: float = 0.0,

@@ -14,13 +14,16 @@ request shares one (temperature, top_k, top_p) signature, sampling runs on
 the device and a tick runs ``steps_per_tick`` batched steps back to back:
 the tokens stay on the device within the tick and the host reads them back
 once per tick.  Mixed signatures sample on the host, one step per tick.
+Every host <-> device transfer of a tick goes through the decoding
+module's ``_host_io`` (counted under "engine"), so a tick runs under
+``torch.cuda.set_sync_debug_mode("error")``.
 """
 
 import numpy as np
 import torch
 
-from .models.decoding import (_device, _device_sample, _window, cache_slot,
-                              stacked_zeros)
+from .models.decoding import (_device, _device_sample, _host_io, _window,
+                              cache_slot, stacked_zeros)
 from .models.gpt import _sample
 
 __all__ = ["Request", "InferenceEngine"]
@@ -120,11 +123,14 @@ class InferenceEngine:
             toks[:len(req.prompt)] = torch.as_tensor(req.prompt)
             # prefill writes the slot's rows of the stacked cache in place
             # (the JAX engine rebuilt the stacked array around a fresh cache)
-            _, logits = self._prefill(cache_slot(self._caches, slot),
-                                      toks.to(self._device), len(req.prompt))
+            with _host_io("engine", self._device):
+                toks = toks.to(self._device)
+            _, logits = self._prefill(cache_slot(self._caches, slot), toks,
+                                      len(req.prompt))
             self.stats["prefills"] += 1
-            req.tokens.append(_sample(logits.float().cpu().numpy(),
-                                      req.temperature, self.rng,
+            with _host_io("engine", self._device):
+                lg = logits.float().cpu().numpy()
+            req.tokens.append(_sample(lg, req.temperature, self.rng,
                                       top_k=req.top_k, top_p=req.top_p))
             self.stats["tokens_generated"] += 1
             if self._is_finished(req):
@@ -142,8 +148,9 @@ class InferenceEngine:
             if req is not None:
                 pos[slot] = len(req.tokens) - 1
                 tok[slot] = req.tokens[-1]
-        poss = torch.from_numpy(pos).to(self._device)
-        toks = torch.from_numpy(tok).to(self._device)
+        with _host_io("engine", self._device):
+            poss = torch.from_numpy(pos).to(self._device)
+            toks = torch.from_numpy(tok).to(self._device)
 
         sigs = {(r.temperature, r.top_k, r.top_p)
                 for r in self._active if r is not None}
@@ -161,11 +168,13 @@ class InferenceEngine:
                 toks = _device_sample(logits, self.generator, temp, tk, tp)
                 block[i] = toks
                 poss = poss + 1
-            tokmat = block.T.cpu().numpy()
+            with _host_io("engine", self._device):
+                tokmat = block.T.cpu().numpy()
         else:
             steps = 1
             self._caches, logits = self._step_batch(self._caches, poss, toks)
-            lg = logits.float().cpu().numpy()
+            with _host_io("engine", self._device):
+                lg = logits.float().cpu().numpy()
             tokmat = np.array([[
                 _sample(lg[s], r.temperature, self.rng, top_k=r.top_k,
                         top_p=r.top_p) if r is not None else 0]

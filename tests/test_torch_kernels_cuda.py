@@ -1025,6 +1025,99 @@ def test_gpt_step_does_not_synchronise(dev):
         _close(cache, ref, torch.float32)
 
 
+def test_device_sample_does_not_synchronise(dev):
+    """The device sampler (temperature, top-k, top-p) reads nothing to the
+    host, and its exponential race gives ``torch.multinomial``'s ids from
+    the same generator state."""
+    from lightgrad_tpu_torch.models.decoding import _device_sample
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    logits = _randn(g, 4, 50257, scale=3.0)
+    for temp, tk, tp in ((1.0, 0, 0.0), (0.9, 50, 0.9)):
+        g.manual_seed(9)
+        got = _sync_free(lambda: _device_sample(logits, g, temp, tk, tp))
+        if not tk:
+            g.manual_seed(9)
+            want = torch.multinomial(torch.softmax(logits, -1), 1,
+                                     generator=g)[:, 0]
+            assert torch.equal(got, want)
+        else:
+            top = logits.topk(tk, -1).indices
+            assert bool((top == got[:, None]).any(-1).all())
+
+
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+def test_device_decoding_loops_do_not_synchronise(dev, family):
+    """generate_device, generate_batch_device and the speculative device
+    loop under sync debug mode "error": only their counted transfers (the
+    prompts' upload, the speculative loop's (n, done) a round, the tokens'
+    readback) reach the host.  Greedy tokens equal ``generate``'s."""
+    from lightgrad_tpu_torch import GPT, GPTConfig, random as lg_random
+    from lightgrad_tpu_torch.models import decoding
+    from lightgrad_tpu_torch.models.llama import Llama, LlamaConfig
+
+    if family == "gpt":
+        cfg = dict(vocab_size=128, n_positions=64, n_embd=128, n_head=2)
+        model = GPT(GPTConfig(n_layer=2, **cfg), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+        draft = GPT(GPTConfig(n_layer=1, **cfg), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    else:
+        cfg = dict(vocab_size=128, hidden_size=64, intermediate_size=96,
+                   num_attention_heads=4, num_key_value_heads=2,
+                   max_position_embeddings=64, sliding_window=8)
+        lg_random.seed(0)
+        model = Llama(LlamaConfig(num_hidden_layers=2, **cfg))
+        draft = Llama(LlamaConfig(num_hidden_layers=1, **cfg))
+    prompts = [[5, 9, 2, 40, 7], [1, 2, 3], list(range(20, 37))]
+    want = [model.generate(p, max_new_tokens=12) for p in prompts]
+    # the decode functions' constants (RoPE tables) upload when built
+    draft._kv_fns = draft._kv_functions()
+    decoding.host_transfers.clear()
+    got = _sync_free(lambda: model.generate_device(prompts[0], 12))
+    assert got == want[0]
+    assert _sync_free(lambda: model.generate_batch_device(prompts, 12)) \
+        == [model.generate_device(p, 12) for p in prompts]
+    spec = _sync_free(lambda: decoding.generate_speculative_device(
+        model, draft, prompts[0], 12, k=3))
+    assert spec == want[0]
+    sampled = _sync_free(lambda: model.generate_device(
+        prompts[0], 12, temperature=0.9, top_k=20, top_p=0.9, seed=3))
+    assert sampled == model.generate_device(prompts[0], 12, temperature=0.9,
+                                            top_k=20, top_p=0.9, seed=3)
+    n = decoding.host_transfers
+    assert n["generate_device"] == 2 * 1 + 2 * 2 + 3 * 2, n
+    assert n["generate_batch_device"] == 2, n
+    assert 4 + 1 <= n["generate_speculative_device"] <= 4 + 11, n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpt_extend_at_a_device_position(dev, dtype):
+    """GPT-2's extend through the stack kernel at an int32 device position
+    equals the host int's call bit for bit (logits and cache), and reads
+    nothing to the host."""
+    from lightgrad_tpu_torch import GPT, GPTConfig
+
+    cfg = GPTConfig(vocab_size=128, n_positions=64, n_embd=128, n_layer=2,
+                    n_head=2)
+    model = GPT(cfg, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(0))
+    model.to(dtype)
+    fns = model._kv_functions(pack_stack=True)
+    toks = torch.randint(0, 128, (64,), device=dev)
+    cache = fns.init_cache()
+    fns.prefill(cache, toks, 10)
+    ref = cache.clone()
+    rows = torch.randint(0, 128, (4,), device=dev)
+    want = fns.extend(ref, 10, rows)[1]
+    pos = torch.tensor([10], device=dev, dtype=torch.int32)
+    reset_launch_counts()
+    got = _sync_free(lambda: fns.extend(cache, pos, rows)[1])
+    assert launch_counts()["decode_stack"] == 1
+    assert torch.equal(got, want)
+    assert torch.equal(cache, ref)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_merge_kernel(dev, dtype):
     """The merge kernel alone against its plain version, on partials made
