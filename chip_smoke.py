@@ -486,6 +486,40 @@ NEOX_TRAIN_KERNELS = TAPE_KERNELS + ("attention_fwd", "attention_bwd_fused",
 # a forward alone: no loss, so no row reduction
 NEOX_GENERATE_KERNELS = ("elementwise", "matmul", "attention_fwd",
                          "layernorm_fwd")
+# HF mistralai/Mixtral-8x7B-v0.1 config.json (46.7 B parameters at its 32
+# layers, 93 GB in bf16: more than the card); cut to 8 layers (11.9 B) and
+# W 4096 (from 32768): a 1000-token prompt and its 32 tokens fit either
+MIXTRAL_8X7B = dict(vocab_size=32000, hidden_size=4096,
+                    intermediate_size=14336, num_hidden_layers=32,
+                    num_attention_heads=32, num_key_value_heads=8,
+                    max_position_embeddings=32768, rms_norm_eps=1e-5,
+                    rope_theta=1e6, num_local_experts=8,
+                    num_experts_per_tok=2, tie_word_embeddings=False)
+MIXTRAL_CUT = dict(num_hidden_layers=8, max_position_embeddings=4096)
+# phase 9d: generate's prompt and new tokens, generate_batch_device's 4
+# ragged prompts, the engine's 8 requests on 4 slots
+MIXTRAL_PROMPT, MIXTRAL_NEW = 1000, 32
+MIXTRAL_BATCH = (1000, 300, 40, 700)
+MIXTRAL_ENGINE = (1000, 16, 500, 800, 64, 900, 200, 640)
+# phase 9e: the int8 modes of each model (Mixtral's experts stay float, so
+# it runs the cache's modes), their new tokens and engine requests
+LLAMA_INT8_MODES = {"Mistral-7B": ("quantize_serving", "quantize_kv",
+                                   "both"),
+                    "Gemma-2B": ("quantize_serving", "quantize_kv", "both"),
+                    "Mixtral-8x7B": ("quantize_kv", "both")}
+INT8_NEW, INT8_ENGINE = 16, 4
+# phase 9f (i): Mixtral-8x7B at full width cut to 1 layer, 1 x 1024
+# tokens, f32 AdamW then bf16 MixedPrecision AdamW; the loss adds the
+# router's load-balancing loss at this weight
+MIXTRAL_TRAIN = (1, 1024, 5)
+MIXTRAL_AUX = 0.01
+MOE_TRAIN_KERNELS = LLAMA_TRAIN_KERNELS + ("softmax_fwd", "softmax_bwd")
+# phase 9d's paths -> the kernels each must launch
+MIXTRAL_PATHS = {"generate": ("attention_fwd", "decode_attention"),
+                 "generate_device": ("attention_fwd", "decode_attention"),
+                 "generate_batch_device": ("attention_fwd",
+                                           "decode_attention_batch"),
+                 "engine": ("attention_fwd", "decode_attention_batch")}
 # One H100 SXM (NVIDIA's data sheet, dense rates at 700 W): HBM bytes
 # a second and dense peak operations a second by input type
 HBM_BPS = 3.35e12
@@ -3704,7 +3738,48 @@ class _PlainAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def plain_llama(p, cfg, ids):
+def plain_moe(h2, p, pre, cfg, lin_w, act, routes=None, aux=None,
+              ids=None):
+    """Mixtral's routed FFN of rows ``h2 (..., d)``, plain: the router's
+    softmax in f32, ``torch.topk`` of it (its own rule; the model breaks an
+    exact tie to the lowest index) or the given experts ``ids (rows, k)``,
+    renormalised gates, every expert over every row weighted by its gate.
+    ``routes`` collects (probs, its own top-k ids) a layer; ``aux``
+    collects the Switch load-balancing loss on the first choice."""
+    E, k = cfg.num_local_experts, cfg.num_experts_per_tok
+    d = h2.shape[-1]
+    x = h2.reshape(-1, d)
+    pre = pre + "block_sparse_moe."
+    probs = torch.softmax(lin_w(x, p[pre + "router.weight"].T).float(), -1)
+    own = probs.topk(k, -1)[1]
+    ids = own if ids is None else ids
+    top = probs.gather(-1, ids)
+    gates = (top / (top.sum(-1, keepdim=True) + 1e-9)).to(h2.dtype)
+    comb = torch.zeros_like(probs, dtype=h2.dtype).scatter(-1, ids, gates)
+    if routes is not None:
+        routes.append((probs.detach(), own))
+    if aux is not None:
+        frac = torch.zeros_like(probs).scatter(-1, ids[:, :1], 1.0)
+        aux.append((frac.mean(0) * probs.mean(0)).sum() * E)
+    out = 0
+    for e in range(E):
+        w1, w3, w2 = (p[pre + w][e] for w in ("w1", "w3", "w2"))
+        y = lin_w(act(lin_w(x, w1)) * lin_w(x, w3), w2)
+        out = out + y * comb[:, e:e + 1]
+    return out.reshape(h2.shape)
+
+
+def int8_roundtrip(x):
+    """``x (..., hd)`` in f32 after ``quantize_kv``'s rule and back: a
+    scale a row ``max(|x|, 1e-8) / 127``, rounded half to even, clipped to
+    +-127, times the scale."""
+    x = x.float()
+    s = x.abs().amax(-1, keepdim=True).clamp_min(1e-8) / 127.0
+    return torch.clamp(torch.round(x / s), -127, 127) * s
+
+
+def plain_llama(p, cfg, ids, routes=None, aux=None, kv_from=None,
+                route_ids=None):
     """Logits (b, T, vocab) of ``Llama.forward`` through the plain PyTorch
     versions of the kernels (``_reference``), differentiable by torch
     autograd, attention one KV group at a time: the twin of the tape's step
@@ -3712,7 +3787,14 @@ def plain_llama(p, cfg, ids):
     dtype, every product summed in f32 and rounded once.  Its RoPE tables
     are its own: pair i of position t turns by t * theta^(-2i / hd), in numpy
     f32 arithmetic as the model's (torch's f32 power differs by an ulp at
-    some i, which moves position 8191's angles by up to 1e-3)."""
+    some i, which moves position 8191's angles by up to 1e-3).  Mixtral's
+    blocks through :func:`plain_moe` (``routes``, ``aux``: its records;
+    ``route_ids``: the experts each layer takes, (b T, k) a layer);
+    ``p["head.weight"]``, where given, is the LM head (an int8 head
+    dequantized).  ``kv_from``: the query rows from this position on
+    attend the K/V rows through :func:`int8_roundtrip`, in f32, as the
+    steps over an int8 cache do (0 for Mixtral, whose prefill over an int8
+    cache attends the rows it quantized)."""
     from lightgrad_tpu_torch.ops.elementwise import ew_reference
     from lightgrad_tpu_torch.ops.matmul import matmul_reference
 
@@ -3737,6 +3819,9 @@ def plain_llama(p, cfg, ids):
         bias = p.get(name + ".bias")
         return y if bias is None else y + bias
 
+    def silu(g):
+        return torch.sigmoid(g) * g
+
     def rms(x, name):
         w = p[name + ".weight"]
         var = (x * x).mean(-1, keepdim=True)
@@ -3758,16 +3843,29 @@ def plain_llama(p, cfg, ids):
         q = rope(heads(lin(h, pre + "self_attn.q_proj"), H))
         k = rope(heads(lin(h, pre + "self_attn.k_proj"), KV))
         v = heads(lin(h, pre + "self_attn.v_proj"), KV)
-        att = _PlainAttention.apply(q, k, v, hd ** -0.5, win)
+        if kv_from != 0:
+            att = _PlainAttention.apply(q, k, v, hd ** -0.5, win)
+        if kv_from is not None:
+            attq = _PlainAttention.apply(q.float(), int8_roundtrip(k),
+                                         int8_roundtrip(v), hd ** -0.5,
+                                         win).to(q.dtype)
+            att = attq if kv_from == 0 else torch.cat(
+                [att[:, :, :kv_from], attq[:, :, kv_from:]], 2)
         x = x + lin(att.transpose(1, 2).reshape(b, T, H * hd),
                     pre + "self_attn.o_proj")
         h2 = rms(x, pre + "post_attention_layernorm")
+        if cfg.num_local_experts:
+            x = x + plain_moe(h2, p, pre, cfg, matmul_reference, silu,
+                              routes, aux, route_ids and route_ids[l])
+            continue
         g = lin(h2, pre + "mlp.gate_proj")
         a = ew_reference("f_gelu", g) if cfg.hidden_act != "silu" \
-            else torch.sigmoid(g) * g
+            else silu(g)
         x = x + lin(a * lin(h2, pre + "mlp.up_proj"), pre + "mlp.down_proj")
     x = rms(x, "norm")
-    head = emb if cfg.tie_word_embeddings else p["lm_head.weight"]
+    head = p.get("head.weight")
+    if head is None:
+        head = emb if cfg.tie_word_embeddings else p["lm_head.weight"]
     return matmul_reference(x, head.T)
 
 
@@ -4168,15 +4266,12 @@ def llama_model(cfg, dtype, **cut):
     return model
 
 
-def teacher_forced_llama(model, name, dtype, P, steps=4):
-    """Prefill of P random tokens, then ``steps`` cached steps, against the
-    plain full-sequence forward (``plain_llama``) at PATH_TOL."""
-    cfg = model.cfg
-    rng = np.random.default_rng(P)
-    seq = [int(t) for t in rng.integers(0, cfg.vocab_size, P + steps)]
+def forced_llama(model, seq, P):
+    """The model's decode functions teacher-forced along ``seq``: prefill
+    of seq[:P], then a cached step a token; (len - P + 1, vocab) logits."""
     fns = model._kv_functions()
     dev = model.embed_tokens.weight.device
-    toks = torch.zeros(cfg.max_position_embeddings, dtype=torch.long)
+    toks = torch.zeros(model.cfg.max_position_embeddings, dtype=torch.long)
     toks[:P] = torch.tensor(seq[:P])
     with torch.no_grad():
         cache, lg = fns.prefill(fns.init_cache(), toks.to(dev), P)
@@ -4184,13 +4279,24 @@ def teacher_forced_llama(model, name, dtype, P, steps=4):
         for pos in range(P, len(seq)):
             cache, lg = fns.step(cache, pos, seq[pos])
             rows.append(lg)
-        del cache
+    del cache, fns
+    return torch.stack(rows)
+
+
+def teacher_forced_llama(model, name, dtype, P, steps=4):
+    """Prefill of P random tokens, then ``steps`` cached steps, against the
+    plain full-sequence forward (``plain_llama``) at PATH_TOL."""
+    cfg = model.cfg
+    rng = np.random.default_rng(P)
+    seq = [int(t) for t in rng.integers(0, cfg.vocab_size, P + steps)]
+    rows = forced_llama(model, seq, P)
+    dev = model.embed_tokens.weight.device
+    with torch.no_grad():
         p = {n: t.data for n, t in model.named_parameters()}
         want = plain_llama(p, cfg, torch.tensor([seq], device=dev))[0, P - 1:]
     check(f"{name} teacher-forced prefill of {P} + {steps} cached steps vs "
-          f"the plain forward", dtype, torch.stack(rows), want,
-          PATH_TOL[dtype])
-    del rows, want, fns
+          f"the plain forward", dtype, rows, want, PATH_TOL[dtype])
+    del rows, want
     torch.cuda.empty_cache()
 
 
@@ -4203,16 +4309,18 @@ SERVING_FAMILIES = (("flash_fwd", "flash forward"),
                     ("cutlass", "cuBLAS GEMM"))
 
 
-def serving_breakdown(model, name, P, slots=4):
+def serving_breakdown(model, name, P, slots=4, only=None):
     """Where a prefill (the prompt padded to the window), one cached step
-    and one engine tick (``step_batch`` over ``slots`` slots near P) go:
-    device time by kernel family in one warm call of each traced by
-    torch.profiler, against the call's wall time, with the kernels a call
-    launches; the tick must launch the batched decode attention once a
-    layer for all slots."""
+    and one engine tick (``step_batch`` over ``slots`` slots near P) go
+    (``only``: the calls whose names start so): device time by kernel
+    family in one warm call of each traced by torch.profiler, against the
+    call's wall time, with the kernels a call launches and its three
+    costliest kernels; over a float cache the tick must launch the batched
+    decode attention once a layer for all slots."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from lightgrad_tpu_torch.models.decoding import stacked_zeros
     from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
 
     fns = model._kv_functions()
@@ -4220,7 +4328,7 @@ def serving_breakdown(model, name, P, slots=4):
     dev = model.embed_tokens.weight.device
     toks = torch.randint(0, model.cfg.vocab_size, (W,), device=dev)
     cache = fns.init_cache()
-    caches = torch.stack([fns.init_cache() for _ in range(slots)])
+    caches = stacked_zeros(fns.init_cache(), slots)
     poss = torch.tensor([P + 3 * b for b in range(slots)], device=dev,
                         dtype=torch.int32)
     ticks = torch.randint(0, model.cfg.vocab_size, (slots,), device=dev)
@@ -4229,6 +4337,8 @@ def serving_breakdown(model, name, P, slots=4):
              (f"engine tick (step_batch, {slots} slots)",
               lambda: fns.step_batch(caches, poss, ticks)))
     for what, call in calls:
+        if only is not None and not what.startswith(only):
+            continue
         call()
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -4241,25 +4351,32 @@ def serving_breakdown(model, name, P, slots=4):
         counts = launch_counts()
         fams = sorted({f for _, f in SERVING_FAMILIES}) + ["plain torch"]
         ms, n = dict.fromkeys(fams, 0.0), dict.fromkeys(fams, 0)
+        by_name = {}
         for e in trace.events():
             if e.device_type == DeviceType.CUDA:
                 fam = next((f for k, f in SERVING_FAMILIES if k in e.name),
                            "plain torch")
-                ms[fam] += e.time_range.elapsed_us() / 1e3
+                t = e.time_range.elapsed_us() / 1e3
+                ms[fam] += t
                 n[fam] += 1
+                by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + t
         busy = sum(ms.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
         log(f"  {name} {what} (profiled): device {busy:.2f} ms of "
             f"{wall * 1e3:.2f} ms wall (idle "
             f"{100 * (1 - busy / (wall * 1e3)):.1f}%), {sum(n.values())} "
             f"kernels: "
-            + ", ".join(f"{f} {t:.2f} ms ({n[f]})" for f, t in ms.items()))
+            + ", ".join(f"{f} {t:.2f} ms ({n[f]})" for f, t in ms.items())
+            + "; costliest: " + ", ".join(f"{k} {t:.2f} ms"
+                                          for k, t in top))
         if what.startswith("engine tick"):
             log(f"  {name} engine tick: {sum(n.values())} launches for "
                 f"{slots} slots, {wall * 1e3 / slots:.3f} ms of wall time a "
                 f"token; decode_attention_batch launched "
                 f"{counts['decode_attention_batch']} times for {L} layers")
-            if counts["decode_attention_batch"] != L \
-                    or counts["decode_attention"]:
+            float_cache = not getattr(model, "_kv_quant", False)
+            if float_cache and (counts["decode_attention_batch"] != L
+                                or counts["decode_attention"]):
                 raise AssertionError(f"{name}: a tick launched "
                                      f"{counts['decode_attention_batch']} "
                                      f"batched decode attentions for {L} "
@@ -4393,9 +4510,11 @@ def phase_llama_serving(card):
     prefill and decode run past the 4096 band, and Gemma-2B (18 layers, W
     8192, no cut) with a 1000-token prompt: ``generate``,
     ``generate_batch``, an engine, and the teacher-forced check against the
-    plain forward; then Mistral-7B's check in float32 at 4 layers.  Returns
-    {path: launch counts}."""
-    counts = {}
+    plain forward; then each model's int8 modes (phase 9e,
+    :func:`phase_llama_int8`); then Mistral-7B's check in float32 at 4
+    layers.  Returns ({path: launch counts}, {(model, mode, path): launch
+    counts} of the int8 paths)."""
+    counts, int8 = {}, {}
     for name, cfg, P, batch_lens, engine_lens in LLAMA_SERVING:
         log(f"serving path, {name}, bfloat16, all "
             f"{cfg['num_hidden_layers']} layers (W "
@@ -4421,6 +4540,9 @@ def phase_llama_serving(card):
         log(f"  {name} decoding module: {time.perf_counter() - t1:.1f} s")
         serving_breakdown(model, name, P)
         teacher_forced_llama(model, name, torch.bfloat16, P)
+        log(f"int8 serving, {name}:")
+        for (mode, path), c in phase_llama_int8(model, name, P, card).items():
+            int8[(name, mode, path)] = c
         del model
         torch.cuda.empty_cache()
         log(f"  {name} serving phase: {time.perf_counter() - t0:.1f} s")
@@ -4431,7 +4553,7 @@ def phase_llama_serving(card):
     teacher_forced_llama(model, "Mistral-7B (4 layers)", torch.float32, P)
     del model
     torch.cuda.empty_cache()
-    return counts
+    return counts, int8
 
 
 def twin_checked_steps(name, model, plain, B, S, lr, card):
@@ -4501,12 +4623,14 @@ def phase_llama_train(card):
     return counts
 
 
-def phase_llama_example(card):
+def phase_llama_example(card, use_amp=False):
     """examples/llama.py's char model on the tape, float32: hidden 128, 4
     layers, 4 heads, 2 KV heads (head dim 32), 192 positions; Adam at 3e-4,
     40 steps of 16 x 64 characters of README.md, then ``generate`` of 120
-    tokens at temperature 0.6.  The loss must fall.  Returns the launch
-    counts of both."""
+    tokens at temperature 0.6.  ``use_amp``: its ``--amp``, bf16
+    ``MixedPrecision`` over the Adam (phase 9f (ii)).  The loss must fall.
+    Returns the launch counts of both."""
+    from lightgrad_tpu_torch import amp
     from lightgrad_tpu_torch import loss as lg_loss
     from lightgrad_tpu_torch import optim
     from lightgrad_tpu_torch.autograd import Tensor
@@ -4520,7 +4644,10 @@ def phase_llama_example(card):
     steps, batch, seq = 40, 16, 64
     model = llama_model(dict(CHAR_LLAMA, vocab_size=len(chars)),
                         torch.float32)
-    opt = optim.Adam(list(model.parameters()), lr=3e-4)
+    if use_amp:
+        opt = amp.MixedPrecision(model, lambda ps: optim.Adam(ps, lr=3e-4))
+    else:
+        opt = optim.Adam(list(model.parameters()), lr=3e-4)
     rng = np.random.default_rng(0)
     starts = rng.integers(0, len(data) - seq - 1, steps * batch)
     xs = Tensor.from_numpy(np.stack([data[s:s + seq] for s in starts]),
@@ -4618,6 +4745,9 @@ def plain_neox(p, cfg, ids):
         y = matmul_reference(x, p[name + ".weight"].T)
         bias = p.get(name + ".bias")
         return y if bias is None else y + bias
+
+    def silu(g):
+        return torch.sigmoid(g) * g
 
     def rope(x):
         xr = x[..., :rot]
@@ -4747,6 +4877,506 @@ def phase_neox_generate(card):
         f"step (smallest top-2 gap {min(gaps):.3e})")
     del model, p, got, logits
     torch.cuda.empty_cache()
+    return counts
+
+
+def dequantized_llama(model):
+    """The parameters of a ``quantize_serving`` LLaMA with each int8
+    matrix replaced by its dequantized value (int8 x scale, in the compute
+    dtype) and the tied head's int8 copy as "head.weight"."""
+    qp = model._kv_functions().step.params
+    p = {n: t.data for n, t in model.named_parameters()}
+    cdt = model.embed_tokens.weight.dtype
+    for n in [n for n in qp if n.endswith("#q")]:
+        base = n[:-2]
+        w = (qp[n].float() * qp[base + "#s"].float()[:, None]).to(cdt)
+        p["head.weight" if base == "head" else base] = w
+    return p
+
+
+def routing_check(name, serving, plain):
+    """Routing of the decode functions against the plain forward's, a
+    layer at a time: ``serving`` and ``plain`` hold each layer's (probs
+    (T, E), ids (T, k)) over the same T positions.  A position is decisive
+    where the plain k-th and (k+1)-th probabilities are more than 10x the
+    row's deviation apart: there the two must choose the same set."""
+    n_dec = n_rows = 0
+    worst = 0.0
+    for l, ((sp, sid), (pp, pid)) in enumerate(zip(serving, plain)):
+        k = pid.shape[-1]
+        dev = (sp - pp).abs().amax(-1)
+        top = pp.topk(k + 1, -1).values
+        decisive = (top[:, k - 1] - top[:, k]) > 10 * dev.clamp_min(1e-7)
+        same = (sid.sort(-1).values == pid.sort(-1).values).all(-1)
+        bad = decisive & ~same
+        n_dec += int(decisive.sum())
+        n_rows += len(dev)
+        worst = max(worst, dev.max().item())
+        if bad.any():
+            raise AssertionError(f"{name}: layer {l} routes "
+                                 f"{int(bad.sum())} decisive positions to "
+                                 f"other experts than the plain forward")
+    log(f"  {name} routing: {n_dec} of {n_rows} (position, layer) routings "
+        f"decisive, all the plain forward's experts; max probability "
+        f"deviation {worst:.3e}")
+
+
+def forced_routes(model, seq, P):
+    """:func:`forced_llama` with the routing of its prefill and steps
+    recorded: (logits, [(probs (T, E), ids (T, k)) a layer]) over the T =
+    len(seq) positions, the prefill's P rows first."""
+    from lightgrad_tpu_torch.models import llama as llama_mod
+
+    calls = []
+    topk_gates = llama_mod.topk_gates
+
+    def recorded(probs, k):
+        gates, ids = topk_gates(probs, k)
+        calls.append((probs, ids))
+        return gates, ids
+
+    llama_mod.topk_gates = recorded
+    try:
+        got = forced_llama(model, seq, P)
+    finally:
+        llama_mod.topk_gates = topk_gates
+    L, steps = model.cfg.num_hidden_layers, len(seq) - P
+    # the prefill's L calls over the P prompt rows, then L a step
+    return got, [tuple(torch.cat([calls[l][i]] + [calls[L * (1 + j) + l][i]
+                                                  for j in range(steps)])
+                       for i in (0, 1)) for l in range(L)]
+
+
+def forced_vs_plain(model, name, what, seq, P, p, kv_from=None):
+    """The decode functions teacher-forced along ``seq`` (prefill of P,
+    then a cached step a token) against ``plain_llama`` over ``p`` at
+    PATH_TOL.  With experts the plain forward takes the model's recorded
+    experts, so the two compute the same function, and the model's
+    choices are held to the plain forward's own where they are decisive
+    (:func:`routing_check`).  Returns (got, want)."""
+    cfg = model.cfg
+    serving = None
+    if cfg.num_local_experts:
+        got, serving = forced_routes(model, seq, P)
+    else:
+        got = forced_llama(model, seq, P)
+    routes = []
+    with torch.no_grad():
+        want = plain_llama(p, cfg, torch.tensor(
+            [seq], device=model.embed_tokens.weight.device), routes=routes,
+            kv_from=kv_from,
+            route_ids=serving and [ids for _, ids in serving])[0, P - 1:]
+    check(f"{name} {what}", torch.bfloat16, got, want,
+          PATH_TOL[torch.bfloat16])
+    if serving:
+        routing_check(name, serving, routes)
+    return got, want
+
+
+def teacher_forced_mixtral(model, name, P, steps=4):
+    """Prefill of P random tokens and ``steps`` cached steps against the
+    plain full-sequence forward (``plain_llama`` with ``plain_moe``),
+    :func:`forced_vs_plain`."""
+    rng = np.random.default_rng(P)
+    seq = [int(t) for t in rng.integers(0, model.cfg.vocab_size, P + steps)]
+    p = {n: t.data for n, t in model.named_parameters()}
+    forced_vs_plain(model, name, f"teacher-forced prefill of {P} + {steps} "
+                    f"cached steps vs the plain forward", seq, P, p)
+    torch.cuda.empty_cache()
+
+
+def decode_ms(model, prompt, n=INT8_NEW):
+    """Wall ms a token of greedy ``generate`` after ``prompt``: runs of 1
+    and ``n`` new tokens, the difference over n - 1."""
+    wall = []
+    for k in (1, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.generate(prompt, max_new_tokens=k)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    return (wall[1] - wall[0]) * 1e3 / (n - 1)
+
+
+def cache_bytes(cache):
+    return sum(c.numel() * c.element_size()
+               for c in (cache if isinstance(cache, tuple) else (cache,)))
+
+
+def drive_engine(model, name, lens, new):
+    """An ``InferenceEngine`` of 4 slots over ragged greedy requests under
+    sync debug mode "error" (its transfers are the decoding module's
+    counted ones); each request's tokens against a single ``generate``
+    (or a near-tie of its logits).  Returns the run's launch counts."""
+    from lightgrad_tpu_torch import InferenceEngine
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(len(lens))
+    reqs = [([int(t) for t in rng.integers(0, V, n)], new(i))
+            for i, n in enumerate(lens)]
+    engine = InferenceEngine(model, slots=4)
+    handles = [engine.submit(p, n) for p, n in reqs]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sync_free(engine.run)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    ntok = sum(n for _, n in reqs)
+    near = 0
+    for i, (r, (p, n)) in enumerate(zip(handles, reqs)):
+        assert r.done and r.n_generated == n, (name, i)
+        near += same_greedy(f"{name} engine request {i}", model, r.tokens,
+                            model.generate(p, max_new_tokens=n), len(p),
+                            PATH_TOL[torch.bfloat16])
+    log(f"  {name} engine: {len(reqs)} requests on 4 slots, {ntok} tokens "
+        f"in {dt:.3f} s ({ntok / dt:.1f} tok/s, prefills included; "
+        f"{engine.stats}); cache {cache_bytes(engine._caches) / 1e6:.1f} MB"
+        f"; {len(reqs) - near} requests equal generate's, {near} differ "
+        f"first at a near-tie")
+    del engine
+    return counts
+
+
+def phase_mixtral_serving(card):
+    """Phase 9d: Mixtral-8x7B at its published widths, cut to 8 of 32
+    layers and W 4096, bf16, seeded random weights: greedy ``generate`` of
+    MIXTRAL_NEW tokens after a MIXTRAL_PROMPT-token prompt, ``generate_device``
+    (its tokens ``generate``'s), ``generate_batch_device`` over 4 ragged
+    prompts and an engine of 4 slots over 8 requests, each under sync debug
+    mode "error"; wall and device ms a token, the idle share, a step's
+    launches and expert bytes, peak memory; the teacher-forced check with
+    the routing against the plain forward.  Then phase 9e's int8 modes of
+    the same model.  Returns (model, {path: launch counts})."""
+    name = "Mixtral-8x7B"
+    log(f"serving path, {name}, bfloat16, {MIXTRAL_CUT['num_hidden_layers']}"
+        f" of {MIXTRAL_8X7B['num_hidden_layers']} layers (W "
+        f"{MIXTRAL_CUT['max_position_embeddings']}, cut from "
+        f"{MIXTRAL_8X7B['max_position_embeddings']}):")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = llama_model(MIXTRAL_8X7B, torch.bfloat16, **MIXTRAL_CUT)
+    cfg = model.cfg
+    n = sum(t.numel() for t in model.parameters())
+    log(f"  {n / 1e9:.3f} B parameters, {n * 2 / 1e9:.2f} GB in bf16; built "
+        f"in {time.perf_counter() - t0:.1f} s (peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    counts = {}
+    V, P, N = cfg.vocab_size, MIXTRAL_PROMPT, MIXTRAL_NEW
+    rng = np.random.default_rng(13)
+    prompt = [int(t) for t in rng.integers(0, V, P)]
+    torch.cuda.reset_peak_memory_stats()
+    model.generate(prompt[:8], max_new_tokens=2)     # builds, warms cuBLAS
+    want, _ = path_run(counts, "generate", lambda: model.generate(
+        prompt, max_new_tokens=N))
+    got, io = path_run(counts, "generate_device", lambda: sync_free(
+        lambda: model.generate_device(prompt, N)))
+    if got != want:
+        raise AssertionError(f"{name}: generate_device's greedy tokens "
+                             f"differ from generate's")
+    prompts = [[int(t) for t in rng.integers(0, V, k)] for k in MIXTRAL_BATCH]
+    got_b, io_b = path_run(counts, "generate_batch_device", lambda: sync_free(
+        lambda: model.generate_batch_device(prompts, LLAMA_BATCH_NEW)))
+    near = sum(same_greedy(f"{name} generate_batch_device row {i}", model, g,
+                           model.generate(pr, max_new_tokens=LLAMA_BATCH_NEW),
+                           len(pr), PATH_TOL[torch.bfloat16])
+               for i, (pr, g) in enumerate(zip(prompts, got_b)))
+    log(f"  generate_device: {N} greedy tokens after {P} equal generate's "
+        f"(host transfers {io}); generate_batch_device over prompts "
+        f"{list(MIXTRAL_BATCH)}, {LLAMA_BATCH_NEW} tokens each: "
+        f"{len(prompts) - near} rows equal generate's, {near} first differ "
+        f"at a near-tie (host transfers {io_b})")
+    counts["engine"] = drive_engine(model, name, MIXTRAL_ENGINE,
+                                    lambda i: int(rng.integers(4, 17)))
+    log(f"  peak memory of the serving calls "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+    decode_rates(model, name, prompt, N, card)
+    d, ff, k = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts_per_tok
+    L, E = cfg.num_hidden_layers, cfg.num_local_experts
+    stack = 3 * d * ff * 2
+    log(f"  expert bytes of a step or an engine tick: all {E} stacks a "
+        f"layer read in place by batched products, {E * stack / 1e6:.1f} MB"
+        f", {E * stack * L / 1e9:.2f} GB over {L} layers (the {k} chosen "
+        f"stacks alone: {k * stack * L / 1e9:.2f} GB)")
+    serving_breakdown(model, name, P)
+    model.__dict__.pop("_kv_fns", None)
+    teacher_forced_mixtral(model, name, P)
+    log(f"  {name} serving phase: {time.perf_counter() - t0:.1f} s")
+    return model, counts
+
+
+def teacher_forced_llama_int8(model, name, mode, P, steps=8):
+    """Prefill of P tokens + ``steps`` cached steps against the plain
+    forward in the same mode (:func:`forced_vs_plain`): over the
+    dequantized weights under int8 weights, and under an int8 cache with
+    each K/V row quantized and dequantized by the cache's rule where the
+    model attends it so (``plain_llama``'s ``kv_from``); the greedy tokens
+    by the decisive-gap rule of phase 4 besides."""
+    cfg = model.cfg
+    rng = np.random.default_rng(P + 1)
+    seq = [int(t) for t in rng.integers(0, cfg.vocab_size, P + steps)]
+    model.__dict__.pop("_kv_fns", None)
+    kv_from = None
+    if mode != "quantize_serving":
+        kv_from = 0 if cfg.num_local_experts else P
+    p = (dequantized_llama(model) if mode != "quantize_kv" else
+         {n: t.data for n, t in model.named_parameters()})
+    what = {"quantize_serving": "the dequantized plain forward",
+            "quantize_kv": "the plain forward over int8 K/V rows",
+            "both": "the dequantized plain forward over int8 K/V rows"}[mode]
+    got, want = forced_vs_plain(model, f"{name} {mode}",
+                                f"teacher-forced vs {what}", seq, P, p,
+                                kv_from)
+    decisive_tokens(f"{name} teacher-forced {mode} vs {what}", got, want)
+    del got, want, p
+    torch.cuda.empty_cache()
+
+
+def int8_path_kernels(mode, path):
+    """The kernels an int8 serving path must launch: the prefill's flash
+    forward, and decode attention over a float cache (an int8 cache is
+    attended in plain PyTorch, as the JAX package does)."""
+    if mode != "quantize_serving":
+        return ("attention_fwd",)
+    return ("attention_fwd", "decode_attention_batch" if path == "engine"
+            else "decode_attention")
+
+
+def phase_llama_int8(model, name, P, card):
+    """Phase 9e for one model: each of its LLAMA_INT8_MODES runs
+    ``generate`` (INT8_NEW tokens after P), ``generate_device`` (its tokens
+    ``generate``'s, under sync debug mode "error") and an engine of 4 slots
+    over INT8_ENGINE requests; weight and cache bytes, ms a token beside the
+    bf16 model's, the teacher-forced check.  Returns {(mode, path):
+    launch counts}."""
+    counts = {}
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(14)
+    prompt = [int(t) for t in rng.integers(0, V, P)]
+    floats = sum(t.data.numel() * t.data.element_size()
+                 for t in model.parameters())
+    model.generate(prompt[:8], max_new_tokens=2)
+    bf16_ms = decode_ms(model, prompt)
+    model.__dict__.pop("_kv_fns", None)
+    for mode in LLAMA_INT8_MODES[name]:
+        t0 = time.perf_counter()
+        model.quantize_serving(mode != "quantize_kv")
+        model.quantize_kv(mode != "quantize_serving")
+        fns = model._kv_functions()
+        model._kv_fns = fns
+        pw = fns.step.params
+        wbytes = sum(t.numel() * t.element_size() for t in pw.values())
+        cb = cache_bytes(fns.init_cache())
+        model.generate(prompt[:8], max_new_tokens=2)
+        ms = decode_ms(model, prompt)
+        runs = {}
+        want, _ = path_run(runs, "generate", lambda: model.generate(
+            prompt, max_new_tokens=INT8_NEW))
+        got, io = path_run(runs, "generate_device", lambda: sync_free(
+            lambda: model.generate_device(prompt, INT8_NEW)))
+        if got != want:
+            raise AssertionError(f"{name} {mode}: generate_device's greedy "
+                                 f"tokens differ from generate's")
+        runs["engine"] = drive_engine(model, f"{name} {mode}",
+                                      MIXTRAL_ENGINE[:INT8_ENGINE],
+                                      lambda i: 8)
+        counts.update({(mode, path): c for path, c in runs.items()})
+        log(f"  {name} {mode}: decode weights {wbytes / 1e9:.2f} GB (float "
+            f"{floats / 1e9:.2f} GB), cache {cb / 1e6:.1f} MB a sequence; "
+            f"generate {ms:.3f} ms a token after {P} (bf16: {bf16_ms:.3f}); "
+            f"generate_device's {INT8_NEW} tokens equal generate's (host "
+            f"transfers {io}); {card}")
+        del fns, pw
+        serving_breakdown(model, f"{name} {mode}", P, only="step")
+        model.__dict__.pop("_kv_fns", None)
+        teacher_forced_llama_int8(model, name, mode, P)
+        log(f"  {name} {mode}: {time.perf_counter() - t0:.1f} s")
+    model.quantize_serving(False)
+    model.quantize_kv(False)
+    return counts
+
+
+def plain_mixtral_step(model, ids):
+    """Step 1 of the plain twin: logits, aux loss, loss (cross-entropy +
+    MIXTRAL_AUX x aux) and every parameter's gradient under torch autograd,
+    on the tape model's current weights."""
+    import torch.nn.functional as F
+
+    cfg = model.cfg
+    params = {k: t.data.detach().requires_grad_(True)
+              for k, t in model.named_parameters()}
+    aux = []
+    logits = plain_llama(params, cfg, ids[:, :-1], aux=aux)
+    B, S = ids.shape[0], ids.shape[1] - 1
+    aux = sum(aux)
+    loss = F.cross_entropy(logits.reshape(B * S, -1),
+                           ids[:, 1:].reshape(-1)) + MIXTRAL_AUX * aux
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+    return logits.detach(), aux.item(), loss.item(), grads
+
+
+def phase_mixtral_train(card):
+    """Phase 9f (i): Mixtral-8x7B's widths cut to 1 layer, MIXTRAL_TRAIN
+    (batch, sequence, steps) on the tape: f32 AdamW, step 1's logits,
+    ``aux_loss`` and every gradient held to the plain twin; then bf16
+    ``MixedPrecision`` AdamW on the same weights, whose loss must be
+    finite and fall.  Returns {name: launch counts}."""
+    from lightgrad_tpu_torch import amp, optim
+    from lightgrad_tpu_torch import loss as lg_loss
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    B, S, steps = MIXTRAL_TRAIN
+    name = "Mixtral-8x7B (1 layer)"
+    log(f"training on the tape, {name}, {B} x {S} tokens, float32 AdamW, "
+        f"then bfloat16 MixedPrecision AdamW; loss cross-entropy + "
+        f"{MIXTRAL_AUX} aux:")
+    t0 = time.perf_counter()
+    model = llama_model(MIXTRAL_8X7B, torch.float32, num_hidden_layers=1,
+                        max_position_embeddings=S)
+    n = sum(t.numel() for t in model.parameters())
+    V = model.cfg.vocab_size
+    dev = model.embed_tokens.weight.device
+    ids = torch.tensor(np.random.default_rng(15).integers(0, V, (B, S + 1)),
+                       device=dev)
+    x = Tensor(ids[:, :-1].int(), requires_grad=False)
+    y = Tensor(ids[:, 1:].reshape(-1).int(), requires_grad=False)
+    plain_logits, plain_aux, plain_loss, grads = plain_mixtral_step(model,
+                                                                    ids)
+    torch.cuda.empty_cache()
+    log(f"  {n / 1e9:.3f} B parameters; plain twin step 1 in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def loss_of(logits):
+        return lg_loss.cross_entropy(logits.reshape(B * S, V), y) \
+            + model.aux_loss * MIXTRAL_AUX
+
+    counts = {}
+    for what in ("float32 AdamW", "bfloat16 MixedPrecision AdamW"):
+        if what.startswith("float32"):
+            opt = optim.AdamW(list(model.parameters()), lr=LLAMA_LR)
+            zero, scale, step = opt.zero_grad, (lambda l: l), opt.step
+        else:
+            del opt, zero, step
+            torch.cuda.empty_cache()
+            mp = amp.MixedPrecision(model, lambda ps: optim.AdamW(
+                ps, lr=LLAMA_LR))
+            zero, scale, step = mp.zero_grad, mp.scale, mp.step
+            before = mp.masters[0].data.clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses, times = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits = model(x)
+            loss = loss_of(logits)
+            zero()
+            scale(loss).backward()
+            if i == 0 and what.startswith("float32"):
+                torch.cuda.synchronize()
+                c0 = time.perf_counter()
+                check(f"{name} logits vs the plain twin", torch.float32,
+                      logits.data, plain_logits, PATH_TOL[torch.float32])
+                check(f"{name} aux_loss vs the plain twin", torch.float32,
+                      model.aux_loss.data.reshape(1),
+                      torch.tensor([plain_aux], device=dev),
+                      PATH_TOL[torch.float32])
+                log(f"  step-1 loss {loss.item():.5f}, plain twin "
+                    f"{plain_loss:.5f}")
+                tape_grad_check(model, grads)
+                grads.clear()
+                torch.cuda.reset_peak_memory_stats()
+                t1 += time.perf_counter() - c0
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            losses.append(loss.item())
+            del logits, loss
+        counts[f"{name}, {what}"] = launch_counts()
+        ok = all(np.isfinite(losses)) and losses[-1] < losses[0]
+        log(f"  {what}: losses {[round(v, 4) for v in losses]} "
+            f"({'finite, falling' if ok else 'FAIL'}); step ms "
+            f"{[round(t * 1e3, 1) for t in times]} (median of steps 2-"
+            f"{steps} {np.median(times[1:]) * 1e3:.1f}); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+        if not ok:
+            raise AssertionError(f"{name} {what}: loss not finite and "
+                                 f"falling: {losses}")
+    if torch.equal(mp.masters[0].data, before):
+        raise AssertionError(f"{name}: MixedPrecision's masters did not move")
+    del model, mp
+    torch.cuda.empty_cache()
+    log(f"  {name} training phase: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase_amp_one_step(card):
+    """Phase 9f (iii): one bf16 ``MixedPrecision`` AdamW step of BERT-base
+    (phase 6's masked-LM batch) and of ResNet-18 (phase 8's 32 x 224²
+    batch): the loss is finite and every master moves.  Returns {name:
+    launch counts}."""
+    from lightgrad_tpu_torch import amp, optim, random as lg_random
+    from lightgrad_tpu_torch import loss as lg_loss
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.models import resnet18
+    from lightgrad_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    from lightgrad_tpu_torch.autograd.cuda.device import default_device
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    dev = default_device()
+    lg_random.seed(0)
+    cfg = BertConfig(**BERT_BASE)
+    ids, mask, labels, _ = bert_batch(cfg)
+    bert = (BertForMaskedLM(cfg), BERT_LR, lambda m: lg_loss.cross_entropy(
+        m(Tensor(torch.tensor(ids, device=dev), requires_grad=False),
+          attention_mask=Tensor(torch.tensor(mask, device=dev),
+                                requires_grad=False)).reshape(
+            -1, cfg.vocab_size),
+        Tensor(torch.tensor(labels, device=dev), requires_grad=False),
+        ignore_index=-100))
+    gen = torch.Generator(device=dev).manual_seed(12)
+    xd = torch.randn(RESNET_BATCH, 3, RESNET_IMAGE, RESNET_IMAGE,
+                     generator=gen, device=dev)
+    yd = torch.randint(0, 1000, (RESNET_BATCH,), generator=gen, device=dev)
+    resnet = (resnet18(), RESNET_LR, lambda m: lg_loss.cross_entropy(
+        m(Tensor(xd, requires_grad=False)),
+        Tensor(yd.int(), requires_grad=False)))
+    counts = {}
+    for name, (model, lr, loss_fn) in (("BERT-base", bert),
+                                       ("ResNet-18", resnet)):
+        mp = amp.MixedPrecision(model, lambda ps: optim.AdamW(ps, lr=lr))
+        before = [m.data.clone() for m in mp.masters]
+        reset_launch_counts()
+        dts, vals = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = loss_fn(model)
+            mp.zero_grad()
+            mp.scale(loss).backward()
+            mp.step()
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t0)
+            vals.append(loss.item())
+            if len(vals) == 1:
+                counts[name] = launch_counts()
+                moved = sum(not torch.equal(m.data, b)
+                            for m, b in zip(mp.masters, before))
+        val = vals[0]
+        log(f"  {name} bf16 MixedPrecision AdamW: step 1 loss {val:.4f}, "
+            f"{moved} of {len(before)} masters moved, {dts[0] * 1e3:.1f} ms "
+            f"(compiles included); step 2 loss {vals[1]:.4f}, "
+            f"{dts[1] * 1e3:.1f} ms; {card}")
+        if not np.isfinite(val) or moved != len(before):
+            raise AssertionError(f"{name} AMP step: loss {val}, {moved} of "
+                                 f"{len(before)} masters moved")
+        del model, mp, before, loss
+        torch.cuda.empty_cache()
     return counts
 
 
@@ -4907,9 +5537,12 @@ def main():
         tally(name, counts, DIGITS_KERNELS[name])
     log("narrow at a device start:")
     phase_narrow()
-    for name, counts in phase_llama_serving(card).items():
+    serving, int8 = phase_llama_serving(card)
+    for name, counts in serving.items():
         tally(f"{name} serving", counts, LLAMA_DEVICE_PATHS.get(
             name.split(" ", 1)[-1], LLAMA_SERVING_KERNELS))
+    for (name, mode, path), counts in int8.items():
+        tally(f"{name} {mode} {path}", counts, int8_path_kernels(mode, path))
     for name, counts in phase_llama_train(card).items():
         tally(f"{name} training", counts, LLAMA_TRAIN_KERNELS)
     log("examples/llama.py's char model on the tape, float32:")
@@ -4917,6 +5550,29 @@ def main():
     tally("char LLaMA", phase_llama_example(card),
           LLAMA_TRAIN_KERNELS + ("decode_attention",))
     log(f"  char LLaMA phase: {time.perf_counter() - t0:.1f} s")
+    log("examples/llama.py's char model on the tape, --amp: bfloat16 "
+        "MixedPrecision, Adam:")
+    t0 = time.perf_counter()
+    tally("char LLaMA (AMP)", phase_llama_example(card, use_amp=True),
+          LLAMA_TRAIN_KERNELS + ("decode_attention",))
+    log(f"  char LLaMA (AMP) phase: {time.perf_counter() - t0:.1f} s")
+    model, paths = phase_mixtral_serving(card)
+    for path, counts in paths.items():
+        tally(f"Mixtral-8x7B {path}", counts, MIXTRAL_PATHS[path])
+    log("int8 serving, Mixtral-8x7B (experts in bf16):")
+    for (mode, path), counts in phase_llama_int8(
+            model, "Mixtral-8x7B", MIXTRAL_PROMPT, card).items():
+        tally(f"Mixtral-8x7B {mode} {path}", counts,
+              int8_path_kernels(mode, path))
+    del model
+    torch.cuda.empty_cache()
+    for name, counts in phase_mixtral_train(card).items():
+        tally(name, counts, MOE_TRAIN_KERNELS)
+    log("one bfloat16 MixedPrecision step on the tape, BERT-base and "
+        "ResNet-18:")
+    for name, counts in phase_amp_one_step(card).items():
+        tally(f"{name} AMP step", counts, BERT_KERNELS if name.startswith(
+            "BERT") else CONV_PATH_KERNELS)
     for name, counts in phase_neox_train(card).items():
         tally(f"{name} training", counts, NEOX_TRAIN_KERNELS)
     log("Pythia-1B generate on the tape, float32, greedy:")

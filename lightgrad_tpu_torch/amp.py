@@ -15,12 +15,22 @@ Counterpart of ``lightgrad_tpu/amp.py``:
   compute parameters.  bf16 rounding therefore never accumulates across
   steps.
 
+Both take a ``torch.nn.Module`` (GPT-2's trainer: ``Parameter``s cast by
+``Module.to`` and written in place, gradients in ``.grad``) or a lightgrad
+tape module (BERT, ResNet, LLaMA, NeoX: each parameter rebound through
+``Module.map_parameters``, as the JAX package casts, and each step's
+masters and compute parameters rebound to fresh buffers, as the tape's
+value semantics ask); the module's type decides.  A tape module's buffers
+(BatchNorm's running statistics) keep their dtype, as in the JAX package.
+
 Nothing here reads a tensor on the host, so a step never waits for the
 device.
 """
 
 import torch
 
+from .autograd import no_grad
+from .autograd.cuda.tensor import torch_dtype
 from .ops.matmul import set_precision as _set_precision
 
 __all__ = ["set_matmul_precision", "cast_module", "GradScaler",
@@ -34,9 +44,20 @@ def set_matmul_precision(p: str) -> str:
 
 
 def cast_module(module, dtype=torch.bfloat16):
-    """Cast every floating parameter of ``module`` to ``dtype`` in place
-    (the Parameter objects stay the same); returns the module."""
-    return module.to(dtype)
+    """Cast every floating parameter of ``module`` to ``dtype`` in place;
+    returns the module.  A ``torch.nn.Module`` keeps its Parameter objects;
+    a tape module's parameters are rebound to cast tensors that keep their
+    ``requires_grad``."""
+    if isinstance(module, torch.nn.Module):
+        return module.to(dtype)
+    dtype = torch_dtype(dtype)
+
+    def cast(p):
+        with no_grad():
+            q = p.astype(dtype)
+        return q.detach()._set_requires_grad(p.requires_grad)
+
+    return module.map_parameters(cast)
 
 
 class GradScaler:
@@ -110,11 +131,17 @@ class MixedPrecision:
     def __init__(self, model, optimizer_factory,
                  compute_dtype=torch.bfloat16, scaler: GradScaler = None):
         self.model = model
-        self.compute_dtype = compute_dtype
+        self.compute_dtype = compute_dtype = torch_dtype(compute_dtype)
         self.scaler = scaler
+        # a tape module's tensors are rebound, never written in place
+        self._tape = not isinstance(model, torch.nn.Module)
         with torch.no_grad():
-            self.masters = [p.detach().float().clone().requires_grad_(True)
-                            for p in model.parameters()]
+            if self._tape:
+                self.masters = [type(p)(p.data.float(), requires_grad=True)
+                                for p in model.parameters()]
+            else:
+                self.masters = [p.detach().float().clone().requires_grad_(
+                    True) for p in model.parameters()]
         cast_module(model, compute_dtype)
         self.compute_params = list(model.parameters())
         if len(self.compute_params) != len(self.masters):
@@ -122,33 +149,55 @@ class MixedPrecision:
                                "module's parameter list")
         self.optim = optimizer_factory(self.masters)
         if scaler is not None and self.masters:
-            scaler._materialize(self.masters[0].device)
+            scaler._materialize(self.masters[0].data.device)
 
     def zero_grad(self):
         for p in self.compute_params:
-            p.grad = None
+            if self._tape:
+                p.zero_grad()
+            else:
+                p.grad = None
 
     def scale(self, loss):
         return self.scaler.scale(loss) if self.scaler is not None else loss
 
+    def _grads(self):
+        if not self._tape:
+            return [p.grad if p.grad is not None else torch.zeros_like(p)
+                    for p in self.compute_params]
+        return [p.grad.data if p.grad is not None else torch.zeros_like(
+            p.data) for p in self.compute_params]
+
+    def _set_master_grad(self, m, g32):
+        if not self._tape:
+            m.grad = g32
+        elif m.grad is None:
+            m.add_grad(type(m)(g32, requires_grad=False))
+        else:
+            m.grad._set_data(g32)
+
     @torch.no_grad()
     def step(self):
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.compute_params]
+        grads = self._grads()
         # finite gate, on the device: 1 iff every gradient is finite
         ok = torch.stack([torch.isfinite(g).all() for g in grads]) \
             .all().float()
         inv = (self.scaler.inv_scale(ok.device)
                if self.scaler is not None else None)
         for g, m in zip(grads, self.masters):
-            g32 = g.float().nan_to_num()
-            m.grad = g32 * inv if inv is not None else g32
+            # NaN and infinities to 0, as the JAX package's nan_to_num
+            g32 = g.float().nan_to_num(0.0, 0.0, 0.0)
+            self._set_master_grad(m, g32 * inv if inv is not None else g32)
         self.optim._gate = ok
         try:
             self.optim.step()
         finally:
             self.optim._gate = None
         for p, m in zip(self.compute_params, self.masters):
-            p.copy_(m)      # requantize: round to nearest even
+            if self._tape:
+                # requantize: round to nearest even, a fresh buffer
+                p._set_data(m.data.to(self.compute_dtype))
+            else:
+                p.copy_(m)
         if self.scaler is not None:
             self.scaler.update(ok)

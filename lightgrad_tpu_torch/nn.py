@@ -8,7 +8,7 @@ need, with its names and parameter names: ``Module`` (``parameters``,
 ``Sequential``, ``Linear``, ``Conv2d``, ``ConvTranspose2d``,
 ``BatchNorm2d``, ``GroupNorm``, ``MaxPool2d``, ``AvgPool2d``,
 ``Embedding``, ``LayerNorm``, ``Dropout``, ``ReLU``, ``GELU``, ``Tanh``,
-``Flatten``.  Parameters are lightgrad tensors (``CudaTensor``).
+``Flatten`` and ``MoE``.  Parameters are lightgrad tensors (``CudaTensor``).
 
 A buffer stays a buffer when an in-place op rebinds its attribute
 (``self.running_mean *= ...``); in the JAX package that assignment also
@@ -20,6 +20,8 @@ ported, so there is nothing to tell.  The ``torch.nn`` layers of the GPT-2
 model are in ``models/_torch_layers.py``.
 """
 
+import math
+
 import numpy as np
 import torch
 
@@ -29,7 +31,7 @@ from .autograd.cuda.tensor import torch_dtype
 __all__ = ["Module", "ModuleList", "Sequential", "Linear", "Conv2d",
            "ConvTranspose2d", "BatchNorm2d", "LayerNorm", "Embedding",
            "Dropout", "ReLU", "GELU", "Tanh", "Flatten", "GroupNorm",
-           "MaxPool2d", "AvgPool2d"]
+           "MaxPool2d", "AvgPool2d", "MoE"]
 
 
 def _fan_in_uniform(shape, fan_in):
@@ -453,3 +455,152 @@ class Dropout(Module):
 
     def forward(self, x):
         return x.dropout(p=self.p, training=self.training)
+
+
+class MoE(Module):
+    """Mixture-of-experts FFN, the JAX package's class: stacked expert
+    weights ``w1 (E, d, h)``, ``w2 (E, h, d)`` (and ``w3`` for SwiGLU
+    experts), a bias-free ``router``, optional always-on shared experts
+    ``ws1`` / ``ws2``.
+
+    * ``dispatch="dense"``: every expert processes every token; the router
+      softmax weights the mixture.
+    * ``dispatch="top1"`` / ``"topk"``: each token routes to its top-k
+      experts (k argmax passes, an exact tie to the lowest index), subject
+      to a per-expert capacity ``ceil(k T / E * capacity_factor)``; a
+      routing past it is dropped (its output is zero).  Slot positions come
+      from a device ``cumsum``, the dispatch and combine are one-hot
+      products, and the expert FFNs are batched products ``(E, C, d) @
+      (E, d, h)`` through the matmul kernel.  Nothing is read on the host.
+
+    After a routed forward, ``aux_loss`` (Switch load balancing on the
+    first choice) and ``z_loss`` (router logsumexp squared) are plain
+    attributes.  Slot positions are counted in float32 whatever the compute
+    dtype: the JAX package counts them in the router's dtype, which under
+    bf16 rounds positions past 256 and puts two tokens in one slot."""
+
+    def __init__(self, dim: int, hidden: int, n_experts: int,
+                 dispatch: str = "dense", capacity_factor: float = 1.25,
+                 k: int = 2, normalize_gates: bool = True,
+                 n_shared: int = 0, ffn: str = "gelu"):
+        super().__init__()
+        assert dispatch in ("dense", "top1", "topk"), dispatch
+        assert ffn in ("gelu", "swiglu"), ffn
+        self.n_experts = n_experts
+        self.dispatch = dispatch
+        self.capacity_factor = capacity_factor
+        self.k = 1 if dispatch == "top1" else k
+        assert 1 <= self.k <= n_experts, (self.k, n_experts)
+        self.normalize_gates = normalize_gates
+        self.router = Linear(dim, n_experts, bias=False)
+        self.ffn = ffn
+        self.w1 = _fan_in_uniform((n_experts, dim, hidden), dim)
+        self.w2 = _fan_in_uniform((n_experts, hidden, dim), hidden)
+        if ffn == "swiglu":
+            # Mixtral's experts: w2(silu(w1 x) * w3 x)
+            self.w3 = _fan_in_uniform((n_experts, dim, hidden), dim)
+        self.n_shared = n_shared
+        if n_shared:
+            self.ws1 = _fan_in_uniform((n_shared, dim, hidden), dim)
+            self.ws2 = _fan_in_uniform((n_shared, hidden, dim), hidden)
+
+    def _shared(self, t, n_tok, dim):
+        tb = t.reshape(1, n_tok, dim)
+        return ((tb @ self.ws1).gelu() @ self.ws2).sum(axis=0)
+
+    def _experts(self, xe):
+        """Per-expert FFN on stacked input ``(E, n, d)`` -> ``(E, n, d)``."""
+        if self.ffn == "swiglu":
+            g = xe @ self.w1
+            return (g.sigmoid() * g * (xe @ self.w3)) @ self.w2
+        return (xe @ self.w1).gelu() @ self.w2
+
+    def _dense(self, t, n_tok, dim):
+        gates = self.router(t).softmax(axis=-1)      # (T, E)
+        tb = t.reshape(1, n_tok, dim)                # broadcast over experts
+        h = self._experts(tb)                        # (E, T, d)
+        w = gates.T(1, 0).reshape(self.n_experts, n_tok, 1)
+        return (h * w).sum(axis=0)                   # (T, d)
+
+    @staticmethod
+    def _argmax_onehot(scores):
+        """First-match argmax one-hot along the last axis (no gradient): an
+        exact tie goes to the lowest index, so no token is dispatched
+        twice."""
+        is_max = scores.eq(scores.max(axis=-1, keepdims=True))   # (T, E)
+        earlier = is_max.cumsum(axis=-1) - is_max                # exclusive
+        return is_max * (earlier * -1.0 + 1.0).gt(0.5)           # earlier == 0
+
+    def _topk(self, t, n_tok, dim):
+        n_exp, k = self.n_experts, self.k
+        cap = max(1, math.ceil(k * n_tok / n_exp * self.capacity_factor))
+        logits = self.router(t)                      # (T, E)
+        probs = logits.softmax(axis=-1)
+
+        # router z-loss (ST-MoE): mean squared logsumexp of the logits
+        m = logits.max(axis=-1, keepdims=True)
+        lse = (logits - m).exp().sum(axis=-1, keepdims=True).log() + m
+        object.__setattr__(self, "z_loss", (lse * lse).mean())
+
+        # route: k argmax passes, each masking the experts already chosen
+        onehots, gates = [], []
+        remaining = probs
+        for _ in range(k):
+            oh = self._argmax_onehot(remaining)
+            onehots.append(oh)
+            gates.append((probs * oh).sum(axis=-1, keepdims=True))
+            if len(onehots) < k:
+                remaining = remaining * (oh * -1.0 + 1.0)
+        if self.normalize_gates and k > 1:
+            denom = gates[0]
+            for g in gates[1:]:
+                denom = denom + g
+            gates = [g / (denom + 1e-9) for g in gates]
+
+        # Switch load-balancing loss on the first choice: E sum_e f_e P_e
+        frac = onehots[0].mean(axis=0)               # (E,)
+        mean_prob = probs.mean(axis=0)               # (E,)
+        object.__setattr__(
+            self, "aux_loss", (frac * mean_prob).sum() * float(n_exp))
+
+        # capacity: slot positions by a device cumsum, choice-major (every
+        # first choice claims its slot before any second choice), counted
+        # in float32
+        f32 = torch.float32
+        slots = type(t)(torch.arange(cap, dtype=f32, device=t.data.device),
+                        requires_grad=False).reshape(1, cap)
+        disp = comb = filled = None
+        for oh, gate in zip(onehots, gates):
+            oh = oh if oh.dtype == f32 else oh.astype(f32)
+            pos = oh.cumsum(axis=0) - oh             # (T, E) exclusive
+            if filled is not None:
+                pos = pos + filled
+            keep = oh * (pos * -1.0 + float(cap)).gt(0.5)        # pos < cap
+            kept = keep.sum(axis=0, keepdims=True)
+            filled = kept if filled is None else filled + kept
+            pos_tok = (pos * keep).sum(axis=-1, keepdims=True)   # (T, 1)
+            poh = pos_tok.eq(slots)                  # (T, C) slot one-hot
+            d = (keep.reshape(n_tok, n_exp, 1) * poh.reshape(n_tok, 1, cap))
+            d = d.reshape(n_tok, n_exp * cap)
+            if d.dtype != t.dtype:
+                d = d.astype(t.dtype)
+            disp = d if disp is None else disp + d
+            dg = d * gate
+            comb = dg if comb is None else comb + dg
+
+        # expert FFN and combine
+        xd = disp.T(1, 0) @ t                        # (E*C, d)
+        h = self._experts(xd.reshape(n_exp, cap, dim))
+        return comb @ h.reshape(n_exp * cap, dim)
+
+    def forward(self, x):
+        lead, dim = x.shape[:-1], x.shape[-1]
+        t = x.reshape(-1, dim)                       # (T, d)
+        n_tok = t.shape[0]
+        if self.dispatch in ("top1", "topk"):
+            y = self._topk(t, n_tok, dim)
+        else:
+            y = self._dense(t, n_tok, dim)
+        if self.n_shared:
+            y = y + self._shared(t, n_tok, dim)
+        return y.reshape(*lead, dim)

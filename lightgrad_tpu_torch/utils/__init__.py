@@ -1,2 +1,3 @@
 from .fetch import fetch
+from .sentencepiece import SentencePieceModel
 from .profiler import Profiler, Tracker

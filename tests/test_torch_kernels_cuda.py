@@ -2180,3 +2180,163 @@ def test_conv_kernels(dev, xs, ws, st, dl, groups, route, dtype):
     assert torch.equal(gx, conv_bwd_dx(gy, w, x.shape, st, dl, groups))
     assert torch.equal(gw, conv_bwd_dw(gy, x, w.shape, st, dl, groups))
     assert conv_bwd(gy, x, w, st, dl, groups, need_dx=False)[0] is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_expert_products_on_the_batch_path(dev, dtype):
+    """nn.MoE's expert products (E, C, d) @ (E, d, h) and their gradients:
+    one launch of the matmul kernel's batch path each way, against the
+    plain version."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    x = _randn(g, 8, 96, 128, dtype=dtype)
+    w = _randn(g, 8, 128, 352, scale=0.1, dtype=dtype)
+    reset_launch_counts()
+    y = matmul(x, w)
+    torch.cuda.synchronize()
+    assert launch_counts()["matmul"] == 1
+    _close(y, matmul_reference(x, w), dtype)
+    gy = _randn(g, 8, 96, 352, dtype=dtype)
+    reset_launch_counts()
+    gx, gw = matmul_vjp(gy, x, w)
+    torch.cuda.synchronize()
+    assert launch_counts()["matmul"] == 2
+    _close(gx, matmul_reference(gy, w.transpose(1, 2)), dtype)
+    _close(gw, matmul_reference(x.transpose(1, 2), gy), dtype)
+
+
+def _mixtral(window=None, **kw):
+    from lightgrad_tpu_torch import random as lg_random
+    from lightgrad_tpu_torch.models.llama import Llama, LlamaConfig
+
+    lg_random.seed(3)
+    return Llama(LlamaConfig(vocab_size=64, hidden_size=64,
+                             intermediate_size=96, num_hidden_layers=2,
+                             num_attention_heads=4, num_key_value_heads=2,
+                             max_position_embeddings=32,
+                             sliding_window=window, num_local_experts=4,
+                             num_experts_per_tok=2, **kw))
+
+
+def test_moe_tape_forward_backward_does_not_synchronise(dev):
+    """nn.MoE (top-2, SwiGLU experts, drops at capacity factor 1) forward
+    and backward on the card read nothing on the host, and agree with the
+    same module's plain versions on the CPU."""
+    from lightgrad_tpu_torch import load_numpy_params, nn
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.autograd.cuda import device
+
+    def run(moe, x):
+        y = moe(x)
+        (y.sum() + moe.aux_loss + moe.z_loss).backward()
+        return y
+
+    kw = dict(dispatch="topk", k=2, ffn="swiglu", capacity_factor=1.0)
+    moe = nn.MoE(64, 96, 4, **kw)
+    state = {n: p.numpy() for n, p in moe.named_parameters()}
+    g = torch.Generator(device=dev).manual_seed(4)
+    xd = _randn(g, 40, 64)
+    x = Tensor(xd)
+    run(moe, x)                              # compiles the kernels
+    moe.zero_grad()
+    x = Tensor(xd)
+    y = _sync_free(lambda: run(moe, x))
+    prev = device.set_default_device("cpu")
+    try:
+        ref = nn.MoE(64, 96, 4, **kw)
+        load_numpy_params(ref, state)
+        xr = Tensor(xd.cpu())
+        yr = run(ref, xr)
+    finally:
+        device.set_default_device(prev)
+    _close(y.data, yr.data.to(dev), torch.float32)
+    _close(x.grad.data, xr.grad.data.to(dev), torch.float32)
+    refs = dict(ref.named_parameters())
+    for n, p in moe.named_parameters():
+        _close(p.grad.data, refs[n].grad.data.to(dev), torch.float32)
+
+
+@pytest.mark.parametrize("window", [None, 6])
+def test_mixtral_step_and_step_batch_do_not_synchronise(dev, window):
+    """Mixtral's step and step_batch (every expert over the rows, routed
+    on the device) at device positions read nothing on the host;
+    step_batch equals one step a slot."""
+    model = _mixtral(window)
+    fns = model._kv_functions()
+    toks = torch.randint(0, 64, (32,), device=dev)
+    caches = torch.stack([fns.init_cache() for _ in range(3)])
+    for b, n in enumerate((5, 9, 2)):
+        fns.prefill(caches[b], toks, n)
+    poss = torch.tensor([5, 9, 2], device=dev, dtype=torch.int32)
+    nxt = torch.tensor([3, 7, 11], device=dev)
+    ref = caches.clone()
+    singles = [fns.step(ref[b], int(poss[b]), int(nxt[b]))[1]
+               for b in range(3)]
+    _, logits = _sync_free(lambda: fns.step_batch(caches, poss, nxt))
+    one = _sync_free(lambda: fns.step(ref[0].clone(), poss[0:1],
+                                      nxt[0:1])[1])
+    for b in range(3):
+        _close(logits[b], singles[b], torch.float32)
+    _close(one, singles[0], torch.float32)
+    _close(caches, ref, torch.float32)
+
+
+@pytest.mark.parametrize("experts", [0, 4])
+def test_llama_int8_cache_step_does_not_synchronise(dev, experts):
+    """Under quantize_kv (and quantize_serving) a step at a device position
+    reads nothing on the host and equals the step at a host position."""
+    if experts:
+        model = _mixtral()
+    else:
+        from lightgrad_tpu_torch import random as lg_random
+        from lightgrad_tpu_torch.models.llama import Llama, LlamaConfig
+
+        lg_random.seed(5)
+        model = Llama(LlamaConfig(vocab_size=64, hidden_size=64,
+                                  intermediate_size=96, num_hidden_layers=2,
+                                  num_attention_heads=4,
+                                  num_key_value_heads=2,
+                                  max_position_embeddings=32))
+    model.quantize_kv().quantize_serving()
+    fns = model._kv_functions()
+    toks = torch.randint(0, 64, (32,), device=dev)
+    cache = fns.init_cache()
+    assert [c.dtype for c in cache] == [torch.int8, torch.float32]
+    fns.prefill(cache, toks, 9)
+    host = tuple(c.clone() for c in cache)
+    _, want = fns.step(host, 9, 17)
+    pos = torch.tensor([9], device=dev, dtype=torch.int32)
+    tok = torch.tensor([17], device=dev)
+    _, got = _sync_free(lambda: fns.step(cache, pos, tok))
+    _close(got, want, torch.float32)
+    for a, b in zip(cache, host):
+        assert torch.equal(a, b)
+
+
+def test_tape_mixed_precision_step_does_not_synchronise(dev):
+    """A bf16 MixedPrecision AdamW step of a tape Mixtral with a scaler
+    reads nothing on the host: the finite gate, the unscale, the update and
+    the requantization stay on the card."""
+    from lightgrad_tpu_torch import amp, loss as lg_loss, optim
+    from lightgrad_tpu_torch.autograd import Tensor
+
+    model = _mixtral()
+    mp = amp.MixedPrecision(model, lambda ps: optim.AdamW(ps, lr=1e-3),
+                            scaler=amp.GradScaler(init_scale=8.0))
+    ids = torch.randint(0, 64, (2, 17), device=dev, dtype=torch.int32)
+    x, y = Tensor(ids[:, :-1], requires_grad=False), Tensor(
+        ids[:, 1:].reshape(-1), requires_grad=False)
+    before = [m.data.clone() for m in mp.masters]
+    for _ in range(2):
+        loss = lg_loss.cross_entropy(model(x).reshape(32, 64), y) \
+            + model.aux_loss * 0.01
+        mp.zero_grad()
+        mp.scale(loss).backward()
+        _sync_free(mp.step)
+    assert {p.dtype for p in mp.compute_params} == {torch.bfloat16}
+    moved = 0
+    for p, m, b in zip(mp.compute_params, mp.masters, before):
+        assert m.dtype == torch.float32
+        assert torch.equal(p.data, m.data.to(torch.bfloat16))
+        moved += int(not torch.equal(m.data, b))
+    assert moved == len(before)
+    assert mp.scaler.scale_value() == 8.0

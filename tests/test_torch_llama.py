@@ -221,19 +221,28 @@ def test_map_parameters_casts_and_drops_the_decode_functions():
 
 def test_rmsnorm_and_config_match_jax():
     """RMSNorm with Gemma's offset against numpy; the config's derived
-    fields as the JAX package derives them, and the unported options
-    raise."""
+    fields as the JAX package derives them (Mixtral's expert fields too),
+    the unported scanned stack raises, and experts with it raise the JAX
+    package's error."""
     x = np.random.default_rng(9).uniform(-2, 2, (3, 8)).astype(np.float32)
     norm = RMSNorm(8, eps=1e-6, offset=1.0)
     got = norm(TTensor.from_numpy(x, requires_grad=False)).numpy()
     want = x / np.sqrt((x ** 2).mean(-1, keepdims=True) + 1e-6) * 2.0
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
     for kw in (dict(), dict(sliding_window=4096, use_sliding_window=False),
-               dict(hidden_size=64, head_dim=None, num_key_value_heads=None)):
+               dict(hidden_size=64, head_dim=None, num_key_value_heads=None),
+               dict(num_local_experts=4, num_experts_per_tok=2)):
         a, b = LlamaConfig(**dict(BASE, **kw)), JLlamaConfig(**dict(BASE,
                                                                     **kw))
-        for f in ("head_dim", "num_key_value_heads", "sliding_window"):
+        for f in ("head_dim", "num_key_value_heads", "sliding_window",
+                  "num_local_experts", "num_experts_per_tok"):
             assert getattr(a, f) == getattr(b, f), f
-    for kw in (dict(num_local_experts=4), dict(scan_layers=True)):
+    for kw in (dict(scan_layers=True), dict(remat=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LlamaConfig(**dict(BASE, **kw))
+    kw = dict(BASE, num_local_experts=4, scan_layers=True)
+    with pytest.raises(ValueError, match="scan_layers") as port:
+        LlamaConfig(**kw)
+    with pytest.raises(ValueError, match="scan_layers") as jax_err:
+        JLlamaConfig(**kw)
+    assert str(port.value) == str(jax_err.value)
