@@ -7,7 +7,8 @@ MNIST CNN and ResNet-20 examples) on the lightgrad tape, the LLaMA
 family (Mistral-7B and Gemma-2B serving, and training on the tape; the
 char example), and the GPT-NeoX / Pythia family (Pythia-1B and -2.8B
 training on the tape through the fused flash backward; Pythia-1B
-``generate``).
+``generate``), scanned stacks with remat, checkpoint resume, LoRA and the
+tokenizers / HF files.
 
     python3 chip_smoke.py
 
@@ -150,7 +151,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      2,000 digits; and one ``narrow`` forward + backward at a device start
      under ``torch.cuda.set_sync_debug_mode("error")``;
   9. the LLaMA family at its published widths, seeded random weights:
-     (a) serving in bfloat16, Mistral-7B (all 32 layers; 8192 positions,
+     (a) serving in bfloat16, Mistral-7B (16 of 32 layers; 8192 positions,
      cut from 32768) with a 4500-token prompt and Gemma-2B (all 18 layers,
      W 8192) with a 1000-token prompt: ``generate``, ``generate_batch``,
      an engine of 4 slots over 8 ragged requests, a teacher-forced check of
@@ -178,7 +179,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
      launched and the two passes not; (b) Pythia-1B greedy ``generate``,
      8 tokens after a 64-token prompt, each the argmax of the twin's
      logits on the same 2048-token window;
- 11. every kernel of each path was launched by that path (the decoding
+ 11. the rest of training and of serving I/O: (a) GPT-2 small scanned
+     (``scan_layers=True``) at the JAX bench's configuration (vocab 50304,
+     16 x 1024, bf16 ``MixedPrecision`` Adam at lr 3e-4 under
+     ``WarmupCosine``) with remat False, "dots" and "full": step 1's
+     gradients against the unscanned model from the same weights and
+     against each other, the losses against each other, tokens/s, peak
+     memory and idle share of each; greedy ``generate_device`` of the
+     scanned model equals the unscanned one's; (b) a bitwise resume from
+     ``save_checkpoint`` / ``load_checkpoint``: GPT-2 small in f32 Adam
+     and BERT-base on the tape (its encoder scanned, remat "dots") in f32
+     AdamW; (c) LoRA at Mistral-7B's
+     widths (2 layers, bf16, 1 x 8192): rank-8 adapters on q_proj /
+     v_proj trained by AdamW under ``WarmupCosine`` -- the loss falls,
+     only the adapters change, and ``merge_lora``'s forward equals the
+     adapted one; (d) serving I/O: ``GPT2Tokenizer`` on merges learned
+     from this docstring -> bf16 GPT-2 ``generate_device`` -> ``decode``;
+     ``save_pretrained`` -> ``from_pretrained`` through a temporary
+     ``LIGHTGRAD_CACHE`` with identical logits; ``BertTokenizer.synthetic()``
+     -> a BERT-base masked-LM forward;
+ 12. every kernel of each path was launched by that path (the decoding
      module's paths included: each GPT-2 one its stack kernel, LLaMA's
      generate_device decode attention and its merge, generate_batch_device
      the batched decode attention), and every kernel of the package by
@@ -440,6 +460,9 @@ GEMMA_2B = dict(vocab_size=256000, hidden_size=2048, intermediate_size=16384,
 CHAR_LLAMA = dict(hidden_size=128, intermediate_size=256, num_hidden_layers=4,
                   num_attention_heads=4, num_key_value_heads=2,
                   max_position_embeddings=192)
+# Mistral-7B's serving depth: 16 of its 32 layers (all 32 until the
+# scanned-stack, checkpoint, LoRA and serving-I/O phases joined the run)
+MISTRAL_SERVING_LAYERS = 16
 # (name, config, generate's prompt length, generate_batch's prompts, the
 # engine's prompts): Mistral's prompts run prefill and decode past its band
 LLAMA_SERVING = (("Mistral-7B", MISTRAL_7B, 4500, (4500, 1000, 60),
@@ -522,6 +545,19 @@ MIXTRAL_PATHS = {"generate": ("attention_fwd", "decode_attention"),
                  "engine": ("attention_fwd", "decode_attention_batch")}
 # One H100 SXM (NVIDIA's data sheet, dense rates at 700 W): HBM bytes
 # a second and dense peak operations a second by input type
+# phase 11a: GPT-2 small scanned at the JAX bench's training configuration
+# (bench.py:947-958, 1272: vocab 50304, 16 x 1024, bf16 MixedPrecision Adam
+# at lr 3e-4), under WarmupCosine, in each remat mode; greedy
+# generate_device of SCAN_NEW tokens against the unscanned model
+SCAN_GPT2 = dict(GPT2_SMALL, vocab_size=50304)
+SCAN_BATCH, SCAN_LR, SCAN_WARMUP, SCAN_TIMED, SCAN_NEW = 16, 3e-4, 2, 3, 16
+SCAN_REMATS = (False, "dots", "full")
+# phase 11b: the GPT-2 resume's batch (x 1024 tokens)
+CKPT_BATCH = 2
+# phase 11c: LoRA at Mistral-7B's widths, 2 layers, bf16, 1 x LORA_SEQ
+LORA_RANK, LORA_LR, LORA_STEPS, LORA_SEQ = 8, 1e-2, 5, 8192
+# phase 11d: merges learned for the smoke's GPT2Tokenizer, new tokens
+IO_MERGES, IO_NEW = 400, 16
 HBM_BPS = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # the tf32 tensor-core rate: the f32 matmul kernel's bound counts its three
@@ -4505,7 +4541,8 @@ def drive_llama_device(model, name, prompt_len, slot_lens, beam):
 
 def phase_llama_serving(card):
     """Serving at the published widths, bfloat16, seeded random weights:
-    Mistral-7B (32 layers; max_position_embeddings cut from 32768 to 8192,
+    Mistral-7B (16 of 32 layers, MISTRAL_SERVING_LAYERS;
+    max_position_embeddings cut from 32768 to 8192,
     the cache window and the prefill length) with a 4500-token prompt, so
     prefill and decode run past the 4096 band, and Gemma-2B (18 layers, W
     8192, no cut) with a 1000-token prompt: ``generate``,
@@ -4516,12 +4553,14 @@ def phase_llama_serving(card):
     counts} of the int8 paths)."""
     counts, int8 = {}, {}
     for name, cfg, P, batch_lens, engine_lens in LLAMA_SERVING:
-        log(f"serving path, {name}, bfloat16, all "
+        depth = MISTRAL_SERVING_LAYERS if name == "Mistral-7B" \
+            else cfg["num_hidden_layers"]
+        log(f"serving path, {name}, bfloat16, {depth} of "
             f"{cfg['num_hidden_layers']} layers (W "
             f"{cfg['max_position_embeddings']}):")
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
-        model = llama_model(cfg, torch.bfloat16)
+        model = llama_model(cfg, torch.bfloat16, num_hidden_layers=depth)
         n = sum(t.numel() for t in model.parameters())
         log(f"  {n / 1e9:.3f} B parameters, "
             f"{n * 2 / 1e9:.2f} GB in bf16; built in "
@@ -5380,6 +5419,528 @@ def phase_amp_one_step(card):
     return counts
 
 
+# --- phase 11: scanned stacks with remat, schedules, checkpoints, LoRA, the
+# HF interop and tokenizers ------------------------------------------------
+def busy_share(step):
+    """One ``step()`` traced by torch.profiler: (device ms of its kernels,
+    wall ms of the step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as trace:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.time_range.elapsed_us() / 1e3 for e in trace.events()
+               if e.device_type == DeviceType.CUDA)
+    return busy, wall
+
+
+def event_steps(step, n):
+    """``n`` calls of ``step()``, each between two CUDA events: their ms."""
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    for start, end in marks:
+        start.record()
+        step()
+        end.record()
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in marks]
+
+
+def layer_grads(model):
+    """{per-layer name: step-1 gradient as f32} of a GPT, its scanned stack
+    unstacked."""
+    out = {}
+    for n, p in model.named_parameters():
+        if n.startswith("h.") and p.dim() and "__" in n:
+            key = n[2:].replace("__", ".")
+            for l in range(p.shape[0]):
+                out[f"h.{l}.{key}"] = p.grad[l].float()
+        else:
+            out[n] = p.grad.float()
+    return out
+
+
+def worst_rel(got, want):
+    """max over names of max |got - want| / max |want|, and the name."""
+    rel = {n: (got[n] - w).abs().max().item() / max(w.abs().max().item(),
+                                                     1e-30)
+           for n, w in want.items()}
+    name = max(rel, key=rel.get)
+    return rel[name], name
+
+
+def phase_scan_train(card):
+    """Phase 11a: GPT-2 small scanned (``scan_layers=True``) at the JAX
+    bench's configuration -- vocab 50304, 16 x 1024, bf16
+    ``MixedPrecision`` Adam at lr 3e-4 under ``WarmupCosine`` -- with remat
+    False, "dots" and "full": step 1's gradients of each against the
+    unscanned ModuleList model from the same weights (PATH_TOL bf16) and
+    against each other, the losses of every step against each other, then a
+    warm-up step and SCAN_TIMED steps timed by CUDA events (tokens/s, peak
+    memory, the device's idle share of one profiled step).  First, greedy
+    ``generate_device`` of the scanned model (f32) must give the unscanned
+    model's tokens.  Returns {path: launch counts}."""
+    from lightgrad_tpu_torch import GPT, GPTConfig, amp, optim, schedule
+    from lightgrad_tpu_torch.loss import cross_entropy
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    B, T, V = SCAN_BATCH, SCAN_GPT2["n_positions"], SCAN_GPT2["vocab_size"]
+    g = torch.Generator(device=dev).manual_seed(12)
+    ids = torch.randint(0, V, (B, T), generator=g, device=dev)
+    tgt = torch.randint(0, V, (B * T,), generator=g, device=dev)
+
+    def build(**kw):
+        return GPT(GPTConfig(**SCAN_GPT2, **kw), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+
+    counts = {}
+    ref, sc = build(), build(scan_layers=True, remat="dots")
+    sd = ref.state_dict()
+    if not all(torch.equal(sc.state_dict()[k], v) for k, v in sd.items()):
+        raise AssertionError("the scanned GPT drew other weights")
+    prompt = torch.randint(0, V, (64,), generator=g, device=dev).tolist()
+    want = ref.generate_device(prompt, SCAN_NEW)
+    reset_launch_counts()
+    got = sc.generate_device(prompt, SCAN_NEW)
+    torch.cuda.synchronize()
+    counts["scanned generate_device (f32)"] = launch_counts()
+    log(f"  greedy generate_device, {SCAN_NEW} tokens after 64: scanned "
+        f"{'==' if got == want else '!='} unscanned")
+    if got != want:
+        raise AssertionError(f"scanned generate_device {got[64:]} != "
+                             f"unscanned {want[64:]}")
+    del sc
+
+    def trainer(model):
+        mp = amp.MixedPrecision(model, lambda ps: optim.Adam(ps, lr=SCAN_LR),
+                                bf16)
+        sched = schedule.WarmupCosine(mp.optim, warmup=SCAN_WARMUP,
+                                      total=SCAN_WARMUP + 4 + SCAN_TIMED)
+        losses = []
+
+        def fwd_bwd():
+            loss = cross_entropy(model(ids).reshape(B * T, V), tgt)
+            mp.zero_grad()
+            loss.backward()
+            losses.append(loss.detach())
+
+        def step():
+            fwd_bwd()
+            mp.step()
+            sched.step()
+        return fwd_bwd, step, mp, sched, losses
+
+    fwd_bwd, _, _, _, ref_losses = trainer(ref)
+    fwd_bwd()
+    ref_grads = layer_grads(ref)
+    ref_loss = ref_losses[0].item()
+    del ref, fwd_bwd
+    torch.cuda.empty_cache()
+    rates, first = {}, None
+    for remat in SCAN_REMATS:
+        t0 = time.perf_counter()
+        model = build(scan_layers=True, remat=remat)
+        model.load_state_dict(sd)
+        fwd_bwd, step, mp, sched, losses = trainer(model)
+        fwd_bwd()
+        grads = layer_grads(model)
+        rel, name = worst_rel(grads, ref_grads)
+        same = first is not None and all(
+            torch.equal(grads[n], first[0][n]) for n in grads)
+        log(f"  remat={remat!r}: step-1 loss {losses[0].item():.5f} "
+            f"(unscanned {ref_loss:.5f}); gradients vs the unscanned model "
+            f"worst rel {rel:.3e} ({name}) tol {PATH_TOL[bf16]:.0e}"
+            + ("" if first is None else
+               f"; {'bitwise equal to' if same else 'differ from'} "
+               f"remat={SCAN_REMATS[0]!r}'s"))
+        if rel > PATH_TOL[bf16] or abs(losses[0].item() - ref_loss) > \
+                PATH_TOL[bf16] * max(1.0, abs(ref_loss)):
+            raise AssertionError(f"scanned GPT-2 remat={remat!r}: step 1 "
+                                 f"off the unscanned model ({rel}, {name})")
+        if first is None:
+            first = (grads, losses)
+        del grads
+        mp.step()
+        sched.step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        times = event_steps(step, 1 + SCAN_TIMED)
+        counts[f"scanned GPT-2 training (remat={remat!r})"] = \
+            launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        busy, wall = busy_share(step)
+        vals = [v.item() for v in losses]
+        tok_s = B * T / (float(np.median(times[1:])) / 1e3)
+        rates[remat] = (tok_s, peak, 1 - busy / wall)
+        log(f"  remat={remat!r}: losses {[round(v, 4) for v in vals]}; "
+            f"{B}x{T} tokens a step: {tok_s:.1f} tok/s (median of "
+            f"{SCAN_TIMED} steps after a warm-up, step ms "
+            f"{[round(t, 2) for t in times]}); peak memory "
+            f"{peak / 2**30:.2f} GiB; profiled step: device {busy:.1f} of "
+            f"{wall:.1f} ms (idle {100 * (1 - busy / wall):.1f}%); "
+            f"lr now {mp.optim.lr.item():.3e}; {card}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not (np.all(np.isfinite(vals)) and vals[-1] < vals[0]):
+            raise AssertionError(f"remat={remat!r}: loss not finite and "
+                                 f"falling: {vals}")
+        drift = max(abs(a - b) / max(1.0, abs(b))
+                    for a, b in zip(vals, [v.item() for v in first[1]]))
+        if drift > PATH_TOL[bf16]:
+            raise AssertionError(f"remat={remat!r}: losses drift {drift} "
+                                 f"from remat={SCAN_REMATS[0]!r}'s")
+        del model, mp, sched, step, fwd_bwd, losses
+        torch.cuda.empty_cache()
+    log("  scanned GPT-2 small, bf16 MixedPrecision Adam, 16 x 1024: "
+        + "; ".join(f"remat={r!r} {t:.1f} tok/s, peak {p / 2**30:.2f} GiB, "
+                    f"idle {100 * i:.1f}%" for r, (t, p, i) in rates.items())
+        + f"; {card}")
+    del ref_grads, first
+    torch.cuda.empty_cache()
+    return counts
+
+
+def resume_check(name, build, step, n=3):
+    """``n`` steps straight against ``n - 1``, ``save_checkpoint``, fresh
+    objects, ``load_checkpoint``, one step: the last loss and every
+    parameter bit for bit (one host read).  Returns the save and load
+    seconds and the file's bytes."""
+    import tempfile
+
+    from lightgrad_tpu_torch import checkpoint
+
+    m1, o1 = build()
+    straight = [step(m1, o1) for _ in range(n)]
+    m2, o2 = build()
+    for _ in range(n - 1):
+        step(m2, o2)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "resume.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(path, m2, o2, step=n - 1)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        del m2, o2
+        m3, o3 = build()
+        t0 = time.perf_counter()
+        meta = checkpoint.load_checkpoint(path, m3, o3)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    resumed = step(m3, o3)
+
+    def datas(m):
+        return [p.data if not isinstance(p, torch.Tensor) else p.detach()
+                for p in m.parameters()]
+
+    diff = torch.stack([(a != b).any() for a, b in zip(datas(m1), datas(m3))]
+                       + [(resumed != straight[-1]).any()]).any().item()
+    log(f"  {name}: step {n} resumed from a checkpoint of step "
+        f"{int(meta['step'])} (save {t_save:.1f} s, load {t_load:.1f} s, "
+        f"{size / 2**20:.1f} MiB): loss {resumed.item():.6f}, uninterrupted "
+        f"{straight[-1].item():.6f}; loss and every parameter "
+        f"{'bitwise equal' if not diff else 'DIFFER'}")
+    if diff:
+        raise AssertionError(f"{name}: the resumed run is not the "
+                             f"uninterrupted one bit for bit")
+
+
+def phase_checkpoint(card):
+    """Phase 11b: bitwise resume.  GPT-2 small, f32 Adam on CKPT_BATCH x
+    1024 tokens; BERT-base on the tape, its encoder a ``ScannedStack`` with
+    remat "dots" (the tape's scanned path on the card; per-layer names in
+    the file), f32 AdamW on the BERT phase's masked batch.  Returns {path:
+    launch counts}."""
+    from lightgrad_tpu_torch import GPT, GPTConfig, optim
+    from lightgrad_tpu_torch import loss as lg_loss, random as lg_random
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.loss import cross_entropy
+    from lightgrad_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    dev = torch.device("cuda")
+    counts = {}
+    V, T = GPT2_SMALL["vocab_size"], GPT2_SMALL["n_positions"]
+    g = torch.Generator(device=dev).manual_seed(13)
+    ids = torch.randint(0, V, (CKPT_BATCH, T), generator=g, device=dev)
+    tgt = torch.randint(0, V, (CKPT_BATCH * T,), generator=g, device=dev)
+
+    def gpt():
+        m = GPT(GPTConfig(**GPT2_SMALL), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(0))
+        return m, optim.Adam(m.parameters(), lr=TRAIN_LR)
+
+    def gpt_step(m, o):
+        loss = cross_entropy(m(ids).reshape(-1, V), tgt)
+        o.zero_grad()
+        loss.backward()
+        o.step()
+        return loss.detach()
+
+    reset_launch_counts()
+    resume_check(f"GPT-2 small, f32 Adam, {CKPT_BATCH} x {T}", gpt,
+                 gpt_step)
+    counts["GPT-2 small resume"] = launch_counts()
+    torch.cuda.empty_cache()
+
+    cfg = BertConfig(**BERT_BASE, scan_layers=True, remat="dots")
+    b_ids, mask, labels, _ = bert_batch(cfg)
+    x_ids = Tensor.from_numpy(b_ids, requires_grad=False)
+    x_mask = Tensor.from_numpy(mask, requires_grad=False)
+    y = Tensor.from_numpy(labels, requires_grad=False)
+
+    def bert():
+        lg_random.seed(0)
+        m = BertForMaskedLM(cfg)
+        return m, optim.AdamW(list(m.parameters()), lr=BERT_LR)
+
+    def bert_step(m, o):
+        logits = m(x_ids, attention_mask=x_mask)
+        loss = lg_loss.cross_entropy(logits.reshape(-1, cfg.vocab_size), y,
+                                     ignore_index=-100)
+        o.zero_grad()
+        loss.backward()
+        o.step()
+        return loss.data.detach()
+
+    reset_launch_counts()
+    resume_check(f"BERT-base on the tape (scanned, remat 'dots'), f32 "
+                 f"AdamW, {BERT_BATCH} x {BERT_SEQ}", bert, bert_step)
+    counts["BERT-base resume"] = launch_counts()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_lora(card):
+    """Phase 11c: LoRA at Mistral-7B's widths (d 4096, 32 heads, 8 KV heads,
+    ff 14336, vocab 32000, window 4096) cut to the LLaMA training phase's 2
+    layers, in bf16: rank-8 adapters on q_proj and v_proj (f32), LORA_STEPS
+    AdamW steps on ``lora_parameters`` under ``WarmupCosine`` on one batch
+    of 1 x 8192 tokens.  The loss must fall, only the adapters may change
+    (one host read), and after ``merge_lora`` the forward equals the
+    adapted forward at bf16 tolerance.  Returns the steps' launch
+    counts."""
+    from lightgrad_tpu_torch import loss as lg_loss
+    from lightgrad_tpu_torch import lora, optim, schedule
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    model = llama_model(MISTRAL_7B, bf16, num_hidden_layers=2)
+    S, V = LORA_SEQ, MISTRAL_7B["vocab_size"]
+    dev = torch.device("cuda")
+    wrapped = lora.apply_lora(model, rank=LORA_RANK,
+                              targets=("q_proj", "v_proj"),
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(0))
+    params = lora.lora_parameters(model)
+    frozen = [(p, p.data.clone()) for n, p in model.named_parameters()
+              if "lora_" not in n]
+    n_ad = sum(p.numel() for p in params)
+    log(f"  adapters on {len(wrapped)} Linears: {n_ad} parameters (f32) "
+        f"over {sum(p.numel() for p, _ in frozen) / 1e9:.3f} B frozen "
+        f"bf16 ones")
+    opt = optim.AdamW(params, lr=LORA_LR)
+    sched = schedule.WarmupCosine(opt, warmup=2, total=LORA_STEPS + 2)
+    ids = np.random.default_rng(14).integers(0, V, (1, S + 1)) \
+        .astype(np.int32)
+    x = Tensor.from_numpy(ids[:, :-1], requires_grad=False)
+    y = Tensor.from_numpy(ids[:, 1:].reshape(-1), requires_grad=False)
+    losses = []
+
+    def step():
+        logits = model(x)
+        loss = lg_loss.cross_entropy(
+            logits.reshape(S, V).astype(torch.float32), y)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        sched.step()
+        losses.append(loss.data.detach())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times = event_steps(step, LORA_STEPS)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    vals = [v.item() for v in losses]
+    changed = torch.stack([(p.data != v).any() for p, v in frozen]
+                          + [~torch.stack([p.data.any() for n, p in
+                                           model.named_parameters()
+                                           if n.endswith("lora_B")]).all()])
+    bad = changed.any().item()
+    step_ms = float(np.median(times[1:]))
+    log(f"  losses {[round(v, 4) for v in vals]}; step ms "
+        f"{[round(t, 2) for t in times]} (median of steps 2-{LORA_STEPS} "
+        f"{step_ms:.2f} ms, {S / step_ms * 1e3:.1f} tok/s); peak memory "
+        f"{peak / 2**30:.2f} GiB; frozen parameters "
+        + ("unchanged, every B moved" if not bad else
+           "CHANGED or a B still zero") + f"; {card}")
+    if bad or not (np.all(np.isfinite(vals)) and vals[-1] < vals[0]):
+        raise AssertionError(f"LoRA: losses {vals}, frozen changed or a B "
+                             f"still zero: {bad}")
+    del frozen
+    from lightgrad_tpu_torch import no_grad
+
+    with no_grad():
+        adapted = model(x).data
+        merged = lora.merge_lora(model)
+        plain = model(x).data
+    check(f"LoRA forward after merge_lora ({len(merged)} layers) vs the "
+          f"adapted forward", bf16, plain, adapted, PATH_TOL[bf16])
+    log(f"  LoRA phase: {time.perf_counter() - t0:.1f} s")
+    del model, opt, adapted, plain
+    torch.cuda.empty_cache()
+    return counts
+
+
+def learn_bpe(text, n_merges):
+    """A byte-level vocabulary (the 256 byte symbols, then each merge's
+    result) and merges learned from ``text`` (the most frequent adjacent
+    pair of the pre-split words merged ``n_merges`` times)."""
+    import collections
+
+    from lightgrad_tpu_torch.models import GPT2Tokenizer
+
+    enc = GPT2Tokenizer._bytes_to_unicode()
+    words = collections.Counter(
+        tuple(enc[b] for b in w.encode("utf-8"))
+        for w in GPT2Tokenizer._PAT.findall(text))
+    vocab = {enc[b]: i for i, b in enumerate(sorted(enc))}
+    merges = []
+    for _ in range(n_merges):
+        pairs = collections.Counter()
+        for w, c in words.items():
+            for p in zip(w, w[1:]):
+                pairs[p] += c
+        if not pairs:
+            break
+        best = max(pairs, key=lambda p: (pairs[p], p))
+        merges.append(best)
+        vocab.setdefault(best[0] + best[1], len(vocab))
+        new = collections.Counter()
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            new[tuple(out)] += c
+        words = new
+    return vocab, merges
+
+
+def phase_serving_io(card):
+    """Phase 11d: serving I/O.  ``GPT2Tokenizer`` over a vocabulary and
+    merges learned from this script's docstring; ``encode`` -> bf16 GPT-2
+    small ``generate_device`` -> ``decode``.  ``save_pretrained`` ->
+    ``from_pretrained`` through a temporary ``LIGHTGRAD_CACHE`` (files named
+    md5(url)): identical logits.  ``BertTokenizer.synthetic()`` -> a
+    BERT-base masked-LM forward.  Returns {path: launch counts}."""
+    import hashlib
+    import tempfile
+
+    from lightgrad_tpu_torch import GPT, GPTConfig, no_grad
+    from lightgrad_tpu_torch import random as lg_random
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.models import BertTokenizer, GPT2Tokenizer
+    from lightgrad_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    counts = {}
+    t0 = time.perf_counter()
+    vocab, merges = learn_bpe(__doc__, IO_MERGES)
+    tok = GPT2Tokenizer(vocab, merges)
+    text = ("The conv path on the tape: ResNet-18 at its torchvision "
+            "widths, the loss must be finite and fall.")
+    ids = tok.encode(text)
+    if tok.decode(ids) != text:
+        raise AssertionError("GPT2Tokenizer: decode(encode(text)) != text")
+    log(f"  GPT2Tokenizer: {len(vocab)} entries, {len(merges)} merges "
+        f"learned in {time.perf_counter() - t0:.2f} s; {len(text)} "
+        f"characters -> {len(ids)} ids, decode(encode) == text")
+    model = GPT(GPTConfig(**GPT2_SMALL), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(0)) \
+        .to(bf16)
+    reset_launch_counts()
+    out = model.generate_device(ids, IO_NEW)
+    torch.cuda.synchronize()
+    counts["GPT2Tokenizer -> generate_device (bf16)"] = launch_counts()
+    reply = tok.decode(out[len(ids):])
+    log(f"  generate_device: {IO_NEW} tokens after {len(ids)}; "
+        f"{sum(i < len(vocab) for i in out[len(ids):])} of them in the "
+        f"tokenizer's vocabulary, decoded to {reply!r}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        path = model.save_pretrained(os.path.join(tmp, "saved"))
+        url = "https://huggingface.co/smoke/gpt2/resolve/main/"
+        cache = os.path.join(tmp, "cache")
+        os.makedirs(cache)
+        for name in ("pytorch_model.bin", "config.json"):
+            key = hashlib.md5((url + name).encode()).hexdigest()
+            with open(os.path.join(os.path.dirname(path), name), "rb") as f, \
+                    open(os.path.join(cache, key), "wb") as out:
+                out.write(f.read())
+        prev = os.environ.get("LIGHTGRAD_CACHE")
+        os.environ["LIGHTGRAD_CACHE"] = cache
+        try:
+            back, _ = GPT.from_pretrained("smoke/gpt2", device=dev,
+                                          dtype=bf16)
+        finally:
+            if prev is None:
+                del os.environ["LIGHTGRAD_CACHE"]
+            else:
+                os.environ["LIGHTGRAD_CACHE"] = prev
+        size = os.path.getsize(path)
+        t_io = time.perf_counter() - t1
+    x = torch.tensor([ids], device=dev)
+    with torch.no_grad():
+        same = torch.equal(model(x), back(x))
+    log(f"  save_pretrained -> from_pretrained through LIGHTGRAD_CACHE "
+        f"({size / 2**20:.1f} MiB, {t_io:.1f} s): logits "
+        f"{'identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("from_pretrained(save_pretrained) logits differ")
+    del model, back
+    torch.cuda.empty_cache()
+
+    btok = BertTokenizer.synthetic()
+    btext = "tok1 tok22 [MASK] tok994 tok7 , tok3 [mask] tok5"
+    bids = btok.encode(btext)
+    lg_random.seed(0)
+    bert = BertForMaskedLM(BertConfig(**BERT_BASE))
+    reset_launch_counts()
+    with no_grad():
+        logits = bert(Tensor.from_numpy(np.array([bids], np.int32),
+                                        requires_grad=False)).data
+    torch.cuda.synchronize()
+    counts["BertTokenizer -> BERT-base masked LM"] = launch_counts()
+    at = [i for i, t in enumerate(bids) if t == btok.ids["[MASK]"]]
+    top = logits[0, at, :len(btok.vocab)].argmax(-1).tolist()
+    if not torch.isfinite(logits).all() or len(at) != 2:
+        raise AssertionError("BERT masked-LM forward: not finite, or the "
+                             "masks were not found")
+    log(f"  BertTokenizer.synthetic(): {btext!r} -> {len(bids)} ids, "
+        f"[MASK] at {at}; BERT-base's top tokens there "
+        f"{btok.convert_ids_to_tokens(top)}; serving I/O "
+        f"{time.perf_counter() - t0:.1f} s")
+    del bert, logits
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5580,6 +6141,27 @@ def main():
     tally("Pythia-1B generate", phase_neox_generate(card),
           NEOX_GENERATE_KERNELS)
     log(f"  Pythia-1B generate phase: {time.perf_counter() - t0:.1f} s")
+    log("scanned GPT-2 small (the JAX bench's configuration), bf16 "
+        "MixedPrecision Adam under WarmupCosine, remat False / dots / full:")
+    t0 = time.perf_counter()
+    for path, counts in phase_scan_train(card).items():
+        tally(path, counts, ("attention_fwd", "decode_stack")
+              if "generate" in path else TRAINING_KERNELS)
+    log(f"  scanned GPT-2 phase: {time.perf_counter() - t0:.1f} s")
+    log("checkpoint resume, bit for bit:")
+    t0 = time.perf_counter()
+    for path, counts in phase_checkpoint(card).items():
+        tally(path, counts, BERT_KERNELS if path.startswith("BERT")
+              else TRAINING_KERNELS)
+    log(f"  checkpoint phase: {time.perf_counter() - t0:.1f} s")
+    log("LoRA at Mistral-7B's widths (2 layers), bf16, q_proj / v_proj at "
+        "rank 8, AdamW under WarmupCosine:")
+    tally("Mistral-7B LoRA", phase_lora(card), LLAMA_TRAIN_KERNELS)
+    log("serving I/O: tokenizers, save_pretrained / from_pretrained:")
+    for path, counts in phase_serving_io(card).items():
+        tally(path, counts, ("attention_fwd", "decode_stack")
+              if "generate" in path else
+              ("elementwise", "matmul", "layernorm_fwd", "attention_fwd"))
     missing = [k for k in KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels no path launched: {missing}")

@@ -13,10 +13,13 @@ LLaMA family (``Llama``: LLaMA, Mistral's sliding window, Qwen2, Gemma),
 trained on the tape and served through its KV functions, and the GPT-NeoX /
 Pythia family (``NeoX``) on the tape.  Both
 run on hand-written Hopper kernels on a CUDA device and on their plain
-PyTorch versions on the CPU."""
+PyTorch versions on the CPU.  Training also has scanned stacks with
+rematerialisation (``scan``; GPT's ``ScannedBlocks``), learning-rate
+schedules (``schedule``), npz checkpoints (``checkpoint``) and LoRA
+(``lora``)."""
 
-from . import (amp, autograd, data, loss, models, nn, ops, optim, quant,
-               random)
+from . import (amp, autograd, checkpoint, data, lora, loss, models, nn, ops,
+               optim, quant, random, scan, schedule)
 from .autograd import (AbstractTensor, CudaTensor, Function, Gradients,
                        Tensor, no_grad)
 from .models import (GPT, GPTConfig, ByteTokenizer, Llama, LlamaConfig,
@@ -36,8 +39,8 @@ def einsum(spec: str, *operands):
     return operands[0].einsum(spec, *operands[1:])
 
 
-__all__ = ["amp", "autograd", "data", "loss", "models", "nn", "ops", "optim",
-           "quant", "random",
+__all__ = ["amp", "autograd", "checkpoint", "data", "lora", "loss", "models",
+           "nn", "ops", "optim", "quant", "random", "scan", "schedule",
            "AbstractTensor", "CudaTensor", "Function", "Gradients", "Tensor",
            "no_grad", "empty", "zeros", "ones", "uniform", "xavier",
            "from_numpy", "einsum", "GPT", "GPTConfig", "ByteTokenizer",

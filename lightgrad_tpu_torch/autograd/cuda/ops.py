@@ -365,11 +365,21 @@ class pad(Function):
 # ---------------------------------------------------------------------------
 # products
 # ---------------------------------------------------------------------------
+# scan.py's remat="dots": while a ScannedStack runs a layer, each product's
+# output goes through this store, which keeps it on the layer's first pass
+# and hands it back, without a launch, when the layer is replayed
+product_store = None
+
+
+def _product(compute):
+    return compute() if product_store is None else product_store(compute)
+
+
 @CudaTensor.register_op()
 class dot(Function):
     def forward(ctx, a, b):
         ctx.save_for_backward(a.data, b.data)
-        return _t(kmatmul(a.data, b.data))
+        return _t(_product(lambda: kmatmul(a.data, b.data)))
 
     def backward(ctx, g):
         araw, braw = ctx.get_saved_tensors()
@@ -387,7 +397,7 @@ class einsum(Function):
         datas = (a.data,) + tuple(o.data for o in rest)
         terms, out = parse_einsum_spec(spec, len(datas))
         ctx.save_for_backward(spec, terms, out, datas)
-        return _t(torch.einsum(spec, *datas))
+        return _t(_product(lambda: torch.einsum(spec, *datas)))
 
     def backward(ctx, g):
         spec, terms, out, datas = ctx.get_saved_tensors()

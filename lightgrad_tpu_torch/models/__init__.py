@@ -1,6 +1,6 @@
-from .gpt import GPTConfig, GPT, ByteTokenizer
+from .gpt import GPTConfig, GPT, ByteTokenizer, GPT2Tokenizer
 from .decoding import KVFns, ParamFn, generate_batch
-from .bert import BertConfig, BertModel, BertForMaskedLM
+from .bert import BertConfig, BertModel, BertForMaskedLM, BertTokenizer
 from .llama import Llama, LlamaConfig, LlamaTokenizer, RMSNorm
 from .neox import NeoX, NeoXConfig
 from .resnet import (BasicBlock, ResNet, load_torchvision_state_dict,

@@ -15,27 +15,38 @@ LayerNorm kernels.  Self-attention has the JAX model's three branches:
   padded keys are masked out of every softmax inside the kernel and padded
   query rows output zeros (no additive mask, no softmax kernel).
 
-Not ported yet: ``scan_layers``/``remat`` (the ``scan`` slice), the
-sequence-parallel ring branch (the parallel layer), ``from_pretrained``,
-``save_pretrained`` and the WordPiece tokenizer (they need the checkpoint
-and vocab files).
+``BertConfig(scan_layers=True, remat=...)`` holds the encoder layers as one
+:class:`~lightgrad_tpu_torch.scan.ScannedStack`, the padding mask passed
+to every layer as an extra (``attention_lengths`` is refused there).  The
+HF interop (``remap_hf_state``, ``export_hf_state``, ``save_pretrained``
+and ``from_pretrained``: HF's ``pytorch_model.bin`` by ``torch.save`` /
+``torch.load(weights_only=True)``) and the WordPiece
+:class:`BertTokenizer` are here too.
+
+Not ported yet: the sequence-parallel ring branch (the parallel layer).
 """
 
+import io
+import json
+import os
 import re
 
 import numpy as np
+import torch
 
 from .. import nn
 from ..autograd import Tensor
+from ..scan import ScannedStack
 
-__all__ = ["BertConfig", "BertModel", "BertForMaskedLM"]
+__all__ = ["BertConfig", "BertModel", "BertForMaskedLM", "BertTokenizer"]
 
 
 class BertConfig:
     def __init__(self, vocab_size=30522, hidden_size=768, num_hidden_layers=12,
                  num_attention_heads=12, intermediate_size=3072,
                  max_position_embeddings=512, type_vocab_size=2,
-                 layer_norm_eps=1e-12, **unused):
+                 layer_norm_eps=1e-12, scan_layers=False, remat=False,
+                 **unused):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_hidden_layers = num_hidden_layers
@@ -44,6 +55,10 @@ class BertConfig:
         self.max_position_embeddings = max_position_embeddings
         self.type_vocab_size = type_vocab_size
         self.layer_norm_eps = layer_norm_eps
+        # the encoder layers as one ScannedStack (lightgrad_tpu_torch/
+        # scan.py); remat rematerialises their activations in the backward
+        self.scan_layers = scan_layers
+        self.remat = remat
 
 
 class BertEmbedding(nn.Module):
@@ -140,8 +155,9 @@ class BertModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embeddings = BertEmbedding(cfg)
-        self.layer = nn.ModuleList(*[BertLayer(cfg)
-                                     for _ in range(cfg.num_hidden_layers)])
+        blocks = [BertLayer(cfg) for _ in range(cfg.num_hidden_layers)]
+        self.layer = (ScannedStack(blocks, remat=cfg.remat)
+                      if cfg.scan_layers else nn.ModuleList(*blocks))
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 attention_lengths=None):
@@ -158,6 +174,11 @@ class BertModel(nn.Module):
                 attention_mask.shape[0], 1, 1, attention_mask.shape[1])) \
                 * -1e9
         x = self.embeddings(input_ids, token_type_ids)
+        if isinstance(self.layer, ScannedStack):
+            if attention_lengths is not None:
+                raise ValueError("a scanned encoder takes attention_mask, "
+                                 "not attention_lengths")
+            return self.layer(x, mask)  # the mask passed to every layer
         for layer in self.layer:
             x = layer(x, mask, lengths=attention_lengths)
         return x
@@ -236,3 +257,106 @@ class BertForMaskedLM(nn.Module):
         if "cls.predictions.decoder.bias" in out:
             out["cls.predictions.bias"] = out["cls.predictions.decoder.bias"]
         return out
+
+    def save_pretrained(self, directory: str) -> str:
+        """Write ``pytorch_model.bin`` (``torch.save`` of
+        :meth:`export_hf_state`) and the JAX package's ``config.json`` into
+        ``directory``; returns the weights' path."""
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, "pytorch_model.bin")
+        torch.save({n: torch.from_numpy(np.ascontiguousarray(a))
+                    for n, a in self.export_hf_state().items()}, path)
+        c = self.cfg
+        cfg = {
+            "model_type": "bert",
+            "vocab_size": c.vocab_size,
+            "hidden_size": c.hidden_size,
+            "num_hidden_layers": c.num_hidden_layers,
+            "num_attention_heads": c.num_attention_heads,
+            "intermediate_size": c.intermediate_size,
+            "max_position_embeddings": c.max_position_embeddings,
+            "layer_norm_eps": c.layer_norm_eps,
+        }
+        with open(os.path.join(directory, "config.json"), "w") as f:
+            json.dump(cfg, f, indent=1)
+        return path
+
+    @staticmethod
+    def from_pretrained(name: str = "bert-base-uncased"):
+        """(model, config) of an HF repository's ``config.json`` and
+        ``pytorch_model.bin`` through :func:`utils.fetch` (which reads a
+        file named md5(url) from ``LIGHTGRAD_CACHE`` before the network)."""
+        from ..utils import fetch
+
+        url = f"https://huggingface.co/{name}/resolve/main/"
+        cfg = BertConfig(**json.loads(fetch(url + "config.json")))
+        model = BertForMaskedLM(cfg)
+        state = torch.load(io.BytesIO(fetch(url + "pytorch_model.bin")),
+                           map_location="cpu", weights_only=True)
+        model.load_parameters(BertForMaskedLM.remap_hf_state(state))
+        return model, cfg
+
+
+class BertTokenizer:
+    """WordPiece: lower-cased words and punctuation, each split greedily
+    into the longest vocabulary pieces (``##`` marks a continuation);
+    ``[mask]`` in the text becomes the ``[MASK]`` token."""
+
+    SPECIALS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+
+    def __init__(self, vocab):
+        self.vocab = list(vocab)
+        self.ids = {tok: i for i, tok in enumerate(self.vocab)}
+
+    @staticmethod
+    def from_pretrained(name: str = "bert-base-uncased"):
+        from ..utils import fetch
+
+        txt = fetch(f"https://huggingface.co/{name}/resolve/main/vocab.txt")
+        return BertTokenizer(txt.decode("utf-8").splitlines())
+
+    @staticmethod
+    def synthetic():
+        """The specials and 995 words ``tok0`` .. ``tok994``."""
+        words = [f"tok{i}" for i in range(995)]
+        return BertTokenizer(BertTokenizer.SPECIALS + words)
+
+    def _wordpiece(self, word):
+        """Greedy longest-match-first sub-word split."""
+        pieces, start = [], 0
+        while start < len(word):
+            end, cur = len(word), None
+            while end > start:
+                piece = word[start:end]
+                if start > 0:
+                    piece = "##" + piece
+                if piece in self.ids:
+                    cur = piece
+                    break
+                end -= 1
+            if cur is None:
+                return ["[UNK]"]
+            pieces.append(cur)
+            start = end
+        return pieces
+
+    def tokenize(self, text: str):
+        out = []
+        for chunk in re.split(r"(\[mask\])", text.lower()):
+            if chunk == "[mask]":
+                out.append("[MASK]")
+                continue
+            for word in re.findall(r"\w+|[^\w\s]", chunk):
+                out.extend(self._wordpiece(word))
+        return out
+
+    def convert_tokens_to_ids(self, tokens):
+        unk = self.ids["[UNK]"]
+        return [self.ids.get(t, unk) for t in tokens]
+
+    def convert_ids_to_tokens(self, ids):
+        return [self.vocab[i] for i in ids]
+
+    def encode(self, text: str):
+        return self.convert_tokens_to_ids(
+            ["[CLS]"] + self.tokenize(text) + ["[SEP]"])

@@ -21,10 +21,17 @@ scatters and sampling are plain PyTorch, as they were plain XLA in the JAX
 package.
 """
 
+import io
+import json
+import os
+import re
+
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..autograd.ops import attention
 from ._torch_layers import LayerNorm
@@ -32,9 +39,11 @@ from ..ops.attention import attention_fwd
 from ..ops.decode_attention import decode_attention
 from ..ops.decode_stack import (decode_stack, decode_stack_batch,
                                 pack_gpt_stack, stack_supported)
+from ..scan import remat_mode
 from .decoding import KVFns, ParamFn, cache_slot
 
-__all__ = ["GPTConfig", "GPT", "ByteTokenizer", "quantize_rows"]
+__all__ = ["GPTConfig", "GPT", "ScannedBlocks", "ByteTokenizer",
+           "GPT2Tokenizer", "quantize_rows"]
 
 
 def quantize_rows(w):
@@ -82,23 +91,35 @@ def _sample(logits: np.ndarray, temperature: float, rng,
 
 
 class GPTConfig:
-    """The JAX package's config.  The mixture-of-experts and scanned-stack
-    fields are accepted but not ported: setting them raises."""
+    """The JAX package's config.  The mixture-of-experts fields are accepted
+    but not ported: ``n_experts`` raises (ROADMAP.md queue 1 item 6)."""
 
     def __init__(self, vocab_size=50257, n_positions=1024, n_embd=768,
                  n_layer=12, n_head=12, layer_norm_epsilon=1e-5,
                  scan_layers=False, remat=False, n_experts=0, moe_every=1,
                  moe_k=2, moe_dispatch="topk", moe_hidden=None,
                  moe_capacity_factor=1.25, moe_shared=0, **unused):
-        if n_experts or scan_layers or remat:
+        if n_experts and scan_layers:
+            raise ValueError(
+                "scan_layers requires a homogeneous block stack; MoE blocks "
+                "carry per-forward aux_loss state the scan cannot thread -- "
+                "use scan_layers=False with n_experts")
+        if n_experts:
             raise NotImplementedError(
-                "GPTConfig: n_experts / scan_layers / remat are not ported")
+                "GPTConfig: n_experts is not ported yet (ROADMAP.md queue 1 "
+                "item 6)")
         self.vocab_size = vocab_size
         self.n_positions = n_positions
         self.n_embd = n_embd
         self.n_layer = n_layer
         self.n_head = n_head
         self.layer_norm_epsilon = layer_norm_epsilon
+        # scan_layers: the L blocks as stacked (L, ...) parameters applied
+        # in one loop (ScannedBlocks); remat rematerialises block
+        # activations in the backward: True / "full" recomputes the block,
+        # "dots" keeps the Linears' products and recomputes the rest
+        self.scan_layers = scan_layers
+        self.remat = remat
 
 
 def _gelu(x):
@@ -138,6 +159,105 @@ class GPTBlock(nn.Module):
         return x + self.c_proj(_gelu(self.c_fc(self.ln_2(x))))
 
 
+# remat="dots": the Linears' products, kept from the first pass
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+class ScannedBlocks(nn.Module):
+    """GPT's L blocks as one module of stacked ``(L, ...)`` parameters,
+    registered under the JAX package's names (``ln_1__weight``, ...) in its
+    order, so ``load_numpy_params`` takes a scanned JAX GPT's
+    ``named_parameters()``.  The forward runs a parameter-free template
+    block on each layer's views (``torch.func.functional_call``), under
+    ``torch.utils.checkpoint`` (non-reentrant) when ``remat``: "full"
+    recomputes the block in the backward; "dots" keeps the outputs of
+    ``aten.mm`` / ``aten.addmm`` (the Linears) and recomputes the rest, the
+    flash-attention and LayerNorm functions included.  ``state_dict`` and
+    ``load_state_dict`` use per-layer names (``h.0.ln_1.weight``)."""
+
+    def __init__(self, blocks, remat=False):
+        super().__init__()
+        blocks = list(blocks)
+        self.n_layers = len(blocks)
+        self.remat = remat
+        self._mode = remat_mode(remat)
+        self._names = [n for n, _ in blocks[0].named_parameters()]
+        self._keys = [n.replace(".", "__") for n in self._names]
+        for n, key in zip(self._names, self._keys):
+            self.register_parameter(key, nn.Parameter(torch.stack(
+                [b.get_parameter(n).detach() for b in blocks])))
+        # kept out of _modules: its own tensors are never parameters
+        self.__dict__["_template"] = blocks[0].to("meta")
+
+    def layer_params(self, l: int) -> dict:
+        """{block parameter name: layer ``l``'s view of its stack}."""
+        return {n: getattr(self, k)[l] for n, k in zip(self._names,
+                                                       self._keys)}
+
+    def fan_in(self, name: str) -> int:
+        """The input width of the Linear that owns block parameter
+        ``name``."""
+        return self._template.get_submodule(name.rsplit(".", 1)[0]) \
+            .in_features
+
+    def _block(self, x, *params):
+        return torch.func.functional_call(
+            self._template, dict(zip(self._names, params)), (x,))
+
+    def forward(self, x):
+        # one unbind a stack: the backward stacks the layers' gradients once
+        views = [getattr(self, k).unbind(0) for k in self._keys]
+        for l in range(self.n_layers):
+            ps = [v[l] for v in views]
+            if self._mode is False:
+                x = self._block(x, *ps)
+            else:
+                kw = {"context_fn": _dots_context} \
+                    if self._mode == "dots" else {}
+                x = checkpoint(self._block, x, *ps, use_reentrant=False,
+                               **kw)
+        return x
+
+    def _save_to_state_dict(self, destination, prefix, keep_vars):
+        for l in range(self.n_layers):
+            for n, v in self.layer_params(l).items():
+                destination[f"{prefix}{l}.{n}"] = v if keep_vars \
+                    else v.detach()
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata,
+                              strict, missing_keys, unexpected_keys,
+                              error_msgs):
+        used = set()
+        with torch.no_grad():
+            for n, key in zip(self._names, self._keys):
+                stack = getattr(self, key)
+                for l in range(self.n_layers):
+                    full = f"{prefix}{l}.{n}"
+                    if full not in state_dict:
+                        missing_keys.append(full)
+                        continue
+                    used.add(full)
+                    v = state_dict[full]
+                    if tuple(v.shape) != tuple(stack.shape[1:]):
+                        error_msgs.append(
+                            f"size mismatch for {full}: {tuple(v.shape)} "
+                            f"!= {tuple(stack.shape[1:])}")
+                        continue
+                    stack[l].copy_(v)
+        if strict:
+            unexpected_keys.extend(k for k in state_dict
+                                   if k.startswith(prefix) and k not in used)
+
+
 class GPT(nn.Module):
     """GPT-2 causal language model (pre-LN, weight-tied LM head).
 
@@ -153,16 +273,35 @@ class GPT(nn.Module):
         kw = {"device": "meta", "dtype": dtype}
         self.wte = nn.Embedding(cfg.vocab_size, cfg.n_embd, **kw)
         self.wpe = nn.Embedding(cfg.n_positions, cfg.n_embd, **kw)
-        self.h = nn.ModuleList(GPTBlock(cfg, **kw)
-                               for _ in range(cfg.n_layer))
+        blocks = [GPTBlock(cfg, **kw) for _ in range(cfg.n_layer)]
+        self.h = (ScannedBlocks(blocks, remat=cfg.remat) if cfg.scan_layers
+                  else nn.ModuleList(blocks))
         self.ln_f = LayerNorm(cfg.n_embd, eps=cfg.layer_norm_epsilon, **kw)
         self.to_empty(device=device)
         self._init_parameters(generator)
 
+    def _layer_parameters(self):
+        """(per-layer name, tensor) in the unscanned model's order: a
+        scanned stack's layers as views, so both layouts draw the same
+        weights from one generator."""
+        scanned = isinstance(self.h, ScannedBlocks)
+        for name, t in self.named_parameters():
+            if not (scanned and name.startswith("h.")):
+                yield name, t
+            elif name == "h." + self.h._keys[0]:
+                for l in range(self.h.n_layers):
+                    for n, v in self.h.layer_params(l).items():
+                        yield f"h.{l}.{n}", v
+
+    def _fan_in(self, name):
+        if isinstance(self.h, ScannedBlocks) and name.startswith("h."):
+            return self.h.fan_in(name.split(".", 2)[2])
+        return self.get_submodule(name.rsplit(".", 1)[0]).in_features
+
     @torch.no_grad()
     def _init_parameters(self, generator):
         gdev = generator.device if generator is not None else "cpu"
-        for name, t in self.named_parameters():
+        for name, t in self._layer_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if ".ln_" in name or name.startswith("ln_"):
                 t.fill_(1.0 if leaf == "weight" else 0.0)
@@ -170,8 +309,7 @@ class GPT(nn.Module):
             if name.startswith(("wte.", "wpe.")):
                 bound = 1.0 / float(np.sqrt(t.numel()))     # xavier
             else:
-                fan_in = self.get_submodule(name.rsplit(".", 1)[0]).in_features
-                bound = 1.0 / float(np.sqrt(fan_in))
+                bound = 1.0 / float(np.sqrt(self._fan_in(name)))
             u = torch.rand(t.shape, generator=generator, device=gdev,
                            dtype=torch.float32)
             t.copy_(u * (2 * bound) - bound)
@@ -207,8 +345,11 @@ class GPT(nn.Module):
         b, s = input_ids.shape
         pos = torch.arange(s, device=input_ids.device)
         x = self.wte(input_ids) + self.wpe(pos)
-        for block in self.h:
-            x = block(x)
+        if isinstance(self.h, ScannedBlocks):
+            x = self.h(x)
+        else:
+            for block in self.h:
+                x = block(x)
         x = self.ln_f(x)
         return x @ self.wte.weight.T        # weight-tied LM head
 
@@ -276,6 +417,11 @@ class GPT(nn.Module):
         hd = d // H
         eps = cfg.layer_norm_epsilon
         p = {name: t.detach() for name, t in self.named_parameters()}
+        if isinstance(self.h, ScannedBlocks):
+            # scanned stack: per-layer views under the flat h.{l}. names
+            for l in range(L):
+                for n, v in self.h.layer_params(l).items():
+                    p[f"h.{l}.{n}"] = v.detach()
         scale = 1.0 / float(np.sqrt(hd))
         wte = p["wte.weight"]
         cdt = wte.dtype
@@ -554,6 +700,86 @@ class GPT(nn.Module):
                               top_p=top_p, eos_id=eos_id)
 
 
+    # --- HF interop --------------------------------------------------------
+    @staticmethod
+    def remap_hf_state(state: dict) -> dict:
+        """An HF GPT-2 state (numpy arrays or torch tensors) under this
+        model's names: the ``transformer.`` prefix dropped, the attention's
+        mask buffers and the tied ``lm_head`` skipped, ``mlp.`` removed, and
+        the Conv1D weights (stored (in, out)) transposed to (out, in)."""
+        out = {}
+        for name, arr in state.items():
+            name = name.removeprefix("transformer.")
+            if name.endswith((".attn.bias", ".attn.masked_bias")):
+                continue                    # causal-mask buffers
+            if name == "lm_head.weight":
+                continue                    # tied to wte
+            name = name.replace(".mlp.c_fc.", ".c_fc.") \
+                .replace(".mlp.c_proj.", ".c_proj.")
+            if name.endswith(".weight") and any(
+                    k in name for k in (".c_attn.", ".c_proj.", ".c_fc.")):
+                arr = (arr.T.contiguous() if isinstance(arr, torch.Tensor)
+                       else np.ascontiguousarray(arr.T))
+            out[name] = arr
+        return out
+
+    def export_hf_state(self) -> dict:
+        """``state_dict()`` under HF's GPT-2 names (the inverse of
+        :meth:`remap_hf_state`): ``mlp.`` restored, Conv1D weights
+        transposed back; contiguous CPU tensors in the parameters'
+        dtype."""
+        out = {}
+        for name, t in self.state_dict().items():
+            hf = name
+            if ".attn." not in hf:
+                hf = hf.replace(".c_fc.", ".mlp.c_fc.") \
+                    .replace(".c_proj.", ".mlp.c_proj.")
+            t = t.detach().cpu()
+            if hf.endswith(".weight") and any(
+                    k in hf for k in (".c_attn.", ".c_proj.", ".c_fc.")):
+                t = t.T
+            out[hf] = t.contiguous()
+        return out
+
+    def save_pretrained(self, directory: str) -> str:
+        """Write ``pytorch_model.bin`` (``torch.save`` of
+        :meth:`export_hf_state`) and the JAX package's ``config.json`` into
+        ``directory``; returns the weights' path."""
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, "pytorch_model.bin")
+        torch.save(self.export_hf_state(), path)
+        c = self.cfg
+        cfg = {
+            "model_type": "gpt2",
+            "vocab_size": c.vocab_size,
+            "n_positions": c.n_positions,
+            "n_embd": c.n_embd,
+            "n_layer": c.n_layer,
+            "n_head": c.n_head,
+            "layer_norm_epsilon": c.layer_norm_epsilon,
+        }
+        with open(os.path.join(directory, "config.json"), "w") as f:
+            json.dump(cfg, f, indent=1)
+        return path
+
+    @staticmethod
+    def from_pretrained(name: str = "gpt2", *, device="cuda",
+                        dtype=torch.float32):
+        """(model, config) of an HF repository's ``config.json`` and
+        ``pytorch_model.bin`` through :func:`utils.fetch` (which reads a
+        file named md5(url) from ``LIGHTGRAD_CACHE`` before the network),
+        on ``device``."""
+        from ..utils import fetch
+
+        url = f"https://huggingface.co/{name}/resolve/main/"
+        cfg = GPTConfig(**json.loads(fetch(url + "config.json")))
+        model = GPT(cfg, device=device, dtype=dtype)
+        state = torch.load(io.BytesIO(fetch(url + "pytorch_model.bin")),
+                           map_location="cpu", weights_only=True)
+        model.load_state_dict(GPT.remap_hf_state(state))
+        return model, cfg
+
+
 class ByteTokenizer:
     """Offline fallback: raw UTF-8 bytes (vocab 256)."""
 
@@ -564,3 +790,93 @@ class ByteTokenizer:
 
     def decode(self, ids):
         return bytes(int(i) % 256 for i in ids).decode("utf-8", errors="replace")
+
+
+class GPT2Tokenizer:
+    """Byte-level BPE (GPT-2's), built from HF ``vocab.json`` and
+    ``merges.txt``.  The JAX package merges through its native library when
+    every merge's parts and result are vocabulary entries; the port runs its
+    Python merge loop (``_bpe``) always, which gives the same ids."""
+
+    # GPT-2's pre-split: contractions, letters, digits, other runs, spaces
+    _PAT = re.compile(r"'s|'t|'re|'ve|'m|'ll|'d| ?\w+| ?[^\s\w]+|\s+(?!\S)|\s+")
+
+    def __init__(self, vocab: dict, merges):
+        self.encoder = dict(vocab)
+        self.decoder = {v: k for k, v in self.encoder.items()}
+        self.bpe_ranks = {tuple(m): i for i, m in enumerate(merges)}
+        self.byte_enc = self._bytes_to_unicode()
+        self.byte_dec = {v: k for k, v in self.byte_enc.items()}
+        self._cache = {}
+
+    @staticmethod
+    def _bytes_to_unicode():
+        """Every byte as a printable character: the printable Latin-1 bytes
+        map to themselves, the rest to 256 and up."""
+        bs = (list(range(ord("!"), ord("~") + 1))
+              + list(range(ord("\xa1"), ord("\xac") + 1))
+              + list(range(ord("\xae"), ord("\xff") + 1)))
+        cs = bs[:]
+        n = 0
+        for b in range(256):
+            if b not in bs:
+                bs.append(b)
+                cs.append(256 + n)
+                n += 1
+        return dict(zip(bs, (chr(c) for c in cs)))
+
+    def _bpe(self, token: str):
+        """Merge the lowest-ranked adjacent pair until none is a merge."""
+        word = list(token)
+        while len(word) > 1:
+            pairs = [(word[i], word[i + 1]) for i in range(len(word) - 1)]
+            best = min(pairs, key=lambda p: self.bpe_ranks.get(p,
+                                                               float("inf")))
+            if best not in self.bpe_ranks:
+                break
+            merged, i = [], 0
+            while i < len(word):
+                if i < len(word) - 1 and (word[i], word[i + 1]) == best:
+                    merged.append(word[i] + word[i + 1])
+                    i += 2
+                else:
+                    merged.append(word[i])
+                    i += 1
+            word = merged
+        return word
+
+    def _encode_word(self, mapped: str):
+        """One pre-split word (byte-mapped) -> vocab ids, cached; pieces
+        outside the vocabulary are dropped, as the JAX package drops
+        them."""
+        ids = self._cache.get(mapped)
+        if ids is None:
+            ids = self._cache[mapped] = [
+                self.encoder[p] for p in self._bpe(mapped)
+                if p in self.encoder]
+        return ids
+
+    def encode(self, text: str):
+        ids = []
+        for tok in self._PAT.findall(text):
+            ids.extend(self._encode_word(
+                "".join(self.byte_enc[b] for b in tok.encode("utf-8"))))
+        return ids
+
+    def decode(self, ids):
+        text = "".join(self.decoder.get(int(i), "") for i in ids)
+        return bytes(self.byte_dec.get(c, 32) for c in text).decode(
+            "utf-8", errors="replace")
+
+    @staticmethod
+    def from_pretrained(name: str = "gpt2"):
+        """``vocab.json`` and ``merges.txt`` of an HF repository through
+        :func:`utils.fetch`."""
+        from ..utils import fetch
+
+        url = f"https://huggingface.co/{name}/resolve/main/"
+        vocab = json.loads(fetch(url + "vocab.json"))
+        merges_txt = fetch(url + "merges.txt").decode("utf-8")
+        merges = [tuple(line.split()) for line in merges_txt.splitlines()[1:]
+                  if line.strip()]
+        return GPT2Tokenizer(vocab, merges)

@@ -30,8 +30,12 @@ HF's ``pytorch_model.bin``, written by ``torch.save`` and read by
 ``torch.load(weights_only=True)``) and :class:`LlamaTokenizer` over the
 port's SentencePiece reader.
 
-Not ported yet (ROADMAP queue 1): ``scan_layers`` / ``remat`` and the
-sequence-parallel ring branch.
+``LlamaConfig(scan_layers=True, remat=...)`` holds the layers as one
+:class:`~lightgrad_tpu_torch.scan.ScannedStack` (stacked parameters under
+the JAX package's names, one tape op, ``remat`` False / "full" / "dots");
+the decode functions read per-layer views of the stacks.
+
+Not ported yet (ROADMAP queue 1): the sequence-parallel ring branch.
 """
 
 import io
@@ -47,6 +51,7 @@ from .. import nn
 from ..autograd import Tensor, no_grad
 from ..ops.attention import attention_fwd
 from ..ops.decode_attention import decode_attention, decode_attention_batch
+from ..scan import ScannedStack, layer_tensors
 from .decoding import KVFns, ParamFn
 from .gpt import quantize_rows
 
@@ -54,8 +59,7 @@ __all__ = ["LlamaConfig", "Llama", "RMSNorm", "LlamaTokenizer"]
 
 
 class LlamaConfig:
-    """The JAX package's config.  The scanned stack is accepted as a field
-    but not ported: setting it raises."""
+    """The JAX package's config."""
 
     def __init__(self, vocab_size=32000, hidden_size=512,
                  intermediate_size=1376, num_hidden_layers=4,
@@ -71,10 +75,6 @@ class LlamaConfig:
             raise ValueError(
                 "scan_layers cannot thread per-forward MoE aux state; "
                 "use scan_layers=False with num_local_experts")
-        if scan_layers or remat:
-            raise NotImplementedError(
-                "LlamaConfig: scan_layers / remat are not ported yet "
-                "(ROADMAP.md queue 1 item 5)")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.intermediate_size = intermediate_size
@@ -85,6 +85,10 @@ class LlamaConfig:
         self.rms_norm_eps = rms_norm_eps
         self.rope_theta = rope_theta
         self.tie_word_embeddings = tie_word_embeddings
+        # the layers as one ScannedStack (lightgrad_tpu_torch/scan.py);
+        # remat rematerialises their activations in the backward
+        self.scan_layers = scan_layers
+        self.remat = remat
         # Mixtral (HF MixtralConfig's names): every block's MLP becomes
         # num_local_experts routed SwiGLU experts, top-num_experts_per_tok
         self.num_local_experts = num_local_experts
@@ -278,8 +282,11 @@ class Llama(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.layers = nn.ModuleList(*[LlamaLayer(cfg)
-                                      for _ in range(cfg.num_hidden_layers)])
+        blocks = [LlamaLayer(cfg) for _ in range(cfg.num_hidden_layers)]
+        if cfg.scan_layers:
+            self.layers = ScannedStack(blocks, remat=cfg.remat)
+        else:
+            self.layers = nn.ModuleList(*blocks)
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                             offset=1.0 if cfg.rms_offset else 0.0)
         if not cfg.tie_word_embeddings:
@@ -291,7 +298,10 @@ class Llama(nn.Module):
         if self.cfg.scale_embeddings:
             x = x * float(self.cfg.hidden_size ** 0.5)
         aux = zl = None
-        for layer in self.layers:
+        if not isinstance(self.layers, nn.ModuleList):
+            x = self.layers(x)      # ScannedStack: one tape op, all layers
+        for layer in self.layers if isinstance(self.layers, nn.ModuleList) \
+                else ():
             x = layer(x)
             moe = getattr(layer, "block_sparse_moe", None)
             if moe is not None:
@@ -369,6 +379,11 @@ class Llama(nn.Module):
         gelu_act = cfg.hidden_act in ("gelu", "gelu_pytorch_tanh")
         n_exp, topk = cfg.num_local_experts, cfg.num_experts_per_tok
         p = {name: t.data for name, t in self.named_parameters()}
+        if not isinstance(self.layers, nn.ModuleList):
+            # scanned stack: per-layer views under the layers.{l}. names
+            for l in range(L):
+                for n, arr in self.layers.layer_params(l).items():
+                    p[f"layers.{l}.{n}"] = arr
         scale = float(1.0 / np.sqrt(hd))
         emb = p["embed_tokens.weight"]
         cdt, dev = emb.dtype, emb.device
@@ -763,8 +778,8 @@ class Llama(nn.Module):
         ``config.json`` into ``directory``; returns the weights' path."""
         os.makedirs(directory, exist_ok=True)
         path = os.path.join(directory, "pytorch_model.bin")
-        torch.save({self._hf_name(n): t.data.detach().cpu().contiguous()
-                    for n, t in self.named_parameters()}, path)
+        torch.save({self._hf_name(n): t.detach().cpu().contiguous()
+                    for n, t in layer_tensors(self).items()}, path)
         c = self.cfg
         cfg = {
             "model_type": "llama",

@@ -2340,3 +2340,165 @@ def test_tape_mixed_precision_step_does_not_synchronise(dev):
         moved += int(not torch.equal(m.data, b))
     assert moved == len(before)
     assert mp.scaler.scale_value() == 8.0
+
+
+def _tiny_gpt(dev, **kw):
+    from lightgrad_tpu_torch import GPT, GPTConfig
+
+    return GPT(GPTConfig(vocab_size=96, n_positions=64, n_embd=64,
+                         n_layer=3, n_head=4, **kw), device=dev,
+               generator=torch.Generator(device=dev).manual_seed(0))
+
+
+def test_scanned_gpt_step_in_three_remat_modes(dev):
+    """One f32 step of the scanned GPT in each remat mode gives the
+    unscanned model's loss and per-layer gradients bit for bit on the card
+    (the same kernels on the same inputs); "dots" launches no extra
+    flash forward in the backward beyond "full"'s recompute."""
+    import torch.nn.functional as F
+
+    ids = torch.randint(0, 96, (2, 48), device=dev)
+    tgt = torch.randint(0, 96, (96,), device=dev)
+
+    def grads(m):
+        reset_launch_counts()
+        loss = F.cross_entropy(m(ids).reshape(96, 96), tgt)
+        gs = torch.autograd.grad(loss, list(m.parameters()))
+        torch.cuda.synchronize()
+        return loss, dict(zip([n for n, _ in m.named_parameters()], gs)), \
+            launch_counts()["attention_fwd"]
+
+    l0, g0, n0 = grads(_tiny_gpt(dev))
+    fwd = {}
+    for remat in (False, "dots", "full"):
+        m = _tiny_gpt(dev, scan_layers=True, remat=remat)
+        l1, g1, fwd[remat] = grads(m)
+        assert torch.equal(l1, l0), remat
+        for n, g in g1.items():
+            if not n.startswith("h."):
+                assert torch.equal(g, g0[n]), (remat, n)
+                continue
+            key = n[2:].replace("__", ".")
+            for l in range(3):
+                assert torch.equal(g[l], g0[f"h.{l}.{key}"]), (remat, n, l)
+    assert fwd[False] == n0 == 3 and fwd["dots"] == fwd["full"] == 6, fwd
+
+
+def test_tensor_lr_steps_do_not_synchronise(dev):
+    """Optimizer steps with a scheduled tensor lr read nothing on the host:
+    the torch.nn GPT's Adam and its bf16 MixedPrecision Adam, and a tape
+    LLaMA's AdamW, each followed by the schedule's step."""
+    import torch.nn.functional as F
+
+    from lightgrad_tpu_torch import amp, loss as lg_loss, optim, schedule
+    from lightgrad_tpu_torch.autograd import Tensor
+
+    ids = torch.randint(0, 96, (2, 48), device=dev)
+    for mixed in (False, True):
+        m = _tiny_gpt(dev)
+        if mixed:
+            mp = amp.MixedPrecision(m, lambda ps: optim.Adam(ps, lr=1e-3))
+            opt, update, zero = mp.optim, mp.step, mp.zero_grad
+        else:
+            opt = optim.Adam(m.parameters(), lr=1e-3)
+            update, zero = opt.step, opt.zero_grad
+        sched = schedule.WarmupCosine(opt, warmup=2, total=10)
+        assert opt.lr.device.type == "cuda"
+        for _ in range(3):
+            loss = F.cross_entropy(m(ids).float().reshape(96, 96),
+                                   ids.reshape(-1))
+            zero()
+            loss.backward()
+            _sync_free(lambda: (update(), sched.step()))
+        assert 0.0 < sched.last_lr < 1e-3
+    model = _mixtral()
+    opt = optim.AdamW(list(model.parameters()), lr=1e-3)
+    sched = schedule.StepLR(opt, step_size=1, gamma=0.5)
+    tids = torch.randint(0, 64, (2, 17), device=dev, dtype=torch.int32)
+    x, y = Tensor(tids[:, :-1], requires_grad=False), Tensor(
+        tids[:, 1:].reshape(-1), requires_grad=False)
+    for _ in range(2):
+        loss = lg_loss.cross_entropy(model(x).reshape(32, 64), y)
+        opt.zero_grad()
+        loss.backward()
+        _sync_free(lambda: (opt.step(), sched.step()))
+    assert sched.last_lr == pytest.approx(2.5e-4, rel=1e-6)
+
+
+def test_checkpoint_resume_is_bitwise_on_the_card(dev, tmp_path):
+    """Three Adam steps straight equal two, a save, a load into fresh
+    objects and one more, bit for bit (scanned GPT, remat "dots")."""
+    import torch.nn.functional as F
+
+    from lightgrad_tpu_torch import checkpoint, optim
+
+    ids = torch.randint(0, 96, (2, 48), device=dev)
+
+    def build():
+        m = _tiny_gpt(dev, scan_layers=True, remat="dots")
+        return m, optim.Adam(m.parameters(), lr=1e-3)
+
+    def step(m, o):
+        loss = F.cross_entropy(m(ids).reshape(96, 96), ids.reshape(-1))
+        o.zero_grad()
+        loss.backward()
+        o.step()
+        return loss.detach()
+
+    m1, o1 = build()
+    want = [step(m1, o1) for _ in range(3)][-1]
+    m2, o2 = build()
+    step(m2, o2)
+    step(m2, o2)
+    path = str(tmp_path / "ck.npz")
+    checkpoint.save_checkpoint(path, m2, o2, step=2)
+    m3, o3 = build()
+    assert int(checkpoint.load_checkpoint(path, m3, o3)["step"]) == 2
+    assert torch.equal(step(m3, o3), want)
+    for (n, a), (_, b) in zip(m1.named_parameters(), m3.named_parameters()):
+        assert torch.equal(a, b), n
+
+
+def test_tape_scanned_stack_remat_modes_on_the_card(dev):
+    """The tape's ScannedStack on the card: a scanned LLaMA's loss and
+    per-layer gradients in each remat mode equal the unscanned model's bit
+    for bit; "dots" launches as many products as the unscanned step,
+    "full" more (its replay)."""
+    from lightgrad_tpu_torch import loss as lg_loss, random as lg_random
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.models.llama import Llama, LlamaConfig
+
+    cfg = dict(vocab_size=64, hidden_size=64, intermediate_size=96,
+               num_hidden_layers=3, num_attention_heads=4,
+               num_key_value_heads=2, max_position_embeddings=64)
+    tids = torch.randint(0, 64, (2, 33), device=dev, dtype=torch.int32)
+    x, y = Tensor(tids[:, :-1], requires_grad=False), Tensor(
+        tids[:, 1:].reshape(-1), requires_grad=False)
+
+    def run(m):
+        reset_launch_counts()
+        loss = lg_loss.cross_entropy(m(x).reshape(64, 64), y)
+        m.zero_grad()
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.data, launch_counts()["matmul"]
+
+    lg_random.seed(0)
+    ref = Llama(LlamaConfig(**cfg))
+    l0, n0 = run(ref)
+    g0 = {n: p.grad.data for n, p in ref.named_parameters()}
+    n = {}
+    for remat in (False, "dots", "full"):
+        m = Llama(LlamaConfig(scan_layers=True, remat=remat, **cfg))
+        m.load_parameters(ref.state_dict())
+        l1, n[remat] = run(m)
+        assert torch.equal(l1, l0), remat
+        for name, p in m.named_parameters():
+            if not name.startswith("layers."):
+                assert torch.equal(p.grad.data, g0[name]), (remat, name)
+                continue
+            key = name[len("layers."):].replace("__", ".")
+            for l in range(3):
+                assert torch.equal(p.grad.data[l],
+                                   g0[f"layers.{l}.{key}"]), (remat, name)
+    assert n[False] == n["dots"] == n0 < n["full"], (n0, n)

@@ -221,8 +221,8 @@ def test_map_parameters_casts_and_drops_the_decode_functions():
 
 def test_rmsnorm_and_config_match_jax():
     """RMSNorm with Gemma's offset against numpy; the config's derived
-    fields as the JAX package derives them (Mixtral's expert fields too),
-    the unported scanned stack raises, and experts with it raise the JAX
+    fields as the JAX package derives them (Mixtral's expert fields too,
+    the scanned stack's), and experts with the scanned stack raise the JAX
     package's error."""
     x = np.random.default_rng(9).uniform(-2, 2, (3, 8)).astype(np.float32)
     norm = RMSNorm(8, eps=1e-6, offset=1.0)
@@ -237,9 +237,11 @@ def test_rmsnorm_and_config_match_jax():
         for f in ("head_dim", "num_key_value_heads", "sliding_window",
                   "num_local_experts", "num_experts_per_tok"):
             assert getattr(a, f) == getattr(b, f), f
-    for kw in (dict(scan_layers=True), dict(remat=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LlamaConfig(**dict(BASE, **kw))
+    for kw in (dict(scan_layers=True), dict(remat=True),
+               dict(scan_layers=True, remat="dots")):
+        a, b = LlamaConfig(**dict(BASE, **kw)), JLlamaConfig(**dict(BASE,
+                                                                    **kw))
+        assert (a.scan_layers, a.remat) == (b.scan_layers, b.remat)
     kw = dict(BASE, num_local_experts=4, scan_layers=True)
     with pytest.raises(ValueError, match="scan_layers") as port:
         LlamaConfig(**kw)
