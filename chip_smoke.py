@@ -8,7 +8,8 @@ family (Mistral-7B and Gemma-2B serving, and training on the tape; the
 char example), and the GPT-NeoX / Pythia family (Pythia-1B and -2.8B
 training on the tape through the fused flash backward; Pythia-1B
 ``generate``), scanned stacks with remat, checkpoint resume, LoRA and the
-tokenizers / HF files.
+tokenizers / HF files, the vision families (ViT-B/16 training, DDPM
+training and sampling) and the numpy oracle against the card.
 
     python3 chip_smoke.py
 
@@ -198,7 +199,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
      ``save_pretrained`` -> ``from_pretrained`` through a temporary
      ``LIGHTGRAD_CACHE`` with identical logits; ``BertTokenizer.synthetic()``
      -> a BERT-base masked-LM forward;
- 12. every kernel of each path was launched by that path (the decoding
+ 12. the vision families and the oracle, on the tape: (a) ViT-B/16 at
+     ``google/vit-base-patch16-224``'s widths (seeded random weights): the
+     patch embedding's conv (16², stride 16, 3 input channels) on its route
+     and the flash kernels at 12 heads of 197 x 64, unmasked, against their
+     plain versions; float32 AdamW, 5 steps on 32 images, step 1's logits
+     and gradients against a plain twin, the ``scan_layers=True`` model
+     (remat "full") bit for bit the unscanned one at step 1, images/s,
+     where a step's time goes, eval logits against the plain forward; one
+     bf16 ``MixedPrecision`` step and the bf16 eval logits; (b)
+     examples/diffusion.py's DDPM (UNet base 32, T 200, batch 64 of
+     synthetic digits, Adam 2e-4, EMA 0.995): 50 steps with timesteps and
+     noise drawn on the card, step 1 against a plain twin, steps/s, idle
+     share; one ``p_sample`` step against the twin; 16 images by ``sample``
+     and by ``sample_ddim`` (50 hops, eta 0, repeated bit for bit) under
+     the EMA weights; (c) the oracle: a sweep of tape ops on the card
+     against the numpy ``CpuTensor``, forward and gradients, and
+     ``assert_gradcheck`` on the card;
+ 13. every kernel of each path was launched by that path (the decoding
      module's paths included: each GPT-2 one its stack kernel, LLaMA's
      generate_device decode attention and its merge, generate_batch_device
      the batched decode attention), and every kernel of the package by
@@ -558,6 +576,27 @@ CKPT_BATCH = 2
 LORA_RANK, LORA_LR, LORA_STEPS, LORA_SEQ = 8, 1e-2, 5, 8192
 # phase 11d: merges learned for the smoke's GPT2Tokenizer, new tokens
 IO_MERGES, IO_NEW = 400, 16
+# phase 12a: ViT-B/16 (ViTConfig's defaults are google/vit-base-patch16-224)
+VIT_CFG = {}
+VIT_BATCH, VIT_STEPS, VIT_LR = 32, 5, 1e-4
+VIT_KERNELS = TAPE_KERNELS + FLASH_KERNELS + (
+    "layernorm_fwd", "layernorm_bwd", "conv_fwd", "conv_bwd_dw",
+    "conv_layout")
+# phase 12b: examples/diffusion.py's defaults (its MNIST pool of 20,000)
+DDPM_UNET = dict(in_channels=1, base=32, time_dim=128)
+DDPM_T, DDPM_BATCH, DDPM_LR, DDPM_EMA, DDPM_DIGITS = 200, 64, 2e-4, 0.995, \
+    20_000
+DDPM_STEPS, DDPM_SAMPLES, DDIM_STEPS = 50, 16, 50
+DDPM_KERNELS = TAPE_KERNELS + CONV_KERNELS + ("conv_layout",) \
+    + CONV_SIMT_KERNELS
+DDPM_SAMPLE_KERNELS = TAPE_KERNELS + ("conv_fwd", "conv_layout",
+                                      "conv_fwd_simt")
+# phase 12c: the oracle sweep and the gradchecks
+ORACLE_KERNELS = TAPE_KERNELS + ("softmax_fwd", "softmax_bwd") \
+    + CONV_KERNELS + ("conv_layout",) + CONV_SIMT_KERNELS
+GRADCHECK_KERNELS = TAPE_KERNELS + ("softmax_fwd", "softmax_bwd",
+                                    "conv_fwd_simt", "conv_bwd_dx_simt",
+                                    "conv_bwd_dw_simt")
 HBM_BPS = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # the tf32 tensor-core rate: the f32 matmul kernel's bound counts its three
@@ -3018,9 +3057,9 @@ def tape_grad_check(model, grads32, grads64=None):
     """Step 1's tape gradient of every parameter vs the plain twin, in
     float32 (the tape's precision) and, where given, in float64: max |tape
     - twin| / max |twin| within PATH_TOL for each parameter and each twin.
-    BERT's key projection's bias has a zero gradient in exact arithmetic
-    (softmax ignores a per-row constant), so its error is taken relative to
-    the same layer's query bias gradient."""
+    An attention's key projection bias (BERT's, ViT's) has a zero gradient
+    in exact arithmetic (softmax ignores a per-row constant), so its error
+    is taken relative to the same layer's query bias gradient."""
     tol = PATH_TOL[torch.float32]
     twins = {32: grads32, 64: grads64}
     twins = {bits: g for bits, g in twins.items() if g is not None}
@@ -3029,7 +3068,7 @@ def tape_grad_check(model, grads32, grads64=None):
         got = t.grad.data.double()
         if not torch.isfinite(got).all():
             raise AssertionError(f"gradient of {name} is not finite")
-        ref_name = name.replace("self.key.bias", "self.query.bias")
+        ref_name = name.replace(".key.bias", ".query.bias")
         for bits, grads in twins.items():
             ref = max(grads[ref_name].double().abs().max().item(), 1e-30)
             rel[bits][name] = (got - grads[name].double()).abs().max().item() \
@@ -3745,19 +3784,19 @@ def _kv_groups(q, *kv_like, extra=()):
 
 
 class _PlainAttention(torch.autograd.Function):
-    """Causal (banded) grouped-query attention for the LLaMA twins: the
-    flash kernels' plain versions (``attention_fwd_reference``,
+    """Grouped-query attention for the plain twins, causal (banded) or not:
+    the flash kernels' plain versions (``attention_fwd_reference``,
     ``attention_bwd_reference``), one KV group at a time, so the f32 scores
     of a long sequence exist for one group at once; the backward recomputes
     them.  q (b, H, S, hd), k and v (b, KV, S, hd)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, window):
+    def forward(ctx, q, k, v, scale, window, causal):
         from lightgrad_tpu_torch.ops.attention import attention_fwd_reference
 
         ctx.save_for_backward(q, k, v)
-        ctx.scale, ctx.window = scale, window
-        return torch.cat([attention_fwd_reference(qg, kg, vg, scale, True,
+        ctx.scale, ctx.window, ctx.causal = scale, window, causal
+        return torch.cat([attention_fwd_reference(qg, kg, vg, scale, causal,
                                                   window=window)[0]
                           for (qg,), (kg, vg) in _kv_groups(q, k, v)], 1)
 
@@ -3766,12 +3805,12 @@ class _PlainAttention(torch.autograd.Function):
         from lightgrad_tpu_torch.ops.attention import attention_bwd_reference
 
         q, k, v = ctx.saved_tensors
-        parts = [attention_bwd_reference(gg, qg, kg, vg, ctx.scale, True,
-                                         window=ctx.window)
+        parts = [attention_bwd_reference(gg, qg, kg, vg, ctx.scale,
+                                         ctx.causal, window=ctx.window)
                  for (qg, gg), (kg, vg) in _kv_groups(q, k, v,
                                                       extra=(g,))]
         dq, dk, dv = (torch.cat(t, 1) for t in zip(*parts))
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def plain_moe(h2, p, pre, cfg, lin_w, act, routes=None, aux=None,
@@ -3880,11 +3919,11 @@ def plain_llama(p, cfg, ids, routes=None, aux=None, kv_from=None,
         k = rope(heads(lin(h, pre + "self_attn.k_proj"), KV))
         v = heads(lin(h, pre + "self_attn.v_proj"), KV)
         if kv_from != 0:
-            att = _PlainAttention.apply(q, k, v, hd ** -0.5, win)
+            att = _PlainAttention.apply(q, k, v, hd ** -0.5, win, True)
         if kv_from is not None:
             attq = _PlainAttention.apply(q.float(), int8_roundtrip(k),
                                          int8_roundtrip(v), hd ** -0.5,
-                                         win).to(q.dtype)
+                                         win, True).to(q.dtype)
             att = attq if kv_from == 0 else torch.cat(
                 [att[:, :, :kv_from], attq[:, :, kv_from:]], 2)
         x = x + lin(att.transpose(1, 2).reshape(b, T, H * hd),
@@ -4798,7 +4837,8 @@ def plain_neox(p, cfg, ids):
         qkv = lin(h, pre + "attention.query_key_value")
         qkv = qkv.reshape(b, T, H, 3 * hd).transpose(1, 2)
         q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
-        att = _PlainAttention.apply(rope(q), rope(k), v, hd ** -0.5, 0)
+        att = _PlainAttention.apply(rope(q), rope(k), v, hd ** -0.5, 0,
+                                    True)
         return lin(att.transpose(1, 2).reshape(b, T, H * hd),
                    pre + "attention.dense")
 
@@ -5439,6 +5479,21 @@ def busy_share(step):
     return busy, wall
 
 
+def traced_kernel_ms(fn):
+    """(``fn()``, the device ms of its kernels): CUDA activity alone traced
+    by torch.profiler, lighter than :func:`busy_share` over the tens of
+    thousands of launches of a sampling loop."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as trace:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(e.time_range.elapsed_us() / 1e3 for e in trace.events()
+                    if e.device_type == DeviceType.CUDA)
+
+
 def event_steps(step, n):
     """``n`` calls of ``step()``, each between two CUDA events: their ms."""
     marks = [(torch.cuda.Event(enable_timing=True),
@@ -5941,6 +5996,608 @@ def phase_serving_io(card):
     return counts
 
 
+# --- phase 12: the vision families and the oracle ---------------------------
+def plain_vit(p, cfg, x):
+    """ViTForImageClassification's logits through the plain PyTorch versions
+    of the kernels (``_reference``), differentiable by torch autograd: the
+    twin the tape's step must meet.  ``p``: parameters by name."""
+    from lightgrad_tpu_torch.ops.elementwise import ew_reference
+    from lightgrad_tpu_torch.ops.layernorm import layernorm_fwd_reference
+    from lightgrad_tpu_torch.ops.matmul import matmul_reference
+
+    B, d, H = x.shape[0], cfg.hidden_size, cfg.num_attention_heads
+    hd, S = d // H, cfg.num_patches + 1
+
+    def ln(t, pre):
+        return layernorm_fwd_reference(t, p[pre + ".weight"],
+                                       p[pre + ".bias"],
+                                       cfg.layer_norm_eps)[0]
+
+    def lin(t, pre):
+        return matmul_reference(t, p[pre + ".weight"].T) + p[pre + ".bias"]
+
+    def heads(t):
+        return t.reshape(B, S, H, hd).transpose(1, 2)
+
+    e = "vit.embeddings."
+    y = _PlainConv.apply(x, p[e + "projection.w"], cfg.patch_size) \
+        + p[e + "projection.b"]
+    y = y.reshape(B, d, S - 1).transpose(1, 2)
+    y = torch.cat([p[e + "cls_token"].expand(B, 1, d), y], 1) \
+        + p[e + "position_embeddings"]
+    for layer in range(cfg.num_hidden_layers):
+        pre = f"vit.layer.{layer}."
+        h = ln(y, pre + "layernorm_before")
+        q, k, v = (heads(lin(h, pre + "attention." + n))
+                   for n in ("query", "key", "value"))
+        a = _PlainAttention.apply(q, k, v, hd ** -0.5, 0, False)
+        y = y + lin(a.transpose(1, 2).reshape(B, S, d), pre + "attn_output")
+        h = ew_reference("f_gelu", lin(ln(y, pre + "layernorm_after"),
+                                       pre + "intermediate"))
+        y = y + lin(h, pre + "output")
+    return lin(ln(y, "vit.layernorm")[:, 0], "classifier")
+
+
+def vit_kernel_checks(cfg, B):
+    """The ViT path's own shapes on the card: the patch embedding's conv
+    (B x 3 x 224² by 768 x 3 x 16², stride 16) on its route, forward, dx
+    and dw, against the plain versions at KERNEL_TOL; the flash forward and
+    the two backward passes at (B x 12 heads, S 197, d 64), unmasked and
+    non-causal -- three 64-row tiles and 5 rows -- against the plain
+    forward and the backward evaluated in f64, in f32 and bf16; an output
+    whose last 5 rows are zero must fail each check."""
+    from lightgrad_tpu_torch.ops.attention import (attention_bwd,
+                                                   attention_fwd_reference,
+                                                   attention_fwd_res)
+    from lightgrad_tpu_torch.ops.conv import (
+        conv_bwd_dw, conv_bwd_dw_reference, conv_bwd_dx,
+        conv_bwd_dx_reference, conv_fwd, conv_fwd_reference, conv_route)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    P, d, C = cfg.patch_size, cfg.hidden_size, cfg.num_channels
+    n = cfg.image_size // P
+    S, hd = n * n + 1, d // cfg.num_attention_heads
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = KERNEL_TOL[dtype]
+        x = torch.randn(B, C, cfg.image_size, cfg.image_size, generator=g,
+                        device=dev).to(dtype)
+        w = (torch.randn(d, C, P, P, generator=g, device=dev)
+             * (C * P * P) ** -0.5).to(dtype)
+        dy = torch.randn(B, d, n, n, generator=g, device=dev).to(dtype)
+        route = conv_route(x.shape, w.shape, 1, dtype)
+        tag = f"ViT patch conv {tuple(x.shape)} * {tuple(w.shape)} /{P} " \
+              f"(route {route})"
+        for what, got, want in (
+                ("fwd", conv_fwd(x, w, P), conv_fwd_reference(x, w, P)),
+                ("dx", conv_bwd_dx(dy, w, x.shape, P),
+                 conv_bwd_dx_reference(dy, w, x.shape, P)),
+                ("dw", conv_bwd_dw(dy, x, w.shape, P),
+                 conv_bwd_dw_reference(dy, x, w.shape, P))):
+            check(f"{tag} {what}", dtype, got, want, tol)
+            discriminates(f"{tag} {what}", dtype, want, tol,
+                          torch.zeros_like(want))
+        del x, w, dy
+        bh = B * cfg.num_attention_heads
+        q, k, v, do = (torch.randn(bh, S, hd, generator=g, device=dev)
+                       .to(dtype) for _ in range(4))
+        sc = hd ** -0.5
+        tag = f"ViT attention ({bh}, {S}, {hd}) unmasked"
+        out, lse = attention_fwd_res(q, k, v, sc)
+        ref = attention_fwd_reference(q, k, v, sc)[0]
+        cut = ref.clone()
+        cut[:, -(S % 64):] = 0
+        check_fwd(f"{tag} fwd", dtype, out, ref, torch.zeros_like(ref), cut)
+        got = attention_bwd(do, q, k, v, sc, out=out, lse=lse)
+        want, allow = bwd_reference(dtype, do, q, k, v, out, lse, sc, False)
+        for name, a, wv, al in zip(("dq", "dk", "dv"), got, want, allow):
+            cut = wv.clone()
+            cut[:, -(S % 64):] = 0
+            check_bwd(f"{tag} {name}", dtype, a, wv, tol, cut,
+                      allow=al)
+        del q, k, v, do, out, lse, ref, got, want, allow
+        torch.cuda.empty_cache()
+
+
+def phase_vit(card):
+    """Phase 12a: ViT-B/16 at ``google/vit-base-patch16-224``'s widths
+    (``ViTConfig``'s defaults: 224², patch 16, width 768, 12 layers, 12
+    heads, FFN 3072, 1000 labels; seeded random weights) on the tape,
+    after :func:`vit_kernel_checks`: float32 AdamW, VIT_STEPS steps on one
+    batch of VIT_BATCH random images and labels (197 tokens an image) --
+    step 1's logits and every gradient against the plain twin (PATH_TOL),
+    and the ``scan_layers=True`` model with remat "full" on the same
+    weights, whose step-1 gradients must equal the unscanned model's bit
+    for bit; the loss must fall; images/s, peak memory, where a step's time
+    goes; eval logits against the plain forward; then one bf16
+    ``MixedPrecision`` AdamW step and the bf16 eval logits against the
+    plain bf16 forward.  Returns {path: launch counts}."""
+    import torch.nn.functional as F
+
+    from lightgrad_tpu_torch import amp, no_grad, optim, random as lg_random
+    from lightgrad_tpu_torch import loss as lg_loss
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.models import (ViTConfig,
+                                            ViTForImageClassification)
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg, B, f32 = ViTConfig(**VIT_CFG), VIT_BATCH, torch.float32
+    t0 = time.perf_counter()
+    vit_kernel_checks(cfg, B)
+    log(f"  ViT kernel checks: {time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda")
+    lg_random.seed(0)
+    model = ViTForImageClassification(cfg)
+    n_params = sum(int(np.prod(t.shape)) for t in model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(13)
+    xd = torch.randn(B, cfg.num_channels, cfg.image_size, cfg.image_size,
+                     generator=gen, device=dev)
+    yd = torch.randint(0, cfg.num_labels, (B,), generator=gen, device=dev)
+    x, y = Tensor(xd, requires_grad=False), Tensor(yd.int(),
+                                                    requires_grad=False)
+    log(f"  {n_params / 1e6:.2f} M parameters, {B} x 3 x {cfg.image_size}² "
+        f"images, {B * (cfg.num_patches + 1)} tokens a step")
+
+    def twin(params, dtype):
+        ps = {n: t.data.detach().to(dtype).requires_grad_(True)
+              for n, t in params}
+        logits = plain_vit(ps, cfg, xd.to(dtype))
+        loss = F.cross_entropy(logits.float(), yd)
+        return logits.detach(), loss.item(), dict(zip(ps, torch.autograd.grad(
+            loss, list(ps.values()))))
+
+    def step_fn(m, o):
+        loss = lg_loss.cross_entropy(m(x), y)
+        o.zero_grad()
+        loss.backward()
+        o.step()
+
+    # the scan_layers=True model, remat "full", from the same weights: its
+    # step-1 gradients by per-layer name, for the unscanned step to meet
+    sc = ViTForImageClassification(ViTConfig(**VIT_CFG, scan_layers=True,
+                                              remat="full"))
+    sc.load_parameters(dict(model.named_parameters()))
+    counts = {}
+    reset_launch_counts()
+    sc_loss = lg_loss.cross_entropy(sc(x), y)
+    sc_loss.backward()
+    torch.cuda.synchronize()
+    counts["ViT-B/16 scanned, remat 'full'"] = launch_counts()
+    sc_grads = {}
+    for n, t in sc.named_parameters():
+        if "__" in n:
+            key = n.split("vit.layer.", 1)[1].replace("__", ".")
+            for layer in range(cfg.num_hidden_layers):
+                sc_grads[f"vit.layer.{layer}.{key}"] = t.grad.data[layer]
+        else:
+            sc_grads[n] = t.grad.data
+    sc_loss = sc_loss.item()
+    del sc
+    torch.cuda.empty_cache()
+
+    def scanned_check():
+        diff = [n for n, t in model.named_parameters()
+                if not torch.equal(t.grad.data, sc_grads[n])]
+        rel, name = worst_rel({n: t.grad.data for n, t in
+                               model.named_parameters()}, sc_grads)
+        log(f"  scan_layers=True, remat 'full': step-1 loss {sc_loss:.6f}; "
+            f"{len(sc_grads) - len(diff)} of {len(sc_grads)} gradients bit "
+            f"for bit the unscanned model's (worst rel {rel:.3e}, {name})")
+        if diff:
+            raise AssertionError(f"scanned ViT: gradients differ from the "
+                                 f"unscanned model's: {diff[:5]}")
+
+    opt = optim.AdamW(list(model.parameters()), lr=VIT_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times, host = [], [], []
+    for step in range(VIT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model(x)
+        loss = lg_loss.cross_entropy(logits, y)
+        opt.zero_grad()
+        loss.backward()
+        host.append(time.perf_counter() - t0)   # forward + backward queued
+        if step == 0:               # the checks' time is not the step's
+            torch.cuda.synchronize()
+            c0 = time.perf_counter()
+            plain_logits, plain_loss, grads32 = twin(
+                model.named_parameters(), f32)
+            check("ViT-B/16 logits vs the plain twin", f32, logits.data,
+                  plain_logits, PATH_TOL[f32])
+            log(f"  step-1 loss {loss.item():.5f}, plain twin "
+                f"{plain_loss:.5f}")
+            tape_grad_check(model, grads32)
+            scanned_check()
+            del grads32, plain_logits, sc_grads
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 += time.perf_counter() - c0
+        opt.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        del logits, loss
+    counts["ViT-B/16 training"] = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ok = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    img_s = B / float(np.median(times[1:]))
+    log(f"  losses: {[round(v, 4) for v in losses]} "
+        f"({'finite, falling' if ok else 'FAIL'})")
+    log(f"  {B} images a step: {img_s:.1f} images/s (median of steps "
+        f"2-{VIT_STEPS}, step times {[round(t, 4) for t in times]} s); "
+        f"peak memory of steps 2-{VIT_STEPS} {peak / 2**30:.2f} GiB; {card}")
+    per_step = {k: v // VIT_STEPS
+                for k, v in counts["ViT-B/16 training"].items() if v}
+    log(f"  launches per step: {per_step}")
+    if not ok:
+        raise AssertionError(f"ViT-B/16 loss not finite and falling: "
+                             f"{losses}")
+    step_breakdown(lambda: step_fn(model, opt), float(np.median(times[1:])),
+                   float(np.median(host[1:])))
+
+    def eval_check(dtype):
+        model.eval()
+        with no_grad():
+            got = model(x).data
+        with torch.no_grad():
+            want = plain_vit({n: t.data for n, t in model.named_parameters()},
+                             cfg, xd.to(dtype))
+        model.train()
+        check("ViT-B/16 eval logits vs the plain forward", dtype, got,
+              want, PATH_TOL[dtype])
+
+    eval_check(f32)
+    del opt
+    torch.cuda.empty_cache()
+    mp = amp.MixedPrecision(model, lambda ps: optim.AdamW(ps, lr=VIT_LR))
+    before = [m.data.clone() for m in mp.masters]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = lg_loss.cross_entropy(model(x), y)
+    mp.zero_grad()
+    mp.scale(loss).backward()
+    mp.step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts["ViT-B/16 bf16 MixedPrecision step"] = launch_counts()
+    moved = sum(not torch.equal(m.data, b) for m, b in zip(mp.masters,
+                                                           before))
+    log(f"  bf16 MixedPrecision AdamW step: loss {loss.item():.4f}, {moved} "
+        f"of {len(before)} masters moved, {dt * 1e3:.1f} ms (compiles "
+        f"included); {card}")
+    if not np.isfinite(loss.item()) or moved != len(before):
+        raise AssertionError(f"ViT-B/16 AMP step: loss {loss.item()}, "
+                             f"{moved} of {len(before)} masters moved")
+    del before, loss
+    eval_check(torch.bfloat16)
+    del model, mp, x, y
+    torch.cuda.empty_cache()
+    return counts
+
+
+def plain_unet(p, unet, x, tf):
+    """The UNet's noise prediction through the plain PyTorch versions of the
+    kernels, in the tape's formulas -- GroupNorm's mean and variance,
+    ``ConvTranspose2d`` as a stride-1 conv over the zero-dilated input and
+    the flipped kernel -- differentiable by torch autograd.  ``p``: the
+    parameters by name; ``unet`` gives the layout; ``tf`` the float
+    timesteps (b,)."""
+    import torch.nn.functional as F
+
+    from lightgrad_tpu_torch.ops.elementwise import ew_reference
+    from lightgrad_tpu_torch.ops.matmul import matmul_reference
+
+    def lin(h, pre):
+        return matmul_reference(h, p[pre + ".weight"].T) + p[pre + ".bias"]
+
+    def conv(h, pre, layer):
+        lo, hi = layer.p if isinstance(layer.p, tuple) else (layer.p,) * 2
+        y = _PlainConv.apply(F.pad(h, (lo, hi, lo, hi)), p[pre + ".w"],
+                             layer.s)
+        return y if layer.b is None else y + p[pre + ".b"]
+
+    def conv_t(h, pre, layer):
+        w, s = p[pre + ".w"], layer.s
+        b, c, hh, ww = h.shape
+        z = h.new_zeros(b, c, (hh - 1) * s + 1, (ww - 1) * s + 1)
+        z[:, :, ::s, ::s] = h
+        lo = w.shape[-1] - 1 - layer.p
+        z = F.pad(z, (lo, lo + layer.op, lo, lo + layer.op))
+        wf = w.flip(-1, -2).transpose(0, 1).contiguous()
+        return _PlainConv.apply(z, wf, 1) + p[pre + ".b"]
+
+    def gn(h, pre, m):
+        c = h.shape[1]
+        hs = h.reshape(h.shape[0], m.groups, -1)
+        d = hs - hs.mean(-1, keepdim=True)
+        var = (d * d).mean(-1, keepdim=True)
+        hn = (d * (var + m.eps) ** -0.5).reshape(h.shape)
+        return hn * p[pre + ".weight"].reshape(1, c, 1, 1) \
+            + p[pre + ".bias"].reshape(1, c, 1, 1)
+
+    def silu(h):
+        return h * torch.sigmoid(h)
+
+    def block(h, emb, pre):
+        m = getattr(unet, pre)
+        y = conv(silu(gn(h, pre + ".norm1", m.norm1)), pre + ".conv1",
+                 m.conv1)
+        y = y + lin(silu(emb), pre + ".temb").reshape(h.shape[0], -1, 1, 1)
+        y = conv(silu(gn(y, pre + ".norm2", m.norm2)), pre + ".conv2",
+                 m.conv2)
+        return y + (h if m.skip is None else conv(h, pre + ".skip", m.skip))
+
+    half = unet.time_dim // 2
+    freqs = torch.tensor(np.exp(-np.log(10000.0) * np.arange(
+        half, dtype=np.float32) / half), device=x.device)
+    ang = tf.reshape(-1, 1) * freqs.reshape(1, half)
+    emb = torch.cat([ang.sin(), ang.cos()], -1)
+    emb = lin(ew_reference("f_gelu", lin(emb, "time_mlp.0")), "time_mlp.2")
+    h1 = block(conv(x, "stem", unet.stem), emb, "rb_d1")
+    h2 = block(conv(h1, "down1", unet.down1), emb, "rb_d2")
+    mid = block(conv(h2, "down2", unet.down2), emb, "rb_mid")
+    u2 = block(torch.cat([conv_t(mid, "up2", unet.up2), h2], 1), emb,
+               "rb_u2")
+    u1 = block(torch.cat([conv_t(u2, "up1", unet.up1), h1], 1), emb,
+               "rb_u1")
+    return conv(silu(gn(u1, "out_norm", unet.out_norm)), "out", unet.out)
+
+
+def phase_ddpm(card):
+    """Phase 12b: examples/diffusion.py's configuration on the tape --
+    ``UNet(in_channels=1, base=32, time_dim=128)``, T 200, batch 64 of 28²
+    synthetic digits (LIGHTGRAD_FAKE_DATA=1) in [-1, 1] resident on the
+    card, timesteps and noise drawn there (``randint_like``,
+    ``randn_like``), Adam at 2e-4, EMA at 0.995 -- DDPM_STEPS steps, step
+    1's loss and every gradient against the plain twin (PATH_TOL), the
+    loss falling (means of the first and last 5 steps); steps/s, peak
+    memory, a profiled step's device ms and idle share.  One ``p_sample``
+    step against the plain twin with the same noise; then DDPM_SAMPLES
+    images under ``ema.average_parameters()`` by ``sample`` (T steps) and
+    ``sample_ddim`` (DDIM_STEPS hops, eta 0) -- wall and device time of
+    each, finite images, DDIM repeated bit for bit under one seed.
+    Returns {path: launch counts}."""
+    from lightgrad_tpu_torch import data, no_grad, optim, random as lg_random
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.models import Diffusion, UNet
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    os.environ["LIGHTGRAD_FAKE_DATA"] = "1"
+    dev, f32, B, T = torch.device("cuda"), torch.float32, DDPM_BATCH, DDPM_T
+    digits = data.MNIST(train=True, n=DDPM_DIGITS, shuffle=False).tensors[0]
+    gen = torch.Generator(device=dev).manual_seed(14)
+    perm = torch.randperm(digits.shape[0], generator=gen, device=dev)
+    pool = Tensor((digits.data.reshape(-1, 1, 28, 28) * 2.0 - 1.0)[perm],
+                  requires_grad=False)
+    lg_random.seed(0)
+    unet = UNet(**DDPM_UNET)
+    dif = Diffusion(unet, timesteps=T)
+    opt = optim.Adam(list(unet.parameters()), lr=DDPM_LR)
+    ema = optim.EMA(list(unet.parameters()), decay=DDPM_EMA)
+    n_params = sum(int(np.prod(t.shape)) for t in unet.parameters())
+    log(f"  UNet {n_params / 1e3:.1f} k parameters, T {T}, {pool.shape[0]} "
+        f"digits resident, batch {B}")
+    ti = Tensor.zeros((B,), requires_grad=False, dtype=torch.int32)
+    n_off = pool.shape[0] // B
+
+    def draw(i):
+        x0 = pool.narrow(i % n_off * B, B)
+        return x0, ti.randint_like(0, T), x0.randn_like()
+
+    def step(i, check1=None):
+        x0, t, z = draw(i)
+        loss = dif.loss(x0, t, z)
+        opt.zero_grad()
+        loss.backward()
+        if check1 is not None:
+            check1(x0, t, z, loss)
+        opt.step()
+        ema.update()
+        return loss
+
+    def twin_check(x0, t, z, loss):
+        ps = {n: p.data.detach().clone().requires_grad_(True)
+              for n, p in unet.named_parameters()}
+        tl = t.data.long()
+        c1 = dif.sqrt_a_bar.data[tl].reshape(B, 1, 1, 1)
+        c2 = dif.sqrt_1m_a_bar.data[tl].reshape(B, 1, 1, 1)
+        xt = x0.data * c1 + z.data * c2
+        err = plain_unet(ps, unet, xt, t.data.float()) - z.data
+        plain = (err * err).mean() * 0.5
+        grads = dict(zip(ps, torch.autograd.grad(plain, list(ps.values()))))
+        log(f"  step-1 loss {loss.item():.6f}, plain twin {plain.item():.6f}")
+        if abs(loss.item() - plain.item()) > PATH_TOL[f32] * max(
+                1.0, abs(plain.item())):
+            raise AssertionError("DDPM step-1 loss off the plain twin")
+        tape_grad_check(unet, grads)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses, times = [], []
+    for i in range(DDPM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(i, twin_check if i == 0 else None)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+    counts = {"DDPM training": launch_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    ok = all(np.isfinite(losses)) and last < first
+    log(f"  {DDPM_STEPS} steps (step 1 {times[0]:.1f} s with its Triton "
+        f"builds and the twin): loss {first:.4f} -> {last:.4f} (means of "
+        f"the first and last 5, {'falling' if ok else 'FAIL'}); "
+        f"{1.0 / float(np.median(times[1:])):.1f} steps/s (median of steps "
+        f"2-{DDPM_STEPS}, eager; {B * 1.0 / float(np.median(times[1:])):.0f}"
+        f" images/s); peak memory {peak / 2**30:.3f} GiB; {card}")
+    if not ok:
+        raise AssertionError(f"DDPM loss not finite and falling: {losses}")
+    busy, wall = busy_share(lambda: step(DDPM_STEPS))
+    per_step = {k: v // DDPM_STEPS
+                for k, v in counts["DDPM training"].items() if v}
+    log(f"  profiled step: device {busy:.2f} of {wall:.2f} ms (idle "
+        f"{100 * (1 - busy / wall):.1f}%); launches a step {per_step}")
+
+    # one reverse step against the plain twin, the same noise
+    g = torch.Generator(device=dev).manual_seed(15)
+    xt = torch.randn(B, 1, 28, 28, generator=g, device=dev)
+    noise = torch.randn(B, 1, 28, 28, generator=g, device=dev)
+    tt = torch.full((B,), T // 2, dtype=torch.int32, device=dev)
+    with no_grad():
+        got = dif.p_sample(Tensor(xt, requires_grad=False),
+                           Tensor(tt, requires_grad=False),
+                           Tensor(noise, requires_grad=False)).data
+    with torch.no_grad():
+        ps = {n: p.data for n, p in unet.named_parameters()}
+        eps = plain_unet(ps, unet, xt, tt.float())
+        tl = tt.long()
+        want = (xt - eps * dif.eps_coef.data[tl].reshape(B, 1, 1, 1)) \
+            * dif.rsqrt_alphas.data[tl].reshape(B, 1, 1, 1) \
+            + noise * dif.post_std.data[tl].reshape(B, 1, 1, 1)
+    check("DDPM p_sample at t = T/2 vs the plain twin", f32, got, want,
+          PATH_TOL[f32])
+
+    n = DDPM_SAMPLES
+    with ema.average_parameters():
+        reset_launch_counts()
+        for name, run in (("sample", lambda: dif.sample(n, seed=1)),
+                          ("sample_ddim", lambda: dif.sample_ddim(
+                              n, steps=DDIM_STEPS, eta=0.0, seed=1))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imgs = run().data
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            again, busy = traced_kernel_ms(lambda: run().data)
+            finite = bool(torch.isfinite(imgs).all())
+            same = torch.equal(imgs, again)
+            log(f"  {name}: {n} images {tuple(imgs.shape)} in {wall:.2f} s "
+                f"wall, device {busy:.1f} ms (a traced rerun); range "
+                f"[{imgs.min().item():.2f}, {imgs.max().item():.2f}], "
+                f"{'finite' if finite else 'NOT finite'}; the rerun under "
+                f"the seed {'repeats it bit for bit' if same else 'differs'}"
+                f"; {card}")
+            if not finite or (name == "sample_ddim" and not same):
+                raise AssertionError(f"DDPM {name}: finite {finite}, "
+                                     f"repeated {same}")
+        counts["DDPM sampling (EMA weights)"] = launch_counts()
+    del unet, dif, opt, ema, pool, digits
+    torch.cuda.empty_cache()
+    return counts
+
+
+# the oracle phase's sweep: name -> (tape function, input shapes, flag)
+ORACLE_OPS = {
+    "exp": (lambda a: a.exp(), [(64, 96)], ""),
+    "log": (lambda a: a.log(), [(64, 96)], "positive"),
+    "tanh": (lambda a: a.tanh(), [(64, 96)], ""),
+    "sigmoid": (lambda a: a.sigmoid(), [(64, 96)], ""),
+    "gelu": (lambda a: a.gelu(), [(64, 96)], ""),
+    "sin": (lambda a: a.sin(), [(64, 96)], ""),
+    "add (row broadcast)": (lambda a, b: a + b, [(64, 96), (96,)], ""),
+    "sub (column broadcast)": (lambda a, b: a - b, [(64, 96), (64, 1)], ""),
+    "mul (batch broadcast)": (lambda a, b: a * b,
+                              [(8, 64, 96), (8, 1, 96)], ""),
+    "div": (lambda a, b: a / b, [(64, 96), (64, 96)], "positive"),
+    "pow": (lambda a, b: a ** b, [(64, 96), (96,)], "positive"),
+    "dot": (lambda a, b: a @ b, [(64, 96), (96, 80)], ""),
+    "dot (batched)": (lambda a, b: a @ b, [(4, 64, 96), (4, 96, 32)], ""),
+    "sum": (lambda a: a.sum(axis=1), [(64, 96)], ""),
+    "sum (all)": (lambda a: a.sum(), [(64, 96)], ""),
+    "max": (lambda a: a.max(axis=-1), [(64, 96)], ""),
+    "mean": (lambda a: a.mean(axis=0), [(64, 96)], ""),
+    "softmax": (lambda a: a.softmax(axis=-1), [(64, 96)], ""),
+    "conv (tensor cores)": (lambda x, w: x.conv(w),
+                            [(4, 16, 12, 12), (32, 16, 3, 3)], ""),
+    "conv (CUDA cores, stride 2)": (lambda x, w: x.conv(w, strides=2),
+                                    [(4, 3, 13, 13), (8, 3, 3, 3)], ""),
+    "max_pool2d": (lambda a: a.max_pool2d(kernel=3, stride=2, padding=1),
+                   [(2, 8, 12, 12)], ""),
+    "mean_pool": (lambda a: a.mean_pool(kernel=(2, 2)), [(2, 8, 12, 12)],
+                  ""),
+    "getitem (slices)": (lambda a: a[1:, 2:50], [(64, 96)], ""),
+    "getitem (gather)": (lambda a: a[np.array([0, 5, 5, 2])], [(64, 96)],
+                         ""),
+    "concat": (lambda a, b: a.concat(b, axis=0), [(16, 32), (8, 32)], ""),
+}
+# assert_gradcheck on the card: name -> (function of the input and a fixed
+# tensor of the second shape, the input's shape, the second shape)
+GRADCHECK_OPS = {
+    "tanh": (lambda a, c: a.tanh(), (3, 4), None),
+    "sum": (lambda a, c: a.sum(axis=1), (3, 4), None),
+    "mul (broadcast)": (lambda a, c: a * c, (3, 4), (1, 4)),
+    "softmax": (lambda a, c: a.softmax(axis=-1), (3, 5), None),
+    "dot": (lambda a, c: a @ c, (3, 4), (4, 2)),
+    "conv (input)": (lambda a, c: a.conv(c), (1, 2, 5, 5), (3, 2, 3, 3)),
+    "conv (weight)": (lambda a, c: c.conv(a), (3, 2, 3, 3), (1, 2, 5, 5)),
+}
+
+
+def phase_oracle(card):
+    """Phase 12c: the reference's "compare with cpu" pattern on the card.
+    Each op of ORACLE_OPS on ``CudaTensor``s on the card (float32) against
+    the numpy ``CpuTensor`` on the same numpy inputs -- the oracle's inputs
+    made by ``.cpu()`` from the card's tensors -- forward and every input's
+    gradient of a weighted sum, within the oracle checkers' 1e-3 (rtol and
+    atol); then ``assert_gradcheck`` (5e-4) on the ops of GRADCHECK_OPS on
+    the card.  Returns {path: launch counts}."""
+    from lightgrad_tpu_torch.autograd import CpuTensor, CudaTensor
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightgrad_tpu_torch.utils.gradcheck import assert_gradcheck
+
+    rng = np.random.default_rng(16)
+
+    def run(fn, ts):
+        y = fn(*ts)
+        w = np.random.default_rng(17).standard_normal(y.shape)
+        (y * type(y).from_numpy(w, requires_grad=False)).sum().backward()
+        return [y.numpy()] + [t.grad.numpy() for t in ts]
+
+    reset_launch_counts()
+    worst = (0.0, "")
+    for name, (fn, shapes, flag) in ORACLE_OPS.items():
+        arrays = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+        if flag == "positive":
+            arrays = [np.abs(a) + 0.5 for a in arrays]
+        card_ts = [CudaTensor.from_numpy(a) for a in arrays]
+        oracle_ts = [t.cpu() for t in card_ts]
+        if not all(type(t) is CpuTensor for t in oracle_ts):
+            raise AssertionError(".cpu() of a CudaTensor is not a CpuTensor")
+        got, want = run(fn, card_ts), run(fn, oracle_ts)
+        for what, a, b in zip(["forward"] + [f"d{i}" for i in
+                                             range(len(arrays))], got, want):
+            # the share of the checkers' bar, |err| <= 1e-3 + 1e-3 |ref|
+            share = float(np.max(np.abs(a - b) / (1e-3 + 1e-3 * np.abs(b))))
+            worst = max(worst, (share, f"{name} {what}"))
+            if not share <= 1.0:
+                raise AssertionError(f"oracle: {name} {what} off the numpy "
+                                     f"CpuTensor ({share:.3f} of the bar)")
+    torch.cuda.synchronize()
+    counts = {"oracle sweep": launch_counts()}
+    log(f"  {len(ORACLE_OPS)} ops, forward and gradients, CudaTensor on the "
+        f"card vs the numpy CpuTensor: all within rtol = atol = 1e-3 (worst "
+        f"{worst[0]:.3f} of the bar, {worst[1]})")
+    reset_launch_counts()
+    for name, (fn, shape, other) in GRADCHECK_OPS.items():
+        x = CudaTensor.from_numpy(rng.uniform(-1, 1, shape).astype(
+            np.float32))
+        c = None if other is None else CudaTensor.from_numpy(
+            rng.uniform(-1, 1, other).astype(np.float32), requires_grad=False)
+        assert_gradcheck(lambda t: fn(t, c), x)
+    torch.cuda.synchronize()
+    counts["gradcheck"] = launch_counts()
+    log(f"  assert_gradcheck on the card (atol = rtol = 5e-4): "
+        f"{', '.join(GRADCHECK_OPS)} ok; {card}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6162,6 +6819,25 @@ def main():
         tally(path, counts, ("attention_fwd", "decode_stack")
               if "generate" in path else
               ("elementwise", "matmul", "layernorm_fwd", "attention_fwd"))
+    log("ViT-B/16 (google/vit-base-patch16-224's widths) on the tape, "
+        "float32 AdamW, then one bf16 MixedPrecision step:")
+    t0 = time.perf_counter()
+    for path, counts in phase_vit(card).items():
+        tally(path, counts, VIT_KERNELS)
+    log(f"  ViT-B/16 phase: {time.perf_counter() - t0:.1f} s")
+    log("DDPM at examples/diffusion.py's configuration on the tape, Adam, "
+        "EMA sampling:")
+    t0 = time.perf_counter()
+    for path, counts in phase_ddpm(card).items():
+        tally(path, counts, DDPM_SAMPLE_KERNELS if "sampling" in path
+              else DDPM_KERNELS)
+    log(f"  DDPM phase: {time.perf_counter() - t0:.1f} s")
+    log("the numpy oracle: CudaTensor ops on the card vs CpuTensor:")
+    t0 = time.perf_counter()
+    for path, counts in phase_oracle(card).items():
+        tally(path, counts, GRADCHECK_KERNELS if path == "gradcheck"
+              else ORACLE_KERNELS)
+    log(f"  oracle phase: {time.perf_counter() - t0:.1f} s")
     missing = [k for k in KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels no path launched: {missing}")

@@ -16,15 +16,18 @@ run on hand-written Hopper kernels on a CUDA device and on their plain
 PyTorch versions on the CPU.  Training also has scanned stacks with
 rematerialisation (``scan``; GPT's ``ScannedBlocks``), learning-rate
 schedules (``schedule``), npz checkpoints (``checkpoint``) and LoRA
-(``lora``)."""
+(``lora``).  The vision families ViT (``models.ViTForImageClassification``)
+and DDPM diffusion (``models.UNet``, ``models.Diffusion``) run on the tape;
+the numpy ``CpuTensor`` is the tape's oracle, with ``utils.gradcheck``."""
 
 from . import (amp, autograd, checkpoint, data, lora, loss, models, nn, ops,
-               optim, quant, random, scan, schedule)
-from .autograd import (AbstractTensor, CudaTensor, Function, Gradients,
-                       Tensor, no_grad)
+               optim, quant, random, scan, schedule, serving)
+from .autograd import (AbstractTensor, CpuTensor, CudaTensor, Function,
+                       Gradients, Tensor, no_grad)
 from .models import (GPT, GPTConfig, ByteTokenizer, Llama, LlamaConfig,
                      NeoX, NeoXConfig, RMSNorm, generate_batch)
 from .serving import InferenceEngine, Request
+from .utils.profiler import Profiler
 from .weights import load_numpy_params
 
 # tensor initializer shortcuts, as lightgrad_tpu/__init__.py has them
@@ -41,9 +44,9 @@ def einsum(spec: str, *operands):
 
 __all__ = ["amp", "autograd", "checkpoint", "data", "lora", "loss", "models",
            "nn", "ops", "optim", "quant", "random", "scan", "schedule",
-           "AbstractTensor", "CudaTensor", "Function", "Gradients", "Tensor",
+           "serving", "AbstractTensor", "CpuTensor", "CudaTensor", "Function", "Gradients", "Tensor",
            "no_grad", "empty", "zeros", "ones", "uniform", "xavier",
            "from_numpy", "einsum", "GPT", "GPTConfig", "ByteTokenizer",
            "Llama", "LlamaConfig", "NeoX", "NeoXConfig", "RMSNorm",
-           "generate_batch", "InferenceEngine", "Request",
+           "generate_batch", "InferenceEngine", "Request", "Profiler",
            "load_numpy_params"]

@@ -365,21 +365,23 @@ class pad(Function):
 # ---------------------------------------------------------------------------
 # products
 # ---------------------------------------------------------------------------
-# scan.py's remat="dots": while a ScannedStack runs a layer, each product's
-# output goes through this store, which keeps it on the layer's first pass
-# and hands it back, without a launch, when the layer is replayed
+# scan.py's remat="dots" / "dots_all": while a ScannedStack runs a layer,
+# each product's output goes through this store, which keeps it on the
+# layer's first pass and hands it back, without a launch, when the layer is
+# replayed; ``batched`` says whether the product has batch dimensions
 product_store = None
 
 
-def _product(compute):
-    return compute() if product_store is None else product_store(compute)
+def _product(compute, batched):
+    return compute() if product_store is None \
+        else product_store(compute, batched)
 
 
 @CudaTensor.register_op()
 class dot(Function):
     def forward(ctx, a, b):
         ctx.save_for_backward(a.data, b.data)
-        return _t(_product(lambda: kmatmul(a.data, b.data)))
+        return _t(_product(lambda: kmatmul(a.data, b.data), b.ndim > 2))
 
     def backward(ctx, g):
         araw, braw = ctx.get_saved_tensors()
@@ -397,7 +399,8 @@ class einsum(Function):
         datas = (a.data,) + tuple(o.data for o in rest)
         terms, out = parse_einsum_spec(spec, len(datas))
         ctx.save_for_backward(spec, terms, out, datas)
-        return _t(_product(lambda: torch.einsum(spec, *datas)))
+        batched = any(all(c in t for t in terms) for c in out)
+        return _t(_product(lambda: torch.einsum(spec, *datas), batched))
 
     def backward(ctx, g):
         spec, terms, out, datas = ctx.get_saved_tensors()

@@ -21,6 +21,7 @@ scatters and sampling are plain PyTorch, as they were plain XLA in the JAX
 package.
 """
 
+import functools
 import io
 import json
 import os
@@ -159,17 +160,22 @@ class GPTBlock(nn.Module):
         return x + self.c_proj(_gelu(self.c_fc(self.ln_2(x))))
 
 
-# remat="dots": the Linears' products, kept from the first pass
-_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+# remat="dots": the Linears' products, kept from the first pass;
+# "dots_all" keeps the batched products too
+_SAVED_PRODUCTS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
+    "dots_all": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                 torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)}
 
 
-def _dots_policy(ctx, op, *args, **kwargs):
-    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
-            else CheckpointPolicy.PREFER_RECOMPUTE)
+def _dots_context(mode):
+    saved = _SAVED_PRODUCTS[mode]
 
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
 
-def _dots_context():
-    return create_selective_checkpoint_contexts(_dots_policy)
+    return create_selective_checkpoint_contexts(policy)
 
 
 class ScannedBlocks(nn.Module):
@@ -181,7 +187,8 @@ class ScannedBlocks(nn.Module):
     ``torch.utils.checkpoint`` (non-reentrant) when ``remat``: "full"
     recomputes the block in the backward; "dots" keeps the outputs of
     ``aten.mm`` / ``aten.addmm`` (the Linears) and recomputes the rest, the
-    flash-attention and LayerNorm functions included.  ``state_dict`` and
+    flash-attention and LayerNorm functions included; "dots_all" keeps
+    ``aten.bmm`` / ``aten.baddbmm`` too.  ``state_dict`` and
     ``load_state_dict`` use per-layer names (``h.0.ln_1.weight``)."""
 
     def __init__(self, blocks, remat=False):
@@ -221,8 +228,9 @@ class ScannedBlocks(nn.Module):
             if self._mode is False:
                 x = self._block(x, *ps)
             else:
-                kw = {"context_fn": _dots_context} \
-                    if self._mode == "dots" else {}
+                kw = {} if self._mode == "full" else {
+                    "context_fn": functools.partial(_dots_context,
+                                                    self._mode)}
                 x = checkpoint(self._block, x, *ps, use_reentrant=False,
                                **kw)
         return x

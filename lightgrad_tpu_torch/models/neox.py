@@ -15,12 +15,16 @@ after ``ops.set_flash_fused(True)``, at any head dim (Pythia-1B's 256,
 Pythia-2.8B's 80).
 
 HF checkpoint interop: parameter names mirror ``GPTNeoXForCausalLM`` minus
-the ``gpt_neox.`` prefix (``remap_hf_state`` / ``export_hf_state``).  Not
-ported yet: ``from_pretrained``, which needs a checkpoint and its
-``config.json`` from outside the repository.
+the ``gpt_neox.`` prefix (``remap_hf_state`` / ``export_hf_state``);
+``from_pretrained`` reads an HF repository's ``config.json`` and
+``pytorch_model.bin`` through ``utils.fetch``.
 """
 
+import io
+import json
+
 import numpy as np
+import torch
 
 from .. import nn
 from ..autograd import Tensor, no_grad
@@ -195,3 +199,19 @@ class NeoX(nn.Module):
             hf = name if name.startswith("embed_out.") else "gpt_neox." + name
             out[hf] = arr
         return out
+
+    @staticmethod
+    def from_pretrained(name: str = "EleutherAI/pythia-70m"):
+        """(model, config) of an HF repository's ``config.json`` and
+        ``pytorch_model.bin``, through :func:`utils.fetch` (which reads a
+        file named md5(url) from ``LIGHTGRAD_CACHE`` before the network),
+        the weights by ``torch.load(weights_only=True)``."""
+        from ..utils import fetch
+
+        url = f"https://huggingface.co/{name}/resolve/main/"
+        cfg = NeoXConfig(**json.loads(fetch(url + "config.json")))
+        model = NeoX(cfg)
+        state = torch.load(io.BytesIO(fetch(url + "pytorch_model.bin")),
+                           map_location="cpu", weights_only=True)
+        model.load_parameters(NeoX.remap_hf_state(state))
+        return model, cfg

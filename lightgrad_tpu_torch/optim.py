@@ -430,21 +430,36 @@ class EMA:
     """Exponential moving average of parameters (shadow weights):
     ``s = decay*s + (1-decay)*p`` per ``update()``, in place.
     ``average_parameters()`` swaps the shadow values into the parameters for
-    the length of a ``with`` block."""
+    the length of a ``with`` block.  The parameters are torch tensors
+    (updated and restored in place) or lightgrad tensors, whose ``.data``
+    is read afresh at every update (an optimizer step rebinds it) and
+    rebound by the swap, as the tape's value semantics ask."""
 
     def __init__(self, parameters, decay: float = 0.999):
         if not 0.0 < decay < 1.0:
             raise ValueError("EMA decay must be in (0, 1)")
         self.parameters = tuple(parameters)
+        self._tape = bool(self.parameters) and isinstance(
+            self.parameters[0], AbstractTensor)
         self.decay = decay
-        self.shadow = [p.detach().clone() for p in self.parameters]
+        self.shadow = [self._value(p).clone() for p in self.parameters]
+
+    def _value(self, p):
+        """The torch tensor holding ``p``'s current value."""
+        return p.data if self._tape else p.detach()
+
+    def _assign(self, p, value):
+        if self._tape:
+            p._set_data(value.clone())
+        else:
+            p.copy_(value)
 
     @torch.no_grad()
     def update(self):
         """Fold the current parameter values into the shadow average."""
         k = 1.0 - self.decay
         for s, p in zip(self.shadow, self.parameters):
-            s += (p - s) * k
+            s += (self._value(p) - s) * k
 
     def state_dict(self) -> dict:
         return {f"ema.{i}": s.clone() for i, s in enumerate(self.shadow)}
@@ -460,20 +475,20 @@ class EMA:
         shadow values."""
         ps = self.parameters if parameters is None else tuple(parameters)
         for s, p in zip(self.shadow, ps):
-            p.copy_(s)
+            self._assign(p, s)
 
     @contextlib.contextmanager
     def average_parameters(self):
         """Parameters hold the EMA values inside the block; their live
         values come back on exit."""
-        raw = [p.detach().clone() for p in self.parameters]
+        raw = [self._value(p).clone() for p in self.parameters]
         self.copy_to()
         try:
             yield self
         finally:
             with torch.no_grad():
                 for p, r in zip(self.parameters, raw):
-                    p.copy_(r)
+                    self._assign(p, r)
 
 
 @torch.no_grad()

@@ -20,10 +20,15 @@ loops over the layers and runs its own backward, with ``remat``:
 * ``True`` / ``"full"``: the layers run without a graph and only each
   layer's input is kept; the backward replays a layer with the tape
   recording, then walks that graph (``jax.checkpoint``);
-* ``"dots"``: as ``"full"``, but the products (``dot``, ``einsum``: the
-  matmul kernel) keep their outputs from the first pass, and the replay
-  takes them back in order instead of launching them again (the JAX
-  package's ``dots_with_no_batch_dims_saveable``).
+* ``"dots"``: as ``"full"``, but the products without batch dimensions
+  (``dot`` with a 2-D right operand, ``einsum`` with no index common to
+  every operand and the output: the Linears) keep their outputs from the
+  first pass, and the replay takes them back in order instead of launching
+  them again (the JAX package's ``dots_with_no_batch_dims_saveable``);
+  ``"dots_all"`` keeps every product's output (``dots_saveable``).
+
+``remat`` also takes the ``jax.checkpoint_policies`` names that have one of
+these counterparts (:data:`POLICIES`).
 
 Every mode runs the same kernels on the same inputs, so the values do not
 depend on ``remat``: on the CPU the gradients of the three modes and of the
@@ -45,17 +50,31 @@ from .autograd.cuda import ops as _cuda_ops
 __all__ = ["ScannedStack", "layer_tensors"]
 
 
+# the jax.checkpoint_policies names that have a counterpart here
+POLICIES = {"everything_saveable": False,
+            "nothing_saveable": "full",
+            "dots_with_no_batch_dims_saveable": "dots",
+            "checkpoint_dots_with_no_batch_dims": "dots",
+            "dots_saveable": "dots_all",
+            "checkpoint_dots": "dots_all"}
+
+
 def remat_mode(remat):
-    """``remat`` as one of False, "full", "dots"; any other value raises
-    (the JAX package also takes any ``jax.checkpoint_policies`` name)."""
+    """``remat`` as one of False, "full", "dots", "dots_all": False / None,
+    True / "full", "dots", or a name of :data:`POLICIES`.  "dots" keeps
+    the outputs of products without batch dimensions, "dots_all" those of
+    every product.  Any other value raises, naming the accepted ones."""
     if remat is False or remat is None:
         return False
     if remat is True or remat == "full":
         return "full"
     if remat == "dots":
         return "dots"
-    raise ValueError(f"unknown remat policy {remat!r}: the port has False, "
-                     f"True / 'full' and 'dots'")
+    if isinstance(remat, str) and remat in POLICIES:
+        return POLICIES[remat]
+    raise ValueError(f"unknown remat policy {remat!r}: the port takes False, "
+                     f"True / 'full', 'dots' and the jax.checkpoint_policies "
+                     f"names {sorted(POLICIES)}")
 
 
 @contextlib.contextmanager
@@ -71,14 +90,18 @@ def _recording(on: bool):
 
 
 class _Products:
-    """remat="dots": the products of one layer's first pass, kept in order
-    and handed back in the same order when the layer is replayed."""
+    """remat="dots" / "dots_all": the products of one layer's first pass
+    (unless ``keep_batched``, only those without batch dimensions), kept in
+    order and handed back in the same order when the layer is replayed."""
 
-    def __init__(self):
+    def __init__(self, keep_batched):
+        self.keep_batched = keep_batched
         self.outs = []
         self.at = None
 
-    def __call__(self, compute):
+    def __call__(self, compute, batched):
+        if batched and not self.keep_batched:
+            return compute()
         if self.at is None:
             out = compute()
             self.outs.append(out)
@@ -127,7 +150,8 @@ class _scan_blocks(Function):
                     run = stack._layer(l, h, stacked, extras, layout, True)
                 layers.append(run)
             else:
-                store = _Products() if mode == "dots" else None
+                store = _Products(mode == "dots_all") \
+                    if mode in ("dots", "dots_all") else None
                 with _recording(False), _products(store):
                     run = stack._layer(l, h, stacked, extras, layout, False)
                 layers.append((h, store))

@@ -16,7 +16,7 @@ costs two integer updates.
 import time
 from collections import defaultdict
 
-__all__ = ["Profiler", "Tracker", "set_sync_fn"]
+__all__ = ["Profiler", "Tracker", "set_sync_fn", "device_trace"]
 
 # backends register a "wait for the device" hook here (see autograd/cuda)
 _sync_fn = None
@@ -94,4 +94,35 @@ class Tracker:
             dt = time.perf_counter() - self.t0
             for p in Profiler._active:
                 p.update(self.name, dt, backward=self.backward)
+        return False
+
+
+class device_trace:
+    """The device's timeline for TensorBoard: ``torch.profiler`` over the
+    CPU and CUDA activities, written under ``logdir`` as a trace that the
+    TensorBoard profiler plugin reads (``*.pt.trace.json``).  The per-op
+    :class:`Profiler` above sees tape ops; this sees the kernels.
+
+        with lightgrad_tpu_torch.utils.profiler.device_trace("/tmp/trace"):
+            for _ in range(5):
+                step()
+
+    View with ``tensorboard --logdir /tmp/trace``."""
+
+    def __init__(self, logdir: str):
+        self.logdir = logdir
+        self._prof = None
+
+    def __enter__(self):
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+
+        self._prof = profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            on_trace_ready=tensorboard_trace_handler(self.logdir))
+        self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._prof.__exit__(*exc)
         return False

@@ -2502,3 +2502,184 @@ def test_tape_scanned_stack_remat_modes_on_the_card(dev):
                 assert torch.equal(p.grad.data[l],
                                    g0[f"layers.{l}.{key}"]), (remat, name)
     assert n[False] == n["dots"] == n0 < n["full"], (n0, n)
+
+
+# --- the vision families and the oracle ------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_patch_conv_on_its_route(dev, dtype):
+    """ViT-B/16's patch embedding: 16 x 16, stride 16, over 3 channels
+    (staged to 4 f32 / 8 bf16) takes the tensor cores; forward, dx, dw."""
+    xs, ws = (2, 3, 224, 224), (768, 3, 16, 16)
+    assert conv_route(xs, ws, 1, dtype) == "tc"
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = _randn(g, *xs, dtype=dtype)
+    w = _randn(g, *ws, scale=0.05, dtype=dtype)
+    reset_launch_counts()
+    y = conv_fwd(x, w, 16)
+    torch.cuda.synchronize()
+    assert launch_counts()["conv_fwd"] == 1
+    _close(y, conv_fwd_reference(x, w, 16), dtype)
+    gy = _randn(g, *y.shape, dtype=dtype)
+    gx, gw = conv_bwd(gy, x, w, 16)
+    rgx, rgw = conv_bwd_reference(gy, x, w, 16)
+    _close(gx, rgx, dtype)
+    _close(gw, rgw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_a_length_off_the_tiles_unmasked(dev, dtype):
+    """ViT's attention: S 197 (three 64-row tiles and 5 rows), d 64, no
+    mask, not causal; the forward and both backward passes against their
+    plain versions (bf16: the passes' own rounded arithmetic)."""
+    g = torch.Generator(device=dev).manual_seed(197)
+    q, k, v, do = (_randn(g, 24, 197, 64, dtype=dtype) for _ in range(4))
+    sc = 64 ** -0.5
+    reset_launch_counts()
+    out, lse = attention_fwd_res(q, k, v, sc)
+    got = attention_bwd(do, q, k, v, sc, out=out, lse=lse)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["attention_fwd"] == counts["attention_bwd_dq"] \
+        == counts["attention_bwd_dkv"] == 1
+    _close(out, attention_fwd_reference(q, k, v, sc)[0], dtype)
+    want = attention_bwd_reference(do, q, k, v, sc) \
+        if dtype == torch.float32 else attention_bwd_passes_reference(
+            do, q, k, v, out, lse, sc, False)
+    for a, w in zip(got, want):
+        _close(a, w, dtype)
+
+
+def _on_cpu(fn, *args):
+    """``fn(*args)`` with new lightgrad tensors on the CPU (a model's
+    run-time constants go to the default device, as its parameters do)."""
+    from lightgrad_tpu_torch.autograd.cuda import device
+
+    prev = device.set_default_device("cpu")
+    try:
+        return fn(*args)
+    finally:
+        device.set_default_device(prev)
+
+
+def _tape_grads_close(card_model, cpu_model, tol=1e-4):
+    """Every gradient within ``tol`` of the largest of the CPU's; an
+    attention's key bias, whose gradient is zero in exact arithmetic
+    (softmax ignores a per-row constant), against its query bias's."""
+    cpu = dict(cpu_model.named_parameters())
+    for n, p in card_model.named_parameters():
+        want = cpu[n].grad.data
+        scale = cpu[n.replace(".key.bias", ".query.bias")].grad.data
+        err = (p.grad.data.cpu() - want).abs().max().item()
+        assert err <= tol * max(scale.abs().max().item(), 1e-6), n
+
+
+def test_tiny_vit_step_on_the_card_matches_the_cpu(dev):
+    """A small ViT (17 tokens) on the card against the same weights on the
+    CPU (the kernels' plain versions): logits, loss, every gradient; the
+    patch conv and the flash kernels launched."""
+    from lightgrad_tpu_torch import loss as lg_loss, random as lg_random
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.models import (ViTConfig,
+                                            ViTForImageClassification)
+
+    cfg = dict(image_size=32, patch_size=8, hidden_size=64,
+               num_hidden_layers=2, num_attention_heads=4,
+               intermediate_size=128, num_labels=10)
+    lg_random.seed(0)
+    card = ViTForImageClassification(ViTConfig(**cfg))
+    cpu = _on_cpu(lambda: ViTForImageClassification(ViTConfig(**cfg)))
+    cpu.load_parameters(card.state_dict())
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(2, 3, 32, 32, generator=g, device=dev)
+    y = torch.tensor([1, 7], dtype=torch.int32, device=dev)
+
+    def run(m, x, y):
+        logits = m(Tensor(x, requires_grad=False))
+        loss = lg_loss.cross_entropy(logits, Tensor(y, requires_grad=False))
+        m.zero_grad()
+        loss.backward()
+        return logits.data, loss.data
+
+    reset_launch_counts()
+    logits, loss = run(card, x, y)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert all(counts[k] for k in ("conv_fwd", "conv_bwd_dw",
+                                   "attention_fwd", "attention_bwd_dq",
+                                   "attention_bwd_dkv", "layernorm_fwd"))
+    want_logits, want_loss = _on_cpu(run, cpu, x.cpu(), y.cpu())
+    _close(logits.cpu(), want_logits, torch.float32)
+    _close(loss.cpu(), want_loss, torch.float32)
+    _tape_grads_close(card, cpu)
+
+
+def test_tiny_unet_step_on_the_card_matches_the_cpu(dev):
+    """DDPM's UNet (base 32: both conv routes, the transposed convs) on
+    the card against the same weights on the CPU: the loss and every
+    gradient at one t and noise; then DDIM sampling repeats bit for bit."""
+    from lightgrad_tpu_torch import random as lg_random
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.models import Diffusion, UNet
+
+    lg_random.seed(0)
+    card = Diffusion(UNet(in_channels=1, base=32, time_dim=32),
+                     timesteps=20)
+    cpu = _on_cpu(lambda: Diffusion(UNet(in_channels=1, base=32,
+                                         time_dim=32), timesteps=20))
+    cpu.model.load_parameters(card.model.state_dict())
+    g = torch.Generator(device=dev).manual_seed(4)
+    x0, z = (torch.randn(2, 1, 12, 12, generator=g, device=dev)
+             for _ in range(2))
+    t = torch.tensor([3, 17], dtype=torch.int32, device=dev)
+
+    def run(d, *ts):
+        loss = d.loss(*(Tensor(a, requires_grad=False) for a in ts))
+        d.model.zero_grad()
+        loss.backward()
+        return loss.data
+
+    reset_launch_counts()
+    loss = run(card, x0, t, z)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert all(counts[k] for k in ("conv_fwd", "conv_bwd_dx", "conv_bwd_dw",
+                                   "conv_fwd_simt", "conv_bwd_dx_simt",
+                                   "conv_bwd_dw_simt"))
+    _close(loss.cpu(), _on_cpu(run, cpu, x0.cpu(), t.cpu(), z.cpu()),
+           torch.float32)
+    _tape_grads_close(card.model, cpu.model)
+    a = card.sample_ddim(2, steps=5, shape=(1, 12, 12), seed=2).data
+    b = card.sample_ddim(2, steps=5, shape=(1, 12, 12), seed=2).data
+    assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+def test_the_numpy_oracle_against_the_card(dev):
+    """The reference's "compare with cpu" on the card: tape ops on
+    CudaTensors against the numpy CpuTensor of the same values (made by
+    ``.cpu()``), forward and gradients within 1e-3; assert_gradcheck on the
+    card at 5e-4."""
+    import numpy as np
+
+    from lightgrad_tpu_torch.autograd import CpuTensor, CudaTensor
+    from lightgrad_tpu_torch.utils.gradcheck import assert_gradcheck
+
+    rng = np.random.default_rng(5)
+    cases = [(lambda a, b: (a @ b).softmax(axis=-1), [(32, 48), (48, 40)]),
+             (lambda a, b: (a * b).tanh().sum(axis=0), [(32, 48), (48,)]),
+             (lambda x, w: x.conv(w, strides=2).max_pool2d(kernel=2),
+              [(2, 16, 13, 13), (32, 16, 3, 3)])]
+    for fn, shapes in cases:
+        arrays = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+        card_ts = [CudaTensor.from_numpy(a) for a in arrays]
+        oracle = [t.cpu() for t in card_ts]
+        assert all(type(t) is CpuTensor for t in oracle)
+        outs = []
+        for ts in (card_ts, oracle):
+            y = fn(*ts)
+            y.sum().backward()
+            outs.append([y.numpy()] + [t.grad.numpy() for t in ts])
+        for a, b in zip(*outs):
+            np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-3)
+    x = CudaTensor.from_numpy(rng.uniform(-1, 1, (3, 5)).astype(np.float32))
+    assert x.data.is_cuda
+    assert_gradcheck(lambda t: (t @ t.T()).softmax(axis=-1), x)

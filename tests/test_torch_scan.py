@@ -199,11 +199,14 @@ def test_gpt_amp_over_the_scanned_stack_trains():
     assert losses[-1] < losses[0], losses
 
 
-@pytest.mark.parametrize("bad", ["dots_saveable", "nothing_saveable", 2])
+@pytest.mark.parametrize("bad", ["save_anything_except_these_names",
+                                 "dots_savable", 2])
 def test_unknown_remat_raises(bad):
-    with pytest.raises(ValueError, match="'full' and 'dots'"):
+    # the message names the accepted values and the one given
+    match = f"{bad!r}.*'full', 'dots'.*'dots_saveable'"
+    with pytest.raises(ValueError, match=match):
         GPT(GPTConfig(scan_layers=True, remat=bad, **GPT_CFG), device="cpu")
-    with pytest.raises(ValueError, match="'full' and 'dots'"):
+    with pytest.raises(ValueError, match=match):
         Llama(LlamaConfig(scan_layers=True, remat=bad, **LLAMA_CFG))
 
 
