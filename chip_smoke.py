@@ -9,7 +9,9 @@ char example), and the GPT-NeoX / Pythia family (Pythia-1B and -2.8B
 training on the tape through the fused flash backward; Pythia-1B
 ``generate``), scanned stacks with remat, checkpoint resume, LoRA and the
 tokenizers / HF files, the vision families (ViT-B/16 training, DDPM
-training and sampling) and the numpy oracle against the card.
+training and sampling), the numpy oracle against the card, and the last
+families: T5-base and flan-T5-base on the tape (training, cached, beam and
+compiled decoding) and GPT-2 small with mixture-of-experts blocks.
 
     python3 chip_smoke.py
 
@@ -216,7 +218,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the EMA weights; (c) the oracle: a sweep of tape ops on the card
      against the numpy ``CpuTensor``, forward and gradients, and
      ``assert_gradcheck`` on the card;
- 13. every kernel of each path was launched by that path (the decoding
+ 13. the last families, seeded random weights: (a) T5-base at
+     ``google-t5/t5-base``'s widths (vocab 32128, d_model 768, d_kv 64,
+     d_ff 3072, 12 + 12 layers, 12 heads, 32 buckets, max distance 128,
+     relu, tied; dropout off) on the tape: the softmax kernel at its
+     encoder scores (8 x 12 x 512 x 512, padding mask and bias) fwd and bwd
+     in both dtypes against the plain versions, timed by CUDA graph with L2
+     flushed beside torch's; 5 float32 Adafactor steps on 8 sources of 512
+     (two padded) and 8 targets of 114, step 1's logits and every gradient
+     against a plain twin, the loss falls, tokens/s, peak memory, where a
+     step's time goes, the relative-bias scatter's device time; cached
+     ``generate`` (4 x 512, one masked, 64 tokens: wall and device ms a
+     token), ``use_cache=False`` for 8 tokens (the same), ``generate_compiled``
+     (64 tokens, the eager ones), ``beam_generate`` at beam 4 and beam 1
+     (greedy); one forward of the bf16-cast model (every softmax bf16,
+     logits against the f32 twin); (b) flan-T5-base's gated-GELU FFN (2048)
+     and untied head: one step against its twin, ``generate_compiled`` for
+     16 tokens equal to eager; (c) GPT-MoE at GPT-2 small's widths with 8
+     experts of 3072 in every block, top-2 at capacity factor 1.25: the
+     matmul kernel at its expert product (8 x 2560 x 768 @ 8 x 768 x 3072)
+     against the plain version, timed beside torch.matmul; f32 AdamW on 8
+     x 1024 tokens, loss CE + 0.01 aux, 5 steps: step 1's logits, aux and
+     gradients against the plain twin (``moe_reference``'s one-hot
+     products on the model's expert choices), every layer's kept and
+     dropped routings equal to the twin's, the loss falls, tokens/s, device
+     ms and idle share, peak memory, the expert products' launches; one
+     bf16 ``MixedPrecision`` step; one step of the Switch-style model
+     (top-1, every other block);
+ 14. every kernel of each path was launched by that path (the decoding
      module's paths included: each GPT-2 one its stack kernel, LLaMA's
      generate_device decode attention and its merge, generate_batch_device
      the batched decode attention), and every kernel of the package by
@@ -597,6 +626,37 @@ ORACLE_KERNELS = TAPE_KERNELS + ("softmax_fwd", "softmax_bwd") \
 GRADCHECK_KERNELS = TAPE_KERNELS + ("softmax_fwd", "softmax_bwd",
                                     "conv_fwd_simt", "conv_bwd_dx_simt",
                                     "conv_bwd_dw_simt")
+# phase 13a: T5-base at HF google-t5/t5-base's config (not cut); dropout
+# off, so that the tape's step and its plain twin compute one function
+T5_BASE = dict(vocab_size=32128, d_model=768, d_kv=64, d_ff=3072,
+               num_layers=12, num_decoder_layers=12, num_heads=12,
+               relative_attention_num_buckets=32,
+               relative_attention_max_distance=128, feed_forward_proj="relu",
+               tie_word_embeddings=True, dropout_rate=0.0)
+# phase 13b: google/flan-t5-base's gated-GELU FFN (2048) and untied head
+FLAN_T5_BASE = dict(T5_BASE, d_ff=2048, feed_forward_proj="gated-gelu",
+                    tie_word_embeddings=False)
+# T5's pre-training lengths: 8 sources of 512 (rows 1 and 5 padded to 384
+# and 200), 8 targets of 114; Adafactor at lr 1e-3 without parameter
+# scaling
+T5_BATCH, T5_SRC, T5_TGT, T5_PADDED = 8, 512, 114, (384, 200)
+T5_STEPS, T5_LR = 5, 1e-3
+# serving: sources, new tokens (cached, compiled), uncached tokens, (beam
+# size, tokens); flan-T5-base's compiled tokens
+T5_SERVE, T5_NEW, T5_UNCACHED, T5_BEAM = 4, 64, 8, (4, 32)
+T5_TRACED = 16      # tokens of the traced generate (device ms a token)
+FLAN_COMPILED = 16
+T5_KERNELS = TAPE_KERNELS + ("softmax_fwd", "softmax_bwd")
+T5_DECODE_KERNELS = TAPE_KERNELS + ("softmax_fwd",)
+# phase 13c: GPT-2 small's widths with 8 experts of 3072 in every block,
+# top-2 at capacity factor 1.25 (GPTConfig's Mixtral-style option), f32
+# AdamW on 8 x 1024 tokens, loss CE + 0.01 aux_loss; the Switch-style
+# model: top-1 every other block
+GPT_MOE = dict(GPT2_SMALL, n_experts=8, moe_k=2, moe_hidden=3072,
+               moe_dispatch="topk", moe_capacity_factor=1.25)
+GPT_SWITCH = dict(GPT_MOE, moe_dispatch="top1", moe_every=2)
+MOE_STEPS, MOE_LR, MOE_AUX = 5, 3e-4, 0.01
+GPT_MOE_KERNELS = TRAINING_KERNELS + ("matmul",)
 HBM_BPS = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # the tf32 tensor-core rate: the f32 matmul kernel's bound counts its three
@@ -837,6 +897,21 @@ def check(name, dtype, got, want, tol):
         f"rel={rel:.3e} tol={tol:.0e} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} {dtype}: {abs_err} (rel {rel}) > {tol}")
+    return abs_err
+
+
+def check_scaled(name, dtype, got, want, tol):
+    """:func:`check` with the error scaled by max |ref| itself, not by
+    max(1, max |ref|): for outputs whose scale is not 1."""
+    got, want = got.float(), want.float()
+    abs_err = (got - want).abs().max().item()
+    ref = want.abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and abs_err <= tol * ref
+    log(f"  {name} {str(dtype)[6:]}: max_abs_err={abs_err:.3e} max|ref|="
+        f"{ref:.3e} rel={abs_err / max(ref, 1e-30):.3e} tol={tol:.0e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} {dtype}: {abs_err} > {tol} * {ref}")
     return abs_err
 
 
@@ -1355,14 +1430,18 @@ def phase_kernels(model, results):
         torch.cuda.empty_cache()
 
 
-def plain_forward(model, ids, p=None):
+def plain_forward(model, ids, p=None, routes=None, moe_out=None):
     """Logits (..., T, vocab) of a full causal forward of ``ids`` (..., T)
     through the plain PyTorch versions of the kernels: no cache, no
     hand-written kernel -- the reference the KV path and, under autograd,
     the training step must meet.  ``p`` replaces the model's parameters
-    (a "head.weight" entry replaces the tied head)."""
+    (a "head.weight" entry replaces the tied head).  An MoE block runs
+    ``moe_reference`` (the one-hot products), with layer l's expert choices
+    ``routes[l]`` where given; ``moe_out`` then collects, a block, (aux,
+    z, its own choices, its kept routings, its router probabilities)."""
     import torch.nn.functional as F
 
+    from lightgrad_tpu_torch.models._torch_layers import moe_reference
     from lightgrad_tpu_torch.ops.attention import attention_fwd_reference
     from lightgrad_tpu_torch.ops.layernorm import layernorm_fwd_reference
 
@@ -1379,6 +1458,18 @@ def plain_forward(model, ids, p=None):
     def lin(x, pre):
         return F.linear(x, p[pre + ".weight"], p[pre + ".bias"])
 
+    def moe(h, pre, l):
+        w = {n[len(pre):]: t for n, t in p.items() if n.startswith(pre)}
+        y, aux, z, (own, kept) = moe_reference(
+            h, w, cfg.n_experts, dispatch=cfg.moe_dispatch, k=cfg.moe_k,
+            capacity_factor=cfg.moe_capacity_factor,
+            ids=None if routes is None else routes[l])
+        if moe_out is not None:
+            probs = torch.softmax(F.linear(h.reshape(-1, d), w[
+                "router.weight"]).float(), -1)
+            moe_out.append((aux, z, own, kept, probs.detach()))
+        return y
+
     x = p["wte.weight"][ids] + p["wpe.weight"][:T]
     for l in range(cfg.n_layer):
         pre = f"h.{l}."
@@ -1388,6 +1479,9 @@ def plain_forward(model, ids, p=None):
         att = attention_fwd_reference(q, k, v, (d // H) ** -0.5, True)[0]
         x = x + lin(att.transpose(-3, -2).reshape(*lead, T, d),
                     pre + "attn.c_proj")
+        if pre + "moe.w1" in p:
+            x = x + moe(ln(x, pre + "ln_2"), pre + "moe.", l)
+            continue
         x = x + lin(F.gelu(lin(ln(x, pre + "ln_2"), pre + "c_fc"),
                            approximate="tanh"), pre + "c_proj")
     return ln(x, "ln_f") @ p.get("head.weight", p["wte.weight"]).T
@@ -3106,7 +3200,9 @@ KERNEL_FAMILIES = (("matmul_tc_kernel", "matmul"),
                    ("true>(", "fused flash backward"),
                    ("flash", "attention"),
                    ("layout_", "conv layout"), ("conv_", "conv"),
-                   ("sum_partials", "conv"), ("sum_dw", "conv"))
+                   ("sum_partials", "conv"), ("sum_dw", "conv"),
+                   # ATen's gathers and their accumulating scatters
+                   ("index", "gather / scatter"))
 
 
 def step_breakdown(step, step_s, host_s):
@@ -3114,29 +3210,16 @@ def step_breakdown(step, step_s, host_s):
     the tape's own profiler), the host time that queues forward + backward
     per op, and the device time of each kernel family in one step traced by
     torch.profiler, with the device's idle share of the step's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from lightgrad_tpu_torch.utils.profiler import Profiler
 
     with Profiler() as prof:
         step()
     n_fwd = sum(prof.fwd_count.values())
     n_bwd = sum(prof.bwd_count.values())
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as trace:
-        step()
-        torch.cuda.synchronize()
+    traced, busy, _ = traced_families(step)
     fams = [f for _, f in KERNEL_FAMILIES] + ["plain torch"]
-    ms, n = dict.fromkeys(fams, 0.0), dict.fromkeys(fams, 0)
-    for e in trace.events():
-        if e.device_type == DeviceType.CUDA:
-            fam = next((f for k, f in KERNEL_FAMILIES if k in e.name),
-                       "plain torch")
-            ms[fam] += e.time_range.elapsed_us() / 1e3
-            n[fam] += 1
-    busy = sum(ms.values())
+    ms = {f: traced.get(f, (0.0, 0))[0] for f in fams}
+    n = {f: traced.get(f, (0.0, 0))[1] for f in fams}
     log(f"  tape ops a step: {n_fwd} forward, {n_bwd} backward; forward + "
         f"backward queued in {host_s * 1e3:.1f} ms of host time, "
         f"{host_s * 1e6 / (n_fwd + n_bwd):.1f} us an op")
@@ -5464,9 +5547,17 @@ def phase_amp_one_step(card):
 def busy_share(step):
     """One ``step()`` traced by torch.profiler: (device ms of its kernels,
     wall ms of the step)."""
+    return traced_families(step)[1:]
+
+
+def traced_families(step, extra=()):
+    """One ``step()`` traced by torch.profiler: ({family: (device ms,
+    kernels)} by KERNEL_FAMILIES after ``extra``'s (fragment, family)
+    pairs, device ms, wall ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fams = tuple(extra) + KERNEL_FAMILIES
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as trace:
@@ -5474,9 +5565,13 @@ def busy_share(step):
         step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.time_range.elapsed_us() / 1e3 for e in trace.events()
-               if e.device_type == DeviceType.CUDA)
-    return busy, wall
+    out = {}
+    for e in trace.events():
+        if e.device_type == DeviceType.CUDA:
+            fam = next((f for k, f in fams if k in e.name), "plain torch")
+            ms, n = out.get(fam, (0.0, 0))
+            out[fam] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return out, sum(ms for ms, _ in out.values()), wall
 
 
 def traced_kernel_ms(fn):
@@ -6598,6 +6693,721 @@ def phase_oracle(card):
     return counts
 
 
+def t5_model(cfg_dict):
+    """A T5ForConditionalGeneration of ``cfg_dict`` on the card, random
+    weights from the tape's generator at seed 0; the shared table redrawn
+    N(0, 1), as HF initialises it (the package's xavier bound at 32128 x
+    768, 2e-4, leaves a tied head's logits near 1e-4 and the loss at
+    ln V whatever the model computes)."""
+    from lightgrad_tpu_torch import random as lg_random
+    from lightgrad_tpu_torch.models import (T5Config,
+                                            T5ForConditionalGeneration)
+
+    lg_random.seed(0)
+    model = T5ForConditionalGeneration(T5Config(**cfg_dict))
+    w = model.shared.weight.data
+    w.copy_(torch.randn(w.shape, device=w.device, generator=torch.Generator(
+        device=w.device).manual_seed(27)))
+    return model
+
+
+def t5_batch(vocab):
+    """T5_BATCH sources of T5_SRC tokens, rows 1 and 5 padded to
+    T5_PADDED's lengths (pad id 0, mask 0 past them), and T5_BATCH x T5_TGT
+    labels; ids from 2 up (0 is pad, 1 eos)."""
+    rng = np.random.default_rng(22)
+    src = rng.integers(2, vocab, (T5_BATCH, T5_SRC)).astype(np.int32)
+    am = np.ones_like(src)
+    for row, n in zip((1, 5), T5_PADDED):
+        src[row, n:], am[row, n:] = 0, 0
+    labels = rng.integers(2, vocab, (T5_BATCH, T5_TGT)).astype(np.int32)
+    return src, am, labels
+
+
+def plain_t5(p, cfg, src, am, dec, decisions=None):
+    """T5ForConditionalGeneration's logits through the plain PyTorch
+    versions of the kernels (``_reference``), differentiable by torch
+    autograd: the twin the tape's step must meet.  ``p``: parameters by
+    name; ``src`` / ``dec`` int64 and ``am`` {0, 1} float on the card;
+    ``decisions``: a :class:`TapeDecisions` whose ReLU masks (the FFNs',
+    encoder then decoder) the twin takes.  Float64 parameters evaluate it
+    in float64 throughout."""
+    import torch.nn.functional as F
+
+    from lightgrad_tpu_torch.models.t5 import _relative_position_bucket
+    from lightgrad_tpu_torch.ops.elementwise import ew_reference
+    from lightgrad_tpu_torch.ops.matmul import matmul_reference
+
+    H, dk, D = cfg.num_heads, cfg.d_kv, cfg.d_model
+    eps = cfg.layer_norm_epsilon
+    (B, S), T = src.shape, dec.shape[1]
+    dev = src.device
+
+    f64 = p["shared.weight"].dtype == torch.float64
+
+    def mm(a, b):
+        return torch.matmul(a, b) if f64 else matmul_reference(a, b)
+
+    def rms(x, name):
+        var = (x * x).mean(-1, keepdim=True)
+        return x * (var + eps) ** -0.5 * p[name]
+
+    def lin(x, name):
+        return mm(x, p[name].T)
+
+    def heads(x):
+        return x.reshape(x.shape[0], x.shape[1], H, dk).transpose(1, 2)
+
+    def bias(stack, n, causal):
+        rel = np.arange(n)[None, :] - np.arange(n)[:, None]
+        ids = torch.from_numpy(_relative_position_bucket(
+            rel, not causal, cfg.relative_attention_num_buckets,
+            cfg.relative_attention_max_distance).astype(np.int64)).to(dev)
+        table = p[f"{stack}.block.0.layer.0.SelfAttention."
+                  "relative_attention_bias.weight"]
+        return table[ids].permute(2, 0, 1)[None]
+
+    def attend(x, kv, pre, adds):
+        q, k, v = (heads(lin(t, pre + n + ".weight"))
+                   for t, n in ((x, "q"), (kv, "k"), (kv, "v")))
+        s = mm(q, k.transpose(-1, -2))
+        for a in adds:
+            s = s + a
+        ctx = mm(torch.softmax(s, -1) if f64 else _PlainSoftmax.apply(s), v)
+        return lin(ctx.transpose(1, 2).reshape(x.shape[0], -1, H * dk),
+                   pre + "o.weight")
+
+    def ff(x, pre):
+        if cfg.is_gated_act:
+            g = lin(x, pre + "wi_0.weight")
+            g = F.gelu(g, approximate="tanh") if f64 \
+                else ew_reference("f_gelu", g)
+            h = g * lin(x, pre + "wi_1.weight")
+        elif masks is not None:
+            h = _MaskedRelu.apply(lin(x, pre + "wi.weight"), next(masks))
+        else:
+            h = torch.relu(lin(x, pre + "wi.weight"))
+        return lin(h, pre + "wo.weight")
+
+    masks = iter(decisions.relu) if decisions else None
+    pad = ((1.0 - am) * -1e9).reshape(B, 1, 1, S)
+    x = p["shared.weight"][src]
+    eb = bias("encoder", S, False)
+    for l in range(cfg.num_layers):
+        pre = f"encoder.block.{l}.layer."
+        h = rms(x, pre + "0.layer_norm.weight")
+        x = x + attend(h, h, pre + "0.SelfAttention.", (eb, pad))
+        x = x + ff(rms(x, pre + "1.layer_norm.weight"),
+                   pre + "1.DenseReluDense.")
+    enc = rms(x, "encoder.final_layer_norm.weight")
+    y = p["shared.weight"][dec]
+    db = bias("decoder", T, True)
+    causal = torch.full((T, T), -1e9, device=dev).triu(1)
+    for l in range(cfg.num_decoder_layers):
+        pre = f"decoder.block.{l}.layer."
+        h = rms(y, pre + "0.layer_norm.weight")
+        y = y + attend(h, h, pre + "0.SelfAttention.", (db, causal))
+        y = y + attend(rms(y, pre + "1.layer_norm.weight"), enc,
+                       pre + "1.EncDecAttention.", (pad,))
+        y = y + ff(rms(y, pre + "2.layer_norm.weight"),
+                   pre + "2.DenseReluDense.")
+    y = rms(y, "decoder.final_layer_norm.weight")
+    if cfg.tie_word_embeddings:
+        return mm(y * D ** -0.5, p["shared.weight"].T)
+    return lin(y, "lm_head.weight")
+
+
+def t5_train(name, model, batch, steps, card):
+    """``steps`` Adafactor steps (lr T5_LR, no parameter scaling: HF's
+    fine-tuning setting) of a T5 on the tape on one batch, step 1's logits
+    and every gradient held to the plain twin; with more than one step the
+    loss must fall, and tokens/s, peak memory and where a step's time goes
+    are logged.  Returns the steps' launch counts."""
+    import torch.nn.functional as F
+
+    from lightgrad_tpu_torch import loss as lg_loss
+    from lightgrad_tpu_torch import optim
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg, f32 = model.cfg, torch.float32
+    src, am, labels = batch
+    dec = model.shift_right(labels)
+    V = cfg.vocab_size
+    x, m, d, y = (Tensor.from_numpy(a, requires_grad=False)
+                  for a in (src, am, dec, labels.reshape(-1)))
+    dev = x.data.device
+    srcd, decd, yd = (torch.from_numpy(a).long().to(dev)
+                      for a in (src, dec, labels.reshape(-1)))
+    amd = torch.from_numpy(am).float().to(dev)
+    n_params = sum(t.data.numel() for t in model.parameters())
+    log(f"  {name}: {n_params / 1e6:.2f} M parameters; {src.shape[0]} x "
+        f"{src.shape[1]} sources (rows 1, 5 padded to {T5_PADDED}), "
+        f"{labels.shape[0]} x {labels.shape[1]} targets")
+
+    def step_fn():
+        logits = model(x, d, attention_mask=m)
+        loss = lg_loss.cross_entropy(logits.reshape(-1, V), y)
+        opt.zero_grad()
+        loss.backward()
+        return logits, loss
+
+    opt = optim.Adafactor(list(model.parameters()), lr=T5_LR,
+                          scale_parameter=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times, host = [], [], []
+    def twin(decisions=None, dtype=f32):
+        ps = {n: t.data.detach().to(dtype).requires_grad_(True)
+              for n, t in model.named_parameters()}
+        logits = plain_t5(ps, cfg, srcd, amd.to(dtype), decd, decisions)
+        loss = F.cross_entropy(logits.reshape(-1, V), yd)
+        return logits.detach(), loss.item(), dict(zip(ps, torch.autograd.grad(
+            loss, list(ps.values()))))
+
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if step == 0:
+            with TapeDecisions() as decisions:
+                logits, loss = step_fn()
+        else:
+            logits, loss = step_fn()
+        host.append(time.perf_counter() - t0)   # forward + backward queued
+        if step == 0:               # the checks' time is not the step's
+            torch.cuda.synchronize()
+            c0 = time.perf_counter()
+            plain_logits, plain_loss, grads = twin(decisions)
+            grads64 = twin(decisions, torch.float64)[2]
+            check_scaled(f"{name} logits vs the plain twin", f32,
+                         logits.data, plain_logits, PATH_TOL[f32])
+            log(f"  step-1 loss {loss.item():.5f}, plain twin "
+                f"{plain_loss:.5f}")
+            if decisions.relu:
+                own = twin()[2]
+                rel, worst = worst_rel({n: t.grad.data for n, t in
+                                        model.named_parameters()}, own)
+                log(f"  the twin takes the tape's {len(decisions.relu)} ReLU "
+                    f"masks; with its own, its gradients are {rel:.3e} off "
+                    f"({worst}: pre-activations that flip under rounding)")
+                del own
+            tape_grad_check(model, grads, grads64)
+            del plain_logits, grads, grads64, decisions
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 += time.perf_counter() - c0
+        opt.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        del logits, loss
+    counts = launch_counts()
+    if steps == 1:
+        if not np.isfinite(losses[0]):
+            raise AssertionError(f"{name}: loss {losses[0]}")
+        log(f"  one Adafactor step: loss {losses[0]:.4f}, "
+            f"{times[0] * 1e3:.1f} ms (compiles included); {card}")
+        return counts
+    peak = torch.cuda.max_memory_allocated()
+    ok = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    med = float(np.median(times[1:]))
+    n_tok = src.size + labels.size
+    log(f"  losses: {[round(v, 4) for v in losses]} "
+        f"({'finite, falling' if ok else 'FAIL'})")
+    log(f"  {n_tok} tokens a step ({src.size} source + {labels.size} "
+        f"target): {n_tok / med:.1f} tok/s (median of steps 2-{steps}, "
+        f"step times {[round(t, 4) for t in times]} s); peak memory of "
+        f"steps 2-{steps} {peak / 2**30:.2f} GiB; {card}")
+    log(f"  launches per step: "
+        f"{ {k: v // steps for k, v in counts.items() if v} }")
+    if not ok:
+        raise AssertionError(f"{name}: loss not finite and falling: "
+                             f"{losses}")
+    step_breakdown(lambda: (step_fn(), opt.step()), med,
+                   float(np.median(host[1:])))
+    return counts
+
+
+def t5_bias_scatter(cfg, card):
+    """The encoder's relative-bias gradient as the tape computes it: the
+    gather backward of the (S, S) bucket ids into the (buckets, heads)
+    table, ``index_put_(..., accumulate=True)`` of S² rows of H; and the
+    decoder's at its length.  Device ms of each, from a CUDA-only trace of
+    10 calls."""
+    from lightgrad_tpu_torch.models.t5 import _bucket_ids
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(24)
+    H, nb = cfg.num_heads, cfg.relative_attention_num_buckets
+    for what, n, causal in (("encoder", T5_SRC, False),
+                            ("decoder", T5_TGT, True)):
+        ids = _bucket_ids(0, n, n, causal, nb,
+                          cfg.relative_attention_max_distance, dev)
+        gd = torch.randn(n, n, H, generator=g, device=dev)
+
+        def scatter():
+            out = torch.zeros((nb, H), device=dev)
+            out.index_put_((ids,), gd, accumulate=True)
+            return out
+
+        _, ms = traced_kernel_ms(lambda: [scatter() for _ in range(10)])
+        log(f"  relative-bias gradient scatter, {what} ({n}² x {H} into "
+            f"{nb} x {H}): {ms / 10:.4f} ms of device time a call "
+            f"(index_put_ accumulate, sort included); {card}")
+
+
+def t5_softmax_check(results):
+    """The softmax kernel at T5-base's encoder scores, 8 x 12 x 512 x 512
+    with the two padded sources' mask and a relative bias, fwd and bwd, in
+    float32 and bfloat16, against the plain versions; timed by CUDA graph
+    with L2 flushed beside torch.softmax / _softmax_backward_data (variant
+    "t5_" of the softmax records)."""
+    from lightgrad_tpu_torch.ops.softmax import (softmax_bwd,
+                                                 softmax_bwd_reference,
+                                                 softmax_fwd,
+                                                 softmax_fwd_reference)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(25)
+    B, H, S = T5_BATCH, T5_BASE["num_heads"], T5_SRC
+    mask = torch.zeros(B, 1, 1, S, device=dev)
+    for row, n in zip((1, 5), T5_PADDED):
+        mask[row, ..., n:] = -1e9
+    bias = torch.randn(1, H, S, S, generator=g, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol, isz = KERNEL_TOL[dtype], torch.empty((), dtype=dtype) \
+            .element_size()
+
+        def scores():
+            return (torch.randn(B, H, S, S, generator=g, device=dev) * 2.0
+                    + bias + mask).to(dtype)
+
+        sm = scores()
+        ys, want = softmax_fwd(sm), softmax_fwd_reference(sm)
+        tag = f"softmax_fwd T5-base encoder {tuple(sm.shape)}"
+        err = check(tag, dtype, ys, want, tol)
+        one_hot = torch.zeros_like(want).scatter_(-1, want.argmax(-1, True),
+                                                  1.0)
+        discriminates(tag, dtype, want, tol, torch.zeros_like(want), one_hot)
+        sets = operand_sets(lambda: (scores(),))
+        timed_sets(results, dtype, "softmax_fwd", err, softmax_fwd,
+                   softmax_fwd_reference,
+                   (2 * sm.numel() * isz, 5 * sm.numel()),
+                   lambda t: torch.softmax(t, -1), sets, variant="t5_")
+        del sets
+        gs = torch.randn(B, H, S, S, generator=g, device=dev).to(dtype)
+        want = softmax_bwd_reference(gs, ys)
+        tag = f"softmax_bwd T5-base encoder {tuple(gs.shape)}"
+        err = check(tag, dtype, softmax_bwd(gs, ys), want, tol)
+        discriminates(tag, dtype, want, tol, torch.zeros_like(want))
+        del sm, want
+        sets = operand_sets(lambda: (
+            torch.randn(B, H, S, S, generator=g, device=dev).to(dtype),
+            softmax_fwd(scores())))
+        timed_sets(results, dtype, "softmax_bwd", err, softmax_bwd,
+                   softmax_bwd_reference,
+                   (3 * gs.numel() * isz, 4 * gs.numel()),
+                   lambda a, b: torch._softmax_backward_data(a, b, -1, dtype),
+                   sets, variant="t5_")
+        del sets, gs, ys
+        torch.cuda.empty_cache()
+
+
+def t5_serving(name, model, batch, card):
+    """Phase 13a's serving: cached ``generate`` of T5_SERVE sources (one
+    masked) for T5_NEW tokens after a warm-up that compiles the decode
+    rows' softmax widths (wall and device ms a token, idle share); the
+    first T5_UNCACHED tokens again with ``use_cache=False``;
+    ``generate_compiled`` of source 0 against its eager greedy tokens; beam
+    4 and beam 1 (== those greedy tokens) for T5_BEAM[1] tokens.  Returns {path: launch
+    counts}."""
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    src, am, _ = batch
+    n = T5_SERVE
+    x, m = (Tensor.from_numpy(a[:n], requires_grad=False) for a in (src, am))
+    x1, m1 = (Tensor.from_numpy(a[:1], requires_grad=False)
+              for a in (src, am))
+    counts = {}
+    t0 = time.perf_counter()
+    model.generate(Tensor.from_numpy(src[:1, :16], requires_grad=False),
+                   max_new_tokens=T5_NEW)
+    log(f"  warm-up generate (1 x 16 source, {T5_NEW} tokens: the decode "
+        f"rows' softmax widths compile): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.generate(x, max_new_tokens=T5_NEW, attention_mask=m)
+    wall = (time.perf_counter() - t0) * 1e3
+    counts[f"{name} generate (cached)"] = launch_counts()
+    ntok = out.shape[1]
+    traced, dev_ms = traced_kernel_ms(lambda: model.generate(
+        x, max_new_tokens=T5_TRACED, attention_mask=m))
+    dev_ms /= traced.shape[1]
+    log(f"  generate, {n} x {T5_SRC} sources (row 1 masked past "
+        f"{T5_PADDED[0]}), cached: {ntok} tokens a row in {wall:.1f} ms: "
+        f"{wall / ntok:.2f} ms a token step ({n} rows), device "
+        f"{dev_ms:.2f} ms a step over the first {traced.shape[1]} (idle "
+        f"{100 * (1 - dev_ms * ntok / wall):.1f}%; the encoder included); "
+        f"softmax launches "
+        f"{counts[f'{name} generate (cached)']['softmax_fwd']}; {card}")
+    slow = model.generate(x, max_new_tokens=T5_UNCACHED, attention_mask=m,
+                          use_cache=False)
+    same = np.array_equal(slow, out[:, :T5_UNCACHED])
+    log(f"  use_cache=False, {T5_UNCACHED} tokens: "
+        f"{'the cached tokens' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{name}: uncached tokens {slow.tolist()} != "
+                             f"cached {out[:, :T5_UNCACHED].tolist()}")
+    # source 0 alone, greedy: what compiled decoding and beam 1 must give
+    eager = model.generate(x1, max_new_tokens=T5_NEW, attention_mask=m1)[0]
+    torch.cuda.synchronize()
+    model.generate_compiled(src[0], max_new_tokens=4)      # a warm-up call
+    t0 = time.perf_counter()
+    comp = model.generate_compiled(src[0], max_new_tokens=T5_NEW)
+    cwall = (time.perf_counter() - t0) * 1e3
+    same = np.array_equal(comp, eager[:len(comp)])
+    log(f"  generate_compiled, 1 x {T5_SRC} source, {len(comp)} tokens: "
+        f"{cwall / len(comp):.2f} ms a token (the encoder included); the "
+        f"eager tokens: {'yes' if same else 'FAIL'}; {card}")
+    if not same:
+        raise AssertionError(f"{name}: compiled {comp.tolist()} != eager "
+                             f"{eager.tolist()}")
+    beam, nb = T5_BEAM
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    b4 = model.beam_generate(x1, max_new_tokens=nb, beam_size=beam,
+                             attention_mask=m1)
+    bwall = time.perf_counter() - t0
+    counts[f"{name} beam_generate"] = launch_counts()
+    b1 = model.beam_generate(x1, max_new_tokens=nb, beam_size=1,
+                             attention_mask=m1)
+    same = np.array_equal(b1, eager[:len(b1)])
+    log(f"  beam_generate beam {beam}, {nb} tokens: {len(b4)} tokens in "
+        f"{bwall:.2f} s; beam 1 is greedy: {'yes' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{name}: beam 1 {b1.tolist()} != greedy "
+                             f"{eager[:len(b1)].tolist()}")
+    return counts
+
+
+def t5_bf16_check(name, model, batch):
+    """The model cast to bf16 (``amp.cast_module``): one teacher-forced
+    forward stays bf16 -- every softmax the tape launches takes bf16 scores,
+    the logits are bf16 -- and its logits are within PATH_TOL[bf16] of the
+    f32 twin on the cast weights."""
+    from lightgrad_tpu_torch import amp, no_grad
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.autograd.cuda import ops as cuda_ops
+
+    src, am, labels = batch
+    dec = model.shift_right(labels)
+    amp.cast_module(model, torch.bfloat16)
+    seen = []
+    fwd = cuda_ops.ksoftmax_fwd
+
+    def spy(x):
+        seen.append(x.dtype)
+        return fwd(x)
+
+    cuda_ops.ksoftmax_fwd = spy
+    try:
+        with no_grad():
+            logits = model(*(Tensor.from_numpy(a, requires_grad=False)
+                             for a in (src, dec)),
+                           attention_mask=Tensor.from_numpy(
+                               am, requires_grad=False)).data
+    finally:
+        cuda_ops.ksoftmax_fwd = fwd
+    dev = logits.device
+    with torch.no_grad():
+        want = plain_t5({n: t.data.float() for n, t in
+                         model.named_parameters()}, model.cfg,
+                        torch.from_numpy(src).long().to(dev),
+                        torch.from_numpy(am).float().to(dev),
+                        torch.from_numpy(dec).long().to(dev))
+    kinds = sorted({str(t)[6:] for t in seen})
+    log(f"  bf16 cast: {len(seen)} softmax launches, dtypes {kinds}; "
+        f"logits {str(logits.dtype)[6:]}")
+    if logits.dtype != torch.bfloat16 or kinds != ["bfloat16"]:
+        raise AssertionError(f"{name} bf16: left bf16 ({kinds}, logits "
+                             f"{logits.dtype})")
+    check_scaled(f"{name} bf16 logits vs the f32 twin", torch.bfloat16,
+                 logits, want, PATH_TOL[torch.bfloat16])
+
+
+def phase_t5(card, results):
+    """Phase 13a-b: T5-base (HF google-t5/t5-base's widths, not cut; seeded
+    random weights, dropout off) on the tape: the softmax kernel at its
+    encoder scores; T5_STEPS float32 Adafactor steps on T5_BATCH x T5_SRC
+    sources and T5_BATCH x T5_TGT targets, step 1 against the plain twin,
+    the relative-bias scatter's device time; serving (cached, uncached,
+    compiled, beam); one bf16 forward of the cast model.  Then
+    flan-T5-base's gated FFN and untied head: one step against its twin,
+    ``generate_compiled`` for FLAN_COMPILED tokens equal to eager.  Returns
+    {path: launch counts}."""
+    t0 = time.perf_counter()
+    t5_softmax_check(results)
+    log(f"  softmax at T5-base's encoder scores: "
+        f"{time.perf_counter() - t0:.1f} s")
+    counts = {}
+    name = "T5-base"
+    model = t5_model(T5_BASE)
+    batch = t5_batch(model.cfg.vocab_size)
+    t0 = time.perf_counter()
+    counts[f"{name} training"] = t5_train(name, model, batch, T5_STEPS, card)
+    t5_bias_scatter(model.cfg, card)
+    log(f"  {name} training: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts.update(t5_serving(name, model, batch, card))
+    log(f"  {name} serving: {time.perf_counter() - t0:.1f} s")
+    t5_bf16_check(name, model, batch)
+    del model
+    torch.cuda.empty_cache()
+    name = "flan-T5-base"
+    log(f"{name}'s gated-GELU FFN (2048) and untied head, float32 "
+        f"Adafactor:")
+    t0 = time.perf_counter()
+    model = t5_model(FLAN_T5_BASE)
+    counts[f"{name} training"] = t5_train(name, model, batch, 1, card)
+    src = batch[0][0]
+    comp = model.generate_compiled(src, max_new_tokens=FLAN_COMPILED)
+    from lightgrad_tpu_torch.autograd import Tensor
+
+    eager = model.generate(Tensor.from_numpy(src[None], requires_grad=False),
+                           max_new_tokens=FLAN_COMPILED)[0]
+    same = np.array_equal(comp, eager[:len(comp)])
+    log(f"  generate_compiled, {len(comp)} tokens: the eager tokens: "
+        f"{'yes' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{name}: compiled {comp.tolist()} != eager "
+                             f"{eager.tolist()}")
+    del model
+    torch.cuda.empty_cache()
+    log(f"  {name}: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def moe_routing_check(name, model, plain_out):
+    """Each MoE layer's routing against the plain twin's, which took the
+    model's expert choices: the kept and dropped routings equal; the twin's
+    own choices equal the model's at every token whose top-(k+1)
+    probabilities lie more than 10x the two evaluations' deviation apart
+    (there a flip is arithmetically impossible)."""
+    n_tok = n_dec = n_drop = 0
+    for l, (block, (_, _, own, kept, probs)) in enumerate(zip(
+            [b for b in model.h if hasattr(b, "moe")], plain_out)):
+        ids, keep = block.moe.routes
+        if not torch.equal(keep, kept):
+            raise AssertionError(f"{name}: layer {l} keeps "
+                                 f"{int(keep.sum())} routings, the twin "
+                                 f"{int(kept.sum())} ({int((keep != kept).sum())} "
+                                 f"differ)")
+        k = ids.shape[0]
+        dev = (block.moe.router_probs - probs).abs().amax(-1)
+        top = probs.topk(k + 1, -1).values
+        gaps = (top[:, :-1] - top[:, 1:]).amin(-1)
+        decisive = gaps > 10 * dev.clamp_min(1e-7)
+        bad = decisive & (own != ids).any(0)
+        if bad.any():
+            raise AssertionError(f"{name}: layer {l} routes {int(bad.sum())} "
+                                 f"decisive tokens otherwise than the twin")
+        n_tok += ids.shape[1]
+        n_dec += int(decisive.sum())
+        n_drop += int((~keep).sum())
+    log(f"  routing: kept / dropped routings of every layer equal the "
+        f"twin's ({n_drop} of {k * n_tok} dropped); {n_dec} of {n_tok} "
+        f"(token, layer) choices decisive, all the twin's own there")
+
+
+def moe_product_check(cfg, results):
+    """The matmul kernel at an expert product of the GPT-MoE step, (E, C,
+    d) @ (E, d, h) with C the capacity of 8 x 1024 tokens, f32 and bf16,
+    against the plain version; timed by CUDA graph beside torch.matmul
+    (variant "moe_up_" of the matmul record)."""
+    from lightgrad_tpu_torch.models._torch_layers import moe_capacity
+    from lightgrad_tpu_torch.ops.matmul import matmul, matmul_reference
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(26)
+    E, d, h = cfg.n_experts, cfg.n_embd, cfg.moe_hidden
+    C = moe_capacity(cfg.moe_k, TRAIN_BATCH * cfg.n_positions, E,
+                     cfg.moe_capacity_factor)
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.randn(E, C, d, generator=g, device=dev).to(dtype)
+        b = (torch.randn(E, d, h, generator=g, device=dev)
+             * d ** -0.5).to(dtype)
+        want = matmul_reference(a, b)
+        err = check(f"matmul expert product ({E}, {C}, {d}) @ ({E}, {d}, "
+                    f"{h})", dtype, matmul(a, b), want, KERNEL_TOL[dtype])
+        discriminates("matmul expert product", dtype, want,
+                      KERNEL_TOL[dtype], torch.zeros_like(want))
+        ops = 2 * E * C * d * h
+        isz = a.element_size()
+        timed(results, dtype, "matmul", err, lambda: matmul(a, b),
+              lambda: matmul_reference(a, b),
+              ((E * C * d + E * d * h + E * C * h) * isz,
+               ops if dtype == torch.bfloat16 else 3 * ops),
+              lambda: torch.matmul(a, b), 10, variant="moe_up_",
+              peak=None if dtype == torch.bfloat16 else TF32_OPS)
+        del a, b, want
+        torch.cuda.empty_cache()
+
+
+def phase_gpt_moe(card, results):
+    """Phase 13c: GPT-MoE at GPT-2 small's widths (GPT_MOE: 8 experts of
+    3072 in every block, top-2 at capacity factor 1.25; seeded random
+    weights) trained with f32 AdamW on TRAIN_BATCH x 1024 tokens, loss CE +
+    MOE_AUX aux_loss, MOE_STEPS steps: step 1's logits, aux_loss and
+    gradients against the plain twin (``moe_reference``'s one-hot
+    products on the model's expert choices), the routing check, the loss
+    falls; tokens/s, device ms and idle share of a step, peak memory, the
+    expert products' launches.  Then one bf16 ``MixedPrecision`` AdamW step
+    and one f32 step of the Switch-style model (GPT_SWITCH).  Returns
+    {path: launch counts}."""
+    import torch.nn.functional as F
+
+    from lightgrad_tpu_torch import GPT, GPTConfig, amp, optim
+    from lightgrad_tpu_torch.loss import cross_entropy
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    dev = torch.device("cuda")
+    cfg = GPTConfig(**GPT_MOE)
+    moe_product_check(cfg, results)
+    name = "GPT-MoE (GPT-2 small, 8 experts, top-2)"
+    model = GPT(cfg, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(0))
+    B, T, V = TRAIN_BATCH, cfg.n_positions, cfg.vocab_size
+    g = torch.Generator(device=dev).manual_seed(23)
+    ids = torch.randint(0, V, (B, T), generator=g, device=dev)
+    tgt = torch.randint(0, V, (B * T,), generator=g, device=dev)
+    params = dict(model.named_parameters())
+    n = sum(t.numel() for t in params.values())
+    log(f"  {name}: {n / 1e6:.1f} M parameters, {B} x {T} tokens")
+
+    def loss_of(m):
+        logits = m(ids)
+        return logits, cross_entropy(logits.reshape(B * T, V), tgt) \
+            + MOE_AUX * m.aux_loss
+
+    def twin_check(logits):
+        """Step 1 of the plain twin on the model's weights and expert
+        choices, held to the model's step."""
+        ps = {k: t.detach().requires_grad_(True) for k, t in params.items()}
+        routes = {l: b.moe.routes[0] for l, b in enumerate(model.h)
+                  if hasattr(b, "moe")}
+        out = []
+        plain = plain_forward(model, ids, p=ps, routes=routes, moe_out=out)
+        aux = sum(o[0] for o in out)
+        loss = F.cross_entropy(plain.reshape(B * T, V), tgt) + MOE_AUX * aux
+        grads = dict(zip(ps, torch.autograd.grad(loss, list(ps.values()))))
+        check(f"{name} logits vs the plain twin", torch.float32,
+              logits.detach(), plain.detach(), PATH_TOL[torch.float32])
+        check(f"{name} aux_loss vs the plain twin", torch.float32,
+              model.aux_loss.detach().reshape(1), aux.detach().reshape(1),
+              PATH_TOL[torch.float32])
+        log(f"  step-1 loss (CE + {MOE_AUX} aux) plain twin {loss.item():.5f}")
+        moe_routing_check(name, model, out)
+        grad_check(params, grads, torch.float32)
+
+    opt = optim.AdamW(model.parameters(), lr=MOE_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    counts = {}
+    losses, times = [], []
+    for step in range(MOE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, loss = loss_of(model)
+        opt.zero_grad()
+        loss.backward()
+        if step == 0:               # the checks' time is not the step's
+            torch.cuda.synchronize()
+            c0 = time.perf_counter()
+            log(f"  step-1 loss {loss.item():.5f}")
+            twin_check(logits)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 += time.perf_counter() - c0
+        opt.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        del logits, loss
+    counts[f"{name} training"] = c = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ok = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    med = float(np.median(times[1:]))
+
+    def one_step():
+        _, loss = loss_of(model)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+
+    fams, busy, wall = traced_families(one_step, (
+        ("gemm", "cuBLAS"), ("nvjet", "cuBLAS"), ("cutlass", "cuBLAS"),
+        ("adam", "optimizer")))
+    n_moe = sum(hasattr(b, "moe") for b in model.h)
+    log(f"  losses: {[round(v, 4) for v in losses]} "
+        f"({'finite, falling' if ok else 'FAIL'})")
+    log(f"  {B}x{T} tokens a step: {B * T / med:.1f} tok/s (median of steps "
+        f"2-{MOE_STEPS}, step times {[round(t, 4) for t in times]} s); a "
+        f"traced step: device {busy:.1f} ms of {wall:.1f} ms (idle "
+        f"{100 * (1 - busy / wall):.1f}%); peak memory of steps "
+        f"2-{MOE_STEPS} {peak / 2**30:.2f} GiB; expert-product launches of "
+        f"the matmul kernel {c['matmul'] // MOE_STEPS} a step ({n_moe} MoE "
+        f"blocks x 2 products x (1 forward + 2 backward)); {card}")
+    log("  device ms (kernels) of the traced step by family: " + ", ".join(
+        f"{f} {ms:.2f} ({n})" for f, (ms, n) in sorted(
+            fams.items(), key=lambda kv: -kv[1][0])))
+    if not ok:
+        raise AssertionError(f"{name}: loss not finite and falling: "
+                             f"{losses}")
+    if c["matmul"] != MOE_STEPS * n_moe * 6:
+        raise AssertionError(f"{name}: {c['matmul']} matmul launches, not "
+                             f"{MOE_STEPS * n_moe * 6}")
+    del opt
+    torch.cuda.empty_cache()
+
+    def moved_step(tag, m, zero, scale, step, masters):
+        before = [t.detach().clone() for t in masters]
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss = loss_of(m)
+        zero()
+        scale(loss).backward()
+        step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts[tag] = launch_counts()
+        moved = sum(not torch.equal(t, b) for t, b in zip(masters, before))
+        log(f"  {tag}: loss {loss.item():.4f}, {moved} of {len(before)} "
+            f"parameters moved, {dt * 1e3:.1f} ms; {card}")
+        if not np.isfinite(loss.item()) or moved != len(before):
+            raise AssertionError(f"{tag}: loss {loss.item()}, {moved} of "
+                                 f"{len(before)} moved")
+
+    mp = amp.MixedPrecision(model, lambda ps: optim.AdamW(ps, lr=MOE_LR))
+    moved_step(f"{name} bf16 MixedPrecision AdamW step", model, mp.zero_grad,
+               mp.scale, mp.step, mp.masters)
+    del model, mp
+    torch.cuda.empty_cache()
+    model = GPT(GPTConfig(**GPT_SWITCH), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(1))
+    opt = optim.AdamW(model.parameters(), lr=MOE_LR)
+    tag = "GPT-MoE Switch-style (top-1, every other block)"
+    moved_step(f"{tag} f32 AdamW step", model, opt.zero_grad, lambda l: l,
+               opt.step, list(model.parameters()))
+    del model, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6838,6 +7648,20 @@ def main():
         tally(path, counts, GRADCHECK_KERNELS if path == "gradcheck"
               else ORACLE_KERNELS)
     log(f"  oracle phase: {time.perf_counter() - t0:.1f} s")
+    log("T5-base (google-t5/t5-base's widths) on the tape, float32 "
+        "Adafactor, then serving:")
+    t0 = time.perf_counter()
+    for path, counts in phase_t5(card, results).items():
+        tally(path, counts, T5_KERNELS if "training" in path
+              else T5_DECODE_KERNELS)
+    log(f"  T5 phase: {time.perf_counter() - t0:.1f} s")
+    log("GPT-MoE at GPT-2 small's widths (8 experts, top-2, capacity 1.25), "
+        "float32 AdamW, then a bf16 MixedPrecision step and a Switch-style "
+        "step:")
+    t0 = time.perf_counter()
+    for path, counts in phase_gpt_moe(card, results).items():
+        tally(path, counts, GPT_MOE_KERNELS)
+    log(f"  GPT-MoE phase: {time.perf_counter() - t0:.1f} s")
     missing = [k for k in KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels no path launched: {missing}")

@@ -18,7 +18,10 @@ rematerialisation (``scan``; GPT's ``ScannedBlocks``), learning-rate
 schedules (``schedule``), npz checkpoints (``checkpoint``) and LoRA
 (``lora``).  The vision families ViT (``models.ViTForImageClassification``)
 and DDPM diffusion (``models.UNet``, ``models.Diffusion``) run on the tape;
-the numpy ``CpuTensor`` is the tape's oracle, with ``utils.gradcheck``."""
+the numpy ``CpuTensor`` is the tape's oracle, with ``utils.gradcheck``.
+T5 (``models.T5ForConditionalGeneration``) trains and decodes on the tape,
+and ``GPTConfig(n_experts=...)`` gives the ``torch.nn`` GPT
+mixture-of-experts blocks."""
 
 from . import (amp, autograd, checkpoint, data, lora, loss, models, nn, ops,
                optim, quant, random, scan, schedule, serving)

@@ -9,13 +9,14 @@ overrides them with fused ops), ``mean``, ``pad``, the pooling family
 Composites record their primitive sub-ops directly on the tape.
 
 The GPT-2 model is a ``torch.nn.Module`` on ``torch.autograd``; its fused
-``layernorm`` and ``attention`` are the ``torch.autograd.Function``s at the
-end of this module: the forward runs the fused kernel and saves its
-residuals, the backward runs the kernel's backward.  ``flash_block`` is the
+``layernorm`` and ``attention`` and the experts' batched ``matmul`` are the
+``torch.autograd.Function``s at the end of this module: the forward runs
+the kernel and saves its residuals, the backward runs the kernel's
+backward.  ``flash_block`` is the
 (out, lse) unit of blockwise / ring attention, differentiable through lse.
 On CUDA tensors both directions launch the hand-written kernels
-(ops/layernorm.py, ops/attention.py); on CPU tensors, their plain
-versions.
+(ops/layernorm.py, ops/attention.py, ops/matmul.py); on CPU tensors, their
+plain versions.
 """
 
 from functools import reduce as _reduce
@@ -25,8 +26,10 @@ import torch
 from ..ops.attention import (attention_bwd, attention_fwd_res,
                              flash_block_bwd, flash_block_fwd)
 from ..ops.layernorm import layernorm_bwd, layernorm_fwd_stats
+from ..ops.matmul import matmul as kmatmul
+from ..ops.matmul import matmul_vjp
 
-__all__ = ["attention", "flash_block", "layernorm"]
+__all__ = ["attention", "flash_block", "layernorm", "matmul"]
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -75,6 +78,22 @@ class _Attention(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+class _Matmul(torch.autograd.Function):
+    """``a @ b`` through the matmul kernel, its gradient through
+    ``matmul_vjp`` (both operands' gradients, each summed back to its
+    operand's shape)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return kmatmul(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return matmul_vjp(g, a, b)
+
+
 def layernorm(x, w, b, eps: float = 1e-5):
     """Fused layer normalization over the trailing dims of ``w``'s shape."""
     return _LayerNorm.apply(x, w, b, float(eps))
@@ -84,6 +103,13 @@ def attention(q, k, v, scale: float, causal: bool = False):
     """Fused scaled-dot-product attention over (..., S, D) q/k/v; k and v
     may carry fewer leading rows (grouped-query, kv-major)."""
     return _Attention.apply(q, k, v, float(scale), bool(causal), False)[0]
+
+
+def matmul(a, b):
+    """Differentiable ``a @ b`` with numpy batch broadcasting (the batched
+    expert products ``(E, C, d) @ (E, d, h)``) through the matmul
+    kernel."""
+    return _Matmul.apply(a, b)
 
 
 def flash_block(q, k, v, scale: float, causal: bool = False):

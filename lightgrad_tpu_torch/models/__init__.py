@@ -8,3 +8,4 @@ from .resnet import (BasicBlock, ResNet, load_torchvision_state_dict,
                      resnet18, resnet20)
 from .vit import ViTConfig, ViTModel, ViTForImageClassification
 from .diffusion import UNet, Diffusion
+from .t5 import T5Config, T5ForConditionalGeneration

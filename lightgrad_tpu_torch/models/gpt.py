@@ -9,9 +9,12 @@ and the ``_kv_functions`` contract the serving engine drives.
 The hand-written kernels on the training path (``GPT.forward`` under
 ``torch.autograd``): the fused LayerNorm forward and backward (ops/
 layernorm.py, through models/_torch_layers.py) and the flash-attention
-forward and backward (ops/attention.py, through autograd/ops.py).  On the
-serving path: prefill's causal attention, the whole-stack decode kernel for
-``step``, ``extend`` and ``step_batch`` (ops/decode_stack.py; its int8
+forward and backward (ops/attention.py, through autograd/ops.py), and, in
+the mixture-of-experts blocks (``GPTConfig(n_experts=...)``), the experts'
+batched products through the matmul kernel (ops/matmul.py; dispatch and
+combine by index, models/_torch_layers.py).  On the serving path:
+prefill's causal attention, the whole-stack decode kernel for ``step``,
+``extend`` and ``step_batch`` (ops/decode_stack.py; its int8
 instantiations under ``quantize_serving`` / ``quantize_kv``), and, when the
 stack is not packed, the per-layer decode attention
 (ops/decode_attention.py, float cache).  The serving path's LayerNorm,
@@ -35,7 +38,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..autograd.ops import attention
-from ._torch_layers import LayerNorm
+from ._torch_layers import LayerNorm, MoE
 from ..ops.attention import attention_fwd
 from ..ops.decode_attention import decode_attention
 from ..ops.decode_stack import (decode_stack, decode_stack_batch,
@@ -92,23 +95,16 @@ def _sample(logits: np.ndarray, temperature: float, rng,
 
 
 class GPTConfig:
-    """The JAX package's config.  The mixture-of-experts fields are accepted
-    but not ported: ``n_experts`` raises (ROADMAP.md queue 1 item 6)."""
+    """The JAX package's config.  ``n_experts > 0`` makes every
+    ``moe_every``-th block's FFN a mixture of experts (``MoE`` of
+    models/_torch_layers.py): Mixtral-style top-k every block, Switch-style
+    ``moe_dispatch="top1"`` every other block with ``moe_every=2``."""
 
     def __init__(self, vocab_size=50257, n_positions=1024, n_embd=768,
                  n_layer=12, n_head=12, layer_norm_epsilon=1e-5,
                  scan_layers=False, remat=False, n_experts=0, moe_every=1,
                  moe_k=2, moe_dispatch="topk", moe_hidden=None,
                  moe_capacity_factor=1.25, moe_shared=0, **unused):
-        if n_experts and scan_layers:
-            raise ValueError(
-                "scan_layers requires a homogeneous block stack; MoE blocks "
-                "carry per-forward aux_loss state the scan cannot thread -- "
-                "use scan_layers=False with n_experts")
-        if n_experts:
-            raise NotImplementedError(
-                "GPTConfig: n_experts is not ported yet (ROADMAP.md queue 1 "
-                "item 6)")
         self.vocab_size = vocab_size
         self.n_positions = n_positions
         self.n_embd = n_embd
@@ -121,6 +117,21 @@ class GPTConfig:
         # "dots" keeps the Linears' products and recomputes the rest
         self.scan_layers = scan_layers
         self.remat = remat
+        # the mixture-of-experts blocks: n_experts experts of width
+        # moe_hidden, moe_k choices a token (moe_dispatch "topk" / "top1" /
+        # "dense"), capacity factor, moe_shared always-on experts
+        self.n_experts = n_experts
+        self.moe_every = moe_every
+        self.moe_k = moe_k
+        self.moe_dispatch = moe_dispatch
+        self.moe_hidden = moe_hidden if moe_hidden is not None else 4 * n_embd
+        self.moe_capacity_factor = moe_capacity_factor
+        self.moe_shared = moe_shared
+        if n_experts and scan_layers:
+            raise ValueError(
+                "scan_layers requires a homogeneous block stack; MoE blocks "
+                "carry per-forward aux_loss state the scan cannot thread -- "
+                "use scan_layers=False with n_experts")
 
 
 def _gelu(x):
@@ -146,17 +157,27 @@ class CausalSelfAttention(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+    def __init__(self, cfg: GPTConfig, use_moe: bool = False, device=None,
+                 dtype=None):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         self.ln_1 = LayerNorm(cfg.n_embd, eps=cfg.layer_norm_epsilon, **kw)
         self.attn = CausalSelfAttention(cfg, **kw)
         self.ln_2 = LayerNorm(cfg.n_embd, eps=cfg.layer_norm_epsilon, **kw)
-        self.c_fc = nn.Linear(cfg.n_embd, 4 * cfg.n_embd, **kw)
-        self.c_proj = nn.Linear(4 * cfg.n_embd, cfg.n_embd, **kw)
+        if use_moe:
+            # the sparse FFN; the residual carries capacity-dropped tokens
+            self.moe = MoE(cfg.n_embd, cfg.moe_hidden, cfg.n_experts,
+                           dispatch=cfg.moe_dispatch, k=cfg.moe_k,
+                           capacity_factor=cfg.moe_capacity_factor,
+                           n_shared=cfg.moe_shared, **kw)
+        else:
+            self.c_fc = nn.Linear(cfg.n_embd, 4 * cfg.n_embd, **kw)
+            self.c_proj = nn.Linear(4 * cfg.n_embd, cfg.n_embd, **kw)
 
     def forward(self, x):
         x = x + self.attn(self.ln_1(x))
+        if hasattr(self, "moe"):
+            return x + self.moe(self.ln_2(x))
         return x + self.c_proj(_gelu(self.c_fc(self.ln_2(x))))
 
 
@@ -281,7 +302,10 @@ class GPT(nn.Module):
         kw = {"device": "meta", "dtype": dtype}
         self.wte = nn.Embedding(cfg.vocab_size, cfg.n_embd, **kw)
         self.wpe = nn.Embedding(cfg.n_positions, cfg.n_embd, **kw)
-        blocks = [GPTBlock(cfg, **kw) for _ in range(cfg.n_layer)]
+        every = max(1, cfg.moe_every)
+        blocks = [GPTBlock(cfg, use_moe=(cfg.n_experts > 0
+                                         and i % every == every - 1), **kw)
+                  for i in range(cfg.n_layer)]
         self.h = (ScannedBlocks(blocks, remat=cfg.remat) if cfg.scan_layers
                   else nn.ModuleList(blocks))
         self.ln_f = LayerNorm(cfg.n_embd, eps=cfg.layer_norm_epsilon, **kw)
@@ -301,7 +325,9 @@ class GPT(nn.Module):
                     for n, v in self.h.layer_params(l).items():
                         yield f"h.{l}.{n}", v
 
-    def _fan_in(self, name):
+    def _fan_in(self, name, t):
+        if t.dim() == 3:                    # an expert stack (E, in, out)
+            return t.shape[1]
         if isinstance(self.h, ScannedBlocks) and name.startswith("h."):
             return self.h.fan_in(name.split(".", 2)[2])
         return self.get_submodule(name.rsplit(".", 1)[0]).in_features
@@ -317,7 +343,7 @@ class GPT(nn.Module):
             if name.startswith(("wte.", "wpe.")):
                 bound = 1.0 / float(np.sqrt(t.numel()))     # xavier
             else:
-                bound = 1.0 / float(np.sqrt(self._fan_in(name)))
+                bound = 1.0 / float(np.sqrt(self._fan_in(name, t)))
             u = torch.rand(t.shape, generator=generator, device=gdev,
                            dtype=torch.float32)
             t.copy_(u * (2 * bound) - bound)
@@ -349,15 +375,24 @@ class GPT(nn.Module):
         return self
 
     def forward(self, input_ids):
-        """Logits (b, s, vocab); differentiable (the training forward)."""
+        """Logits (b, s, vocab); differentiable (the training forward).
+        Sets ``aux_loss`` and ``z_loss``: each the sum over the routed MoE
+        blocks of theirs, None on a model without them.  Add ``aux_loss``
+        times a weight to the training loss."""
         b, s = input_ids.shape
         pos = torch.arange(s, device=input_ids.device)
         x = self.wte(input_ids) + self.wpe(pos)
+        aux = zl = None
         if isinstance(self.h, ScannedBlocks):
             x = self.h(x)
         else:
             for block in self.h:
                 x = block(x)
+                moe = getattr(block, "moe", None)
+                if moe is not None and moe.aux_loss is not None:
+                    aux = moe.aux_loss if aux is None else aux + moe.aux_loss
+                    zl = moe.z_loss if zl is None else zl + moe.z_loss
+        self.aux_loss, self.z_loss = aux, zl
         x = self.ln_f(x)
         return x @ self.wte.weight.T        # weight-tied LM head
 
@@ -418,8 +453,13 @@ class GPT(nn.Module):
         kernel when the kernel takes the shape (``stack_supported``), True
         requires it, and False forces the unrolled per-layer branch (tests
         and the smoke run use it to hold the two branches against each
-        other)."""
+        other).  A model with MoE blocks has none: it raises ValueError
+        (``generate(use_cache=False)`` decodes it)."""
         cfg = self.cfg
+        if cfg.n_experts:
+            raise ValueError(
+                "KV-cache decoding of a GPT with MoE blocks is not "
+                "supported: decode it with generate(use_cache=False)")
         H, L, W = cfg.n_head, cfg.n_layer, cfg.n_positions
         d = cfg.n_embd
         hd = d // H

@@ -2683,3 +2683,117 @@ def test_the_numpy_oracle_against_the_card(dev):
     x = CudaTensor.from_numpy(rng.uniform(-1, 1, (3, 5)).astype(np.float32))
     assert x.data.is_cuda
     assert_gradcheck(lambda t: (t @ t.T()).softmax(axis=-1), x)
+
+
+@pytest.mark.parametrize("dispatch,cf", [("topk", 0.5), ("top1", 0.75)])
+def test_gpt_moe_step_on_the_card_matches_the_cpu(dev, dispatch, cf):
+    """A small MoE GPT (capacity factors under 1, so routings drop) on the
+    card against the same weights on the CPU: logits, aux / z losses and
+    every gradient; the experts' products through the matmul kernel, the
+    index dispatch equal to ``moe_reference`` on the card, and a forward +
+    backward that reads nothing on the host."""
+    from lightgrad_tpu_torch import GPT, GPTConfig
+    from lightgrad_tpu_torch.models._torch_layers import moe_reference
+
+    cfg = GPTConfig(vocab_size=96, n_positions=64, n_embd=64, n_layer=2,
+                    n_head=4, n_experts=4, moe_k=2, moe_hidden=128,
+                    moe_dispatch=dispatch, moe_capacity_factor=cf)
+    card = GPT(cfg, device=dev,
+               generator=torch.Generator(device=dev).manual_seed(0))
+    cpu = GPT(cfg, device="cpu")
+    cpu.load_state_dict({n: t.cpu() for n, t in card.state_dict().items()})
+    ids = torch.randint(0, 96, (2, 64), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+
+    def run(m, x):
+        m.zero_grad()
+        logits = m(x)
+        loss = logits.float().logsumexp(-1).mean() + 0.01 * m.aux_loss \
+            + 0.001 * m.z_loss
+        loss.backward()
+        return logits.detach(), m.aux_loss.detach(), m.z_loss.detach()
+
+    run(card, ids)                            # builds the kernels
+    reset_launch_counts()
+    got = _sync_free(lambda: run(card, ids))
+    torch.cuda.synchronize()
+    assert launch_counts()["matmul"] >= 2 * 3 * 2   # 2 layers, fwd + bwd
+    want = run(cpu, ids.cpu())
+    for a, b in zip(got, want):
+        _close(a.cpu(), b, torch.float32)
+    cpu_p = dict(cpu.named_parameters())
+    for n, p in card.named_parameters():
+        _close(p.grad.cpu(), cpu_p[n].grad, torch.float32)
+    moe = card.h[0].moe
+    x = torch.randn(128, 64, generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev)
+    with torch.no_grad():
+        y = moe(x)
+        yr, _, _, (own, kept) = moe_reference(
+            x, dict(moe.named_parameters()), 4, dispatch=dispatch, k=2,
+            capacity_factor=cf)
+    assert torch.equal(moe.routes[0], own) and torch.equal(moe.routes[1],
+                                                           kept)
+    assert not kept.all()
+    _close(y, yr, torch.float32)
+
+
+def test_tiny_t5_step_and_decoding_on_the_card(dev):
+    """A small T5 (relu, tied) on the card against the same weights on the
+    CPU: logits, loss and every gradient, the softmax kernel launched; on
+    the card, cached generate equals uncached and generate_compiled equals
+    the eager tokens."""
+    import numpy as np
+
+    from lightgrad_tpu_torch import loss as lg_loss, random as lg_random
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.models import (T5Config,
+                                            T5ForConditionalGeneration)
+
+    cfg = dict(vocab_size=96, d_model=64, d_kv=16, d_ff=128, num_layers=2,
+               num_heads=4, relative_attention_num_buckets=8,
+               relative_attention_max_distance=20, dropout_rate=0.0)
+    lg_random.seed(0)
+    card = T5ForConditionalGeneration(T5Config(**cfg))
+    cpu = _on_cpu(lambda: T5ForConditionalGeneration(T5Config(**cfg)))
+    cpu.load_parameters(card.state_dict())
+    rng = np.random.default_rng(4)
+    src = rng.integers(2, 96, (2, 24)).astype(np.int32)
+    am = np.ones_like(src)
+    am[1, 17:] = 0
+    labels = rng.integers(2, 96, (2, 9)).astype(np.int32)
+    dec = card.shift_right(labels)
+
+    def run(m, *arrays):
+        src_t, am_t, dec_t, y_t = (Tensor.from_numpy(a, requires_grad=False)
+                                   for a in arrays)
+        logits = m(src_t, dec_t, attention_mask=am_t)
+        loss = lg_loss.cross_entropy(logits.reshape(18, 96), y_t)
+        m.zero_grad()
+        loss.backward()
+        return logits.data, loss.data
+
+    reset_launch_counts()
+    logits, loss = run(card, src, am, dec, labels.reshape(-1))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert all(counts[k] for k in ("softmax_fwd", "softmax_bwd", "matmul",
+                                   "elementwise", "reduce"))
+    want_logits, want_loss = _on_cpu(run, cpu, src, am, dec,
+                                     labels.reshape(-1))
+    _close(logits.cpu(), want_logits, torch.float32)
+    _close(loss.cpu(), want_loss, torch.float32)
+    _tape_grads_close(card, cpu)
+    x = Tensor.from_numpy(src, requires_grad=False)
+    amt = Tensor.from_numpy(am, requires_grad=False)
+    fast = card.generate(x, max_new_tokens=8, attention_mask=amt)
+    slow = card.generate(x, max_new_tokens=8, attention_mask=amt,
+                         use_cache=False)
+    assert np.array_equal(fast, slow)
+    one = card.generate_compiled(src[1], max_new_tokens=8,
+                                 attention_mask=am[1])
+    eager = card.generate(Tensor.from_numpy(src[1:], requires_grad=False),
+                          max_new_tokens=8,
+                          attention_mask=Tensor.from_numpy(
+                              am[1:], requires_grad=False))[0]
+    assert np.array_equal(one, eager[:len(one)])
