@@ -7408,6 +7408,325 @@ def phase_gpt_moe(card, results):
     return counts
 
 
+# --- phase 14: the parallel layer at world size 1 -------------------------
+# the ring's chunked merge at Mistral-7B's attention width: 32 heads of 128,
+# S 8192 in RING_CHUNKS chunks (a 4-rank ring's rounds on one card)
+RING_HEADS, RING_HD, RING_SEQ, RING_CHUNKS = 32, 128, 8192, 4
+# the plain version runs on RING_PLAIN_HEADS of the heads (its (S, S) f32
+# scores are 256 MiB a head)
+RING_PLAIN_HEADS = 2
+# GPT-2 small through pipeline_train_1f1b at pp = 1: PIPE_MICRO microbatches
+# of PIPE_MB x PIPE_SEQ tokens
+PIPE_MICRO, PIPE_MB, PIPE_SEQ = 2, 2, 512
+PARALLEL_BERT_KERNELS = ("flash_block", "matmul", "elementwise", "reduce",
+                         "layernorm_fwd", "layernorm_bwd")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _bert_pair(cfg, mesh):
+    """Two BERTs of the same weights: whole, and sharded by BERT_TP_RULES
+    with ring attention on ``mesh``'s sp axis."""
+    from lightgrad_tpu_torch import random as lg_random
+    from lightgrad_tpu_torch.models.bert import BertForMaskedLM
+    from lightgrad_tpu_torch.parallel import (BERT_TP_RULES,
+                                              enable_sequence_parallel,
+                                              shard_module)
+
+    lg_random.seed(0)
+    plain = BertForMaskedLM(cfg)
+    lg_random.seed(0)
+    par = BertForMaskedLM(cfg)
+    shard_module(par, mesh, BERT_TP_RULES)
+    n = enable_sequence_parallel(par, mesh, axis="sp")
+    if n != cfg.num_hidden_layers:
+        raise AssertionError(f"ring attention on {n} of "
+                             f"{cfg.num_hidden_layers} layers")
+    return plain, par
+
+
+def _rel(got, want):
+    got, want = got.double(), want.double()
+    return (got - want).abs().max().item() / max(
+        want.abs().max().item(), 1e-30)
+
+
+def _hold(what, dtype, pairs, tol, ref_of=lambda n: n):
+    """Every (name, got, want) within tol of max |want| (of ``ref_of``'s
+    entry: a zero-gradient key bias is held against its query bias')."""
+    want = {n: w for n, _, w in pairs}
+    rel = {n: (g.double() - w.double()).abs().max().item() / max(
+        want[ref_of(n)].double().abs().max().item(), 1e-30)
+        for n, g, w in pairs}
+    worst = max(rel, key=rel.get)
+    ok = rel[worst] <= tol and all(torch.isfinite(g.float()).all()
+                                   for _, g, _ in pairs)
+    log(f"  {what} {str(dtype)[6:]}: {len(pairs)} tensors, worst rel "
+        f"{rel[worst]:.3e} ({worst}) tol {tol:.0e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what} {dtype}: {worst} rel {rel[worst]}")
+
+
+def phase_parallel(card):
+    """Phase 14: the parallel layer on NCCL at world size 1 (one card; NCCL
+    takes one GPU a rank, so the multi-rank paths are tested on CPU ranks).
+    BERT-base on the tape under BERT_TP_RULES and ring attention at
+    make_mesh(dp=1, tp=1, sp=1), one step in f32 AdamW and one in bf16
+    MixedPrecision AdamW, each held to the same step of a whole model;
+    the ring's chunked merge at Mistral-7B's attention width in f32 and
+    bf16 against one flash call and the plain version, timed against the
+    one call; GPT-2 small's blocks through pipeline_train_1f1b at pp = 1
+    against the unpipelined step; GPT-2 small's cached decode at tp = 1
+    against the whole model's tokens; a sharded checkpoint round trip.
+    Returns {path: launch counts}."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from lightgrad_tpu_torch import GPT, GPTConfig, amp, optim
+    from lightgrad_tpu_torch import loss as lg_loss
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.autograd.cuda.device import default_device
+    from lightgrad_tpu_torch.checkpoint import (load_checkpoint_sharded,
+                                                save_checkpoint_sharded)
+    from lightgrad_tpu_torch.models.bert import BertConfig
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightgrad_tpu_torch.ops.attention import (attention_bwd,
+                                                   attention_fwd_reference,
+                                                   attention_fwd_res)
+    from lightgrad_tpu_torch.parallel import (GPT_TP_RULES, distributed,
+                                              make_mesh, pipeline_train_1f1b,
+                                              shard_module)
+    from lightgrad_tpu_torch.parallel.ring_attention import ring_local
+
+    dev = default_device()
+    kind = dev.type
+    counts = {}
+    t0 = time.perf_counter()
+    distributed.initialize(f"localhost:{_free_port()}", 1, 0, device=kind)
+    try:
+        mesh = make_mesh(dp=1, tp=1, sp=1, devices=kind)
+        log(f"  {'NCCL' if kind == 'cuda' else 'gloo'} at world size "
+            f"{dist.get_world_size()}, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}; "
+            f"{time.perf_counter() - t0:.1f} s to join")
+
+        # (1) BERT-base, one f32 AdamW step and one bf16 AMP step
+        cfg = BertConfig(**BERT_BASE)
+        ids, _, labels, _ = bert_batch(cfg)
+        x = Tensor(torch.tensor(ids, device=dev), requires_grad=False)
+        y = Tensor(torch.tensor(labels, device=dev), requires_grad=False)
+
+        def loss_of(m):
+            return lg_loss.cross_entropy(
+                m(x).reshape(-1, cfg.vocab_size), y, ignore_index=-100)
+
+        key_to_query = lambda n: n.replace(".key.bias", ".query.bias")
+        for dtype in (torch.float32, torch.bfloat16):
+            plain, par = _bert_pair(cfg, mesh)
+            runs = {}
+            for name, m in (("whole", plain), ("sharded", par)):
+                if dtype == torch.float32:
+                    opt = optim.AdamW(list(m.parameters()), lr=BERT_LR)
+                    step_opt, zero, scale = opt.step, opt.zero_grad, None
+                    masters = list(m.parameters())
+                else:
+                    mp = amp.MixedPrecision(
+                        m, lambda ps: optim.AdamW(ps, lr=BERT_LR))
+                    step_opt, zero, scale = mp.step, mp.zero_grad, mp.scale
+                    masters = mp.masters
+                reset_launch_counts()
+                torch.cuda.synchronize() if kind == "cuda" else None
+                t1 = time.perf_counter()
+                loss = loss_of(m)
+                zero()
+                (scale(loss) if scale else loss).backward()
+                grads = {n: p.grad.numpy() for n, p in m.named_parameters()}
+                step_opt()
+                torch.cuda.synchronize() if kind == "cuda" else None
+                runs[name] = (loss.item(), grads,
+                              [t.numpy() for t in masters],
+                              time.perf_counter() - t1)
+                if name == "sharded":
+                    counts[f"BERT-base sharded + ring, {str(dtype)[6:]}"] = \
+                        launch_counts()
+            (l0, g0, p0, s0), (l1, g1, p1, s1) = runs["whole"], runs["sharded"]
+            log(f"  BERT-base {str(dtype)[6:]} step: loss whole {l0:.6f}, "
+                f"sharded + ring {l1:.6f}; {s0 * 1e3:.1f} / {s1 * 1e3:.1f} "
+                f"ms (first step, builds included); {card}")
+            tol = PATH_TOL[dtype]
+            if abs(l1 - l0) > tol * max(abs(l0), 1.0):
+                raise AssertionError(f"BERT loss {l1} vs {l0}")
+            t = lambda a: torch.from_numpy(np.asarray(a))     # noqa: E731
+            _hold("BERT-base gradients, sharded + ring vs whole", dtype,
+                  [(n, t(g1[n]), t(g0[n])) for n in g0], tol, key_to_query)
+            _hold("BERT-base parameters after the step", dtype,
+                  [(str(i), t(a), t(b)) for i, (a, b) in
+                   enumerate(zip(p1, p0))], tol)
+            if dtype == torch.float32:
+                ckpt_model = par
+            else:
+                del par
+            del plain
+        torch.cuda.empty_cache() if kind == "cuda" else None
+
+        # (2) the ring's chunked merge at Mistral-7B's attention width
+        g = torch.Generator(device=dev).manual_seed(14)
+        sc = RING_HD ** -0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, go = (torch.randn(RING_HEADS, RING_SEQ, RING_HD,
+                                       generator=g, device=dev).to(dtype)
+                           for _ in range(4))
+            tol = KERNEL_TOL[dtype]
+            reset_launch_counts()
+            out, dq, dk, dv = ring_local(q, k, v, go, sc, RING_CHUNKS, True)
+            counts[f"ring merge, {str(dtype)[6:]}"] = launch_counts()
+            f_out, f_lse = attention_fwd_res(q, k, v, sc, True)
+            want = attention_bwd(go, q, k, v, sc, True, out=f_out,
+                                 lse=f_lse)
+            tag = (f"ring merge ({RING_HEADS}, {RING_SEQ}, {RING_HD}) "
+                   f"causal, {RING_CHUNKS} chunks vs one flash call")
+            check_ulp(f"{tag} out", dtype, out, f_out, FWD_TOL[dtype])
+            for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+                check(f"{tag} {n}", dtype, a, b, tol)
+            # the plain version on RING_PLAIN_HEADS heads
+            h = RING_PLAIN_HEADS
+            ps = [t[:h].float().requires_grad_(True) for t in (q, k, v)]
+            p_out = attention_fwd_reference(*ps, sc, True)[0]
+            p_out.backward(go[:h].float())
+            tag = f"ring merge vs the plain version ({h} heads)"
+            check_ulp(f"{tag} out", dtype, out[:h], p_out.detach(),
+                      FWD_TOL[dtype])
+            for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), ps):
+                check(f"{tag} {n}", dtype, a[:h], b.grad, tol)
+            del ps, p_out
+            if kind == "cuda":
+                ring_ms = cuda_ms(lambda: ring_local(q, k, v, go, sc,
+                                                     RING_CHUNKS, True),
+                                  iters=3)
+                one_ms = cuda_ms(lambda: _one_flash(q, k, v, go, sc),
+                                 iters=3)
+                log(f"  {str(dtype)[6:]}: forward + backward {ring_ms:.2f} "
+                    f"ms in {RING_CHUNKS} chunks "
+                    f"({RING_CHUNKS * (RING_CHUNKS + 1) // 2} blocks), "
+                    f"{one_ms:.2f} ms in one flash call; {card}")
+            del q, k, v, go, out, dq, dk, dv, f_out, f_lse, want
+            torch.cuda.empty_cache() if kind == "cuda" else None
+
+        # (3) GPT-2 small's blocks through pipeline_train_1f1b at pp = 1
+        pmesh = make_mesh(dp=1, tp=1, pp=1, devices=kind)
+        gcfg = GPTConfig(**GPT2_SMALL)
+        model = GPT(gcfg, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+        V = gcfg.vocab_size
+        tok = torch.randint(0, V, (PIPE_MICRO, PIPE_MB, PIPE_SEQ + 1),
+                            generator=g, device=dev)
+        with torch.no_grad():
+            pos = torch.arange(PIPE_SEQ, device=dev)
+            xm = model.wte(tok[..., :-1]) + model.wpe(pos)
+        ym = tok[..., 1:]
+        # the stage: all 12 blocks (pp = 1), their parameters stacked (1, ...)
+        stacked = {n: p.detach()[None] for n, p in
+                   model.h.named_parameters()}
+
+        def head_loss(h, t):
+            logits = model.ln_f(h) @ model.wte.weight.T
+            return torch.nn.functional.cross_entropy(
+                logits.reshape(-1, V), t.reshape(-1))
+
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        loss, grads = pipeline_train_1f1b(
+            lambda p, h: _seq_blocks(model.h, h, p), head_loss, stacked, xm,
+            ym, pmesh)
+        torch.cuda.synchronize() if kind == "cuda" else None
+        pipe_s = time.perf_counter() - t1
+        counts["GPT-2 small 1F1B, pp 1"] = launch_counts()
+        model.zero_grad()
+        want = sum(head_loss(_seq_blocks(model.h, xm[m]), ym[m])
+                   for m in range(PIPE_MICRO)) / PIPE_MICRO
+        want.backward()
+        log(f"  GPT-2 small 1F1B at pp 1, {PIPE_MICRO} x {PIPE_MB} x "
+            f"{PIPE_SEQ} tokens: loss {loss.item():.6f}, unpipelined "
+            f"{want.item():.6f}; {pipe_s * 1e3:.1f} ms (first call); {card}")
+        if abs(loss.item() - want.item()) > PATH_TOL[torch.float32] * \
+                max(abs(want.item()), 1.0):
+            raise AssertionError(f"1F1B loss {loss.item()} vs "
+                                 f"{want.item()}")
+        _hold("GPT-2 small 1F1B gradients vs the unpipelined step",
+              torch.float32,
+              [(n, grads[n].full_tensor()[0], p.grad)
+               for n, p in model.h.named_parameters()],
+              PATH_TOL[torch.float32])
+
+        # (4) cached decode at tp = 1
+        ids = torch.randint(0, V, (16,), generator=g, device=dev).tolist()
+        want_tok = model.generate(ids, max_new_tokens=16, use_cache=True)
+        tmesh = make_mesh(dp=1, tp=1, devices=kind)
+        shard_module(model, tmesh, GPT_TP_RULES)
+        reset_launch_counts()
+        got_tok = model.generate(ids, max_new_tokens=16, use_cache=True)
+        counts["GPT-2 small decode, tp 1"] = launch_counts()
+        same = got_tok == want_tok
+        log(f"  GPT-2 small cached decode at tp 1, 16 new tokens: "
+            f"{'the whole model' if same else 'NOT the whole model'}'s "
+            f"tokens")
+        if not same:
+            raise AssertionError(f"tp decode {got_tok} vs {want_tok}")
+        del model
+
+        # (5) a sharded checkpoint round trip (the f32 BERT after its step)
+        path = tempfile.mkdtemp(prefix="lg_sharded_")
+        try:
+            save_checkpoint_sharded(path, ckpt_model, step=1)
+            before = {n: p.numpy() for n, p in
+                      ckpt_model.named_parameters()}
+            for p in ckpt_model.parameters():
+                p._set_data(torch.zeros_like(p.data))
+            meta = load_checkpoint_sharded(path, ckpt_model)
+            same = all(np.array_equal(p.numpy(), before[n])
+                       for n, p in ckpt_model.named_parameters())
+            log(f"  sharded checkpoint round trip: {len(before)} "
+                f"parameters {'bit for bit' if same else 'DIFFER'}, meta "
+                f"{meta}")
+            if not same or meta != {"step": 1}:
+                raise AssertionError("sharded checkpoint round trip")
+        finally:
+            shutil.rmtree(path, ignore_errors=True)
+        del ckpt_model
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache() if kind == "cuda" else None
+    return counts
+
+
+def _seq_blocks(h, x, params=None):
+    """GPT blocks ``h`` (a ModuleList) in order on ``x``; with ``params``
+    {"i.name": tensor} in place of their own (a pipeline stage)."""
+    for i, b in enumerate(h):
+        if params is None:
+            x = b(x)
+        else:
+            x = torch.func.functional_call(
+                b, {n: params[f"{i}.{n}"] for n, _ in b.named_parameters()},
+                (x,))
+    return x
+
+
+def _one_flash(q, k, v, g, sc):
+    from lightgrad_tpu_torch.ops.attention import (attention_bwd,
+                                                   attention_fwd_res)
+
+    out, lse = attention_fwd_res(q, k, v, sc, True)
+    return attention_bwd(g, q, k, v, sc, True, out=out, lse=lse)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -7662,6 +7981,17 @@ def main():
     for path, counts in phase_gpt_moe(card, results).items():
         tally(path, counts, GPT_MOE_KERNELS)
     log(f"  GPT-MoE phase: {time.perf_counter() - t0:.1f} s")
+    log("the parallel layer at world size 1: BERT-base under BERT_TP_RULES "
+        "with ring attention, the ring's chunked merge at Mistral-7B's "
+        "attention width, GPT-2 small through 1F1B at pp 1, cached decode "
+        "at tp 1, a sharded checkpoint:")
+    t0 = time.perf_counter()
+    for path, counts in phase_parallel(card).items():
+        tally(path, counts, PARALLEL_BERT_KERNELS if path.startswith("BERT")
+              else FLASH_BLOCK_KERNELS if path.startswith("ring")
+              else ("attention_fwd", "decode_stack") if "decode" in path
+              else TRAINING_KERNELS)
+    log(f"  parallel phase: {time.perf_counter() - t0:.1f} s")
     missing = [k for k in KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels no path launched: {missing}")

@@ -21,10 +21,11 @@ and DDPM diffusion (``models.UNet``, ``models.Diffusion``) run on the tape;
 the numpy ``CpuTensor`` is the tape's oracle, with ``utils.gradcheck``.
 T5 (``models.T5ForConditionalGeneration``) trains and decodes on the tape,
 and ``GPTConfig(n_experts=...)`` gives the ``torch.nn`` GPT
-mixture-of-experts blocks."""
+mixture-of-experts blocks.  ``parallel`` shards them over ranks on
+``torch.distributed`` (DTensor meshes, ring attention, pipelines)."""
 
 from . import (amp, autograd, checkpoint, data, lora, loss, models, nn, ops,
-               optim, quant, random, scan, schedule, serving)
+               optim, parallel, quant, random, scan, schedule, serving)
 from .autograd import (AbstractTensor, CpuTensor, CudaTensor, Function,
                        Gradients, Tensor, no_grad)
 from .models import (GPT, GPTConfig, ByteTokenizer, Llama, LlamaConfig,
@@ -46,7 +47,7 @@ def einsum(spec: str, *operands):
 
 
 __all__ = ["amp", "autograd", "checkpoint", "data", "lora", "loss", "models",
-           "nn", "ops", "optim", "quant", "random", "scan", "schedule",
+           "nn", "ops", "optim", "parallel", "quant", "random", "scan", "schedule",
            "serving", "AbstractTensor", "CpuTensor", "CudaTensor", "Function", "Gradients", "Tensor",
            "no_grad", "empty", "zeros", "ones", "uniform", "xavier",
            "from_numpy", "einsum", "GPT", "GPTConfig", "ByteTokenizer",

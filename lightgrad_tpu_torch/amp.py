@@ -116,6 +116,11 @@ class GradScaler:
         return float(self._scale) if self._scale is not None else self._init
 
 
+def _whole(t):
+    """A sharded (``DTensor``) flag as the whole value on every rank."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 class MixedPrecision:
     """Master-weight AMP: compute in ``compute_dtype``, optimize f32 masters.
 
@@ -180,7 +185,7 @@ class MixedPrecision:
     def step(self):
         grads = self._grads()
         # finite gate, on the device: 1 iff every gradient is finite
-        ok = torch.stack([torch.isfinite(g).all() for g in grads]) \
+        ok = torch.stack([_whole(torch.isfinite(g).all()) for g in grads]) \
             .all().float()
         inv = (self.scaler.inv_scale(ok.device)
                if self.scaler is not None else None)

@@ -13,7 +13,10 @@ draws -- is plain PyTorch here.
 Value semantics: a movement op may return a view that shares its input's
 storage, so no op ever writes into storage it did not allocate.  In-place
 ops compute a fresh buffer and rebind (``_set_data``), ``setitem`` writes a
-clone.  ``ring_attention`` is not ported yet and raises.
+clone.  Sharded buffers (``DTensor``s of the parallel layer) go through
+the same ops: the kernel wrappers place them by their strategies, plain
+PyTorch by DTensor's own rules, and ``ring_attention`` rotates K/V
+around a mesh axis.
 """
 
 import numpy as np
@@ -34,6 +37,7 @@ from ...ops.layernorm import layernorm_fwd_stats as kln_fwd
 from ...ops.matmul import matmul as kmatmul
 from ...ops.matmul import matmul_vjp
 from ...ops.reduce import reduce as kreduce
+from ...ops.runtime import is_sharded
 from ...ops.softmax import softmax_bwd as ksoftmax_bwd
 from ...ops.softmax import softmax_fwd as ksoftmax_fwd
 
@@ -184,8 +188,8 @@ _inplace("idiv", "f_div")
 @CudaTensor.register_op()
 class fill(Function):
     def forward(ctx, a, val):
-        return a._set_data(torch.full(a.shape, val, dtype=a.dtype,
-                                      device=a.data.device))
+        # full_like keeps a sharded buffer's placement
+        return a._set_data(torch.full_like(a.data, val))
 
 
 # ---------------------------------------------------------------------------
@@ -255,6 +259,9 @@ def _positive_steps(idx, shape):
 class getitem(Function):
     def forward(ctx, a, idx):
         idx = _unwrap_index(idx, a.data.device)
+        parts = idx if isinstance(idx, tuple) else (idx,)
+        if is_sharded(a.data, *parts):
+            return _sharded_getitem(ctx, a, idx)
         idx, flips = _positive_steps(idx, a.shape)
         ctx.save_for_backward(a.shape, a.dtype, idx, flips)
         x = a.data.flip(flips) if flips else a.data
@@ -263,6 +270,10 @@ class getitem(Function):
     def backward(ctx, g):
         shape, dtype, idx, flips = ctx.get_saved_tensors()
         gd = g.data.to(dtype)
+        if flips is None:       # a sharded lookup: ``shape`` holds the table
+            return _t(_rows_backward(gd, idx, shape))
+        if is_sharded(gd):
+            return _t(_autograd_scatter(gd.new_zeros(shape), idx, gd))
         out = torch.zeros(shape, dtype=dtype, device=gd.device)
         if flips:
             out[idx] = gd
@@ -275,13 +286,72 @@ class getitem(Function):
         elif not any(_is_advanced(i) for i in parts):
             out[idx] = gd                 # basic indexing never repeats
         else:
-            # mixed basic/advanced: the scatter-add of torch's own indexing
-            # backward, which accumulates repeats too
-            with torch.enable_grad():
-                z = torch.zeros(shape, dtype=dtype, device=gd.device,
-                                requires_grad=True)
-                (out,) = torch.autograd.grad(z[idx], z, gd)
+            # mixed basic/advanced
+            out = _autograd_scatter(out, idx, gd)
         return _t(out)
+
+
+def _autograd_scatter(zeros, idx, gd):
+    """The gradient of ``x[idx]`` for cotangent ``gd``: the scatter-add of
+    torch's own indexing backward, which accumulates repeats too."""
+    with torch.enable_grad():
+        z = zeros.requires_grad_(True)
+        (out,) = torch.autograd.grad(z[idx], z, gd)
+    return out
+
+
+def _sharded_getitem(ctx, a, idx):
+    """``a[idx]`` of a sharded buffer (``DTensor``).  A table's rows by an
+    integer tensor -- an embedding lookup -- go through
+    ``F.embedding``, whose sharding rule looks up each shard's rows and
+    masks the others, then sums the shards' rows (one all-reduce), so a
+    table sharded over the vocabulary is never gathered whole.  Index
+    tensors count as replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    parts = idx if isinstance(idx, tuple) else (idx,)
+    mesh = next(t.device_mesh for t in (a.data, *parts) if is_sharded(t))
+    rep = [Replicate()] * mesh.ndim
+
+    def dt(i):
+        if isinstance(i, torch.Tensor) and not is_sharded(i):
+            return DTensor.from_local(i, mesh, rep, run_check=False)
+        return i
+
+    x = dt(a.data)          # a whole table is replicated on the mesh
+    if isinstance(idx, torch.Tensor) and a.ndim == 2 \
+            and not idx.is_floating_point() and idx.dtype != torch.bool:
+        ids = dt(idx.long())
+        ctx.save_for_backward(x, a.dtype, ids, None)
+        out = torch.nn.functional.embedding(ids, x)
+        # the masked partial sum holds its mask for one reduction only
+        return _t(out.redistribute(mesh, [
+            Replicate() if p.is_partial() else p for p in out.placements]))
+    idx = tuple(dt(i) for i in idx) if isinstance(idx, tuple) else dt(idx)
+    ctx.save_for_backward(a.shape, a.dtype, idx, ())
+    return _t(x[idx])
+
+
+def _rows_backward(gd, ids, table):
+    """The table gradient of a sharded embedding lookup: each shard's own
+    rows (and columns) of the cotangents, summed into a shard of the
+    table's placement -- nothing of the table is gathered."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh, pl = table.device_mesh, table.placements
+    shape, (lo, clo) = compute_local_shape_and_global_offset(
+        table.shape, mesh, pl)
+    rows = ids.full_tensor().reshape(-1)
+    g = gd.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    g = g.reshape(-1, table.shape[1])[:, clo:clo + shape[1]]
+    mine = (rows >= lo) & (rows < lo + shape[0])
+    out = torch.zeros(shape, dtype=gd.dtype, device=g.device)
+    # the accumulating index_put_ of the whole table's gather backward, so
+    # a bf16 table sums its rows in the same order
+    out.index_put_((rows[mine] - lo,), g[mine], accumulate=True)
+    return DTensor.from_local(out, mesh, pl, run_check=False)
 
 
 @CudaTensor.register_op("__setitem__")
@@ -511,21 +581,32 @@ class conv(Function):
         return (None if gx is None else _t(gx)), _t(gw)
 
 
-# ---------------------------------------------------------------------------
-# not ported yet
-# ---------------------------------------------------------------------------
-def _unported(name, item):
-    class Op(Function):
-        def forward(ctx, *args, **kwargs):
-            raise NotImplementedError(
-                f"{name} is not ported to the CUDA backend yet (ROADMAP.md, "
-                f"{item})")
+@CudaTensor.register_op()
+class ring_attention(Function):
+    """Sequence-parallel exact attention: K/V rotate around the mesh's
+    ``axis`` ring instead of the whole sequence being gathered; q, k, v are
+    ``(..., S, D)`` buffers sharded on S over that axis (``DTensor``s, or
+    whole arrays, which the op shards).  The backward is the ring's own
+    (parallel/ring_attention.py): dk and dv travel home with K/V."""
 
-    Op.__name__ = name
-    CudaTensor.register_op(name, Op, overwrite=True)
+    def forward(ctx, q, k, v, scale: float = 1.0, mesh=None, axis: str = "sp",
+                causal: bool = False, batch_axis: str = None):
+        from ...parallel.ring_attention import ring_sharded_fwd
 
+        if mesh is None:
+            raise ValueError("ring_attention needs a mesh (parallel."
+                             "make_mesh) with the sequence axis")
+        out, state = ring_sharded_fwd(q.data, k.data, v.data, scale, mesh,
+                                      axis=axis, causal=causal,
+                                      batch_axis=batch_axis)
+        ctx.save_for_backward(state)
+        return _t(out)
 
-_unported("ring_attention", "queue 1, item 7: the parallel layer")
+    def backward(ctx, g):
+        from ...parallel.ring_attention import ring_sharded_bwd
+
+        (state,) = ctx.get_saved_tensors()
+        return tuple(_t(d) for d in ring_sharded_bwd(g.data, state))
 
 
 # ---------------------------------------------------------------------------

@@ -114,8 +114,11 @@ class CudaTensor(AbstractTensor):
         return CudaTensor(self.data, requires_grad=requires_grad)
 
     def numpy(self) -> np.ndarray:
-        """A host copy (bfloat16 comes back as float32: numpy has none)."""
+        """A host copy (bfloat16 comes back as float32: numpy has none); of
+        a sharded buffer (``DTensor``), the whole array."""
         d = self.data.detach()
+        if hasattr(d, "full_tensor"):
+            d = d.full_tensor()
         if d.dtype == torch.bfloat16:
             d = d.float()
         return d.cpu().numpy()

@@ -18,6 +18,7 @@ and its saved device buffers would wait for Python's cyclic collector.
 import weakref
 
 from .grads import Gradients
+from ..ops.runtime import is_sharded
 from ..utils.profiler import Tracker
 
 __all__ = ["Function", "composite"]
@@ -117,6 +118,10 @@ class Function(metaclass=_FunctionMeta):
         for t, g in zip(self.parents, grads):
             if g is None or not t.requires_grad:
                 continue
+            if is_sharded(g.data) and not is_sharded(t.data):
+                # a whole tensor met sharded ones (the parallel layer): its
+                # gradient is the whole sum, on every rank
+                g = type(g)(g.data.full_tensor(), requires_grad=False)
             g = _unbroadcast(g, t.shape)
             assert g.shape == t.shape, (
                 f"{type(self).__name__}: gradient shape {g.shape} does not "

@@ -20,10 +20,17 @@ loaded in place on their device.  A resumed run repeats the uninterrupted
 one bit for bit (tests/test_torch_checkpoint.py, ``chip_smoke.py``).
 
 The sharded pair (``save_checkpoint_sharded`` / ``load_checkpoint_sharded``)
-waits for the parallel layer (ROADMAP.md queue 1 item 7).
+writes each process's owned shards of every parameter, buffer and
+optimizer-state tensor (sharded ones are the parallel layer's
+``DTensor``s) to ``shards-{process:05d}.npz`` beside a ``meta.json``, in
+the JAX package's layout (keys ``name//start:stop,...``), so each package
+reads the other's directories; a tensor whose live placement differs from
+the saved one is resharded on load.
 """
 
+import glob
 import io
+import json
 import os
 import struct
 import zlib
@@ -35,7 +42,8 @@ import torch
 from .optim import SGD, Adam, Optimizer
 
 __all__ = ["save_checkpoint", "load_checkpoint", "optimizer_state_dict",
-           "load_optimizer_state"]
+           "load_optimizer_state", "save_checkpoint_sharded",
+           "load_checkpoint_sharded"]
 
 _OPT_PREFIX = "__optim__/"
 _META_PREFIX = "__meta__/"
@@ -222,3 +230,180 @@ def load_checkpoint(path: str, model, optim: Optimizer = None) -> dict:
             if k.startswith(_OPT_PREFIX)})
     return {k[len(_META_PREFIX):]: v for k, v in arrays.items()
             if k.startswith(_META_PREFIX)}
+
+
+# --------------------------- sharded checkpoints ---------------------------
+def _optimizer_state_tensors(optim: Optimizer) -> dict:
+    """name -> tensor over an optimizer's state: every public attribute
+    that is a tensor or a list of tensors (Adam's ``t``, ``m.{i}``,
+    ``v.{i}``; SGD's ``velocity.{i}``; ...), the JAX package's walk."""
+    out = {}
+    for attr, val in sorted(vars(optim).items()):
+        if attr == "parameters" or attr.startswith("_"):
+            continue
+        if isinstance(val, torch.Tensor):
+            out[attr] = val
+        elif isinstance(val, (list, tuple)) and val and \
+                all(isinstance(x, (torch.Tensor, type(None))) for x in val):
+            for i, x in enumerate(val):
+                if x is not None:
+                    out[f"{attr}.{i}"] = x
+    return out
+
+
+def _named_state_tensors(model, optim: Optimizer = None) -> dict:
+    """name -> tensor: a tape tensor (its buffer is ``.data``) or a torch
+    tensor, plain or ``DTensor``."""
+    out = dict(model.named_parameters())
+    out.update({"__buf__/" + n: b for n, b in model.named_buffers()})
+    if optim is not None:
+        out.update({_OPT_PREFIX + k: t
+                    for k, t in _optimizer_state_tensors(optim).items()})
+    return out
+
+
+def _raw(t):
+    return t if isinstance(t, torch.Tensor) else t.data
+
+
+def _dtype_name(dt) -> str:
+    return str(dt).replace("torch.", "")
+
+
+def _owned_slices(a):
+    """The global slices of this process's shard of DTensor ``a``, and
+    whether it owns them (replica 0: coordinate 0 on every mesh dim that
+    does not shard it)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh = a.device_mesh
+    shape, offset = compute_local_shape_and_global_offset(
+        a.shape, mesh, a.placements)
+    coord = mesh.get_coordinate()
+    owner = coord is not None and all(
+        c == 0 for c, p in zip(coord, a.placements) if not p.is_shard())
+    return tuple(slice(o, o + n) for o, n in zip(offset, shape)), owner
+
+
+def _key(slices) -> str:
+    return ",".join(f"{s.start}:{s.stop}" for s in slices)
+
+
+def _process_index() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier():
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def save_checkpoint_sharded(dir_path: str, model, optim: Optimizer = None,
+                            step: int = None, **extra) -> None:
+    """Write each process's OWNED shards (replica 0) of every model /
+    optimizer tensor to ``dir_path/shards-{process:05d}.npz`` and a
+    ``meta.json``.  Unlike ``save_checkpoint`` no process gathers a whole
+    sharded tensor: per-process traffic and memory are 1/N for FSDP / TP
+    state.  All processes call this (each writes its own file; process 0
+    writes the metadata and the whole, unsharded tensors), and it returns
+    when every file is written."""
+    os.makedirs(dir_path, exist_ok=True)
+    proc = _process_index()
+    entries, arrays = {}, {}
+    for name, t in _named_state_tensors(model, optim).items():
+        a = _raw(t).detach()
+        entries[name] = {"shape": list(a.shape), "dtype": _dtype_name(a.dtype)}
+        if hasattr(a, "placements"):
+            slices, owner = _owned_slices(a)
+            if owner:
+                arrays[f"{name}//{_key(slices)}"] = _host(a.to_local())
+        elif proc == 0:
+            arrays[f"{name}//{_key(slice(0, n) for n in a.shape)}"] = _host(a)
+    tmp = os.path.join(dir_path, f".shards-{proc:05d}.tmp")
+    with open(tmp, "wb") as f:
+        _write_npz(f, arrays)
+    os.replace(tmp, os.path.join(dir_path, f"shards-{proc:05d}.npz"))
+    if proc == 0:
+        meta = {"format": 1, "entries": entries,
+                "meta": {k: (int(v) if isinstance(v, (int, np.integer))
+                             else v)
+                         for k, v in dict(step=step, **extra).items()
+                         if v is not None}}
+        tmp = os.path.join(dir_path, ".meta.tmp")
+        with open(tmp, "w") as f:
+            json.dump(meta, f)
+        os.replace(tmp, os.path.join(dir_path, "meta.json"))
+    _barrier()
+
+
+def _parse_key(key: str):
+    name, _, idx = key.rpartition("//")
+    slices = tuple(slice(int(a), int(b)) for a, b in
+                   (part.split(":") for part in idx.split(",") if part))
+    return name, slices
+
+
+def _assemble(shards: dict, shape, want):
+    """The region ``want`` (slices) of a tensor of ``shape`` from its saved
+    shards {slices: array}: one shard itself where it matches, else cut
+    from the whole array assembled on the host."""
+    if want in shards:
+        return shards[want]
+    first = next(iter(shards.values()))
+    full = np.empty(shape, dtype=first.dtype)
+    for slices, arr in shards.items():
+        full[slices if slices else ...] = arr
+    return full[want] if want else full
+
+
+@torch.no_grad()
+def load_checkpoint_sharded(dir_path: str, model, optim: Optimizer = None
+                            ) -> dict:
+    """Restore state saved by ``save_checkpoint_sharded`` (by this package
+    or the JAX package).  Each tensor keeps its live placement: a sharded
+    one takes its own region, straight from the saved shard where the
+    saved layout matches and cut from the host-assembled whole where it
+    does not (resharding, e.g. fsdp=4 to tp=2).  Returns the meta dict."""
+    with open(os.path.join(dir_path, "meta.json")) as f:
+        meta = json.load(f)
+    saved = {}
+    for path in sorted(glob.glob(os.path.join(dir_path, "shards-*.npz"))):
+        for key, arr in _read_npz(path).items():
+            name, slices = _parse_key(key)
+            saved.setdefault(name, {})[slices] = arr
+    tensors = _named_state_tensors(model, optim)
+    for name, info in meta["entries"].items():
+        if name not in tensors:
+            continue    # e.g. optimizer state saved but no optimizer passed
+        t = tensors[name]
+        shards = saved.get(name, {})
+        assert shards, f"checkpoint has no shards for {name}"
+        shape = tuple(info["shape"])
+        a = _raw(t)
+        if hasattr(a, "placements"):
+            want, _ = _owned_slices(a)
+            arr = _assemble(shards, shape, want)
+            local = torch.from_numpy(np.ascontiguousarray(arr)).to(
+                device=a.device, dtype=a.dtype)
+            if isinstance(t, torch.Tensor):
+                a.to_local().copy_(local)
+            else:
+                from torch.distributed.tensor import DTensor
+
+                t._set_data(DTensor.from_local(local, a.device_mesh,
+                                               a.placements, run_check=False))
+            continue
+        arr = _assemble(shards, shape, tuple(slice(0, n) for n in shape))
+        new = torch.from_numpy(np.ascontiguousarray(arr)).reshape(shape).to(
+            device=a.device, dtype=a.dtype)
+        if isinstance(t, torch.Tensor):
+            a.copy_(new)
+        else:
+            t._set_data(new)
+    model.__dict__.pop("_kv_fns", None)   # decode functions hold old weights
+    return meta.get("meta", {})

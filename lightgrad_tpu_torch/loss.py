@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .autograd import AbstractTensor, Function
+from .ops.runtime import is_sharded
 
 __all__ = ["mse", "cross_entropy"]
 
@@ -165,4 +166,9 @@ def cross_entropy(y, labels, ignore_index: int = None,
     if isinstance(y, AbstractTensor):
         return _TapeCrossEntropy(y, labels, ignore_index=ignore_index,
                                  label_smoothing=label_smoothing)
+    if is_sharded(y, labels):
+        # sharded logits (a vocabulary-parallel head): whole on every rank,
+        # as the tape's row max gathers them (differentiable)
+        y, labels = (t.full_tensor() if is_sharded(t) else t
+                     for t in (y, labels))
     return _CrossEntropy.apply(y, labels, ignore_index, label_smoothing)

@@ -6,6 +6,7 @@ the JAX package's one-hot formulation of the routed FFN in plain PyTorch.
 The lightgrad layers are in ``lightgrad_tpu_torch/nn.py``.
 """
 
+import contextlib
 import math
 
 import torch
@@ -13,6 +14,7 @@ import torch.nn.functional as F
 
 from ..autograd.ops import layernorm, matmul
 from ..ops.matmul import matmul_reference
+from ..ops.runtime import is_sharded
 
 __all__ = ["LayerNorm", "MoE", "moe_capacity", "moe_reference", "moe_route",
            "moe_slots"]
@@ -170,7 +172,7 @@ class MoE(torch.nn.Module):
         # slot of each routing in the (E * C) buffer; a dropped one goes to
         # the spare slot n, cut off below
         n = n_exp * cap
-        slot = torch.where(keep, ids * cap + pos, n).reshape(-1)
+        slot = (ids * cap + pos).masked_fill(~keep, n).reshape(-1)
         tok = torch.arange(n_tok, device=t.device).repeat(k)
         # the token in each slot, n_tok (a zero row) where a slot is empty
         slot_tok = torch.full((n + 1,), n_tok, dtype=torch.long,
@@ -187,7 +189,21 @@ class MoE(torch.nn.Module):
     def forward(self, x):
         lead, d = x.shape[:-1], x.shape[-1]
         t = x.reshape(-1, d)
-        y = self._dense(t) if self.dispatch == "dense" else self._routed(t)
+        mixing = contextlib.nullcontext()
+        if is_sharded(t):
+            # sharded tokens or experts (parallel.shard_module, MOE rules):
+            # the tokens are routed whole on every rank, the routing's index
+            # tensors count as replicated, and the experts' products run on
+            # their ep shards (ops/matmul.py's placement rules)
+            from torch.distributed.tensor import Replicate
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            t = t.redistribute(t.device_mesh,
+                               [Replicate()] * t.device_mesh.ndim)
+            mixing = implicit_replication()
+        with mixing:
+            y = self._dense(t) if self.dispatch == "dense" \
+                else self._routed(t)
         if self.n_shared:
             y = y + self._ffn(t[None], self.ws1, self.ws2).sum(0)
         return y.reshape(*lead, d)

@@ -13,7 +13,10 @@ LayerNorm kernels.  Self-attention has the JAX model's three branches:
 * neither mask nor lengths: the fused flash-attention kernels;
 * ``attention_lengths``: the flash kernels with per-example lengths:
   padded keys are masked out of every softmax inside the kernel and padded
-  query rows output zeros (no additive mask, no softmax kernel).
+  query rows output zeros (no additive mask, no softmax kernel);
+* no mask under ``parallel.enable_sequence_parallel``: ring attention
+  over the mesh's sequence axis (parallel/ring_attention.py), each round
+  a ``flash_block``.
 
 ``BertConfig(scan_layers=True, remat=...)`` holds the encoder layers as one
 :class:`~lightgrad_tpu_torch.scan.ScannedStack`, the padding mask passed
@@ -22,8 +25,6 @@ HF interop (``remap_hf_state``, ``export_hf_state``, ``save_pretrained``
 and ``from_pretrained``: HF's ``pytorch_model.bin`` by ``torch.save`` /
 ``torch.load(weights_only=True)``) and the WordPiece
 :class:`BertTokenizer` are here too.
-
-Not ported yet: the sequence-parallel ring branch (the parallel layer).
 """
 
 import io
@@ -108,8 +109,16 @@ class BertSelfAttention(nn.Module):
         k = self._split(self.key(x), b, s)
         v = self._split(self.value(x), b, s)
         scale = 1.0 / np.sqrt(self.head_dim)
+        sp = getattr(self, "_sequence_parallel", None)
         if lengths is not None and not output_attentions:
             ctx = q.attention(k, v, scale=scale, lengths=lengths)
+        elif mask is None and sp is not None and not output_attentions:
+            # sequence-parallel ring attention: K/V chunks stay sharded on
+            # the sp axis and rotate around the ring (no whole-sequence
+            # gather)
+            mesh, axis, batch_axis = sp
+            ctx = q.ring_attention(k, v, scale=scale, mesh=mesh, axis=axis,
+                                   batch_axis=batch_axis)
         elif mask is None and not output_attentions:
             ctx = q.attention(k, v, scale=scale)
         else:

@@ -37,12 +37,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..autograd.ops import attention
+from ..autograd.ops import attention, matmul
 from ._torch_layers import LayerNorm, MoE
 from ..ops.attention import attention_fwd
 from ..ops.decode_attention import decode_attention
 from ..ops.decode_stack import (decode_stack, decode_stack_batch,
                                 pack_gpt_stack, stack_supported)
+from ..ops.runtime import is_sharded
+from ..parallel.ring_attention import ring_attention_sharded
 from ..scan import remat_mode
 from .decoding import KVFns, ParamFn, cache_slot
 
@@ -134,6 +136,47 @@ class GPTConfig:
                 "use scan_layers=False with n_experts")
 
 
+class Linear(nn.Linear):
+    """``torch.nn.Linear``, whose product on sharded operands (the parallel
+    layer's ``DTensor``s) goes through the matmul kernel and its placement
+    strategies (ops/runtime.py): DTensor's own rule for ``F.linear`` prices
+    every placement of every mesh dim against every other, which on a
+    three-axis mesh costs seconds a call on the host."""
+
+    def forward(self, x):
+        if not is_sharded(x, self.weight):
+            return F.linear(x, self.weight, self.bias)
+        y = matmul(x, self.weight.T)
+        return y if self.bias is None else y + self.bias
+
+
+def _split_heads(y, n, heads, hd):
+    """``y (b, s, n * heads * hd)`` as ``(b, s, n, heads, hd)``.  A
+    row-parallel product's output (``DTensor`` sharded over its features:
+    GPT_TP_RULES splits the packed q|k|v rows in contiguous blocks, which
+    cut across the q / k / v boundary) is made whole over its features and
+    split again over the heads, the reshuffle GSPMD makes of the same
+    annotation; a batch or sequence sharding stays."""
+    b, s = y.shape[:2]
+    if not is_sharded(y):
+        return y.reshape(b, s, n, heads, hd)
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, pl = y.device_mesh, y.placements
+    keep = [p.is_shard() and p.dim < 2 for p in pl]     # batch / sequence
+    y = y.redistribute(mesh, [p if k else Replicate()
+                              for k, p in zip(keep, pl)])
+    y = y.reshape(b, s, n, heads, hd)
+    # the heads over the first mesh dim that divides them and splits
+    # nothing else (tp's): a local slice, no traffic
+    free = [m for m, k in enumerate(keep) if not k and mesh.size(m) > 1
+            and heads % mesh.size(m) == 0]
+    if not free:
+        return y
+    return y.redistribute(mesh, [Shard(3) if m == free[0] else p
+                                 for m, p in enumerate(y.placements)])
+
+
 def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
@@ -144,15 +187,27 @@ class CausalSelfAttention(nn.Module):
         self.n_head = cfg.n_head
         self.head_dim = cfg.n_embd // cfg.n_head
         kw = {"device": device, "dtype": dtype}
-        self.c_attn = nn.Linear(cfg.n_embd, 3 * cfg.n_embd, **kw)
-        self.c_proj = nn.Linear(cfg.n_embd, cfg.n_embd, **kw)
+        self.c_attn = Linear(cfg.n_embd, 3 * cfg.n_embd, **kw)
+        self.c_proj = Linear(cfg.n_embd, cfg.n_embd, **kw)
 
     def forward(self, x):
         b, s, h = x.shape
-        qkv = self.c_attn(x).reshape(b, s, 3, self.n_head, self.head_dim)
+        qkv = _split_heads(self.c_attn(x), 3, self.n_head, self.head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous()  # (b, heads, s, hd)
-        y = attention(q, k, v, 1.0 / float(np.sqrt(self.head_dim)),
-                      causal=True)
+        scale = 1.0 / float(np.sqrt(self.head_dim))
+        sp = getattr(self, "_sequence_parallel", None)
+        if sp is not None:
+            # sequence-parallel ring attention (parallel/ring_attention.py):
+            # K/V shards rotate around the ring, causal rounds of strictly
+            # later chunks are skipped.  Positions were added on the global
+            # sequence upstream, so the shards carry their true offsets.
+            mesh, axis, batch_axis = sp
+            y = ring_attention_sharded(q, k, v, scale, mesh, axis=axis,
+                                       causal=True, batch_axis=batch_axis)
+            if not is_sharded(x):           # a model of whole tensors
+                y = y.full_tensor()
+        else:
+            y = attention(q, k, v, scale, causal=True)
         return self.c_proj(y.transpose(1, 2).reshape(b, s, h))
 
 
@@ -171,8 +226,8 @@ class GPTBlock(nn.Module):
                            capacity_factor=cfg.moe_capacity_factor,
                            n_shared=cfg.moe_shared, **kw)
         else:
-            self.c_fc = nn.Linear(cfg.n_embd, 4 * cfg.n_embd, **kw)
-            self.c_proj = nn.Linear(4 * cfg.n_embd, cfg.n_embd, **kw)
+            self.c_fc = Linear(cfg.n_embd, 4 * cfg.n_embd, **kw)
+            self.c_proj = Linear(4 * cfg.n_embd, cfg.n_embd, **kw)
 
     def forward(self, x):
         x = x + self.attn(self.ln_1(x))
@@ -379,8 +434,38 @@ class GPT(nn.Module):
         Sets ``aux_loss`` and ``z_loss``: each the sum over the routed MoE
         blocks of theirs, None on a model without them.  Add ``aux_loss``
         times a weight to the training loss."""
+        if is_sharded(input_ids, self.wte.weight):
+            # sharded weights or tokens (the parallel layer): the whole
+            # tensors beside them count as replicated -- the weights through
+            # from_local, so their gradients come back whole, the rest
+            # (positions, routing indices) by implicit replication
+            from torch.distributed.tensor import DTensor, Replicate
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            from torch.nn.utils.stateless import _reparametrize_module
+
+            mesh = next(t for t in (input_ids, self.wte.weight)
+                        if is_sharded(t)).device_mesh
+
+            def whole(t):
+                return t if is_sharded(t) else DTensor.from_local(
+                    t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+            params = {n: whole(p) for n, p in self.named_parameters()}
+            with implicit_replication(), \
+                    _reparametrize_module(self, params):
+                return self._forward(whole(input_ids))
+        return self._forward(input_ids)
+
+    def _forward(self, input_ids):
         b, s = input_ids.shape
         pos = torch.arange(s, device=input_ids.device)
+        if is_sharded(input_ids):
+            from torch.distributed.tensor import DTensor, Replicate
+
+            mesh = input_ids.device_mesh
+            pos = DTensor.from_local(pos, mesh, [Replicate()] * mesh.ndim,
+                                     run_check=False)
         x = self.wte(input_ids) + self.wpe(pos)
         aux = zl = None
         if isinstance(self.h, ScannedBlocks):
@@ -394,6 +479,8 @@ class GPT(nn.Module):
                     zl = moe.z_loss if zl is None else zl + moe.z_loss
         self.aux_loss, self.z_loss = aux, zl
         x = self.ln_f(x)
+        if is_sharded(x):       # as Linear: the kernel's placement rules
+            return matmul(x, self.wte.weight.T)
         return x @ self.wte.weight.T        # weight-tied LM head
 
     @torch.no_grad()
@@ -464,12 +551,17 @@ class GPT(nn.Module):
         d = cfg.n_embd
         hd = d // H
         eps = cfg.layer_norm_epsilon
-        p = {name: t.detach() for name, t in self.named_parameters()}
+        # sharded weights (parallel.shard_module) decode whole: the decode
+        # kernels take their operands replicated, as GSPMD gives a custom
+        # call it cannot partition in the JAX package
+        p = {name: t.detach().full_tensor() if is_sharded(t) else t.detach()
+             for name, t in self.named_parameters()}
         if isinstance(self.h, ScannedBlocks):
             # scanned stack: per-layer views under the flat h.{l}. names
             for l in range(L):
                 for n, v in self.h.layer_params(l).items():
-                    p[f"h.{l}.{n}"] = v.detach()
+                    p[f"h.{l}.{n}"] = v.detach().full_tensor() \
+                        if is_sharded(v) else v.detach()
         scale = 1.0 / float(np.sqrt(hd))
         wte = p["wte.weight"]
         cdt = wte.dtype

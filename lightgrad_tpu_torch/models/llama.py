@@ -35,7 +35,9 @@ port's SentencePiece reader.
 the JAX package's names, one tape op, ``remat`` False / "full" / "dots");
 the decode functions read per-layer views of the stacks.
 
-Not ported yet (ROADMAP queue 1): the sequence-parallel ring branch.
+Under ``parallel.enable_sequence_parallel`` attention is ring attention
+over the mesh's sequence axis (parallel/ring_attention.py), K/V expanded to
+q's head count first; a sliding window is refused there.
 """
 
 import io
@@ -199,11 +201,25 @@ class LlamaAttention(nn.Module):
         # the band is a no-op when the sequence fits inside it
         win = self.sliding_window
         win = int(win) if win and win < s else 0
-        if getattr(self, "_sequence_parallel", None) is not None:
-            raise NotImplementedError(
-                "LlamaAttention: the sequence-parallel ring branch is not "
-                "ported yet (ROADMAP.md queue 1 item 7)")
-        if hasattr(q, "attention"):
+        sp = getattr(self, "_sequence_parallel", None)
+        if self.n_kv != self.n_heads and sp is not None:
+            # grouped-query expand (gather forward, scatter-add backward)
+            # for the ring: its blocks take K/V of q's head count
+            idx = np.repeat(np.arange(self.n_kv), self.n_heads // self.n_kv)
+            k = k[:, idx]
+            v = v[:, idx]
+        if sp is not None:
+            # sequence-parallel ring attention; RoPE was applied on the
+            # global sequence above, so the sharded chunks carry their true
+            # positions
+            if win:
+                raise NotImplementedError(
+                    "ring attention + sliding window not supported; run "
+                    "sliding-window models without sequence parallelism")
+            mesh, axis, batch_axis = sp
+            ctx = q.ring_attention(k, v, scale=scale, mesh=mesh, axis=axis,
+                                   causal=True, batch_axis=batch_axis)
+        elif hasattr(q, "attention"):
             # grouped-query inside the flash kernels: no repeated K/V
             ctx = q.attention(k, v, scale=scale, causal=True, window=win)
         else:

@@ -172,7 +172,12 @@ def _load_into(t, new, name):
     if tuple(new.shape) != t.shape:
         raise ValueError(f"shape mismatch for {name}: "
                          f"{tuple(new.shape)} != {t.shape}")
-    t._set_data(new.to(device=t.data.device, dtype=t.dtype, copy=True))
+    new = new.to(device=t.data.device, dtype=t.dtype, copy=True)
+    if hasattr(t.data, "placements"):       # a sharded parameter keeps its
+        from torch.distributed.tensor import distribute_tensor     # layout
+        new = distribute_tensor(new, t.data.device_mesh, t.data.placements,
+                                src_data_rank=None)
+    t._set_data(new)
 
 
 class ModuleList(Module, list):

@@ -325,6 +325,7 @@ def attention_bwd_tf32x3_reference(g, q, k, v, out, lse, scale: float,
 
 def _check(fn, q, k, v, **same_as_q):
     """Validate a CUDA call; returns (b, bkv, s, d)."""
+    runtime.assert_local(q, k, v, *same_as_q.values())
     s, d = q.shape[-2], q.shape[-1]
     b, bkv = prod(q.shape[:-2]), prod(k.shape[:-2])
     for name, t in dict(q=q, k=k, v=v, **same_as_q).items():
@@ -508,14 +509,49 @@ def attention_bwd_fused(g, q, k, v, lse, dcap, scale: float,
     return dq.to(q.dtype), dk, dv
 
 
+def _heads_strategies(shapes, *args, **kwargs):
+    """For one mesh dim: a batch or head dim of q, k and v (and of every
+    other operand and output of q's or k's shape); with ``lengths`` (one
+    per flattened batch-head row, the last operand) the leading dim only.
+    k and v may carry fewer heads than q: a shard of q's heads reads the
+    same shard of the K/V heads."""
+    R, S = runtime.Replicate, runtime.Shard
+    lead = len(shapes[0]) - 2
+    dims = range(1 if kwargs.get("lens") else lead)
+    n = len(shapes)
+    return [((S(d),) * n, (S(d),) * kwargs["n_out"]) for d in dims
+            if shapes[0][d] > 1 and all(s[d] > 1 for s in shapes[1:3])] + [
+        ((R(),) * n, (R(),) * kwargs["n_out"])]
+
+
+def _fwd_local(q, k, v, *lens, scale, causal, window, **_):
+    out, lse = attention_fwd_res(q, k, v, scale, causal,
+                                 lens[0] if lens else None, window)
+    return out, lse.reshape(q.shape[:-1])
+
+
+def _bwd_local(g, q, k, v, out, lse, *lens, scale, causal, window, **_):
+    return attention_bwd(g, q, k, v, scale, causal, out,
+                         lse.reshape(-1, q.shape[-2], 1),
+                         lens[0] if lens else None, window)
+
+
 def attention_fwd_res(q, k, v, scale: float, causal: bool = False,
                       lengths=None, window: int = 0):
     """(out, lse): the flash kernel on CUDA, with ``lengths`` (a contiguous
     int32 tensor of B elements) or without; the plain version on CPU.
     ``window`` > 0 bands the causal mask: row i sees keys i - window < j <=
-    i (Mistral's semantics; a window of S or more bands nothing)."""
+    i (Mistral's semantics; a window of S or more bands nothing).
+    Sharded q, k, v (``DTensor``) split over batch or heads; lse then
+    comes in q's leading shape."""
     if window:
         assert causal, "sliding window attention is causal-only"
+    if runtime.is_sharded(q, k, v):
+        lens = () if lengths is None else (lengths,)
+        return runtime.sharded(
+            "attention_fwd", _heads_strategies, _fwd_local, q, k, v, *lens,
+            scale=scale, causal=causal, window=window, lens=bool(lens),
+            n_out=2)
     if q.is_cuda:
         return _flash_fwd_cuda(q, k, v, scale, causal, lengths, window)
     return attention_fwd_reference(q, k, v, scale, causal, lengths, window)
@@ -556,6 +592,12 @@ def attention_bwd(g, q, k, v, scale: float, causal: bool = False,
     G == 1.  On CPU the plain recompute version."""
     if window:
         assert causal, "sliding window attention is causal-only"
+    if runtime.is_sharded(g, q, k, v):
+        lens = () if lengths is None else (lengths,)
+        return runtime.sharded(
+            "attention_bwd", _heads_strategies, _bwd_local, g, q, k, v, out,
+            lse, *lens, scale=scale, causal=causal, window=window,
+            lens=bool(lens), n_out=3)
     if not q.is_cuda:
         return attention_bwd_reference(g, q, k, v, scale, causal, out, lse,
                                        lengths, window)

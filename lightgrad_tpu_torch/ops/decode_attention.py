@@ -278,7 +278,13 @@ def _launch(name, q, kc, vc, pos, scale, window):
 def decode_attention(q, kc, vc, pos, scale: float, window: int = 0):
     """q (KV, G, hd); kc, vc (KV, W, hd); keys at ``<= pos`` visible,
     optionally banded by ``window``; ``pos`` a host int or a one-element
-    int32 tensor on q's device.  Returns (KV, G, hd) in q's dtype."""
+    int32 tensor on q's device.  Returns (KV, G, hd) in q's dtype.
+    Sharded operands (``DTensor``) are taken replicated, as GSPMD takes
+    the operands of a call it cannot partition in the JAX package."""
+    if runtime.is_sharded(q, kc, vc, pos):
+        return runtime.sharded("decode_attention", runtime.replicated,
+                               decode_attention, q, kc, vc, pos, scale,
+                               window)
     if not q.is_cuda:
         return decode_attention_reference(q, kc, vc, pos, scale, window)
     if isinstance(pos, torch.Tensor):
@@ -295,7 +301,12 @@ def decode_attention_batch(q, kc, vc, poss, scale: float, window: int = 0):
     1]`` of a stacked (B, L, 2, KV, W, hd) cache take no copy; poss (B,)
     int32 on q's device, slot b's keys at ``<= poss[b]`` visible (banded by
     ``window``).  One launch for all slots (and one merge).  Returns (B, KV,
-    G, hd) in q's dtype."""
+    G, hd) in q's dtype; sharded operands replicated, as
+    :func:`decode_attention`."""
+    if runtime.is_sharded(q, kc, vc, poss):
+        return runtime.sharded("decode_attention_batch", runtime.replicated,
+                               decode_attention_batch, q, kc, vc, poss, scale,
+                               window)
     if not q.is_cuda:
         return decode_attention_batch_reference(q, kc, vc, poss, scale,
                                                 window)

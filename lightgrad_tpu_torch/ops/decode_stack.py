@@ -353,6 +353,10 @@ def _launch(name, x, cache, slot_stride, poss, pos0, slabs, vecs, scales,
     return x_out, kv
 
 
+def _replicated2(shapes, *args):
+    return runtime.replicated(shapes, n_out=2)
+
+
 def decode_stack(x, cache, pos, slabs, vecs, scales=None, *, eps, R=4,
                  kv_scales=None):
     """n decode rows at positions pos..pos+n-1 through the whole stack.
@@ -364,7 +368,13 @@ def decode_stack(x, cache, pos, slabs, vecs, scales=None, *, eps, R=4,
     by every row, the n in-flight rows see each other causally (``extend``
     semantics, at full precision), and the caller scatters ``kv`` into rows
     pos..pos+n-1.  ``kv_scales`` (L, 2, H, W, 1) f32: ``cache`` is the int8
-    row store; ``kv`` is then in x's dtype."""
+    row store; ``kv`` is then in x's dtype.  Sharded operands (``DTensor``)
+    are taken replicated, as GSPMD takes a call it cannot partition."""
+    if runtime.is_sharded(x, cache, pos, slabs, vecs, scales, kv_scales):
+        return runtime.sharded(
+            "decode_stack", _replicated2,
+            lambda *a: decode_stack(*a[:6], eps=eps, R=R, kv_scales=a[6]),
+            x, cache, pos, slabs, vecs, scales, kv_scales)
     if not x.is_cuda:
         return decode_stack_reference(x, cache, pos, slabs, vecs, scales,
                                       eps=eps, R=R, kv_scales=kv_scales)
@@ -390,7 +400,14 @@ def decode_stack_batch(x, caches, poss, slabs, vecs, scales=None, *, eps,
     device; ``kv_scales`` (B, L, 2, H, W, 1) as in :func:`decode_stack`.
     Row b attends slot b's cache rows < poss[b] plus its own new row.
     Returns ``(x_out (B, d), kv (L, 2, B, d))``; the caller scatters slot
-    b's rows at poss[b]."""
+    b's rows at poss[b].  Sharded operands replicated, as
+    :func:`decode_stack`."""
+    if runtime.is_sharded(x, caches, poss, slabs, vecs, scales, kv_scales):
+        return runtime.sharded(
+            "decode_stack_batch", _replicated2,
+            lambda *a: decode_stack_batch(*a[:6], eps=eps, R=R,
+                                          kv_scales=a[6]),
+            x, caches, poss, slabs, vecs, scales, kv_scales)
     if not x.is_cuda:
         return decode_stack_batch_reference(x, caches, poss, slabs, vecs,
                                             scales, eps=eps, R=R,

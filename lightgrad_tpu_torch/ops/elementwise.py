@@ -802,6 +802,11 @@ def ew(body, *xs, n_out: int = 1):
     x0 = next((x for x in xs if isinstance(x, torch.Tensor)), None)
     if x0 is None:
         raise ValueError(f"ew {body}: no tensor operand")
+    if runtime.is_sharded(*xs):
+        # equal placements: any dim of the broadcast output
+        return runtime.sharded(
+            "elementwise", lambda shapes, *a, n_out=1: runtime.pointwise(
+                shapes, n_out), ew, body, *xs, n_out=n_out)
     if not x0.is_cuda:
         return ew_reference(body, *xs, n_out=n_out)
     key = tuple((x.shape, x.stride(), x.dtype, x.get_device())

@@ -271,9 +271,48 @@ def layernorm_fwd(x, w, b, eps: float = 1e-5):
     return _fwd(x, w, b, eps, True)
 
 
+def _fwd_strategies(shapes, x, w, b, *args):
+    """For one mesh dim: any leading (row) dim of x, which shards y and the
+    row statistics alike; w and b replicated."""
+    R, S = runtime.Replicate, runtime.Shard
+    lead = len(shapes[0]) - len(shapes[1])
+    return [((S(d), R(), R()), (S(d),) * 3) for d in range(lead)
+            if shapes[0][d] > 1] + [((R(),) * 3, (R(),) * 3)]
+
+
+def _bwd_strategies(shapes, *args):
+    """The forward's row sharding; dw and db are then each shard's partial
+    sums."""
+    R, S, P = runtime.Replicate, runtime.Shard, runtime.Partial
+    lead = len(shapes[1]) - len(shapes[2])
+    return [((S(d), S(d), R(), S(d), S(d)), (S(d), P(), P()))
+            for d in range(lead) if shapes[1][d] > 1] + [
+        ((R(),) * 5, (R(),) * 3)]
+
+
+def _lead(x, w):
+    return x.shape[:x.dim() - w.dim()]
+
+
+def _fwd_stats_local(x, w, b, eps):
+    """The statistics of a shard's rows in the rows' own shape."""
+    y, mean, rstd = layernorm_fwd_stats(x, w, b, eps)
+    return y, mean.reshape(_lead(x, w)), rstd.reshape(_lead(x, w))
+
+
+def _bwd_local(g, x, w, mean, rstd):
+    dx, dw, db = layernorm_bwd(g, x, w, mean.reshape(-1, 1),
+                               rstd.reshape(-1, 1))
+    return dx.reshape(x.shape), dw, db
+
+
 def layernorm_fwd_stats(x, w, b, eps: float = 1e-5):
     """(y, mean, rstd), the autograd path's forward: Triton kernel on CUDA,
-    plain version on CPU."""
+    plain version on CPU.  Sharded operands (``DTensor``) by the strategies
+    above; the statistics then come in x's leading shape."""
+    if runtime.is_sharded(x, w, b):
+        return runtime.sharded("layernorm_fwd", _fwd_strategies,
+                               _fwd_stats_local, x, w, b, eps)
     if not x.is_cuda:
         return layernorm_fwd_stats_reference(x, w, b, eps)
     return _fwd(x, w, b, eps, False)
@@ -310,7 +349,11 @@ def _bwd(g, x, w, mean, rstd, xhat_in):
 
 def layernorm_bwd(g, x, w, mean, rstd):
     """(dx, dw, db) over the flattened rows from the saved x and statistics:
-    Triton kernels on CUDA, plain version on CPU."""
+    Triton kernels on CUDA, plain version on CPU.  Sharded operands as
+    :func:`layernorm_fwd_stats` gave them (dx then in x's shape)."""
+    if runtime.is_sharded(g, x, w, mean, rstd):
+        return runtime.sharded("layernorm_bwd", _bwd_strategies, _bwd_local,
+                               g, x, w, mean, rstd)
     if not g.is_cuda:
         return layernorm_bwd_reference(g, x, w, mean, rstd)
     r, c = _rows_cols(x, w)

@@ -142,6 +142,7 @@ def _loader(t, sb1, sb2, smn, sk, n, k, kind):
 
 
 def _launch(a, b, out):
+    runtime.assert_local(a, b, out)
     """out (batch..., M, N) contiguous = a @ b, both expanded to the batch."""
     m, k = a.shape[-2:]
     n = b.shape[-1]
@@ -175,10 +176,39 @@ def _launch(a, b, out):
     loader_counts[LOADERS[lb]] += 1
 
 
+def _strategies(shapes, a, b):
+    """Placements under which the product is exact on local shards, for
+    one mesh dim: a batch dim (or, against a shared matrix, any row dim of
+    ``a``), the rows of ``a``, the columns of ``b``, and the contraction
+    sharded on both operands (each shard's partial sum: ``Partial``)."""
+    R, S, P = runtime.Replicate, runtime.Shard, runtime.Partial
+    sa, sb = shapes
+    na, nb = len(sa), len(sb)
+    cands = []
+    if nb == 2:
+        nd = na
+        cands += [((S(i), R()), (S(i),)) for i in range(na - 1) if sa[i] > 1]
+    else:
+        nd = max(na, nb)
+        for i in range(nd - 2):
+            ia, ib = i - nd + na, i - nd + nb
+            pa = S(ia) if ia >= 0 and sa[ia] > 1 else R()
+            pb = S(ib) if ib >= 0 and sb[ib] > 1 else R()
+            if pa != R() or pb != R():
+                cands.append(((pa, pb), (S(i),)))
+        cands.append(((S(na - 2), R()), (S(nd - 2),)))
+    cands.append(((R(), S(nb - 1)), (S(nd - 1),)))
+    cands.append(((S(na - 1), S(nb - 2)), (P(),)))
+    cands.append(((R(), R()), (R(),)))
+    return cands
+
+
 def matmul(a, b):
     """``a @ b`` (numpy broadcasting over the batch dims): the CUDA kernel on
     CUDA tensors, the plain version of the current precision on CPU
-    tensors."""
+    tensors; sharded operands (``DTensor``) by the strategies above."""
+    if runtime.is_sharded(a, b):
+        return runtime.sharded("matmul", _strategies, matmul, a, b)
     _check(a, b)
     if not a.is_cuda:
         if _PRECISION == "default" and torch.float32 == torch.promote_types(

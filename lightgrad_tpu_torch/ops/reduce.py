@@ -343,11 +343,36 @@ def _n_sm(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _strategies(shapes, x, op, axis=None, keepdims=False):
+    """For one mesh dim: a kept dim sharded stays sharded; a sum over a
+    sharded dim, or of a partial sum, is a partial sum (max and min over a
+    sharded dim gather it first)."""
+    R, S, P = runtime.Replicate, runtime.Shard, runtime.Partial
+    rank = len(shapes[0])
+    axes = _normalize_axes(axis, rank)
+    cands = []
+    for d in range(rank):
+        if d in axes:
+            if op == "sum":
+                cands.append(((S(d),), (P(),)))
+        elif shapes[0][d] > 1:
+            out = d if keepdims else d - sum(a < d for a in axes)
+            cands.append(((S(d),), (S(out),)))
+    if op == "sum":
+        cands.append(((P(),), (P(),)))
+    cands.append(((R(),), (R(),)))
+    return cands
+
+
 def reduce(x, op: str, axis=None, keepdims: bool = False):
     """``op`` in sum / max / min over ``axis`` (None: all): the Triton
-    kernels on CUDA tensors, :func:`reduce_reference` on CPU tensors."""
+    kernels on CUDA tensors, :func:`reduce_reference` on CPU tensors;
+    a sharded ``x`` (``DTensor``) by the strategies above."""
     if op not in _OPS:
         raise ValueError(f"reduce: unknown op {op!r}")
+    if runtime.is_sharded(x):
+        return runtime.sharded("reduce", _strategies, reduce, x, op,
+                               axis=axis, keepdims=keepdims)
     if not x.is_cuda:
         return reduce_reference(x, op, axis, keepdims)
     if x.dtype not in _DTYPES:

@@ -114,9 +114,17 @@ def _rows(fn, *ts):
     return x.numel() // max(c, 1), c
 
 
+def _rows_strategies(shapes, *args):
+    """Sharded operands: any dim but the normalised last one."""
+    return runtime.pointwise(shapes, whole=1)
+
+
 def softmax_fwd(x):
     """Softmax over the last axis: the Triton kernel on CUDA tensors, the
     plain version on CPU tensors."""
+    if runtime.is_sharded(x):
+        return runtime.sharded("softmax_fwd", _rows_strategies, softmax_fwd,
+                               x)
     if not x.is_cuda:
         return softmax_fwd_reference(x)
     r, c = _rows("softmax_fwd", x)
@@ -135,6 +143,9 @@ def softmax_fwd(x):
 def softmax_bwd(g, y):
     """Input gradient of :func:`softmax_fwd` given its output ``y``: the
     Triton kernel on CUDA tensors, the plain version on CPU tensors."""
+    if runtime.is_sharded(g, y):
+        return runtime.sharded("softmax_bwd", _rows_strategies, softmax_bwd,
+                               g, y)
     if not g.is_cuda:
         return softmax_bwd_reference(g, y)
     r, c = _rows("softmax_bwd", g, y)

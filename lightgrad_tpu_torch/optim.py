@@ -23,10 +23,19 @@ import math
 import torch
 
 from .autograd import AbstractTensor
+from .ops.runtime import is_sharded
 
 __all__ = ["Optimizer", "SGD", "Adam", "AdamW", "AdaBelief", "Lion",
            "RMSprop", "Adagrad", "Adafactor", "Muon", "EMA",
            "clip_grad_norm"]
+
+
+def _placed(new, p):
+    """``new`` in ``p``'s placement: a sharded parameter (``DTensor``)
+    keeps its layout whatever its update's placement."""
+    if is_sharded(new) and tuple(new.placements) != tuple(p.placements):
+        return new.redistribute(p.device_mesh, p.placements)
+    return new
 
 
 class Optimizer:
@@ -67,7 +76,7 @@ class Optimizer:
             if self._tape is None:
                 p += d
             else:
-                self._tape[i]._set_data((p + d).to(p.dtype))
+                self._tape[i]._set_data(_placed((p + d).to(p.dtype), p))
         if self._tape is not None:
             self.parameters = tuple(p.data for p in self._tape)
 

@@ -268,7 +268,8 @@ def test_repeated_indices_accumulate():
 
 def test_unported_ops_raise():
     t = TTensor.from_numpy(np.ones((1, 1, 4, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # ring_attention is ported (the parallel layer): it needs a mesh
+    with pytest.raises(ValueError, match="needs a mesh"):
         t.ring_attention(t, t)
     # conv is ported: a 3x3 window of ones over ones sums 9 taps
     w = TTensor.from_numpy(np.ones((1, 1, 3, 3), np.float32))
