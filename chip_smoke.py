@@ -2,16 +2,17 @@
 and int8) and training (torch.autograd; two-pass and fused flash backward),
 chunked attention through ``flash_block``, BERT-base masked-LM training
 (padding mask and ``attention_lengths``), its int8 ``QuantLinear`` forward,
-the gradient-descent example, the conv path (ResNet-18 training, the
-MNIST CNN and ResNet-20 examples) on the lightgrad tape, the LLaMA
-family (Mistral-7B and Gemma-2B serving, and training on the tape; the
-char example), and the GPT-NeoX / Pythia family (Pythia-1B and -2.8B
+the conv path (ResNet-18 training) on the lightgrad tape, the LLaMA
+family (Mistral-7B and Gemma-2B serving, and training on the tape), and
+the GPT-NeoX / Pythia family (Pythia-1B and -2.8B
 training on the tape through the fused flash backward; Pythia-1B
 ``generate``), scanned stacks with remat, checkpoint resume, LoRA and the
 tokenizers / HF files, the vision families (ViT-B/16 training, DDPM
 training and sampling), the numpy oracle against the card, and the last
 families: T5-base and flan-T5-base on the tape (training, cached, beam and
-compiled decoding) and GPT-2 small with mixture-of-experts blocks.
+compiled decoding) and GPT-2 small with mixture-of-experts blocks, the
+parallel layer at world size 1, and the JAX package's examples on the port
+(lightgrad_tpu_torch/examples/).
 
     python3 chip_smoke.py
 
@@ -138,8 +139,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      gradient) and to the masked run's logits; then a fresh BERT-base after
      ``quantize_module``: one forward against the float model's logits
      (cosine) and one backward;
-  7. the tape's smallest path, examples/gradient_descent.py's loop (64 x 64)
-     for 20 epochs: the loss must fall;
+  7. (the gradient-descent example: phase 15);
   8. the conv path on the tape, float32: (a) ResNet-18 at its torchvision
      widths (7x7/s2 stem, 3x3/s2 max pool, stages of 64-512, 1000 classes;
      seeded random weights) on 32 x 3 x 224 x 224 random images, AdamW, 5
@@ -147,12 +147,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      logits and every parameter's gradient must match a plain twin (the
      ``_reference`` versions under torch autograd, in f32 and f64), the
      BatchNorm running statistics must move and an eval forward be finite;
-     (b) examples/mnist.py's CNN (AdaBelief) and examples/resnet.py's
-     ResNet-20 (AdamW) for 40 steps each through data.MNIST ->
-     DeviceDataset.offsets() -> narrow on synthetic digits
-     (LIGHTGRAD_FAKE_DATA=1) -- the loss must fall; test accuracy over
-     2,000 digits; and one ``narrow`` forward + backward at a device start
-     under ``torch.cuda.set_sync_debug_mode("error")``;
+     (b) one ``narrow`` forward + backward at a device start under
+     ``torch.cuda.set_sync_debug_mode("error")`` (the digits examples:
+     phase 15);
   9. the LLaMA family at its published widths, seeded random weights:
      (a) serving in bfloat16, Mistral-7B (16 of 32 layers; 8192 positions,
      cut from 32768) with a 4500-token prompt and Gemma-2B (all 18 layers,
@@ -171,8 +168,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      float32, AdamW, 5 steps on one batch at full width cut to 2 layers:
      Mistral-7B on 1 x 8192 tokens (window active), Gemma-2B on 2 x 1024
      (head dim 256), each with step 1's logits and gradients against a
-     plain twin; (c) examples/llama.py's char model (40 steps, then 120
-     generated tokens);
+     plain twin (the char example: phase 15);
  10. the GPT-NeoX / Pythia family at its published widths, seeded random
      weights, on the tape in float32 with ``set_flash_fused(True)``: (a)
      Pythia-1B (all 16 layers, head dim 256, rotary_pct 0.25, parallel
@@ -209,13 +205,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      and gradients against a plain twin, the ``scan_layers=True`` model
      (remat "full") bit for bit the unscanned one at step 1, images/s,
      where a step's time goes, eval logits against the plain forward; one
-     bf16 ``MixedPrecision`` step and the bf16 eval logits; (b)
-     examples/diffusion.py's DDPM (UNet base 32, T 200, batch 64 of
-     synthetic digits, Adam 2e-4, EMA 0.995): 50 steps with timesteps and
-     noise drawn on the card, step 1 against a plain twin, steps/s, idle
-     share; one ``p_sample`` step against the twin; 16 images by ``sample``
-     and by ``sample_ddim`` (50 hops, eta 0, repeated bit for bit) under
-     the EMA weights; (c) the oracle: a sweep of tape ops on the card
+     bf16 ``MixedPrecision`` step and the bf16 eval logits; (b) (DDPM:
+     phase 15); (c) the oracle: a sweep of tape ops on the card
      against the numpy ``CpuTensor``, forward and gradients, and
      ``assert_gradcheck`` on the card;
  13. the last families, seeded random weights: (a) T5-base at
@@ -245,16 +236,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
      ms and idle share, peak memory, the expert products' launches; one
      bf16 ``MixedPrecision`` step; one step of the Switch-style model
      (top-1, every other block);
- 14. every kernel of each path was launched by that path (the decoding
-     module's paths included: each GPT-2 one its stack kernel, LLaMA's
-     generate_device decode attention and its merge, generate_batch_device
-     the batched decode attention), and every kernel of the package by
-     some path.
+ 14. the parallel layer at world size 1 (NCCL): BERT-base under
+     BERT_TP_RULES with ring attention, the ring's chunked merge, GPT-2
+     small through 1F1B at pp 1, cached decode at tp 1, a sharded
+     checkpoint;
+ 15. the JAX package's examples on the port, each through its own
+     function at the JAX script's configuration and step counts (the
+     cuts for time in EXAMPLE_CUTS, logged): gradient descent, MNIST's MLP and
+     CNN and ResNet-20 on synthetic digits (test accuracy), BERT's offline
+     config, the char GPT, the char LLaMA in f32 and --amp, the T5
+     reversal, DDPM (then, at its trained weights, the loss and every
+     gradient against a plain twin, a profiled step, ``p_sample`` against
+     the twin, ``sample_ddim`` repeated bit for bit under the EMA
+     weights), the serving tour (speculative = greedy, 16 Linears
+     quantized); each example's printed lines, rate and launches are
+     logged and its loss must fall (examples/distributed.py needs 8 ranks:
+     CPU tests only).
+Every kernel of each path must be launched by that path (the decoding
+module's paths included: each GPT-2 one its stack kernel, LLaMA's
+generate_device decode attention and its merge, generate_batch_device the
+batched decode attention), and every kernel of the package by some path.
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero and prints no result.
 """
 
+import contextlib
 import ctypes
 import importlib
 import json
@@ -486,8 +493,8 @@ RESNET20_TC_CONVS = (
      (64, 32, 1, 1), 2),
     ("ResNet-20 64->64 3x3", (128, 64, 9, 9), (64, 64, 3, 3), 1),
 )
-# examples/mnist.py and examples/resnet.py: batch 128; about 40 steps here
-MNIST_BATCH, MNIST_STEPS = 128, 40
+# phase 8b's narrow: examples/mnist.py's batch over 60,000 digits
+MNIST_BATCH = 128
 # HF mistralai/Mistral-7B-v0.1 config.json; max_position_embeddings cut
 # from 32768 to 8192: the cache window and the prefill length
 MISTRAL_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
@@ -503,10 +510,6 @@ GEMMA_2B = dict(vocab_size=256000, hidden_size=2048, intermediate_size=16384,
                 rope_theta=10000.0, hidden_act="gelu_pytorch_tanh",
                 rms_offset=True, scale_embeddings=True,
                 tie_word_embeddings=True)
-# examples/llama.py's char model (its vocabulary: README.md's characters)
-CHAR_LLAMA = dict(hidden_size=128, intermediate_size=256, num_hidden_layers=4,
-                  num_attention_heads=4, num_key_value_heads=2,
-                  max_position_embeddings=192)
 # Mistral-7B's serving depth: 16 of its 32 layers (all 32 until the
 # scanned-stack, checkpoint, LoRA and serving-I/O phases joined the run)
 MISTRAL_SERVING_LAYERS = 16
@@ -611,11 +614,9 @@ VIT_BATCH, VIT_STEPS, VIT_LR = 32, 5, 1e-4
 VIT_KERNELS = TAPE_KERNELS + FLASH_KERNELS + (
     "layernorm_fwd", "layernorm_bwd", "conv_fwd", "conv_bwd_dw",
     "conv_layout")
-# phase 12b: examples/diffusion.py's defaults (its MNIST pool of 20,000)
-DDPM_UNET = dict(in_channels=1, base=32, time_dim=128)
-DDPM_T, DDPM_BATCH, DDPM_LR, DDPM_EMA, DDPM_DIGITS = 200, 64, 2e-4, 0.995, \
-    20_000
-DDPM_STEPS, DDPM_SAMPLES, DDIM_STEPS = 50, 16, 50
+# phase 15: DDPM's checks after the example's run: a batch of DDPM_BATCH
+# for the twin and the profiled step, DDPM_SAMPLES images by DDIM_STEPS hops
+DDPM_BATCH, DDPM_SAMPLES, DDIM_STEPS = 64, 16, 50
 DDPM_KERNELS = TAPE_KERNELS + CONV_KERNELS + ("conv_layout",) \
     + CONV_SIMT_KERNELS
 DDPM_SAMPLE_KERNELS = TAPE_KERNELS + ("conv_fwd", "conv_layout",
@@ -657,6 +658,31 @@ GPT_MOE = dict(GPT2_SMALL, n_experts=8, moe_k=2, moe_hidden=3072,
 GPT_SWITCH = dict(GPT_MOE, moe_dispatch="top1", moe_every=2)
 MOE_STEPS, MOE_LR, MOE_AUX = 5, 3e-4, 0.01
 GPT_MOE_KERNELS = TRAINING_KERNELS + ("matmul",)
+# phase 15: the ported examples (lightgrad_tpu_torch/examples/) at the JAX
+# scripts' own configurations and step counts (their functions' defaults);
+# EXAMPLE_CUTS: the steps of each example cut for the run's time
+EXAMPLE_CUTS = {"resnet": 50, "gpt": 150, "llama": 50, "t5": 50,
+                "diffusion": 50}
+# the serving tour's GPT (4 blocks): quantize_module(min_features=64)
+# converts the 4 Linears of each block, as the JAX tour's does
+TOUR_QUANT_LAYERS = 16
+# the digits examples' test accuracy over 2,000 synthetic digits: well
+# above chance (0.1)
+DIGITS_ACCURACY = 0.5
+EXAMPLE_KERNELS = {
+    "gradient descent": TAPE_KERNELS,
+    "MNIST MLP": TAPE_KERNELS,
+    "MNIST CNN": DIGITS_KERNELS["MNIST CNN"],
+    "ResNet-20": DIGITS_KERNELS["ResNet-20"],
+    "BERT masked LM": ("elementwise", "matmul", "layernorm_fwd",
+                       "attention_fwd"),
+    "char GPT": TRAINING_KERNELS + ("decode_attention",),
+    "char LLaMA": LLAMA_TRAIN_KERNELS + ("decode_attention",),
+    "char LLaMA (--amp)": LLAMA_TRAIN_KERNELS + ("decode_attention",),
+    "T5 reversal": T5_KERNELS,
+    "DDPM": DDPM_KERNELS,
+    "serving tour": ("attention_fwd", "decode_attention"),
+}
 HBM_BPS = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # the tf32 tensor-core rate: the f32 matmul kernel's bound counts its three
@@ -3436,35 +3462,6 @@ def phase_quant_bert():
     torch.cuda.empty_cache()
 
 
-def phase_tape_example():
-    """Phase 7: examples/gradient_descent.py's loop (64 x 64) for 20 epochs
-    on the card; returns its launch counts."""
-    import lightgrad_tpu_torch as lt
-    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
-
-    lt.random.seed(0)
-    a, b, c = (lt.uniform(-1, 1, (64, 64)) for _ in range(3))
-    reset_launch_counts()
-    losses = []
-    for _ in range(20):
-        y = (a.tanh() + b.sigmoid()) @ (c.relu() - a.sigmoid())
-        loss = (y * y).sum()
-        for p in (a, b, c):
-            p.zero_grad()
-        loss.backward()
-        with lt.no_grad():
-            for p in (a, b, c):
-                p += p.grad * (-0.001)
-        losses.append(loss.item())
-    counts = launch_counts()
-    ok = all(np.isfinite(losses)) and losses[-1] < losses[0]
-    log(f"  losses {losses[0]:.3f} -> {losses[-1]:.3f} over 20 epochs "
-        f"({'falling' if ok else 'FAIL'})")
-    if not ok:
-        raise AssertionError(f"gradient descent loss not falling: {losses}")
-    return counts
-
-
 class _PlainConv(torch.autograd.Function):
     """Convolution for the plain twin: the kernels' plain versions in both
     directions."""
@@ -3723,105 +3720,6 @@ def phase_resnet18(card):
     step_breakdown(lambda: resnet_step(model, opt, x, y),
                    float(np.median(times[1:])), float(np.median(host[1:])))
     del model, opt, x, y, ev
-    torch.cuda.empty_cache()
-    return counts
-
-
-def mnist_cnn():
-    """examples/mnist.py's CNN on the port's layers."""
-    from lightgrad_tpu_torch import nn
-
-    class CNN(nn.Module):
-        def __init__(self):
-            super().__init__()
-            self.c1 = nn.Conv2d(1, 8, kernelsize=3, pad=1)
-            self.c2 = nn.Conv2d(8, 16, kernelsize=3, pad=1)
-            self.l1 = nn.Linear(7 * 7 * 16, 10)
-
-        def forward(self, x):
-            y = self.c1(x).max_pool(kernel=(2, 2)).relu()
-            y = self.c2(y).max_pool(kernel=(2, 2)).relu()
-            return self.l1(y.reshape(y.shape[0], -1))
-
-    return CNN()
-
-
-def train_digits(model, opt, train, test, card):
-    """The examples' loop, eagerly: MNIST_STEPS steps of batches narrowed
-    from the resident set by DeviceDataset.offsets(), then the accuracy of
-    an eval() pass over the test digits.  Returns the steps' launch
-    counts."""
-    from lightgrad_tpu_torch import loss as lg_loss
-    from lightgrad_tpu_torch import no_grad
-    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
-
-    xs, ys = train.tensors
-    B = MNIST_BATCH
-    losses = []
-    reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    while len(losses) < MNIST_STEPS:
-        for off in train.offsets():
-            if len(losses) >= MNIST_STEPS:
-                break
-            x = xs.narrow(off, B).reshape(B, 1, 28, 28)
-            loss = lg_loss.cross_entropy(model(x), ys.narrow(off, B))
-            opt.zero_grad()
-            loss.backward()
-            opt.step()
-            losses.append(loss.item())
-    dt = time.perf_counter() - t0
-    counts = launch_counts()
-    model.eval()
-    correct = total = 0
-    with no_grad():
-        for x, y in test:
-            pred = model(x.reshape(x.shape[0], 1, 28, 28)).numpy().argmax(-1)
-            correct += int((pred == y.numpy()).sum())
-            total += len(pred)
-    model.train()
-    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-    ok = all(np.isfinite(losses)) and last < first
-    log(f"  {MNIST_STEPS} steps in {dt:.2f} s ({MNIST_STEPS / dt:.1f} "
-        f"steps/s, eager); loss {first:.4f} -> {last:.4f} (means of the "
-        f"first and last 5 steps, {'falling' if ok else 'FAIL'}); test "
-        f"accuracy {correct / total:.4f} over {total} digits; {card}")
-    if not ok:
-        raise AssertionError(f"loss not finite and falling: {losses}")
-    return counts
-
-
-def phase_digits(card):
-    """Phase 8b: the JAX examples' own paths on synthetic digits:
-    examples/mnist.py's CNN (AdaBelief, lr 3e-3) and examples/resnet.py's
-    ResNet-20 (AdamW, lr 3e-3, weight decay 0.01), batch 128, through
-    data.MNIST -> DeviceDataset.offsets() -> narrow.  Returns {name: launch
-    counts}."""
-    from lightgrad_tpu_torch import data, optim, random as lg_random
-    from lightgrad_tpu_torch.models import resnet20
-
-    os.environ["LIGHTGRAD_FAKE_DATA"] = "1"
-    mnist = data.MNIST(train=True, batchsize=MNIST_BATCH)
-    train = data.DeviceDataset(mnist.tensors, batchsize=MNIST_BATCH)
-    test = data.MNIST(train=False, n=2_000, shuffle=False, batchsize=256)
-    log(f"  {train.n} training digits resident on the card, "
-        f"{test.n} test digits")
-    counts = {}
-    lg_random.seed(0)
-    model = mnist_cnn()
-    log("  MNIST CNN (examples/mnist.py), AdaBelief lr 3e-3:")
-    counts["MNIST CNN"] = train_digits(
-        model, optim.AdaBelief(list(model.parameters()), lr=3e-3), train,
-        test, card)
-    lg_random.seed(0)
-    model = resnet20(num_classes=10, in_channels=1)
-    log("  ResNet-20 (examples/resnet.py), AdamW lr 3e-3, weight decay "
-        "0.01:")
-    counts["ResNet-20"] = train_digits(
-        model, optim.AdamW(list(model.parameters()), lr=3e-3,
-                           weight_decay=0.01), train, test, card)
-    del model, train, test, mnist
     torch.cuda.empty_cache()
     return counts
 
@@ -4781,68 +4679,6 @@ def phase_llama_train(card):
         del model
         torch.cuda.empty_cache()
         log(f"  {name} training phase: {time.perf_counter() - t0:.1f} s")
-    return counts
-
-
-def phase_llama_example(card, use_amp=False):
-    """examples/llama.py's char model on the tape, float32: hidden 128, 4
-    layers, 4 heads, 2 KV heads (head dim 32), 192 positions; Adam at 3e-4,
-    40 steps of 16 x 64 characters of README.md, then ``generate`` of 120
-    tokens at temperature 0.6.  ``use_amp``: its ``--amp``, bf16
-    ``MixedPrecision`` over the Adam (phase 9f (ii)).  The loss must fall.
-    Returns the launch counts of both."""
-    from lightgrad_tpu_torch import amp
-    from lightgrad_tpu_torch import loss as lg_loss
-    from lightgrad_tpu_torch import optim
-    from lightgrad_tpu_torch.autograd import Tensor
-    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    text = open(os.path.join(here, "README.md")).read()
-    chars = sorted(set(text))
-    stoi = {c: i for i, c in enumerate(chars)}
-    data = np.array([stoi[c] for c in text], dtype=np.int32)
-    steps, batch, seq = 40, 16, 64
-    model = llama_model(dict(CHAR_LLAMA, vocab_size=len(chars)),
-                        torch.float32)
-    if use_amp:
-        opt = amp.MixedPrecision(model, lambda ps: optim.Adam(ps, lr=3e-4))
-    else:
-        opt = optim.Adam(list(model.parameters()), lr=3e-4)
-    rng = np.random.default_rng(0)
-    starts = rng.integers(0, len(data) - seq - 1, steps * batch)
-    xs = Tensor.from_numpy(np.stack([data[s:s + seq] for s in starts]),
-                           requires_grad=False)
-    ys = Tensor.from_numpy(np.stack([data[s + 1:s + seq + 1]
-                                     for s in starts]), requires_grad=False)
-    reset_launch_counts()
-    losses = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(steps):
-        x, y = xs.narrow(i * batch, batch), ys.narrow(i * batch, batch)
-        logits = model(x).reshape(batch * seq, len(chars))
-        loss = lg_loss.cross_entropy(logits, y.reshape(-1))
-        opt.zero_grad()
-        loss.backward()
-        opt.step()
-        losses.append(loss.item())
-    dt = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out = model.generate([stoi.get(c, 0) for c in "lightgrad"],
-                         max_new_tokens=120, temperature=0.6)
-    gen_s = time.perf_counter() - t0
-    counts = launch_counts()
-    ok = all(np.isfinite(losses)) and np.mean(losses[-5:]) < np.mean(
-        losses[:5])
-    log(f"  corpus {len(data)} chars, vocab {len(chars)}; losses "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f} over {steps} steps "
-        f"({steps / dt:.1f} steps/s; {'falling' if ok else 'FAIL'})")
-    log(f"  generate: 120 tokens in {gen_s:.2f} s ({120 / gen_s:.1f} tok/s): "
-        f"{''.join(chars[i] for i in out)!r}")
-    if not ok or len(out) != 9 + 120:
-        raise AssertionError(f"char LLaMA: losses {losses}, {len(out)} "
-                             f"tokens")
     return counts
 
 
@@ -6442,152 +6278,6 @@ def plain_unet(p, unet, x, tf):
     return conv(silu(gn(u1, "out_norm", unet.out_norm)), "out", unet.out)
 
 
-def phase_ddpm(card):
-    """Phase 12b: examples/diffusion.py's configuration on the tape --
-    ``UNet(in_channels=1, base=32, time_dim=128)``, T 200, batch 64 of 28²
-    synthetic digits (LIGHTGRAD_FAKE_DATA=1) in [-1, 1] resident on the
-    card, timesteps and noise drawn there (``randint_like``,
-    ``randn_like``), Adam at 2e-4, EMA at 0.995 -- DDPM_STEPS steps, step
-    1's loss and every gradient against the plain twin (PATH_TOL), the
-    loss falling (means of the first and last 5 steps); steps/s, peak
-    memory, a profiled step's device ms and idle share.  One ``p_sample``
-    step against the plain twin with the same noise; then DDPM_SAMPLES
-    images under ``ema.average_parameters()`` by ``sample`` (T steps) and
-    ``sample_ddim`` (DDIM_STEPS hops, eta 0) -- wall and device time of
-    each, finite images, DDIM repeated bit for bit under one seed.
-    Returns {path: launch counts}."""
-    from lightgrad_tpu_torch import data, no_grad, optim, random as lg_random
-    from lightgrad_tpu_torch.autograd import Tensor
-    from lightgrad_tpu_torch.models import Diffusion, UNet
-    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
-
-    os.environ["LIGHTGRAD_FAKE_DATA"] = "1"
-    dev, f32, B, T = torch.device("cuda"), torch.float32, DDPM_BATCH, DDPM_T
-    digits = data.MNIST(train=True, n=DDPM_DIGITS, shuffle=False).tensors[0]
-    gen = torch.Generator(device=dev).manual_seed(14)
-    perm = torch.randperm(digits.shape[0], generator=gen, device=dev)
-    pool = Tensor((digits.data.reshape(-1, 1, 28, 28) * 2.0 - 1.0)[perm],
-                  requires_grad=False)
-    lg_random.seed(0)
-    unet = UNet(**DDPM_UNET)
-    dif = Diffusion(unet, timesteps=T)
-    opt = optim.Adam(list(unet.parameters()), lr=DDPM_LR)
-    ema = optim.EMA(list(unet.parameters()), decay=DDPM_EMA)
-    n_params = sum(int(np.prod(t.shape)) for t in unet.parameters())
-    log(f"  UNet {n_params / 1e3:.1f} k parameters, T {T}, {pool.shape[0]} "
-        f"digits resident, batch {B}")
-    ti = Tensor.zeros((B,), requires_grad=False, dtype=torch.int32)
-    n_off = pool.shape[0] // B
-
-    def draw(i):
-        x0 = pool.narrow(i % n_off * B, B)
-        return x0, ti.randint_like(0, T), x0.randn_like()
-
-    def step(i, check1=None):
-        x0, t, z = draw(i)
-        loss = dif.loss(x0, t, z)
-        opt.zero_grad()
-        loss.backward()
-        if check1 is not None:
-            check1(x0, t, z, loss)
-        opt.step()
-        ema.update()
-        return loss
-
-    def twin_check(x0, t, z, loss):
-        ps = {n: p.data.detach().clone().requires_grad_(True)
-              for n, p in unet.named_parameters()}
-        tl = t.data.long()
-        c1 = dif.sqrt_a_bar.data[tl].reshape(B, 1, 1, 1)
-        c2 = dif.sqrt_1m_a_bar.data[tl].reshape(B, 1, 1, 1)
-        xt = x0.data * c1 + z.data * c2
-        err = plain_unet(ps, unet, xt, t.data.float()) - z.data
-        plain = (err * err).mean() * 0.5
-        grads = dict(zip(ps, torch.autograd.grad(plain, list(ps.values()))))
-        log(f"  step-1 loss {loss.item():.6f}, plain twin {plain.item():.6f}")
-        if abs(loss.item() - plain.item()) > PATH_TOL[f32] * max(
-                1.0, abs(plain.item())):
-            raise AssertionError("DDPM step-1 loss off the plain twin")
-        tape_grad_check(unet, grads)
-
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    losses, times = [], []
-    for i in range(DDPM_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = step(i, twin_check if i == 0 else None)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(loss.item())
-        if i == 0:
-            torch.cuda.reset_peak_memory_stats()
-    counts = {"DDPM training": launch_counts()}
-    peak = torch.cuda.max_memory_allocated()
-    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-    ok = all(np.isfinite(losses)) and last < first
-    log(f"  {DDPM_STEPS} steps (step 1 {times[0]:.1f} s with its Triton "
-        f"builds and the twin): loss {first:.4f} -> {last:.4f} (means of "
-        f"the first and last 5, {'falling' if ok else 'FAIL'}); "
-        f"{1.0 / float(np.median(times[1:])):.1f} steps/s (median of steps "
-        f"2-{DDPM_STEPS}, eager; {B * 1.0 / float(np.median(times[1:])):.0f}"
-        f" images/s); peak memory {peak / 2**30:.3f} GiB; {card}")
-    if not ok:
-        raise AssertionError(f"DDPM loss not finite and falling: {losses}")
-    busy, wall = busy_share(lambda: step(DDPM_STEPS))
-    per_step = {k: v // DDPM_STEPS
-                for k, v in counts["DDPM training"].items() if v}
-    log(f"  profiled step: device {busy:.2f} of {wall:.2f} ms (idle "
-        f"{100 * (1 - busy / wall):.1f}%); launches a step {per_step}")
-
-    # one reverse step against the plain twin, the same noise
-    g = torch.Generator(device=dev).manual_seed(15)
-    xt = torch.randn(B, 1, 28, 28, generator=g, device=dev)
-    noise = torch.randn(B, 1, 28, 28, generator=g, device=dev)
-    tt = torch.full((B,), T // 2, dtype=torch.int32, device=dev)
-    with no_grad():
-        got = dif.p_sample(Tensor(xt, requires_grad=False),
-                           Tensor(tt, requires_grad=False),
-                           Tensor(noise, requires_grad=False)).data
-    with torch.no_grad():
-        ps = {n: p.data for n, p in unet.named_parameters()}
-        eps = plain_unet(ps, unet, xt, tt.float())
-        tl = tt.long()
-        want = (xt - eps * dif.eps_coef.data[tl].reshape(B, 1, 1, 1)) \
-            * dif.rsqrt_alphas.data[tl].reshape(B, 1, 1, 1) \
-            + noise * dif.post_std.data[tl].reshape(B, 1, 1, 1)
-    check("DDPM p_sample at t = T/2 vs the plain twin", f32, got, want,
-          PATH_TOL[f32])
-
-    n = DDPM_SAMPLES
-    with ema.average_parameters():
-        reset_launch_counts()
-        for name, run in (("sample", lambda: dif.sample(n, seed=1)),
-                          ("sample_ddim", lambda: dif.sample_ddim(
-                              n, steps=DDIM_STEPS, eta=0.0, seed=1))):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            imgs = run().data
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            again, busy = traced_kernel_ms(lambda: run().data)
-            finite = bool(torch.isfinite(imgs).all())
-            same = torch.equal(imgs, again)
-            log(f"  {name}: {n} images {tuple(imgs.shape)} in {wall:.2f} s "
-                f"wall, device {busy:.1f} ms (a traced rerun); range "
-                f"[{imgs.min().item():.2f}, {imgs.max().item():.2f}], "
-                f"{'finite' if finite else 'NOT finite'}; the rerun under "
-                f"the seed {'repeats it bit for bit' if same else 'differs'}"
-                f"; {card}")
-            if not finite or (name == "sample_ddim" and not same):
-                raise AssertionError(f"DDPM {name}: finite {finite}, "
-                                     f"repeated {same}")
-        counts["DDPM sampling (EMA weights)"] = launch_counts()
-    del unet, dif, opt, ema, pool, digits
-    torch.cuda.empty_cache()
-    return counts
-
-
 # the oracle phase's sweep: name -> (tape function, input shapes, flag)
 ORACLE_OPS = {
     "exp": (lambda a: a.exp(), [(64, 96)], ""),
@@ -7727,12 +7417,252 @@ def _one_flash(q, k, v, g, sc):
     return attention_bwd(g, q, k, v, sc, True, out=out, lse=lse)
 
 
+def ddpm_checks(out, card):
+    """Phase 15's checks of the DDPM example after its run (``out``: what
+    ``diffusion.main`` returned), at the trained weights: on a batch of
+    DDPM_BATCH synthetic digits with timesteps and noise drawn on the card,
+    the loss and every gradient against the plain twin (PATH_TOL); one
+    profiled step (the example's own ``train_step``): device ms and idle
+    share; one ``p_sample`` step against the twin with the same noise;
+    under ``ema.average_parameters()``, DDPM_SAMPLES images by
+    ``sample_ddim`` (DDIM_STEPS hops, eta 0), wall and device time,
+    repeated bit for bit.  Returns {path: launch counts}."""
+    from lightgrad_tpu_torch import data, no_grad
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.examples.diffusion import train_step
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    dif, opt, ema = out["diffusion"], out["optim"], out["ema"]
+    unet, f32, B, T = dif.model, torch.float32, DDPM_BATCH, dif.T
+    dev = unet.out.w.data.device
+    digits = data.MNIST(train=True, n=B, shuffle=False).tensors[0]
+    g = torch.Generator(device=dev).manual_seed(15)
+    x0 = Tensor(digits.data.reshape(B, 1, 28, 28) * 2.0 - 1.0,
+                requires_grad=False)
+    t = Tensor(torch.randint(0, T, (B,), generator=g, device=dev,
+                             dtype=torch.int32), requires_grad=False)
+    z = Tensor(torch.randn(B, 1, 28, 28, generator=g, device=dev),
+               requires_grad=False)
+
+    loss = dif.loss(x0, t, z)
+    for p in unet.parameters():
+        p.zero_grad()
+    loss.backward()
+    ps = {n: p.data.detach().clone().requires_grad_(True)
+          for n, p in unet.named_parameters()}
+    tl = t.data.long()
+    c1 = dif.sqrt_a_bar.data[tl].reshape(B, 1, 1, 1)
+    c2 = dif.sqrt_1m_a_bar.data[tl].reshape(B, 1, 1, 1)
+    err = plain_unet(ps, unet, x0.data * c1 + z.data * c2,
+                     t.data.float()) - z.data
+    plain = (err * err).mean() * 0.5
+    grads = dict(zip(ps, torch.autograd.grad(plain, list(ps.values()))))
+    log(f"  at the trained weights: loss {loss.item():.6f}, plain twin "
+        f"{plain.item():.6f}")
+    if abs(loss.item() - plain.item()) > PATH_TOL[f32] * max(
+            1.0, abs(plain.item())):
+        raise AssertionError("DDPM loss off the plain twin")
+    tape_grad_check(unet, grads)
+    for p in unet.parameters():
+        p.zero_grad()
+
+    reset_launch_counts()
+    busy, wall = busy_share(lambda: train_step(dif, opt, ema, x0, t, z))
+    per_step = {k: v for k, v in launch_counts().items() if v}
+    log(f"  profiled step: device {busy:.2f} of {wall:.2f} ms (idle "
+        f"{100 * (1 - busy / wall):.1f}%); launches a step {per_step}")
+
+    xt = torch.randn(B, 1, 28, 28, generator=g, device=dev)
+    noise = torch.randn(B, 1, 28, 28, generator=g, device=dev)
+    tt = torch.full((B,), T // 2, dtype=torch.int32, device=dev)
+    with no_grad():
+        got = dif.p_sample(Tensor(xt, requires_grad=False),
+                           Tensor(tt, requires_grad=False),
+                           Tensor(noise, requires_grad=False)).data
+    with torch.no_grad():
+        ps = {n: p.data for n, p in unet.named_parameters()}
+        eps = plain_unet(ps, unet, xt, tt.float())
+        tl = tt.long()
+        want = (xt - eps * dif.eps_coef.data[tl].reshape(B, 1, 1, 1)) \
+            * dif.rsqrt_alphas.data[tl].reshape(B, 1, 1, 1) \
+            + noise * dif.post_std.data[tl].reshape(B, 1, 1, 1)
+    check("DDPM p_sample at t = T/2 vs the plain twin", f32, got, want,
+          PATH_TOL[f32])
+
+    n = DDPM_SAMPLES
+    with ema.average_parameters():
+        reset_launch_counts()
+        run = lambda: dif.sample_ddim(n, steps=DDIM_STEPS, eta=0.0, seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs = run().data
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        again, busy = traced_kernel_ms(lambda: run().data)
+        finite, same = bool(torch.isfinite(imgs).all()), torch.equal(
+            imgs, again)
+        log(f"  sample_ddim: {n} images {tuple(imgs.shape)} in {wall:.2f} s "
+            f"wall, device {busy:.1f} ms (a traced rerun); range "
+            f"[{imgs.min().item():.2f}, {imgs.max().item():.2f}], "
+            f"{'finite' if finite else 'NOT finite'}; the rerun under the "
+            f"seed {'repeats it bit for bit' if same else 'differs'}; {card}")
+        if not (finite and same):
+            raise AssertionError(f"DDPM sample_ddim: finite {finite}, "
+                                 f"repeated {same}")
+        return {"DDPM sampling (EMA weights)": launch_counts()}
+
+
+def falling(name, losses):
+    """The means of the first and last 5 losses: finite and falling."""
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    ok = bool(np.isfinite(losses).all()) and last < first
+    log(f"  {name}: loss {first:.4f} -> {last:.4f} (means of the first and "
+        f"last 5 of {len(losses)}, {'falling' if ok else 'FAIL'})")
+    if not ok:
+        raise AssertionError(f"{name}: loss not finite and falling")
+
+
+def phase_examples(card):
+    """Phase 15: the JAX package's examples on the port
+    (lightgrad_tpu_torch/examples/), each through its own function on the
+    card at the JAX script's configuration and step counts (EXAMPLE_CUTS
+    lists the cuts): gradient descent; MNIST's MLP and CNN and ResNet-20 on
+    synthetic digits (test accuracy at least DIGITS_ACCURACY); BERT's
+    offline fallback config (the network refused) and its [MASK] top-k;
+    the char GPT and the char LLaMA (f32 and --amp) on README.md, each
+    then sampling; the T5 reversal; DDPM with its EMA sampler (then
+    ``ddpm_checks``); the serving tour (speculative = greedy, the int8
+    model's converted layers = TOUR_QUANT_LAYERS; its tp = 2 step skips on
+    one process).  Each example's printed lines are logged, its losses
+    must fall, and its launch counts are returned {path: (counts, the
+    kernels it must launch)}.  examples/distributed.py needs 8 ranks: it
+    runs on CPU ranks in the tests only."""
+    import inspect
+    import io
+
+    from lightgrad_tpu_torch.examples import (bert, diffusion, gpt,
+                                              gradient_descent, llama,
+                                              mnist, resnet, serving, t5)
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    os.environ["LIGHTGRAD_FAKE_DATA"] = "1"
+    steps = EXAMPLE_CUTS
+    for k, fn in (("resnet", resnet.train), ("gpt", gpt.train_char_gpt),
+                  ("llama", llama.train_char_llama), ("t5", t5.train),
+                  ("diffusion", diffusion.main)):
+        published = inspect.signature(fn).parameters["steps"].default
+        log(f"  cut for time: {k} {published} -> {steps[k]} steps")
+    paths = {}
+
+    def run(path, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        paths[path] = (launch_counts(), EXAMPLE_KERNELS[path])
+        log(f"{path}: {wall:.1f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        for line in buf.getvalue().splitlines():
+            log(f"  | {line}")
+        return out
+
+    out = run("gradient descent", gradient_descent.main)
+    falling("gradient descent", out["losses"])
+    for kind, path in (("mlp", "MNIST MLP"), ("cnn", "MNIST CNN")):
+        out = run(path, lambda: mnist.main(kind))
+        falling(path, out["losses"])
+        digits_ok(path, out["accuracy"])
+    out = run("ResNet-20", lambda: resnet.train(steps=steps["resnet"]))
+    falling("ResNet-20", out["losses"])
+    digits_ok("ResNet-20", out["accuracy"])
+    # its checkpoint is not in the repository and the card has no network:
+    # the fetch is refused before it leaves the host, and the example takes
+    # its offline fallback
+    with offline():
+        out = run("BERT masked LM", bert.main)
+    if not np.isfinite(out["row"]).all():
+        raise AssertionError("BERT: the [MASK] row's logits are not finite")
+    out = run("char GPT", lambda: gpt.train_char_gpt(steps=steps["gpt"]))
+    falling("char GPT", out["losses"])
+    if len(out["sample"]) != out["model"].cfg.n_positions:
+        raise AssertionError(f"char GPT sampled {len(out['sample'])} chars")
+    del out
+    for amp, path in ((False, "char LLaMA"), (True, "char LLaMA (--amp)")):
+        out = run(path, lambda: llama.train_char_llama(
+            steps=steps["llama"], use_amp=amp))
+        falling(path, out["losses"])
+        if len(out["tokens"]) != len("lightgrad") + 120:
+            raise AssertionError(f"{path}: {len(out['tokens'])} tokens")
+    out = run("T5 reversal", lambda: t5.train(steps=steps["t5"]))
+    falling("T5 reversal", out["losses"])
+    out = run("DDPM", lambda: diffusion.main(steps=steps["diffusion"]))
+    falling("DDPM", out["losses"])
+    if not np.isfinite(out["images"]).all():
+        raise AssertionError("DDPM: sampled images not finite")
+    for path, counts in ddpm_checks(out, card).items():
+        paths[path] = (counts, DDPM_SAMPLE_KERNELS)
+    del out
+    out = run("serving tour", lambda: serving.main("cuda"))
+    if out["speculative"] != out["kv"]:
+        raise AssertionError("serving tour: speculative != greedy")
+    if out["n_quantized"] != TOUR_QUANT_LAYERS or \
+            len(out["int8"]) != 8 + 16:
+        raise AssertionError(f"serving tour: {out['n_quantized']} layers "
+                             f"quantized, {len(out['int8'])} tokens")
+    log(f"  serving tour: {out['kv_tok_per_s']:.1f} tok/s single-stream, "
+        f"{out['batch_tok_per_s']:.1f} tok/s batched x4; "
+        f"{out['n_quantized']} Linears quantized (the JAX tour's "
+        f"{TOUR_QUANT_LAYERS}); {card}")
+    log("examples/distributed.py: not run here (torchrun over 8 GPUs, or "
+        "--device cpu: 8 gloo CPU ranks; one card here), held by "
+        "tests/test_torch_examples_dist.py")
+    torch.cuda.empty_cache()
+    return paths
+
+
+@contextlib.contextmanager
+def offline():
+    """``urllib.request.urlopen`` refused inside the block."""
+    import urllib.request
+
+    def refuse(*args, **kwargs):
+        raise OSError("no network on this run")
+
+    saved, urllib.request.urlopen = urllib.request.urlopen, refuse
+    try:
+        yield
+    finally:
+        urllib.request.urlopen = saved
+
+
+def digits_ok(path, acc):
+    if acc < DIGITS_ACCURACY:
+        raise AssertionError(f"{path}: test accuracy {acc:.4f} < "
+                             f"{DIGITS_ACCURACY}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     from lightgrad_tpu_torch import GPT, GPTConfig
     from lightgrad_tpu_torch.ops import KERNELS, _build
+
+    # the run's clock: each stretch of phases logs its seconds (the run's
+    # time budget is spent by these lines)
+    run_t0 = last = time.perf_counter()
+
+    def lap(what):
+        nonlocal last
+        now = time.perf_counter()
+        log(f"[clock] {what}: {now - last:.1f} s (the run at "
+            f"{now - run_t0:.1f} s)")
+        last = now
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7774,6 +7704,8 @@ def main():
     draft.load_state_dict({n: t for n, t in model.state_dict().items()
                            if n in draft.state_dict()})
 
+    lap("device and build")
+
     # 3. kernels vs plain versions
     results = {}
     log("kernels vs plain versions:")
@@ -7789,6 +7721,7 @@ def main():
     phase_neox_kernels(results)
     log(f"  fused backward at Pythia's head dims: "
         f"{time.perf_counter() - t0:.1f} s")
+    lap("kernels vs plain versions")
 
     # 4.-9. each path, with the kernels it launched
     launches = dict.fromkeys(KERNELS, 0)
@@ -7838,6 +7771,7 @@ def main():
             tally_decoding(f"{mode} ({dtype})", paths, sfx)
     log("long context, GPT-2 small, bfloat16:")
     phase_long_context(model, card)
+    lap("GPT-2 serving")
     del model, draft
     torch.cuda.empty_cache()
     rates = {}
@@ -7863,6 +7797,7 @@ def main():
         "width:")
     for dtype, counts in phase_chunked(card).items():
         tally(f"chunked attention ({dtype})", counts, FLASH_BLOCK_KERNELS)
+    lap("GPT-2 training, chunked attention")
     log("lightgrad tape, BERT-base masked LM, float32, AdamW:")
     bert, flash, lens = phase_bert(card)
     tally("BERT-base (masked)", bert, BERT_KERNELS)
@@ -7870,20 +7805,16 @@ def main():
     tally("BERT-base (attention_lengths)", lens, BERT_LENGTHS_KERNELS)
     log("lightgrad tape, BERT-base after quantize_module (int8 Linear):")
     phase_quant_bert()
-    log("lightgrad tape, gradient descent example (64 x 64):")
-    tally("gradient descent", phase_tape_example(), TAPE_KERNELS)
+    lap("BERT-base")
     log("conv path on the tape, ResNet-18 (torchvision widths), float32, "
         "AdamW:")
     counts = phase_resnet18(card)
     tally("ResNet-18", counts, CONV_PATH_KERNELS)
     if any(counts[k] for k in CONV_SIMT_KERNELS):
         raise AssertionError("a ResNet-18 conv took the CUDA-core route")
-    log("conv path on the tape, the JAX examples on synthetic digits, "
-        "float32:")
-    for name, counts in phase_digits(card).items():
-        tally(name, counts, DIGITS_KERNELS[name])
     log("narrow at a device start:")
     phase_narrow()
+    lap("ResNet-18, narrow")
     serving, int8 = phase_llama_serving(card)
     for name, counts in serving.items():
         tally(f"{name} serving", counts, LLAMA_DEVICE_PATHS.get(
@@ -7892,17 +7823,7 @@ def main():
         tally(f"{name} {mode} {path}", counts, int8_path_kernels(mode, path))
     for name, counts in phase_llama_train(card).items():
         tally(f"{name} training", counts, LLAMA_TRAIN_KERNELS)
-    log("examples/llama.py's char model on the tape, float32:")
-    t0 = time.perf_counter()
-    tally("char LLaMA", phase_llama_example(card),
-          LLAMA_TRAIN_KERNELS + ("decode_attention",))
-    log(f"  char LLaMA phase: {time.perf_counter() - t0:.1f} s")
-    log("examples/llama.py's char model on the tape, --amp: bfloat16 "
-        "MixedPrecision, Adam:")
-    t0 = time.perf_counter()
-    tally("char LLaMA (AMP)", phase_llama_example(card, use_amp=True),
-          LLAMA_TRAIN_KERNELS + ("decode_attention",))
-    log(f"  char LLaMA (AMP) phase: {time.perf_counter() - t0:.1f} s")
+    lap("LLaMA family")
     model, paths = phase_mixtral_serving(card)
     for path, counts in paths.items():
         tally(f"Mixtral-8x7B {path}", counts, MIXTRAL_PATHS[path])
@@ -7920,6 +7841,7 @@ def main():
     for name, counts in phase_amp_one_step(card).items():
         tally(f"{name} AMP step", counts, BERT_KERNELS if name.startswith(
             "BERT") else CONV_PATH_KERNELS)
+    lap("Mixtral, AMP steps")
     for name, counts in phase_neox_train(card).items():
         tally(f"{name} training", counts, NEOX_TRAIN_KERNELS)
     log("Pythia-1B generate on the tape, float32, greedy:")
@@ -7927,6 +7849,7 @@ def main():
     tally("Pythia-1B generate", phase_neox_generate(card),
           NEOX_GENERATE_KERNELS)
     log(f"  Pythia-1B generate phase: {time.perf_counter() - t0:.1f} s")
+    lap("Pythia")
     log("scanned GPT-2 small (the JAX bench's configuration), bf16 "
         "MixedPrecision Adam under WarmupCosine, remat False / dots / full:")
     t0 = time.perf_counter()
@@ -7948,25 +7871,20 @@ def main():
         tally(path, counts, ("attention_fwd", "decode_stack")
               if "generate" in path else
               ("elementwise", "matmul", "layernorm_fwd", "attention_fwd"))
+    lap("scan, checkpoints, LoRA, serving I/O")
     log("ViT-B/16 (google/vit-base-patch16-224's widths) on the tape, "
         "float32 AdamW, then one bf16 MixedPrecision step:")
     t0 = time.perf_counter()
     for path, counts in phase_vit(card).items():
         tally(path, counts, VIT_KERNELS)
     log(f"  ViT-B/16 phase: {time.perf_counter() - t0:.1f} s")
-    log("DDPM at examples/diffusion.py's configuration on the tape, Adam, "
-        "EMA sampling:")
-    t0 = time.perf_counter()
-    for path, counts in phase_ddpm(card).items():
-        tally(path, counts, DDPM_SAMPLE_KERNELS if "sampling" in path
-              else DDPM_KERNELS)
-    log(f"  DDPM phase: {time.perf_counter() - t0:.1f} s")
     log("the numpy oracle: CudaTensor ops on the card vs CpuTensor:")
     t0 = time.perf_counter()
     for path, counts in phase_oracle(card).items():
         tally(path, counts, GRADCHECK_KERNELS if path == "gradcheck"
               else ORACLE_KERNELS)
     log(f"  oracle phase: {time.perf_counter() - t0:.1f} s")
+    lap("ViT-B/16, the oracle")
     log("T5-base (google-t5/t5-base's widths) on the tape, float32 "
         "Adafactor, then serving:")
     t0 = time.perf_counter()
@@ -7981,6 +7899,7 @@ def main():
     for path, counts in phase_gpt_moe(card, results).items():
         tally(path, counts, GPT_MOE_KERNELS)
     log(f"  GPT-MoE phase: {time.perf_counter() - t0:.1f} s")
+    lap("T5, GPT-MoE")
     log("the parallel layer at world size 1: BERT-base under BERT_TP_RULES "
         "with ring attention, the ring's chunked merge at Mistral-7B's "
         "attention width, GPT-2 small through 1F1B at pp 1, cached decode "
@@ -7992,6 +7911,14 @@ def main():
               else ("attention_fwd", "decode_stack") if "decode" in path
               else TRAINING_KERNELS)
     log(f"  parallel phase: {time.perf_counter() - t0:.1f} s")
+    lap("the parallel layer")
+    log("the JAX package's examples on the port (lightgrad_tpu_torch/"
+        "examples/), each through its own function:")
+    t0 = time.perf_counter()
+    for path, (counts, kernels) in phase_examples(card).items():
+        tally(path, counts, kernels)
+    log(f"  examples phase: {time.perf_counter() - t0:.1f} s")
+    lap("the examples")
     missing = [k for k in KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels no path launched: {missing}")

@@ -618,6 +618,26 @@ def int8_matmul(xq, wq):
     return torch.matmul(xq.double(), wq.double().T).to(torch.int32)
 
 
+def int8_linear(x, wq, wscale, bias=None):
+    """``x @ dequant(wq).T + bias`` the int8 way, on torch tensors: ``x``
+    quantized per row (scale ``max(absmax, 1e-8) / 127``), the int8
+    products summed exactly, both scales and the bias applied in f32, the
+    result in ``x``'s dtype."""
+    xf = x.float()
+    xs = xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0)
+    xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+    y = int8_matmul(xq, wq).float() * xs * wscale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def int8_linear_dx(g, wq, wscale):
+    """The straight-through input gradient of :func:`int8_linear`: ``g``
+    through the dequantized weight, in f32."""
+    return torch.matmul(g.float(), wq.float() * wscale.float()[:, None])
+
+
 @CudaTensor.register_op()
 class quant_linear(Function):
     """Dynamic-activation int8 x int8 linear: ``y = x @ Wq.T * (xs*ws) + b``.
@@ -637,20 +657,13 @@ class quant_linear(Function):
     def forward(ctx, x, wq, wscale, bias=None):
         xd = x.data
         wqd, wsd = _raw(wq), _raw(wscale)
-        xf = xd.float()
-        xs = xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0)
-        xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
-        y = int8_matmul(xq, wqd).float() * xs * wsd.float()
-        if bias is not None:
-            y = y + _raw(bias).float()
+        y = int8_linear(xd, wqd, wsd, None if bias is None else _raw(bias))
         ctx.save_for_backward(wqd, wsd, xd.dtype, bias is not None)
-        return _t(y.to(xd.dtype))
+        return _t(y)
 
     def backward(ctx, g):
         wqd, wsd, xdt, has_bias = ctx.get_saved_tensors()
-        wdeq = wqd.float() * wsd.float()[:, None]
-        gx = torch.matmul(g.data.float(), wdeq)
-        grads = (_t(gx.to(xdt)), None, None)
+        grads = (_t(int8_linear_dx(g.data, wqd, wsd).to(xdt)), None, None)
         # the bias gradient reduces to (out,) in Function's _unbroadcast
         return grads + (_t(g.data),) if has_bias else grads
 

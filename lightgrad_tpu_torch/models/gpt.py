@@ -540,13 +540,22 @@ class GPT(nn.Module):
         kernel when the kernel takes the shape (``stack_supported``), True
         requires it, and False forces the unrolled per-layer branch (tests
         and the smoke run use it to hold the two branches against each
-        other).  A model with MoE blocks has none: it raises ValueError
+        other).  A model with MoE blocks or with Linears converted by
+        ``quant.quantize_module`` has none: it raises ValueError
         (``generate(use_cache=False)`` decodes it)."""
+        from ..quant import TorchQuantLinear
+
         cfg = self.cfg
         if cfg.n_experts:
             raise ValueError(
                 "KV-cache decoding of a GPT with MoE blocks is not "
                 "supported: decode it with generate(use_cache=False)")
+        if any(isinstance(m, TorchQuantLinear) for m in self.modules()):
+            raise ValueError(
+                "KV-cache decoding of a GPT converted by "
+                "quant.quantize_module is not supported: decode it with "
+                "generate(use_cache=False) (GPT.quantize_serving quantizes "
+                "the cached path)")
         H, L, W = cfg.n_head, cfg.n_layer, cfg.n_positions
         d = cfg.n_embd
         hd = d // H

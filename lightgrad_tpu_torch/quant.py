@@ -1,9 +1,9 @@
-"""Post-training int8 quantization of the lightgrad tape's layers.
+"""Post-training int8 quantization of a model's Linear layers.
 
 Counterpart of ``lightgrad_tpu/quant.py``: converts a trained float model in
 place,
 
-    quantize_module(model)     # every nn.Linear -> QuantLinear
+    quantize_module(model)     # every Linear -> an int8 layer
 
 Scheme: symmetric per-output-channel int8 weights (``scale = absmax/127``,
 no zero-point), dynamic per-row int8 activations quantized inside the op
@@ -12,17 +12,22 @@ both scales in f32 and casts back to the activation dtype.  Backward is the
 straight-through estimator through the dequantized weight, so a quantized
 model can still be fine-tuned.
 
-The torch.nn GPT-2 model of ``models/gpt.py`` quantizes its decode path
-with ``GPT.quantize_serving``; ``quantize_module`` converts the tape's
-``nn.Linear`` only.
+A lightgrad tape model's ``nn.Linear`` becomes a :class:`QuantLinear`; a
+``torch.nn`` model's ``torch.nn.Linear`` (the GPT of ``models/gpt.py``)
+becomes a :class:`TorchQuantLinear`, the same scheme as a ``torch.nn``
+module.  A GPT converted so decodes through ``generate(use_cache=False)``;
+its KV-cache decoding raises ``ValueError`` (``GPT.quantize_serving``
+quantizes that path).
 """
 
 import numpy as np
 import torch
 
 from . import nn
+from .autograd.cuda.ops import int8_linear, int8_linear_dx
 
-__all__ = ["quantize_weight", "QuantLinear", "quantize_module"]
+__all__ = ["quantize_weight", "QuantLinear", "TorchQuantLinear",
+           "quantize_module"]
 
 
 def quantize_weight(w: np.ndarray, axis: int = 1):
@@ -70,14 +75,77 @@ class QuantLinear(nn.Module):
         return x.quant_linear(self.weight_q, self.weight_scale, self.bias)
 
 
-def quantize_module(module: "nn.Module",
-                    min_features: int = 0) -> "nn.Module":
-    """Recursively replace every ``nn.Linear`` with a :class:`QuantLinear`.
+class _QuantLinearFn(torch.autograd.Function):
+    """The tape's ``quant_linear`` (autograd/cuda/ops.py) on
+    ``torch.autograd``: the same arithmetic, the same straight-through
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, wq, wscale, bias):
+        ctx.save_for_backward(wq, wscale)
+        ctx.dtypes = x.dtype, None if bias is None else bias.dtype
+        return int8_linear(x, wq, wscale, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        wq, wscale = ctx.saved_tensors
+        xdt, bdt = ctx.dtypes
+        gb = None if bdt is None else \
+            g.float().reshape(-1, g.shape[-1]).sum(0).to(bdt)
+        return int8_linear_dx(g, wq, wscale).to(xdt), None, None, gb
+
+
+class TorchQuantLinear(torch.nn.Module):
+    """Drop-in int8 replacement for ``torch.nn.Linear``: the int8 weight
+    ``weight_q`` (out, in) and its per-channel scale ``weight_scale``
+    (out,) are buffers, the float bias stays a parameter, as in
+    :class:`QuantLinear`."""
+
+    def __init__(self, wq, wscale, bias=None):
+        super().__init__()
+        self.register_buffer("weight_q", wq)
+        self.register_buffer("weight_scale", wscale)
+        self.bias = bias
+        self.out_features, self.in_features = wq.shape
+
+    @classmethod
+    def from_linear(cls, lin: torch.nn.Linear) -> "TorchQuantLinear":
+        """The layer's weight quantized on the host, as the JAX package
+        does; the buffers go to the weight's device."""
+        w = lin.weight.detach()
+        wq, ws = quantize_weight(w.float().cpu().numpy(), axis=1)
+        return cls(torch.from_numpy(wq).to(w.device),
+                   torch.from_numpy(ws).to(w.device), bias=lin.bias)
+
+    def forward(self, x):
+        return _QuantLinearFn.apply(x, self.weight_q, self.weight_scale,
+                                    self.bias)
+
+
+def _quantize_torch(module: torch.nn.Module, min_features: int) -> None:
+    for name, sub in list(module.named_children()):
+        if isinstance(sub, torch.nn.Linear):
+            if min(sub.weight.shape) >= min_features:
+                setattr(module, name, TorchQuantLinear.from_linear(sub))
+        else:
+            _quantize_torch(sub, min_features)
+
+
+def quantize_module(module, min_features: int = 0):
+    """Recursively replace every Linear with its int8 layer: a tape
+    ``nn.Linear`` with a :class:`QuantLinear`, a ``torch.nn.Linear`` with
+    a :class:`TorchQuantLinear`.
 
     ``min_features`` skips small layers (e.g. classifier heads on tiny
     label spaces) where quantization error is not worth the bytes saved.
     Returns the module, converted in place.
     """
+    if isinstance(module, torch.nn.Module):
+        _quantize_torch(module, min_features)
+        for m in module.modules():      # decode functions hold old weights
+            m.__dict__.pop("_kv_fns", None)
+        return module
+
     def _maybe(lin):
         return (QuantLinear.from_linear(lin)
                 if min(lin.weight.shape) >= min_features else lin)

@@ -27,7 +27,8 @@ from lightgrad_tpu.models.llama import LlamaConfig as JLlamaConfig
 from lightgrad_tpu_torch import GPT, GPTConfig
 from lightgrad_tpu_torch.models import decoding as tdec
 from lightgrad_tpu_torch.models.llama import Llama, LlamaConfig
-from tests.torch_port import cpu_device, jax_kernel_mode  # noqa: F401
+from tests.torch_port import (cpu_device, jax_kernel_mode,  # noqa: F401
+                               one_thread)
 
 GPT_CFG = dict(vocab_size=64, n_positions=64, n_embd=128, n_layer=2,
                n_head=2)
@@ -71,17 +72,6 @@ def _train(jm, seq, vocab, steps=30):
     losses = [float(f(x, y).numpy()) for _ in range(steps)]
     assert losses[-1] < 0.8 * losses[0], losses
     return {n: np.asarray(p.data) for n, p in jm.named_parameters()}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port's CPU ops at these sizes gain nothing from intra-op
-    threads, and beside the suite's other workers the threads' spinning
-    makes each small op's latency many times larger."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

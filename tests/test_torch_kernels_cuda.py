@@ -2797,3 +2797,190 @@ def test_tiny_t5_step_and_decoding_on_the_card(dev):
                           attention_mask=Tensor.from_numpy(
                               am[1:], requires_grad=False))[0]
     assert np.array_equal(one, eager[:len(one)])
+
+
+# ---------------------------------------------------------------------------
+# the ported examples (lightgrad_tpu_torch/examples/) on the card: each at
+# a small size through its own functions, with the kernels its path names
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def examples(dev, monkeypatch):
+    """Synthetic digits, and no network (BERT's offline fallback)."""
+    import urllib.request
+
+    def refuse(*args, **kwargs):
+        raise OSError("no network in the card tests")
+
+    monkeypatch.setattr(urllib.request, "urlopen", refuse)
+    monkeypatch.setenv("LIGHTGRAD_FAKE_DATA", "1")
+    reset_launch_counts()
+    return dev
+
+
+def _launched(*names):
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    missing = [n for n in names if not any(
+        counts[k] for k in (n if isinstance(n, tuple) else (n,)))]
+    assert not missing, (missing, {k: v for k, v in counts.items() if v})
+
+
+def _falling(losses):
+    assert all(map(lambda v: v == v, losses)) and losses[-1] < losses[0], \
+        losses
+
+
+def _T(a):
+    from lightgrad_tpu_torch.autograd import Tensor
+
+    return Tensor.from_numpy(a, requires_grad=False)
+
+
+CONV_FWD = ("conv_fwd", "conv_fwd_simt")
+
+
+def test_example_gradient_descent_on_the_card(examples):
+    from lightgrad_tpu_torch.examples import gradient_descent
+
+    out = gradient_descent.main(epochs=5)
+    _falling(out["losses"])
+    _launched("elementwise", "reduce", "matmul")
+
+
+@pytest.mark.parametrize("kind", ["mlp", "cnn"])
+def test_example_mnist_on_the_card(examples, kind):
+    from lightgrad_tpu_torch.examples import mnist
+
+    out = mnist.main(kind, steps=6, batch=32)
+    assert 0.0 <= out["accuracy"] <= 1.0 and len(out["losses"]) == 6
+    _launched("elementwise", "reduce", "matmul",
+              *([CONV_FWD] if kind == "cnn" else []))
+
+
+@pytest.mark.parametrize("amp", [False, True])
+def test_example_resnet_step_on_the_card(examples, amp):
+    import numpy as np
+
+    from lightgrad_tpu_torch import data
+    from lightgrad_tpu_torch.examples import resnet
+
+    model, opt = resnet.build(amp=amp)
+    x, y = data._synthetic_digits(16)
+    losses = [float(resnet.train_step(model, opt, _T(x.reshape(16, 784)),
+                                      _T(y.astype(np.int32))).numpy())
+              for _ in range(3)]
+    _falling(losses)
+    _launched("elementwise", "reduce", "matmul", CONV_FWD,
+              ("conv_bwd_dw", "conv_bwd_dw_simt"))
+
+
+def test_example_bert_fallback_on_the_card(examples):
+    import numpy as np
+
+    from lightgrad_tpu_torch.examples import bert
+
+    model, tok, cfg = bert.load_model_and_tokenizer(offline_layers=2,
+                                                    offline_hidden=128)
+    ids = np.array([tok.encode("the capital of france is [MASK] .")],
+                   np.int32)
+    logits = bert.infer(model, _T(ids))
+    assert torch.isfinite(logits.data).all()
+    _launched("elementwise", "matmul", "layernorm_fwd", "attention_fwd")
+
+
+def test_example_char_gpt_on_the_card(examples):
+    from lightgrad_tpu_torch import GPT, GPTConfig, optim
+    from lightgrad_tpu_torch.examples import char_corpus, char_windows, gpt
+
+    chars, stoi, data = char_corpus()
+    model = GPT(GPTConfig(vocab_size=len(chars), n_positions=32, n_embd=64,
+                          n_layer=2, n_head=2), device="cuda")
+    opt = optim.Adam(list(model.parameters()), lr=3e-3)
+    xs, ys = char_windows(data, 8, 32)
+    x, y = (torch.from_numpy(a).long().cuda() for a in (xs, ys))
+    losses = [float(gpt.train_step(model, opt, x, y).detach())
+              for _ in range(4)]
+    _falling(losses)
+    text = gpt.sample(model, chars, stoi)
+    assert len(text) == 32
+    _launched("layernorm_fwd", "layernorm_bwd", "attention_fwd",
+              "attention_bwd_dq", "attention_bwd_dkv", "decode_attention")
+
+
+@pytest.mark.parametrize("amp", [False, True])
+def test_example_char_llama_on_the_card(examples, amp):
+    from lightgrad_tpu_torch import Llama, LlamaConfig, amp as lg_amp, optim
+    from lightgrad_tpu_torch.examples import char_corpus, char_windows, llama
+
+    chars, stoi, data = char_corpus()
+    model = Llama(LlamaConfig(vocab_size=len(chars), hidden_size=64,
+                              intermediate_size=128, num_hidden_layers=2,
+                              num_attention_heads=4, num_key_value_heads=2,
+                              max_position_embeddings=64))
+    opt = lg_amp.MixedPrecision(model, lambda ps: optim.Adam(ps, lr=3e-3)) \
+        if amp else optim.Adam(model.parameters(), lr=3e-3)
+    xs, ys = char_windows(data, 4, 32)
+    losses = [float(llama.train_step(model, opt, _T(xs), _T(ys)).numpy())
+              for _ in range(4)]
+    _falling(losses)
+    out = model.generate([stoi.get(c, 0) for c in "lightgrad"],
+                         max_new_tokens=8, temperature=0.6)
+    assert len(out) == 9 + 8
+    _launched("elementwise", "reduce", "matmul", "attention_fwd",
+              "attention_bwd_dq", "attention_bwd_dkv", "decode_attention")
+
+
+def test_example_t5_on_the_card(examples):
+    import numpy as np
+
+    from lightgrad_tpu_torch import optim
+    from lightgrad_tpu_torch.examples import t5
+    from lightgrad_tpu_torch.models import (T5Config,
+                                            T5ForConditionalGeneration)
+
+    model = T5ForConditionalGeneration(T5Config(
+        vocab_size=t5.VOCAB, d_model=32, d_kv=8, d_ff=64, num_layers=1,
+        num_decoder_layers=1, num_heads=4, relative_attention_num_buckets=16,
+        relative_attention_max_distance=10, dropout_rate=0.0))
+    opt = optim.Adam(model.parameters(), lr=3e-3)
+    src, lab = t5.make_batch(np.random.default_rng(0), 8, 8)
+    dec = model.shift_right(lab)
+    losses = [float(t5.train_step(model, opt, _T(src), _T(dec),
+                                  _T(lab)).numpy()) for _ in range(4)]
+    _falling(losses)
+    model.eval()
+    _, _, out = t5.decode(model, 8)
+    assert out.shape == (4, 8)
+    _launched("elementwise", "reduce", "matmul", "softmax_fwd",
+              "softmax_bwd")
+
+
+def test_example_diffusion_on_the_card(examples):
+    import numpy as np
+
+    from lightgrad_tpu_torch import optim
+    from lightgrad_tpu_torch.examples import diffusion
+    from lightgrad_tpu_torch.models import Diffusion, UNet
+
+    dif = Diffusion(UNet(in_channels=1, base=16), timesteps=8)
+    opt = optim.Adam(dif.model.parameters(), lr=2e-4)
+    ema = optim.EMA(dif.model.parameters(), decay=0.995)
+    data = _T((np.random.default_rng(0).random((16, 1, 28, 28)) * 2 - 1)
+              .astype(np.float32))
+    ti = _T(np.zeros(8, np.int32))
+    losses = [float(diffusion.train_step(dif, opt, ema, *diffusion.draw(
+        data, ti, 8 * (i % 2), 8, 8)).numpy()) for i in range(3)]
+    assert all(np.isfinite(losses))
+    with ema.average_parameters():
+        imgs = dif.sample(2, seed=1, jit=None).numpy()
+    assert imgs.shape == (2, 1, 28, 28) and np.isfinite(imgs).all()
+    _launched("elementwise", "reduce", "matmul", CONV_FWD)
+
+
+def test_example_serving_tour_on_the_card(examples):
+    from lightgrad_tpu_torch.examples import serving
+
+    out = serving.main("cuda")
+    assert out["speculative"] == out["kv"] and out["n_quantized"] == 16
+    assert "tp" not in out            # one process: step 5 skips
+    _launched("attention_fwd", "decode_attention")

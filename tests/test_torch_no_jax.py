@@ -36,7 +36,17 @@ def test_importing_the_port_loads_no_jax():
             "lightgrad_tpu_torch.models.resnet, lightgrad_tpu_torch.ops.conv, "
             "lightgrad_tpu_torch.models.llama, "
             "lightgrad_tpu_torch.models.neox, "
-            "lightgrad_tpu_torch.utils.fetch; bad = [m for m in sys.modules "
+            "lightgrad_tpu_torch.utils.fetch, "
+            "lightgrad_tpu_torch.examples.bert, "
+            "lightgrad_tpu_torch.examples.diffusion, "
+            "lightgrad_tpu_torch.examples.distributed, "
+            "lightgrad_tpu_torch.examples.gpt, "
+            "lightgrad_tpu_torch.examples.gradient_descent, "
+            "lightgrad_tpu_torch.examples.llama, "
+            "lightgrad_tpu_torch.examples.mnist, "
+            "lightgrad_tpu_torch.examples.resnet, "
+            "lightgrad_tpu_torch.examples.serving, "
+            "lightgrad_tpu_torch.examples.t5; bad = [m for m in sys.modules "
             "if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lightgrad_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -1,7 +1,8 @@
 """Rank functions of the port's multi-rank CPU tests.
 
 Each test module of the parallel layer (tests/test_torch_ring_attention.py,
-test_torch_pipeline.py, test_torch_shard.py) starts ONE spawned gloo group
+test_torch_pipeline.py, test_torch_shard.py, and the distributed examples'
+test_torch_examples_dist.py) starts ONE spawned gloo group
 in a fixture (``lightgrad_tpu_torch.parallel.distributed.spawn``, every
 rank under a time limit) and runs one of the group functions below, which
 run all of that module's cases and hand back their results as numpy
@@ -435,3 +436,25 @@ def env_init_main(rank, world, port, results):
         dist.destroy_process_group()
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
+
+
+# ---------------------------------------------------------------------------
+# the distributed examples
+# ---------------------------------------------------------------------------
+def examples_group(rank, n, cases_path):
+    """tests/test_torch_examples_dist.py on 8 ranks: the distributed
+    tour's four demos, and the serving tour's tensor-parallel decode (tp 2
+    on ranks 0 and 1).  The cases (weights of several MB) come from a
+    pickle the test wrote: as a process argument, the parent's write of
+    them into each rank's start pipe waits for that rank to import torch,
+    one rank after the other."""
+    import pickle
+
+    from lightgrad_tpu_torch.examples import distributed, serving
+
+    with open(cases_path, "rb") as f:
+        cases = pickle.load(f)
+    out = distributed.demos(rank, n, cases["demos"], device="cpu")
+    prompt, weights = cases["serving_tp"]
+    out["serving_tp"] = serving.tensor_parallel(prompt, "cpu", weights)
+    return out

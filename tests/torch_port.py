@@ -66,3 +66,34 @@ def jax_batchnorm_true_gradient(monkeypatch):
             return forward(self, x)
 
     monkeypatch.setattr(jax_nn.BatchNorm2d, "forward", patched)
+
+
+def jax_greedy(model, ids, n, window):
+    """``n`` greedy tokens of a JAX-package causal LM, eagerly: each the
+    argmax of one forward over the right-padded ``window`` at the last real
+    position -- ``generate(use_cache=False)``'s arithmetic without the
+    compiled step it wraps (whose compile a busy test host prices in
+    minutes)."""
+    from lightgrad_tpu import no_grad
+    from lightgrad_tpu.autograd import Tensor
+
+    ids = list(ids)
+    for _ in range(n):
+        ctx = ids[-window:]
+        x = Tensor.from_numpy(np.array([ctx + [0] * (window - len(ctx))],
+                                       np.int32), requires_grad=False)
+        with no_grad():
+            ids.append(int(np.argmax(model(x).numpy()[0, len(ctx) - 1])))
+    return ids
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module's torch ops: the port's CPU ops
+    at these sizes gain nothing from intra-op threads, and beside the
+    suite's other workers the threads' spinning makes each small op many
+    times slower.  Import it into a test module to apply it there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
