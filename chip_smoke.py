@@ -11,8 +11,9 @@ tokenizers / HF files, the vision families (ViT-B/16 training, DDPM
 training and sampling), the numpy oracle against the card, and the last
 families: T5-base and flan-T5-base on the tape (training, cached, beam and
 compiled decoding) and GPT-2 small with mixture-of-experts blocks, the
-parallel layer at world size 1, and the JAX package's examples on the port
-(lightgrad_tpu_torch/examples/).
+parallel layer at world size 1, the JAX package's examples on the port
+(lightgrad_tpu_torch/examples/), and the step compiler (``jit``: tape
+steps captured into CUDA graphs and replayed).
 
     python3 chip_smoke.py
 
@@ -177,7 +178,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      step 1's logits and gradients against a plain twin, the fused kernel
      launched and the two passes not; (b) Pythia-1B greedy ``generate``,
      8 tokens after a 64-token prompt, each the argmax of the twin's
-     logits on the same 2048-token window;
+     logits on the same 2048-token window, its window forward compiled by
+     ``jit``; then again (all replays) against the eager forward's tokens;
  11. the rest of training and of serving I/O: (a) GPT-2 small scanned
      (``scan_layers=True``) at the JAX bench's configuration (vocab 50304,
      16 x 1024, bf16 ``MixedPrecision`` Adam at lr 3e-4 under
@@ -241,8 +243,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      small through 1F1B at pp 1, cached decode at tp 1, a sharded
      checkpoint;
  15. the JAX package's examples on the port, each through its own
-     function at the JAX script's configuration and step counts (the
-     cuts for time in EXAMPLE_CUTS, logged): gradient descent, MNIST's MLP and
+     function at the JAX script's configuration and step counts, the
+     steps compiled by ``jit`` where the JAX script compiles them (any
+     cut for time in EXAMPLE_CUTS, logged): gradient descent, MNIST's MLP and
      CNN and ResNet-20 on synthetic digits (test accuracy), BERT's offline
      config, the char GPT, the char LLaMA in f32 and --amp, the T5
      reversal, DDPM (then, at its trained weights, the loss and every
@@ -251,7 +254,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
      weights), the serving tour (speculative = greedy, 16 Linears
      quantized); each example's printed lines, rate and launches are
      logged and its loss must fall (examples/distributed.py needs 8 ranks:
-     CPU tests only).
+     CPU tests only);
+ 16. the step compiler, ``lightgrad_tpu_torch.jit``: JIT_STEPS compiled
+     steps against JIT_STEPS eager steps from one start (weights carried
+     back by ``load_numpy_params``), bit for bit -- BERT-base's masked-LM
+     step (phase 6's batch, f32 AdamW) with the padding mask and with
+     ``attention_lengths``, bf16 ``MixedPrecision`` with an overflow forced
+     at one step (the gate skips it and the scale backs off inside the
+     graph), ResNet-18 at 32 x 224² (BatchNorm's buffers written back);
+     dropout on BERT-base's logits (two replays draw other masks, the keep
+     rate within 1%); a ``load_numpy_params`` after compiling records again
+     and trains the loaded weights; a host read inside a step raises
+     ``CaptureError``; for each model wall ms a step eager and compiled,
+     device ms and idle share, the capture's seconds, both peaks and the
+     launches of a replay (Pythia-1B's compiled recompute decode against
+     its eager tokens runs in phase 10b, on that phase's model).
 Every kernel of each path must be launched by that path (the decoding
 module's paths included: each GPT-2 one its stack kernel, LLaMA's
 generate_device decode attention and its merge, generate_batch_device the
@@ -659,10 +676,10 @@ GPT_SWITCH = dict(GPT_MOE, moe_dispatch="top1", moe_every=2)
 MOE_STEPS, MOE_LR, MOE_AUX = 5, 3e-4, 0.01
 GPT_MOE_KERNELS = TRAINING_KERNELS + ("matmul",)
 # phase 15: the ported examples (lightgrad_tpu_torch/examples/) at the JAX
-# scripts' own configurations and step counts (their functions' defaults);
-# EXAMPLE_CUTS: the steps of each example cut for the run's time
-EXAMPLE_CUTS = {"resnet": 50, "gpt": 150, "llama": 50, "t5": 50,
-                "diffusion": 50}
+# scripts' own configurations and step counts (their functions' defaults),
+# their steps compiled by jit as the JAX scripts' are; EXAMPLE_CUTS: the
+# steps of an example cut for the run's time (none since the steps compile)
+EXAMPLE_CUTS = {}
 # the serving tour's GPT (4 blocks): quantize_module(min_features=64)
 # converts the 4 Linears of each block, as the JAX tour's does
 TOUR_QUANT_LAYERS = 16
@@ -4873,7 +4890,34 @@ def phase_neox_generate(card):
           got.data[0, rows], logits[rows], PATH_TOL[torch.float32])
     log(f"  tokens {out[NEOX_PROMPT:]} equal the twin's argmax at every "
         f"step (smallest top-2 gap {min(gaps):.3e})")
-    del model, p, got, logits
+    del p, got, logits
+    # phase 16's recompute decode: generate's window forward is compiled
+    # (``_decode_fn``); again, all replays, against the eager forward
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = model.generate(prompt, max_new_tokens=NEOX_NEW)
+    torch.cuda.synchronize()
+    dt_again = time.perf_counter() - t0
+    eager = list(prompt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(NEOX_NEW):
+        window = np.zeros((1, W), np.int32)
+        window[0, :len(eager)] = eager
+        with no_grad():
+            row = model(Tensor.from_numpy(window, requires_grad=False))[
+                0, len(eager) - 1].numpy()
+        eager.append(int(np.argmax(row)))
+    dt_eager = time.perf_counter() - t0
+    log(f"  step compiler: generate's compiled window forward "
+        f"{dt_again / NEOX_NEW * 1e3:.1f} ms a token (all replays; the first"
+        f" call with record and capture {dt / NEOX_NEW * 1e3:.1f}), eager "
+        f"{dt_eager / NEOX_NEW * 1e3:.1f} ms a token; tokens compiled "
+        f"{'==' if again == eager == out else '!='} eager; {card}")
+    if not again == eager == out:
+        raise AssertionError(f"Pythia-1B compiled decode {again[NEOX_PROMPT:]}"
+                             f" vs eager {eager[NEOX_PROMPT:]}")
+    del model
     torch.cuda.empty_cache()
     return counts
 
@@ -7546,12 +7590,14 @@ def phase_examples(card):
     from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
 
     os.environ["LIGHTGRAD_FAKE_DATA"] = "1"
-    steps = EXAMPLE_CUTS
+    steps = {}
     for k, fn in (("resnet", resnet.train), ("gpt", gpt.train_char_gpt),
                   ("llama", llama.train_char_llama), ("t5", t5.train),
                   ("diffusion", diffusion.main)):
         published = inspect.signature(fn).parameters["steps"].default
-        log(f"  cut for time: {k} {published} -> {steps[k]} steps")
+        steps[k] = EXAMPLE_CUTS.get(k, published)
+        if steps[k] != published:
+            log(f"  cut for time: {k} {published} -> {steps[k]} steps")
     paths = {}
 
     def run(path, fn):
@@ -7623,6 +7669,368 @@ def phase_examples(card):
         "tests/test_torch_examples_dist.py")
     torch.cuda.empty_cache()
     return paths
+
+
+# phase 16: the step compiler -- compiled steps against eager steps from one
+# starting state (JIT_STEPS each), the dropout case's replays, the AMP
+# overflow step (the step index given an infinite loss factor)
+JIT_STEPS = 6
+JIT_OVERFLOW_AT = 3
+JIT_DROPOUT = 0.1
+
+
+def _snapshot(model):
+    """Every parameter and buffer of a tape module as numpy (a copy)."""
+    return {n: np.array(t) for n, t in model.state_dict().items()}
+
+
+def _timed_calls(fn, args, n):
+    """``n`` calls of ``fn(*args)``, each ended by a device sync: (outputs,
+    wall seconds of each)."""
+    outs, walls = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        # a kept eager loss would keep its step's tape (and activations)
+        outs.append(tuple(o.detach() for o in out) if isinstance(out, tuple)
+                    else out.detach())
+    return outs, walls
+
+
+def _device_time(call):
+    """One ``call()`` traced by torch.profiler: (device ms summed over its
+    kernels, wall ms) -- and, since a graph replay may reach the trace as
+    one launch, the device ms between two CUDA events around it."""
+    _, busy, wall = traced_families(call)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    call()
+    end.record()
+    end.synchronize()
+    return busy, wall, start.elapsed_time(end)
+
+
+def jit_case(name, model, make_step, args, card, state=None, same=True):
+    """Phase 16's comparison: ``make_step()`` -> a step function over a
+    fresh optimizer; JIT_STEPS eager steps, then the weights carried back
+    (``load_numpy_params``) and JIT_STEPS compiled steps from the same
+    start.  ``same``: losses and every parameter and buffer bit for bit.
+    Logs wall ms a step (eager, compiled), device ms and idle share
+    (torch.profiler, one step of each after the comparison), the capture's
+    seconds, both peaks and the launches of a replay.  Returns (the
+    compiled run's launch counts, {metric: value})."""
+    from lightgrad_tpu_torch import jit, load_numpy_params
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    start = _snapshot(model)
+    out = {}
+    runs = []
+    for compiled in (False, True):
+        if compiled:
+            load_numpy_params(model, start)
+        step = make_step()
+        fn = jit(step) if compiled else step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        res, walls = _timed_calls(fn, args, JIT_STEPS)
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        losses = [float((r[0] if isinstance(r, tuple) else r).numpy())
+                  for r in res]
+        runs.append((losses, _snapshot(model), state() if state else None))
+        reset_launch_counts()
+        busy, wall, ev = _device_time(lambda: fn(*args))
+        per_call = {k: v for k, v in launch_counts().items() if v}
+        key = "compiled" if compiled else "eager"
+        out[key] = dict(wall_ms=1e3 * float(np.median(walls[2:])),
+                        device_ms=busy, traced_wall_ms=wall, event_ms=ev,
+                        idle=1 - busy / wall if wall else None,
+                        peak_gib=peak / 2**30, first_ms=1e3 * walls[0])
+        if compiled:
+            out[key]["capture_s"] = walls[1] - float(np.median(walls[2:]))
+            out[key]["launches_a_replay"] = per_call
+            run_counts = counts
+        log(f"  {name}, {key}: {out[key]['wall_ms']:.2f} ms a step (median "
+            f"of steps 3-{JIT_STEPS}; step 1 {out[key]['first_ms']:.0f} ms"
+            + (f", step 2 with the capture {1e3 * walls[1]:.0f} ms: capture "
+               f"{out[key]['capture_s']:.2f} s" if compiled else "")
+            + f"); device {busy:.2f} ms of a {wall:.2f} ms traced step (idle "
+            f"{100 * out[key]['idle']:.1f}%), {ev:.2f} ms between events; "
+            f"peak {out[key]['peak_gib']:.2f} GiB above the model; {card}")
+        del res, fn, step
+    log(f"  {name}: launches a replay {out['compiled']['launches_a_replay']}")
+    (le, pe, se), (lc, pc, sc) = runs
+    worst = max(float(np.abs(pe[n] - pc[n]).max()) for n in pe)
+    bitwise = le == lc and worst == 0.0 and se == sc
+    log(f"  {name}: losses eager {[round(v, 5) for v in le]}, compiled "
+        f"{[round(v, 5) for v in lc]}; parameters and buffers "
+        f"{'bit for bit' if bitwise else f'max abs diff {worst:.3e}'}"
+        + (f"; state {se} / {sc}" if state else ""))
+    if same and not bitwise:
+        raise AssertionError(f"{name}: the compiled steps are not the eager "
+                             f"steps bit for bit")
+    return run_counts, out
+
+
+def jit_amp_case(model, start, args, x_mask, lm_loss, card):
+    """Phase 16's AMP case: BERT-base under bf16 ``MixedPrecision`` (AdamW,
+    a GradScaler growing every 2 good steps), JIT_STEPS eager steps and
+    JIT_STEPS compiled ones from the same f32 start, the loss times an
+    infinite factor (a tensor argument) at step JIT_OVERFLOW_AT: the gate
+    skips that step and the scale backs off, inside the graph.  Losses,
+    scales and masters bit for bit.  Returns (launch counts of the
+    compiled run, {metric: value})."""
+    from lightgrad_tpu_torch import amp, jit, load_numpy_params, optim
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    factors = [Tensor.from_numpy(np.float32(np.inf if i == JIT_OVERFLOW_AT
+                                            else 1.0), requires_grad=False)
+               for i in range(JIT_STEPS)]
+    runs, out = [], {}
+    for compiled in (False, True):
+        amp.cast_module(model, torch.float32)
+        load_numpy_params(model, start)
+        mp = amp.MixedPrecision(model, lambda ps: optim.AdamW(
+            ps, lr=BERT_LR), scaler=amp.GradScaler(init_scale=2.0 ** 15,
+                                                   growth_interval=2))
+
+        def step(a, b, k):
+            loss = lm_loss(model(a, attention_mask=x_mask), b)
+            mp.zero_grad()
+            mp.scale(loss * k).backward()
+            mp.step()
+            return loss
+
+        fn = jit(step) if compiled else step
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        losses, scales, walls = [], [], []
+        for k in factors:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = fn(*args, k)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(loss.numpy()))
+            scales.append(mp.scaler.scale_value())
+        counts = launch_counts()
+        runs.append((losses, scales, [m.numpy() for m in mp.masters]))
+        key = "compiled" if compiled else "eager"
+        out[key] = dict(wall_ms=1e3 * float(np.median(walls[2:])))
+        log(f"  BERT-base bf16 MixedPrecision, {key}: losses "
+            f"{[round(v, 4) for v in losses]}, scales {scales}, "
+            f"{out[key]['wall_ms']:.2f} ms a step; {card}")
+        del fn, step, mp, loss
+    (le, se, me), (lc, sc, mc) = runs
+    backed = se[JIT_OVERFLOW_AT] == se[JIT_OVERFLOW_AT - 1] / 2
+    if not backed or se != sc or le != lc or not all(
+            np.array_equal(a, b) for a, b in zip(me, mc)):
+        raise AssertionError("BERT-base AMP: the compiled steps are not the "
+                             "eager steps bit for bit, or the overflow did "
+                             "not back the scale off")
+    log(f"  BERT-base AMP: the overflow at step {JIT_OVERFLOW_AT + 1} "
+        f"skipped and the scale backed off inside the graph; losses, scales "
+        f"and masters bit for bit the eager steps'")
+    return counts, out
+
+
+def phase_step_compiler(card):
+    """Phase 16: ``lightgrad_tpu_torch.jit`` at full width -- each case
+    JIT_STEPS compiled steps against JIT_STEPS eager steps from one start,
+    bit for bit: BERT-base (phase 6's masked LM, 8 x 128, f32 AdamW) with
+    its padding mask and with ``attention_lengths``; ResNet-18 f32 at 32 x
+    224² (BatchNorm's buffers written back); BERT-base under bf16
+    ``MixedPrecision`` with an infinite loss factor at step
+    JIT_OVERFLOW_AT (the gate skips it and the scale backs off inside the
+    graph); BERT-base with dropout on its logits (two replays draw other
+    masks, keep rate within 1% of 1 - JIT_DROPOUT); the guards: a
+    ``load_numpy_params`` after compiling records again and trains the
+    loaded weights, a parameter rebound between the record and the compile
+    makes the step record again and trains, and a step with a host read
+    inside raises ``CaptureError``.  (Pythia-1B's compiled recompute decode against its
+    eager tokens runs in phase 10b, on that phase's model.)  Returns
+    {path: launch counts of its compiled run}."""
+    import importlib
+
+    from lightgrad_tpu_torch import jit, load_numpy_params, optim
+    from lightgrad_tpu_torch import loss as lg_loss
+    from lightgrad_tpu_torch import random as lg_random
+    from lightgrad_tpu_torch.autograd import Tensor
+    from lightgrad_tpu_torch.models import resnet18
+    from lightgrad_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+
+    jit_mod = importlib.import_module("lightgrad_tpu_torch.jit")
+    dev = torch.device("cuda")
+    counts = {}
+    metrics = {}
+    lg_random.seed(0)
+    cfg = BertConfig(**BERT_BASE)
+    model = BertForMaskedLM(cfg)
+    ids, mask, labels, lengths = bert_batch(cfg)
+    x_ids = Tensor.from_numpy(ids, requires_grad=False)
+    x_mask = Tensor.from_numpy(mask, requires_grad=False)
+    x_lens = Tensor.from_numpy(lengths.astype(np.int32), requires_grad=False)
+    y = Tensor.from_numpy(labels, requires_grad=False)
+
+    def lm_loss(logits, yy):
+        return lg_loss.cross_entropy(logits.reshape(-1, cfg.vocab_size), yy,
+                                     ignore_index=-100)
+
+    def bert_step(**inputs):
+        def make():
+            opt = optim.AdamW(list(model.parameters()), lr=BERT_LR)
+
+            def step(a, b):
+                loss = lm_loss(model(a, **inputs), b)
+                opt.zero_grad()
+                loss.backward()
+                opt.step()
+                return loss
+            return step
+        return make
+
+    for path, inputs in (("BERT-base (masked)", dict(attention_mask=x_mask)),
+                         ("BERT-base (attention_lengths)",
+                          dict(attention_lengths=x_lens))):
+        counts[path], metrics[path] = jit_case(
+            path, model, bert_step(**inputs), (x_ids, y), card)
+
+    # the guards: a load after compiling records again and trains the
+    # loaded weights, as the eager steps from them did
+    start = _snapshot(model)
+    eager = []
+    make = bert_step(attention_mask=x_mask)
+    step = make()
+    for _ in range(2):
+        eager.append(float(step(x_ids, y).numpy()))
+    load_numpy_params(model, start)
+    holder = [make()]
+    fn = jit(lambda a, b: holder[0](a, b))
+    for _ in range(3):
+        fn(x_ids, y)
+    state = next(iter(fn.cache.values()))
+    load_numpy_params(model, start)
+    holder[0] = make()
+    if not fn._stale(state):
+        raise AssertionError("a load after compiling left the graph "
+                             "current")
+    again = [float(fn(x_ids, y).numpy()) for _ in range(2)]
+    if fn.cache[fn._signature((x_ids, y))] is state or again != eager:
+        raise AssertionError(f"a load after compiling: recorded again "
+                             f"{fn.cache.get(fn._signature((x_ids, y))) is not state}"
+                             f", losses {again} vs eager {eager}")
+    log(f"  guard: load_numpy_params after compiling recorded again; the "
+        f"next losses {again} are the eager steps' from those weights")
+    del fn, holder, state
+
+    # a parameter rebound between the record and the compile of one
+    # compiled step: the epoch makes call 2 record again (a graph over the
+    # recorded sets would drop the new bias's update), and the new bias
+    # trains as in the eager steps
+    def new_bias():
+        return Tensor.from_numpy(np.full(cfg.vocab_size, 0.01, np.float32))
+
+    load_numpy_params(model, start)
+    step = make()
+    eager = [float(step(x_ids, y).numpy())]
+    model.decoder.bias = new_bias()
+    step = make()
+    eager += [float(step(x_ids, y).numpy()) for _ in range(2)]
+    eager_bias = model.decoder.bias.numpy()
+    load_numpy_params(model, start)
+    holder = [make()]
+    fn = jit(lambda a, b: holder[0](a, b))
+    again = [float(fn(x_ids, y).numpy())]
+    model.decoder.bias = new_bias()
+    holder[0] = make()
+    again += [float(fn(x_ids, y).numpy()) for _ in range(2)]
+    if again != eager or not (model.decoder.bias.numpy() == eager_bias).all():
+        raise AssertionError(f"a rebind between record and compile: losses "
+                             f"{again} vs eager {eager}")
+    log(f"  guard: a parameter rebound after the record recorded again; "
+        f"losses {again} and the new bias are the eager steps'")
+    del fn, holder
+
+    def synced(a, b):
+        loss = lm_loss(model(a, attention_mask=x_mask), b)
+        return loss * float(loss.data.sum())       # a host read: refused
+
+    bad = jit(synced)
+    bad(x_ids, y)
+    try:
+        bad(x_ids, y)
+    except jit_mod.CaptureError as e:
+        log(f"  guard: a host read inside the step raised CaptureError: "
+            f"{str(e)[:160]}...")
+    else:
+        raise AssertionError("a step with a host read was captured")
+    del bad
+
+    # dropout on the logits: two replays draw other masks
+    drop_opt = optim.AdamW(list(model.parameters()), lr=BERT_LR)
+
+    def drop_step(a, b):
+        logits = model(a, attention_mask=x_mask).dropout(p=JIT_DROPOUT)
+        loss = lm_loss(logits, b)
+        drop_opt.zero_grad()
+        loss.backward()
+        drop_opt.step()
+        return loss, logits
+
+    fn = jit(drop_step)
+    keeps = [(fn(x_ids, y)[1].data != 0) for _ in range(3)]
+    rates = [float(k.float().mean()) for k in keeps]
+    same_mask = bool(torch.equal(keeps[1], keeps[2]))
+    log(f"  dropout {JIT_DROPOUT} on BERT-base's logits: keep rates "
+        f"{[round(r, 4) for r in rates]} (record, capture + replay, replay);"
+        f" the two replays' masks {'EQUAL' if same_mask else 'differ'}")
+    if same_mask or any(abs(r - (1 - JIT_DROPOUT)) > 0.01 for r in rates):
+        raise AssertionError("dropout inside the graph: masks repeat or "
+                             "the keep rate is off")
+    del fn, keeps, drop_opt
+    torch.cuda.empty_cache()
+
+    # bf16 MixedPrecision with a forced overflow
+    counts["BERT-base AMP (bf16, overflow)"], metrics["BERT-base AMP"] = \
+        jit_amp_case(model, start, (x_ids, y), x_mask, lm_loss, card)
+    del model
+    torch.cuda.empty_cache()
+
+    # ResNet-18, f32, BatchNorm buffers written back
+    lg_random.seed(0)
+    rmodel = resnet18()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    xd = torch.randn(RESNET_BATCH, 3, RESNET_IMAGE, RESNET_IMAGE,
+                     generator=gen, device=dev)
+    yd = torch.randint(0, 1000, (RESNET_BATCH,), generator=gen, device=dev)
+    rx = Tensor(xd, requires_grad=False)
+    ry = Tensor(yd.int(), requires_grad=False)
+
+    def resnet_make():
+        opt = optim.AdamW(list(rmodel.parameters()), lr=RESNET_LR)
+
+        def step(a, b):
+            loss = lg_loss.cross_entropy(rmodel(a), b)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            return loss
+        return step
+
+    counts["ResNet-18"], metrics["ResNet-18"] = jit_case(
+        "ResNet-18", rmodel, resnet_make, (rx, ry), card)
+    del rmodel
+    torch.cuda.empty_cache()
+    log(f"  phase 16 metrics: {json.dumps(metrics)}")
+    return counts
 
 
 @contextlib.contextmanager
@@ -7919,6 +8327,17 @@ def main():
         tally(path, counts, kernels)
     log(f"  examples phase: {time.perf_counter() - t0:.1f} s")
     lap("the examples")
+    log("the step compiler (lightgrad_tpu_torch.jit): compiled steps against "
+        "eager steps from one start, BERT-base, ResNet-18, bf16 AMP with an "
+        "overflow, dropout, the guards:")
+    t0 = time.perf_counter()
+    for path, counts in phase_step_compiler(card).items():
+        tally(f"{path}, compiled", counts,
+              CONV_PATH_KERNELS if path.startswith("ResNet")
+              else BERT_LENGTHS_KERNELS if "lengths" in path
+              else BERT_KERNELS)
+    log(f"  step compiler phase: {time.perf_counter() - t0:.1f} s")
+    lap("the step compiler")
     missing = [k for k in KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels no path launched: {missing}")

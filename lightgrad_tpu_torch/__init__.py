@@ -22,12 +22,14 @@ the numpy ``CpuTensor`` is the tape's oracle, with ``utils.gradcheck``.
 T5 (``models.T5ForConditionalGeneration``) trains and decodes on the tape,
 and ``GPTConfig(n_experts=...)`` gives the ``torch.nn`` GPT
 mixture-of-experts blocks.  ``parallel`` shards them over ranks on
-``torch.distributed`` (DTensor meshes, ring attention, pipelines)."""
+``torch.distributed`` (DTensor meshes, ring attention, pipelines).  ``jit``
+captures a tape step once into a CUDA graph and replays it."""
 
 from . import (amp, autograd, checkpoint, data, lora, loss, models, nn, ops,
                optim, parallel, quant, random, scan, schedule, serving)
 from .autograd import (AbstractTensor, CpuTensor, CudaTensor, Function,
                        Gradients, Tensor, no_grad)
+from .jit import invalidate_captures, jit
 from .models import (GPT, GPTConfig, ByteTokenizer, Llama, LlamaConfig,
                      NeoX, NeoXConfig, RMSNorm, generate_batch)
 from .serving import InferenceEngine, Request
@@ -53,4 +55,4 @@ __all__ = ["amp", "autograd", "checkpoint", "data", "lora", "loss", "models",
            "from_numpy", "einsum", "GPT", "GPTConfig", "ByteTokenizer",
            "Llama", "LlamaConfig", "NeoX", "NeoXConfig", "RMSNorm",
            "generate_batch", "InferenceEngine", "Request", "Profiler",
-           "load_numpy_params"]
+           "load_numpy_params", "jit", "invalidate_captures"]

@@ -24,7 +24,8 @@ value semantics ask); the module's type decides.  A tape module's buffers
 (BatchNorm's running statistics) keep their dtype, as in the JAX package.
 
 Nothing here reads a tensor on the host, so a step never waits for the
-device.
+device, and a ``jit``-compiled step captures the gate and the scaler's
+state, which are updated in place, as runtime state of its graph.
 """
 
 import torch

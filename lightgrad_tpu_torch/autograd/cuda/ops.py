@@ -26,7 +26,7 @@ from ..einsum_spec import bwd_plan as einsum_bwd_plan
 from ..einsum_spec import parse_spec as parse_einsum_spec
 from ..function import Function
 from ..tensor import AbstractTensor
-from .tensor import CudaTensor, torch_dtype
+from .tensor import CudaTensor, torch_dtype, upload
 from ...ops.attention import attention_bwd as kattn_bwd
 from ...ops.attention import attention_fwd_res as kattn_fwd_res
 from ...ops.conv import conv_bwd as kconv_bwd
@@ -69,7 +69,7 @@ def _unwrap_index(idx, dev):
     if isinstance(idx, AbstractTensor):
         return idx.data
     if isinstance(idx, np.ndarray):
-        return torch.as_tensor(idx, device=dev)
+        return upload(idx, dev)
     if isinstance(idx, tuple):
         return tuple(_unwrap_index(i, dev) for i in idx)
     return idx

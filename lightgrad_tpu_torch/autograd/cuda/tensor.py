@@ -11,11 +11,12 @@ in-place ops rebind.  Kernel launches are asynchronous; ``numpy()`` and
 import numpy as np
 import torch
 
+from .. import tensor as _tape
 from ..tensor import AbstractTensor
 from ...utils.profiler import set_sync_fn
 from . import device
 
-__all__ = ["CudaTensor", "torch_dtype"]
+__all__ = ["CudaTensor", "torch_dtype", "upload"]
 
 set_sync_fn(lambda: device.synchronize())
 
@@ -42,13 +43,25 @@ def torch_dtype(dtype) -> torch.dtype:
     return _NP_TO_TORCH[np.dtype(name)]
 
 
+def upload(a, dev, dtype=None) -> torch.Tensor:
+    """Host array ``a`` as a tensor on ``dev`` (of ``dtype``, else of the
+    array's own kind), a copy that never aliases the caller's array.  Inside
+    a step that ``jit`` records or runs, the step answers instead: a host
+    array there is a constant of the step, uploaded once by the recording
+    step and read in place by every later run."""
+    if _tape._trace is not None:
+        return _tape._trace.on_upload(np.asarray(a), torch.device(dev),
+                                      dtype)
+    t = torch.tensor(a, device=dev)
+    return t if dtype is None else t.to(dtype)
+
+
 def _from_host(a, dtype=None):
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":           # ml_dtypes; torch cannot wrap it
         a = a.astype(np.float32)
     dt = torch_dtype(dtype if dtype is not None else a.dtype)
-    # torch.tensor copies: the tensor never aliases the caller's array
-    return torch.tensor(a, device=device.default_device()).to(dt)
+    return upload(a, device.default_device(), dt)
 
 
 class CudaTensor(AbstractTensor):
@@ -115,13 +128,19 @@ class CudaTensor(AbstractTensor):
 
     def numpy(self) -> np.ndarray:
         """A host copy (bfloat16 comes back as float32: numpy has none); of
-        a sharded buffer (``DTensor``), the whole array."""
+        a sharded buffer (``DTensor``), the whole array.  Refused inside a
+        step ``jit`` captures or runs: a host read there would wait for the
+        card."""
+        if _tape._trace is not None:
+            _tape._trace.on_host_read(self)
         d = self.data.detach()
         if hasattr(d, "full_tensor"):
             d = d.full_tensor()
         if d.dtype == torch.bfloat16:
             d = d.float()
-        return d.cpu().numpy()
+        # a CPU buffer is copied too: a compiled step's slots are written in
+        # place at every call
+        return d.numpy().copy() if d.device.type == "cpu" else d.cpu().numpy()
 
 
 AbstractTensor.register_backend("cuda", CudaTensor)

@@ -5,13 +5,18 @@ Counterpart of ``lightgrad_tpu/autograd/tensor.py``: ``data``/``grad``/
 ``zero_grad(traverse_graph)``, the initializer contract
 (``empty/zeros/ones/uniform/xavier/from_numpy/numpy/copy/item/numel``) and
 the ``register_op`` / ``register_method`` / ``register_backend`` extension
-points.  The JAX package's hooks for its ``jit`` step compiler are not here:
-``jit`` is not ported.
+points, and the hooks of the ``jit`` step compiler: while ``_trace`` is set,
+the constructor reports each new tensor (``on_create``), ``_set_data``
+each rebind before it happens (``on_write``) and ``.data`` each read
+(``on_read``), as ``lightgrad_tpu/autograd/tensor.py``'s hooks do.
 
 Buffers have value semantics, as the JAX package's immutable arrays do: an
 op never writes into a buffer it did not allocate; in-place ops rebind the
 tensor to a fresh buffer (``_set_data``).  So aliasing a buffer (``copy``,
-views from ``reshape``/``transpose``) is always safe.
+views from ``reshape``/``transpose``) is always safe.  The one writer in
+place is a compiled step (``jit``): it binds the state it rebinds to slots
+it allocated and writes them at every run, so a view of such a tensor's
+buffer follows the step.
 """
 
 from functools import reduce
@@ -24,12 +29,20 @@ from .grads import Gradients
 __all__ = ["AbstractTensor"]
 
 
+# active trace recorder (set by lightgrad_tpu_torch.jit while it records a
+# step function's read/write/create sets, captures it or runs its slots;
+# None in normal eager execution)
+_trace = None
+
+
 class AbstractTensor:
     def __init__(self, data, requires_grad: bool = True):
         self.__data = data
         self.__grad = None
         self.__requires_grad = requires_grad
         self.__ctx = None
+        if _trace is not None:
+            _trace.on_create(self)
 
     # --- tape plumbing -----------------------------------------------------
     def _set_ctx(self, ctx) -> "AbstractTensor":
@@ -38,6 +51,10 @@ class AbstractTensor:
         return self
 
     def _set_data(self, data) -> "AbstractTensor":
+        # hook BEFORE the assignment: the recorder snapshots the buffer the
+        # write replaces
+        if _trace is not None:
+            _trace.on_write(self)
         self.__data = data
         return self
 
@@ -55,6 +72,12 @@ class AbstractTensor:
 
     @property
     def data(self):
+        if _trace is not None:
+            _trace.on_read(self)
+        return self.__data
+
+    def _raw_data(self):
+        """Backing buffer without triggering trace hooks."""
         return self.__data
 
     @property

@@ -1388,14 +1388,12 @@ int run(const StackParams* p, cudaStream_t st, int* grid) {
   return p ? launch<T, TW, TC>(*p, st) : grid_blocks<T, TW, TC>(grid);
 }
 
-// The instantiation for (compute type, int8 weights, int8 cache).
-template <typename T>
-int dispatch(const StackParams* p, int w_int8, int kv_int8, cudaStream_t st,
-             int* grid) {
-  if (w_int8)
-    return kv_int8 ? run<T, int8_t, int8_t>(p, st, grid)
-                   : run<T, int8_t, T>(p, st, grid);
-  return kv_int8 ? run<T, T, int8_t>(p, st, grid) : run<T, T, T>(p, st, grid);
+// The instantiation for (compute type T, weights TW, int8 cache or not).
+template <typename T, typename TW>
+int run_cache(const StackParams* p, int kv_int8, cudaStream_t st,
+              int* grid) {
+  return kv_int8 ? run<T, TW, int8_t>(p, st, grid)
+                 : run<T, TW, T>(p, st, grid);
 }
 
 // make_plan on the host for block b of G (weights TW, cache TC): out gets
@@ -1430,6 +1428,41 @@ int plan_by_cache(const StackParams& p, int cbytes, int G, int b, int* out) {
 
 }  // namespace
 
+// The eight instantiations build in four translation units, one a (compute
+// type, weight type) pair: decode_stack_part{0-3}.cu include this file with
+// LG_STACK_PART defined and instantiate their pair by LG_STACK_PART_FN, so
+// the library's nvcc processes compile them in parallel.  A build of this
+// file alone (scripts/ab_decode_stack.py) appends the four
+// LG_STACK_PART_FN lines itself.
+#define LG_STACK_PART_FN(k, T, TW)                                         \
+  extern "C" int lg_decode_stack_part##k(const void* p, int kv_int8,       \
+                                         void* st, int* grid) {            \
+    return run_cache<T, TW>(static_cast<const StackParams*>(p), kv_int8,   \
+                            static_cast<cudaStream_t>(st), grid);          \
+  }
+
+#ifndef LG_STACK_PART
+extern "C" int lg_decode_stack_part0(const void*, int, void*, int*);
+extern "C" int lg_decode_stack_part1(const void*, int, void*, int*);
+extern "C" int lg_decode_stack_part2(const void*, int, void*, int*);
+extern "C" int lg_decode_stack_part3(const void*, int, void*, int*);
+
+namespace {
+
+// The instantiation for (compute type, int8 weights, int8 cache): a launch
+// of p, or with p null its cooperative grid's blocks.
+int dispatch(int is_bf16, const StackParams* p, int w_int8, int kv_int8,
+             cudaStream_t st, int* grid) {
+  void* s = static_cast<void*>(st);
+  if (is_bf16)
+    return w_int8 ? lg_decode_stack_part3(p, kv_int8, s, grid)
+                  : lg_decode_stack_part2(p, kv_int8, s, grid);
+  return w_int8 ? lg_decode_stack_part1(p, kv_int8, s, grid)
+                : lg_decode_stack_part0(p, kv_int8, s, grid);
+}
+
+}  // namespace
+
 extern "C" {
 
 // f32 workspace elements on the current device: xacc, att (n x d), q/k/v
@@ -1459,9 +1492,8 @@ int lg_decode_stack_smem(int n, int d, int R, int wbytes, int* slots) {
 // Blocks of one instantiation's cooperative grid (0 on error).
 int lg_decode_stack_grid(int is_bf16, int w_int8, int kv_int8) {
   int blocks = 0;
-  const int e = is_bf16
-      ? dispatch<__nv_bfloat16>(nullptr, w_int8, kv_int8, nullptr, &blocks)
-      : dispatch<float>(nullptr, w_int8, kv_int8, nullptr, &blocks);
+  const int e = dispatch(is_bf16, nullptr, w_int8, kv_int8, nullptr,
+                         &blocks);
   return e ? 0 : blocks;
 }
 
@@ -1514,9 +1546,9 @@ int lg_decode_stack(const void* x, const void* cache, long long slot_stride,
                       static_cast<float*>(ws),
                       static_cast<unsigned*>(sync),
                       n, L, d, H, W, R, 0, 0, eps, scale};
-  cudaStream_t st = (cudaStream_t)stream;
-  return is_bf16 ? dispatch<__nv_bfloat16>(&p, w_int8, kv_int8, st, nullptr)
-                 : dispatch<float>(&p, w_int8, kv_int8, st, nullptr);
+  return dispatch(is_bf16, &p, w_int8, kv_int8, (cudaStream_t)stream,
+                  nullptr);
 }
 
 }  // extern "C"
+#endif  // LG_STACK_PART

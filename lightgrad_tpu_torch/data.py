@@ -106,7 +106,9 @@ class DeviceDataset(Dataset):
 
     def offsets(self):
         """Batch offsets as 0-d int32 device tensors, for a step that
-        narrows the resident tensors itself::
+        narrows the resident tensors itself (a ``jit``-compiled step takes
+        the offset as its argument, and its graph reads the resident
+        tensors in place)::
 
             for off in ds.offsets():
                 loss = train_step(xs.narrow(off, B), ys.narrow(off, B))

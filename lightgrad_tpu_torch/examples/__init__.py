@@ -7,9 +7,10 @@ of its counterpart in ``examples/`` and runs as
 
 on ``cuda`` unless the caller names the CPU (``--device cpu``, or
 ``device="cpu"`` to its function); nothing moves to the CPU when no GPU is
-found.  The port has no ``jit``, so every step runs eagerly; a timed window
-still skips the first steps and ends with a device sync before the clock
-is read.  Each script is cut into a ``build`` function and a step
+found.  Each step the JAX script compiles with ``light.jit`` is compiled
+here by ``lightgrad_tpu_torch.jit`` (a CUDA graph a step on the card); a
+timed window skips the record and compile calls and ends with a device sync
+before the clock is read.  Each script is cut into a ``build`` function and a step
 function, which its ``main`` calls and a test can call with its own model,
 batches and noise.
 The functions return a dict of what they measured (losses, rates, the

@@ -5,9 +5,9 @@ Counterpart of ``examples/bert.py``: BERT from an HF checkpoint
 tokenizer, the top-k tokens for ``[MASK]`` under ``no_grad``.  Offline the
 example falls back to a random-initialized small config (4 layers, width
 256, vocab 1000) and ``BertTokenizer.synthetic()``, so the whole path stays
-runnable.  The forward runs eagerly on the tape's kernels (elementwise,
-reduce, matmul, softmax, LayerNorm); its latency is timed after two warm
-calls.
+runnable.  The forward runs on the tape's kernels (elementwise, reduce,
+matmul, softmax, LayerNorm) compiled by ``lightgrad_tpu_torch.jit``; its
+latency is timed after the record and compile calls.
 
     python -m lightgrad_tpu_torch.examples.bert [--text ...] [--device cpu]
 """
@@ -57,11 +57,12 @@ def main(text="the capital of france is [MASK] .", topk=5, device="cuda"):
             if tok.ids["[MASK]"] in ids else 1
         input_ids = light.Tensor.from_numpy(np.array([ids], dtype=np.int32),
                                             requires_grad=False)
-        infer(model, input_ids)  # builds the kernels
-        infer(model, input_ids).numpy()
+        fn = light.jit(lambda x: infer(model, x))
+        fn(input_ids)  # record (builds the kernels)
+        fn(input_ids).numpy()  # compile
         synchronize()
         t0 = time.perf_counter()
-        logits = infer(model, input_ids)
+        logits = fn(input_ids)
         synchronize()
         lat = time.perf_counter() - t0
         row = logits.numpy()[0, mask_pos]

@@ -3,10 +3,11 @@ then draw samples by ancestral sampling.
 
 Counterpart of ``examples/diffusion.py``: UNet base 32, T 200, batch 64,
 Adam at 2e-4, EMA at 0.995, the 20,000-image pool resident on the device,
-timesteps and noise drawn there each step.  Steps run eagerly on the tape
-(conv, elementwise, reduce, matmul kernels; the port has no ``jit``, so the
-sampler's ``jit=`` is None); then ``sample`` of 16 images under the EMA
-average, and with ``--viz`` a grid of them in ``diffusion_samples.png``.
+timesteps and noise drawn there each step.  The step (batch slice, draws,
+loss, Adam, EMA update) is compiled by ``lightgrad_tpu_torch.jit`` on the
+tape's conv, elementwise, reduce and matmul kernels; then ``sample`` of 16
+images under the EMA average with ``jit=lightgrad_tpu_torch.jit``, and with
+``--viz`` a grid of them in ``diffusion_samples.png``.
 
     python -m lightgrad_tpu_torch.examples.diffusion [--steps 400] [--viz] [--device cpu]
 """
@@ -72,11 +73,18 @@ def main(steps=400, batch=64, timesteps=200, base=32, lr=2e-4, viz=False,
                                      requires_grad=False)
         n_off = (len(data) - batch) // batch
 
-        def step(i):
-            return train_step(dif, optim, ema, *draw(
-                data_dev, ti, (i % n_off) * batch, batch, timesteps))
+        # the slice at a device offset and the draws run inside the
+        # compiled step (a replay draws afresh from the tape's generator)
+        fn = light.jit(lambda off: train_step(dif, optim, ema, *draw(
+            data_dev, ti, off, batch, timesteps)))
+        offs = light.Tensor.from_numpy(
+            (np.arange(steps) % n_off * batch).astype(np.int32),
+            requires_grad=False)
 
-        step(0)  # builds the kernels
+        def step(i):
+            return fn(offs[i])
+
+        step(0)  # record (builds the kernels)
         synchronize()
         t0 = time.perf_counter()
         losses = []
@@ -94,9 +102,9 @@ def main(steps=400, batch=64, timesteps=200, base=32, lr=2e-4, viz=False,
         t0 = time.perf_counter()
         if ema is not None:
             with ema.average_parameters():
-                imgs = dif.sample(16, seed=seed + 1, jit=None).numpy()
+                imgs = dif.sample(16, seed=seed + 1, jit=light.jit).numpy()
         else:
-            imgs = dif.sample(16, seed=seed + 1, jit=None).numpy()
+            imgs = dif.sample(16, seed=seed + 1, jit=light.jit).numpy()
         sample_s = time.perf_counter() - t0
     print(f"sampled in {sample_s:.1f}s, "
           f"range [{imgs.min():.2f}, {imgs.max():.2f}]")

@@ -209,8 +209,8 @@ def moe_expert_parallel_demo(device="cuda", steps=10, weights=None):
     x = torch.as_tensor(ids, device=dev)
     y = torch.as_tensor(np.roll(ids, -1, 1).reshape(-1), device=dev)
     opt = light.optim.Adam(list(model.parameters()), lr=5e-3)
-    losses = []
-    for _ in range(steps):
+
+    def step():
         loss = light.loss.cross_entropy(model(x).reshape(-1, 64), y)
         aux = model.aux_loss
         loss = loss + (aux.full_tensor() if hasattr(aux, "full_tensor")
@@ -218,7 +218,10 @@ def moe_expert_parallel_demo(device="cuda", steps=10, weights=None):
         opt.zero_grad()
         loss.backward()
         opt.step()
-        losses.append(float(loss.detach()))
+        return loss
+
+    fn = light.jit(step)
+    losses = [float(fn()) for _ in range(steps)]
     w1 = dict(model.named_parameters())["h.0.moe.w1"]
     _say(f"[moe dp2 x ep4] expert stack {tuple(w1.shape)} -> "
          f"{tuple(w1.to_local().shape)} per device; loss {losses[0]:.3f} -> "

@@ -4,9 +4,12 @@ Counterpart of ``examples/gpt.py``, on the port's ``torch.nn`` GPT:
 n_embd 128, 4 layers, 4 heads, 64 positions, batch 16, Adam at 3e-4, on
 ``torch.autograd`` through the flash-attention forward and backward and the
 fused LayerNorm, then ``generate`` of the rest of the 64-token window on the
-serving path (prefill attention, the whole-stack decode kernel).  Steps run
-eagerly (the port has no ``jit``).  ``--pretrained`` loads HuggingFace
-GPT-2 through the fetch cache and generates text instead.
+serving path (prefill attention, the whole-stack decode kernel).  The
+step is compiled by ``lightgrad_tpu_torch.jit``: its batches are
+``torch.Tensor`` arguments, and the parameters and Adam's state, updated in
+place, are read and written in place by the graph.  ``--pretrained``
+loads HuggingFace GPT-2 through the fetch cache and generates text
+instead.
 
     python -m lightgrad_tpu_torch.examples.gpt [--steps 300] [--device cpu]
 """
@@ -64,10 +67,11 @@ def train_char_gpt(steps=300, batch=16, seq=64, device="cuda"):
         xs_dev = torch.from_numpy(xs).long().to(device)
         ys_dev = torch.from_numpy(ys).long().to(device)
 
+        fn = light.jit(lambda x, y: train_step(model, optim, x, y))
         t0, losses = None, []
         for i in range(steps):
-            loss = train_step(model, optim, xs_dev.narrow(0, i * batch, batch),
-                              ys_dev.narrow(0, i * batch, batch))
+            loss = fn(xs_dev.narrow(0, i * batch, batch),
+                      ys_dev.narrow(0, i * batch, batch))
             losses.append(loss.detach())
             if i == 2:
                 synchronize()

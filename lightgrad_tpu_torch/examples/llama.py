@@ -1,10 +1,10 @@
 """Train a small character-level LLaMA (RoPE/RMSNorm/SwiGLU/GQA) and sample.
 
 Counterpart of ``examples/llama.py``: hidden 128, 4 layers, 4 heads, 2 KV
-heads (head dim 32), Adam at 3e-4 on 16 x 64 characters of the README,
-eagerly on the tape (flash attention at head dim 32, the tape's
-elementwise, reduce and matmul kernels); ``--amp`` computes in bf16 over
-f32 master weights.  Then 120 tokens of KV-cache decode (prefill attention
+heads (head dim 32), Adam at 3e-4 on 16 x 64 characters of the README, on
+the tape (flash attention at head dim 32, the tape's elementwise, reduce
+and matmul kernels), the step compiled by ``lightgrad_tpu_torch.jit``;
+``--amp`` computes in bf16 over f32 master weights.  Then 120 tokens of KV-cache decode (prefill attention
 and the decode attention kernel).  ``--pretrained <hf-name>`` loads a
 HuggingFace LLaMA-family checkpoint through the fetch cache instead.
 
@@ -62,10 +62,11 @@ def train_char_llama(steps=300, batch=16, seq=64, use_amp=False,
         xs_dev = light.Tensor.from_numpy(xs, requires_grad=False)
         ys_dev = light.Tensor.from_numpy(ys, requires_grad=False)
 
+        fn = light.jit(lambda x, y: train_step(model, opt, x, y))
         t0, losses = None, []
         for i in range(steps):
-            loss = train_step(model, opt, xs_dev.narrow(i * batch, batch),
-                              ys_dev.narrow(i * batch, batch))
+            loss = fn(xs_dev.narrow(i * batch, batch),
+                      ys_dev.narrow(i * batch, batch))
             losses.append(loss.data)
             if i == 2:
                 synchronize()

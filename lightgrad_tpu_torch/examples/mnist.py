@@ -3,9 +3,9 @@
 Counterpart of ``examples/mnist.py``: the same two models, AdaBelief
 (1e-3 for the MLP, 3e-3 for the CNN), batch 128 narrowed from the whole
 training set resident on the device, cross-entropy, then the accuracy on
-2,000 test digits.  Steps run eagerly on the tape (the port has no ``jit``:
-the JAX script's ``--no-jit`` is gone); ``--profile`` times each tape op
-with the port's ``Profiler``.  Synthetic digits stand in for MNIST under
+2,000 test digits.  The step is compiled by ``lightgrad_tpu_torch.jit`` (one
+CUDA graph a step) unless ``--no-jit``; ``--profile`` times each tape op
+with the port's ``Profiler``, so it runs the eager tape.  Synthetic digits stand in for MNIST under
 ``LIGHTGRAD_FAKE_DATA=1`` or without the network.
 
     python -m lightgrad_tpu_torch.examples.mnist [--model cnn] [--device cpu]
@@ -78,8 +78,8 @@ def evaluate(model, test, model_kind) -> float:
     return correct / total
 
 
-def main(model_kind="mlp", steps=200, batch=128, profile=False, viz=False,
-         device="cuda"):
+def main(model_kind="mlp", steps=200, batch=128, use_jit=True, profile=False,
+         viz=False, device="cuda"):
     with on_device(device):
         mnist = light.data.MNIST(train=True, batchsize=batch)
         # device-resident pipeline: whole train set on the card, batches
@@ -90,6 +90,16 @@ def main(model_kind="mlp", steps=200, batch=128, profile=False, viz=False,
         model, optim = build(model_kind)
         xs_dev, ys_dev = train.tensors
 
+        def step(x, y):
+            return train_step(model, optim, model_kind, x, y)
+
+        if profile and use_jit:
+            # the per-op profiler observes tape dispatches; a compiled step
+            # is one graph replay
+            print("profiling runs the eager tape (per-op timings)")
+            use_jit = False
+        step_fn = light.jit(step) if use_jit else step
+
         profiler = light.Profiler() if profile else None
         done, t0, losses = 0, None, []
         while done < steps:
@@ -99,13 +109,14 @@ def main(model_kind="mlp", steps=200, batch=128, profile=False, viz=False,
                 x, y = xs_dev.narrow(off, batch), ys_dev.narrow(off, batch)
                 if profiler:
                     with profiler:
-                        loss = train_step(model, optim, model_kind, x, y)
+                        loss = step_fn(x, y)
                 else:
-                    loss = train_step(model, optim, model_kind, x, y)
+                    loss = step_fn(x, y)
                 losses.append(loss.data)
                 done += 1
                 if done == 3:
-                    # steps 1-2 build the kernels
+                    # steps 1-2 are the jit record + compile phases (and
+                    # build the kernels)
                     synchronize()
                     t0 = time.perf_counter()
                 if done % 50 == 0:
@@ -153,9 +164,10 @@ if __name__ == "__main__":
     ap.add_argument("--model", default="mlp", choices=["mlp", "cnn"])
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--no-jit", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--viz", action="store_true",
                     help="save learned conv-filter plot (cnn only)")
     args = ap.parse_args()
-    main(args.model, args.steps, args.batch, profile=args.profile,
-         viz=args.viz, device=args.device)
+    main(args.model, args.steps, args.batch, use_jit=not args.no_jit,
+         profile=args.profile, viz=args.viz, device=args.device)

@@ -2,9 +2,9 @@
 
 Counterpart of ``examples/resnet.py``: trains a CIFAR-style ResNet-20 on
 MNIST (BatchNorm running statistics, residual projections, global average
-pooling) with AdamW at 3e-3, batch 128, eagerly on the tape's conv,
-elementwise, reduce and matmul kernels; ``--amp`` trains bf16 compute over
-f32 master weights.  ``--pretrained`` loads the torchvision ResNet-18
+pooling) with AdamW at 3e-3, batch 128, on the tape's conv, elementwise,
+reduce and matmul kernels, the step compiled by ``lightgrad_tpu_torch.jit``;
+``--amp`` trains bf16 compute over f32 master weights.  ``--pretrained`` loads the torchvision ResNet-18
 checkpoint (``torch.load(weights_only=True)`` through the fetch cache) and
 classifies a synthetic batch instead.
 
@@ -73,16 +73,17 @@ def train(steps=150, batch=128, amp=False, device="cuda"):
         print(f"ResNet-20: {n_params/1e3:.0f}k params")
 
         xs_dev, ys_dev = train_set.tensors
+        step_fn = light.jit(lambda x, y: train_step(model, opt, x, y))
         done, t0, losses = 0, None, []
         while done < steps:
             for off in train_set.offsets():
                 if done >= steps:
                     break
-                loss = train_step(model, opt, xs_dev.narrow(off, batch),
-                                  ys_dev.narrow(off, batch))
+                loss = step_fn(xs_dev.narrow(off, batch),
+                               ys_dev.narrow(off, batch))
                 losses.append(loss.data)
                 done += 1
-                if done == 3:  # steps 1-2 build the kernels
+                if done == 3:  # steps 1-2 are record + compile
                     synchronize()
                     t0 = time.perf_counter()
                 if done % 25 == 0:

@@ -75,15 +75,15 @@ def train(steps=800, batch=32, seq=8, device="cuda"):
             light.Tensor.from_numpy(a, requires_grad=False)
             for a in (src_all, dec_all, lab_all))
 
+        fn = light.jit(lambda x, d, y: train_step(model, optim, x, d, y))
         t0, losses = None, []
         for i in range(steps):
             off = i * batch
-            loss = train_step(model, optim, src_dev.narrow(off, batch),
-                              dec_dev.narrow(off, batch),
-                              lab_dev.narrow(off, batch))
+            loss = fn(src_dev.narrow(off, batch), dec_dev.narrow(off, batch),
+                      lab_dev.narrow(off, batch))
             losses.append(loss.data)
             if i == 2:
-                synchronize()  # past the kernels' builds
+                synchronize()  # past record + compile (the kernels' builds)
                 t0 = time.perf_counter()
             if i % 100 == 0 or i == steps - 1:
                 print(f"step {i:4d}  loss {loss.item():.4f}")

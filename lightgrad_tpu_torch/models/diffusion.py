@@ -14,9 +14,9 @@ process q(x_t|x_0) = N(sqrt(a_bar_t) x_0, (1-a_bar_t) I); the UNet learns
 to predict the injected noise; ancestral sampling inverts it step by step,
 DDIM (Song et al. 2021) in fewer, deterministic hops.
 
-The JAX package compiles a sampler step with its ``jit``, which is not
-ported: ``jit=None`` runs each step eagerly, and a callable given as
-``jit`` wraps the step, as there.  Noise drawn in the samplers comes from
+A sampler compiles its step with ``jit=lightgrad_tpu_torch.jit`` (one
+CUDA graph serves every step), as the JAX package's takes its ``jit``;
+``jit=None`` runs each step eagerly.  Noise drawn in the samplers comes from
 the tape's ``randn_like`` under the seeded ``random`` module, so sampled
 images differ from the JAX package's (another random stream); the
 starting noise is numpy's, as there.

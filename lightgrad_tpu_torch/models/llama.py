@@ -341,8 +341,9 @@ class Llama(nn.Module):
         ``use_cache=True``: one prefill of the prompt padded to the window,
         then one cached step a token.  ``use_cache=False``: a full forward
         of the right-padded window a token (the causal mask keeps the pad
-        from the last real position).  ``num_beams > 1``: beam search over
-        the cached step (models/decoding.py)."""
+        from the last real position), compiled once by ``jit``.
+        ``num_beams > 1``: beam search over the cached step
+        (models/decoding.py)."""
         from .gpt import _sample
 
         ids = list(ids)
@@ -356,13 +357,21 @@ class Llama(nn.Module):
         if use_cache:
             return self._generate_kv(ids, max_new_tokens, temperature, rng,
                                      top_k=top_k, top_p=top_p)
+        if not hasattr(self, "_decode_fn"):
+            from ..jit import jit
+
+            def _decode(x):
+                with no_grad():
+                    return self.forward(x)
+
+            self._decode_fn = jit(_decode)
         window = self.cfg.max_position_embeddings
         for _ in range(max_new_tokens):
             ctx = ids[-window:]
             padded = ctx + [0] * (window - len(ctx))
             x = Tensor.from_numpy(np.array([padded], dtype=np.int32),
                                   requires_grad=False)
-            logits = self.forward(x)[0, len(ctx) - 1].numpy()
+            logits = self._decode_fn(x)[0, len(ctx) - 1].numpy()
             ids.append(_sample(logits, temperature, rng, top_k=top_k,
                                top_p=top_p))
         return ids

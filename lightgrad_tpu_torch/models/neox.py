@@ -164,20 +164,26 @@ class NeoX(nn.Module):
                  temperature: float = 0.0, rng: np.random.Generator = None):
         """Fixed-window recompute decoding: a full forward of the
         right-padded window a token (the causal mask keeps the pad from the
-        last real position); greedy when ``temperature=0``.  The JAX model
-        compiles that forward with its ``jit``, which is not ported: here it
-        runs eagerly under ``no_grad``."""
+        last real position); greedy when ``temperature=0``.  The forward is
+        compiled once by ``jit``, as the JAX model's."""
         from .gpt import _sample
+        from ..jit import jit
 
         ids = [int(t) for t in ids]
         rng = rng or np.random.default_rng(0)
         W = self.cfg.max_position_embeddings
+        if not hasattr(self, "_decode_fn"):
+            def _decode(x):
+                with no_grad():
+                    return self.forward(x)
+
+            self._decode_fn = jit(_decode)
         for _ in range(max_new_tokens):
             ctx = ids[-W:]
             padded = ctx + [0] * (W - len(ctx))
             x = Tensor.from_numpy(np.array([padded], np.int32),
                                   requires_grad=False)
-            logits = self.forward(x)[0, len(ctx) - 1].numpy()
+            logits = self._decode_fn(x)[0, len(ctx) - 1].numpy()
             ids.append(_sample(logits, temperature, rng))
         return ids
 

@@ -14,10 +14,10 @@ A buffer stays a buffer when an in-place op rebinds its attribute
 (``self.running_mean *= ...``); in the JAX package that assignment also
 files the buffer among the parameters.
 
-The JAX package's ``register_param_or_module`` tells its ``jit`` step
-compiler to drop programs that captured a rebound parameter; ``jit`` is not
-ported, so there is nothing to tell.  The ``torch.nn`` layers of the GPT-2
-model are in ``models/_torch_layers.py``.
+Rebinding a parameter or submodule (``register_param_or_module`` on a name
+the module already has) tells the ``jit`` step compiler to drop the steps
+that captured the old object, as the JAX package's does.  The ``torch.nn``
+layers of the GPT-2 model are in ``models/_torch_layers.py``.
 """
 
 import math
@@ -87,6 +87,13 @@ class Module:
         object.__setattr__(self, name, val)
 
     def register_param_or_module(self, name, val):
+        if name in self._params or name in self._modules:
+            # rebinding an existing parameter/submodule swaps the OBJECT a
+            # compiled step captured by identity -- invalidate those steps
+            # so they re-record instead of silently training the old tensor
+            from .jit import invalidate_captures
+
+            invalidate_captures()
         if isinstance(val, AbstractTensor):
             self._modules.pop(name, None)
             self._params[name] = val

@@ -4,9 +4,9 @@ Counterpart of ``lightgrad_tpu/schedule.py``: ``LRScheduler``, ``StepLR``,
 ``CosineAnnealingLR`` and ``WarmupCosine``, with its schedule values.  The
 scheduler turns the optimizer's ``lr`` into a 0-d float32 tensor on the
 parameters' device, and ``step()`` writes each new value into it in place.
-A step that captured the tensor (a CUDA graph, ``amp.MixedPrecision``)
-therefore sees every new value, and an optimizer step reads the rate on the
-device, with no host synchronisation.  ``last_lr`` is the one host read;
+A step that captured the tensor (a ``jit``-compiled step's CUDA graph,
+``amp.MixedPrecision``) therefore sees every new value, and an optimizer
+step reads the rate on the device, with no host synchronisation.  ``last_lr`` is the one host read;
 ``step()`` returns the value it wrote without reading it back.
 
     optim = lightgrad_tpu_torch.optim.Adam(model.parameters(), lr=3e-4)

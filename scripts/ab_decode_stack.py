@@ -420,6 +420,15 @@ extern "C" int lg_stack_stamps(unsigned long long* out, int* n) {
 }
 """
 
+# a tree whose decode_stack.cu leaves its four (compute type, weight type)
+# pairs to decode_stack_part*.cu: the one-file build instantiates them itself
+WHOLE_EPILOGUE = r"""
+LG_STACK_PART_FN(0, float, float)
+LG_STACK_PART_FN(1, float, int8_t)
+LG_STACK_PART_FN(2, __nv_bfloat16, __nv_bfloat16)
+LG_STACK_PART_FN(3, __nv_bfloat16, int8_t)
+"""
+
 
 def _nvcc(src, so, tree, defines=()):
     from lightgrad_tpu_torch.ops import _build
@@ -495,7 +504,8 @@ def _stamped_builds(tree, variants):
         src = os.path.join(work, f"decode_stack_{label or 'tree'}.cu")
         with open(src, "w") as f:
             f.write('#include "common.cuh"\n' + STAMP_PRELUDE + src_v
-                    + STAMP_EPILOGUE)
+                    + STAMP_EPILOGUE + WHOLE_EPILOGUE * (
+                        "LG_STACK_PART_FN" in src_v))
         so = os.path.join(work, f"stamped_{label or 'tree'}.so")
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-shared",
                "-o", so, src]

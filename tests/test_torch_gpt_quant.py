@@ -18,7 +18,7 @@ from lightgrad_tpu.models import GPTConfig as JaxGPTConfig
 from lightgrad_tpu_torch import (GPT, GPTConfig, InferenceEngine,
                                  load_numpy_params)
 from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
-from tests.torch_port import jax_kernel_mode, to_np
+from tests.torch_port import jax_kernel_mode, one_thread, to_np  # noqa: F401
 
 CFG = dict(vocab_size=64, n_positions=64, n_embd=128, n_layer=2, n_head=2)
 W, L, H, HD = 64, 2, 2, 64

@@ -2984,3 +2984,225 @@ def test_example_serving_tour_on_the_card(examples):
     assert out["speculative"] == out["kv"] and out["n_quantized"] == 16
     assert "tp" not in out            # one process: step 5 skips
     _launched("attention_fwd", "decode_attention")
+
+
+# ---------------------------------------------------------------------------
+# the step compiler: a tape step captured into a CUDA graph and replayed
+# ---------------------------------------------------------------------------
+def _jit_mlp(seed=0, dropout=0.0):
+    """A small tape MLP (LayerNorm, GELU, optional dropout) with AdamW, its
+    batch and a step function."""
+    import numpy as np
+
+    import lightgrad_tpu_torch as lt
+    from lightgrad_tpu_torch import nn
+
+    lt.random.seed(seed)
+    layers = [nn.Linear(64, 128), nn.LayerNorm(128), nn.GELU()]
+    if dropout:
+        layers.append(nn.Dropout(dropout))
+    model = nn.Sequential(*layers, nn.Linear(128, 10))
+    opt = lt.optim.AdamW(model.parameters(), lr=1e-3)
+    rng = np.random.default_rng(seed)
+    x = _T(rng.standard_normal((32, 64)).astype(np.float32))
+    y = _T(rng.integers(0, 10, 32).astype(np.int32))
+
+    def step(a, b):
+        loss = lt.loss.cross_entropy(model(a), b)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        return loss
+
+    return model, step, x, y
+
+
+def test_jit_replay_equals_eager(dev):
+    """Compiled steps (record, capture, replays) are the eager steps bit
+    for bit: the same kernels in the same order."""
+    import lightgrad_tpu_torch as lt
+
+    runs = []
+    for use_jit in (False, True):
+        model, step, x, y = _jit_mlp()
+        fn = lt.jit(step) if use_jit else step
+        losses = [float(fn(x, y).numpy()) for _ in range(6)]
+        runs.append((losses, [p.numpy() for p in model.parameters()]))
+    assert runs[0][0] == runs[1][0], runs
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert (a == b).all()
+
+
+def test_jit_replay_draws_fresh_dropout_masks(dev):
+    """The tape's generator is registered with the graph: each replay
+    draws a new mask, the keep rate near 1 - p."""
+    import numpy as np
+
+    import lightgrad_tpu_torch as lt
+    from lightgrad_tpu_torch import nn
+
+    lt.random.seed(3)
+    drop = nn.Dropout(0.1)
+    fn = lt.jit(lambda a: drop(a))
+    x = _T(np.ones((256, 1024), np.float32))
+    masks = [fn(x).numpy() != 0 for _ in range(4)]
+    assert not (masks[2] == masks[3]).all()
+    for m in masks:
+        assert abs(m.mean() - 0.9) < 0.01, m.mean()
+
+
+def test_jit_launch_counts_add_up_on_replay(dev):
+    """A replay launches without passing through the wrappers: its counts
+    are the captured ones, added at every replay (the capture itself
+    counts nothing)."""
+    import lightgrad_tpu_torch as lt
+
+    _, step, x, y = _jit_mlp()
+    step(x, y)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    step(x, y)
+    eager = {k: v for k, v in launch_counts().items() if v}
+    fn = lt.jit(step)
+    fn(x, y)
+    reset_launch_counts()
+    fn(x, y)                                    # capture + first replay
+    assert {k: v for k, v in launch_counts().items() if v} == eager
+    reset_launch_counts()
+    for _ in range(3):
+        fn(x, y)
+    assert {k: v for k, v in launch_counts().items() if v} == \
+        {k: 3 * v for k, v in eager.items()}
+
+
+def test_jit_host_sync_in_the_step_raises(dev):
+    """``.item()`` or a pageable upload inside the step: capture raises
+    CaptureError naming the contract, nothing runs eagerly instead, and
+    the card works on afterwards."""
+    import importlib
+
+    import numpy as np
+
+    import lightgrad_tpu_torch as lt
+
+    jit_mod = importlib.import_module("lightgrad_tpu_torch.jit")
+    w = _T(np.ones(8, np.float32))
+
+    def item_step(a):
+        return a * w * float((a * 0 + 2).sum().item())
+
+    def raw_step(a):
+        # a host read the tape does not see: the capture itself refuses
+        return a * w * float((a.data * 0 + 2).sum().item())
+
+    for step in (item_step, raw_step):
+        fn = lt.jit(step)
+        x = _T(np.arange(8, dtype=np.float32))
+        assert (fn(x).numpy() == np.arange(8) * 16.0).all()
+        with pytest.raises(jit_mod.CaptureError,
+                           match="no host synchronisation"):
+            fn(x)
+    assert (w.numpy() == 1).all()
+    assert float((x * 3.0).sum().numpy()) == 84.0
+    # the tape's generator draws on, eagerly and in a new graph
+    drop = lt.jit(lambda a: a.dropout(p=0.5))
+    masks = [(drop(_T(np.ones((64, 64), np.float32))).numpy() != 0)
+             for _ in range(4)]
+    assert not (masks[2] == masks[3]).all()
+
+
+def test_jit_torch_nn_step_equals_eager(dev):
+    """A ``torch.autograd`` step (the char GPT's: torch.Tensor batches,
+    parameters and Adam state updated in place) captured and replayed,
+    bit for bit the eager steps."""
+    from lightgrad_tpu_torch import jit
+    from lightgrad_tpu_torch.examples import gpt
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randint(0, 40, (4, 32), generator=g, device=dev)
+    y = torch.randint(0, 40, (4, 32), generator=g, device=dev)
+    runs = []
+    for use_jit in (False, True):
+        model, opt = gpt.build(40, 32, dev)
+        fn = jit(lambda a, b: gpt.train_step(model, opt, a, b)) \
+            if use_jit else (lambda a, b: gpt.train_step(model, opt, a, b))
+        losses = [float(fn(x, y)) for _ in range(5)]
+        runs.append((losses, [p.detach().clone() for p in
+                              model.parameters()]))
+    assert runs[0][0] == runs[1][0], runs
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+@pytest.mark.parametrize("rebind_after", [1, 3])
+def test_jit_rebind_records_again(dev, rebind_after):
+    """A parameter rebound on a module between the record and the compile
+    (after call 1) or after the compile (after call 3): the same compiled
+    step records again and trains the new tensor under an optimizer rebuilt
+    over it, bit for bit the eager steps."""
+    import numpy as np
+
+    import lightgrad_tpu_torch as lt
+
+    runs = []
+    for use_jit in (False, True):
+        model, _, x, y = _jit_mlp(seed=4)
+        opts = [lt.optim.AdamW(model.parameters(), lr=1e-3)]
+
+        def step(a, b, model=model, opts=opts):
+            loss = lt.loss.cross_entropy(model(a), b)
+            opts[0].zero_grad()
+            loss.backward()
+            opts[0].step()
+            return loss
+
+        fn = lt.jit(step) if use_jit else step
+        losses = [float(fn(x, y).numpy()) for _ in range(rebind_after)]
+        model[-1].bias = lt.Tensor.from_numpy(np.full(10, 0.5, np.float32))
+        opts[0] = lt.optim.AdamW(model.parameters(), lr=1e-3)
+        losses += [float(fn(x, y).numpy()) for _ in range(4)]
+        runs.append((losses, [p.numpy() for p in model.parameters()]))
+        assert not (model[-1].bias.numpy() == 0.5).all()   # it trained
+    assert runs[0][0] == runs[1][0], runs
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert (a == b).all()
+
+
+@pytest.mark.parametrize("kind", ["setattr", "assign", "to"])
+def test_jit_torch_nn_state_change_records_again(dev, kind):
+    """The char GPT's compiled step after a new ``Parameter``, a
+    ``load_state_dict(assign=True)`` or a ``.to()`` round trip: the graph
+    would read the old buffers, so the step records again; bit for bit the
+    eager steps, the new parameters trained."""
+    from lightgrad_tpu_torch import jit
+    from lightgrad_tpu_torch.examples import gpt
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randint(0, 40, (4, 32), generator=g, device=dev)
+    y = torch.randint(0, 40, (4, 32), generator=g, device=dev)
+    runs = []
+    for use_jit in (False, True):
+        model, opt = gpt.build(40, 32, dev)
+        opts = [opt]
+
+        def step(a, b, model=model, opts=opts):
+            return gpt.train_step(model, opts[0], a, b)
+
+        fn = jit(step) if use_jit else step
+        losses = [float(fn(x, y)) for _ in range(3)]
+        if kind == "setattr":
+            name, p = next((n, p) for n, p in model.named_parameters()
+                           if n.endswith("bias"))
+            owner = model.get_submodule(name.rpartition(".")[0])
+            owner.bias = torch.nn.Parameter(torch.full_like(p, 0.5))
+        elif kind == "assign":
+            sd = {k: v.clone() + 0.125 if v.is_floating_point() else
+                  v.clone() for k, v in model.state_dict().items()}
+            model.load_state_dict(sd, assign=True)
+        else:
+            model.double().float()
+        opts[0] = gpt.light.optim.Adam(list(model.parameters()), lr=3e-4)
+        losses += [float(fn(x, y)) for _ in range(3)]
+        runs.append((losses, [p.detach().clone() for p in
+                              model.parameters()]))
+    assert runs[0][0] == runs[1][0], runs
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
