@@ -724,11 +724,6 @@ def serving_requests(vocab):
              int(rng7.integers(16, 129))) for _ in range(32)]
 
 
-class _Fns(tuple):
-    """(init_cache, prefill, step) and ``step_batch``, as a model's
-    ``_kv_functions`` gives them."""
-
-
 def engine_tick_positions(vocab, window=1024, slots=8, steps_per_tick=8):
     """The slots' positions at the first step of each tick of the engine
     as drive_serving runs it over serving_requests(vocab): the engine's own
@@ -738,16 +733,18 @@ def engine_tick_positions(vocab, window=1024, slots=8, steps_per_tick=8):
     from types import SimpleNamespace
 
     from lightgrad_tpu_torch import InferenceEngine
+    from lightgrad_tpu_torch.models.decoding import KVFns, ParamFn
 
     calls = []
 
-    def step_batch(caches, poss, toks):
+    def step_batch(p, caches, poss, toks):
         calls.append(poss.tolist())
         return caches, torch.zeros(slots, vocab)
 
-    fns = _Fns((lambda: torch.zeros(1),
-                lambda cache, toks, n: (cache, torch.zeros(vocab)), None))
-    fns.step_batch = step_batch
+    # compiled functions on the CPU re-run their pass at every call
+    fns = KVFns(lambda: torch.zeros(1), ParamFn(
+        lambda p, cache, toks, n: (cache, torch.zeros(vocab)), {}), None,
+        step_batch=ParamFn(step_batch, {}))
     model = SimpleNamespace(cfg=SimpleNamespace(n_positions=window),
                             _kv_fns=fns)
     engine = InferenceEngine(model, slots=slots,
@@ -1758,6 +1755,20 @@ def phase_long_context(model, card):
     decode_rates(model, "GPT-2 small", prompt, DEVICE_NEW, card)
 
 
+@contextlib.contextmanager
+def eager_decoding():
+    """Every compiled decode function (``ParamFn``) called through its
+    ``.fn``: the eager path the CUDA graphs are held against."""
+    from lightgrad_tpu_torch.models.decoding import ParamFn
+
+    call = ParamFn.__call__
+    ParamFn.__call__ = lambda self, *a: self.fn(self.params, *a)
+    try:
+        yield
+    finally:
+        ParamFn.__call__ = call
+
+
 def sync_free(fn):
     """``fn()`` under torch.cuda.set_sync_debug_mode("error"): any host
     read of a device value raises, except the decoding module's counted
@@ -1839,24 +1850,36 @@ def same_greedy(name, model, got, want, P, tol):
 class AcceptCount:
     """Wraps a model's ``extend`` (the speculative verify pass) to count
     the greedy rounds and the draft proposals the target accepted: the
-    leading proposals equal to the target's argmax.  Device tensors only,
-    read once at the end."""
+    leading proposals equal to the target's argmax.  The counts are device
+    tensors added to in place, so a compiled round (the device loop's
+    graph, which calls ``.fn`` when it is recorded and captured) counts at
+    each replay; read once at the end."""
 
     def __init__(self, model):
         self.fns, self.extend = model._kv_fns, model._kv_fns.extend
-        self.rounds, self.accepted = 0, []
+        self.params = self.extend.params
+        self.counts = torch.zeros(2, dtype=torch.long,
+                                  device=model.wte.weight.device)
+        self.rounds = 0
         self.fns.extend = self
+
+    def _count(self, toks, rows):
+        hit = toks[1:] == rows.argmax(-1)[:-1]
+        self.counts.add_(torch.stack([torch.ones_like(self.counts[0]),
+                                      hit.long().cumprod(0).sum()]))
+        return rows
+
+    def fn(self, p, cache, pos0, toks):
+        cache, rows = self.extend.fn(p, cache, pos0, toks)
+        return cache, self._count(toks, rows)
 
     def __call__(self, cache, pos0, toks):
         cache, rows = self.extend(cache, pos0, toks)
-        self.rounds += 1
-        hit = toks[1:] == rows.argmax(-1)[:-1]
-        self.accepted.append(hit.int().cumprod(0).sum())
-        return cache, rows
+        return cache, self._count(toks, rows)
 
     def close(self, k):
         self.fns.extend = self.extend
-        acc = int(torch.stack(self.accepted).sum()) if self.accepted else 0
+        self.rounds, acc = self.counts.tolist()
         return acc / max(1, k * self.rounds)
 
 
@@ -4979,13 +5002,17 @@ def forced_routes(model, seq, P):
 
     llama_mod.topk_gates = recorded
     try:
-        got = forced_llama(model, seq, P)
+        # eager: a replayed graph would call nothing to record
+        with eager_decoding():
+            got = forced_llama(model, seq, P)
     finally:
         llama_mod.topk_gates = topk_gates
     L, steps = model.cfg.num_hidden_layers, len(seq) - P
-    # the prefill's L calls over the P prompt rows, then L a step
-    return got, [tuple(torch.cat([calls[l][i]] + [calls[L * (1 + j) + l][i]
-                                                  for j in range(steps)])
+    # the prefill's L calls over the window (its P prompt rows kept), then
+    # L a step
+    return got, [tuple(torch.cat([calls[l][i][:P]]
+                                 + [calls[L * (1 + j) + l][i]
+                                    for j in range(steps)])
                        for i in (0, 1)) for l in range(L)]
 
 
@@ -5029,7 +5056,10 @@ def teacher_forced_mixtral(model, name, P, steps=4):
 
 def decode_ms(model, prompt, n=INT8_NEW):
     """Wall ms a token of greedy ``generate`` after ``prompt``: runs of 1
-    and ``n`` new tokens, the difference over n - 1."""
+    and ``n`` new tokens, the difference over n - 1, after two runs of 1
+    that record and capture the prompt's compiled prefill."""
+    for _ in range(2):
+        model.generate(prompt, max_new_tokens=1)
     wall = []
     for k in (1, n):
         torch.cuda.synchronize()
@@ -5456,8 +5486,9 @@ def traced_families(step, extra=()):
 
 def traced_kernel_ms(fn):
     """(``fn()``, the device ms of its kernels): CUDA activity alone traced
-    by torch.profiler, lighter than :func:`busy_share` over the tens of
-    thousands of launches of a sampling loop."""
+    by torch.profiler, summed over its raw events (building the profiler's
+    event tree for the tens of thousands of launches of a sampling loop or
+    an engine run costs seconds)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -5465,8 +5496,9 @@ def traced_kernel_ms(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as trace:
         out = fn()
         torch.cuda.synchronize()
-    return out, sum(e.time_range.elapsed_us() / 1e3 for e in trace.events()
-                    if e.device_type == DeviceType.CUDA)
+    return out, sum(e.duration_ns() for e in
+                    trace.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA) / 1e6
 
 
 def event_steps(step, n):
@@ -8054,6 +8086,357 @@ def digits_ok(path, acc):
                              f"{DIGITS_ACCURACY}")
 
 
+# the kernels each compiled path launches (its replays' counts)
+COMPILED_PATHS = {"float32 engine": ("attention_fwd", "decode_stack_batch"),
+                  "bfloat16 engine": ("attention_fwd", "decode_stack_batch"),
+                  "int8 engine": ("attention_fwd",
+                                  "decode_stack_batch_int8_kvq"),
+                  "float32 generate_device": ("attention_fwd",
+                                              "decode_stack"),
+                  "bfloat16 generate_device": ("attention_fwd",
+                                               "decode_stack"),
+                  "int8 generate_device": ("attention_fwd",
+                                           "decode_stack_int8_kvq"),
+                  "generate_batch_device": ("attention_fwd",),
+                  "Mistral-7B engine": ("attention_fwd",
+                                        "decode_attention_batch"),
+                  "Mistral-7B generate_device": ("attention_fwd",
+                                                 "decode_attention")}
+# phase 17, compiled decoding: generate_device / generate_batch_device tokens
+# and prompts at GPT-2 small; Mistral-7B's 4-slot engine (prompts, new tokens
+# each) and generate_device tokens after its 4500-token prompt; T5-base's
+# generate_compiled tokens after a 64-token source
+COMPILED_NEW, COMPILED_BATCH = 32, (12, 40, 5, 27)
+MISTRAL_COMPILED_ENGINE, MISTRAL_COMPILED_NEW = (600, 32, 1800, 250), 48
+T5_COMPILED_SRC, T5_COMPILED_NEW = 64, 32
+
+
+def paramfns(fns, *extra):
+    """The compiled functions a model's decoding reached: its KVFns' and
+    the loops' kept ones (``KVFns.functions``), and ``extra``."""
+    return fns.functions() + list(extra)
+
+
+def engine_fns(engine):
+    """An engine's own compiled functions: its admission, its mixed
+    tick's ``step_batch`` and its ticks."""
+    return [engine._admit, engine._step_batch, *engine._tick_fns.values()]
+
+
+def graph_report(pfs):
+    """(graphs captured, capture seconds, nodes of the largest graph, the
+    nodes and counted launches a replay of each distinct graph) over
+    ParamFns' compiled signatures."""
+    gs = [g for pf in pfs for g in pf.graphs()]
+    if not gs:
+        raise AssertionError("no compiled signature: nothing was captured")
+    big = max(gs, key=lambda g: g["nodes"] or 0)
+    per_replay = sorted({f"{g['nodes']} nodes: " + (", ".join(
+        f"{k} {n}" for k, n in sorted(g["launches"].items())) or "none")
+        for g in gs})
+    return (len(gs), sum(g["capture_s"] for g in gs), big["nodes"],
+            "; ".join(per_replay))
+
+
+def compiled_vs_eager(name, run, unit, pfs, card, base=None, warm=2):
+    """``run()`` eagerly (every ParamFn through its ``.fn``), timed and
+    traced, then compiled: ``warm`` runs that record and capture (an
+    engine, which one path reuses, captures all in its first), then a timed
+    replay run (its launches counted) and a traced one.  ``run`` returns (tokens,
+    units).  With ``base`` (a shorter run of the same prefills) its times
+    and units are taken off, so the prefills cancel.  Each peak is of its
+    own runs (the eager one before any graph).  Fails unless every run
+    gives the same tokens; logs wall and device ms a unit, the idle share,
+    the graphs' capture seconds, nodes and launches a replay, the peaks,
+    and the seconds the path took.  Returns the timed compiled run's
+    launch counts."""
+    from lightgrad_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    t_path = time.perf_counter()
+
+    def timed_run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def measured():
+        """(tokens, units, wall ms, device ms, launch counts) of ``run``
+        less ``base``'s, and the peak memory of these runs."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        (toks, units), wall = timed_run(run)
+        counts = launch_counts()
+        (again, _), dev = traced_kernel_ms(run)
+        if again != toks:
+            raise AssertionError(f"{name}: a traced run's tokens differ")
+        if base is not None:
+            (_, b_units), b_wall = timed_run(base)
+            _, b_dev = traced_kernel_ms(base)
+            units, wall, dev = units - b_units, wall - b_wall, dev - b_dev
+        return toks, units, wall, dev, counts, \
+            torch.cuda.max_memory_allocated()
+
+    with eager_decoding():
+        t_e, _, wall_e, dev_e, _, peak_e = measured()
+    warmed = [run()[0] for _ in range(warm)]
+    if base is not None:
+        for _ in range(warm):
+            base()
+    toks, units, wall_c, dev_c, counts, peak_c = measured()
+    n_graphs, cap_s, nodes, per_replay = graph_report(pfs())
+    if any(w != toks for w in warmed) or t_e != toks:
+        raise AssertionError(f"{name}: the compiled runs' tokens differ "
+                             f"from each other or from the eager run's")
+    log(f"  {name}: compiled {wall_c / units:.3f} wall ms a {unit}, "
+        f"{dev_c / units:.3f} device ms (idle "
+        f"{100 * (1 - dev_c / wall_c):.1f}%), peak "
+        f"{peak_c / 2**30:.2f} GiB, {n_graphs} graphs captured in "
+        f"{cap_s:.2f} s, the largest {nodes} nodes, counted launches a "
+        f"replay by graph ({per_replay}); eager {wall_e / units:.3f} wall "
+        f"ms, {dev_e / units:.3f} device ms (idle "
+        f"{100 * (1 - dev_e / wall_e):.1f}%), peak {peak_e / 2**30:.2f} "
+        f"GiB; {units} {unit}s{' beyond the prefills' if base else ''}, "
+        f"the same tokens; {time.perf_counter() - t_path:.1f} s; {card}")
+    return counts
+
+
+def replay_check(name, dtype, kernel, plain, args, tol):
+    """``kernel(*args)`` compiled by a ParamFn (record, capture, replay):
+    the replay's outputs held against ``plain(*args)`` at ``tol``.
+    Returns the largest error."""
+    from lightgrad_tpu_torch.models.decoding import ParamFn
+
+    pf = ParamFn(lambda p, *a: kernel(*a), {}, by_address=())
+    for _ in range(3):
+        got = pf(*args)
+    if pf.captures != 1 or pf.graphs()[0]["nodes"] == 0:
+        raise AssertionError(f"{name}: no graph was captured")
+    want = plain(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return max(check(f"{name} in a replay", dtype, g, w, tol)
+               for g, w in zip(got, want))
+
+
+def replayed_kernels(gpt, mistral):
+    """Each kernel of the compiled decode paths inside a replay against its
+    plain version, at the paths' shapes: the flash forward (a GPT-2 small
+    prefill; Mistral-7B's, grouped and banded at W 8192), decode attention
+    and its batched form
+    (Mistral-7B's grouped heads over W 8192), the stack kernel and its
+    batched form over GPT-2 small's packed weights, float and int8."""
+    from lightgrad_tpu_torch.models.gpt import quantize_rows
+    from lightgrad_tpu_torch.ops.attention import (attention_fwd,
+                                                   attention_fwd_reference)
+    from lightgrad_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_batch,
+        decode_attention_batch_reference, decode_attention_reference)
+    from lightgrad_tpu_torch.ops.decode_stack import (
+        decode_stack, decode_stack_batch, decode_stack_batch_reference,
+        decode_stack_reference)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, device=dev, generator=g).to(dtype)
+
+    cfg = gpt.cfg
+    L, H, W, d = cfg.n_layer, cfg.n_head, cfg.n_positions, cfg.n_embd
+    hd, eps = d // H, cfg.layer_norm_epsilon
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (rnd(H, W, hd, dtype=dtype) for _ in range(3))
+        replay_check("attention_fwd (GPT-2 small prefill)", dtype,
+                     lambda *a: attention_fwd(*a, hd ** -0.5, causal=True),
+                     lambda *a: attention_fwd_reference(
+                         *a, hd ** -0.5, causal=True), (q, k, v),
+                     FWD_TOL[dtype])
+    mc = mistral.cfg
+    KV, G, mhd = mc.num_key_value_heads, \
+        mc.num_attention_heads // mc.num_key_value_heads, mc.head_dim
+    MW, band = mc.max_position_embeddings, mc.sliding_window
+    bf = torch.bfloat16
+    mq = rnd(KV * G, MW, mhd, dtype=bf)
+    kc, vc = (rnd(KV, MW, mhd, dtype=bf) for _ in range(2))
+    replay_check("attention_fwd (Mistral-7B prefill, banded)", bf,
+                 lambda *a: attention_fwd(*a, mhd ** -0.5, causal=True,
+                                          window=band),
+                 lambda *a: attention_fwd_reference(
+                     *a, mhd ** -0.5, causal=True, window=band),
+                 (mq, kc, vc), FWD_TOL[bf])
+    del mq
+    torch.cuda.empty_cache()
+    replay_check("decode_attention (Mistral-7B, pos 4500)", bf,
+                 lambda q1, kc, vc, pos: decode_attention(
+                     q1, kc, vc, pos, mhd ** -0.5, window=band),
+                 lambda q1, kc, vc, pos: decode_attention_reference(
+                     q1, kc, vc, pos, mhd ** -0.5, band),
+                 (rnd(KV, G, mhd, dtype=bf), kc, vc, 4500), KERNEL_TOL[bf])
+    kb, vb = (rnd(4, KV, MW, mhd, dtype=bf) for _ in range(2))
+    poss = torch.tensor([4600, 33, 1801, 251], dtype=torch.int32, device=dev)
+    replay_check("decode_attention_batch (Mistral-7B engine, 4 slots)", bf,
+                 lambda *a: decode_attention_batch(*a, mhd ** -0.5,
+                                                   window=band),
+                 lambda *a: decode_attention_batch_reference(
+                     *a, mhd ** -0.5, band),
+                 (rnd(4, KV, G, mhd, dtype=bf), kb, vb, poss), KERNEL_TOL[bf])
+    del kc, vc, kb, vb
+    fns = gpt._kv_functions()
+    p = fns.step.params
+    slabs, vecs = p["stack#slabs"], p["stack#vecs"]
+    cache = rnd(L, 2, H, W, hd)
+    cache8, kvs8 = quantize_rows(cache)
+    caches = rnd(8, L, 2, H, W, hd)
+    caches8, bkvs8 = quantize_rows(caches)
+    gpt.quantize_serving()
+    qp = gpt._kv_functions().step.params
+    slabs8, scales8 = qp["stack#slabs"], qp["stack#scales"]
+    gpt.quantize_serving(False)
+    bposs = torch.tensor([46, 26, 33, 14, 14, 20, 30, 9], dtype=torch.int32,
+                         device=dev)
+    tol = KERNEL_TOL[torch.float32]
+    for sfx, sl, scl, c, kvs, cs, bkvs in (
+            ("", slabs, None, cache, None, caches, None),
+            ("_int8", slabs8, scales8, cache, None, caches, None),
+            ("_kvq", slabs, None, cache8, kvs8, caches8, bkvs8),
+            ("_int8_kvq", slabs8, scales8, cache8, kvs8, caches8, bkvs8)):
+        replay_check(f"decode_stack{sfx} (GPT-2 small step at 37)",
+                     torch.float32,
+                     lambda x, c, pos: decode_stack(
+                         x, c, pos, sl, vecs, scl, eps=eps, kv_scales=kvs),
+                     lambda x, c, pos: decode_stack_reference(
+                         x, c, pos, sl, vecs, scl, eps=eps, kv_scales=kvs),
+                     (rnd(1, d), c, 37), tol)
+        replay_check(f"decode_stack_batch{sfx} (GPT-2 small engine tick)",
+                     torch.float32,
+                     lambda x, cs, ps: decode_stack_batch(
+                         x, cs, ps, sl, vecs, scl, eps=eps, kv_scales=bkvs),
+                     lambda x, cs, ps: decode_stack_batch_reference(
+                         x, cs, ps, sl, vecs, scl, eps=eps, kv_scales=bkvs),
+                     (rnd(8, d), cs, bposs), tol)
+    del cache, cache8, caches, caches8, fns, p
+    torch.cuda.empty_cache()
+
+
+def engine_run(engine, reqs):
+    """``reqs`` through ``engine`` (one engine serves every run of a path,
+    as a server's does, so its compiled ticks replay from run to run)
+    under sync debug mode "error": (each request's tokens, the ticks this
+    run took)."""
+    ticks = engine.stats["step_dispatches"]
+    handles = [engine.submit(p, n) for p, n in reqs]
+    sync_free(engine.run)
+    return [h.tokens for h in handles], \
+        engine.stats["step_dispatches"] - ticks
+
+
+def phase_compiled_decoding(card):
+    """Phase 17: the compiled decode paths at full width against the same
+    calls with every ParamFn through its ``.fn`` (:func:`compiled_vs_eager`):
+    GPT-2 small f32, bf16 and int8 (quantize_serving + quantize_kv over
+    f32) through the engine over bench.py's 32 ragged requests at
+    steps_per_tick 1 and 8, ``generate_device`` greedy and sampled and
+    ``generate_batch_device``; Mistral-7B bf16 at 16 of 32 layers (W 8192):
+    the 4-slot engine and ``generate_device``; T5-base's
+    ``generate_compiled``.  Then each kernel of these paths inside a replay
+    (:func:`replayed_kernels`).  Returns {path: launch counts}."""
+    from lightgrad_tpu_torch import GPT, GPTConfig, InferenceEngine
+    from lightgrad_tpu_torch.models.decoding import _kv
+
+    dev = torch.device("cuda")
+    paths = {}
+    gpt = GPT(GPTConfig(**GPT2_SMALL), device=dev,
+              generator=torch.Generator(device=dev).manual_seed(0))
+    V = gpt.cfg.vocab_size
+    reqs = serving_requests(V)
+    rng = np.random.default_rng(21)
+    prompt = [int(t) for t in rng.integers(0, V, 12)]
+    prompts = [[int(t) for t in rng.integers(0, V, n)]
+               for n in COMPILED_BATCH]
+    for mode in ("float32", "bfloat16", "int8"):
+        if mode == "bfloat16":
+            gpt.to(torch.bfloat16)
+        if mode == "int8":
+            gpt.to(torch.float32)
+            gpt.quantize_serving().quantize_kv()
+        gpt.generate(prompt, max_new_tokens=2)      # packs, warms cuBLAS
+        fns = _kv(gpt)
+        for steps in (1, 8):
+            engine = InferenceEngine(gpt, slots=8, steps_per_tick=steps)
+            paths[f"GPT-2 small {mode} engine, steps_per_tick {steps}, "
+                  f"compiled"] = compiled_vs_eager(
+                f"GPT-2 small {mode} engine, 32 requests, steps_per_tick "
+                f"{steps}", lambda e=engine: engine_run(e, reqs), "tick",
+                lambda e=engine: paramfns(fns, *engine_fns(e)), card,
+                warm=1)
+            del engine
+        paths[f"GPT-2 small {mode} generate_device, compiled"] = \
+            compiled_vs_eager(
+                f"GPT-2 small {mode} generate_device, {COMPILED_NEW} greedy "
+                f"tokens", lambda: (gpt.generate_device(
+                    prompt, COMPILED_NEW), COMPILED_NEW), "token",
+                lambda: paramfns(fns), card)
+        compiled_vs_eager(
+            f"GPT-2 small {mode} generate_device, {COMPILED_NEW} sampled "
+            f"tokens at seed 5", lambda: (gpt.generate_device(
+                prompt, COMPILED_NEW, seed=5, **SAMPLED), COMPILED_NEW),
+            "token", lambda: paramfns(fns), card)
+        paths[f"GPT-2 small {mode} generate_batch_device, compiled"] = \
+            compiled_vs_eager(
+                f"GPT-2 small {mode} generate_batch_device, prompts "
+                f"{list(COMPILED_BATCH)}, {COMPILED_NEW} tokens each",
+                lambda: (gpt.generate_batch_device(prompts, COMPILED_NEW),
+                         COMPILED_NEW), "round", lambda: paramfns(fns), card)
+    gpt.quantize_serving(False).quantize_kv(False)
+    torch.cuda.empty_cache()
+
+    mistral = llama_model(MISTRAL_7B, torch.bfloat16,
+                          num_hidden_layers=MISTRAL_SERVING_LAYERS)
+    MV = mistral.cfg.vocab_size
+    mprompt = [int(t) for t in rng.integers(0, MV, 4500)]
+    mprompts = [[int(t) for t in rng.integers(0, MV, n)]
+                for n in MISTRAL_COMPILED_ENGINE]
+    mistral.generate(mprompt[:8], max_new_tokens=2)
+    mfns = _kv(mistral)
+    engine = InferenceEngine(mistral, slots=4)
+    paths["Mistral-7B engine, compiled"] = compiled_vs_eager(
+        f"Mistral-7B bf16 ({MISTRAL_SERVING_LAYERS} layers, W 8192) engine, "
+        f"4 slots, prompts {list(MISTRAL_COMPILED_ENGINE)}, "
+        f"{MISTRAL_COMPILED_NEW} tokens each (its prefill graph at W 8192)",
+        lambda: engine_run(engine, [(p, MISTRAL_COMPILED_NEW)
+                                    for p in mprompts]), "tick",
+        lambda: paramfns(mfns, *engine_fns(engine)), card,
+        base=lambda: engine_run(engine, [(p, 1) for p in mprompts]), warm=1)
+    del engine
+    paths["Mistral-7B generate_device, compiled"] = compiled_vs_eager(
+        f"Mistral-7B bf16 generate_device, {MISTRAL_COMPILED_NEW} greedy "
+        f"tokens after 4500", lambda: (mistral.generate_device(
+            mprompt, MISTRAL_COMPILED_NEW), MISTRAL_COMPILED_NEW), "token",
+        lambda: paramfns(mfns), card, base=lambda: (
+            mistral.generate_device(mprompt, 1), 1))
+
+    t5 = t5_model(T5_BASE)
+    src = rng.integers(2, T5_BASE["vocab_size"], T5_COMPILED_SRC) \
+        .astype(np.int32)
+
+    def t5_run():
+        out = t5.generate_compiled(src, max_new_tokens=T5_COMPILED_NEW)
+        return [int(t) for t in out], len(out)
+
+    compiled_vs_eager(
+        f"T5-base generate_compiled, {T5_COMPILED_NEW} tokens after "
+        f"{T5_COMPILED_SRC}", t5_run, "token",
+        lambda: list(t5._compiled_functions(T5_COMPILED_NEW + 1)[0]), card)
+    del t5
+    replayed_kernels(gpt, mistral)
+    del gpt, mistral, mfns, fns
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -8338,6 +8721,15 @@ def main():
               else BERT_KERNELS)
     log(f"  step compiler phase: {time.perf_counter() - t0:.1f} s")
     lap("the step compiler")
+    log("compiled decoding (models/decoding.py ParamFn: CUDA graphs) "
+        "against the same calls eager, GPT-2 small f32 / bf16 / int8, "
+        "Mistral-7B bf16 at 16 layers, T5-base:")
+    t0 = time.perf_counter()
+    for path, counts in phase_compiled_decoding(card).items():
+        tally(path, counts, COMPILED_PATHS[next(
+            k for k in COMPILED_PATHS if k in path)])
+    log(f"  compiled decoding phase: {time.perf_counter() - t0:.1f} s")
+    lap("compiled decoding")
     missing = [k for k in KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels no path launched: {missing}")

@@ -29,6 +29,7 @@ from . import (amp, autograd, checkpoint, data, lora, loss, models, nn, ops,
                optim, parallel, quant, random, scan, schedule, serving)
 from .autograd import (AbstractTensor, CpuTensor, CudaTensor, Function,
                        Gradients, Tensor, no_grad)
+from .autograd.cuda.tensor import set_device_init
 from .jit import invalidate_captures, jit
 from .models import (GPT, GPTConfig, ByteTokenizer, Llama, LlamaConfig,
                      NeoX, NeoXConfig, RMSNorm, generate_batch)
@@ -55,4 +56,5 @@ __all__ = ["amp", "autograd", "checkpoint", "data", "lora", "loss", "models",
            "from_numpy", "einsum", "GPT", "GPTConfig", "ByteTokenizer",
            "Llama", "LlamaConfig", "NeoX", "NeoXConfig", "RMSNorm",
            "generate_batch", "InferenceEngine", "Request", "Profiler",
-           "load_numpy_params", "jit", "invalidate_captures"]
+           "load_numpy_params", "jit", "invalidate_captures",
+           "set_device_init"]

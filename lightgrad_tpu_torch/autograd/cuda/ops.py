@@ -51,13 +51,23 @@ def _raw(x):
 
 
 def _scalar(b, like):
-    """A Python scalar as ``ew`` takes it by value: rounded on the host to
-    ``like``'s dtype when that is floating, else to float32 for a float and
-    ``like``'s dtype for an int (jnp's 32-bit promotion).  No device tensor
-    is made, so nothing is copied to the card and nothing waits for it."""
+    """A non-tensor operand of an op over ``like``, in ``like``'s dtype when
+    that is floating, else in float32 for a float and ``like``'s dtype for
+    an int (jnp's 32-bit promotion).  A Python or numpy scalar (a 0-d array
+    too) goes to ``ew`` by value, rounded on the host: no device tensor is
+    made, so nothing is copied to the card and nothing waits for it.  An
+    array is uploaded (:func:`upload`: inside a compiled step, a constant
+    of the step) and broadcasts as a tensor would, as the JAX package's
+    ``_scalar`` makes an array of any operand."""
     if isinstance(b, torch.Tensor):
         return b
-    b = b.item() if isinstance(b, np.generic) else b
+    if isinstance(b, np.ndarray) and b.ndim:
+        if like.is_floating_point():
+            dt = like.dtype
+        else:
+            dt = torch.float32 if b.dtype.kind == "f" else like.dtype
+        return upload(b, like.device, dt)
+    b = b.item() if isinstance(b, (np.generic, np.ndarray)) else b
     if like.is_floating_point():
         dt = like.dtype
     else:
@@ -228,31 +238,75 @@ class contiguous(Function):
         return g
 
 
+def _index_dims(parts, ndim):
+    """The source dim each part of an index reads (None for a ``None``
+    part, which adds a dim; an Ellipsis stands for the dims it spans), or
+    None where a boolean mask spans more than one dim."""
+    def width(i):
+        if i is None:
+            return 0
+        if isinstance(i, torch.Tensor) and i.dtype == torch.bool:
+            return i.ndim
+        return 1
+    rest = sum(width(i) for i in parts if i is not Ellipsis)
+    dims, d = [], 0
+    for i in parts:
+        if i is Ellipsis:
+            dims.append(None)
+            d += ndim - rest
+        elif width(i) > 1:
+            return None
+        else:
+            dims.append(d if width(i) else None)
+            d += width(i)
+    return dims
+
+
+def _clamped(idx, shape):
+    """``idx`` with every integer index (an int, an integer tensor) clamped
+    into its dim, as the JAX package's gathers clamp: ``a[9]`` of 4 rows is
+    row 3, and a negative index counts from the end before it clamps."""
+    parts = idx if isinstance(idx, tuple) else (idx,)
+    dims = _index_dims(parts, len(shape))
+    if dims is None:
+        return idx
+    out = []
+    for i, d in zip(parts, dims):
+        if d is not None:
+            n = shape[d]
+            if isinstance(i, (int, np.integer)) \
+                    and not isinstance(i, (bool, np.bool_)):
+                i = min(max(int(i), -n), n - 1)
+            elif isinstance(i, torch.Tensor) and i.dtype != torch.bool \
+                    and not i.is_floating_point() and n:
+                i = i.clamp(-n, n - 1)
+        out.append(i)
+    return tuple(out) if isinstance(idx, tuple) else out[0]
+
+
 def _positive_steps(idx, shape):
     """``(idx', dims)`` with ``x[idx] == x.flip(dims)[idx']`` and every step
     of ``idx'`` positive: torch slices take no negative step (the JAX
-    package's flipped kernels of ``conv_transpose`` use one).  Only an
-    index of slices and ints (and one Ellipsis) can carry one."""
+    package's flipped kernels of ``conv_transpose`` use one).  Beside the
+    flipped slices an index may hold ints, integer arrays, one Ellipsis and
+    ``None``s."""
     parts = idx if isinstance(idx, tuple) else (idx,)
     if not any(isinstance(i, slice) and i.step is not None and i.step < 0
                for i in parts):
         return idx, ()
-    if not all(isinstance(i, (slice, int)) or i is Ellipsis for i in parts):
+    dims = _index_dims(parts, len(shape))
+    if dims is None:
         raise NotImplementedError(f"negative slice steps beside {idx!r}")
-    if Ellipsis in parts:
-        at = parts.index(Ellipsis)
-        fill = (slice(None),) * (len(shape) - len(parts) + 1)
-        parts = parts[:at] + fill + parts[at + 1:]
-    out, dims = [], []
-    for d, i in enumerate(parts):
+    out, flips = [], []
+    for d, i in zip(dims, parts):
         if isinstance(i, slice) and i.step is not None and i.step < 0:
             r = range(*i.indices(shape[d]))
             n = shape[d] - 1
             i = slice(n - r[0], n - r[-1] + 1, -i.step) if len(r) \
                 else slice(0, 0)
-            dims.append(d)
+            flips.append(d)
         out.append(i)
-    return tuple(out), tuple(dims)
+    return tuple(out), tuple(flips)
 
 
 @CudaTensor.register_op("__getitem__")
@@ -262,7 +316,7 @@ class getitem(Function):
         parts = idx if isinstance(idx, tuple) else (idx,)
         if is_sharded(a.data, *parts):
             return _sharded_getitem(ctx, a, idx)
-        idx, flips = _positive_steps(idx, a.shape)
+        idx, flips = _positive_steps(_clamped(idx, a.shape), a.shape)
         ctx.save_for_backward(a.shape, a.dtype, idx, flips)
         x = a.data.flip(flips) if flips else a.data
         return _t(x[idx])
@@ -354,11 +408,64 @@ def _rows_backward(gd, ids, table):
     return DTensor.from_local(out, mesh, pl, run_check=False)
 
 
+def _dropped(idx, shape):
+    """``(idx', pad)``: ``idx`` with the rows a scatter drops sent to a
+    pad row (index n of a dim of n, after a negative index counts from the
+    end), as the JAX package's scatters drop out-of-range rows; ``pad``
+    lists the dims that need the row.  None where an int index is out of
+    range: the whole write is dropped."""
+    parts = idx if isinstance(idx, tuple) else (idx,)
+    dims = _index_dims(parts, len(shape))
+    if dims is None:
+        return idx, ()
+    out, pad = [], []
+    for i, d in zip(parts, dims):
+        if d is not None:
+            n = shape[d]
+            if isinstance(i, (int, np.integer)) \
+                    and not isinstance(i, (bool, np.bool_)):
+                if not -n <= i < n:
+                    return None, ()
+            elif isinstance(i, torch.Tensor) and i.dtype != torch.bool \
+                    and not i.is_floating_point():
+                i = torch.where(i < 0, i + n, i)
+                i = torch.where((i < 0) | (i >= n), n, i)
+                pad.append(d)
+        out.append(i)
+    return (tuple(out) if isinstance(idx, tuple) else out[0]), tuple(pad)
+
+
+def _value(val, like):
+    """A ``setitem`` value as torch takes it: a tape tensor's buffer, a
+    numpy array uploaded in ``like``'s dtype, a numpy scalar as a number."""
+    val = _raw(val)
+    if isinstance(val, np.ndarray):
+        return upload(val, like.device, like.dtype)
+    return val.item() if isinstance(val, np.generic) else val
+
+
 @CudaTensor.register_op("__setitem__")
 class setitem(Function):
+    """``a[idx] = val`` into a fresh buffer.  Out-of-range rows are
+    dropped, as the JAX package's scatters drop them; negative slice steps
+    and numpy values (arrays, scalars, index arrays) are taken."""
+
     def forward(ctx, a, idx, val):
         new = a.data.clone()
-        new[_unwrap_index(idx, new.device)] = _raw(val)
+        idx, flips = _positive_steps(_unwrap_index(idx, new.device),
+                                     new.shape)
+        idx, pad = _dropped(idx, new.shape)
+        if idx is None:
+            return a._set_data(new)
+        x = new.flip(flips) if flips else new
+        for d in pad:
+            x = torch.cat([x, x.narrow(d, 0, 1)], d)
+        x[idx] = _value(val, new)
+        for d in pad:
+            x = x.narrow(d, 0, new.shape[d])
+        if pad or flips:
+            x = x.flip(flips) if flips else x
+            new = x.contiguous() if pad else x
         return a._set_data(new)
 
 

@@ -16,7 +16,7 @@ from ..tensor import AbstractTensor
 from ...utils.profiler import set_sync_fn
 from . import device
 
-__all__ = ["CudaTensor", "torch_dtype", "upload"]
+__all__ = ["CudaTensor", "torch_dtype", "upload", "set_device_init"]
 
 set_sync_fn(lambda: device.synchronize())
 
@@ -64,6 +64,36 @@ def _from_host(a, dtype=None):
     return upload(a, device.default_device(), dt)
 
 
+# where the initializers draw (``set_device_init``): the tape's device
+# generators until a call says otherwise, a seeded device stream of their
+# own, or host numpy (``None``)
+_TAPE_STREAM = object()
+_init_seed = _TAPE_STREAM
+_init_generators = {}
+
+
+def set_device_init(seed=None):
+    """Route ``Tensor.uniform`` (and so ``xavier`` and every layer's
+    initializer) as the JAX package's ``set_device_init`` does: a seed puts
+    them on a device stream of their own, seeded by it (the initializers
+    move no bytes to the card); ``None`` draws them on the host with
+    ``np.random.uniform``, so ``np.random.seed`` repeats them, and uploads
+    them.  Until the first call they draw from the generator of
+    ``lightgrad_tpu_torch.random`` (the port's divergence: the JAX
+    package starts on the host)."""
+    global _init_seed
+    _init_seed = None if seed is None else int(seed)
+    _init_generators.clear()
+
+
+def _init_generator(dev):
+    g = _init_generators.get(dev)
+    if g is None:
+        g = _init_generators[dev] = torch.Generator(device=dev)
+        g.manual_seed(_init_seed)
+    return g
+
+
 class CudaTensor(AbstractTensor):
     def __init__(self, data, requires_grad: bool = True, dtype=None):
         if not isinstance(data, torch.Tensor):
@@ -105,12 +135,19 @@ class CudaTensor(AbstractTensor):
 
     @staticmethod
     def uniform(low, high, shape, requires_grad: bool = True):
-        """U(low, high) float32, drawn on the device from the generator of
-        ``lightgrad_tpu_torch.random``."""
+        """U(low, high) float32: drawn on the device from the generator of
+        ``lightgrad_tpu_torch.random``, or from the seeded stream that
+        :func:`set_device_init` gave, or on the host by
+        ``np.random.uniform`` after ``set_device_init(None)``."""
+        if _init_seed is None:
+            a = np.random.uniform(low, high, size=shape).astype(np.float32)
+            return CudaTensor(a, requires_grad=requires_grad)
         from ... import random
 
         dev = device.default_device()
-        u = torch.rand(shape, generator=random.generator(dev), device=dev)
+        gen = random.generator(dev) if _init_seed is _TAPE_STREAM \
+            else _init_generator(dev)
+        u = torch.rand(shape, generator=gen, device=dev)
         return CudaTensor(u * (float(high) - float(low)) + float(low),
                           requires_grad=requires_grad)
 

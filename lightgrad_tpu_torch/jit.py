@@ -76,6 +76,10 @@ or eager recording, staging the eager one to the host backend) have none
 either.  This module has no switch of its own.
 """
 
+import contextlib
+import ctypes
+import gc
+import time
 import traceback
 
 import torch
@@ -108,6 +112,12 @@ def invalidate_captures():
     """Mark all captured-by-identity compiled steps stale (cheap, global)."""
     global _capture_epoch
     _capture_epoch += 1
+
+
+def capture_epoch() -> int:
+    """The epoch :func:`invalidate_captures` moves: a compiled function
+    notes it when it records and records again once it has moved."""
+    return _capture_epoch
 
 
 class CaptureError(RuntimeError):
@@ -295,6 +305,20 @@ def _where(exc):
     return f"{f.filename}:{f.lineno} in {f.name}: {f.line}"
 
 
+@contextlib.contextmanager
+def _no_collection():
+    """The cyclic garbage collector held off: a CUDA graph it frees while
+    another is being captured destroys its executable there, which the
+    capture does not permit and which ends it."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 _streams = {}
 
 
@@ -303,6 +327,122 @@ def _side_stream(dev):
     if s is None:
         s = _streams[dev] = torch.cuda.Stream(dev)
     return s
+
+
+@contextlib.contextmanager
+def _sync_allowed(dev):
+    """Torch's sync debug mode off on a card (host reads and the capture's
+    synchronisation are allowed inside)."""
+    if dev.type != "cuda":
+        yield
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def _on_side_stream(dev, run):
+    """``run()`` on the side stream the captures take, after the current
+    stream's work and before its next: a record's lazy set-up (a library's
+    workspace, the allocator's blocks) happens where the capture runs."""
+    main = torch.cuda.current_stream(dev)
+    side = _side_stream(dev)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        out = run()
+    main.wait_stream(side)
+    return out
+
+
+_libcuda = None
+
+
+def _graph_nodes(graph):
+    """The node count of a captured graph (the driver's
+    ``cuGraphGetNodes``), or None where the driver does not say."""
+    global _libcuda
+    try:
+        if _libcuda is None:
+            _libcuda = ctypes.CDLL("libcuda.so.1")
+        n = ctypes.c_size_t(0)
+        err = _libcuda.cuGraphGetNodes(ctypes.c_void_p(
+            graph.raw_cuda_graph()), None, ctypes.byref(n))
+    except (OSError, AttributeError, RuntimeError):
+        return None
+    return int(n.value) if err == 0 else None
+
+
+class _Captured:
+    """A captured CUDA graph, its node count, the seconds its capture
+    took, and the kernel launches (and matmul loader choices) a replay
+    counts."""
+
+    def __init__(self, graph, nodes, seconds, launches, loaders):
+        self.graph, self.nodes, self.seconds = graph, nodes, seconds
+        self.launches, self.loaders = launches, loaders
+
+    def replay(self):
+        self.graph.replay()
+        for k, n in self.launches.items():
+            _runtime._launches[k] += n
+        for k, n in self.loaders.items():
+            _loaders[k] += n
+
+
+def _capture(dev, run, what, generators=(), pool=None, on_error=None):
+    """``run()`` captured into a CUDA graph on the side stream, with the
+    cyclic collector held off and torch's sync debug mode off: (the
+    :class:`_Captured` graph, run's output).  ``generators`` are
+    registered with the graph; ``pool`` is a graph memory pool to share.
+    Capture launches nothing: the counts it took are taken back, and each
+    replay adds them again.  A failure runs ``on_error()`` and raises
+    :class:`CaptureError` naming ``what``."""
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    for g in generators:
+        graph.register_generator_state(g)
+    before = _counts()
+    main = torch.cuda.current_stream(dev)
+    side = _side_stream(dev)
+    err = out = None
+    with _sync_allowed(dev):
+        torch.cuda.synchronize(dev)
+        side.wait_stream(main)
+        with torch.cuda.device(dev), torch.cuda.stream(side), \
+                _no_collection():
+            graph.capture_begin(pool=pool)
+            try:
+                out = run()
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                err = e
+            finally:
+                try:
+                    graph.capture_end()
+                except Exception as e:  # noqa: BLE001 - re-raised below
+                    err = err or e
+        main.wait_stream(side)
+    after = _counts()
+    launches = {k: v - before[0][k] for k, v in after[0].items()
+                if v != before[0][k]}
+    loaders = {k: v - before[1][k] for k, v in after[1].items()
+               if v != before[1][k]}
+    _runtime._launches.update(before[0])
+    _loaders.update(before[1])
+    if err is not None:
+        if on_error is not None:
+            on_error()
+        if isinstance(err, CaptureError):
+            raise err
+        raise CaptureError(
+            f"{what} into a CUDA graph failed at {_where(err)}: "
+            f"{type(err).__name__}: {err}; {CONTRACT}") from err
+    nodes = _graph_nodes(graph)
+    graph.instantiate()
+    return _Captured(graph, nodes, time.perf_counter() - t0, launches,
+                     loaders), out
 
 
 class _State:
@@ -359,12 +499,10 @@ class _CompiledStep:
             rec.on_module)
         try:
             if dev.type == "cuda" and torch.cuda.is_available():
-                main = torch.cuda.current_stream(dev)
-                side = _side_stream(dev)
-                side.wait_stream(main)
-                with torch.cuda.stream(side), _TraceScope(rec):
-                    out = self.fn(*args)
-                main.wait_stream(side)
+                def run():
+                    with _TraceScope(rec):
+                        return self.fn(*args)
+                out = _on_side_stream(dev, run)
             else:
                 with _TraceScope(rec):
                     out = self.fn(*args)
@@ -446,50 +584,22 @@ class _CompiledStep:
 
     def _capture(self, state, args):
         dev = state.dev
-        graph = torch.cuda.CUDAGraph()
         gen = _random.generator(dev)
         gen_state = gen.get_state()
-        graph.register_generator_state(gen)
-        before = _counts()
-        main = torch.cuda.current_stream(dev)
-        side = _side_stream(dev)
-        torch.cuda.synchronize(dev)
-        side.wait_stream(main)
-        err = None
-        with torch.cuda.device(dev), torch.cuda.stream(side):
-            graph.capture_begin()
-            try:
-                state.outs = self._pass(state, args)
-            except Exception as e:  # noqa: BLE001 - re-raised below
-                err = e
-            finally:
-                try:
-                    graph.capture_end()
-                except Exception as e:  # noqa: BLE001 - re-raised below
-                    err = err or e
-        main.wait_stream(side)
-        after = _counts()
-        # capture launches nothing: take its counts back; replays add them
-        state.launches = {k: v - before[0][k] for k, v in after[0].items()
-                          if v != before[0][k]}
-        state.loaders = {k: v - before[1][k] for k, v in after[1].items()
-                         if v != before[1][k]}
-        _runtime._launches.update(before[0])
-        _loaders.update(before[1])
-        if err is not None:
+
+        def restore():
             # a capture that did not end leaves its registered generator
             # in capture mode: the device draws from a fresh one at the
             # same place in the stream
             fresh = torch.Generator(device=gen.device)
             fresh.set_state(gen_state)
             _random._generators[gen.device] = fresh
-            if isinstance(err, CaptureError):
-                raise err
-            raise CaptureError(
-                f"jit: capturing {getattr(self.fn, '__name__', self.fn)} "
-                f"into a CUDA graph failed at {_where(err)}: "
-                f"{type(err).__name__}: {err}; {CONTRACT}") from err
-        state.graph, state.gen = graph, gen
+
+        state.graph, state.outs = _capture(
+            dev, lambda: self._pass(state, args),
+            f"jit: capturing {getattr(self.fn, '__name__', self.fn)}",
+            generators=(gen,), on_error=restore)
+        state.gen = gen
 
     def _stale(self, state):
         """Whether the step must record again: a rebind since the record
@@ -521,10 +631,6 @@ class _CompiledStep:
         else:
             state.graph.replay()
             datas, kinds, build = state.outs
-            for k, n in state.launches.items():
-                _runtime._launches[k] += n
-            for k, n in state.loaders.items():
-                _loaders[k] += n
         n = len(kinds)
         for i, d in zip(state.arg_writes, datas[n:]):
             tensor_args[i]._set_data(d.clone())

@@ -46,7 +46,7 @@ from ..ops.decode_stack import (decode_stack, decode_stack_batch,
 from ..ops.runtime import is_sharded
 from ..parallel.ring_attention import ring_attention_sharded
 from ..scan import remat_mode
-from .decoding import KVFns, ParamFn, cache_slot
+from .decoding import KVFns, ParamFn, _kv, _stack, cache_slot, last_row
 
 __all__ = ["GPTConfig", "GPT", "ScannedBlocks", "ByteTokenizer",
            "GPT2Tokenizer", "quantize_rows"]
@@ -487,15 +487,17 @@ class GPT(nn.Module):
     def generate(self, ids, max_new_tokens: int = 20, temperature: float = 0.0,
                  rng: np.random.Generator = None, use_cache: bool = True,
                  top_k: int = 0, top_p: float = 0.0, num_beams: int = 1,
-                 eos_id: int = None, repetition_penalty: float = 1.0,
-                 stream=None, length_penalty: float = 1.0):
+                 eos_id: int = None, length_penalty: float = 1.0,
+                 repetition_penalty: float = 1.0, stream=None):
         """Autoregressive decode; greedy when ``temperature=0``.
 
         ``use_cache=True``: one prefill of the prompt padded to the window,
         then one cached step per token.  ``use_cache=False``: full recompute
         of the right-padded window per token (under the causal mask the pad
-        cannot reach the last real position).  ``num_beams > 1``: beam
-        search over the cached step (models/decoding.py)."""
+        cannot reach the last real position), the window's forward compiled
+        once by ``jit`` (a model with sharded parameters runs it eagerly).
+        ``num_beams > 1``: beam search over the cached step
+        (models/decoding.py)."""
         ids = list(ids)
         if num_beams > 1:
             from .decoding import beam_search
@@ -511,11 +513,18 @@ class GPT(nn.Module):
                                      stream=stream, eos_id=eos_id)
         window = self.cfg.n_positions
         dev = self.wte.weight.device
+        forward = self.forward
+        if not is_sharded(self.wte.weight):
+            if "_decode_fn" not in self.__dict__:
+                from ..jit import jit
+
+                self.__dict__["_decode_fn"] = jit(lambda x: self(x))
+            forward = self._decode_fn
         for _ in range(max_new_tokens):
             ctx = ids[-window:]
             padded = torch.tensor([ctx + [0] * (window - len(ctx))],
                                   device=dev)
-            logits = self.forward(padded)[0, len(ctx) - 1]
+            logits = forward(padded)[0, len(ctx) - 1]
             ids.append(_sample(logits.float().cpu().numpy(), temperature, rng,
                                top_k=top_k, top_p=top_p,
                                repetition_penalty=repetition_penalty,
@@ -702,7 +711,7 @@ class GPT(nn.Module):
                 x = x + lin(att.transpose(0, 1).reshape(W, d),
                             pre + "attn.c_proj")
                 x = x + mlp(x, pre)
-            return cache, head(x[n_real - 1][None])[0]
+            return cache, head(last_row(x, n_real))[0]
 
         def step(p, cache, pos, tok):
             """One token at position ``pos`` (a host int, or an int32 scalar
@@ -771,8 +780,11 @@ class GPT(nn.Module):
                   kv.reshape(L, 2, B, H, hd).permute(2, 0, 1, 3, 4))
             return caches, head(x)
 
-        return KVFns(init_cache, ParamFn(prefill, p), ParamFn(step, p),
-                     ParamFn(extend, p), ParamFn(step_batch, p))
+        # compiled, but over sharded parameters (decided here, once)
+        kw = dict(compiled=not any(is_sharded(t) for t in self.parameters()))
+        return KVFns(init_cache, ParamFn(prefill, p, **kw),
+                     ParamFn(step, p, **kw), ParamFn(extend, p, **kw),
+                     ParamFn(step_batch, p, **kw))
 
     @torch.no_grad()
     def _generate_kv(self, ids, max_new_tokens, temperature, rng,
@@ -784,10 +796,11 @@ class GPT(nn.Module):
             f"KV-cache decode needs prompt+new <= n_positions "
             f"({len(ids)}+{max_new_tokens} > {W}); use use_cache=False for "
             f"sliding-window recompute")
-        if not hasattr(self, "_kv_fns"):
-            self._kv_fns = self._kv_functions()
-        init_cache, prefill, step = self._kv_fns
-        cache = init_cache()
+        fns = _kv(self)
+        _, prefill, step = fns
+        # the cache kept for the signature: the compiled functions replay
+        # at its address
+        cache = cache_slot(_stack(fns, "generate", 1), 0)
         toks = torch.zeros(W, dtype=torch.long)
         toks[:len(ids)] = torch.as_tensor(ids, dtype=torch.long)
         cache, logits = prefill(cache, toks.to(self.wte.weight.device),

@@ -53,8 +53,9 @@ from .. import nn
 from ..autograd import Tensor, no_grad
 from ..ops.attention import attention_fwd
 from ..ops.decode_attention import decode_attention, decode_attention_batch
+from ..ops.runtime import is_sharded
 from ..scan import ScannedStack, layer_tensors
-from .decoding import KVFns, ParamFn
+from .decoding import KVFns, ParamFn, _kv, _stack, cache_slot, last_row
 from .gpt import quantize_rows
 
 __all__ = ["LlamaConfig", "Llama", "RMSNorm", "LlamaTokenizer"]
@@ -142,6 +143,13 @@ def _apply_rope(x, cos_t, sin_t):
     x2 = x[..., hd // 2:]
     rotated = (-x2).concat(x1, axis=-1)
     return x * cos_t + rotated * sin_t
+
+
+def moe_rows(n_real: int, W: int) -> int:
+    """The rows a mixture-of-experts prefill routes for a prompt of
+    ``n_real`` tokens: the power of two at or above it, at most the window
+    ``W`` (a bucket: one compiled prefill graph for each)."""
+    return min(W, 1 << max(int(n_real) - 1, 0).bit_length())
 
 
 def topk_gates(probs, k: int):
@@ -476,22 +484,25 @@ class Llama(nn.Module):
             gates, ids = topk_gates(torch.softmax(rl.float(), -1), topk)
             return gates.to(cdt), ids
 
-        def experts(h2, pre):
+        def experts(h2, pre, keep=None):
             """Rows ``h2 (n, d)``: every expert over every row, the (E, d,
             ff) stacks read in place by batched products, weighted by the
-            gates (zero where the row did not choose the expert)."""
+            gates (zero where the row did not choose the expert, and on
+            every row ``keep (n,)`` leaves out)."""
             gates, ids = route(h2, pre)
             comb = torch.zeros((h2.shape[0], n_exp), device=dev,
                                dtype=cdt).scatter(-1, ids, gates)
+            if keep is not None:
+                comb = comb * keep[:, None].to(cdt)
             w1, w3, w2 = (p[pre + "block_sparse_moe." + w]
                           for w in ("w1", "w3", "w2"))
             y = (act(h2 @ w1) * (h2 @ w3)) @ w2                 # (E, n, d)
             return (y * comb.T[:, :, None]).sum(0)
 
-        def mlp(x, pre):
+        def mlp(x, pre, keep=None):
             h2 = rms(x, pre + "post_attention_layernorm")
             if n_exp:
-                return experts(h2, pre)
+                return experts(h2, pre, keep)
             return mm(act(mm(h2, pre + "mlp.gate_proj"))
                       * mm(h2, pre + "mlp.up_proj"), pre + "mlp.down_proj")
 
@@ -530,7 +541,7 @@ class Llama(nn.Module):
                                     dtype=torch.float32))
             return torch.zeros((L, 2, KV, W, hd), device=dev, dtype=cdt)
 
-        def prefill(p, cache, toks, n_real):
+        def prefill(p, cache, toks, n_real, routed=None):
             """The prompt padded to the window in ONE parallel pass under the
             causal (and banded) mask; writes all W K/V rows (quantized on
             write into an int8 cache, while the pass itself attends them at
@@ -539,13 +550,22 @@ class Llama(nn.Module):
             exposes them.
 
             With experts, the JAX package scans ``step`` over all W
-            positions; here the routed FFN runs once over the ``n_real``
-            prompt rows (every expert over every row, by the step's routing
-            rule), and the pad rows skip it.  The K/V rows at every valid
-            position and the last logits are the scan's: over an int8 cache
-            the pass attends the rows dequantized in float32, as each step
-            of the scan attends the cache it wrote."""
+            positions; here the routed FFN runs once over the first
+            ``routed`` rows (every expert over every row, by the step's
+            routing rule) with the gates of the pad rows among them
+            zeroed, and the rows beyond skip it.  ``routed``, a static int
+            >= ``n_real``, is by default :func:`moe_rows` of a host-int
+            ``n_real``, the power of two at or above it, so that a
+            compiled prefill, whose ``n_real`` is a device scalar, takes
+            one graph a bucket of prompt lengths.  The K/V rows at every
+            valid position and the last logits are the scan's: over an
+            int8 cache the pass attends the rows dequantized in float32,
+            as each step of the scan attends the cache it wrote."""
             x = embed(toks)                                    # (W, d)
+            if n_exp:
+                routed = routed or (W if isinstance(n_real, torch.Tensor)
+                                    else moe_rows(n_real, W))
+                keep = cols[:routed] < n_real
             for l in range(L):
                 pre = f"layers.{l}."
                 q, k, v = qkv(x, pre)
@@ -569,13 +589,12 @@ class Llama(nn.Module):
                                     window=swin).to(cdt)
                 x = x + mm(att.transpose(0, 1).reshape(W, H * hd),
                            pre + "self_attn.o_proj")
-                if n_exp:
-                    y = torch.zeros_like(x)
-                    y[:n_real] = mlp(x[:n_real], pre)
-                    x = x + y
+                if n_exp and routed < W:
+                    x = torch.cat([x[:routed] + mlp(x[:routed], pre, keep),
+                                   x[routed:]])
                 else:
-                    x = x + mlp(x, pre)
-            x = rms(x[n_real - 1][None], "norm")
+                    x = x + mlp(x, pre, keep if n_exp else None)
+            x = rms(last_row(x, n_real), "norm")
             return cache, head(x)[0]
 
         def step(p, cache, pos, tok):
@@ -662,8 +681,14 @@ class Llama(nn.Module):
                 x = x + mlp(x, pre)
             return caches, head(rms(x, "norm"))
 
-        return KVFns(init_cache, ParamFn(prefill, p), ParamFn(step, p),
-                     None, ParamFn(step_batch, p))
+        # compiled, but over sharded parameters (decided here, once); with
+        # experts the prefill's routed rows are a static bucket
+        kw = dict(compiled=not any(is_sharded(t) for t in p.values()))
+        buckets = (lambda cache, toks, n_real: (moe_rows(n_real, W),)) \
+            if n_exp else None
+        return KVFns(init_cache, ParamFn(prefill, p, static_of=buckets, **kw),
+                     ParamFn(step, p, **kw), None,
+                     ParamFn(step_batch, p, **kw))
 
     @torch.no_grad()
     def _generate_kv(self, ids, max_new_tokens, temperature, rng,
@@ -674,10 +699,11 @@ class Llama(nn.Module):
         assert len(ids) + max_new_tokens <= W, (
             f"KV-cache decode needs prompt+new <= max_position_embeddings "
             f"({len(ids)}+{max_new_tokens} > {W}); use use_cache=False")
-        if not hasattr(self, "_kv_fns"):
-            self._kv_fns = self._kv_functions()
-        init_cache, prefill, step = self._kv_fns
-        cache = init_cache()
+        fns = _kv(self)
+        _, prefill, step = fns
+        # the cache kept for the signature: the compiled functions replay
+        # at its address
+        cache = cache_slot(_stack(fns, "generate", 1), 0)
         dev = self.embed_tokens.weight.device
         toks = torch.zeros(W, dtype=torch.long)
         toks[:len(ids)] = torch.as_tensor(ids, dtype=torch.long)

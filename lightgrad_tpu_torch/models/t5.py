@@ -41,7 +41,8 @@ import torch
 
 from .. import nn
 from ..autograd import Tensor, no_grad
-from .decoding import ParamFn
+from ..ops.runtime import is_sharded
+from .decoding import ParamFn, _same_weights, _weights
 from .gpt import _sample
 
 __all__ = ["T5Config", "T5ForConditionalGeneration"]
@@ -627,19 +628,37 @@ class T5ForConditionalGeneration(nn.Module):
                 return cache, ((x * D ** -0.5) @ p["shared.weight"].T)[0]
             return cache, (x @ p["lm_head.weight"].T)[0]
 
-        return ParamFn(encode_fn, p), ParamFn(cross_fn, p), ParamFn(step, p)
+        # compiled, but over sharded parameters (decided here, once); the
+        # step reads and writes all its arguments in place: the loop keeps
+        # them (cache, position, token, cross k/v, mask) for the signature
+        kw = dict(compiled=not any(is_sharded(t) for t in p.values()))
+        return (ParamFn(encode_fn, p, by_address=(), **kw),
+                ParamFn(cross_fn, p, by_address=(), **kw),
+                ParamFn(step, p, by_address=range(5), **kw))
+
+    def _compiled_functions(self, max_len: int):
+        """:meth:`_kv_functions` at ``max_len``, built once per weight set
+        (again when a parameter's buffer is rebound, as ``load_parameters``
+        does), with the buffers its loop keeps for each signature."""
+        bufs = _weights(self)
+        kept = self.__dict__.setdefault("_t5_kv_fns", {})
+        fns = kept.get(max_len)
+        if fns is None or not _same_weights(fns[0], bufs):
+            fns = kept[max_len] = (bufs, self._kv_functions(max_len), {})
+        return fns[1], fns[2]
 
     @torch.no_grad()
     def generate_compiled(self, src_ids, max_new_tokens: int = 20,
                           attention_mask=None, temperature: float = 0.0,
                           rng: np.random.Generator = None):
         """Fixed-shape decoding of ONE source sequence through
-        :meth:`_kv_functions`: the encoder and the cross (k, v) once, then
-        one ``step`` a token over a window of ``max_new_tokens + 1`` rows.
-        The position lives on the device and is advanced there; the host
-        reads each step's logits row, samples the token with ``_sample``
-        and writes it back into the step's token tensor.  Returns the
-        generated ids (eos included)."""
+        :meth:`_kv_functions`, compiled (each function a CUDA graph on the
+        card, built once a weight set): the encoder and the cross (k, v)
+        once, then one ``step`` a token over a window of ``max_new_tokens +
+        1`` rows.  The position lives on the device and is advanced there;
+        the host reads each step's logits row, samples the token with
+        ``_sample`` and writes it back into the step's token tensor.
+        Returns the generated ids (eos included)."""
         src = np.asarray(src_ids if isinstance(src_ids, np.ndarray)
                          else src_ids.numpy(), np.int32)
         assert src.ndim == 1 or src.shape[0] == 1, "one sequence at a time"
@@ -647,8 +666,9 @@ class T5ForConditionalGeneration(nn.Module):
         am = (np.asarray(attention_mask).reshape(-1).astype(np.float32)
               if attention_mask is not None else np.ones(len(src), np.float32))
         W = max_new_tokens + 1
-        # built afresh (nothing is compiled), over the current weights
-        encode_fn, cross_fn, step = self._kv_functions(W)
+        # built once per weight set; the loop's buffers kept per source
+        # length, so the compiled step replays at their addresses
+        (encode_fn, cross_fn, step), bufs = self._compiled_functions(W)
         emb = self.shared.weight.data
         dev, cdt = emb.device, emb.dtype
         add_mask = torch.from_numpy((1.0 - am) * _NEG).to(dev, cdt)
@@ -656,12 +676,20 @@ class T5ForConditionalGeneration(nn.Module):
                         add_mask)
         cross = cross_fn(enc)
         cfg = self.cfg
-        cache = torch.zeros((cfg.num_decoder_layers, 2, cfg.num_heads, W,
-                             cfg.d_kv), dtype=enc.dtype, device=dev)
+        kept = bufs.get(len(src))
+        if kept is None:
+            kept = bufs[len(src)] = dict(
+                cache=torch.zeros((cfg.num_decoder_layers, 2, cfg.num_heads,
+                                   W, cfg.d_kv), dtype=enc.dtype, device=dev),
+                pos=torch.zeros(1, dtype=torch.long, device=dev),
+                tok=torch.zeros(1, dtype=torch.long, device=dev),
+                cross=torch.empty_like(cross),
+                mask=torch.empty_like(add_mask))
+        cache, pos, tok = kept["cache"].zero_(), kept["pos"].zero_(), \
+            kept["tok"].fill_(cfg.decoder_start_token_id)
+        cross, add_mask = kept["cross"].copy_(cross), \
+            kept["mask"].copy_(add_mask)
         rng = rng or np.random.default_rng(0)
-        pos = torch.zeros(1, dtype=torch.long, device=dev)
-        tok = torch.full((1,), cfg.decoder_start_token_id, dtype=torch.long,
-                         device=dev)
         out = []
         for _ in range(max_new_tokens):
             cache, logits = step(cache, pos, tok, cross, add_mask)

@@ -506,10 +506,12 @@ def _rounded(value, dtype, kind, sign):
 
 def scalar(value, dtype) -> Scalar:
     """``value`` rounded to ``dtype`` as ``torch.tensor(value, dtype=dtype)``
-    rounds it, on the host: no device tensor, no copy to the card."""
-    if dtype not in _DTYPES:
-        raise ValueError(f"ew: a scalar must be float32, bfloat16 or int32, "
-                         f"got {dtype}")
+    rounds it, on the host: no device tensor, no copy to the card.  A
+    float16 scalar goes with float16 operands, which only the plain version
+    takes (the kernel takes float32, bfloat16 and int32)."""
+    if dtype not in _DTYPES + (torch.float16,):
+        raise ValueError(f"ew: a scalar must be float32, bfloat16, float16 "
+                         f"or int32, got {dtype}")
     return Scalar(_rounded(value, dtype, type(value),
                            copysign(1.0, value)), dtype)
 

@@ -17,13 +17,23 @@ once per tick.  Mixed signatures sample on the host, one step per tick.
 Every host <-> device transfer of a tick goes through the decoding
 module's ``_host_io`` (counted under "engine"), so a tick runs under
 ``torch.cuda.set_sync_debug_mode("error")``.
+
+Compiled as the JAX engine compiles them (``models/decoding.py``'s
+``ParamFn``: a CUDA graph on the card): admission is one compiled prefill
+into its slot at a device index, for every slot; a homogeneous tick is one
+graph for each (temperature, top_k, top_p) signature at the engine's
+``steps_per_tick`` and slots (its steps, its sampling from the engine's
+generator and its (steps, slots) token block); a mixed tick replays the
+compiled ``step_batch``.  These compiled functions are the engine's own,
+so the graphs over its caches are freed with it.
 """
 
 import numpy as np
 import torch
 
-from .models.decoding import (_device, _device_sample, _host_io, _window,
-                              cache_slot, stacked_zeros)
+from .models.decoding import (ParamFn, _admit_program, _device,
+                              _device_sample, _host_io, _kv, _own, _window,
+                              stacked_zeros)
 from .models.gpt import _sample
 
 __all__ = ["Request", "InferenceEngine"]
@@ -72,15 +82,18 @@ class InferenceEngine:
         self.steps_per_tick = max(1, int(steps_per_tick))
         self.rng = rng or np.random.default_rng(0)
         self.window = _window(model)
-        if not hasattr(model, "_kv_fns"):
-            model._kv_fns = model._kv_functions()
-        init_cache, self._prefill, _ = model._kv_fns
-        self._step_batch = model._kv_fns.step_batch
-        self._caches = stacked_zeros(init_cache(), slots)
+        fns = _kv(model)
+        # the engine's own compiled functions: their graphs, which bake
+        # its caches' addresses, go with it
+        self._admit = _admit_program(fns)
+        self._step_batch = _own(fns.step_batch)
+        self._caches = stacked_zeros(fns.init_cache(), slots)
         self._device = _device(self._caches)
         if generator is None:
             generator = torch.Generator(device=self._device).manual_seed(0)
         self.generator = generator
+        # compiled device-sampled ticks, one per (temp, top_k, top_p)
+        self._tick_fns = {}
 
         self._active = [None] * slots     # slot -> Request | None
         self._queue = []
@@ -125,8 +138,7 @@ class InferenceEngine:
             # (the JAX engine rebuilt the stacked array around a fresh cache)
             with _host_io("engine", self._device):
                 toks = toks.to(self._device)
-            _, logits = self._prefill(cache_slot(self._caches, slot), toks,
-                                      len(req.prompt))
+            logits = self._admit(self._caches, slot, toks, len(req.prompt))
             self.stats["prefills"] += 1
             with _host_io("engine", self._device):
                 lg = logits.float().cpu().numpy()
@@ -159,15 +171,8 @@ class InferenceEngine:
             # (steps, slots) block per tick.  Steps beyond a request's
             # eos/max_new decode garbage rows that the host never appends.
             steps = self.steps_per_tick
-            temp, tk, tp = next(iter(sigs))
-            block = torch.empty((steps, self.slots), dtype=torch.long,
-                                device=self._device)
-            for i in range(steps):
-                self._caches, logits = self._step_batch(self._caches, poss,
-                                                        toks)
-                toks = _device_sample(logits, self.generator, temp, tk, tp)
-                block[i] = toks
-                poss = poss + 1
+            block = self._tick_program(next(iter(sigs)))(self._caches, poss,
+                                                          toks)
             with _host_io("engine", self._device):
                 tokmat = block.T.cpu().numpy()
         else:
@@ -192,6 +197,30 @@ class InferenceEngine:
                     self._finished.append(req)
                     self._active[slot] = None   # slot frees for next tick
                     break
+
+    def _tick_program(self, sig):
+        """The compiled all-slots tick with on-device sampling for one
+        (temperature, top_k, top_p) signature: ``steps_per_tick`` batched
+        steps, each sampled from the engine's generator, returning the
+        (steps, slots) token block (the JAX engine's ``lax.scan``)."""
+        tick = self._tick_fns.get(sig)
+        if tick is not None:
+            return tick
+        temp, tk, tp = sig
+        steps, gen, sb = self.steps_per_tick, self.generator, self._step_batch
+
+        def tick_fn(p, caches, poss, toks):
+            block = []
+            for _ in range(steps):
+                _, logits = sb.fn(p, caches, poss, toks)
+                toks = _device_sample(logits, gen, temp, tk, tp)
+                block.append(toks)
+                poss = poss + 1
+            return torch.stack(block)
+
+        tick = self._tick_fns[sig] = ParamFn(
+            tick_fn, sb.params, generators=(gen,), compiled=sb.compiled)
+        return tick
 
     @staticmethod
     def _is_finished(req) -> bool:

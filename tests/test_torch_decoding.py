@@ -260,25 +260,26 @@ def test_speculative_eos_and_self_draft(states):
 
 
 def test_beam_clones_a_shared_cache(states, monkeypatch):
-    """Survivors that share a parent: the port's in-place cache is cloned
-    for all but one of them before they step.  Beam 3 over 12 tokens takes
-    that branch after the first round here (clones beyond the prefill's
-    two), and equals the JAX package, whose caches are immutable.  Checked
-    by mutation on a copy of the module: with the clone dropped, this
-    test's tokens leave the JAX package's."""
+    """Survivors that share a parent: the port's in-place beam caches live
+    in kept slots, and each survivor gets a copy of its parent's by the
+    device gather into the slots (``_reorder``).  Beam 3 over 12 tokens
+    gathers a shared parent in more than one round here, and equals the
+    JAX package, whose caches are immutable.  Checked by mutation on a copy
+    of the module: with the gather dropped, this test's tokens leave the
+    JAX package's."""
     pr = _PAIRS.get("unrolled") or Pair("unrolled", states)
-    clones = []
-    cache_map = tdec.cache_map
+    shared = []
+    reorder = tdec._reorder
 
-    def counted(fn, cache):
-        clones.append(fn)
-        return cache_map(fn, cache)
+    def counted(caches, parents):
+        shared.append(len(set(parents)) < len(parents))
+        return reorder(caches, parents)
 
-    monkeypatch.setattr(tdec, "cache_map", counted)
+    monkeypatch.setattr(tdec, "_reorder", counted)
     want = pr.jax("beam3", lambda: jdec.beam_search(pr.jm, PROMPT, NEW,
                                                     beam_size=3))
     assert tdec.beam_search(pr.tm, PROMPT, NEW, beam_size=3) == want
-    assert len(clones) > 2, clones
+    assert sum(shared) > 1, shared
 
 
 def test_device_sample_equals_multinomial_under_one_generator():
